@@ -1,0 +1,355 @@
+"""Ragged forward over the paged KV cache, in PyTorch.
+
+Port of ``deepspeedsyclsupport_tpu/inference/v2/model.py``: one flat token
+stream ``[T]`` with per-token (sequence slot, position) routing; QKV + RoPE,
+an append of k/v into the flat-slot pool, attention through the registered
+``prefill_attn`` / ``decode_attn`` implementation, MLP, and logits for each
+sequence's last scheduled token only.
+
+Registered implementations:
+
+* ``prefill_attn``: ``kernel`` — the CUDA ragged paged-attention kernel
+  over fixed-size single-sequence atoms (``ops/paged_attention.py``);
+  ``xla`` — the plain gather-and-softmax version (port of the JAX package's
+  ``_paged_attention``; the name is kept so config values carry across).
+* ``decode_attn``: ``kernel`` (alias ``pallas``, so a config written for
+  the JAX package still selects the kernel) and ``xla``.
+
+``auto`` picks ``kernel`` on CUDA tensors and ``xla`` on CPU tensors. The
+JAX package's ``flash``, ``kernel_interpret`` and ``pallas_interpret``
+implementations are not registered here.
+
+The JAX package runs the layers with ``lax.scan`` over stacked params and
+donates the KV pool to a jitted program. Here a Python loop runs over the
+per-layer params and k/v are written into the pool IN PLACE.
+"""
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .kv_cache import BlockedKV
+from .module_registry import register_impl, select_impl
+from ...models.layers import alibi_slopes, apply_rope, mlp_block, norm
+from ...models.transformer import compute_dtype
+from ...ops.paged_attention import (paged_decode_attention,
+                                    paged_decode_attention_reference,
+                                    ragged_prefill_attention)
+
+NEG_INF = torch.finfo(torch.float32).min
+# elements of gathered K per chunk of tokens in the plain (xla) prefill
+# attention: bounds its [tokens, max_ctx, H, D] gather to 256 MB of float32
+_XLA_CHUNK_ELEMS = 1 << 26
+
+
+class PrefillAttnContext(NamedTuple):
+    """Everything a prefill-attention implementation may consume."""
+    k_cache: Any
+    v_cache: Any
+    token_seq: Any
+    token_pos: Any
+    block_tables: Any
+    block_size: int
+    alibi: Any
+    window: Optional[int]
+    atom_qidx: Any = None
+    atom_pos0: Any = None
+    atom_qlen: Any = None
+    atom_tables: Any = None
+    atom_inv: Any = None
+
+
+class DecodeAttnContext(NamedTuple):
+    k_cache: Any
+    v_cache: Any
+    block_tables: Any
+    seq_lens: Any
+    block_size: int
+    alibi: Any
+    window: Optional[int]
+
+
+def _mlp(p, y, cfg):
+    """Per-layer dense MLP over flat tokens [T, D] (MoE is not ported)."""
+    return mlp_block(p["mlp"], y, cfg)
+
+
+def _qkv(p, y, cfg, n):
+    """qkv projection over flat tokens [n, D] (+ optional biases)."""
+    q, k, v = y @ p["wq"], y @ p["wk"], y @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return (q.reshape(n, cfg.num_heads, cfg.head_dim),
+            k.reshape(n, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(n, cfg.num_kv_heads, cfg.head_dim))
+
+
+def _attn_out(p, attn, cfg, n):
+    out = attn.reshape(n, cfg.q_dim) @ p["wo"]
+    if cfg.attn_out_bias:
+        out = out + p["bo"].to(out.dtype)
+    return out
+
+
+def _lane_pad(x, d_pad: int, is_q: bool = False):
+    """Zero-pad the trailing head dim to the pool's width. Every attention
+    implementation scales scores by 1/sqrt(trailing dim), so q is
+    pre-scaled by sqrt(d_pad/d): scores and softmax equal the unpadded ones
+    up to one rounding of q. The attention output is sliced back."""
+    d = x.shape[-1]
+    if d == d_pad:
+        return x
+    if is_q:
+        x = x * torch.tensor(math.sqrt(d_pad / d), dtype=x.dtype,
+                             device=x.device)
+    return F.pad(x, (0, d_pad - d))
+
+
+def _positionize(cfg, q, k, positions):
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q[None], positions[None], cfg.rope_theta,
+                       cfg.rotary_dim)[0]
+        k = apply_rope(k[None], positions[None], cfg.rope_theta,
+                       cfg.rotary_dim)[0]
+    return q, k
+
+
+def _arch_bias(cfg, device):
+    ab = (torch.from_numpy(alibi_slopes(cfg.num_heads)
+                           * cfg.alibi_scale).to(device)
+          if cfg.pos_embed == "alibi" else None)
+    return ab, cfg.sliding_window
+
+
+def _embed(params, tokens, positions, cfg):
+    x = params["embed"]["embedding"][tokens.long()]
+    if cfg.pos_embed == "learned":
+        table = params["pos_embed"]["embedding"]
+        pos = (positions + cfg.pos_embed_offset).clamp(0, table.shape[0] - 1)
+        x = x + table[pos.long()].to(x.dtype)
+    x = x.to(compute_dtype(cfg))
+    if cfg.embed_norm:
+        x = norm(x, params["embed_norm"], cfg)
+    return x
+
+
+def _unembed(params, x, cfg):
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["embedding"].to(x.dtype).T
+    logits = x @ params["lm_head"]["kernel"].to(x.dtype)
+    if cfg.lm_head_bias:
+        logits = logits + params["lm_head"]["bias"].to(logits.dtype)
+    return logits
+
+
+def _block(cfg, p, x, attn_fn):
+    """One transformer block over flat tokens: sequential or parallel
+    (GPT-J/NeoX/Falcon/Phi) residual form."""
+    x_norm = norm(x, p["attn_norm"], cfg)
+    attn = attn_fn(x_norm)
+    h = _attn_out(p["attn"], attn, cfg, x.shape[0])
+    if cfg.parallel_block:
+        y = x_norm if cfg.shared_block_norm else norm(x, p["mlp_norm"], cfg)
+        return (x + h + _mlp(p, y, cfg)).to(x.dtype)
+    x = (x + h).to(x.dtype)
+    return (x + _mlp(p, norm(x, p["mlp_norm"], cfg), cfg)).to(x.dtype)
+
+
+def _paged_attention(q, k_cache, v_cache, token_seq, token_pos, block_tables,
+                     block_size: int, alibi=None, window=None):
+    """Plain paged attention. q: [T, H, D]; caches: [num_slots, KVH, D];
+    block_tables: [S, Bps]. Returns [T, H, D].
+
+    Each token's query attends to its sequence's KV at positions <= its own,
+    gathered through the block table (padded tokens, ``token_seq == S``,
+    read sequence S-1 as in the JAX package; their rows are never used).
+    The ``[T, max_ctx, H, D]`` gather runs in chunks of tokens to bound its
+    memory; the arithmetic is the JAX package's."""
+    t, h, d = q.shape
+    s, bps = block_tables.shape
+    max_ctx = bps * block_size
+    kvh = k_cache.shape[1]
+    j = torch.arange(max_ctx, device=q.device)
+    slot_of_pos = block_tables.long()[:, j // block_size] * block_size \
+        + j % block_size                                 # [S, max_ctx]
+    seq_clip = token_seq.long().clamp(max=s - 1)
+    scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    chunk = max(1, _XLA_CHUNK_ELEMS // (max_ctx * h * d))
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, c0 + chunk)
+        slots = slot_of_pos[seq_clip[sl]]                # [tc, max_ctx]
+        k_tok = k_cache[slots].float()                   # [tc, C, KVH, D]
+        v_tok = v_cache[slots].float()
+        if kvh != h:
+            k_tok = k_tok.repeat_interleave(h // kvh, dim=2)
+            v_tok = v_tok.repeat_interleave(h // kvh, dim=2)
+        pos = token_pos[sl].long()
+        logits = torch.einsum("thd,tchd->thc", q[sl].float(), k_tok) * scale
+        if alibi is not None:
+            logits = logits + alibi.float()[None, :, None] * (
+                j[None, None, :] - pos[:, None, None]).float()
+        mask = (j[None, :] <= pos[:, None])[:, None, :]
+        if window is not None:
+            mask = mask & (pos[:, None] - j[None, :] < window)[:, None, :]
+        logits = logits.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        out[sl] = torch.einsum("thc,tchd->thd", probs, v_tok).to(q.dtype)
+    return out
+
+
+# ------------------------------------------ registered prefill-attn impls
+def _has_atoms(ctx):
+    return bool(ctx.get("has_atoms"))
+
+
+@register_impl("prefill_attn", "kernel", priority=10, available=_has_atoms,
+               auto_eligible=lambda c: _has_atoms(c)
+               and c.get("backend") == "cuda",
+               metadata={"needs_atoms": True})
+def _prefill_kernel_impl(q, ctx: PrefillAttnContext):
+    """Ragged paged-attention kernel: q gathers into fixed-size
+    single-sequence atoms; the kernel streams each atom's KV through its
+    block-table row (no ``[S, max_ctx]`` gather)."""
+    q_at = q[ctx.atom_qidx.long()]                      # [A, BQ, H, D]
+    out_at = ragged_prefill_attention(
+        q_at, ctx.k_cache, ctx.v_cache, ctx.atom_tables, ctx.atom_pos0,
+        ctx.atom_qlen, block_size=ctx.block_size, alibi=ctx.alibi,
+        window=ctx.window)
+    flat = out_at.reshape(-1, *out_at.shape[2:])
+    return flat[ctx.atom_inv.long()]                    # back to packed rows
+
+
+@register_impl("prefill_attn", "xla", priority=0)
+def _prefill_xla_impl(q, ctx: PrefillAttnContext):
+    return _paged_attention(q, ctx.k_cache, ctx.v_cache, ctx.token_seq,
+                            ctx.token_pos, ctx.block_tables, ctx.block_size,
+                            alibi=ctx.alibi, window=ctx.window)
+
+
+# ------------------------------------------- registered decode-attn impls
+def _decode_kernel_impl(q, ctx: DecodeAttnContext):
+    return paged_decode_attention(
+        q, ctx.k_cache, ctx.v_cache, ctx.block_tables, ctx.seq_lens,
+        block_size=ctx.block_size, alibi=ctx.alibi, window=ctx.window)
+
+
+def _decode_xla_impl(q, ctx: DecodeAttnContext):
+    return paged_decode_attention_reference(
+        q, ctx.k_cache, ctx.v_cache, ctx.block_tables, ctx.seq_lens,
+        block_size=ctx.block_size, alibi=ctx.alibi, window=ctx.window)
+
+
+register_impl("decode_attn", "kernel", priority=10,
+              auto_eligible=lambda c: c.get("backend") == "cuda")(
+    _decode_kernel_impl)
+register_impl("decode_attn", "pallas", priority=10,
+              auto_eligible=lambda c: False)(_decode_kernel_impl)
+register_impl("decode_attn", "xla", priority=0)(_decode_xla_impl)
+
+
+def _write_kv(k_cache, v_cache, dest, live, k, v):
+    """Append k/v rows ``live`` at flat slots ``dest`` (in place). The JAX
+    package scatters every row with ``mode="drop"`` so padded rows (dest =
+    num_slots) vanish; PyTorch has no dropping scatter, so only live rows
+    are written."""
+    k_cache.index_copy_(0, dest, k[live].to(k_cache.dtype))
+    v_cache.index_copy_(0, dest, v[live].to(v_cache.dtype))
+
+
+@torch.no_grad()
+def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
+                   token_pos, block_tables, last_tok_idx,
+                   atom_qidx=None, atom_pos0=None, atom_qlen=None,
+                   atom_tables=None, atom_inv=None, *, block_size: int,
+                   attn_impl: str = "auto") -> Tuple[torch.Tensor, BlockedKV]:
+    """Flat-token forward. Returns (per-slot last-token logits [S, V]
+    float32, kv). ``kv`` is updated in place and returned for symmetry with
+    the JAX package, which returns a new (donated) pool."""
+    cfg = model.config
+    bs = block_size
+    t = tokens.shape[0]
+    s, bps = block_tables.shape
+    ab, window = _arch_bias(cfg, tokens.device)
+    spec = select_impl("prefill_attn", attn_impl, {
+        "backend": tokens.device.type, "has_atoms": atom_qidx is not None})
+
+    # padded tokens carry token_seq == S; only live rows reach the pool.
+    # JAX clamps out-of-range gathers: clamp explicitly here
+    live = torch.nonzero(token_seq < s).squeeze(1)
+    dest_block = block_tables.long()[token_seq.long().clamp(max=s - 1),
+                                     (token_pos // bs).long().clamp(
+                                         max=bps - 1)]
+    dest = (dest_block * bs + (token_pos % bs).long())[live]
+
+    x = _embed(params, tokens, token_pos, cfg)
+    for li, p in enumerate(params["layers"]):
+        k_cache, v_cache = kv.k[li], kv.v[li]
+
+        def attn_fn(y):
+            q, k, v = _qkv(p["attn"], y, cfg, t)
+            q, k = _positionize(cfg, q, k, token_pos)
+            d_pool = k_cache.shape[-1]
+            q = _lane_pad(q, d_pool, is_q=True)
+            k, v = _lane_pad(k, d_pool), _lane_pad(v, d_pool)
+            _write_kv(k_cache, v_cache, dest, live, k, v)
+            ctx = PrefillAttnContext(
+                k_cache=k_cache, v_cache=v_cache, token_seq=token_seq,
+                token_pos=token_pos, block_tables=block_tables,
+                block_size=bs, alibi=ab, window=window,
+                atom_qidx=atom_qidx, atom_pos0=atom_pos0,
+                atom_qlen=atom_qlen, atom_tables=atom_tables,
+                atom_inv=atom_inv)
+            return spec.fn(q, ctx)[..., :cfg.head_dim]
+
+        x = _block(cfg, p, x, attn_fn)
+
+    x = norm(x, params["final_norm"], cfg)
+    h_last = x[last_tok_idx.long()]                     # logits gather
+    return _unembed(params, h_last, cfg).float(), kv
+
+
+@torch.no_grad()
+def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
+                   block_tables, active, *, block_size: int,
+                   attn_impl: str = "auto") -> Tuple[torch.Tensor, BlockedKV]:
+    """All-decode forward: one token per slot. ``tokens``/``positions``/
+    ``active``: [S]; positions = tokens already cached (the new token
+    writes slot ``positions[s]``). Returns (logits [S, V] float32, kv),
+    ``kv`` updated in place."""
+    cfg = model.config
+    bs = block_size
+    s, bps = block_tables.shape
+    ab, window = _arch_bias(cfg, tokens.device)
+    spec = select_impl("decode_attn", attn_impl,
+                       {"backend": tokens.device.type})
+
+    live = torch.nonzero(active).squeeze(1)
+    blk = (positions // bs).long().clamp(max=bps - 1)
+    dest_block = block_tables.long().gather(1, blk[:, None])[:, 0]
+    dest = (dest_block * bs + (positions % bs).long())[live]
+    seq_lens = torch.where(active, positions + 1, torch.zeros_like(positions))
+
+    x = _embed(params, tokens, positions, cfg)
+    for li, p in enumerate(params["layers"]):
+        k_cache, v_cache = kv.k[li], kv.v[li]
+
+        def attn_fn(y):
+            q, k, v = _qkv(p["attn"], y, cfg, s)
+            q, k = _positionize(cfg, q, k, positions)
+            d_pool = k_cache.shape[-1]
+            q = _lane_pad(q, d_pool, is_q=True)
+            k, v = _lane_pad(k, d_pool), _lane_pad(v, d_pool)
+            _write_kv(k_cache, v_cache, dest, live, k, v)
+            return spec.fn(q, DecodeAttnContext(
+                k_cache=k_cache, v_cache=v_cache, block_tables=block_tables,
+                seq_lens=seq_lens, block_size=bs, alibi=ab,
+                window=window))[..., :cfg.head_dim]
+
+        x = _block(cfg, p, x, attn_fn)
+
+    x = norm(x, params["final_norm"], cfg)
+    return _unembed(params, x, cfg).float(), kv

@@ -1,0 +1,199 @@
+"""Dynamic SplitFuse token-budget scheduler, with deadline-driven ordering.
+
+The reference's scheduling contract lives half in ``InferenceEngineV2.put/
+can_schedule`` (``inference/v2/engine_v2.py:107,179``) and half in MII's
+ragged batch scheduler; the policy (from the FastGen blog,
+``blogs/deepspeed-fastgen/README.md``) is Dynamic SplitFuse:
+
+* decode tokens (1 per running sequence) are never starved — they ship in every
+  forward;
+* long prompts are SPLIT into chunks of at most the remaining token budget;
+* short prompts are FUSED together to fill the budget exactly, so every forward
+  runs at a near-constant, throughput-optimal token count.
+
+On top of that sits the SLA layer (``docs/serving.md``): when the caller
+passes a :class:`SlackPolicy`, chunks are ordered by *slack* —
+time-to-deadline minus the remaining-service estimate — instead of arrival
+order, with a starvation-proof aging term and a per-tenant prefill token
+budget per scheduling round. Without a policy the pre-SLA behavior is
+byte-identical (least-recently-served prompt order).
+
+A copy of ``deepspeedsyclsupport_tpu/inference/v2/scheduler.py`` (host-only
+Python): the PyTorch port schedules exactly as the JAX package does.
+"""
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+from .ragged import BlockedAllocator, SequenceDescriptor
+
+#: Slack values are clamped to ±SLACK_CAP seconds so no-SLA sequences
+#: (slack = +inf) stay *orderable*: the aging term can eventually lift a
+#: starved best-effort prompt above an SLA prompt with comfortable slack —
+#: without the cap, inf - anything stays inf and best-effort work starves
+#: forever under sustained SLA load.
+SLACK_CAP = 60.0
+
+
+@dataclass
+class SlackPolicy:
+    """Deadline-driven ordering inputs for one scheduling round.
+
+    ``now`` and the descriptor timestamps share one monotonic clock base;
+    ``prefill_tok_s`` / ``decode_tok_s`` are the capacity estimates
+    (``serving.CapacityModel``) that turn remaining work into remaining
+    seconds. ``tenant_budget`` caps the PREFILL tokens any one tenant may
+    take per round (decode tokens — one per live stream, the SLA-critical
+    part — are exempt); an int applies to every tenant, a dict keys
+    per-tenant overrides with ``"*"`` as the default.
+    """
+
+    now: float = 0.0
+    prefill_tok_s: float = float("inf")
+    decode_tok_s: float = float("inf")
+    aging_weight: float = 2.0       # seconds of slack credit per second waited
+    tenant_budget: Optional[Union[int, Dict[str, int]]] = None
+
+    def budget_for(self, tenant: str) -> float:
+        if self.tenant_budget is None:
+            return float("inf")
+        if isinstance(self.tenant_budget, dict):
+            b = self.tenant_budget.get(tenant,
+                                       self.tenant_budget.get("*"))
+            return float("inf") if b is None else float(b)
+        return float(self.tenant_budget)
+
+
+def slack_of(d: SequenceDescriptor, now: float,
+             prefill_tok_s: float = float("inf"),
+             decode_tok_s: float = float("inf")) -> float:
+    """Seconds to spare before ``d`` misses its SLA, minus the service it
+    still needs — negative means the deadline is already unmeetable at the
+    estimated capacity.
+
+    Prefill phase (no first token yet): slack against the TTFT deadline,
+    remaining service = pending prompt tokens at the prefill rate. Decode
+    phase: slack against the implied completion deadline
+    ``first_token + target_new_tokens / rate_sla``, remaining service =
+    remaining tokens at the decode rate. No SLA → ``+inf`` (clamped by the
+    caller for ordering).
+    """
+    if d.first_token_s is None:
+        if d.deadline_s is None:
+            return math.inf
+        rem = len(d.pending) / prefill_tok_s if prefill_tok_s > 0 else 0.0
+        return (d.deadline_s - now) - rem
+    if d.rate_sla <= 0 or d.target_new_tokens <= 0:
+        return math.inf
+    finish_deadline = d.first_token_s + d.target_new_tokens / d.rate_sla
+    remaining = max(0, d.target_new_tokens - d.emitted)
+    rem_s = remaining / decode_tok_s if decode_tok_s > 0 else 0.0
+    return (finish_deadline - now) - rem_s
+
+
+def _priority(d: SequenceDescriptor, policy: SlackPolicy) -> float:
+    """Lower = scheduled earlier. Clamped slack minus the aging credit: a
+    chunk that keeps losing admission races accrues ``aging_weight`` seconds
+    of priority per second since it was last served (arrival if never), so
+    even a no-deadline prompt eventually outranks comfortable-slack work —
+    the starvation proof."""
+    slack = slack_of(d, policy.now, policy.prefill_tok_s,
+                     policy.decode_tok_s)
+    slack = max(-SLACK_CAP, min(SLACK_CAP, slack))
+    since = d.last_service_s if d.last_service_s >= 0 else d.arrival_s
+    waited = max(0.0, policy.now - since)
+    return slack - policy.aging_weight * waited
+
+
+def schedule_chunks(seqs: Sequence[SequenceDescriptor],
+                    allocator: BlockedAllocator,
+                    *, max_tokens: int, max_sequences: int, block_size: int,
+                    max_context: int,
+                    max_prefill_fraction: float = 1.0,
+                    policy: Optional[SlackPolicy] = None
+                    ) -> List[Tuple[SequenceDescriptor, int]]:
+    """Pick ``(sequence, n_tokens)`` chunks for one forward.
+
+    Decode-phase sequences (pending == 1, already cached context) are admitted
+    first; prompt-phase sequences then split/fuse into the remaining budget.
+    Block allocation happens here so a chunk is only admitted if its KV fits
+    (the ``can_schedule`` KV-pressure check, ``engine_v2.py:179``).
+
+    ``max_prefill_fraction`` bounds the share of the TOKEN BUDGET prompt
+    chunks may take in a forward that also carries decode tokens — the
+    inter-token-latency lever for the reference's SLA-bound serving
+    (``blogs/deepspeed-fastgen/README.md:163``: decode ITL must not spike
+    when a long prompt arrives). Pure-prefill forwards (no decodes live)
+    ignore it.
+
+    Ordering: with ``policy`` (the SLA layer), both decode slots and prompt
+    chunks go lowest-:func:`_priority` first — slack order with starvation
+    aging — and each tenant's prompt chunks are capped at
+    ``policy.budget_for(tenant)`` tokens this round. Without a policy,
+    prompt order is least-recently-scheduled first, so a prompt that kept
+    losing admission races cannot starve behind later arrivals.
+    """
+    chunks: List[Tuple[SequenceDescriptor, int]] = []
+    budget = max_tokens
+
+    decode = [d for d in seqs if d.needs_tokens == 1 and d.n_cached > 0]
+    prefill = [d for d in seqs if d.needs_tokens > 0 and d not in decode]
+    if policy is not None:
+        # slack order: most-urgent first; ties keep list order (stable sort)
+        decode.sort(key=lambda d: _priority(d, policy))
+        prefill.sort(key=lambda d: _priority(d, policy))
+    else:
+        # fairness: least-recently-SERVED prompts first so an in-progress
+        # (chunked) prompt that keeps losing admission races cannot starve;
+        # never-scheduled arrivals rank NEWEST (behind every in-progress
+        # prompt — they hold no KV yet), ties keep arrival order (stable
+        # sort)
+        prefill.sort(key=lambda d: (d.last_scheduled < 0, d.last_scheduled))
+
+    for d in decode:
+        if budget < 1 or len(chunks) >= max_sequences:
+            break
+        if not _admit(d, 1, allocator, block_size, max_context):
+            continue
+        chunks.append((d, 1))
+        budget -= 1
+
+    if chunks and max_prefill_fraction < 1.0:
+        # never floor to zero: a tiny fraction must still admit >= 1 prompt
+        # token per forward or waiting prompts starve while decodes run
+        budget = min(budget, max(1, int(max_tokens * max_prefill_fraction)))
+    tenant_spent: Dict[str, int] = {}
+    for d in prefill:
+        if budget < 1 or len(chunks) >= max_sequences:
+            break
+        n = min(d.needs_tokens, budget)
+        if policy is not None:
+            left = policy.budget_for(d.tenant) - tenant_spent.get(d.tenant, 0)
+            if left < 1:
+                continue  # tenant's round budget spent; aging lifts it later
+            n = int(min(n, left))
+        if d.n_cached + n > max_context:
+            n = max_context - d.n_cached
+            if n < 1:
+                continue  # out of context budget; caller decides eviction
+        if not _admit(d, n, allocator, block_size, max_context):
+            continue
+        chunks.append((d, n))
+        budget -= n
+        if policy is not None:
+            tenant_spent[d.tenant] = tenant_spent.get(d.tenant, 0) + n
+    return chunks
+
+
+def _admit(d: SequenceDescriptor, n: int, allocator: BlockedAllocator,
+           block_size: int, max_context: int) -> bool:
+    want = d.blocks_needed(n, block_size)
+    if want:
+        # try_allocate: pool exhaustion (or an injected kv_alloc_fail)
+        # skips the chunk this round — structured backpressure, never an
+        # exception out of put()'s scheduling pass
+        got = allocator.try_allocate(want)
+        if got is None:
+            return False
+        d.blocks.extend(got)
+    return True
