@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
 Run from the repository root on a machine with one H100:
 
@@ -9,22 +10,37 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
 
 1. device  — the card (``nvidia-smi`` name and power limit) and versions;
              fails without CUDA.
-2. build   — builds the CUDA kernel from ``deepspeedsyclsupport_tpu_torch/
-             csrc`` with nvcc (into ``build/torch_kernels/``).
+2. build   — builds both CUDA kernel sources from ``deepspeedsyclsupport_
+             tpu_torch/csrc`` with nvcc, in parallel (into
+             ``build/torch_kernels/``); registers and spills per
+             flash-attention instantiation.
 3. kernel  — the ragged paged-attention kernel against its plain PyTorch
              version at the serving path's shapes (llama2-7b, mistral-7b with
              its 4096 window, an ALiBi case, decode over 16 sequences), in
              bf16 and float32, with times (CUDA events), the bound, and the
              time of one ``scaled_dot_product_attention`` call over the
              gathered KV as a yardstick (the port never calls it).
-4. serve   — ``InferenceEngineV2`` serving llama2-7b at full width and depth
+4. flash   — the flash-attention forward, dQ and dK/dV kernels against their
+             plain versions (O, LSE, dQ, dK, dV) at llama2-1b (B=2, S=4096),
+             mistral-7b heads (S=8192, window 4096), 4 packed documents,
+             ALiBi with bloom-7b1 heads and an unaligned S=4000, in bf16 and
+             float32; times, bounds, and SDPA forward / backward as the
+             yardstick at the llama2-1b shape.
+5. serve   — ``InferenceEngineV2`` serving llama2-7b at full width and depth
              (bf16, random weights from a seed): greedy ``generate`` on 8
              prompts of 128-1024 tokens, 32 new tokens each. Kernel launch
              counts are zeroed just before and read just after.
-5. parity  — the same width cut to 4 layers in float32: the engine through
-             the kernel against the engine through the plain path and the
-             dense ``CausalLM.apply``.
-6. kernels — every TPU kernel of the JAX package and its status here.
+6. train   — ``initialize`` -> ``train_batch`` on llama2-1b at full width
+             and depth (bf16, AdamW, WarmupLR, clipping, 2 micro-batches of
+             2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
+             and read just after, asserted per step.
+7. parity  — the serving width cut to 4 layers in float32: the engine
+             through the kernel against the engine through the plain path and
+             the dense ``CausalLM.apply`` (plain attention).
+8. trainpar— llama2-1b width cut to 2 layers, float32, TF32 off, B=2,
+             S=2048, 3 steps through the kernels, the plain path and the
+             kernels with activation checkpointing.
+9. kernels — every TPU kernel of the JAX package and its status here.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure prints its error
@@ -42,16 +58,36 @@ MEM_BYTES_PER_S = 3.35e12                    # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PARITY_TOL = 5e-4
+# train parity, float32 through the kernels vs the plain path: loss and
+# grad_norm relative (summation order in attention, magnified by Adam's
+# 1/sqrt(nu) on later steps)
+TRAIN_PARITY_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 DEV = "cuda"
 SERVE_MODEL = "llama2-7b"
 SERVE_PROMPT_LENS = (128, 256, 384, 512, 640, 768, 896, 1024)
+TRAIN_MODEL = "llama2-1b"
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 6
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "betas": [0.9, 0.95],
+                                              "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0,
+                                                 "warmup_max_lr": 3e-4,
+                                                 "warmup_num_steps": 2}},
+    "gradient_clipping": 1.0}
 SOURCE = "deepspeedsyclsupport_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "deepspeedsyclsupport_tpu/ops/paged_attention.py:96"
+FLASH_SOURCE = "deepspeedsyclsupport_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_fwd": "deepspeedsyclsupport_tpu/ops/flash_attention.py:145",
+                  "flash_dq": "deepspeedsyclsupport_tpu/ops/flash_attention.py:208",
+                  "flash_dkv": "deepspeedsyclsupport_tpu/ops/flash_attention.py:273"}
 TPU_KERNELS = [
     ("ops/paged_attention.py:96 _prefill_kernel", SOURCE),
-    ("ops/flash_attention.py:145 _fwd_kernel", None),
-    ("ops/flash_attention.py:208 _dq_kernel", None),
-    ("ops/flash_attention.py:273 _dkv_kernel", None),
+    ("ops/flash_attention.py:145 _fwd_kernel", FLASH_SOURCE),
+    ("ops/flash_attention.py:208 _dq_kernel", FLASH_SOURCE),
+    ("ops/flash_attention.py:273 _dkv_kernel", FLASH_SOURCE),
     ("ops/flash_attention.py:330 _dbias_kernel", None),
 ]
 
@@ -78,6 +114,52 @@ def cuda_ms(torch, fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# ------------------------------------------------------------------ build
+def _instantiations(log_text):
+    """(kernel, registers, spill-store bytes) per entry in a ptxas -v log."""
+    out, name, spill = [], None, 0
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel|paged_attention_"
+                          r"kernel)I(f|13__nv_bfloat16|6__half)((?:Li\d+E)+)",
+                          name)
+            label = name if k is None else "{}<{},{}>".format(
+                k.group(1), {"f": "fp32", "13__nv_bfloat16": "bf16",
+                             "6__half": "fp16"}[k.group(2)],
+                ",".join(re.findall(r"\d+", k.group(3))))
+            out.append((label, int(m.group(1)), spill))
+            name = None
+    return out
+
+
+def phase_build(_build):
+    """Both kernel sources with nvcc at once (one process each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = ("paged_attention", "flash_attention")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        built = dict(zip(names, ex.map(_build.build, names)))
+    for name, b in built.items():
+        inst = _instantiations(b.log)
+        log("build", f"{b.path.name} in {b.seconds:.1f} s: {len(inst)} "
+            f"kernel instantiations, max "
+            f"{max((r for _, r, _ in inst), default=0)} registers, max "
+            f"{max((s for _, _, s in inst), default=0)} bytes spill stores")
+    log("build", f"both sources in {time.perf_counter() - t0:.1f} s; flash "
+        "instantiations (registers, spill bytes): " + "; ".join(
+            f"{k} {r} {s}" for k, r, s in _instantiations(
+                built["flash_attention"].log)))
 
 
 # ------------------------------------------------------------------ cases
@@ -268,6 +350,176 @@ def phase_kernels(torch, np):
     return rows
 
 
+# ------------------------------------------------------------------ flash
+FLASH_CASES = [
+    dict(name="llama2-1b", b=2, s=4096, h=16, kvh=16, d=128),
+    dict(name="mistral-7b", b=1, s=8192, h=32, kvh=8, d=128, window=4096),
+    dict(name="packed-4-docs", b=1, s=4096, h=16, kvh=16, d=128,
+         docs=(1500, 1000, 1100, 496)),
+    dict(name="alibi-bloom-7b1", b=1, s=2048, h=32, kvh=32, d=128,
+         alibi=True),
+    dict(name="unaligned-4000", b=2, s=4000, h=16, kvh=16, d=128),
+]
+
+
+def flash_inputs(torch, c, dtype, seed):
+    """q, k, v, dO (random normal from a seed) and the normalised mask."""
+    from deepspeedsyclsupport_tpu_torch.models.layers import alibi_slopes
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    qs = (c["b"], c["s"], c["h"], c["d"])
+    ks = (c["b"], c["s"], c["kvh"], c["d"])
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(tdt)
+                   for shape in (qs, ks, ks, qs))
+    kw = dict(causal=True, window=c.get("window"))
+    if "docs" in c:
+        seg = torch.cat([torch.full((n,), i, dtype=torch.int32)
+                         for i, n in enumerate(c["docs"])])
+        kw["segment_ids"] = seg[None].expand(c["b"], -1).to(DEV)
+    if c.get("alibi"):
+        kw["alibi"] = torch.from_numpy(alibi_slopes(c["h"])).to(DEV)
+    return q, k, v, do, fa.make_mask(q, k, **kw)
+
+
+def visible_pairs(torch, m, b, sq, skv):
+    """(query row, key) pairs the mask lets through, summed over the batch
+    (per q head), counted on the card in row blocks."""
+    total = 0
+    dev = DEV
+    pk = (torch.arange(skv, device=dev)[None].expand(b, -1)
+          if m.pos_k is None else m.pos_k)
+    for r0 in range(0, sq, 512):
+        r1 = min(sq, r0 + 512)
+        pq = ((torch.arange(r0, r1, device=dev) + skv - sq)[None].expand(
+            b, -1) if m.pos_q is None else m.pos_q[:, r0:r1])
+        vis = torch.ones((b, r1 - r0, skv), dtype=torch.bool, device=dev)
+        if m.causal:
+            vis &= pk[:, None, :] <= pq[:, :, None]
+        if m.window is not None:
+            vis &= pq[:, :, None] - pk[:, None, :] < m.window
+        if m.seg_q is not None:
+            vis &= m.seg_q[:, r0:r1, None] == m.seg_k[:, None, :]
+        total += int(vis.sum())
+    return total
+
+
+def flash_bounds(c, dtype, pairs):
+    """Least time for each kernel's work: the bytes each must move (inputs
+    read once, outputs written once) over 3.35 TB/s, and its flops on the
+    visible pairs (fwd 4D, dQ 6D, dK/dV 8D per pair and q head) over the
+    dtype's peak; the larger of the two, and which one it is."""
+    es = 4 if dtype == "float32" else 2
+    b, s, h, kvh, d = c["b"], c["s"], c["h"], c["kvh"], c["d"]
+    qb, kvb, row = b * s * h * d * es, b * s * kvh * d * es, b * h * s * 4
+    work = {"flash_fwd": (qb + 2 * kvb + qb + row, 4 * d * pairs * h),
+            "flash_dq": (3 * qb + 2 * kvb + 2 * row, 6 * d * pairs * h),
+            "flash_dkv": (2 * qb + 4 * kvb + 2 * row, 8 * d * pairs * h)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / MEM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[dtype]
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def sdpa_times(torch, q, k, v, do, gqa):
+    """One ``scaled_dot_product_attention(is_causal=True)`` call on the same
+    inputs: forward, and its backward as autograd (fwd+bwd) minus fwd. The
+    port never calls it."""
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    go = do.transpose(1, 2)
+    kw = dict(is_causal=True, enable_gqa=gqa)
+    with torch.no_grad():
+        fwd_nograd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, **kw), reps=10)
+    fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, **kw), reps=10)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qs, ks, vs, **kw)
+        torch.autograd.grad(out, (qs, ks, vs), go)
+
+    return fwd_nograd, cuda_ms(torch, fwd_bwd, reps=5) - fwd
+
+
+def check_flash(torch, np, c, dtype, seed):
+    """Kernels vs plain versions on one case; returns a result row."""
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, mask = flash_inputs(torch, c, dtype, seed)
+    tol = TOL[dtype]
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask)
+    delta = fa.attention_delta(do, o_ref)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, mask)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, mask)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta,
+                                            mask)
+    errs = {}
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
+                            ("dq", dq, refs[0]), ("dk", dk, refs[1]),
+                            ("dv", dv, refs[2])):
+        err = float((got.float() - want.float()).abs().max())
+        # LSE is float32 in both; the others are held relative to their
+        # largest magnitude (dK/dV sum over thousands of rows)
+        scale = 1.0 if name == "lse" else max(
+            1.0, float(want.float().abs().max()))
+        lim = (1e-4 if name == "lse" else tol) * scale
+        if not math.isfinite(err) or err > lim:
+            raise AssertionError(f"flash {c['name']} {dtype}: {name} kernel "
+                                 f"vs plain max abs err {err} > {lim}")
+        errs[name] = (err, lim)
+    del o_ref, lse_ref, refs, o, dq, dk, dv
+    args = (q, k, v, do, lse, delta, mask)
+    ms = {"flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
+                               reps=5),
+          "flash_dq": cuda_ms(torch, lambda: fa.flash_dq(*args), reps=3),
+          "flash_dkv": cuda_ms(torch, lambda: fa.flash_dkv(*args), reps=3)}
+    plain = {
+        "flash_fwd": cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
+            q, k, v, mask), reps=1, warmup=1),
+        "flash_dq": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            *args, parts="dq"), reps=1, warmup=1),
+        "flash_dkv": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            *args, parts="dkv"), reps=1, warmup=1)}
+    library = {}
+    if c["name"] == "llama2-1b":
+        f, bwd = sdpa_times(torch, q, k, v, do, c["kvh"] != c["h"])
+        library = {"flash_fwd": f, "flash_dq": bwd, "flash_dkv": bwd}
+    pairs = visible_pairs(torch, mask, c["b"], c["s"], c["s"])
+    return dict(case=c["name"], dtype=dtype, errs=errs, ms=ms, plain=plain,
+                library=library, bounds=flash_bounds(c, dtype, pairs),
+                pairs=pairs)
+
+
+def phase_flash(torch, np):
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        for i, c in enumerate(FLASH_CASES):
+            r = check_flash(torch, np, c, dtype, seed=10 + i)
+            err = ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
+                            for k, (e, lim) in r["errs"].items())
+            times = " | ".join(
+                f"{n[6:]} {r['ms'][n]:.3f} ms (plain {r['plain'][n]:.3f}, "
+                f"bound {r['bounds'][n][0]:.3f} {r['bounds'][n][1]}"
+                + (f", sdpa {r['library'][n]:.3f}" if r["library"] else "")
+                + ")" for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+            log("flash", f"{c['name']} {dtype} B={c['b']} S={c['s']} "
+                f"H={c['h']}/{c['kvh']} D={c['d']}, {r['pairs']} visible "
+                f"pairs/head: {err} | {times}")
+            rows[(c["name"], dtype)] = r
+            torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------------ serve
 def phase_serve(torch, np):
     from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
@@ -333,11 +585,125 @@ def phase_serve(torch, np):
     return launches
 
 
+# ------------------------------------------------------------------ train
+def phase_train(torch, np):
+    """llama2-1b at full width and depth through initialize/train_batch;
+    returns the flash launch counts of the run."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    model = build_model(TRAIN_MODEL)
+    cfg = model.config
+    t0 = time.perf_counter()
+    params = model.init_params(
+        generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    eng, *_ = initialize(model=model, params=params, config=TRAIN_CONFIG,
+                         device=DEV)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    gas = eng.gradient_accumulation_steps()
+    n_tok = eng.train_batch_size() * TRAIN_SEQ
+    log("train", f"{TRAIN_MODEL}: {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads x {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {sum(t.numel() for t in eng._leaf_tensors) / 1e9:.3f}"
+        f"B params (fp32 master, bf16 compute), batch {eng.train_batch_size()}"
+        f" x {TRAIN_SEQ} = {n_tok} tokens/step in {gas} micro-batches; built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (eng.train_batch_size(), TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
+    per_step = cfg.num_layers * gas
+    want = {"flash_fwd": per_step * (2 if eng.module.config.remat else 1),
+            "flash_dq": per_step, "flash_dkv": per_step}
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    steps = []
+    for step in range(TRAIN_STEPS):
+        before = dict(fa.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = eng.train_batch(batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        steps.append((loss, gn, dt))
+        log("train", f"step {step + 1}{' (warm-up)' if step == 0 else ''}: "
+            f"{dt * 1e3:.1f} ms, {n_tok / dt:.0f} tokens/s, loss {loss:.4f}, "
+            f"grad_norm {gn:.4f}, lr {eng.get_lr():.3e}, flash launches "
+            f"{got}")
+        if got != want:
+            raise AssertionError(f"step {step + 1}: flash launches {got}, "
+                                 f"want {want} ({cfg.num_layers} layers x "
+                                 f"{gas} micro-batches)")
+    launches = dict(fa.LAUNCHES)
+    losses = [x[0] for x in steps]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite or not "
+                             f"falling")
+    timed = [x[2] for x in steps[1:]]
+    log("train", f"{len(timed)} timed steps: mean {1e3 * sum(timed) / len(timed):.1f}"
+        f" ms/step, {n_tok * len(timed) / sum(timed):.0f} tokens/s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash launches "
+        f"over {TRAIN_STEPS} steps {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parity(torch, np):
+    """2 layers of llama2-1b width in float32: kernels vs plain path vs
+    kernels with activation checkpointing, 3 steps each."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "optimizer": {"type": "AdamW", "params": {"lr": 3e-4,
+                                                     "weight_decay": 0.1}},
+           "gradient_clipping": 1.0}
+    vocab = build_model(TRAIN_MODEL).config.vocab_size
+    ids = np.random.RandomState(2).randint(0, vocab, (2, 2048))
+    batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
+    runs = {}
+    for name, impl, extra in (("kernel", "flash", {}), ("xla", "xla", {}),
+                              ("remat", "flash",
+                               {"activation_checkpointing": {}})):
+        model = build_model(TRAIN_MODEL, num_layers=2, dtype="float32",
+                            attn_impl=impl)
+        params = model.init_params(
+            generator=torch.Generator(device=DEV).manual_seed(1), device=DEV)
+        eng, *_ = initialize(model=model, params=params,
+                             config=dict(cfg, **extra), device=DEV)
+        del params
+        runs[name] = [(float(m["loss"]), float(m["grad_norm"]))
+                      for m in (eng.train_batch(batch) for _ in range(3))]
+        del eng
+        torch.cuda.empty_cache()
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for (kl, kg), (xl, xg) in zip(runs["kernel"], runs["xla"]):
+        worst["loss"] = max(worst["loss"], abs(kl - xl) / abs(xl))
+        worst["grad_norm"] = max(worst["grad_norm"], abs(kg - xg) / abs(xg))
+    if any(worst[k] > TRAIN_PARITY_TOL[k] for k in worst):
+        raise AssertionError(f"train parity kernel vs xla {runs}: relative "
+                             f"{worst} > {TRAIN_PARITY_TOL}")
+    if runs["remat"] != runs["kernel"]:
+        raise AssertionError(f"activation checkpointing changed the numbers:"
+                             f" {runs['remat']} vs {runs['kernel']}")
+    log("trainpar", f"{TRAIN_MODEL} width, 2 layers, fp32 (TF32 off), B=2 "
+        f"S=2048, 3 steps: (loss, grad_norm) kernel {runs['kernel']}, xla "
+        f"{runs['xla']}; worst relative diff {worst} (tol "
+        f"{TRAIN_PARITY_TOL}); kernel with activation checkpointing "
+        f"identical")
+
+
 # ------------------------------------------------------------------ parity
 def phase_parity(torch, np):
     from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
 
-    model = build_model(SERVE_MODEL, num_layers=4, dtype="float32")
+    # attn_impl="xla": the dense oracle keeps plain attention
+    model = build_model(SERVE_MODEL, num_layers=4, dtype="float32",
+                        attn_impl="xla")
     params = model.init_params(
         generator=torch.Generator(device=DEV).manual_seed(1),
         device=DEV, dtype=torch.float32)
@@ -400,21 +766,18 @@ def main() -> int:
         f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
-    built = _build.build("paged_attention")
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", built.log)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                         built.log)]
-    log("build", f"{built.path.name} in {built.seconds:.1f} s: "
-        f"{len(regs)} kernel instantiations, max {max(regs, default=0)} "
-        f"registers, max {max(spills, default=0)} bytes spill stores")
-
+    phase_build(_build)
     rows = phase_kernels(torch, np)
+    flash_rows = phase_flash(torch, np)
     launches = phase_serve(torch, np)
+    launches.update(phase_train(torch, np))
     phase_parity(torch, np)
+    phase_train_parity(torch, np)
 
     log("kernels", " | ".join(
         f"{k}: " + (f"ported (cuda, {src}), checked" if src else
-                    "not yet ported") for k, src in TPU_KERNELS))
+                    "not yet ported (ROADMAP.md B5)")
+        for k, src in TPU_KERNELS))
     entries = []
     for name, key in (("ragged_prefill_attention",
                        ("prefill", "llama2-7b", "bfloat16")),
@@ -429,6 +792,21 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # the flash rows: times at the training path's shape (llama2-1b, bf16);
+    # max_abs_err over every flash case and dtype of that kernel's outputs
+    outputs = {"flash_fwd": ("o", "lse"), "flash_dq": ("dq",),
+               "flash_dkv": ("dk", "dv")}
+    main_row = flash_rows[("llama2-1b", "bfloat16")]
+    for name, outs in outputs.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["errs"][o][0] for r in flash_rows.values()
+                               for o in outs),
+            "ms": main_row["ms"][name], "plain_ms": main_row["plain"][name],
+            "bound_ms": main_row["bounds"][name][0],
+            "bound_by": main_row["bounds"][name][1],
+            "library_ms": main_row["library"][name]})
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

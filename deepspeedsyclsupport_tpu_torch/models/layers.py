@@ -1,11 +1,17 @@
 """Transformer building blocks in PyTorch.
 
 Port of ``deepspeedsyclsupport_tpu/models/layers.py`` (norms, rotary and ALiBi
-positions, the two MLP shapes). Functions take a params dict and tensors,
-as the JAX package's do. Normalisation and RoPE compute in float32 and cast
-back to the input dtype, as the reference does. The JAX package's sharding
-``constrain`` and MFU ``region_scope`` have no meaning on one GPU and are
-not carried over.
+positions, the attention dispatch and its plain version, the no-cache
+attention sublayer, the two MLP shapes). Functions take a params dict and
+tensors, as the JAX package's do. Normalisation and RoPE compute in float32
+and cast back to the input dtype, as the reference does. The JAX package's
+sharding ``constrain`` and MFU ``region_scope`` have no meaning on one GPU
+and are not carried over.
+
+JAX promotes a bf16 x float32 product to float32 silently; ``torch.matmul``
+refuses mixed types. :func:`matmul` reproduces JAX's promotion, so a model
+whose activations are bf16 (``cfg.dtype``) runs with float32 params as it
+does in the JAX package.
 
 Activations follow the ``[B, S, H, D]`` layout of the reference so that the
 parity tests compare like with like.
@@ -19,6 +25,12 @@ import torch.nn.functional as F
 from .config import ModelConfig
 
 Params = Dict[str, Any]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted type of the two, as ``jnp.einsum`` does."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 # --------------------------------------------------------------------------- norm
@@ -87,6 +99,143 @@ def alibi_slopes(num_heads: int) -> np.ndarray:
     return slopes.astype(np.float32)
 
 
+# --------------------------------------------------------------------------- attention
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        segment_ids: Optional[torch.Tensor] = None,
+                        alibi: Optional[torch.Tensor] = None,
+                        window: Optional[int] = None,
+                        q_positions: Optional[torch.Tensor] = None,
+                        kv_positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Exact softmax attention in float32 — port of the JAX package's
+    ``reference_attention`` (``layers.py:133-210``) for the training
+    arguments. q: [B, Sq, H, D], k/v: [B, Skv, KVH, D] (GQA by repeating kv
+    heads). Causality compares explicit positions when both are given, else
+    ``k_idx <= q_idx + (Skv - Sq)``; ``segment_ids`` [B, S] apply when Sq ==
+    Skv; ``alibi`` adds ``slope·(k_pos − q_pos)``; ``window``: queries see
+    only the last ``window`` positions. Masked logits are float32's min, so
+    a fully masked row comes out uniform, as in the reference. The cached-
+    decode arguments (``kv_positions_below``/``kv_mask``) belong to the v1
+    engine, which is not ported."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / np.sqrt(d))
+    skv = k.shape[1]
+    dev = q.device
+    explicit = q_positions is not None and kv_positions is not None
+    if explicit:
+        q_pos = q_positions.long()[:, None, :, None]
+        k_pos = kv_positions.long()[:, None, None, :]
+    else:
+        q_pos = (torch.arange(sq, device=dev) + (skv - sq))[None, None, :,
+                                                             None]
+        k_pos = torch.arange(skv, device=dev)[None, None, None, :]
+    if alibi is not None:
+        slopes = torch.as_tensor(alibi, device=dev).float()
+        logits = logits + slopes[None, :, None, None] * (k_pos - q_pos).float()
+    mask = None
+    if causal:
+        mask = k_pos <= q_pos
+    if window is not None:
+        wmask = (q_pos - k_pos) < window
+        mask = wmask if mask is None else mask & wmask
+    if segment_ids is not None and segment_ids.shape[1] == sq == skv:
+        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        mask = seg if mask is None else mask & seg
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              impl: str = "auto", causal: bool = True,
+              segment_ids: Optional[torch.Tensor] = None,
+              alibi: Optional[torch.Tensor] = None,
+              window: Optional[int] = None,
+              q_positions: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention dispatch (``layers.py:252-337``):
+
+    * ``auto`` — ``flash`` on a CUDA tensor, the plain path on a CPU tensor;
+    * ``flash`` — the hand-written CUDA flash kernels
+      (``ops/flash_attention.py``; on a CPU tensor their plain versions);
+    * ``xla`` — :func:`reference_attention` (the name is kept so that
+      configs carry across);
+    * ``ring``/``ulysses`` (and their ``:inner`` spellings) are not ported.
+    """
+    if impl and ":" in impl:
+        outer, inner = impl.split(":", 1)
+        if outer not in ("ring", "ulysses") or inner not in ("flash", "xla"):
+            raise ValueError(f"unknown attention impl {impl!r}")
+        impl = outer
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={impl!r} (sequence parallelism) is not ported yet: "
+            f"ROADMAP.md, queue A.3.1 (distributed training)")
+    if window is not None and not causal and kv_positions is None:
+        raise ValueError("window requires causal=True (the sliding window "
+                         "only bounds attention to the past)")
+    if impl == "auto":
+        impl = "flash" if q.device.type == "cuda" else "xla"
+    if impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal,
+                               segment_ids=segment_ids, alibi=alibi,
+                               window=window, q_positions=q_positions,
+                               kv_positions=kv_positions)
+    if impl == "xla":
+        return reference_attention(q, k, v, causal=causal,
+                                   segment_ids=segment_ids, alibi=alibi,
+                                   window=window, q_positions=q_positions,
+                                   kv_positions=kv_positions)
+    raise ValueError(f"unknown attention impl {impl!r} (auto | flash | xla)")
+
+
+def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    impl: Optional[str] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Self-attention sublayer without a KV cache (``layers.py:388-473``):
+    qkv projection → RoPE → attention → out projection. ``window`` is the
+    layer's sliding window (the caller resolves ``cfg.sliding_window`` /
+    ``cfg.attn_windows``). Returns [B, S, hidden]."""
+    b, s, _ = x.shape
+    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
+    alibi = (torch.from_numpy(alibi_slopes(cfg.num_heads)
+                              * cfg.alibi_scale).to(x.device)
+             if cfg.pos_embed == "alibi" else None)
+    if cfg.attn_scale is not None:
+        # non-standard logit scale (GPT-Neo uses 1.0), folded into q so that
+        # every attention implementation inherits it
+        q = q * torch.tensor(cfg.attn_scale * np.sqrt(cfg.head_dim),
+                             dtype=q.dtype, device=q.device)
+    out = attention(q, k, v, impl=impl or cfg.attn_impl, causal=True,
+                    segment_ids=segment_ids, alibi=alibi, window=window)
+    out = matmul(out.reshape(b, s, cfg.q_dim), p["wo"])
+    if cfg.attn_out_bias:
+        out = out + p["bo"].to(out.dtype)
+    return out
+
+
 # --------------------------------------------------------------------------- mlp
 def _activation(name: str):
     # jax.nn.gelu defaults to the tanh approximation; "gelu_exact" is erf
@@ -99,17 +248,18 @@ def _activation(name: str):
 def glu_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Gated-linear-unit MLP (SwiGLU/GeGLU): act(x W_gate) * (x W_up) W_down."""
     act = _activation(cfg.activation)
-    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return matmul(act(matmul(x, p["w_gate"])) * matmul(x, p["w_up"]),
+                  p["w_down"])
 
 
 def std_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Two-matrix MLP (fc1 -> act -> fc2), the GPT-2/OPT/BLOOM/Falcon/Phi
     shape."""
     act = _activation(cfg.activation)
-    h = x @ p["fc1"]
+    h = matmul(x, p["fc1"])
     if cfg.use_bias:
         h = h + p["b1"].to(h.dtype)
-    out = act(h) @ p["fc2"]
+    out = matmul(act(h), p["fc2"])
     if cfg.use_bias:
         out = out + p["b2"].to(out.dtype)
     return out

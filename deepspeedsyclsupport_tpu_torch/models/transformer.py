@@ -6,18 +6,26 @@ as the JAX package's), but ``layers`` is a Python list of per-layer dicts —
 the JAX package stacks them ``[L, ...]`` for ``lax.scan``; here a Python loop
 runs over the list. :func:`params_from_jax` converts a JAX params tree.
 
-Only the dense, no-cache forward is ported (:meth:`CausalLM.apply`). Its
-attention is plain causal attention — matmul, mask, softmax, in float32 —
-which is the oracle the serving engine is held against.
+Ported: the dense, no-cache forward (differentiable ``_forward``; the
+no-grad :meth:`CausalLM.apply`), the next-token ``loss`` the training
+engine calls, and per-layer activation checkpointing (``cfg.remat``).
+Attention goes through the ``attention`` dispatch of ``layers.py``
+(``cfg.attn_impl``): on the card the flash kernels, on the CPU the plain
+version; ``attn_impl="xla"`` keeps the plain version anywhere, which is the
+oracle the serving engine and the kernels are held against. The KV-cache
+``decode_step``, MoE, the pipelined trunk, random-LTD and progressive layer
+drop are not ported; they raise ``NotImplementedError``.
 """
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import parse_dtype, resolve_device
 from .config import ModelConfig, get_config
-from .layers import alibi_slopes, apply_rope, mlp_block, norm
+from .layers import attention_block, mlp_block, norm
 
 Params = Dict[str, Any]
 
@@ -25,32 +33,6 @@ Params = Dict[str, Any]
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     """The activation dtype named by ``cfg.dtype`` (a string, as in JAX)."""
     return parse_dtype(str(cfg.dtype))
-
-
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     alibi: Optional[torch.Tensor] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """Exact causal softmax attention. q: [B, S, H, D]; k/v: [B, S, KVH, D]
-    (GQA by repeating kv heads). ``alibi``: per-head slopes [H];
-    ``window``: queries see only the last ``window`` positions."""
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    if kvh != h:
-        k = k.repeat_interleave(h // kvh, dim=2)
-        v = v.repeat_interleave(h // kvh, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / np.sqrt(d)
-    pos = torch.arange(s, device=q.device)
-    q_pos, k_pos = pos[:, None], pos[None, :]
-    if alibi is not None:
-        logits = logits + alibi.float()[None, :, None, None] * (
-            k_pos - q_pos).float()
-    mask = k_pos <= q_pos
-    if window is not None:
-        mask = mask & (q_pos - k_pos < window)
-    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.to(q.dtype)
 
 
 class CausalLM:
@@ -135,40 +117,30 @@ class CausalLM:
         return params
 
     # ------------------------------------------------------------------ forward
-    def _attention(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
-                   window: Optional[int]) -> torch.Tensor:
+    def _check_trunk(self, train: bool) -> None:
         cfg = self.config
-        b, s, _ = x.shape
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-        if cfg.qkv_bias:
-            q = q + p["bq"].to(q.dtype)
-            k = k + p["bk"].to(k.dtype)
-            v = v + p["bv"].to(v.dtype)
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.pos_embed == "rope":
-            q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
-            k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
-        alibi = (torch.from_numpy(alibi_slopes(cfg.num_heads)
-                                  * cfg.alibi_scale).to(x.device)
-                 if cfg.pos_embed == "alibi" else None)
-        if cfg.attn_scale is not None:
-            # non-standard logit scale, folded into q as the reference does
-            q = q * torch.tensor(cfg.attn_scale * np.sqrt(cfg.head_dim),
-                                 dtype=q.dtype, device=q.device)
-        out = causal_attention(q, k, v, alibi=alibi, window=window)
-        out = out.reshape(b, s, cfg.q_dim) @ p["wo"]
-        if cfg.attn_out_bias:
-            out = out + p["bo"].to(out.dtype)
-        return out
+        if cfg.any_moe:
+            raise NotImplementedError(
+                "MoE layers are not ported yet (ROADMAP.md, queue A.2.4 for "
+                "serving, A.3.1 for training)")
+        if cfg.pipe_stages is not None and cfg.pipe_stages > 1:
+            raise NotImplementedError(
+                "the pipelined trunk (pipe_stages > 1) is not ported yet: "
+                "ROADMAP.md, queue A.3.1 (distributed training)")
+        if cfg.random_ltd and train:
+            raise NotImplementedError(
+                "random-LTD token dropping is not ported yet: ROADMAP.md, "
+                "queue A.3.7 (training-time model options)")
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
+               segment_ids: Optional[torch.Tensor],
                window: Optional[int]) -> torch.Tensor:
         cfg = self.config
-        dtype = x.dtype
+        dtype = x.dtype   # pin the activation dtype: fp32 params must not
+        #                   promote bf16 activations (transformer.py:149)
         x_norm = norm(x, p["attn_norm"], cfg)
-        h = self._attention(p["attn"], x_norm, positions, window)
+        h = attention_block(p["attn"], x_norm, cfg, positions, segment_ids,
+                            window=window)
         if cfg.parallel_block:
             y = x_norm if cfg.shared_block_norm else norm(x, p["mlp_norm"], cfg)
             return (x + h + mlp_block(p["mlp"], y, cfg)).to(dtype)
@@ -176,29 +148,37 @@ class CausalLM:
         return (x + mlp_block(p["mlp"], norm(x, p["mlp_norm"], cfg),
                               cfg)).to(dtype)
 
-    @torch.no_grad()
-    def apply(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-        """Dense forward over ``input_ids`` [B, S]. Returns float32 logits
-        [B, S, V]."""
+    def _forward(self, params: Params, input_ids: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 segment_ids: Optional[torch.Tensor] = None,
+                 train: bool = True) -> torch.Tensor:
+        """Differentiable dense forward over ``input_ids`` [B, S] (no KV
+        cache). Returns float32 logits [B, S, V]. With ``cfg.remat`` each
+        layer runs under ``torch.utils.checkpoint`` (non-reentrant): its
+        activations are recomputed in the backward, the port of
+        ``jax.checkpoint`` with policy ``nothing_saveable``."""
         cfg = self.config
-        if cfg.any_moe:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md, queue A: MoE "
-                "serving)")
+        self._check_trunk(train)
         b, s = input_ids.shape
-        positions = torch.arange(s, device=input_ids.device)
-        x = params["embed"]["embedding"][input_ids]
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device)[None].expand(
+                b, s)
+        x = F.embedding(input_ids.long(), params["embed"]["embedding"])
         if cfg.pos_embed == "learned":
             table = params["pos_embed"]["embedding"]
             pos = (positions + cfg.pos_embed_offset).clamp(0, table.shape[0] - 1)
-            x = x + table[pos].to(x.dtype)
+            x = x + F.embedding(pos.long(), table).to(x.dtype)
         x = x.to(compute_dtype(cfg))
         if cfg.embed_norm:
             x = norm(x, params["embed_norm"], cfg)
         for i, p in enumerate(params["layers"]):
             window = (cfg.attn_windows[i] if cfg.attn_windows is not None
                       else cfg.sliding_window)
-            x = self._layer(p, x, positions, window)
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(self._layer, p, x, positions, segment_ids,
+                               window, use_reentrant=False)
+            else:
+                x = self._layer(p, x, positions, segment_ids, window)
         x = norm(x, params["final_norm"], cfg)
         if cfg.tie_embeddings:
             logits = x @ params["embed"]["embedding"].to(x.dtype).T
@@ -207,6 +187,54 @@ class CausalLM:
             if cfg.lm_head_bias:
                 logits = logits + params["lm_head"]["bias"].to(logits.dtype)
         return logits.float()
+
+    @torch.no_grad()
+    def apply(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+        """Dense forward over ``input_ids`` [B, S] without autograd. Returns
+        float32 logits [B, S, V]. Attention follows ``cfg.attn_impl``
+        (``auto``: the flash kernels on the card, the plain version on the
+        CPU)."""
+        return self._forward(params, input_ids, train=False)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             rng: Optional[torch.Generator] = None, train: bool = True):
+        """Next-token cross-entropy (``transformer.py:428-466``), the
+        engine's ``loss_fn`` protocol. With ``labels``: positions with
+        ``labels < 0`` are masked unless ``loss_mask`` is given (which then
+        replaces that mask); without: the labels are ``input_ids`` shifted
+        left, the last position masked, times ``loss_mask`` when given. The
+        loss is the masked sum over ``max(mask.sum(), 1)``, with a float32
+        logsumexp. Returns ``(loss, {"lm_loss": ...})``. ``rng`` is accepted
+        for the protocol; the dense model draws no random numbers."""
+        if "pld_theta" in batch:
+            raise NotImplementedError(
+                "progressive layer drop is not ported yet: ROADMAP.md, "
+                "queue A.3.7 (training-time model options)")
+        input_ids = batch["input_ids"]
+        logits = self._forward(params, input_ids,
+                               positions=batch.get("positions"),
+                               segment_ids=batch.get("segment_ids"),
+                               train=train)
+        if "labels" in batch:
+            labels = batch["labels"].long()
+            mask = batch["loss_mask"].float() if "loss_mask" in batch \
+                else (labels >= 0).float()
+            labels = labels.clamp_min(0)
+        else:
+            ids = input_ids.long()
+            labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])],
+                               dim=1)
+            mask = torch.cat([torch.ones_like(ids[:, 1:], dtype=torch.float32),
+                              torch.zeros_like(ids[:, :1],
+                                               dtype=torch.float32)], dim=1)
+            if "loss_mask" in batch:
+                mask = mask * batch["loss_mask"].float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        lm_loss = nll.sum() / mask.sum().clamp_min(1.0)
+        return lm_loss, {"lm_loss": lm_loss.detach()}
 
 
 def build_model(name_or_config: Union[str, ModelConfig], **overrides

@@ -1,0 +1,315 @@
+"""JSON config for the single-card training engine.
+
+Port of ``deepspeedsyclsupport_tpu/runtime/config.py`` (``DSTpuConfig``) for
+the sections the single-card engine uses: the batch family and its
+invariant (``resolve_batch_sizes``, ``config.py:750-795``), ``optimizer``,
+``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage``,
+``gradient_clipping``, ``activation_checkpointing``, ``seed`` and
+``steps_per_print``. Key names are the reference's, so one JSON file drives
+both packages.
+
+ZeRO stages 0-3 are placement policies over a data-parallel mesh; on one
+card there is nothing to shard, so every stage runs the same program, as
+the JAX package does on one device.
+
+Every enabled section the port does not do yet raises
+``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload, ZeRO++,
+any parallelism above 1, the sentinel, telemetry, monitors, the flops
+profiler, compression/QAT, curriculum learning, progressive layer drop and
+random-LTD. None is silently ignored.
+"""
+import json
+import logging
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+import torch
+
+from . import constants as C
+
+AUTO = "auto"
+logger = logging.getLogger(__name__)
+
+
+def _sub(d: Dict[str, Any], key: str) -> Dict[str, Any]:
+    v = d.get(key, {})
+    if v in (None, False):
+        return {}
+    if v is True:
+        return {"enabled": True}
+    if not isinstance(v, dict):
+        raise ValueError(f"config section {key!r} must be a dict, got {type(v)}")
+    return v
+
+
+def _any_enabled(d: Any) -> bool:
+    """True when a (nested) section carries ``"enabled": true`` anywhere."""
+    if not isinstance(d, dict):
+        return False
+    return bool(d.get("enabled", False)) or any(
+        _any_enabled(v) for v in d.values())
+
+
+def _unported(what: str, entry: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, "
+                               f"queue {entry}")
+
+
+def _refuse_unported(d: Dict[str, Any]) -> None:
+    zero = _sub(d, C.ZERO_OPTIMIZATION)
+    for key in (C.OFFLOAD_OPTIMIZER, C.OFFLOAD_PARAM):
+        if str(_sub(zero, key).get("device", "none")) not in ("none", "None"):
+            raise _unported(f"zero_optimization.{key} (ZeRO-Offload)",
+                            "A.3.2 (offload)")
+    if zero.get("zero_quantized_weights") or \
+            zero.get("zero_quantized_gradients") or \
+            int(zero.get("zero_hpz_partition_size", 1)) > 1 or \
+            int(zero.get("mics_shard_size", -1)) > 0:
+        raise _unported("ZeRO++ / MiCS (quantized or hierarchical "
+                        "partitions)", "A.3.1 (distributed training)")
+    par = _sub(d, C.PARALLELISM)
+    sizes = {f"parallelism.{k}": par.get(k, 1)
+             for k in ("dp", "fsdp", "tp", "pp", "ep", "sp")}
+    sizes["tensor_parallel.tp_size"] = _sub(d, C.TENSOR_PARALLEL).get(
+        "tp_size", 1)
+    sizes["pipeline.stages"] = _sub(d, C.PIPELINE).get("stages", 1)
+    sizes["moe.expert_parallel_size"] = _sub(d, C.MOE).get(
+        "expert_parallel_size", 1)
+    sizes[C.SEQUENCE_PARALLEL_SIZE] = d.get(C.SEQUENCE_PARALLEL_SIZE, 1)
+    for name, n in sizes.items():
+        if int(n) > 1:
+            raise _unported(f"{name} = {n} (more than one card)",
+                            "A.3.1 (distributed training)")
+    checks = [
+        ("sentinel", "the training sentinel", "A.3.3 (resilience and "
+         "training health)"),
+        (C.ELASTICITY, "elasticity", "A.3.3 (resilience and training "
+         "health)"),
+        (C.TELEMETRY, "telemetry", "A.3.4 (observability)"),
+        (C.MONITOR_TENSORBOARD, "the tensorboard monitor",
+         "A.3.4 (observability)"),
+        (C.MONITOR_WANDB, "the wandb monitor", "A.3.4 (observability)"),
+        (C.MONITOR_CSV, "the csv monitor", "A.3.4 (observability)"),
+        (C.MONITOR_JSONL, "the jsonl monitor", "A.3.4 (observability)"),
+        (C.COMMS_LOGGER, "the comms logger", "A.3.4 (observability)"),
+        (C.FLOPS_PROFILER, "the flops profiler", "A.3.4 (observability)"),
+        ("jax_profiler", "profiler trace windows", "A.3.4 (observability)"),
+        (C.COMPRESSION_TRAINING, "compression / QAT",
+         "A.3.7 (training-time model options)"),
+        ("curriculum_learning", "curriculum learning",
+         "A.3.7 (training-time model options)"),
+        ("progressive_layer_drop", "progressive layer drop",
+         "A.3.7 (training-time model options)"),
+    ]
+    for key, what, entry in checks:
+        if _any_enabled(_sub(d, key)):
+            raise _unported(what, entry)
+    de = _sub(d, C.DATA_EFFICIENCY)
+    if _any_enabled(_sub(de, "data_sampling")):
+        raise _unported("curriculum learning (data_efficiency)",
+                        "A.3.7 (training-time model options)")
+    if _any_enabled(_sub(de, "data_routing")):
+        raise _unported("random-LTD (data_efficiency.data_routing)",
+                        "A.3.7 (training-time model options)")
+
+
+@dataclass
+class OptimizerConfig:
+    """``optimizer`` section; ``type`` lower-cased as in the reference."""
+    type: str = C.OPTIMIZER_TYPE_DEFAULT
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "OptimizerConfig":
+        return cls(type=str(d.get("type", C.OPTIMIZER_TYPE_DEFAULT)).lower(),
+                   params=dict(d.get("params", {})))
+
+    @property
+    def lr(self) -> float:
+        return float(self.params.get("lr", 1e-3))
+
+
+@dataclass
+class SchedulerConfig:
+    type: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SchedulerConfig":
+        return cls(type=d.get("type"), params=dict(d.get("params", {})))
+
+
+@dataclass
+class Fp16Config:
+    """``fp16`` section incl. the dynamic loss-scaling knobs."""
+    enabled: bool = False
+    loss_scale: float = 0.0  # 0 -> dynamic
+    initial_scale_power: int = C.INITIAL_LOSS_SCALE_POWER_DEFAULT
+    loss_scale_window: int = C.LOSS_SCALE_WINDOW_DEFAULT
+    hysteresis: int = C.HYSTERESIS_DEFAULT
+    min_loss_scale: float = C.MIN_LOSS_SCALE_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Fp16Config":
+        return cls(enabled=bool(d.get("enabled", False)),
+                   loss_scale=float(d.get("loss_scale", 0.0)),
+                   initial_scale_power=int(d.get(
+                       C.INITIAL_LOSS_SCALE_POWER,
+                       C.INITIAL_LOSS_SCALE_POWER_DEFAULT)),
+                   loss_scale_window=int(d.get(C.LOSS_SCALE_WINDOW,
+                                               C.LOSS_SCALE_WINDOW_DEFAULT)),
+                   hysteresis=int(d.get(C.HYSTERESIS, C.HYSTERESIS_DEFAULT)),
+                   min_loss_scale=float(d.get(C.MIN_LOSS_SCALE,
+                                              C.MIN_LOSS_SCALE_DEFAULT)))
+
+    @property
+    def dynamic(self) -> bool:
+        return self.loss_scale == 0.0
+
+    @property
+    def initial_scale(self) -> float:
+        return float(self.loss_scale) if self.loss_scale \
+            else 2.0 ** self.initial_scale_power
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """``activation_checkpointing``: section presence turns per-layer
+    recomputation on unless ``enabled`` is false (``engine.py:366-395``).
+    Only the ``nothing_saveable`` policy exists here (the port of
+    ``jax.checkpoint`` is ``torch.utils.checkpoint``, which saves nothing of
+    the layer)."""
+    enabled: bool = True
+    policy: str = "nothing_saveable"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ActivationCheckpointingConfig":
+        policy = str(d.get("policy", "nothing_saveable"))
+        enabled = bool(d.get("enabled", True))
+        if enabled and d.get("cpu_checkpointing", False):
+            raise _unported("activation_checkpointing.cpu_checkpointing "
+                            "(activation offload)", "A.3.2 (offload)")
+        if enabled and policy != "nothing_saveable":
+            raise _unported(f"activation_checkpointing.policy {policy!r} "
+                            f"(only nothing_saveable, torch.utils.checkpoint)",
+                            "A.3.7 (training-time model options)")
+        return cls(enabled=enabled, policy=policy)
+
+
+@dataclass
+class DSTpuConfig:
+    """Top-level typed config of the single-card engine (reference:
+    ``DeepSpeedConfig``). ``zero_stage`` 0-3 all run one program on one
+    card, as on one JAX device. ``activation_checkpointing`` is None when
+    the section is absent (the model's own ``remat`` then stands)."""
+
+    raw: Dict[str, Any]
+    train_batch_size: int
+    train_micro_batch_size_per_gpu: int
+    gradient_accumulation_steps: int
+    optimizer: OptimizerConfig
+    scheduler: SchedulerConfig
+    fp16: Fp16Config
+    bf16_enabled: bool
+    zero_stage: int
+    activation_checkpointing: Optional[ActivationCheckpointingConfig]
+    gradient_clipping: float = C.GRADIENT_CLIPPING_DEFAULT
+    steps_per_print: int = C.STEPS_PER_PRINT_DEFAULT
+    seed: int = C.SEED_DEFAULT
+
+    @classmethod
+    def from_config(cls, config, dp_world_size: Optional[int] = None
+                    ) -> "DSTpuConfig":
+        if isinstance(config, DSTpuConfig):
+            return config
+        if isinstance(config, (str, os.PathLike)):
+            with open(config) as f:
+                d = json.load(f)
+        elif isinstance(config, dict):
+            d = dict(config)
+        else:
+            raise TypeError(f"config must be dict or path, got {type(config)}")
+        for key in sorted(set(d) & C.IGNORED_REFERENCE_KEYS):
+            logger.warning("config key %r has no analog here; ignored", key)
+        _refuse_unported(d)
+        fp16 = Fp16Config.from_dict(_sub(d, C.FP16))
+        bf16 = bool(_sub(d, C.BF16).get("enabled", False))
+        if fp16.enabled and bf16:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+        stage = int(_sub(d, C.ZERO_OPTIMIZATION).get(C.ZERO_STAGE,
+                                                     C.ZERO_STAGE_DEFAULT))
+        if stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_optimization.stage must be 0-3, got {stage}")
+        ac = None
+        if C.ACTIVATION_CHECKPOINTING in d:
+            ac = ActivationCheckpointingConfig.from_dict(
+                _sub(d, C.ACTIVATION_CHECKPOINTING))
+        cfg = cls(
+            raw=d, train_batch_size=0, train_micro_batch_size_per_gpu=0,
+            gradient_accumulation_steps=0,
+            optimizer=OptimizerConfig.from_dict(_sub(d, C.OPTIMIZER)),
+            scheduler=SchedulerConfig.from_dict(_sub(d, C.SCHEDULER)),
+            fp16=fp16, bf16_enabled=bf16, zero_stage=stage,
+            activation_checkpointing=ac,
+            gradient_clipping=float(d.get(C.GRADIENT_CLIPPING,
+                                          C.GRADIENT_CLIPPING_DEFAULT)),
+            steps_per_print=int(d.get(C.STEPS_PER_PRINT,
+                                      C.STEPS_PER_PRINT_DEFAULT)),
+            seed=int(d.get(C.SEED, C.SEED_DEFAULT)))
+        if dp_world_size is not None:
+            cfg.resolve_batch_sizes(dp_world_size)
+        return cfg
+
+    def resolve_batch_sizes(self, dp_world_size: int = 1) -> None:
+        """Enforce/derive ``train_batch = micro_batch × grad_accum ×
+        dp_world`` (reference ``_set_batch_related_parameters``)."""
+        d = self.raw
+        tb = d.get(C.TRAIN_BATCH_SIZE)
+        mb = d.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        gas = d.get(C.GRADIENT_ACCUMULATION_STEPS)
+        tb = None if tb == AUTO else tb
+        mb = None if mb == AUTO else mb
+        gas = None if gas == AUTO else gas
+        if tb is not None and mb is not None and gas is not None:
+            if tb != mb * gas * dp_world_size:
+                raise ValueError(
+                    f"batch invariant violated: train_batch_size={tb} != "
+                    f"micro({mb}) × grad_accum({gas}) × dp_world"
+                    f"({dp_world_size})")
+        elif tb is not None and mb is not None:
+            if tb % (mb * dp_world_size) != 0:
+                raise ValueError(
+                    f"train_batch_size={tb} not divisible by micro({mb}) × "
+                    f"dp_world({dp_world_size})")
+            gas = tb // (mb * dp_world_size)
+        elif tb is not None and gas is not None:
+            if tb % (gas * dp_world_size) != 0:
+                raise ValueError(
+                    f"train_batch_size={tb} not divisible by grad_accum"
+                    f"({gas}) × dp_world({dp_world_size})")
+            mb = tb // (gas * dp_world_size)
+        elif mb is not None:
+            gas = gas or 1
+            tb = mb * gas * dp_world_size
+        elif tb is not None:
+            mb = max(1, tb // dp_world_size)
+            gas = tb // (mb * dp_world_size)
+            if tb != mb * gas * dp_world_size:
+                raise ValueError(f"train_batch_size={tb} not divisible by "
+                                 f"dp_world({dp_world_size})")
+        else:
+            raise ValueError("at least one of train_batch_size / "
+                             "train_micro_batch_size_per_gpu must be "
+                             "configured")
+        self.train_batch_size = int(tb)
+        self.train_micro_batch_size_per_gpu = int(mb)
+        self.gradient_accumulation_steps = int(gas)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self.bf16_enabled:
+            return torch.bfloat16
+        if self.fp16.enabled:
+            return torch.float16
+        return torch.float32

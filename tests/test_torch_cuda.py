@@ -1,6 +1,8 @@
-"""PyTorch port on the card: the CUDA ragged paged-attention kernel against
-its plain version over many small shapes, its input checks, and the engine
-through the kernel. Marked ``cuda``: they skip where there is no card.
+"""PyTorch port on the card: the CUDA ragged paged-attention kernel and the
+CUDA flash-attention kernels (forward, dQ, dK/dV) against their plain
+versions over many small shapes, their input checks, and the serving and
+training engines through the kernels. Marked ``cuda``: they skip where
+there is no card.
 
 This file imports no JAX (the card's machine has none), so on the card it
 runs without the suite's conftest:
@@ -10,7 +12,9 @@ runs without the suite's conftest:
 Tolerances: 1e-4 in float32 (kernel and plain version both sum in float32,
 in different orders, over contexts of a few hundred tokens); 2e-2 in bf16
 (both round a float32 result to bf16; one rounding step at |x| < 4 may
-differ).
+differ); 4e-3 in fp16 (10 mantissa bits). Flash backward outputs are held
+relative to their largest magnitude (they are sums over up to a few hundred
+rows). float32 products run without TF32 (set in the fixture).
 """
 import math
 
@@ -30,6 +34,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -150,3 +155,257 @@ def test_engine_serves_through_kernel(dev):
     dense = model.apply(params, torch.tensor([prompts[2]], device=dev))
     assert math.isclose(float((logits - dense[0, -1]).abs().max()), 0.0,
                         abs_tol=2e-4)
+
+
+# ------------------------------------------------------------ flash attention
+from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+FLASH_SHAPES = [
+    dict(b=2, sq=128, skv=128, h=4, kvh=4, d=128),   # aligned MHA
+    dict(b=1, sq=200, skv=200, h=4, kvh=2, d=64),    # unaligned, GQA 2
+    dict(b=2, sq=96, skv=160, h=2, kvh=1, d=80),     # cross length, phi dim
+    dict(b=1, sq=130, skv=130, h=6, kvh=3, d=96),    # neox head dim
+    dict(b=1, sq=100, skv=100, h=2, kvh=2, d=256),   # largest head dim
+    dict(b=1, sq=70, skv=70, h=4, kvh=2, d=16),      # tiny's head dim
+]
+FLASH_VARIANTS = ["causal", "non_causal", "segments", "alibi_window",
+                  "positions"]
+
+
+def _flash_case(dev, dtype, s, variant, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((s["b"], s["sq"], s["h"], s["d"]), generator=g)
+    k = torch.randn((s["b"], s["skv"], s["kvh"], s["d"]), generator=g)
+    v = torch.randn((s["b"], s["skv"], s["kvh"], s["d"]), generator=g)
+    do = torch.randn(q.shape, generator=g)
+    q, k, v, do = (t.to(dev, dtype) for t in (q, k, v, do))
+    kw = {"causal": variant != "non_causal"}
+    if variant == "segments" and s["sq"] == s["skv"]:
+        kw["segment_ids"] = (torch.arange(s["sq"], device=dev)
+                             * 3 // s["sq"])[None].expand(s["b"], -1)
+    if variant == "alibi_window":
+        kw.update(alibi=torch.from_numpy(alibi_slopes(s["h"])).to(dev),
+                  window=max(1, s["skv"] // 3))
+    if variant == "positions":
+        # ragged shape: q tokens at the end of each kv context, with kv
+        # segments marking a dead tail
+        kw["q_positions"] = (torch.arange(s["sq"], device=dev) + s["skv"]
+                             - s["sq"])[None].expand(s["b"], -1)
+        kw["kv_positions"] = torch.arange(s["skv"], device=dev)[None].expand(
+            s["b"], -1)
+        kw["segment_ids"] = torch.zeros((s["b"], s["sq"]), device=dev)
+        seg_k = torch.zeros((s["b"], s["skv"]), device=dev)
+        seg_k[:, : s["skv"] // 5] = -1
+        kw["kv_segment_ids"] = seg_k
+    return q, k, v, do, fa.make_mask(q, k, **kw)
+
+
+def _assert_close_scaled(got, want, tol, what):
+    scale = max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, f"{what}: max abs err {err} > {tol} x {scale}"
+
+
+@pytest.mark.parametrize("variant", FLASH_VARIANTS)
+@pytest.mark.parametrize("shape", range(len(FLASH_SHAPES)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernels_match_plain(dev, dtype, shape, variant):
+    s = FLASH_SHAPES[shape]
+    q, k, v, do, mask = _flash_case(dev, dtype, s, variant, seed=shape)
+    tol = FLASH_TOL[dtype]
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    _assert_close_scaled(o, o_ref, tol, "o")
+    live = lse_ref > -1e29          # rows with something visible
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=1e-4,
+                               rtol=1e-5)
+    assert bool((lse[~live] < -1e29).all())
+    delta = fa.attention_delta(do, o_ref)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, mask)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, mask)
+    torch.cuda.synchronize()
+    dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(
+        q, k, v, do, lse_ref, delta, mask)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        assert got.dtype == dtype
+        _assert_close_scaled(got, want, tol, name)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+def test_flash_never_writes_past_the_rows(dev):
+    """Outputs written into views of NaN-filled buffers with spare rows:
+    the spare rows stay NaN (the kernels mask the ragged edge)."""
+    s = dict(b=2, sq=77, skv=77, h=4, kvh=2, d=64)
+    q, k, v, do, mask = _flash_case(dev, torch.float32, s, "causal", 1)
+
+    def spare(like):
+        buf = torch.full((like.shape[0], like.shape[1] + 40) + like.shape[2:],
+                         float("nan"), device=dev)
+        return buf, buf[:, :like.shape[1]]
+
+    ob, ov = spare(q)
+    o, lse = fa.flash_fwd(q, k, v, mask, out=ov)
+    delta = fa.attention_delta(do, o)
+    qb, qv = spare(q)
+    kb, kv = spare(k)
+    vb, vv = spare(v)
+    fa.flash_dq(q, k, v, do, lse, delta, mask, out=qv)
+    fa.flash_dkv(q, k, v, do, lse, delta, mask, out=(kv, vv))
+    torch.cuda.synchronize()
+    for buf, n in ((ob, 77), (qb, 77), (kb, 77), (vb, 77)):
+        assert bool(torch.isfinite(buf[:, :n]).all())
+        assert bool(torch.isnan(buf[:, n:]).all())
+
+
+def test_flash_dkv_gqa_is_the_group_sum(dev):
+    """GQA dK/dV equal the MHA dK/dV of the repeated kv heads, summed over
+    each group."""
+    s = dict(b=1, sq=150, skv=150, h=8, kvh=2, d=64)
+    q, k, v, do, mask = _flash_case(dev, torch.float32, s, "causal", 2)
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    delta = fa.attention_delta(do, o)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, mask)
+    kr, vr = (t.repeat_interleave(4, dim=2) for t in (k, v))
+    dk4, dv4 = fa.flash_dkv(q, kr, vr, do, lse, delta, mask)
+    torch.testing.assert_close(dk, dk4.reshape(1, 150, 2, 4, 64).sum(3),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dv, dv4.reshape(1, 150, 2, 4, 64).sum(3),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_flash_reads_strided_views(dev):
+    """q/k/v as views into one packed qkv buffer give the same bits as
+    contiguous copies."""
+    b, sq, h, kvh, d = 2, 90, 4, 2, 64
+    g = torch.Generator(device="cpu").manual_seed(3)
+    qkv = torch.randn((b, sq, h + 2 * kvh, d), generator=g).to(dev)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    mask = fa.make_mask(q, k)
+    o1, l1 = fa.flash_fwd(q, k, v, mask)
+    o2, l2 = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                          mask)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+def test_flash_autograd_matches_plain_attention(dev):
+    from deepspeedsyclsupport_tpu_torch.models.layers import (
+        reference_attention)
+
+    s = dict(b=2, sq=100, skv=100, h=4, kvh=2, d=64)
+    q, k, v, do, _ = _flash_case(dev, torch.float32, s, "causal", 4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    out = fa.flash_attention(*leaves, window=37)
+    (out * do).sum().backward()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    (reference_attention(*ref, window=37) * do).sum().backward()
+    torch.testing.assert_close(out, reference_attention(q, k, v, window=37),
+                               atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=2e-4, rtol=2e-4)
+
+
+def test_flash_rejects_what_it_does_not_take(dev):
+    s = dict(b=1, sq=16, skv=16, h=2, kvh=2, d=32)
+    q, k, v, _, mask = _flash_case(dev, torch.float32, s, "causal", 0)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.double(), k.double(), v.double(), mask)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.half(), v, mask)
+    with pytest.raises(ValueError, match="innermost"):
+        fa.flash_fwd(q.transpose(1, 3), k, v, mask)
+    big = torch.zeros((1, 16, 2, 512), device=dev)
+    with pytest.raises(ValueError, match="256"):
+        fa.flash_fwd(big, big, big, fa.make_mask(big, big))
+
+
+def test_engine_trains_through_flash_kernels(dev):
+    """The training engine on the card: the kernels' loss and grad norm
+    equal the plain path's, and every micro-batch launches each kernel once
+    per layer (twice for the forward with activation checkpointing)."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+           "gradient_clipping": 1.0}
+    g = torch.Generator(device="cpu").manual_seed(0)
+    batch = {"input_ids": torch.randint(0, 512, (4, 64), generator=g)}
+    runs = {}
+    for name, impl, extra in (("flash", "flash", {}), ("xla", "xla", {}),
+                              ("remat", "flash", {"activation_checkpointing":
+                                                  {}})):
+        model = build_model("tiny", dtype="float32", attn_impl=impl)
+        params = model.init_params(
+            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        eng, *_ = initialize(model=model, params=params,
+                             config=dict(cfg, **extra), device=dev)
+        fa.reset_launch_counts()
+        m = [eng.train_batch(batch) for _ in range(2)]
+        runs[name] = ([(float(x["loss"]), float(x["grad_norm"])) for x in m],
+                      dict(fa.LAUNCHES))
+    layers = 2
+    assert runs["flash"][1] == {"flash_fwd": 2 * 2 * layers,
+                                "flash_dq": 2 * 2 * layers,
+                                "flash_dkv": 2 * 2 * layers}
+    assert runs["remat"][1]["flash_fwd"] == 2 * 2 * 2 * layers
+    assert runs["xla"][1] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert runs["remat"][0] == runs["flash"][0]
+    np.testing.assert_allclose(runs["flash"][0], runs["xla"][0], rtol=1e-4)
+
+
+@pytest.mark.parametrize("prec", ["bf16", "fp16"])
+def test_engine_half_precision_through_flash_kernels(dev, prec):
+    """bf16 and fp16 engine configs train through the kernels in the
+    compute dtype; the loss stays within 2e-2 of the plain path's and the
+    fp32 masters move."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+
+    dtype = {"bf16": "bfloat16", "fp16": "float16"}[prec]
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+           prec: {"enabled": True, "initial_scale_power": 8}}
+    g = torch.Generator(device="cpu").manual_seed(5)
+    batch = {"input_ids": torch.randint(0, 512, (2, 96), generator=g)}
+    losses = {}
+    for impl in ("flash", "xla"):
+        model = build_model("tiny", dtype=dtype, attn_impl=impl)
+        params = model.init_params(
+            generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+        eng, *_ = initialize(model=model, params=params, config=cfg,
+                             device=dev)
+        before = [t.detach().clone() for t in eng._leaf_tensors]
+        fa.reset_launch_counts()
+        m = [eng.train_batch(batch) for _ in range(3)]
+        assert all(bool(x["finite"]) for x in m)
+        losses[impl] = [float(x["loss"]) for x in m]
+        if impl == "flash":
+            assert fa.LAUNCHES["flash_dkv"] == 3 * 2
+        assert any(not torch.equal(b, t) for b, t in
+                   zip(before, eng._leaf_tensors))
+        assert all(t.dtype == torch.float32 for t in eng._leaf_tensors)
+    np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=2e-2)
+
+
+def test_flash_empty_sequences(dev):
+    """No keys: o is 0 and lse -1e30 (nothing visible); no queries: dK/dV
+    are 0. Nothing is launched."""
+    q = torch.randn((1, 5, 2, 32), device=dev)
+    none = torch.zeros((1, 0, 2, 32), device=dev)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, none, none, fa.make_mask(q, none, causal=False))
+    assert float(o.abs().max()) == 0.0 and float(lse.max()) <= -1e29
+    k = torch.randn((1, 7, 2, 32), device=dev)
+    rows = torch.zeros((1, 2, 0), device=dev)
+    dk, dv = fa.flash_dkv(none, k, k, none, rows, rows,
+                          fa.make_mask(none, k, causal=False))
+    assert float(dk.abs().max()) == 0.0 and float(dv.abs().max()) == 0.0
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}

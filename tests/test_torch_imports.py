@@ -4,6 +4,7 @@ Every module of ``deepspeedsyclsupport_tpu_torch`` (and ``chip_smoke.py``)
 is imported in a fresh interpreter whose meta path refuses ``jax`` and
 ``deepspeedsyclsupport_tpu``; importing must build no kernel either.
 """
+import importlib.util
 import os
 import subprocess
 import sys
@@ -46,4 +47,9 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    assert int(proc.stdout.split()[0]) >= 27
+    for name in ("ops.flash_attention", "runtime.engine", "runtime.config",
+                 "runtime.optimizers", "runtime.lr_schedules",
+                 "runtime.loss_scaler", "runtime.constants"):
+        assert importlib.util.find_spec(
+            f"deepspeedsyclsupport_tpu_torch.{name}") is not None, name

@@ -169,3 +169,117 @@ def _flatten(tree, prefix=""):
             yield from _flatten(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
+
+
+# ------------------------------------------------------------------ attention
+def _attn_inputs(seed, b=2, sq=12, skv=None, h=4, kvh=2, d=16):
+    rng = np.random.RandomState(seed)
+    skv = sq if skv is None else skv
+    return (rng.randn(b, sq, h, d).astype(np.float32),
+            rng.randn(b, skv, kvh, d).astype(np.float32),
+            rng.randn(b, skv, kvh, d).astype(np.float32))
+
+
+ATTN_CASES = {
+    "causal": (dict(), dict(causal=True)),
+    "non_causal": (dict(), dict(causal=False)),
+    "window": (dict(), dict(causal=True, window=5)),
+    "segments": (dict(), dict(causal=True, segment_ids="seg")),
+    "alibi": (dict(h=4, kvh=4), dict(causal=True, alibi="slopes")),
+    "cross_8_12": (dict(sq=8, skv=12), dict(causal=True)),
+    "positions": (dict(), dict(causal=True, q_positions="perm",
+                               kv_positions="perm")),
+}
+
+
+def _attn_kwargs(case, q):
+    kw = dict(ATTN_CASES[case][1])
+    b, s = q.shape[:2]
+    if kw.get("segment_ids") == "seg":
+        kw["segment_ids"] = np.repeat([[0, 1, 2]], s // 3, axis=1).repeat(
+            b, axis=0).astype(np.int32)
+    if kw.get("alibi") == "slopes":
+        kw["alibi"] = tl.alibi_slopes(q.shape[2])
+    if kw.get("q_positions") == "perm":
+        perm = np.stack([np.random.RandomState(i).permutation(s)
+                         for i in range(b)]).astype(np.int32)
+        kw["q_positions"] = kw["kv_positions"] = perm
+    return kw
+
+
+def _jnp(kw):
+    return {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()}
+
+
+def _torch(kw):
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_reference_attention_matches_jax(case):
+    q, k, v = _attn_inputs(len(case), **ATTN_CASES[case][0])
+    kw = _attn_kwargs(case, q)
+    want = jl.reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), **_jnp(kw))
+    got = tl.reference_attention(*map(torch.from_numpy, (q, k, v)),
+                                 **_torch(kw))
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "flash"])
+@pytest.mark.parametrize("case", ["causal", "segments", "alibi", "window",
+                                  "cross_8_12", "positions"])
+def test_attention_dispatch_matches_jax(case, impl):
+    """Every impl the port has agrees with the JAX package's plain path
+    (no case here has a fully masked row, where flash gives 0 and the plain
+    path a uniform row, in both packages)."""
+    q, k, v = _attn_inputs(40 + len(case), **ATTN_CASES[case][0])
+    kw = _attn_kwargs(case, q)
+    want = jl.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        impl="xla", **_jnp(kw))
+    got = tl.attention(*map(torch.from_numpy, (q, k, v)), impl=impl,
+                       **_torch(kw))
+    _close(got, want, 2e-5)
+
+
+def test_attention_dispatch_refuses_what_it_does_not_do():
+    q, k, v = map(torch.from_numpy, _attn_inputs(0))
+    for impl in ("ring", "ulysses", "ring:flash", "ulysses:xla"):
+        with pytest.raises(NotImplementedError, match="A.3.1"):
+            tl.attention(q, k, v, impl=impl)
+    for impl in ("ring:flsh", "pallas", "flash:xla"):
+        with pytest.raises(ValueError, match="impl"):
+            tl.attention(q, k, v, impl=impl)
+    with pytest.raises(ValueError, match="window requires causal"):
+        tl.attention(q, k, v, causal=False, window=3)
+
+
+@pytest.mark.parametrize("arch", ["llama", "gqa_window", "bloom_alibi",
+                                  "neox_parallel_partial"])
+def test_attention_block_matches_jax(arch):
+    cfg_kw = dict(ARCHS[arch], dtype="float32")
+    jmodel = jax_build_model("tiny", **cfg_kw)
+    jparams = jmodel.init_params(jax.random.PRNGKey(5))
+    jattn = jax.tree.map(lambda t: np.asarray(t)[1],
+                         jparams["layers"]["attn"])
+    x = np.random.RandomState(6).randn(2, 10, 64).astype(np.float32)
+    pos = np.broadcast_to(np.arange(10, dtype=np.int32), (2, 10))
+    want, _ = jl.attention_block({k: jnp.asarray(t) for k, t in jattn.items()},
+                                 jnp.asarray(x), jmodel.config,
+                                 jnp.asarray(pos))
+    cfg = torch_get_config("tiny", **cfg_kw)
+    got = tl.attention_block({k: torch.from_numpy(np.array(t))
+                              for k, t in jattn.items()},
+                             torch.from_numpy(x), cfg,
+                             torch.from_numpy(np.array(pos)),
+                             window=cfg.sliding_window)
+    _close(got, want, FWD_TOL)
+
+
+def test_matmul_promotes_as_jax_does():
+    a = torch.ones(2, 3, dtype=torch.bfloat16)
+    b = torch.full((3, 4), 0.5)
+    out = tl.matmul(a, b)
+    assert out.dtype == torch.float32 and float(out[0, 0]) == 1.5
