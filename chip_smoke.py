@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's serving, training, evoformer and block-sparse
+attention paths on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with one H100:
 
@@ -40,7 +40,22 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
 8. trainpar— llama2-1b width cut to 2 layers, float32, TF32 off, B=2,
              S=2048, 3 steps through the kernels, the plain path and the
              kernels with activation checkpointing.
-9. kernels — every TPU kernel of the JAX package and its status here.
+9. evoformer— ``DS4Sci_EvoformerAttention`` forward + backward at two
+             OpenFold shapes (MSA row attention with pair bias, N_seq 512 x
+             N_res 384, 8 heads x 32; triangle attention, 384 x 384, 4 heads
+             x 32) in bf16 and float32, random inputs from a seed: launch
+             counts zeroed just before each call and read just after (one of
+             each flash kernel, the reducing dbias kernel included); O, LSE,
+             dQ, dK, dV and dPair held against the plain versions; kernel
+             times, bounds, and SDPA with a float mask (mask + pair bias) as
+             the yardstick. Then one full-shape pair bias through
+             ``flash_attention`` (dbias from the dQ kernel).
+10. sparse — ``sparse_attention`` at BigBird-RoBERTa-base widths (12 heads
+             x 64, block 64, 3 random + 3 window + 1 global blocks, B=2,
+             S=4096, non-causal, bf16): launches around the call, outputs
+             against the plain versions, times, bounds and SDPA with the
+             expanded layout as a mask.
+11. kernels — every TPU kernel of the JAX package and its status here.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure prints its error
@@ -57,6 +72,7 @@ from functools import partial
 MEM_BYTES_PER_S = 3.35e12                    # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_TOL = 1e-4              # absolute: LSE is float32 in kernel and plain
 PARITY_TOL = 5e-4
 # train parity, float32 through the kernels vs the plain path: loss and
 # grad_norm relative (summation order in attention, magnified by Adam's
@@ -82,13 +98,14 @@ REPLACES = "deepspeedsyclsupport_tpu/ops/paged_attention.py:96"
 FLASH_SOURCE = "deepspeedsyclsupport_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"flash_fwd": "deepspeedsyclsupport_tpu/ops/flash_attention.py:145",
                   "flash_dq": "deepspeedsyclsupport_tpu/ops/flash_attention.py:208",
-                  "flash_dkv": "deepspeedsyclsupport_tpu/ops/flash_attention.py:273"}
+                  "flash_dkv": "deepspeedsyclsupport_tpu/ops/flash_attention.py:273",
+                  "flash_dbias": "deepspeedsyclsupport_tpu/ops/flash_attention.py:330"}
 TPU_KERNELS = [
     ("ops/paged_attention.py:96 _prefill_kernel", SOURCE),
     ("ops/flash_attention.py:145 _fwd_kernel", FLASH_SOURCE),
     ("ops/flash_attention.py:208 _dq_kernel", FLASH_SOURCE),
     ("ops/flash_attention.py:273 _dkv_kernel", FLASH_SOURCE),
-    ("ops/flash_attention.py:330 _dbias_kernel", None),
+    ("ops/flash_attention.py:330 _dbias_kernel", FLASH_SOURCE),
 ]
 
 
@@ -116,6 +133,20 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def hold(what, got, want, tol, relative=True):
+    """Max abs error of got vs want; raises past ``tol``, taken relative to
+    want's largest magnitude (at least 1) unless ``relative`` is false (LSE,
+    float32 on both sides). Outputs are held relative because dK/dV and
+    dPair sum over thousands of rows."""
+    err = float((got.float() - want.float()).abs().max())
+    lim = tol * (max(1.0, float(want.float().abs().max())) if relative
+                 else 1.0)
+    if not math.isfinite(err) or err > lim:
+        raise AssertionError(f"{what}: kernel vs plain max abs err {err} > "
+                             f"{lim}")
+    return err, lim
+
+
 # ------------------------------------------------------------------ build
 def _instantiations(log_text):
     """(kernel, registers, spill-store bytes) per entry in a ptxas -v log."""
@@ -130,7 +161,7 @@ def _instantiations(log_text):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel|paged_attention_"
+            k = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_kernel|paged_attention_"
                           r"kernel)I(f|13__nv_bfloat16|6__half)((?:Li\d+E)+)",
                           name)
             label = name if k is None else "{}<{},{}>".format(
@@ -463,20 +494,12 @@ def check_flash(torch, np, c, dtype, seed):
     torch.cuda.synchronize()
     refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta,
                                             mask)
-    errs = {}
-    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref),
-                            ("dq", dq, refs[0]), ("dk", dk, refs[1]),
-                            ("dv", dv, refs[2])):
-        err = float((got.float() - want.float()).abs().max())
-        # LSE is float32 in both; the others are held relative to their
-        # largest magnitude (dK/dV sum over thousands of rows)
-        scale = 1.0 if name == "lse" else max(
-            1.0, float(want.float().abs().max()))
-        lim = (1e-4 if name == "lse" else tol) * scale
-        if not math.isfinite(err) or err > lim:
-            raise AssertionError(f"flash {c['name']} {dtype}: {name} kernel "
-                                 f"vs plain max abs err {err} > {lim}")
-        errs[name] = (err, lim)
+    errs = {"lse": hold(f"flash {c['name']} {dtype} lse", lse, lse_ref,
+                        LSE_TOL, relative=False)}
+    for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]),
+                            ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        errs[name] = hold(f"flash {c['name']} {dtype} {name}", got, want,
+                          tol)
     del o_ref, lse_ref, refs, o, dq, dk, dv
     args = (q, k, v, do, lse, delta, mask)
     ms = {"flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
@@ -615,7 +638,7 @@ def phase_train(torch, np):
     batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
     per_step = cfg.num_layers * gas
     want = {"flash_fwd": per_step * (2 if eng.module.config.remat else 1),
-            "flash_dq": per_step, "flash_dkv": per_step}
+            "flash_dq": per_step, "flash_dkv": per_step, "flash_dbias": 0}
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     steps = []
@@ -749,6 +772,348 @@ def phase_parity(torch, np):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- evoformer
+# OpenFold / AlphaFold 2 fine-tuning crop (N_res 384, N_seq 512):
+# MSARowAttentionWithPairBias (c_hidden_msa_att 32, no_heads_msa 8) and
+# TriangleAttention starting node (c_hidden_pair_att 32, no_heads_pair 4)
+EVO_CASES = [
+    dict(name="msa-row-pair-bias", b=1, n=512, s=384, h=8, d=32),
+    dict(name="triangle-start", b=1, n=384, s=384, h=4, d=32),
+]
+EVO_MASKED = 0.1            # share of keys at -1e9 in the mask bias
+
+
+def evo_inputs(torch, c, dtype, seed):
+    """q, k, v, dO [B, N, S, H, D], mask bias [B, N, 1, 1, S] (0 or -1e9)
+    and pair bias [B, 1, H, S, S], random from a seed, on the card."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (c["b"], c["n"], c["s"], c["h"], c["d"])
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(tdt)
+                   for _ in range(4))
+    keep = torch.rand((c["b"], c["n"], 1, 1, c["s"]), generator=gen,
+                      device=DEV) >= EVO_MASKED
+    mask_bias = torch.where(keep, 0.0, -1e9).to(tdt)
+    pair = torch.randn((c["b"], 1, c["h"], c["s"], c["s"]), generator=gen,
+                       device=DEV).to(tdt)
+    return q, k, v, do, mask_bias, pair
+
+
+def bias_bounds(dtype, *, rows, h, d, s, pairs, extra_bytes, dbias_bytes):
+    """Least time for each kernel's work at a shape with biases or a layout:
+    inputs read once and outputs written once over 3.35 TB/s (the biases and
+    layout as the kernels take them: ``extra_bytes``; the float32 dbias
+    ``dbias_bytes``, 0 without one), and flops on the visible pairs (fwd 4D,
+    dQ 6D, dK/dV 8D per pair and head; dbias 4D per pair and head of every
+    replica: its s and dp) over the dtype's peak. ``rows``: the (flattened)
+    batch; ``pairs``: visible (i, j) per row and head; H = KVH."""
+    es = 4 if dtype == "float32" else 2
+    qb, row = rows * s * h * d * es, rows * h * s * 4
+    work = {"flash_fwd": (4 * qb + row + extra_bytes,
+                          4 * d * pairs * h * rows),
+            "flash_dq": (5 * qb + 2 * row + extra_bytes,
+                         6 * d * pairs * h * rows),
+            "flash_dkv": (6 * qb + 2 * row + extra_bytes,
+                          8 * d * pairs * h * rows)}
+    if dbias_bytes:
+        work["flash_dbias"] = (4 * qb + 2 * row + extra_bytes + dbias_bytes,
+                               4 * d * pairs * h * rows)
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / MEM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[dtype]
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def sdpa_bias_times(torch, q, k, v, do, mask_bias, pair):
+    """The yardstick: one ``scaled_dot_product_attention`` call on [B*N, H,
+    S, D] views with a float ``attn_mask`` [B*N, H, S, S]. Forward with mask
+    + pair bias summed beforehand (not timed); forward + backward with the
+    sum built in the graph from a pair bias that requires grad (grads of q,
+    k, v and the pair bias, the sum over N included), minus the forward.
+    Returns (fwd ms, bwd ms or None, note)."""
+    import torch.nn.functional as F
+
+    b, n, s, h, d = q.shape
+    qs, ks, vs, go = (t.reshape(b * n, s, h, d).transpose(1, 2)
+                      for t in (q, k, v, do))
+
+    def attn_mask(p):
+        return (mask_bias + p).reshape(b * n, h, s, s)
+
+    with torch.no_grad():
+        summed = attn_mask(pair)
+        fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=summed), reps=5)
+        del summed
+    leaves = [t.detach().requires_grad_() for t in (qs, ks, vs, pair)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves[:3],
+                                             attn_mask=attn_mask(leaves[3]))
+        torch.autograd.grad(out, leaves, go)
+
+    try:
+        both = cuda_ms(torch, fwd_bwd, reps=3, warmup=1)
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        # a yardstick the port never calls: PyTorch may refuse this grad
+        torch.cuda.empty_cache()
+        return fwd, None, f"bwd n/a ({type(e).__name__}: {str(e)[:160]})"
+    return fwd, both - fwd, "bwd = fwd+bwd - fwd, with the pair bias's grad"
+
+
+def check_evoformer(torch, c, dtype, seed):
+    """One ``DS4Sci_EvoformerAttention`` forward + backward through the
+    kernels (launches counted around it alone), its outputs held against the
+    plain versions, then each kernel timed at this shape."""
+    from deepspeedsyclsupport_tpu_torch.ops import DS4Sci_EvoformerAttention
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, mask_bias, pair = evo_inputs(torch, c, dtype, seed)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, pair)]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = DS4Sci_EvoformerAttention(*leaves[:3], [mask_bias, leaves[3]])
+    out.backward(do)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.LAUNCHES)
+    want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_dbias": 1}
+    if launches != want:
+        raise AssertionError(f"evoformer {c['name']} {dtype}: launches "
+                             f"{launches}, want {want}")
+
+    b, n, s, h, d = (c[x] for x in ("b", "n", "s", "h", "d"))
+    rows = b * n
+    qf, kf, vf, dof = (t.reshape(rows, s, h, d) for t in (q, k, v, do))
+    mask = fa.make_mask(qf, kf, causal=False,
+                        k_bias=mask_bias.reshape(rows, s))
+    bias = fa.check_bias(pair[:, 0], qf, kf)
+    tol = TOL[dtype]
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(qf, kf, vf, mask, bias)
+    delta_ref = fa.attention_delta(dof, o_ref)
+    refs = fa.flash_attention_bwd_reference(qf, kf, vf, dof, lse_ref,
+                                            delta_ref, mask, bias=bias)
+    dpair_ref = fa.flash_dbias_reference(qf, kf, vf, dof, lse_ref, delta_ref,
+                                         mask, bias)
+    o, lse = fa.flash_fwd(qf, kf, vf, mask, bias=bias)
+    torch.cuda.synchronize()
+    errs = {"o": hold("o", out.detach().reshape(rows, s, h, d), o_ref, tol),
+            "lse": hold("lse", lse, lse_ref, LSE_TOL, relative=False)}
+    for name, got, ref in zip(("dq", "dk", "dv", "dpair"), leaves,
+                              (*refs, dpair_ref[:, None])):
+        errs[name] = hold(f"evoformer {c['name']} {dtype} {name}",
+                          got.grad.reshape(ref.shape), ref, tol)
+    del out, leaves, o_ref, refs, dpair_ref
+
+    delta = fa.attention_delta(dof, o)
+    args = (qf, kf, vf, dof, lse, delta, mask)
+    ms = {"flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(
+              qf, kf, vf, mask, bias=bias), reps=3),
+          "flash_dq": cuda_ms(torch, lambda: fa.flash_dq(*args, bias=bias),
+                              reps=3),
+          "flash_dkv": cuda_ms(torch, lambda: fa.flash_dkv(*args, bias=bias),
+                               reps=3),
+          "flash_dbias": cuda_ms(torch, lambda: fa.flash_dbias(*args, bias),
+                                 reps=3)}
+    plain = {
+        "flash_fwd": cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
+            qf, kf, vf, mask, bias), reps=1, warmup=1),
+        "flash_dq": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            *args, parts="dq", bias=bias), reps=1, warmup=1),
+        "flash_dkv": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            *args, parts="dkv", bias=bias), reps=1, warmup=1),
+        "flash_dbias": cuda_ms(torch, lambda: fa.flash_dbias_reference(
+            *args, bias), reps=1, warmup=1)}
+    library, note = {}, "not timed in float32"
+    if dtype == "bfloat16":
+        sf, sb, note = sdpa_bias_times(torch, q, k, v, do, mask_bias, pair)
+        library = {"flash_fwd": sf, "flash_dq": sb, "flash_dkv": sb,
+                   "flash_dbias": sb}
+    bounds = bias_bounds(dtype, rows=rows, h=h, d=d, s=s, pairs=s * s,
+                         extra_bytes=4 * (bias.numel() + rows * s),
+                         dbias_bytes=4 * bias.numel())
+    return dict(case=c["name"], dtype=dtype, errs=errs, ms=ms, plain=plain,
+                library=library, note=note, bounds=bounds, launches=launches,
+                wall_ms=wall_ms)
+
+
+def check_full_bias(torch, dtype, seed):
+    """A full-shape pair bias [B, H, S, S] through ``flash_attention``
+    forward + backward: its gradient comes from the dQ kernel (no dbias
+    launch), held against the plain versions."""
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = 4, 1024, 8, 64
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                               device=DEV).to(tdt) for _ in range(4))
+    bias = torch.randn((b, h, s, s), generator=gen, device=DEV).to(tdt)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    fa.reset_launch_counts()
+    out = fa.flash_attention(*leaves[:3], causal=True, bias=leaves[3])
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"full-shape bias {dtype}: launches {launches},"
+                             f" want {want}")
+    mask = fa.make_mask(q, k, causal=True)
+    b32 = fa.check_bias(bias, q, k)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask, b32)
+    delta = fa.attention_delta(do, o_ref)
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta,
+                                            mask, bias=b32)
+    dbias_ref = fa.flash_dbias_reference(q, k, v, do, lse_ref, delta, mask,
+                                         b32)
+    tol = TOL[dtype]
+    errs = {"o": hold("full-bias o", out.detach(), o_ref, tol)}
+    for name, t, ref in zip(("dq", "dk", "dv", "dbias"), leaves,
+                            (*refs, dbias_ref)):
+        errs[name] = hold(f"full-bias {dtype} {name}", t.grad, ref, tol)
+    return errs, launches
+
+
+def phase_evoformer(torch, np):
+    rows, launches = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for i, c in enumerate(EVO_CASES):
+            r = check_evoformer(torch, c, dtype, seed=30 + i)
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            err = ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
+                            for k, (e, lim) in r["errs"].items())
+            times = " | ".join(
+                f"{n[6:]} {r['ms'][n]:.3f} ms (plain {r['plain'][n]:.3f}, "
+                f"bound {r['bounds'][n][0]:.4f} {r['bounds'][n][1]}"
+                + (f", sdpa {r['library'][n]:.3f}"
+                   if r["library"].get(n) is not None else "") + ")"
+                for n in ("flash_fwd", "flash_dq", "flash_dkv",
+                          "flash_dbias"))
+            log("evoformer", f"{c['name']} {dtype} B={c['b']} N={c['n']} "
+                f"S={c['s']} H={c['h']} D={c['d']}: fwd+bwd through "
+                f"DS4Sci_EvoformerAttention {r['wall_ms']:.1f} ms wall, "
+                f"launches {r['launches']}; {err} | {times} | sdpa: "
+                f"{r['note']}")
+            rows[(c["name"], dtype)] = r
+            torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        errs, got = check_full_bias(torch, dtype, seed=40)
+        log("evoformer", f"full-shape pair bias [4, 8, 1024, 1024] through "
+            f"flash_attention {dtype}, causal, D=64: launches {got}; "
+            + ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
+                        for k, (e, lim) in errs.items()))
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+# ------------------------------------------------------------------ sparse
+# google/bigbird-roberta-base: 12 heads x 64, block_size 64,
+# num_random_blocks 3, 4096 positions; an encoder, so non-causal
+SPARSE = dict(b=2, s=4096, h=12, d=64, block=64, random=3, window=3,
+              global_blocks=1)
+
+
+def phase_sparse(torch, np):
+    """``sparse_attention`` forward + backward at the BigBird shape through
+    the kernels (launches counted around it alone), held against the plain
+    versions, then timed; returns the launches."""
+    import torch.nn.functional as F
+
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+    from deepspeedsyclsupport_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, sparse_attention)
+
+    c = SPARSE
+    cfg = BigBirdSparsityConfig(c["h"], c["block"],
+                                num_random_blocks=c["random"],
+                                num_sliding_window_blocks=c["window"],
+                                num_global_blocks=c["global_blocks"])
+    gen = torch.Generator(device=DEV).manual_seed(50)
+    shape = (c["b"], c["s"], c["h"], c["d"])
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sparse_attention(*leaves, cfg, causal=False)
+    out.backward(do)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.LAUNCHES)
+    want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"sparse: launches {launches}, want {want}")
+
+    layout = torch.from_numpy(cfg.make_layout(c["s"], causal=False))
+    mask = fa.make_mask(q, k, causal=False, block_layout=layout,
+                        block_q=c["block"], block_k=c["block"])
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask)
+    delta = fa.attention_delta(do, o_ref)
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta, mask)
+    _, lse = fa.flash_fwd(q, k, v, mask)
+    tol = TOL["bfloat16"]
+    errs = {"o": hold("sparse o", out.detach(), o_ref, tol),
+            "lse": hold("sparse lse", lse, lse_ref, LSE_TOL,
+                        relative=False)}
+    for name, t, ref in zip(("dq", "dk", "dv"), leaves, refs):
+        errs[name] = hold(f"sparse {name}", t.grad, ref, tol)
+    del out, leaves, o_ref, refs
+
+    args = (q, k, v, do, lse_ref, delta, mask)
+    ms = {"flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
+                               reps=5),
+          "flash_dq": cuda_ms(torch, lambda: fa.flash_dq(*args), reps=3),
+          "flash_dkv": cuda_ms(torch, lambda: fa.flash_dkv(*args), reps=3)}
+    plain = {
+        "flash_fwd": cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
+            q, k, v, mask), reps=1, warmup=1),
+        "flash_dq": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            *args, parts="dq"), reps=1, warmup=1),
+        "flash_dkv": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            *args, parts="dkv"), reps=1, warmup=1)}
+    # yardstick: SDPA with the layout expanded to a boolean [1, S, S] mask
+    blk = c["block"]
+    dense = layout.to(DEV).bool().repeat_interleave(blk, 1).repeat_interleave(
+        blk, 2)
+    pairs = int(dense.sum()) // dense.shape[0]      # per row and head
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        sf = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=dense), reps=5)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=dense)
+        torch.autograd.grad(o, (qs, ks, vs), do.transpose(1, 2))
+
+    sb = cuda_ms(torch, fwd_bwd, reps=3, warmup=1) - sf
+    bounds = bias_bounds("bfloat16", rows=c["b"], h=c["h"], d=c["d"],
+                         s=c["s"], pairs=pairs,
+                         extra_bytes=4 * layout.numel(), dbias_bytes=0)
+    log("sparse", f"BigBird B={c['b']} S={c['s']} H={c['h']} D={c['d']} "
+        f"block {blk}, layout {tuple(layout.shape)} with "
+        f"{int(layout.sum())} live blocks ({pairs / c['s'] ** 2:.1%} of "
+        f"pairs), bf16, non-causal: fwd+bwd through sparse_attention "
+        f"{wall_ms:.1f} ms wall, launches {launches}; "
+        + ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
+                    for k, (e, lim) in errs.items())
+        + " | " + " | ".join(
+            f"{n[6:]} {ms[n]:.3f} ms (plain {plain[n]:.3f}, bound "
+            f"{bounds[n][0]:.4f} {bounds[n][1]})" for n in ms)
+        + f" | sdpa with the layout as a boolean mask: fwd {sf:.3f} ms, "
+        f"bwd {sb:.3f} ms (fwd+bwd - fwd)")
+    del dense, qs, ks, vs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -759,6 +1124,7 @@ def main() -> int:
         return 2
     from deepspeedsyclsupport_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 means float32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -773,11 +1139,12 @@ def main() -> int:
     launches.update(phase_train(torch, np))
     phase_parity(torch, np)
     phase_train_parity(torch, np)
+    evo_rows, evo_launches = phase_evoformer(torch, np)
+    phase_sparse(torch, np)
 
-    log("kernels", " | ".join(
-        f"{k}: " + (f"ported (cuda, {src}), checked" if src else
-                    "not yet ported (ROADMAP.md B5)")
-        for k, src in TPU_KERNELS))
+    log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
+                              for k, src in TPU_KERNELS)
+        + f" | all phases in {time.perf_counter() - t_start:.1f} s")
     entries = []
     for name, key in (("ragged_prefill_attention",
                        ("prefill", "llama2-7b", "bfloat16")),
@@ -807,6 +1174,19 @@ def main() -> int:
             "bound_ms": main_row["bounds"][name][0],
             "bound_by": main_row["bounds"][name][1],
             "library_ms": main_row["library"][name]})
+    # the reduced dbias: times at the MSA shape (bf16); launches over the
+    # evoformer phase's runs; max_abs_err over its dPair checks
+    msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]
+    entries.append({
+        "name": "flash_dbias", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES["flash_dbias"],
+        "launches": evo_launches["flash_dbias"],
+        "max_abs_err": max(r["errs"]["dpair"][0] for r in evo_rows.values()),
+        "ms": msa["ms"]["flash_dbias"],
+        "plain_ms": msa["plain"]["flash_dbias"],
+        "bound_ms": msa["bounds"]["flash_dbias"][0],
+        "bound_by": msa["bounds"]["flash_dbias"][1],
+        "library_ms": msa["library"].get("flash_dbias")})
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,32 +1,50 @@
-// Flash attention for Hopper (sm_90a), CUDA C++: forward, dQ and dK/dV.
+// Flash attention for Hopper (sm_90a), CUDA C++: forward, dQ, dK/dV and the
+// reduced pair-bias gradient.
 //
-// Replaces the three Pallas TPU kernels of
-// deepspeedsyclsupport_tpu/ops/flash_attention.py that training runs:
-//   flash_fwd_kernel  <- _fwd_kernel (:145), launched by _fwd_call (:481)
-//   flash_dq_kernel   <- _dq_kernel  (:208), launched by _bwd_call (:535)
-//   flash_dkv_kernel  <- _dkv_kernel (:273), launched by _bwd_call (:535)
-// The fourth kernel of that file, _dbias_kernel (:330), is not ported here.
+// Replaces the four Pallas TPU kernels of
+// deepspeedsyclsupport_tpu/ops/flash_attention.py:
+//   flash_fwd_kernel   <- _fwd_kernel   (:145), launched by _fwd_call (:481)
+//   flash_dq_kernel    <- _dq_kernel    (:208), launched by _bwd_call (:535)
+//   flash_dkv_kernel   <- _dkv_kernel   (:273), launched by _bwd_call (:535)
+//   flash_dbias_kernel <- _dbias_kernel (:330), launched by _dbias_call (:384)
 //
 // What they compute. q [B, Sq, H, D], k/v [B, Skv, KVH, D] and o/do/dq/dk/dv
 // are read and written in place through (batch, seq, head) strides with a
 // unit innermost stride: no transpose and no padding copy. Ragged edges
 // (rows past Sq, columns past Skv) are masked in the kernels. Scores are
-// s = scale * q.k (+ slope[q head] * (k_pos - q_pos) with ALiBi), scale =
-// 1/sqrt(D). Entry (i, j) is visible iff seg_q[i] == seg_k[j] and, when
-// causal, k_pos[j] <= q_pos[i] and (window) q_pos[i] - k_pos[j] < window:
-// the Pallas `_mask` rules. Positions default to q_pos = i + (Skv - Sq),
+// s = scale * q.k (+ slope[q head] * (k_pos - q_pos) with ALiBi)
+// (+ bias[b / rb, h / rh, i, j]) (+ kbias[b / rkb, j]), scale = 1/sqrt(D),
+// in that order (`_bias`, `_add_biases`): a float32 pair bias [Bb, Hb, Sq,
+// Skv] broadcast over contiguous groups of rb = B / Bb batches and rh = H / Hb
+// heads, and a float32 k-row bias [Bk, Skv] over groups of rkb = B / Bk
+// batches (the `_bias_specs` index maps). Entry (i, j) is visible iff
+// seg_q[i] == seg_k[j] and, when causal, k_pos[j] <= q_pos[i] and (window)
+// q_pos[i] - k_pos[j] < window: the Pallas `_mask` rules; with a block
+// layout [Hl, nq, nkv] also layout[Hl > 1 ? h : 0, i / block_q, j / block_k]
+// != 0, element by element (the Pallas kernel skips whole tiles, and its
+// tile is the layout block; these kernels' 64 x 64 tiles are not, so the
+// lookup is per element and a tile is skipped only when every layout block
+// it touches is dead). Positions default to q_pos = i + (Skv - Sq),
 // k_pos = j; segments default to 0. GQA: q head h reads kv head
 // h / (H / KVH).
 //   forward: O = softmax(s) V online in float32 (m from -1e30, l, acc),
 //     LSE[b, h, i] = m + log(max(l, 1e-30)); a row with nothing visible
-//     gets O = 0 and LSE ~ -1e30, as the Pallas kernel does.
+//     (or only -inf biases) gets O = 0 and LSE ~ -1e30, as the Pallas
+//     kernel does.
 //   dQ: p = visible ? exp(s - LSE) : 0, dp = dO.V^T, ds = p (dp - delta),
 //     dQ = scale * ds K, with delta = rowsum(dO * O) computed by the caller.
+//     Optionally it also writes ds, the gradient of a full-shape pair bias,
+//     into a float32 [B, H, Sq, Skv] buffer the caller zero-filled (tiles
+//     it skips stay zero, as `_dq_kernel` zeroes its dead tiles).
 //   dK/dV: the same p and ds, dV = p^T dO, dK = scale * ds^T Q, summed over
 //     the G q heads of the kv head inside the kernel (the Pallas kernel
 //     writes per-q-head fp32 dK/dV and group-sums outside).
+//   dbias: the gradient of a broadcast pair bias, [Bb, Hb, Sq, Skv] float32,
+//     = sum over the rb * rh (batch, head) replicas that read each bias entry
+//     of p (dp - delta); the per-replica [B, H, Sq, Skv] tensor never reaches
+//     memory (for the evoformer's pair bias, shared by N MSA rows).
 // All products accumulate in float32; outputs are stored in the inputs'
-// type (float32, bfloat16 or float16), LSE in float32.
+// type (float32, bfloat16 or float16), LSE and dbias in float32.
 //
 // Design (first, simple version). 256 threads as 16 x 16; each thread owns
 // an RI x CJ tile of the score block and RI rows x D/16 columns of its
@@ -38,8 +56,21 @@
 //   dK/dV: one CTA per (kv tile, kv head, batch); loops over the G q heads
 //     of its kv head and the q tiles that can see its keys, and writes the
 //     group sum once: no [B, H, S, D] fp32 intermediate and no atomics.
+//   dbias: one CTA per (q tile, k tile, bias entry, chunk of replicas). The
+//     TPU kernel's sequential replica grid axis becomes a loop inside the
+//     CTA: for each replica of its chunk it loads the q, dO, K and V tiles,
+//     recomputes s and dp, and adds p (dp - delta) to a 64 x 64 register
+//     accumulator, then writes the tile once. The replicas are cut into
+//     `chunks` fixed ranges so that the grid fills the card (one chunk
+//     leaves ~1 wave of 288 CTAs at the evoformer MSA shape), and a second
+//     kernel sums the chunks' partial tiles in chunk order. No atomics, so
+//     two runs on one card give the same bits.
 // Nothing crosses CTAs, so results do not depend on scheduling: the same
 // inputs give the same bits (activation checkpointing relies on that).
+// The biases are read from global memory per score element (coalesced
+// along j), the layout per element from its small int32 table; with none
+// of them a uniform per-tile branch takes an instance without those reads
+// (per-element null tests cost the dK/dV kernel 5 %).
 //
 // What bounds it on an H100. At training lengths (S = 4096, D = 128)
 // attention does ~S/2 flops per byte it must move, far above the card's
@@ -50,6 +81,15 @@
 // per SM (65-215 KB of shared memory), and dQ recomputes p and dp that the
 // dK/dV kernel also computes (no fused single-pass backward). Those are the
 // later PRs' work.
+//
+// What bounds the dbias kernel. At the evoformer MSA shape (B*N = 512 rows
+// of S = 384, H = 8, D = 32, bf16) it must read q, k, v and dO once (4 x
+// 100.7 MB, ~0.12 ms at 3.35 TB/s) and do 4 * D flops per visible (i, j),
+// head and replica (77 GFLOP, ~0.08 ms at 989 TFLOP/s): bytes bound. This
+// first version re-reads K and V per (q tile, replica) and runs its products
+// on the CUDA cores like the others; it does not take a block layout (the
+// API refuses a layout with a broadcast bias, as the JAX package does), and
+// it recomputes p and dp that the dQ kernel also computes.
 //
 // Interface: one plain C function per kernel, loaded with ctypes. Each
 // launches on the given stream, allocates nothing, and returns
@@ -88,12 +128,23 @@ struct Args {
   const int* pos_q;      // [B, Sq] or null (i + Skv - Sq)
   const int* pos_k;      // [B, Skv] or null (j)
   const float* alibi;    // [H] or null
+  const float* bias;     // pair bias [Bb, Hb, Sq, Skv] contiguous, or null
+  const float* kbias;    // k-row bias [Bk, Skv] contiguous, or null
+  const int* layout;     // block layout [Hl, lay_nq, lay_nkv], or null
+  float* dbias;          // dQ: full-shape ds [B, H, Sq, Skv] (or null);
+                         // dbias kernel: [chunks, Bb, Hb, Sq, Skv] partial
+                         // sums (the result itself when chunks == 1)
   long long st[kNumOperands][3];  // (batch, seq, head) strides, elements
   int b, sq, skv, h, kvh, d;
   int causal, window;    // window <= 0: none
   int offset;            // Skv - Sq
   int default_pos;       // both position arrays null
   float scale;
+  int bias_b, bias_h;    // Bb, Hb
+  int bias_rb, bias_rh;  // B / Bb, H / Hb: (b, h) reads bias[b / rb, h / rh]
+  int kbias_rb;          // B / Bk
+  int lay_h, lay_nq, lay_nkv, lay_bq, lay_bk;  // Hl, blocks, block sizes
+  int chunks;            // dbias kernel: replica chunks per bias entry
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -145,6 +196,110 @@ __device__ __forceinline__ bool visible(const Args& p, int qpos, int kpos,
   if (p.causal) ok = ok && kpos <= qpos;
   if (p.window > 0) ok = ok && qpos - kpos < p.window;
   return ok;
+}
+
+// What the scores of batch b and q head h get beyond the mask: the [Sq,
+// Skv] pair-bias plane, the [Skv] k-row bias and the [nq, nkv] layout plane
+// they read, each null when absent.
+struct Extra {
+  const float* bp;
+  const float* kb;
+  const int* lp;
+  __device__ bool any() const { return bp || kb || lp; }
+};
+__device__ __forceinline__ Extra extra_of(const Args& p, int b, int h) {
+  Extra e{nullptr, nullptr, nullptr};
+  if (p.bias)
+    e.bp = p.bias + ((size_t)(b / p.bias_rb) * p.bias_h + h / p.bias_rh) *
+                        p.sq * p.skv;
+  if (p.kbias) e.kb = p.kbias + (size_t)(b / p.kbias_rb) * p.skv;
+  if (p.layout)
+    e.lp = p.layout + (size_t)(p.lay_h > 1 ? h : 0) * p.lay_nq * p.lay_nkv;
+  return e;
+}
+// Entry (i, j)'s score: x (scaled, +ALiBi) plus the biases in the order of
+// the Pallas kernel, or -INFINITY where the mask (ok) or the layout hides
+// it. Callers branch once per tile on Extra::any(), so the path without
+// biases or a layout runs EXTRA = false and pays nothing per element.
+template <bool EXTRA>
+__device__ __forceinline__ float score(const Args& p, const Extra& e, bool ok,
+                                       float x, int i, int j) {
+  if constexpr (EXTRA) {
+    if (!ok ||
+        (e.lp && e.lp[(i / p.lay_bq) * p.lay_nkv + j / p.lay_bk] == 0))
+      return -INFINITY;
+    if (e.bp) x += e.bp[(size_t)i * p.skv + j];
+    if (e.kb) x += e.kb[j];
+    return x;
+  } else {
+    return ok ? x : -INFINITY;
+  }
+}
+// s[ii][jj] (q . k of row i0 + ty + 16 ii, column j0 + tx + 16 jj) becomes
+// that entry's score (see `score`), for the kernels whose thread tile rows
+// are queries.
+template <bool EXTRA, int RI, int CJ>
+__device__ __forceinline__ void row_scores(const Args& p, const Extra& e,
+                                           float (&s)[RI][CJ],
+                                           const int (&qpos)[RI],
+                                           const int (&qseg)[RI],
+                                           const bool (&qlive)[RI],
+                                           float slope, int b, int i0, int j0,
+                                           int hi) {
+  const int ty = threadIdx.x / kTX, tx = threadIdx.x % kTX;
+#pragma unroll
+  for (int jj = 0; jj < CJ; ++jj) {
+    const int j = j0 + tx + kTX * jj;
+    const bool jlive = j < hi;
+    const int kpos = jlive ? kpos_of(p, b, j) : 0;
+    const int kseg = jlive ? kseg_of(p, b, j) : 0;
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii) {
+      const bool ok = jlive && qlive[ii] &&
+                      visible(p, qpos[ii], kpos, qseg[ii], kseg);
+      const float x = s[ii][jj] * p.scale + slope * (float)(kpos - qpos[ii]);
+      s[ii][jj] = score<EXTRA>(p, e, ok, x, i0 + ty + kTY * ii, j);
+    }
+  }
+}
+// The same for the dK/dV kernel, whose thread tile rows are keys
+// (j0 + ty + 16 ii) and columns queries (i0 + tx + 16 jj, their positions
+// and segments in shared memory).
+template <bool EXTRA, int RI, int CJ>
+__device__ __forceinline__ void key_scores(const Args& p, const Extra& e,
+                                           float (&s)[RI][CJ],
+                                           const int (&kpos)[RI],
+                                           const int (&kseg)[RI],
+                                           const bool (&klive)[RI],
+                                           const int* qpos_s,
+                                           const int* qseg_s, float slope,
+                                           int i0, int j0, int hi) {
+  const int ty = threadIdx.x / kTX, tx = threadIdx.x % kTX;
+#pragma unroll
+  for (int jj = 0; jj < CJ; ++jj) {
+    const int c = tx + kTX * jj;
+    const bool ilive = i0 + c < hi;
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii) {
+      const bool ok = ilive && klive[ii] &&
+                      visible(p, qpos_s[c], kpos[ii], qseg_s[c], kseg[ii]);
+      const float x = s[ii][jj] * p.scale +
+                      slope * (float)(kpos[ii] - qpos_s[c]);
+      s[ii][jj] = score<EXTRA>(p, e, ok, x, i0 + c, j0 + ty + kTY * ii);
+    }
+  }
+}
+// Whether any layout block under the non-empty rows [i0, i1) x columns
+// [j0, j1) is live; the same answer in every thread, so a CTA skips a tile
+// as a whole.
+__device__ __forceinline__ bool layout_tile_live(const Args& p, const int* lp,
+                                                 int i0, int i1, int j0,
+                                                 int j1) {
+  if (lp == nullptr) return true;
+  for (int bi = i0 / p.lay_bq; bi <= (i1 - 1) / p.lay_bq; ++bi)
+    for (int bj = j0 / p.lay_bk; bj <= (j1 - 1) / p.lay_bk; ++bj)
+      if (lp[bi * p.lay_nkv + bj] != 0) return true;
+  return false;
 }
 
 // KV columns that rows [i0, i1) can see: [lo, hi). Only the default
@@ -220,6 +375,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args p) {
     qseg[ii] = qlive[ii] ? qseg_of(p, b, i) : 0;
   }
   const float slope = p.alibi ? p.alibi[hq] : 0.f;
+  const Extra e = extra_of(p, b, hq);
   float acc[RI][DJ];
 #pragma unroll
   for (int ii = 0; ii < RI; ++ii)
@@ -227,8 +383,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args p) {
     for (int jj = 0; jj < DJ; ++jj) acc[ii][jj] = 0.f;
 
   int lo, hi;
-  kv_range(p, i0, min(i0 + BR, p.sq), lo, hi);
+  const int i1 = min(i0 + BR, p.sq);
+  kv_range(p, i0, i1, lo, hi);
   for (int j0 = lo; j0 < hi; j0 += BC) {
+    if (!layout_tile_live(p, e.lp, i0, i1, j0, min(j0 + BC, hi))) continue;
     __syncthreads();  // the previous tile's readers are done
     for (int x = tid; x < BC * D; x += kThreads) {
       const int c = x / D, dd = x % D, j = j0 + c;
@@ -259,21 +417,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args p) {
         for (int jj = 0; jj < CJ; ++jj)
           s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
     }
+    if (e.any())
+      row_scores<true>(p, e, s, qpos, qseg, qlive, slope, b, i0, j0, hi);
+    else
+      row_scores<false>(p, e, s, qpos, qseg, qlive, slope, b, i0, j0, hi);
 #pragma unroll
-    for (int jj = 0; jj < CJ; ++jj) {
-      const int c = tx + kTX * jj, j = j0 + c;
-      const bool jlive = j < hi;
-      const int kpos = jlive ? kpos_of(p, b, j) : 0;
-      const int kseg = jlive ? kseg_of(p, b, j) : 0;
+    for (int ii = 0; ii < RI; ++ii)
 #pragma unroll
-      for (int ii = 0; ii < RI; ++ii) {
-        const bool ok = jlive && qlive[ii] &&
-                        visible(p, qpos[ii], kpos, qseg[ii], kseg);
-        const float x = s[ii][jj] * p.scale +
-                        slope * (float)(kpos - qpos[ii]);
-        ps[(ty + kTY * ii) * (BC + 1) + c] = ok ? x : -INFINITY;
-      }
-    }
+      for (int jj = 0; jj < CJ; ++jj)
+        ps[(ty + kTY * ii) * (BC + 1) + tx + kTX * jj] = s[ii][jj];
     __syncthreads();
 
     // online softmax, one warp per row
@@ -380,6 +532,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args p) {
     dl_r[ii] = qlive[ii] ? p.delta[row] : 0.f;
   }
   const float slope = p.alibi ? p.alibi[hq] : 0.f;
+  const Extra e = extra_of(p, b, hq);
+  float* dbp = p.dbias ? p.dbias + ((size_t)b * p.h + hq) * p.sq * p.skv
+                       : nullptr;
   float acc[RI][DJ];
 #pragma unroll
   for (int ii = 0; ii < RI; ++ii)
@@ -387,8 +542,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args p) {
     for (int jj = 0; jj < DJ; ++jj) acc[ii][jj] = 0.f;
 
   int lo, hi;
-  kv_range(p, i0, min(i0 + BR, p.sq), lo, hi);
+  const int i1 = min(i0 + BR, p.sq);
+  kv_range(p, i0, i1, lo, hi);
   for (int j0 = lo; j0 < hi; j0 += BC) {
+    if (!layout_tile_live(p, e.lp, i0, i1, j0, min(j0 + BC, hi))) continue;
     __syncthreads();
     load_tile(p, kp, kK, b, kh, j0, BC, hi, ks, DP);
     load_tile(p, vp, kV, b, kh, j0, BC, hi, vs, DP);
@@ -419,25 +576,26 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args p) {
           dp[ii][jj] = fmaf(gv[ii], vv[jj], dp[ii][jj]);
         }
     }
+    if (e.any())
+      row_scores<true>(p, e, s, qpos, qseg, qlive, slope, b, i0, j0, hi);
+    else
+      row_scores<false>(p, e, s, qpos, qseg, qlive, slope, b, i0, j0, hi);
 #pragma unroll
-    for (int jj = 0; jj < CJ; ++jj) {
-      const int c = tx + kTX * jj, j = j0 + c;
-      const bool jlive = j < hi;
-      const int kpos = jlive ? kpos_of(p, b, j) : 0;
-      const int kseg = jlive ? kseg_of(p, b, j) : 0;
+    for (int ii = 0; ii < RI; ++ii)
 #pragma unroll
-      for (int ii = 0; ii < RI; ++ii) {
-        const bool ok = jlive && qlive[ii] &&
-                        visible(p, qpos[ii], kpos, qseg[ii], kseg);
-        const float x = s[ii][jj] * p.scale +
-                        slope * (float)(kpos - qpos[ii]);
-        const float pr = ok ? expf(x - lse_r[ii]) : 0.f;
-        dss[(ty + kTY * ii) * (BC + 1) + c] = pr * (dp[ii][jj] - dl_r[ii]);
-      }
-    }
+      for (int jj = 0; jj < CJ; ++jj)   // p = exp(s - LSE), 0 where hidden
+        dss[(ty + kTY * ii) * (BC + 1) + tx + kTX * jj] =
+            expf(s[ii][jj] - lse_r[ii]) * (dp[ii][jj] - dl_r[ii]);
     __syncthreads();
 
     const int cn = min(BC, hi - j0);
+    if (dbp) {  // s = scaled qk + bias, so the bias gradient is ds itself
+      for (int x = tid; x < BR * BC; x += kThreads) {
+        const int r = x / BC, c = x % BC, i = i0 + r;
+        if (i < p.sq && c < cn)
+          dbp[(size_t)i * p.skv + j0 + c] = dss[r * (BC + 1) + c];
+      }
+    }
     for (int c = 0; c < cn; ++c) {
       float dsv[RI], kv[DJ];
 #pragma unroll
@@ -514,11 +672,14 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args p) {
     for (int jj = 0; jj < DJ; ++jj) acc_k[ii][jj] = acc_v[ii][jj] = 0.f;
 
   int lo, hi;
-  q_range(p, j0, min(j0 + BR, p.skv), lo, hi);
+  const int j1 = min(j0 + BR, p.skv);
+  q_range(p, j0, j1, lo, hi);
   for (int g = 0; g < G; ++g) {
     const int hq = kh * G + g;
     const float slope = p.alibi ? p.alibi[hq] : 0.f;
+    const Extra e = extra_of(p, b, hq);
     for (int i0 = lo; i0 < hi; i0 += BC) {
+      if (!layout_tile_live(p, e.lp, i0, min(i0 + BC, hi), j0, j1)) continue;
       __syncthreads();
       load_tile(p, q, kQ, b, hq, i0, BC, hi, qs, DP);
       load_tile(p, dop, kDO, b, hq, i0, BC, hi, dos, DP);
@@ -558,20 +719,21 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args p) {
             dp[ii][jj] = fmaf(vv[ii], gv[jj], dp[ii][jj]);
           }
       }
+      if (e.any())
+        key_scores<true>(p, e, s, kpos, kseg, klive, qpos_s, qseg_s, slope,
+                         i0, j0, hi);
+      else
+        key_scores<false>(p, e, s, kpos, kseg, klive, qpos_s, qseg_s, slope,
+                          i0, j0, hi);
 #pragma unroll
       for (int jj = 0; jj < CJ; ++jj) {
         const int c = tx + kTX * jj;
-        const bool ilive = i0 + c < hi;
 #pragma unroll
         for (int ii = 0; ii < RI; ++ii) {
-          const bool ok = ilive && klive[ii] &&
-                          visible(p, qpos_s[c], kpos[ii], qseg_s[c], kseg[ii]);
-          const float x = s[ii][jj] * p.scale +
-                          slope * (float)(kpos[ii] - qpos_s[c]);
-          const float pr = ok ? expf(x - lse_s[c]) : 0.f;
-          const int e = (ty + kTY * ii) * (BC + 1) + c;
-          pss[e] = pr;
-          dss[e] = pr * (dp[ii][jj] - dl_s[c]);
+          const float pr = expf(s[ii][jj] - lse_s[c]);  // 0 where hidden
+          const int x = (ty + kTY * ii) * (BC + 1) + c;
+          pss[x] = pr;
+          dss[x] = pr * (dp[ii][jj] - dl_s[c]);
         }
       }
       __syncthreads();
@@ -618,8 +780,130 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args p) {
   }
 }
 
+// ------------------------------------------------------------ reduced dbias
+// One CTA per (q tile, k tile, bias entry (bb, hb), chunk); the replica loop
+// runs over the chunk's share of the batches bb * rb + r / rh and q heads
+// hb * rh + r % rh that read the entry, in a fixed order.
+template <typename T, int RI, int CJ>
+__global__ void __launch_bounds__(kThreads) flash_dbias_kernel(const Args p) {
+  constexpr int BR = kTY * RI, BC = kTX * CJ;
+  const int tid = threadIdx.x, ty = tid / kTX, tx = tid % kTX;
+  const int i0 = blockIdx.x * BR, j0 = blockIdx.y * BC;
+  const int entries = p.bias_b * p.bias_h;
+  const int chunk = blockIdx.z / entries, entry = blockIdx.z % entries;
+  const int bb = entry / p.bias_h, hb = entry % p.bias_h;
+  const int G = p.h / p.kvh;
+  const int D = p.d, DP = D + 1;
+  const T* q = static_cast<const T*>(p.q);
+  const T* kp = static_cast<const T*>(p.k);
+  const T* vp = static_cast<const T*>(p.v);
+  const T* dop = static_cast<const T*>(p.dout);
+
+  extern __shared__ float smem[];
+  float* qs = smem;                 // [BR][DP]
+  float* dos = qs + BR * DP;        // [BR][DP]
+  float* ks = dos + BR * DP;        // [BC][DP]
+  float* vs = ks + BC * DP;         // [BC][DP]
+
+  float acc[RI][CJ];
+#pragma unroll
+  for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < CJ; ++jj) acc[ii][jj] = 0.f;
+
+  int lo, hi;
+  kv_range(p, i0, min(i0 + BR, p.sq), lo, hi);
+  const long long nrep = (long long)p.bias_rb * p.bias_rh;
+  const int r0 = (int)(nrep * chunk / p.chunks);
+  const int r1 = (int)(nrep * (chunk + 1) / p.chunks);
+  // a tile outside the columns its rows can see is zero
+  for (int r = r0; r < r1 && j0 + BC > lo && j0 < hi; ++r) {
+    const int b = bb * p.bias_rb + r / p.bias_rh;
+    const int hq = hb * p.bias_rh + r % p.bias_rh;
+    const int kh = hq / G;
+    const float slope = p.alibi ? p.alibi[hq] : 0.f;
+    Extra e = extra_of(p, b, hq);
+    e.lp = nullptr;  // no layout here (refused): its code folds away
+    __syncthreads();  // the previous replica's readers are done
+    load_tile(p, q, kQ, b, hq, i0, BR, p.sq, qs, DP);
+    load_tile(p, dop, kDO, b, hq, i0, BR, p.sq, dos, DP);
+    load_tile(p, kp, kK, b, kh, j0, BC, hi, ks, DP);
+    load_tile(p, vp, kV, b, kh, j0, BC, hi, vs, DP);
+    __syncthreads();
+
+    int qpos[RI], qseg[RI];
+    bool qlive[RI];
+    float lse_r[RI], dl_r[RI];
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii) {
+      const int i = i0 + ty + kTY * ii;
+      qlive[ii] = i < p.sq;
+      const size_t row = ((size_t)b * p.h + hq) * p.sq + i;
+      qpos[ii] = qlive[ii] ? qpos_of(p, b, i) : 0;
+      qseg[ii] = qlive[ii] ? qseg_of(p, b, i) : 0;
+      lse_r[ii] = qlive[ii] ? p.lse[row] : 0.f;
+      dl_r[ii] = qlive[ii] ? p.delta[row] : 0.f;
+    }
+    float s[RI][CJ], dp[RI][CJ];
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < CJ; ++jj) s[ii][jj] = dp[ii][jj] = 0.f;
+    for (int dd = 0; dd < D; ++dd) {
+      float qv[RI], gv[RI], kv[CJ], vv[CJ];
+#pragma unroll
+      for (int ii = 0; ii < RI; ++ii) {
+        qv[ii] = qs[(ty + kTY * ii) * DP + dd];
+        gv[ii] = dos[(ty + kTY * ii) * DP + dd];
+      }
+#pragma unroll
+      for (int jj = 0; jj < CJ; ++jj) {
+        kv[jj] = ks[(tx + kTX * jj) * DP + dd];
+        vv[jj] = vs[(tx + kTX * jj) * DP + dd];
+      }
+#pragma unroll
+      for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < CJ; ++jj) {
+          s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
+          dp[ii][jj] = fmaf(gv[ii], vv[jj], dp[ii][jj]);
+        }
+    }
+    row_scores<true>(p, e, s, qpos, qseg, qlive, slope, b, i0, j0, hi);
+#pragma unroll
+    for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < CJ; ++jj)   // p = exp(s - LSE), 0 where hidden
+        acc[ii][jj] = fmaf(expf(s[ii][jj] - lse_r[ii]),
+                           dp[ii][jj] - dl_r[ii], acc[ii][jj]);
+  }
+
+  float* out = p.dbias + ((size_t)chunk * entries + entry) * p.sq * p.skv;
+#pragma unroll
+  for (int ii = 0; ii < RI; ++ii) {
+    const int i = i0 + ty + kTY * ii;
+    if (i >= p.sq) continue;
+#pragma unroll
+    for (int jj = 0; jj < CJ; ++jj) {
+      const int j = j0 + tx + kTX * jj;
+      if (j < p.skv) out[(size_t)i * p.skv + j] = acc[ii][jj];
+    }
+  }
+}
+
+// out[e] = sum over the chunks c, in order, of part[c][e].
+__global__ void __launch_bounds__(kThreads) flash_dbias_sum_kernel(
+    const float* part, float* out, long long n, int chunks) {
+  for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    float acc = 0.f;
+    for (int c = 0; c < chunks; ++c) acc += part[c * n + e];
+    out[e] = acc;
+  }
+}
+
 // ------------------------------------------------------------------ launch
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kDbias = 3 };
 
 // shared memory in floats for a D-wide head
 template <int RI, int CJ>
@@ -629,7 +913,18 @@ size_t smem_bytes(Kind kind, int d) {
   if (kind == kFwd) f = BR * DP + BC * DP + BC * d + BR * (BC + 1) + 3 * BR;
   if (kind == kDq) f = 2 * BR * DP + 2 * BC * DP + BR * (BC + 1);
   if (kind == kDkv) f = 2 * BR * DP + 2 * BC * DP + 2 * BR * (BC + 1) + 4 * BC;
+  if (kind == kDbias) f = 2 * BR * DP + 2 * BC * DP;
   return f * sizeof(float);
+}
+
+template <typename Kernel>
+cudaError_t start(Kernel kernel, dim3 grid, size_t smem, const Args& a,
+                  cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int KIND, typename T, int DMAX, int RI, int CJ>
@@ -638,15 +933,25 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if constexpr (KIND == kFwd) kernel = flash_fwd_kernel<T, DMAX, RI, CJ>;
   else if constexpr (KIND == kDq) kernel = flash_dq_kernel<T, DMAX, RI, CJ>;
   else kernel = flash_dkv_kernel<T, DMAX, RI, CJ>;
-  const size_t smem = smem_bytes<RI, CJ>(static_cast<Kind>(KIND), a.d);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int rows = KIND == kDkv ? a.skv : a.sq;
   const int heads = KIND == kDkv ? a.kvh : a.h;
   const dim3 grid((rows + kTY * RI - 1) / (kTY * RI), heads, a.b);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return start(kernel, grid,
+               smem_bytes<RI, CJ>(static_cast<Kind>(KIND), a.d), a, stream);
+}
+
+// The dbias kernel's products loop over D at run time, so it is
+// instantiated per type and tile only: 64 x 64 up to D = 128, 32 x 32 above.
+template <typename T, int RI, int CJ>
+cudaError_t launch_dbias(const Args& a, cudaStream_t stream) {
+  const long long entries = (long long)a.bias_b * a.bias_h;
+  const dim3 grid((a.sq + kTY * RI - 1) / (kTY * RI),
+                  (a.skv + kTX * CJ - 1) / (kTX * CJ),
+                  (unsigned)(entries * a.chunks));
+  if (grid.y > 65535 || entries * a.chunks > 65535)
+    return cudaErrorInvalidConfiguration;
+  return start(flash_dbias_kernel<T, RI, CJ>, grid,
+               smem_bytes<RI, CJ>(kDbias, a.d), a, stream);
 }
 
 // Tile shapes: 64 x 64 up to D = 128; at D = 256 the dQ kernel walks 32
@@ -664,9 +969,14 @@ cudaError_t dispatch_shape(const Args& a, cudaStream_t s) {
 
 template <int KIND, typename T>
 cudaError_t dispatch_dim(const Args& a, cudaStream_t s) {
-  if (a.d <= 64) return dispatch_shape<KIND, T, 64>(a, s);
-  if (a.d <= 128) return dispatch_shape<KIND, T, 128>(a, s);
-  return dispatch_shape<KIND, T, 256>(a, s);
+  if constexpr (KIND == kDbias) {
+    if (a.d <= 128) return launch_dbias<T, 4, 4>(a, s);
+    return launch_dbias<T, 2, 2>(a, s);
+  } else {
+    if (a.d <= 64) return dispatch_shape<KIND, T, 64>(a, s);
+    if (a.d <= 128) return dispatch_shape<KIND, T, 128>(a, s);
+    return dispatch_shape<KIND, T, 256>(a, s);
+  }
 }
 
 template <int KIND>
@@ -676,11 +986,15 @@ cudaError_t dispatch_type(const Args& a, int dtype, cudaStream_t s) {
   return dispatch_dim<KIND, __half>(a, s);
 }
 
-int run(Kind kind, Args& a, const long long* strides, int b, int sq, int skv,
-        int h, int kvh, int d, int causal, int window, float scale,
-        int dtype, void* stream) {
+// bias_dims: Bb, Hb, Bk, Hl, lay_nq, lay_nkv, lay_bq, lay_bk (entries of
+// absent inputs are ignored).
+int run(Kind kind, Args& a, const long long* strides, const int* bias_dims,
+        int b, int sq, int skv, int h, int kvh, int d, int causal,
+        int window, float scale, int dtype, void* stream) {
+  // the batch rides gridDim.z and the heads gridDim.y (at most 65535 each)
   if (b <= 0 || sq <= 0 || skv <= 0 || kvh <= 0 || h % kvh != 0 || d <= 0 ||
-      d > 256 || dtype < 0 || dtype > 2 || strides == nullptr)
+      d > 256 || b > 65535 || h > 65535 || dtype < 0 || dtype > 2 ||
+      strides == nullptr || bias_dims == nullptr)
     return (int)cudaErrorInvalidValue;
   for (int t = 0; t < kNumOperands; ++t)
     for (int x = 0; x < 3; ++x) a.st[t][x] = strides[3 * t + x];
@@ -695,10 +1009,73 @@ int run(Kind kind, Args& a, const long long* strides, int b, int sq, int skv,
   a.offset = skv - sq;
   a.default_pos = a.pos_q == nullptr && a.pos_k == nullptr;
   a.scale = scale;
+  a.bias_b = bias_dims[0];
+  a.bias_h = bias_dims[1];
+  if (a.bias != nullptr || kind == kDbias) {
+    if (a.bias == nullptr || a.bias_b <= 0 || a.bias_h <= 0 ||
+        b % a.bias_b != 0 || h % a.bias_h != 0 ||
+        (kind == kDbias && a.dbias == nullptr))
+      return (int)cudaErrorInvalidValue;
+    a.bias_rb = b / a.bias_b;
+    a.bias_rh = h / a.bias_h;
+  }
+  if (a.kbias != nullptr) {
+    if (bias_dims[2] <= 0 || b % bias_dims[2] != 0)
+      return (int)cudaErrorInvalidValue;
+    a.kbias_rb = b / bias_dims[2];
+  }
+  if (a.layout != nullptr) {
+    a.lay_h = bias_dims[3];
+    a.lay_nq = bias_dims[4];
+    a.lay_nkv = bias_dims[5];
+    a.lay_bq = bias_dims[6];
+    a.lay_bk = bias_dims[7];
+    if ((a.lay_h != 1 && a.lay_h != h) || a.lay_bq <= 0 || a.lay_bk <= 0 ||
+        a.lay_nq < (sq + a.lay_bq - 1) / a.lay_bq ||
+        a.lay_nkv < (skv + a.lay_bk - 1) / a.lay_bk || kind == kDbias)
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == kFwd) return (int)dispatch_type<kFwd>(a, dtype, s);
   if (kind == kDq) return (int)dispatch_type<kDq>(a, dtype, s);
-  return (int)dispatch_type<kDkv>(a, dtype, s);
+  if (kind == kDkv) return (int)dispatch_type<kDkv>(a, dtype, s);
+  return (int)dispatch_type<kDbias>(a, dtype, s);
+}
+
+// The reduced dbias: partial sums per chunk of replicas into `scratch`
+// ([chunks, Bb, Hb, Sq, Skv]), then their sum in chunk order into `dbias`;
+// with one chunk straight into `dbias`.
+int run_dbias(Args& a, float* dbias, float* scratch, const long long* strides,
+              const int* bias_dims, int b, int sq, int skv, int h, int kvh,
+              int d, int causal, int window, float scale, int dtype,
+              void* stream) {
+  const int chunks = bias_dims == nullptr ? 0 : bias_dims[8];
+  if (chunks < 1 || dbias == nullptr || (chunks > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.chunks = chunks;
+  a.dbias = chunks > 1 ? scratch : dbias;
+  int err = run(kDbias, a, strides, bias_dims, b, sq, skv, h, kvh, d, causal,
+                window, scale, dtype, stream);
+  if (err != 0 || chunks == 1) return err;
+  const long long n = (long long)a.bias_b * a.bias_h * sq * skv;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  flash_dbias_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                           kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      scratch, dbias, n, chunks);
+  return (int)cudaGetLastError();
+}
+
+void set_inputs(Args& a, const int* seg_q, const int* seg_k, const int* pos_q,
+                const int* pos_k, const float* alibi, const float* bias,
+                const float* kbias, const int* layout) {
+  a.seg_q = seg_q;
+  a.seg_k = seg_k;
+  a.pos_q = pos_q;
+  a.pos_k = pos_k;
+  a.alibi = alibi;
+  a.bias = bias;
+  a.kbias = kbias;
+  a.layout = layout;
 }
 
 }  // namespace
@@ -707,37 +1084,38 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. strides: 24 int64, the
 // (batch, seq, head) element strides of q, k, v, o, do, dq, dk, dv in that
-// order (entries of operands a kernel does not use are ignored). Null
-// seg/pos/alibi pointers take the defaults. window <= 0: none. Each returns
-// a cudaError_t (0 = launched).
+// order (entries of operands a kernel does not use are ignored). bias_dims:
+// 9 int32, (Bb, Hb) of the pair bias, Bk of the k-row bias, (Hl, nq, nkv,
+// block_q, block_k) of the layout, the dbias kernel's replica chunks. Null
+// seg/pos/alibi/bias/kbias/layout pointers take the defaults (none).
+// window <= 0: none. Each returns a cudaError_t (0 = launched).
 int dsst_flash_fwd(const void* q, const void* k, const void* v, void* o,
                    float* lse, const int* seg_q, const int* seg_k,
                    const int* pos_q, const int* pos_k, const float* alibi,
-                   const long long* strides, int b, int sq, int skv, int h,
-                   int kvh, int d, int causal, int window, float scale,
-                   int dtype, void* stream) {
+                   const float* bias, const float* kbias, const int* layout,
+                   const long long* strides, const int* bias_dims, int b,
+                   int sq, int skv, int h, int kvh, int d, int causal,
+                   int window, float scale, int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
   a.lse_out = lse;
-  a.seg_q = seg_q;
-  a.seg_k = seg_k;
-  a.pos_q = pos_q;
-  a.pos_k = pos_k;
-  a.alibi = alibi;
-  return run(kFwd, a, strides, b, sq, skv, h, kvh, d, causal, window, scale,
-             dtype, stream);
+  set_inputs(a, seg_q, seg_k, pos_q, pos_k, alibi, bias, kbias, layout);
+  return run(kFwd, a, strides, bias_dims, b, sq, skv, h, kvh, d, causal,
+             window, scale, dtype, stream);
 }
 
+// dbias: null, or a zero-filled float32 [B, H, Sq, Skv] that receives ds.
 int dsst_flash_dq(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
-                  void* dq, const int* seg_q, const int* seg_k,
+                  void* dq, float* dbias, const int* seg_q, const int* seg_k,
                   const int* pos_q, const int* pos_k, const float* alibi,
-                  const long long* strides, int b, int sq, int skv, int h,
-                  int kvh, int d, int causal, int window, float scale,
-                  int dtype, void* stream) {
+                  const float* bias, const float* kbias, const int* layout,
+                  const long long* strides, const int* bias_dims, int b,
+                  int sq, int skv, int h, int kvh, int d, int causal,
+                  int window, float scale, int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -746,22 +1124,20 @@ int dsst_flash_dq(const void* q, const void* k, const void* v,
   a.lse = lse;
   a.delta = delta;
   a.dq = dq;
-  a.seg_q = seg_q;
-  a.seg_k = seg_k;
-  a.pos_q = pos_q;
-  a.pos_k = pos_k;
-  a.alibi = alibi;
-  return run(kDq, a, strides, b, sq, skv, h, kvh, d, causal, window, scale,
-             dtype, stream);
+  a.dbias = dbias;
+  set_inputs(a, seg_q, seg_k, pos_q, pos_k, alibi, bias, kbias, layout);
+  return run(kDq, a, strides, bias_dims, b, sq, skv, h, kvh, d, causal,
+             window, scale, dtype, stream);
 }
 
 int dsst_flash_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, const int* seg_q, const int* seg_k,
                    const int* pos_q, const int* pos_k, const float* alibi,
-                   const long long* strides, int b, int sq, int skv, int h,
-                   int kvh, int d, int causal, int window, float scale,
-                   int dtype, void* stream) {
+                   const float* bias, const float* kbias, const int* layout,
+                   const long long* strides, const int* bias_dims, int b,
+                   int sq, int skv, int h, int kvh, int d, int causal,
+                   int window, float scale, int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -771,13 +1147,34 @@ int dsst_flash_dkv(const void* q, const void* k, const void* v,
   a.delta = delta;
   a.dk = dk;
   a.dv = dv;
-  a.seg_q = seg_q;
-  a.seg_k = seg_k;
-  a.pos_q = pos_q;
-  a.pos_k = pos_k;
-  a.alibi = alibi;
-  return run(kDkv, a, strides, b, sq, skv, h, kvh, d, causal, window, scale,
-             dtype, stream);
+  set_inputs(a, seg_q, seg_k, pos_q, pos_k, alibi, bias, kbias, layout);
+  return run(kDkv, a, strides, bias_dims, b, sq, skv, h, kvh, d, causal,
+             window, scale, dtype, stream);
+}
+
+// dbias: float32 [Bb, Hb, Sq, Skv], every entry written; scratch: float32
+// [chunks, Bb, Hb, Sq, Skv] (unused, may be null, with one chunk). bias is
+// required; a layout is refused.
+int dsst_flash_dbias(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     float* dbias, float* scratch, const int* seg_q,
+                     const int* seg_k,
+                     const int* pos_q, const int* pos_k, const float* alibi,
+                     const float* bias, const float* kbias,
+                     const int* layout, const long long* strides,
+                     const int* bias_dims, int b, int sq, int skv, int h,
+                     int kvh, int d, int causal, int window, float scale,
+                     int dtype, void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = lse;
+  a.delta = delta;
+  set_inputs(a, seg_q, seg_k, pos_q, pos_k, alibi, bias, kbias, layout);
+  return run_dbias(a, dbias, scratch, strides, bias_dims, b, sq, skv, h, kvh,
+                   d, causal, window, scale, dtype, stream);
 }
 
 const char* dsst_flash_error_string(int err) {

@@ -1,31 +1,34 @@
 """Flash attention: the CUDA kernels' wrappers, plain versions and autograd.
 
 Port of ``deepspeedsyclsupport_tpu/ops/flash_attention.py``. The TPU kernels
-``_fwd_kernel`` (:145), ``_dq_kernel`` (:208) and ``_dkv_kernel`` (:273) are
-replaced by the hand-written CUDA kernels in ``csrc/flash_attention.cu``,
-wired as a ``torch.autograd.Function`` as the JAX package wires them as a
-``jax.custom_vjp`` (:646-693).
+``_fwd_kernel`` (:145), ``_dq_kernel`` (:208), ``_dkv_kernel`` (:273) and
+``_dbias_kernel`` (:330) are replaced by the hand-written CUDA kernels in
+``csrc/flash_attention.cu``, wired as a ``torch.autograd.Function`` as the
+JAX package wires them as a ``jax.custom_vjp`` (:646-693).
 
 * :func:`flash_attention` — the public function, layout ``[B, S, H, D]`` /
-  ``[B, Skv, KVH, D]`` as in the JAX package (:752). Differentiable.
+  ``[B, Skv, KVH, D]`` as in the JAX package (:752). Differentiable,
+  including the additive pair ``bias`` (the evoformer pair bias); the k-row
+  bias and the block-sparse layout ride along, non-differentiable.
 * :func:`flash_attention_fwd` / :func:`flash_attention_bwd` — the wrappers.
   A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
   plain versions. There is no other fallback.
 * :func:`flash_attention_fwd_reference` / :func:`flash_attention_bwd_reference`
-  — the plain PyTorch versions: exact attention in float32 returning
-  ``(o, lse)``, and the flash-2 backward formulas of ``_dq_kernel`` /
-  ``_dkv_kernel`` from the saved ``lse`` and ``delta``. Both loop over
-  blocks of query rows so that long sequences fit in memory.
+  / :func:`flash_dbias_reference` — the plain PyTorch versions: exact
+  attention in float32 returning ``(o, lse)``, the flash-2 backward
+  formulas of ``_dq_kernel`` / ``_dkv_kernel`` from the saved ``lse`` and
+  ``delta``, and the pair-bias gradient reduced over the (batch, head)
+  replicas that share each bias entry. All loop over blocks of query rows
+  so that long sequences fit in memory.
 * :data:`LAUNCHES` — how many times each kernel was launched; only a launch
   counts, never a CPU call.
 
-Not ported here: the pair bias and its dbias kernel (``_dbias_kernel``,
-:330), the k-row bias, block-sparse layouts and the lse-returning variant.
-Each raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
+Not ported here: the lse-returning variant (ring attention's); it raises
+``NotImplementedError`` naming its ``ROADMAP.md`` entry.
 """
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,7 +36,7 @@ from . import _build
 
 NEG_INF = -1e30
 
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dbias": 0}
 
 # elements of one [B, H, rows, Skv] score block in the plain versions
 _REF_BLOCK_ELEMS = 1 << 26
@@ -44,10 +47,17 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 class Mask(NamedTuple):
-    """What decides which (query, key) pairs are visible, normalised: int32
-    ``[B, S]`` tensors (or None for the defaults), ALiBi slopes float32
-    ``[H]`` (or None), the window (None for none)."""
+    """What decides which (query, key) pairs are visible and what is added
+    to their scores, apart from the differentiable pair bias, normalised:
+    int32 ``[B, S]`` tensors (or None for the defaults), ALiBi slopes
+    float32 ``[H]`` (or None), the window (None for none), the k-row bias
+    float32 ``[Bk, Skv]`` (or None), the block layout int32 ``[Hl, nq,
+    nkv]`` (or None) and its block sizes ``(block_q, block_k)``."""
     causal: bool
     seg_q: Optional[torch.Tensor]
     seg_k: Optional[torch.Tensor]
@@ -55,14 +65,22 @@ class Mask(NamedTuple):
     pos_k: Optional[torch.Tensor]
     alibi: Optional[torch.Tensor]
     window: Optional[int]
+    k_bias: Optional[torch.Tensor] = None
+    layout: Optional[torch.Tensor] = None
+    layout_block: Tuple[int, int] = (0, 0)
 
 
 def make_mask(q, k, causal: bool = True, segment_ids=None,
               kv_segment_ids=None, q_positions=None, kv_positions=None,
-              alibi=None, window: Optional[int] = None) -> Mask:
+              alibi=None, window: Optional[int] = None, k_bias=None,
+              block_layout=None, block_q: int = 512,
+              block_k: int = 512) -> Mask:
     """Check and normalise the masking arguments as the JAX public function
-    does (:794-862): ``kv_segment_ids`` needs ``segment_ids``; bare
-    ``segment_ids`` need Sq == Skv; ``window`` needs ``causal``."""
+    does (:794-898): ``kv_segment_ids`` needs ``segment_ids``; bare
+    ``segment_ids`` need Sq == Skv; ``window`` needs ``causal``; ``k_bias``
+    is ``[Bk, Skv]`` with ``Bk | B``; ``block_layout`` is ``[1|H, nq, nkv]``
+    over blocks of ``min(block, round_up(S, 128))`` rows and columns, the
+    JAX function's clamp, so that the same call gives the same mask."""
     if window is not None and not causal:
         # the window bound is one-sided (pos_q - pos_k < window): without
         # causality it would permit unbounded attention to the future
@@ -103,8 +121,49 @@ def make_mask(q, k, causal: bool = True, segment_ids=None,
         if slopes.shape != (h,):
             raise ValueError(f"alibi slopes must be [{h}], got "
                              f"{tuple(slopes.shape)}")
+    kb = None
+    if k_bias is not None:
+        kb = torch.as_tensor(k_bias, device=dev).detach()
+        if kb.dim() != 2 or kb.shape[1] != skv or kb.shape[0] < 1 or \
+                b % kb.shape[0]:
+            raise ValueError(f"k_bias shape {tuple(kb.shape)} incompatible "
+                             f"with kv ({b},{skv})")
+        kb = kb.to(torch.float32).contiguous()
+    layout, blocks = None, (0, 0)
+    if block_layout is not None:
+        blocks = (min(int(block_q), round_up(sq, 128)),
+                  min(int(block_k), round_up(skv, 128)))
+        nq_b, nkv_b = -(-sq // blocks[0]), -(-skv // blocks[1])
+        layout = torch.as_tensor(block_layout, device=dev)
+        if (layout.dim() != 3 or layout.shape[0] not in (1, h)
+                or tuple(layout.shape[1:]) != (nq_b, nkv_b)):
+            raise ValueError(
+                f"block_layout shape {tuple(layout.shape)} must be "
+                f"[1|{h}, {nq_b}, {nkv_b}] for the padded block grid")
+        layout = layout.to(torch.int32).contiguous()
     return Mask(bool(causal), seg_q, seg_k, pos_q, pos_k, slopes,
-                None if window is None else int(window))
+                None if window is None else int(window), kb, layout, blocks)
+
+
+def check_bias(bias, q, k) -> torch.Tensor:
+    """The pair bias ``[Bb, Hb, Sq, Skv]`` with ``Bb | B`` and ``Hb | H``
+    (broadcast over contiguous groups of batches and heads), checked as the
+    JAX public function does (:865-869); returned as float32, contiguous and
+    detached, the form the kernels and plain versions take."""
+    b, sq, h, _ = q.shape
+    skv = k.shape[1]
+    if bias.dim() != 4 or tuple(bias.shape[2:]) != (sq, skv) or \
+            min(bias.shape[:2]) < 1 or b % bias.shape[0] or h % bias.shape[1]:
+        raise ValueError(f"bias shape {tuple(bias.shape)} incompatible with "
+                         f"q/kv ({b},{h},{sq},{skv})")
+    return bias.detach().to(device=q.device,
+                            dtype=torch.float32).contiguous()
+
+
+def is_broadcast(bias, q) -> bool:
+    """Whether the pair bias is shared by several batches or heads (its
+    gradient then needs the reducing kernel)."""
+    return bias.shape[0] < q.shape[0] or bias.shape[1] < q.shape[2]
 
 
 # ------------------------------------------------------------------ reference
@@ -112,10 +171,21 @@ def _block_rows(b, h, sq, skv) -> int:
     return max(1, min(sq, _REF_BLOCK_ELEMS // max(1, b * h * skv)))
 
 
-def _scores(q, k, m: Mask, r0: int, r1: int):
-    """Scaled (+ALiBi) scores and the visibility mask for query rows
-    [r0, r1): ``s`` [B, KVH, G, rows, Skv] float32, ``mask`` broadcastable
-    to it. GQA groups q heads as ``h = kv_head * G + g``."""
+def _expand_bias(bias, b, h, kvh, r0, r1):
+    """Rows [r0, r1) of the pair bias for every (batch, q head): ``[B, KVH,
+    G, rows, Skv]``; batch i reads bias batch i // (B / Bb), head j bias head
+    j // (H / Hb), the JAX index maps (:461-464)."""
+    bb, hb, _, skv = bias.shape
+    x = bias[:, None, :, None, r0:r1].expand(bb, b // bb, hb, h // hb,
+                                             r1 - r0, skv)
+    return x.reshape(b, kvh, h // kvh, r1 - r0, skv)
+
+
+def _scores(q, k, m: Mask, r0: int, r1: int, bias=None):
+    """Scaled (+ALiBi, +pair bias, +k-row bias) scores and the visibility
+    mask (with the block layout) for query rows [r0, r1): ``s`` [B, KVH, G,
+    rows, Skv] float32, ``mask`` broadcastable to it. GQA groups q heads as
+    ``h = kv_head * G + g``. ``bias``: float32 ``[Bb, Hb, Sq, Skv]``."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -134,6 +204,11 @@ def _scores(q, k, m: Mask, r0: int, r1: int):
     if m.alibi is not None:
         slope = m.alibi.reshape(kvh, g)[None, :, :, None, None]
         s = s + slope * (pk - pq).float()
+    if bias is not None:
+        s = s + _expand_bias(bias, b, h, kvh, r0, r1)
+    if m.k_bias is not None:
+        s = s + m.k_bias.repeat_interleave(b // m.k_bias.shape[0], 0)[
+            :, None, None, None, :]
     mask = torch.ones((), dtype=torch.bool, device=dev)
     if m.causal:
         mask = mask & (pk <= pq)
@@ -142,14 +217,22 @@ def _scores(q, k, m: Mask, r0: int, r1: int):
     if m.seg_q is not None:
         mask = mask & (m.seg_q[:, r0:r1][:, None, None, :, None]
                        == m.seg_k[:, None, None, None, :])
+    if m.layout is not None:
+        bq, bk = m.layout_block
+        lay = m.layout[:, torch.arange(r0, r1, device=dev) // bq][
+            :, :, torch.arange(skv, device=dev) // bk] != 0
+        lay = (lay.reshape(1, kvh, g, r1 - r0, skv) if lay.shape[0] > 1
+               else lay[None, None])
+        mask = mask & lay
     return s, mask
 
 
-def flash_attention_fwd_reference(q, k, v, mask: Mask):
+def flash_attention_fwd_reference(q, k, v, mask: Mask, bias=None):
     """Exact attention in float32. Returns ``(o, lse)``: o [B, Sq, H, D] in
     q's dtype, lse [B, H, Sq] float32 = m + log(max(l, 1e-30)) with m the
-    row max over visible scores (-1e30 when none): a row with nothing
-    visible gets o = 0 and lse ~ -1e30, as the kernel does."""
+    row max over visible scores, at least -1e30: a row with nothing visible
+    (or only -inf biases) gets o = 0 and lse ~ -1e30, as the kernel does.
+    ``bias``: float32 ``[Bb, Hb, Sq, Skv]`` (see :func:`check_bias`)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -159,9 +242,9 @@ def flash_attention_fwd_reference(q, k, v, mask: Mask):
     step = _block_rows(b, h, sq, skv)
     for r0 in range(0, sq, step):
         r1 = min(sq, r0 + step)
-        s, vis = _scores(q, k, mask, r0, r1)
+        s, vis = _scores(q, k, mask, r0, r1, bias)
         s = torch.where(vis, s, torch.full_like(s, NEG_INF))
-        mx = s.amax(dim=-1, keepdim=True)
+        mx = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
         p = torch.where(vis, torch.exp(s - mx), torch.zeros_like(s))
         l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         ob = torch.einsum("bkgqj,bjkd->bqkgd", p, vf) \
@@ -171,14 +254,31 @@ def flash_attention_fwd_reference(q, k, v, mask: Mask):
     return o, lse
 
 
+def _probs(q, k, vf, do, lse, delta, mask: Mask, bias, r0: int, r1: int):
+    """``p = where(visible, exp(s - lse), 0)`` and ``ds = p * (dO V^T -
+    delta)`` [B, KVH, G, rows, Skv] for query rows [r0, r1), and those rows
+    of dO as float32 [B, rows, KVH, G, D]."""
+    b, _, h, d = q.shape
+    kvh = k.shape[2]
+    g, n = h // kvh, r1 - r0
+    s, vis = _scores(q, k, mask, r0, r1, bias)
+    lse_b = lse[:, :, r0:r1].reshape(b, kvh, g, n, 1)
+    dl_b = delta[:, :, r0:r1].reshape(b, kvh, g, n, 1)
+    p = torch.where(vis, torch.exp(s - lse_b), torch.zeros_like(s))
+    dob = do[:, r0:r1].float().reshape(b, n, kvh, g, d)
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", dob, vf)
+    return p, p * (dp - dl_b), dob
+
+
 def flash_attention_bwd_reference(q, k, v, do, lse, delta, mask: Mask,
-                                  parts: str = "all"):
+                                  parts: str = "all", bias=None):
     """The flash-2 backward of ``_dq_kernel``/``_dkv_kernel`` in float32:
     ``p = where(visible, exp(s - lse), 0)``, ``ds = p * (dO V^T - delta)``,
     ``dq = scale * ds K``, ``dk = scale * ds^T Q`` and ``dv = p^T dO``, the
     GQA group summed. lse/delta: [B, H, Sq] float32. Returns float32
     ``(dq, dk, dv)``; ``parts="dq"`` or ``"dkv"`` computes only those (the
-    others are None)."""
+    others are None). The pair bias's gradient is
+    :func:`flash_dbias_reference`."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -194,13 +294,7 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, mask: Mask,
     for r0 in range(0, sq, step):
         r1 = min(sq, r0 + step)
         n = r1 - r0
-        s, vis = _scores(q, k, mask, r0, r1)
-        lse_b = lse[:, :, r0:r1].reshape(b, kvh, g, n, 1)
-        dl_b = delta[:, :, r0:r1].reshape(b, kvh, g, n, 1)
-        p = torch.where(vis, torch.exp(s - lse_b), torch.zeros_like(s))
-        dob = do[:, r0:r1].float().reshape(b, n, kvh, g, d)
-        dp = torch.einsum("bqkgd,bjkd->bkgqj", dob, vf)
-        ds = p * (dp - dl_b)
+        p, ds, dob = _probs(q, k, vf, do, lse, delta, mask, bias, r0, r1)
         if want_dq:
             dq[:, r0:r1] = (scale * torch.einsum(
                 "bkgqj,bjkd->bqkgd", ds, kf)).reshape(b, n, h, d)
@@ -211,10 +305,35 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, mask: Mask,
     return dq, dk, dv
 
 
+def flash_dbias_reference(q, k, v, do, lse, delta, mask: Mask, bias):
+    """The pair bias's gradient in float32, ``[Bb, Hb, Sq, Skv]``: ``ds``
+    (the gradient of the scores, which the bias is added to) summed over
+    the B / Bb batches and H / Hb heads that read each bias entry. For a
+    full-shape bias that is ``ds`` itself, what ``_dq_kernel`` emits; for a
+    broadcast one what ``_dbias_kernel`` accumulates."""
+    b, sq, h, _ = q.shape
+    skv = k.shape[1]
+    bb, hb = bias.shape[:2]
+    vf = v.float()
+    out = torch.empty((bb, hb, sq, skv), dtype=torch.float32, device=q.device)
+    step = _block_rows(b, h, sq, skv)
+    for r0 in range(0, sq, step):
+        r1 = min(sq, r0 + step)
+        _, ds, _ = _probs(q, k, vf, do, lse, delta, mask, bias, r0, r1)
+        out[:, :, r0:r1] = ds.reshape(bb, b // bb, hb, h // hb, r1 - r0,
+                                      skv).sum(dim=(1, 3))
+    return out
+
+
 # --------------------------------------------------------------------- kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _OPERANDS = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
-_PTRS = {"fwd": 10, "dq": 12, "dkv": 13}   # pointer arguments before strides
+# pointer arguments before the strides: each kernel's own, then seg_q, seg_k,
+# pos_q, pos_k, alibi, bias, kbias, layout
+_PTRS = {"fwd": 13, "dq": 16, "dkv": 16, "dbias": 16}
+_GRID_MAX = 65535     # the batch rides gridDim.z, the heads gridDim.y
+_DBIAS_CTAS_PER_SM = 16   # the dbias kernel's chunks fill the card this deep
+_DBIAS_MAX_CHUNKS = 16
 
 
 def _library() -> ctypes.CDLL:
@@ -222,7 +341,8 @@ def _library() -> ctypes.CDLL:
     if lib.dsst_flash_fwd.argtypes is None:
         for kind, n_ptr in _PTRS.items():
             fn = getattr(lib, f"dsst_flash_{kind}")
-            fn.argtypes = ([ctypes.c_void_p] * (n_ptr + 1)
+            # + the strides and bias_dims arrays (pointers too)
+            fn.argtypes = ([ctypes.c_void_p] * (n_ptr + 2)
                            + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -235,10 +355,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check(q, k, v, mask: Mask, **extra) -> None:
+def _check(q, k, v, mask: Mask, bias=None, **extra) -> None:
     """What the kernels take: CUDA tensors on one device, one floating type
     (float32, bfloat16, float16), ``[B, S, H, D]`` with a unit innermost
-    stride, D <= 256, H a multiple of KVH."""
+    stride, D <= 256, H a multiple of KVH, B and H at most 65535, a float32
+    contiguous pair bias ``[Bb, Hb, Sq, Skv]`` with ``Bb | B``, ``Hb | H``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the flash-attention kernels run on CUDA tensors, "
@@ -262,10 +383,20 @@ def _check(q, k, v, mask: Mask, **extra) -> None:
     if h % k.shape[2] or not 0 < d <= 256:
         raise ValueError(f"head dim {d} (<= 256); {h} q heads over "
                          f"{k.shape[2]} kv heads")
-    for t in (mask.seg_q, mask.seg_k, mask.pos_q, mask.pos_k, mask.alibi):
+    if b > _GRID_MAX or h > _GRID_MAX:
+        raise ValueError(f"batch {b} and heads {h} must each be at most "
+                         f"{_GRID_MAX} (the kernels' grid y and z)")
+    for t in (mask.seg_q, mask.seg_k, mask.pos_q, mask.pos_k, mask.alibi,
+              mask.k_bias, mask.layout):
         if t is not None and t.device != dev:
             raise ValueError(f"mask tensors must be on {dev}, got "
                              f"{t.device}")
+    if bias is not None:
+        if bias.device != dev or bias.dtype != torch.float32 or \
+                not bias.is_contiguous():
+            raise TypeError(f"bias must be contiguous float32 on {dev}, got "
+                            f"{bias.dtype} on {bias.device}")
+        check_bias(bias, q, k)
 
 
 def _strides(**named) -> ctypes.Array:
@@ -277,16 +408,33 @@ def _strides(**named) -> ctypes.Array:
     return st
 
 
-def _launch(kind: str, counter: str, ptrs, strides, q, k, mask: Mask):
+def _bias_dims(mask: Mask, bias, chunks: int = 1) -> ctypes.Array:
+    """(Bb, Hb, Bk, Hl, nq, nkv, block_q, block_k, dbias chunks) for the C
+    interface."""
+    dims = (ctypes.c_int * 9)()
+    dims[8] = chunks
+    if bias is not None:
+        dims[0:2] = [bias.shape[0], bias.shape[1]]
+    if mask.k_bias is not None:
+        dims[2] = mask.k_bias.shape[0]
+    if mask.layout is not None:
+        dims[3:8] = [*mask.layout.shape, *mask.layout_block]
+    return dims
+
+
+def _launch(kind: str, counter: str, ptrs, strides, q, k, mask: Mask,
+            bias=None, chunks: int = 1):
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     lib = _library()
     with torch.cuda.device(q.device):
         rc = getattr(lib, f"dsst_flash_{kind}")(
             *ptrs, _ptr(mask.seg_q), _ptr(mask.seg_k), _ptr(mask.pos_q),
-            _ptr(mask.pos_k), _ptr(mask.alibi), strides, b, sq, skv, h, kvh,
-            d, int(mask.causal), mask.window or 0, 1.0 / math.sqrt(d),
-            _DTYPE_CODES[q.dtype],
+            _ptr(mask.pos_k), _ptr(mask.alibi), _ptr(bias),
+            _ptr(mask.k_bias), _ptr(mask.layout), strides,
+            _bias_dims(mask, bias, chunks), b, sq, skv, h, kvh, d,
+            int(mask.causal),
+            mask.window or 0, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash-attention {kind} kernel launch failed: "
@@ -307,10 +455,12 @@ def _out(t: Optional[torch.Tensor], like: torch.Tensor, name: str):
     return t
 
 
-def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None):
+def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None):
     """Launch the forward kernel: ``(o [B,Sq,H,D], lse [B,H,Sq] float32)``;
-    ``out`` optionally receives o."""
-    _check(q, k, v, mask)
+    ``out`` optionally receives o. ``bias``: float32 contiguous ``[Bb, Hb,
+    Sq, Skv]``; the k-row bias and the layout come in ``mask``."""
+    _check(q, k, v, mask, bias)
     o = _out(out, q, "out")
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                       dtype=torch.float32, device=q.device)
@@ -320,7 +470,7 @@ def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None):
         return o, lse
     _launch("fwd", "flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr()), _strides(q=q, k=k, v=v, o=o), q, k, mask)
+             lse.data_ptr()), _strides(q=q, k=k, v=v, o=o), q, k, mask, bias)
     return o, lse
 
 
@@ -334,23 +484,36 @@ def _check_rows(q, lse, delta):
 
 
 def flash_dq(q, k, v, do, lse, delta, mask: Mask,
-             out: Optional[torch.Tensor] = None):
-    """Launch the dQ kernel; dq in q's dtype (float32 accumulation)."""
-    _check(q, k, v, mask, do=do)
+             out: Optional[torch.Tensor] = None,
+             bias: Optional[torch.Tensor] = None,
+             dbias: Optional[torch.Tensor] = None):
+    """Launch the dQ kernel; dq in q's dtype (float32 accumulation).
+    ``dbias``: optionally a contiguous float32 ``[B, H, Sq, Skv]`` that
+    receives ``ds``, the gradient of a full-shape pair bias (zero where no
+    score is visible)."""
+    _check(q, k, v, mask, bias, do=do)
     _check_rows(q, lse, delta)
     dq = _out(out, q, "out")
+    if dbias is not None:
+        want = (q.shape[0], q.shape[2], q.shape[1], k.shape[1])
+        if tuple(dbias.shape) != want or dbias.dtype != torch.float32 or \
+                not dbias.is_contiguous() or dbias.device != q.device:
+            raise ValueError(f"dbias must be contiguous float32 {want} on "
+                             f"{q.device}")
+        dbias.zero_()       # the kernel writes only the tiles it walks
     if not q.numel() or not k.shape[1]:
         return dq.zero_()
     _launch("dq", "flash_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
-            _strides(q=q, k=k, v=v, do=do, dq=dq), q, k, mask)
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias)),
+            _strides(q=q, k=k, v=v, do=do, dq=dq), q, k, mask, bias)
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, mask: Mask, out=(None, None)):
+def flash_dkv(q, k, v, do, lse, delta, mask: Mask, out=(None, None),
+              bias: Optional[torch.Tensor] = None):
     """Launch the dK/dV kernel; group-summed dk, dv in k's dtype."""
-    _check(q, k, v, mask, do=do)
+    _check(q, k, v, mask, bias, do=do)
     _check_rows(q, lse, delta)
     dk, dv = _out(out[0], k, "out[0]"), _out(out[1], v, "out[1]")
     if not q.numel() or not k.numel():
@@ -358,27 +521,85 @@ def flash_dkv(q, k, v, do, lse, delta, mask: Mask, out=(None, None)):
     _launch("dkv", "flash_dkv",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            _strides(q=q, k=k, v=v, do=do, dk=dk, dv=dv), q, k, mask)
+            _strides(q=q, k=k, v=v, do=do, dk=dk, dv=dv), q, k, mask, bias)
     return dk, dv
 
 
-def flash_attention_fwd(q, k, v, mask: Mask):
+_LAYOUT_WITH_BROADCAST = (
+    "block_layout with a BROADCAST differentiable bias is not supported "
+    "(the reduced-dbias kernel ignores layouts); use a full-shape bias or "
+    "drop the layout")
+
+
+def dbias_chunks(q, k, bias, sm_count: int) -> int:
+    """How many fixed ranges the reducing kernel cuts each bias entry's
+    replicas into: enough CTAs for ~16 per SM (one range leaves ~1 wave at
+    the evoformer shapes), at most 16 ranges and one replica each. The
+    partial sums are added in range order, so a card gives the same bits on
+    every run."""
+    b, sq, h, d = q.shape
+    tile = 64 if d <= 128 else 32
+    entries = bias.shape[0] * bias.shape[1]
+    ctas = -(-sq // tile) * -(-k.shape[1] // tile) * entries
+    nrep = (b // bias.shape[0]) * (h // bias.shape[1])
+    want = -(-_DBIAS_CTAS_PER_SM * sm_count // ctas)
+    return max(1, min(want, nrep, _DBIAS_MAX_CHUNKS, _GRID_MAX // entries))
+
+
+def flash_dbias(q, k, v, do, lse, delta, mask: Mask, bias: torch.Tensor):
+    """Launch the reduced-dbias kernel: the gradient of the pair bias
+    ``bias`` (float32 contiguous ``[Bb, Hb, Sq, Skv]``), float32 of its
+    shape, summed in a fixed order over the B / Bb batches and H / Hb heads
+    that read each entry (with :func:`dbias_chunks` ranges of them summed
+    by a second kernel in range order). It does not take a block layout."""
+    if mask.layout is not None:
+        raise NotImplementedError(_LAYOUT_WITH_BROADCAST)
+    _check(q, k, v, mask, bias, do=do)
+    _check_rows(q, lse, delta)
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    if not q.numel() or not k.shape[1]:
+        return dbias.zero_()
+    chunks = dbias_chunks(q, k, bias, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    scratch = None if chunks == 1 else torch.empty(
+        (chunks, *bias.shape), dtype=torch.float32, device=q.device)
+    _launch("dbias", "flash_dbias",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
+             _ptr(scratch)), _strides(q=q, k=k, v=v, do=do), q, k, mask,
+            bias, chunks)
+    return dbias
+
+
+def flash_attention_fwd(q, k, v, mask: Mask, bias=None):
     """``(o, lse)``: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor."""
+    CPU tensor. ``bias``: float32 contiguous ``[Bb, Hb, Sq, Skv]``."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, mask)
-    return flash_fwd(q, k, v, mask)
+        return flash_attention_fwd_reference(q, k, v, mask, bias)
+    return flash_fwd(q, k, v, mask, bias=bias)
 
 
-def flash_attention_bwd(q, k, v, do, lse, delta, mask: Mask):
-    """``(dq, dk, dv)`` in the inputs' dtypes: the dQ and dK/dV kernels for
-    a CUDA tensor, the plain version for a CPU tensor."""
+def flash_attention_bwd(q, k, v, do, lse, delta, mask: Mask, bias=None):
+    """``(dq, dk, dv, dbias)``: dq/dk/dv in the inputs' dtypes, dbias
+    float32 of the bias's shape (None without a bias). For a CUDA tensor
+    the dQ and dK/dV kernels, with dbias from the dQ kernel for a
+    full-shape bias and from the reducing kernel for a broadcast one; for a
+    CPU tensor the plain versions."""
     if q.device.type == "cpu":
         dq, dk, dv = flash_attention_bwd_reference(q, k, v, do, lse, delta,
-                                                   mask)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-    return (flash_dq(q, k, v, do, lse, delta, mask),
-            *flash_dkv(q, k, v, do, lse, delta, mask))
+                                                   mask, bias=bias)
+        dbias = None if bias is None else flash_dbias_reference(
+            q, k, v, do, lse, delta, mask, bias)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+    dbias = None
+    if bias is not None and not is_broadcast(bias, q):
+        dbias = torch.empty((q.shape[0], q.shape[2], q.shape[1], k.shape[1]),
+                            dtype=torch.float32, device=q.device)
+    dq = flash_dq(q, k, v, do, lse, delta, mask, bias=bias, dbias=dbias)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, mask, bias=bias)
+    if bias is not None and dbias is None:
+        dbias = flash_dbias(q, k, v, do, lse, delta, mask, bias)
+    return dq, dk, dv, dbias
 
 
 def attention_delta(do, o) -> torch.Tensor:
@@ -388,24 +609,36 @@ def attention_delta(do, o) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward saves ``o`` and ``lse``; backward computes ``delta`` and runs
-    dQ and dK/dV, returning grads in the inputs' dtypes."""
+    """Forward saves ``o``, ``lse`` and the float32 pair bias; backward
+    computes ``delta`` and runs dQ and dK/dV (and the pair bias's gradient),
+    returning grads in the inputs' dtypes. The k-row bias gets zeros, as
+    the JAX package's ``f_bwd`` gives it (:683-690): it is a mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask: Mask):
-        o, lse = flash_attention_fwd(q, k, v, mask)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, bias, k_bias, mask: Mask):
+        b32 = None if bias is None else check_bias(bias, q, k)
+        o, lse = flash_attention_fwd(q, k, v, mask, b32)
+        ctx.save_for_backward(q, k, v, o, lse, b32)
         ctx.mask = mask
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.k_bias_like = None if k_bias is None else (
+            k_bias.shape, k_bias.dtype, k_bias.device)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, b32 = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse,
-                                         attention_delta(do, o), ctx.mask)
-        return dq, dk, dv, None
+        dq, dk, dv, dbias = flash_attention_bwd(
+            q, k, v, do, lse, attention_delta(do, o), ctx.mask, b32)
+        if dbias is not None:
+            dbias = dbias.to(ctx.bias_dtype)
+        dkb = None
+        if ctx.k_bias_like is not None and ctx.needs_input_grad[4]:
+            shape, dtype, dev = ctx.k_bias_like
+            dkb = torch.zeros(shape, dtype=dtype, device=dev)
+        return dq, dk, dv, dbias, dkb, None
 
 
 # -------------------------------------------------------------------- public
@@ -416,23 +649,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_positions: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None,
                     alibi=None, window: Optional[int] = None,
-                    bias=None, k_bias=None, block_layout=None,
+                    bias: Optional[torch.Tensor] = None,
+                    k_bias: Optional[torch.Tensor] = None,
+                    block_layout=None, block_q: int = 512, block_k: int = 512,
                     return_lse: bool = False) -> torch.Tensor:
     """Flash attention over ``q [B,Sq,H,D]``, ``k/v [B,Skv,KVH,D]``.
     Differentiable; GQA when ``KVH < H``; ``segment_ids [B,Sq]`` masks across
     packed-sequence boundaries; ``kv_segment_ids`` with explicit
     ``q_positions``/``kv_positions`` give position-space causality;
     ``alibi``: per-head slopes [H]; ``window``: sliding window (needs
-    ``causal``). Returns ``[B,Sq,H,D]`` in q's dtype. Scale 1/sqrt(D)."""
-    if bias is not None or k_bias is not None:
-        raise NotImplementedError(
-            "flash_attention bias/k_bias (the evoformer pair bias and its "
-            "dbias kernel) are not ported yet: ROADMAP.md, queue A.3.5 "
-            "(ops/evoformer_attn.py, needs kernel B5)")
-    if block_layout is not None:
-        raise NotImplementedError(
-            "flash_attention block_layout (block-sparse attention) is not "
-            "ported yet: ROADMAP.md, queue A.3.5 (ops/sparse_attention.py)")
+    ``causal``). ``bias``: additive logit bias ``[Bb, Hb, Sq, Skv]`` with
+    ``Bb | B`` and ``Hb | H`` broadcast over contiguous groups,
+    differentiable (the evoformer pair bias); ``k_bias``: per-key row bias
+    ``[Bk, Skv]`` broadcast over q rows and heads, non-differentiable (its
+    gradient is zeros: the evoformer mask bias). Both are added after the
+    1/sqrt(D) scaling. ``block_layout``: block-sparsity mask ``[Hl,
+    ceil(Sq/bq), ceil(Skv/bk)]`` (0 = dead block), ``Hl`` in {1, H}, over
+    blocks of ``bq = min(block_q, round_up(Sq, 128))`` rows and ``bk`` the
+    same for keys; ``block_q``/``block_k`` mean nothing else. Returns
+    ``[B,Sq,H,D]`` in q's dtype. Scale 1/sqrt(D)."""
     if return_lse:
         raise NotImplementedError(
             "flash_attention return_lse (the lse-returning variant ring "
@@ -445,6 +680,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads "
                          f"{k.shape[2]}")
+    if bias is not None:
+        check_bias(bias, q, k)
     mask = make_mask(q, k, causal, segment_ids, kv_segment_ids, q_positions,
-                     kv_positions, alibi, window)
-    return FlashAttention.apply(q, k, v, mask)
+                     kv_positions, alibi, window, k_bias, block_layout,
+                     block_q, block_k)
+    if mask.layout is not None and bias is not None and \
+            is_broadcast(bias, q):
+        # refused here, not deep inside the backward: the reducing kernel
+        # takes no layout
+        raise NotImplementedError(_LAYOUT_WITH_BROADCAST)
+    return FlashAttention.apply(
+        q, k, v, bias, k_bias if isinstance(k_bias, torch.Tensor) else None,
+        mask)

@@ -236,7 +236,7 @@ def test_flash_kernels_match_plain(dev, dtype, shape, variant):
         assert got.dtype == dtype
         _assert_close_scaled(got, want, tol, name)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_dbias": 0}
 
 
 def test_flash_never_writes_past_the_rows(dev):
@@ -304,7 +304,8 @@ def test_flash_autograd_matches_plain_attention(dev):
     fa.reset_launch_counts()
     out = fa.flash_attention(*leaves, window=37)
     (out * do).sum().backward()
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                           "flash_dbias": 0}
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
     (reference_attention(*ref, window=37) * do).sum().backward()
     torch.testing.assert_close(out, reference_attention(q, k, v, window=37),
@@ -355,9 +356,10 @@ def test_engine_trains_through_flash_kernels(dev):
     layers = 2
     assert runs["flash"][1] == {"flash_fwd": 2 * 2 * layers,
                                 "flash_dq": 2 * 2 * layers,
-                                "flash_dkv": 2 * 2 * layers}
+                                "flash_dkv": 2 * 2 * layers,
+                                "flash_dbias": 0}
     assert runs["remat"][1]["flash_fwd"] == 2 * 2 * 2 * layers
-    assert runs["xla"][1] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert runs["xla"][1] == dict.fromkeys(fa.LAUNCHES, 0)
     assert runs["remat"][0] == runs["flash"][0]
     np.testing.assert_allclose(runs["flash"][0], runs["xla"][0], rtol=1e-4)
 
@@ -408,4 +410,230 @@ def test_flash_empty_sequences(dev):
     dk, dv = fa.flash_dkv(none, k, k, none, rows, rows,
                           fa.make_mask(none, k, causal=False))
     assert float(dk.abs().max()) == 0.0 and float(dv.abs().max()) == 0.0
-    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert fa.LAUNCHES == dict.fromkeys(fa.LAUNCHES, 0)
+
+
+# ------------------------------------------- biases, layouts and the dbias
+# The pair bias, the k-row bias and block layouts through the forward, dQ
+# (with its full-shape dbias output) and dK/dV kernels, and the reducing
+# dbias kernel for a broadcast pair bias. dbias is float32 on both sides and
+# held relative to its largest magnitude, at the dtype's tolerance (the
+# kernels' scores come from inputs of that dtype in another summation order).
+BIAS_SHAPES = [
+    dict(b=6, sq=96, skv=96, h=4, kvh=4, d=32),      # evoformer head dim
+    dict(b=2, sq=130, skv=130, h=8, kvh=2, d=64),    # unaligned, GQA 4
+    dict(b=2, sq=64, skv=200, h=4, kvh=4, d=128),    # cross length
+    dict(b=1, sq=70, skv=70, h=2, kvh=2, d=256),     # 32 x 32 dbias tiles
+]
+BIAS_VARIANTS = ["full", "bcast_batch", "bcast_heads", "kbias",
+                 "alibi_causal", "layout16", "layout64", "layout128",
+                 "neg_inf_rows"]
+
+
+def _bias_case(dev, dtype, s, variant, seed):
+    """q, k, v, dO, the mask (k-row bias and layout inside) and the float32
+    pair bias (or None) of one case."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b, sq, skv, h = s["b"], s["sq"], s["skv"], s["h"]
+    q = torch.randn((b, sq, h, s["d"]), generator=g)
+    k = torch.randn((b, skv, s["kvh"], s["d"]), generator=g)
+    v = torch.randn((b, skv, s["kvh"], s["d"]), generator=g)
+    do = torch.randn(q.shape, generator=g)
+    q, k, v, do = (t.to(dev, dtype) for t in (q, k, v, do))
+    bb, hb = b, h
+    if variant in ("bcast_batch", "neg_inf_rows"):
+        bb = 2 if b % 2 == 0 and b > 2 else 1
+    if variant == "bcast_heads":
+        hb = 1
+    bias = None if variant == "kbias" else torch.randn(
+        (bb, hb, sq, skv), generator=g).to(dev)
+    kw = {"causal": variant == "alibi_causal"}
+    if variant in ("kbias", "alibi_causal", "neg_inf_rows"):
+        kb = 0.5 * torch.randn((2 if b % 2 == 0 else 1, skv), generator=g)
+        kb[torch.rand(kb.shape, generator=g) < 0.2] = -1e9
+        if variant == "neg_inf_rows":
+            kb[0] = float("-inf")      # every key of batch 0's rows
+        kw["k_bias"] = kb.to(dev)
+    if variant == "alibi_causal":
+        kw["alibi"] = torch.from_numpy(alibi_slopes(h)).to(dev)
+    if variant.startswith("layout"):
+        blk = int(variant[6:])
+        bq, bk = (min(blk, -(-n // 128) * 128) for n in (sq, skv))
+        lay = (torch.rand((h, -(-sq // bq), -(-skv // bk)), generator=g)
+               < 0.5).to(torch.int32)
+        lay[:, 1::3] = 0               # some row blocks see nothing
+        kw.update(block_layout=lay.to(dev), block_q=blk, block_k=blk)
+    return q, k, v, do, fa.make_mask(q, k, **kw), bias
+
+
+@pytest.mark.parametrize("variant", BIAS_VARIANTS)
+@pytest.mark.parametrize("shape", range(len(BIAS_SHAPES)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bias_kernels_match_plain(dev, dtype, shape, variant):
+    s = BIAS_SHAPES[shape]
+    q, k, v, do, mask, bias = _bias_case(dev, dtype, s, variant, seed=shape)
+    tol = FLASH_TOL[dtype]
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, mask, bias=bias)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask, bias)
+    _assert_close_scaled(o, o_ref, tol, "o")
+    live = lse_ref > -1e29
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=1e-4,
+                               rtol=1e-5)
+    assert bool((lse[~live] < -1e29).all())
+    if variant == "neg_inf_rows":
+        assert bool((~live).any())     # the case has rows that see nothing
+    if bool((~live).any()):
+        assert float(o.float()[~live.transpose(1, 2)].abs().max()) == 0.0
+    delta = fa.attention_delta(do, o_ref)
+    dq, dk, dv, dbias = fa.flash_attention_bwd(q, k, v, do, lse_ref, delta,
+                                               mask, bias)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta,
+                                            mask, bias=bias)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == dtype
+        _assert_close_scaled(got, want, tol, name)
+    if bias is not None:
+        want = fa.flash_dbias_reference(q, k, v, do, lse_ref, delta, mask,
+                                        bias)
+        assert dbias.dtype == torch.float32 and dbias.shape == bias.shape
+        _assert_close_scaled(dbias, want, tol, "dbias")
+    broadcast = bias is not None and fa.is_broadcast(bias, q)
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+        "flash_dbias": int(broadcast)}
+
+
+def test_dbias_kernels_are_deterministic(dev):
+    """The reducing kernel and the dQ kernel's dbias output give the same
+    bits on every run (no atomics)."""
+    s = BIAS_SHAPES[0]
+    q, k, v, do, mask, bias = _bias_case(dev, torch.bfloat16, s,
+                                         "bcast_batch", seed=7)
+    o, lse = fa.flash_fwd(q, k, v, mask, bias=bias)
+    delta = fa.attention_delta(do, o)
+    args = (q, k, v, do, lse, delta, mask)
+    r1, r2 = (fa.flash_dbias(*args, bias) for _ in range(2))
+    full = bias.repeat_interleave(q.shape[0] // bias.shape[0], 0)
+    full = full.contiguous()
+    f1, f2 = (torch.empty((s["b"], s["h"], s["sq"], s["skv"]), device=dev)
+              for _ in range(2))
+    fa.flash_dq(*args, bias=full, dbias=f1)
+    fa.flash_dq(*args, bias=full, dbias=f2)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r2) and torch.equal(f1, f2)
+
+
+def test_broadcast_dbias_is_the_sum_of_the_full_one(dev):
+    """The reducing kernel's dbias equals the dQ kernel's full-shape dbias
+    of the same bias expanded to every (batch, head), summed over the
+    batches b // (B / Bb) and heads h // (H / Hb) that share each entry."""
+    b, h, s = 6, 4, 96
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q, do = (torch.randn((b, s, h, 32), generator=g).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, 2, 32), generator=g).to(dev)
+            for _ in range(2))
+    bias = torch.randn((2, 2, s, s), generator=g).to(dev)
+    full = bias.repeat_interleave(3, 0).repeat_interleave(2, 1).contiguous()
+    mask = fa.make_mask(q, k, causal=False)
+    o, lse = fa.flash_fwd(q, k, v, mask, bias=bias)
+    delta = fa.attention_delta(do, o)
+    reduced = fa.flash_dbias(q, k, v, do, lse, delta, mask, bias)
+    per = torch.empty((b, h, s, s), device=dev)
+    fa.flash_dq(q, k, v, do, lse, delta, mask, bias=full, dbias=per)
+    _assert_close_scaled(reduced,
+                         per.reshape(2, 3, 2, 2, s, s).sum(dim=(1, 3)),
+                         1e-5, "reduced vs summed full dbias")
+    # one replica per entry: the reducing kernel runs one chunk, no sum pass
+    assert fa.dbias_chunks(q, k, full, 132) == 1
+    _assert_close_scaled(fa.flash_dbias(q, k, v, do, lse, delta, mask, full),
+                         per, 1e-5, "reducing kernel on a full-shape bias")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_evoformer_through_kernels(dev, dtype):
+    """``DS4Sci_EvoformerAttention`` forward + backward on the card: one
+    launch of each kernel (the reducing dbias kernel for the pair bias), and
+    the output and grads of the same call on the CPU's plain versions."""
+    from deepspeedsyclsupport_tpu_torch.ops import DS4Sci_EvoformerAttention
+
+    b, n, s, h, d = 1, 5, 100, 4, 32
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q, k, v, w = (torch.randn((b, n, s, h, d), generator=g).to(dtype)
+                  for _ in range(4))
+    mask_bias = torch.where(torch.rand((b, n, 1, 1, s), generator=g) > 0.1,
+                            0.0, -1e9)
+    pair = torch.randn((b, 1, h, s, s), generator=g).to(dtype)
+    results = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.to(where).requires_grad_() for t in (q, k, v, pair)]
+        fa.reset_launch_counts()
+        out = DS4Sci_EvoformerAttention(*leaves[:3],
+                                        [mask_bias.to(where), leaves[3]])
+        (out.float() * w.to(where).float()).sum().backward()
+        torch.cuda.synchronize()
+        results[where] = (out, [t.grad for t in leaves], dict(fa.LAUNCHES))
+    assert results["cuda"][2] == {"flash_fwd": 1, "flash_dq": 1,
+                                  "flash_dkv": 1, "flash_dbias": 1}
+    assert results["cpu"][2] == dict.fromkeys(fa.LAUNCHES, 0)
+    tol = FLASH_TOL[dtype]
+    _assert_close_scaled(results["cuda"][0].cpu(), results["cpu"][0], tol,
+                         "out")
+    for name, got, want in zip(("dq", "dk", "dv", "dpair"),
+                               results["cuda"][1], results["cpu"][1]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        _assert_close_scaled(got.cpu(), want, tol, name)
+
+
+@pytest.mark.parametrize("block", [16, 64, 128])
+def test_sparse_attention_through_kernels(dev, block):
+    """BigBird block-sparse attention on the card against the same call on
+    the CPU; the layout never launches the dbias kernel."""
+    from deepspeedsyclsupport_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, sparse_attention)
+
+    cfg = BigBirdSparsityConfig(4, block, different_layout_per_head=True,
+                                num_random_blocks=1)
+    g = torch.Generator(device="cpu").manual_seed(block)
+    q, k, v, w = (torch.randn((2, 256, 4, 64), generator=g)
+                  for _ in range(4))
+    results = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.to(where).requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        out = sparse_attention(*leaves, cfg, causal=True)
+        (out * w.to(where)).sum().backward()
+        torch.cuda.synchronize()
+        results[where] = ([out] + [t.grad for t in leaves],
+                          dict(fa.LAUNCHES))
+    assert results["cuda"][1] == {"flash_fwd": 1, "flash_dq": 1,
+                                  "flash_dkv": 1, "flash_dbias": 0}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), results["cuda"][0],
+                               results["cpu"][0]):
+        _assert_close_scaled(got.cpu(), want, 1e-4, name)
+
+
+def test_flash_bias_rejects_what_it_does_not_take(dev):
+    s = dict(b=2, sq=32, skv=32, h=2, kvh=2, d=32)
+    q, k, v, do, mask, bias = _bias_case(dev, torch.float32, s, "full", 0)
+    with pytest.raises(TypeError, match="bias"):
+        fa.flash_fwd(q, k, v, mask, bias=bias.double())
+    with pytest.raises(TypeError, match="bias"):
+        fa.flash_fwd(q, k, v, mask, bias=bias.transpose(2, 3))
+    with pytest.raises(ValueError, match="bias shape"):
+        fa.flash_fwd(q, k, v, mask, bias=bias[:, :, :16].contiguous())
+    o, lse = fa.flash_fwd(q, k, v, mask, bias=bias)
+    delta = fa.attention_delta(do, o)
+    with pytest.raises(ValueError, match="dbias"):
+        fa.flash_dq(q, k, v, do, lse, delta, mask, bias=bias,
+                    dbias=torch.empty((2, 2, 32, 16), device=dev))
+    lay_mask = fa.make_mask(q, k, block_layout=torch.ones(
+        (1, 1, 1), dtype=torch.int32, device=dev))
+    with pytest.raises(NotImplementedError, match="BROADCAST"):
+        fa.flash_dbias(q, k, v, do, lse, delta, lay_mask, bias[:1])
+    wide = torch.zeros((65536, 1, 1, 8), device=dev)
+    with pytest.raises(ValueError, match="65535"):
+        fa.flash_fwd(wide, wide, wide, fa.make_mask(wide, wide))
