@@ -24,8 +24,12 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              plain versions (O, LSE, dQ, dK, dV) at llama2-1b (B=2, S=4096),
              mistral-7b heads (S=8192, window 4096), 4 packed documents,
              ALiBi with bloom-7b1 heads and an unaligned S=4000, in bf16 and
-             float32; times, bounds, and SDPA forward / backward as the
-             yardstick at the llama2-1b shape.
+             float32 (O also held row by row); times, bounds, the forward's
+             kernel as the library reports it (bf16: the Hopper wgmma + TMA
+             one, float32: the CUDA-core one), its TFLOP/s and the host's
+             time per forward call, and SDPA forward / backward as the
+             yardstick where it computes the same function (llama2-1b,
+             unaligned-4000).
 5. serve   — ``InferenceEngineV2`` serving llama2-7b at full width and depth
              (bf16, random weights from a seed): greedy ``generate`` on 8
              prompts of 128-1024 tokens, 32 new tokens each. Kernel launch
@@ -33,7 +37,8 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
 6. train   — ``initialize`` -> ``train_batch`` on llama2-1b at full width
              and depth (bf16, AdamW, WarmupLR, clipping, 2 micro-batches of
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
-             and read just after, asserted per step.
+             and read just after, asserted per step, and no operand copied
+             for the forward's TMA.
 7. parity  — the serving width cut to 4 layers in float32: the engine
              through the kernel against the engine through the plain path and
              the dense ``CausalLM.apply`` (plain attention).
@@ -133,6 +138,19 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def host_us_per_call(torch, fn, reps=20):
+    """Host wall time of one call of ``fn`` in microseconds, the calls
+    issued back to back with no wait: what a launch costs the CPU."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e6
+
+
 def hold(what, got, want, tol, relative=True):
     """Max abs error of got vs want; raises past ``tol``, taken relative to
     want's largest magnitude (at least 1) unless ``relative`` is false (LSE,
@@ -145,6 +163,21 @@ def hold(what, got, want, tol, relative=True):
         raise AssertionError(f"{what}: kernel vs plain max abs err {err} > "
                              f"{lim}")
     return err, lim
+
+
+def hold_rows(what, got, want, tol):
+    """Largest over rows (every index but the last) of the row's max abs
+    error over the row's largest |want|; raises past ``tol``. Unlike
+    ``hold``, the few rows of large magnitude (attention's first rows) do
+    not set the limit for the many small ones. A row that is zero in
+    ``want`` (a masked row) must be zero in ``got``."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    ratio = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
+    err = float(ratio.max())
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"{what}: kernel vs plain row-relative err "
+                             f"{err} > {tol}")
+    return err, tol
 
 
 # ------------------------------------------------------------------ build
@@ -161,9 +194,9 @@ def _instantiations(log_text):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_kernel|paged_attention_"
-                          r"kernel)I(f|13__nv_bfloat16|6__half)((?:Li\d+E)+)",
-                          name)
+            k = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_kernel|flash_fwd_sm90_"
+                          r"kernel|paged_attention_kernel)I(f|13__nv_bfloat16|"
+                          r"6__half)((?:Li\d+E)+)", name)
             label = name if k is None else "{}<{},{}>".format(
                 k.group(1), {"f": "fp32", "13__nv_bfloat16": "bf16",
                              "6__half": "fp16"}[k.group(2)],
@@ -500,6 +533,7 @@ def check_flash(torch, np, c, dtype, seed):
                             ("dk", dk, refs[1]), ("dv", dv, refs[2])):
         errs[name] = hold(f"flash {c['name']} {dtype} {name}", got, want,
                           tol)
+    errs["o_row"] = hold_rows(f"flash {c['name']} {dtype} o", o, o_ref, tol)
     del o_ref, lse_ref, refs, o, dq, dk, dv
     args = (q, k, v, do, lse, delta, mask)
     ms = {"flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
@@ -514,13 +548,18 @@ def check_flash(torch, np, c, dtype, seed):
         "flash_dkv": cuda_ms(torch, lambda: fa.flash_attention_bwd_reference(
             *args, parts="dkv"), reps=1, warmup=1)}
     library = {}
-    if c["name"] == "llama2-1b":
+    if not (c.get("window") or c.get("docs") or c.get("alibi")):
+        # SDPA(is_causal) computes the same function only without these
         f, bwd = sdpa_times(torch, q, k, v, do, c["kvh"] != c["h"])
         library = {"flash_fwd": f, "flash_dq": bwd, "flash_dkv": bwd}
     pairs = visible_pairs(torch, mask, c["b"], c["s"], c["s"])
+    fwd_flops = 4 * c["d"] * pairs * c["h"]
     return dict(case=c["name"], dtype=dtype, errs=errs, ms=ms, plain=plain,
                 library=library, bounds=flash_bounds(c, dtype, pairs),
-                pairs=pairs)
+                pairs=pairs, route=fa.fwd_kernel(q.dtype),
+                fwd_tflops=fwd_flops / (ms["flash_fwd"] * 1e-3) / 1e12,
+                host_us=host_us_per_call(torch, lambda: fa.flash_fwd(
+                    q, k, v, mask)))
 
 
 def phase_flash(torch, np):
@@ -537,7 +576,9 @@ def phase_flash(torch, np):
                 + ")" for n in ("flash_fwd", "flash_dq", "flash_dkv"))
             log("flash", f"{c['name']} {dtype} B={c['b']} S={c['s']} "
                 f"H={c['h']}/{c['kvh']} D={c['d']}, {r['pairs']} visible "
-                f"pairs/head: {err} | {times}")
+                f"pairs/head: {err} | {times} | forward kernel {r['route']}, "
+                f"{r['fwd_tflops']:.1f} TFLOP/s, host "
+                f"{r['host_us']:.1f} us per forward call")
             rows[(c["name"], dtype)] = r
             torch.cuda.empty_cache()
     return rows
@@ -660,6 +701,9 @@ def phase_train(torch, np):
             raise AssertionError(f"step {step + 1}: flash launches {got}, "
                                  f"want {want} ({cfg.num_layers} layers x "
                                  f"{gas} micro-batches)")
+        if fa.COPIES["flash_fwd"]:
+            raise AssertionError(f"step {step + 1}: the forward copied "
+                                 f"{fa.COPIES['flash_fwd']} operands for TMA")
     launches = dict(fa.LAUNCHES)
     losses = [x[0] for x in steps]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -670,7 +714,9 @@ def phase_train(torch, np):
         f" ms/step, {n_tok * len(timed) / sum(timed):.0f} tokens/s, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash launches "
-        f"over {TRAIN_STEPS} steps {launches}")
+        f"over {TRAIN_STEPS} steps {launches}, forward kernel "
+        f"{fa.fwd_kernel(torch.bfloat16)}, operands copied for TMA "
+        f"{fa.COPIES['flash_fwd']}")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -902,6 +948,8 @@ def check_evoformer(torch, c, dtype, seed):
     o, lse = fa.flash_fwd(qf, kf, vf, mask, bias=bias)
     torch.cuda.synchronize()
     errs = {"o": hold("o", out.detach().reshape(rows, s, h, d), o_ref, tol),
+            "o_row": hold_rows("o", out.detach().reshape(rows, s, h, d),
+                               o_ref, tol),
             "lse": hold("lse", lse, lse_ref, LSE_TOL, relative=False)}
     for name, got, ref in zip(("dq", "dk", "dv", "dpair"), leaves,
                               (*refs, dpair_ref[:, None])):
@@ -972,7 +1020,8 @@ def check_full_bias(torch, dtype, seed):
     dbias_ref = fa.flash_dbias_reference(q, k, v, do, lse_ref, delta, mask,
                                          b32)
     tol = TOL[dtype]
-    errs = {"o": hold("full-bias o", out.detach(), o_ref, tol)}
+    errs = {"o": hold("full-bias o", out.detach(), o_ref, tol),
+            "o_row": hold_rows("full-bias o", out.detach(), o_ref, tol)}
     for name, t, ref in zip(("dq", "dk", "dv", "dbias"), leaves,
                             (*refs, dbias_ref)):
         errs[name] = hold(f"full-bias {dtype} {name}", t.grad, ref, tol)
@@ -1060,6 +1109,7 @@ def phase_sparse(torch, np):
     _, lse = fa.flash_fwd(q, k, v, mask)
     tol = TOL["bfloat16"]
     errs = {"o": hold("sparse o", out.detach(), o_ref, tol),
+            "o_row": hold_rows("sparse o", out.detach(), o_ref, tol),
             "lse": hold("sparse lse", lse, lse_ref, LSE_TOL,
                         relative=False)}
     for name, t, ref in zip(("dq", "dk", "dv"), leaves, refs):

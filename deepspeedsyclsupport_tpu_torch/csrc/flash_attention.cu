@@ -3,7 +3,9 @@
 //
 // Replaces the four Pallas TPU kernels of
 // deepspeedsyclsupport_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel   <- _fwd_kernel   (:145), launched by _fwd_call (:481)
+//   flash_fwd_sm90_kernel (bfloat16, float16) and
+//   flash_fwd_kernel (float32)
+//                      <- _fwd_kernel   (:145), launched by _fwd_call (:481)
 //   flash_dq_kernel    <- _dq_kernel    (:208), launched by _bwd_call (:535)
 //   flash_dkv_kernel   <- _dkv_kernel   (:273), launched by _bwd_call (:535)
 //   flash_dbias_kernel <- _dbias_kernel (:330), launched by _dbias_call (:384)
@@ -46,10 +48,12 @@
 // All products accumulate in float32; outputs are stored in the inputs'
 // type (float32, bfloat16 or float16), LSE and dbias in float32.
 //
-// Design (first, simple version). 256 threads as 16 x 16; each thread owns
-// an RI x CJ tile of the score block and RI rows x D/16 columns of its
-// accumulators, as in csrc/paged_attention.cu.
-//   forward: one CTA per (q tile of 64 rows, q head, batch); walks the KV
+// The bfloat16 / float16 forward is a Hopper design of its own (wgmma,
+// TMA, mbarriers, warp specialisation): see flash_fwd_sm90_kernel below.
+// Design of the others (first, simple version). 256 threads as 16 x 16;
+// each thread owns an RI x CJ tile of the score block and RI rows x D/16
+// columns of its accumulators, as in csrc/paged_attention.cu.
+//   forward (float32): one CTA per (q tile of 64 rows, q head, batch); walks the KV
 //     tiles its rows can see (cut by causality and the window when the
 //     positions are the default ones), online softmax per row in a warp.
 //   dQ: one CTA per (q tile, q head, batch); walks the same KV range.
@@ -75,7 +79,7 @@
 // What bounds it on an H100. At training lengths (S = 4096, D = 128)
 // attention does ~S/2 flops per byte it must move, far above the card's
 // ~295 flop/byte line: the bound is tensor-core flops (989 TFLOP/s
-// bf16/fp16). This version runs every product on the float32 CUDA cores
+// bf16/fp16). The CUDA-core kernels run every product on the float32 cores
 // (67 TFLOP/s peak) with operands staged in shared memory: no mma.sync or
 // wgmma, no TMA or cp.async pipelining, no double buffering, one or two CTAs
 // per SM (65-215 KB of shared memory), and dQ recomputes p and dp that the
@@ -95,11 +99,16 @@
 // launches on the given stream, allocates nothing, and returns
 // cudaGetLastError() (0 on success).
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from
+                   // cudaGetDriverEntryPoint: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -902,6 +911,443 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_sum_kernel(
   }
 }
 
+// ------------------------------------------------ forward on Hopper (sm_90a)
+// flash_fwd_sm90_kernel: the bfloat16 / float16 forward, with the Args,
+// semantics and outputs of flash_fwd_kernel, which keeps float32 (TF32 would
+// break the float32 contracts). Its products run on the tensor cores.
+//   CTA: 128 q rows of one (q head, batch), three warpgroups. Warpgroups 0
+//     and 1 consume, 64 rows each; one thread of warpgroup 2 issues every
+//     copy. setmaxnreg moves registers from the producer (40 a thread) to
+//     the consumers (232).
+//   Shared memory: Q once and a two-stage ring of K and V tiles (BC = 128
+//     keys up to DMAX 128, 64 at DMAX 256), all in T. A row is cut into
+//     64-column (128-byte) chunks stored [chunk][row][64] with the 128-byte
+//     swizzle: 80 KB at DMAX 64, 160 KB at 128, 192 KB at 256.
+//   TMA: rank-4 tensor maps (D, head, seq, batch) over the caller's strides,
+//     built on the host at each launch. Rows past S and columns past D
+//     arrive as zeros, so ragged S and any D <= DMAX need no masked loads.
+//     One full and one empty mbarrier per stage.
+//   S = Q K^T: wgmma m64n{BC}k16, both operands K-major in shared memory.
+//   Scores: scale, ALiBi, biases, layout and mask on the accumulator
+//     fragment (a thread owns two rows and one column pair of every 8)
+//     through visible() and score<EXTRA>(). A tile that every row of the
+//     warpgroup sees whole, with default positions and no segments, ALiBi,
+//     biases or layout, only takes the scale: only diagonal and edge tiles
+//     mask. Online softmax in registers: the row max over the 4 threads of
+//     a row with two shuffles; the row sum stays per thread until the end.
+//   O += P V: P rounded to T in registers is wgmma's A operand (the S
+//     fragment of 16 columns is the A fragment of one k step); V is an
+//     MN-major B operand in shared memory (the transpose bit).
+// P in T before P V is the one rounding the CUDA-core version does not do
+// (its P stays float32). Nothing crosses CTAs: the same inputs give the same
+// bits. Bound at llama2-1b (S = 4096, D = 128, causal): 137 GFLOP on the
+// tensor cores, 0.139 ms at 989 TFLOP/s. Only the two warpgroups overlap
+// each other's softmax with products; a warpgroup waits for its own S
+// before its softmax and for its P V before the next tile. Left for later:
+// ordering the two warpgroups' products with named barriers, a persistent
+// grid, biases and layouts read per tile rather than per element.
+constexpr int kFwdThreads = 384;     // 2 consumer warpgroups + the producer's
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;   // 128 x 40 + 256 x 232 <= 65536
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DMAX>
+struct FwdTiles {
+  static constexpr int BR = 128;                      // q rows
+  static constexpr int BC = DMAX <= 128 ? 128 : 64;   // keys per tile
+  static constexpr int CH = DMAX / 64;                // 128-byte row chunks
+  static constexpr int Q_BYTES = CH * BR * 128;
+  static constexpr int KV_BYTES = CH * BC * 128;      // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 4 * KV_BYTES;   // 2 x (K, V)
+  // barriers: q full, full[2], empty[2]; 1024 for the swizzle's alignment
+  static constexpr int SMEM = BAR_OFF + 5 * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+// One box of the tensor map at coordinates (d, head, seq, batch) into
+// shared memory; completion counts bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands: rows
+// 128 bytes apart, 8-row groups `sbo` = 1024 apart (lbo unused). MN-major
+// (V): k rows 128 bytes apart, 8-row groups `sbo` = 1024 apart, the next 64
+// MN columns (the next chunk) `lbo` apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Registers an asynchronous wgmma wrote: no read moves above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define DSST_ACC32_STR \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+  "}"
+#define DSST_ACC32_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define DSST_ACC64_STR \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define DSST_ACC64_OPS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+// d (+)= A B, A and B from shared memory (descriptors a, b), both K-major;
+// `acc` = 0 overwrites d.
+#define DSST_WGMMA_SS(N, ACC, TY, IA, IB, IS)                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " \
+               ACC##_STR ", %" IA ", %" IB ", p, 1, 1, 0, 0;\n}\n"           \
+               : ACC##_OPS(d) : "l"(a), "l"(b), "r"(acc))
+// d += A B, A from registers (four pairs of T), B MN-major in shared memory.
+#define DSST_WGMMA_RS(N, ACC, TY, IA, IB, IS)                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " \
+               ACC##_STR ", {%" IA "}, %" IB ", p, 1, 1, 1;\n}\n"            \
+               : ACC##_OPS(d)                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename T, int N>   // N = 64 or 128 columns
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  if constexpr (N == 128) {
+    if constexpr (kHalf) DSST_WGMMA_SS("128", DSST_ACC64, "f16", "64", "65", "66");
+    else DSST_WGMMA_SS("128", DSST_ACC64, "bf16", "64", "65", "66");
+  } else {
+    if constexpr (kHalf) DSST_WGMMA_SS("64", DSST_ACC32, "f16", "32", "33", "34");
+    else DSST_WGMMA_SS("64", DSST_ACC32, "bf16", "32", "33", "34");
+  }
+}
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  if constexpr (N == 128) {
+    if constexpr (kHalf)
+      DSST_WGMMA_RS("128", DSST_ACC64, "f16", "64, %65, %66, %67", "68", "69");
+    else
+      DSST_WGMMA_RS("128", DSST_ACC64, "bf16", "64, %65, %66, %67", "68", "69");
+  } else {
+    if constexpr (kHalf)
+      DSST_WGMMA_RS("64", DSST_ACC32, "f16", "32, %33, %34, %35", "36", "37");
+    else
+      DSST_WGMMA_RS("64", DSST_ACC32, "bf16", "32, %33, %34, %35", "36", "37");
+  }
+}
+
+// Two floats as a pair of T in one register, lo in the low half.
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo,
+                                                               float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(
+    float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
+                                                             float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The scores of one S fragment: s[4 jb + 2 rr + c] is q . k of row
+// row0 + 8 rr and column j0 + 8 jb + 2 t4 + c.
+template <bool EXTRA, int N>
+__device__ __forceinline__ void fragment_scores(
+    const Args& p, const Extra& e, float (&s)[N], const int (&qpos)[2],
+    const int (&qseg)[2], const bool (&qlive)[2], float slope, int b,
+    int row0, int j0, int hi, int t4) {
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const int jb = x / 2, c = x % 2;
+    const int j = j0 + 8 * jb + 2 * t4 + c;
+    const bool jlive = j < hi;
+    const int kpos = jlive ? kpos_of(p, b, j) : 0;
+    const int kseg = jlive ? kseg_of(p, b, j) : 0;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float& v = s[4 * jb + 2 * rr + c];
+      const bool ok = jlive && qlive[rr] &&
+                      visible(p, qpos[rr], kpos, qseg[rr], kseg);
+      const float xv = v * p.scale + slope * (float)(kpos - qpos[rr]);
+      v = score<EXTRA>(p, e, ok, xv, row0 + 8 * rr, j);
+    }
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
+    const Args p, const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv) {
+  using L = FwdTiles<DMAX>;
+  constexpr int BR = L::BR, BC = L::BC, CH = L::CH;
+  constexpr int OH = DMAX > 128 ? 2 : 1;          // P V products per k step
+  constexpr int OW = (DMAX > 128 ? 128 : DMAX) / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + L::Q_BYTES;          // [stage][chunk][BC][64]
+  const uint32_t v_s = k_s + 2 * L::KV_BYTES;
+  const uint32_t bar_q = q_s + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_q + 24;   // + 8 s
+
+  // the longest causal rows first: q tiles in reverse, each over every
+  // (head, batch)
+  const int per_tile = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                            blockIdx.z);
+  const int qt = gridDim.x - 1 - lin / per_tile;
+  const int hq = lin % per_tile % gridDim.y, b = lin % per_tile / gridDim.y;
+  const int i0 = qt * BR, i1 = min(i0 + BR, p.sq);
+  const int kh = hq / (p.h / p.kvh);
+  const Extra e = extra_of(p, b, hq);
+  // chunks holding columns < D: the others are neither loaded nor multiplied
+  // (their shared memory is never read into a written output)
+  const int chl = (p.d + 63) / 64;
+  int lo, hi;
+  kv_range(p, i0, i1, lo, hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, chl * BR * 128);
+      for (int c = 0; c < chl; ++c)
+        tma_load(q_s + c * BR * 128, &tq, bar_q, 64 * c, hq, i0, b);
+      int t = 0;
+      for (int j0 = lo; j0 < hi; j0 += BC) {
+        if (!layout_tile_live(p, e.lp, i0, i1, j0, min(j0 + BC, hi)))
+          continue;
+        const int s = t & 1, round = t >> 1;
+        if (round > 0) mbar_wait(bar_empty + 8 * s, (round - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * chl * BC * 128);
+        for (int c = 0; c < chl; ++c) {
+          const uint32_t off = s * L::KV_BYTES + c * BC * 128;
+          tma_load(k_s + off, &tk, full, 64 * c, kh, j0, b);
+          tma_load(v_s + off, &tv, full, 64 * c, kh, j0, b);
+        }
+        ++t;
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wr0 = i0 + 64 * wg;                 // the warpgroup's rows
+    const int row0 = wr0 + 16 * warp + g;         // mine: row0, row0 + 8
+    int qpos[2], qseg[2];
+    bool qlive[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = row0 + 8 * rr;
+      qlive[rr] = i < p.sq;
+      qpos[rr] = qlive[rr] ? qpos_of(p, b, i) : 0;
+      qseg[rr] = qlive[rr] ? qseg_of(p, b, i) : 0;
+    }
+    const float slope = p.alibi ? p.alibi[hq] : 0.f;
+    const bool plain = p.default_pos && p.seg_q == nullptr &&
+                       p.alibi == nullptr && !e.any();
+    float s[BC / 2], o[OH][OW];
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < OH; ++h)
+#pragma unroll
+      for (int i = 0; i < OW; ++i) o[h][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    const uint32_t q_wg = q_s + wg * 64 * 128;
+
+    mbar_wait(bar_q, 0);
+    int t = 0;
+    for (int j0 = lo; j0 < hi; j0 += BC) {
+      if (!layout_tile_live(p, e.lp, i0, i1, j0, min(j0 + BC, hi))) continue;
+      const int st = t & 1;
+      mbar_wait(bar_full + 8 * st, (t >> 1) & 1);
+      const uint32_t ks = k_s + st * L::KV_BYTES, vs = v_s + st * L::KV_BYTES;
+
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)      // 16 columns of D per step
+          if (c < chl)
+            wgmma_ss<T, BC>(
+                s, sw128_desc(q_wg + c * BR * 128 + kk * 32, 16, 1024),
+                sw128_desc(ks + c * BC * 128 + kk * 32, 16, 1024),
+                c + kk > 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      const bool whole =
+          plain && wr0 + 64 <= p.sq && j0 + BC <= hi &&
+          (!p.causal || j0 + BC - 1 <= wr0 + p.offset) &&
+          (p.window <= 0 || wr0 + 63 + p.offset - j0 < p.window);
+      if (whole) {
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i) s[i] *= p.scale;
+      } else if (e.any()) {
+        fragment_scores<true>(p, e, s, qpos, qseg, qlive, slope, b, row0, j0,
+                              hi, t4);
+      } else {
+        fragment_scores<false>(p, e, s, qpos, qseg, qlive, slope, b, row0,
+                               j0, hi, t4);
+      }
+
+      // online softmax; s[i] belongs to row rr = (i / 2) % 2
+      float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        alpha[rr] = exp2f((m[rr] - mx[rr]) * kLog2e);
+        m[rr] = mx[rr];
+      }
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i) {   // exp2(-inf) = 0 where hidden
+        s[i] = exp2f((s[i] - mx[(i >> 1) & 1]) * kLog2e);
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + sum[rr];
+#pragma unroll
+      for (int h = 0; h < OH; ++h)
+#pragma unroll
+        for (int i = 0; i < OW; ++i) o[h][i] *= alpha[(i >> 1) & 1];
+
+      // P in T: the S fragment of columns [16 kk, 16 kk + 16) is the A
+      // fragment of k step kk
+      uint32_t pa[BC / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
+#pragma unroll
+        for (int h = 0; h < OH; ++h)         // 128 columns of D per product
+          wgmma_rs<T, 2 * OW>(
+              o[h], pa[kk],
+              sw128_desc(vs + kk * 16 * 128 + h * 2 * BC * 128, BC * 128,
+                         1024));
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int h = 0; h < OH; ++h) fence_regs(o[h]);
+      mbar_arrive(bar_empty + 8 * st);
+      ++t;
+    }
+
+    // O / max(l, 1e-30) in T through the output strides, LSE
+    T* out = static_cast<T*>(p.o);
+    const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
+                       p.st[kO][0] % 2 == 0 && p.st[kO][1] % 2 == 0 &&
+                       p.st[kO][2] % 2 == 0;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      const int i = row0 + 8 * rr;
+      if (!qlive[rr]) continue;
+      const float denom = fmaxf(l[rr], 1e-30f);
+      T* row = out + at(p, kO, b, i, hq);
+#pragma unroll
+      for (int h = 0; h < OH; ++h)
+#pragma unroll
+        for (int jb = 0; jb < OW / 4; ++jb) {
+          const int c = 128 * h + 8 * jb + 2 * t4;
+          const float x0 = o[h][4 * jb + 2 * rr] / denom;
+          const float x1 = o[h][4 * jb + 2 * rr + 1] / denom;
+          if (pairs && c + 1 < p.d) {
+            *reinterpret_cast<uint32_t*>(row + c) = pack2<T>(x0, x1);
+          } else {
+            if (c < p.d) row[c] = from_f<T>(x0);
+            if (c + 1 < p.d) row[c + 1] = from_f<T>(x1);
+          }
+        }
+      if (t4 == 0)
+        p.lse_out[((size_t)b * p.h + hq) * p.sq + i] = m[rr] + logf(denom);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kDbias = 3 };
 
@@ -979,11 +1425,114 @@ cudaError_t dispatch_dim(const Args& a, cudaStream_t s) {
   }
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's
+// cudaGetDriverEntryPoint: the library links no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// The tensor map of operand t (16-bit, [B, rows, heads, D] through its
+// strides) in boxes of 64 columns x box_rows rows of one (head, batch), with
+// the 128-byte swizzle and zeros out of bounds. TMA needs a 16-byte aligned
+// base and byte strides that are positive multiples of 16 (the wrapper
+// copies an operand that has not); a dimension of extent 1 never steps, so
+// its stride is replaced by a valid one.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, const Args& a,
+                       int t, int heads, int rows, int box_rows, int dtype) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t es = 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)a.d, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)a.b};
+  const long long st[3] = {a.st[t][2], a.st[t][1], a.st[t][0]};
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
+  cuuint64_t widest = (a.d * es + 15) / 16 * 16;
+  for (int x = 0; x < 3; ++x) {
+    if (dims[x + 1] == 1) continue;
+    if (st[x] <= 0 || st[x] * es % 16) return cudaErrorInvalidValue;
+    widest = st[x] * es > widest ? st[x] * es : widest;
+  }
+  cuuint64_t strides[3];
+  for (int x = 0; x < 3; ++x)
+    strides[x] = dims[x + 1] == 1 ? widest : st[x] * es;
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
+  using L = FwdTiles<DMAX>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = tensor_map(&tq, a.q, a, kQ, a.h, a.sq, L::BR, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&tk, a.k, a, kK, a.kvh, a.skv, L::BC, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&tv, a.v, a, kV, a.kvh, a.skv, L::BC, dtype);
+  if (err != cudaSuccess) return err;
+  const auto kernel = flash_fwd_sm90_kernel<T, DMAX>;
+  // the shared-memory allowance, set once per device for this instance
+  static std::atomic<unsigned long long> allowed{0};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  const dim3 grid((a.sq + L::BR - 1) / L::BR, a.h, a.b);
+  kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, tq, tk, tv);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_sm90(const Args& a, int dtype, cudaStream_t s) {
+  if (a.d <= 64) return launch_fwd_sm90<T, 64>(a, dtype, s);
+  if (a.d <= 128) return launch_fwd_sm90<T, 128>(a, dtype, s);
+  return launch_fwd_sm90<T, 256>(a, dtype, s);
+}
+
+// The forward's route, decided here and nowhere else (dispatch_type and
+// dsst_flash_fwd_kernel both ask): the bfloat16 / float16 forward takes
+// flash_fwd_sm90_kernel; float32, and every backward kernel, the CUDA cores.
+bool fwd_on_sm90(int dtype) { return dtype == 1 || dtype == 2; }
+
 template <int KIND>
 cudaError_t dispatch_type(const Args& a, int dtype, cudaStream_t s) {
-  if (dtype == 0) return dispatch_dim<KIND, float>(a, s);
-  if (dtype == 1) return dispatch_dim<KIND, __nv_bfloat16>(a, s);
-  return dispatch_dim<KIND, __half>(a, s);
+  if constexpr (KIND == kFwd) {
+    if (!fwd_on_sm90(dtype)) return dispatch_dim<KIND, float>(a, s);
+    if (dtype == 1) return dispatch_sm90<__nv_bfloat16>(a, dtype, s);
+    return dispatch_sm90<__half>(a, dtype, s);
+  } else {
+    if (dtype == 0) return dispatch_dim<KIND, float>(a, s);
+    if (dtype == 1) return dispatch_dim<KIND, __nv_bfloat16>(a, s);
+    return dispatch_dim<KIND, __half>(a, s);
+  }
 }
 
 // bias_dims: Bb, Hb, Bk, Hl, lay_nq, lay_nkv, lay_bq, lay_bk (entries of
@@ -1175,6 +1724,11 @@ int dsst_flash_dbias(const void* q, const void* k, const void* v,
   set_inputs(a, seg_q, seg_k, pos_q, pos_k, alibi, bias, kbias, layout);
   return run_dbias(a, dbias, scratch, strides, bias_dims, b, sq, skv, h, kvh,
                    d, causal, window, scale, dtype, stream);
+}
+
+// The kernel dsst_flash_fwd launches for dtype (the same codes).
+const char* dsst_flash_fwd_kernel(int dtype) {
+  return fwd_on_sm90(dtype) ? "flash_fwd_sm90_kernel" : "flash_fwd_kernel";
 }
 
 const char* dsst_flash_error_string(int err) {

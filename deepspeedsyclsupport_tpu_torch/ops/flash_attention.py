@@ -22,6 +22,11 @@ JAX package wires them as a ``jax.custom_vjp`` (:646-693).
   so that long sequences fit in memory.
 * :data:`LAUNCHES` — how many times each kernel was launched; only a launch
   counts, never a CPU call.
+* Forward routes on the card, decided in the library (:func:`fwd_kernel`):
+  bfloat16 and float16 take the Hopper kernel (wgmma products, TMA loads);
+  float32 the CUDA-core one. TMA reads an operand in place when
+  :func:`tma_ready` says so; otherwise the wrapper copies it first and
+  counts the copy in :data:`COPIES`.
 
 Not ported here: the lse-returning variant (ring attention's); it raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
@@ -37,14 +42,19 @@ from . import _build
 NEG_INF = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dbias": 0}
+# operands the forward wrapper copied because TMA could not read them in place
+COPIES = {"flash_fwd": 0}
 
 # elements of one [B, H, rows, Skv] score block in the plain versions
 _REF_BLOCK_ELEMS = 1 << 26
 
 
 def reset_launch_counts() -> None:
+    """Zero :data:`LAUNCHES` and :data:`COPIES`."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in COPIES:
+        COPIES[name] = 0
 
 
 def round_up(x: int, m: int) -> int:
@@ -346,8 +356,9 @@ def _library() -> ctypes.CDLL:
                            + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        lib.dsst_flash_error_string.argtypes = [ctypes.c_int]
-        lib.dsst_flash_error_string.restype = ctypes.c_char_p
+        for name in ("dsst_flash_error_string", "dsst_flash_fwd_kernel"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_char_p
     return lib
 
 
@@ -455,11 +466,51 @@ def _out(t: Optional[torch.Tensor], like: torch.Tensor, name: str):
     return t
 
 
+# the forward kernel that reads q, k and v through TMA (wgmma products)
+_TMA_KERNEL = "flash_fwd_sm90_kernel"
+
+
+def fwd_kernel(dtype: torch.dtype) -> str:
+    """The forward kernel the built library launches for ``dtype``, as the
+    library reports it (the route is decided there, before launch):
+    ``"flash_fwd_sm90_kernel"`` (wgmma + TMA) for bfloat16 and float16,
+    ``"flash_fwd_kernel"`` (CUDA cores) for float32. Needs the CUDA build."""
+    return _library().dsst_flash_fwd_kernel(_DTYPE_CODES[dtype]).decode()
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` (``[B, S, H, D]``, unit innermost stride)
+    in place: a 16-byte aligned base, and the byte stride of each batch,
+    sequence and head dimension with more than one entry a positive
+    multiple of 16."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and t.stride(i) * es % 16 == 0
+        for i in range(3) if t.shape[i] > 1)
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when :func:`tma_ready`, else a copy in a new buffer
+    whose rows are padded to a multiple of 8 elements (the view of its first
+    D columns), counted in ``COPIES["flash_fwd"]``."""
+    if tma_ready(t):
+        return t
+    b, s, h, d = t.shape
+    buf = torch.empty((b, s, h, round_up(d, 8)), dtype=t.dtype,
+                      device=t.device)
+    view = buf[..., :d]
+    view.copy_(t)
+    COPIES["flash_fwd"] += 1
+    return view
+
+
 def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None):
-    """Launch the forward kernel: ``(o [B,Sq,H,D], lse [B,H,Sq] float32)``;
-    ``out`` optionally receives o. ``bias``: float32 contiguous ``[Bb, Hb,
-    Sq, Skv]``; the k-row bias and the layout come in ``mask``."""
+    """Launch the forward kernel (:func:`fwd_kernel`): ``(o [B,Sq,H,D], lse
+    [B,H,Sq] float32)``; ``out`` optionally receives o. ``bias``: float32
+    contiguous ``[Bb, Hb, Sq, Skv]``; the k-row bias and the layout come in
+    ``mask``. Where that kernel reads by TMA, a q, k or v that TMA cannot
+    read in place is copied first (:func:`tma_operand`)."""
     _check(q, k, v, mask, bias)
     o = _out(out, q, "out")
     lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
@@ -468,6 +519,8 @@ def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None,
         o.zero_()
         lse.fill_(NEG_INF)
         return o, lse
+    if fwd_kernel(q.dtype) == _TMA_KERNEL:
+        q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
     _launch("fwd", "flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()), _strides(q=q, k=k, v=v, o=o), q, k, mask, bias)

@@ -207,6 +207,16 @@ def _assert_close_scaled(got, want, tol, what):
     assert err <= tol * scale, f"{what}: max abs err {err} > {tol} x {scale}"
 
 
+def _assert_rows_close(got, want, tol, what):
+    """Each row's (every index but the last) max abs error within ``tol``
+    of that row's largest |want|: the few large rows do not set the limit
+    for the many small ones. A row that is zero in want is zero in got."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    ratio = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
+    err = float(ratio.max())
+    assert err <= tol, f"{what}: row-relative err {err} > {tol}"
+
+
 @pytest.mark.parametrize("variant", FLASH_VARIANTS)
 @pytest.mark.parametrize("shape", range(len(FLASH_SHAPES)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -221,6 +231,7 @@ def test_flash_kernels_match_plain(dev, dtype, shape, variant):
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask)
     assert o.dtype == dtype and lse.dtype == torch.float32
     _assert_close_scaled(o, o_ref, tol, "o")
+    _assert_rows_close(o, o_ref, tol, "o")
     live = lse_ref > -1e29          # rows with something visible
     torch.testing.assert_close(lse[live], lse_ref[live], atol=1e-4,
                                rtol=1e-5)
@@ -292,6 +303,96 @@ def test_flash_reads_strided_views(dev):
     o2, l2 = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                           mask)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+# ------------------------------- the Hopper forward (bf16 / fp16, wgmma+TMA)
+def test_flash_fwd_kernel_route(dev):
+    """The library names the forward it launches: the Hopper kernel for
+    bfloat16 and float16, the CUDA-core one for float32."""
+    assert fa.fwd_kernel(torch.bfloat16) == "flash_fwd_sm90_kernel"
+    assert fa.fwd_kernel(torch.float16) == "flash_fwd_sm90_kernel"
+    assert fa.fwd_kernel(torch.float32) == "flash_fwd_kernel"
+
+
+def test_flash_fwd_bf16_is_bit_identical_on_repeat(dev):
+    s = dict(b=2, sq=300, skv=300, h=4, kvh=2, d=128)
+    q, k, v, _, mask = _flash_case(dev, torch.bfloat16, s, "causal", 11)
+    o1, l1 = fa.flash_fwd(q, k, v, mask)
+    o2, l2 = fa.flash_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+def test_flash_reads_strided_views_bf16(dev):
+    """bf16 q/k/v as views into one packed qkv buffer: TMA reads them in
+    place (no copy) and gives the bits of contiguous copies."""
+    b, sq, h, kvh, d = 2, 90, 4, 2, 64
+    g = torch.Generator(device="cpu").manual_seed(3)
+    qkv = torch.randn((b, sq, h + 2 * kvh, d), generator=g).to(
+        dev, torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    mask = fa.make_mask(q, k)
+    fa.reset_launch_counts()
+    o1, l1 = fa.flash_fwd(q, k, v, mask)
+    assert fa.COPIES == {"flash_fwd": 0}
+    o2, l2 = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                          mask)
+    torch.cuda.synchronize()
+    assert fa.COPIES == {"flash_fwd": 0}
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+def test_flash_fwd_copies_a_misaligned_view(dev):
+    """A q that starts one element into its buffer cannot be read by TMA:
+    the wrapper copies it (one copy counted) and the result is the same."""
+    s = dict(b=1, sq=150, skv=150, h=4, kvh=4, d=64)
+    q, k, v, _, mask = _flash_case(dev, torch.bfloat16, s, "causal", 12)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    odd = flat[1:].view(q.shape)
+    odd.copy_(q)
+    assert not fa.tma_ready(odd)
+    fa.reset_launch_counts()
+    o1, l1 = fa.flash_fwd(odd, k, v, mask)
+    assert fa.COPIES == {"flash_fwd": 1}
+    o2, l2 = fa.flash_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.COPIES == {"flash_fwd": 1}
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+def _hold_fwd(q, k, v, mask, dtype, out=None):
+    o, lse = fa.flash_fwd(q, k, v, mask, out=out)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask)
+    _assert_close_scaled(o, o_ref, FLASH_TOL[dtype], "o")
+    _assert_rows_close(o, o_ref, FLASH_TOL[dtype], "o")
+    live = lse_ref > -1e29
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=1e-4,
+                               rtol=1e-5)
+    assert bool((lse[~live] < -1e29).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_fwd_long_causal(dev, dtype):
+    """S = 4096, causal, D = 128: 32 key tiles on the longest rows."""
+    s = dict(b=1, sq=4096, skv=4096, h=2, kvh=2, d=128)
+    q, k, v, _, mask = _flash_case(dev, dtype, s, "causal", 13)
+    _hold_fwd(q, k, v, mask, dtype)
+
+
+@pytest.mark.parametrize("variant", ["causal", "positions"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_fwd_cross_length_tail(dev, dtype, variant):
+    """Sq != Skv, neither a multiple of 128 (causal offset 153, the last q
+    tile half past Sq): the output lands in a view of a NaN-filled buffer
+    whose spare rows stay NaN."""
+    s = dict(b=2, sq=300, skv=453, h=4, kvh=2, d=128)
+    q, k, v, _, mask = _flash_case(dev, dtype, s, variant, 14)
+    buf = torch.full((2, 340, 4, 128), float("nan"), dtype=dtype,
+                     device=dev)
+    _hold_fwd(q, k, v, mask, dtype, out=buf[:, :300])
+    assert bool(torch.isfinite(buf[:, :300]).all())
+    assert bool(torch.isnan(buf[:, 300:]).all())
 
 
 def test_flash_autograd_matches_plain_attention(dev):
