@@ -24,12 +24,12 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              plain versions (O, LSE, dQ, dK, dV) at llama2-1b (B=2, S=4096),
              mistral-7b heads (S=8192, window 4096), 4 packed documents,
              ALiBi with bloom-7b1 heads and an unaligned S=4000, in bf16 and
-             float32 (O also held row by row); times, bounds, the forward's
-             kernel as the library reports it (bf16: the Hopper wgmma + TMA
-             one, float32: the CUDA-core one), its TFLOP/s and the host's
-             time per forward call, and SDPA forward / backward as the
-             yardstick where it computes the same function (llama2-1b,
-             unaligned-4000).
+             float32 (O, dQ, dK and dV also held row by row); times, bounds,
+             each kernel as the library names it (bf16: the Hopper wgmma +
+             TMA ones, float32: the CUDA-core ones), each kernel's TFLOP/s,
+             the host's time per forward call, and SDPA forward / backward
+             as the yardstick where it computes the same function
+             (llama2-1b, unaligned-4000).
 5. serve   — ``InferenceEngineV2`` serving llama2-7b at full width and depth
              (bf16, random weights from a seed): greedy ``generate`` on 8
              prompts of 128-1024 tokens, 32 new tokens each. Kernel launch
@@ -38,7 +38,7 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              and depth (bf16, AdamW, WarmupLR, clipping, 2 micro-batches of
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
              and read just after, asserted per step, and no operand copied
-             for the forward's TMA.
+             for any kernel's TMA (forward, dQ, dK/dV).
 7. parity  — the serving width cut to 4 layers in float32: the engine
              through the kernel against the engine through the plain path and
              the dense ``CausalLM.apply`` (plain attention).
@@ -77,6 +77,10 @@ from functools import partial
 MEM_BYTES_PER_S = 3.35e12                    # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# gradient rows below this share of the tensor's largest magnitude are held
+# against it: dQ of a query that sees one key is exactly zero (its dS row
+# sums to zero) and comes out as float32 noise on both sides
+GRAD_ROW_FLOOR = 1e-2
 LSE_TOL = 1e-4              # absolute: LSE is float32 in kernel and plain
 PARITY_TOL = 5e-4
 # train parity, float32 through the kernels vs the plain path: loss and
@@ -165,15 +169,23 @@ def hold(what, got, want, tol, relative=True):
     return err, lim
 
 
-def hold_rows(what, got, want, tol):
-    """Largest over rows (every index but the last) of the row's max abs
-    error over the row's largest |want|; raises past ``tol``. Unlike
-    ``hold``, the few rows of large magnitude (attention's first rows) do
-    not set the limit for the many small ones. A row that is zero in
-    ``want`` (a masked row) must be zero in ``got``."""
+def row_err(got, want, floor=0.0):
+    """The largest over rows of the row's max abs error over its largest
+    |want| (or ``floor`` times the largest |want| where that is more)."""
     g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
-    ratio = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
-    err = float(ratio.max())
+    den = w.abs().amax(-1).clamp_min(max(1e-30,
+                                         floor * float(w.abs().max())))
+    return float(((g - w).abs().amax(-1) / den).max())
+
+
+def hold_rows(what, got, want, tol, floor=0.0):
+    """Largest over rows (every index but the last) of the row's max abs
+    error over the row's largest |want|, or over ``floor`` times the
+    largest |want| where that is more; raises past ``tol``. Unlike
+    ``hold``, the few rows of large magnitude (attention's first rows) do
+    not set the limit for the many small ones. With no floor a row that is
+    zero in ``want`` (a masked row) must be zero in ``got``."""
+    err = row_err(got, want, floor)
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"{what}: kernel vs plain row-relative err "
                              f"{err} > {tol}")
@@ -194,9 +206,9 @@ def _instantiations(log_text):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_kernel|flash_fwd_sm90_"
-                          r"kernel|paged_attention_kernel)I(f|13__nv_bfloat16|"
-                          r"6__half)((?:Li\d+E)+)", name)
+            k = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_kernel|flash_(?:fwd|dq|"
+                          r"dkv)_sm90_kernel|paged_attention_kernel)I(f|"
+                          r"13__nv_bfloat16|6__half)((?:Li\d+E)+)", name)
             label = name if k is None else "{}<{},{}>".format(
                 k.group(1), {"f": "fp32", "13__nv_bfloat16": "bf16",
                              "6__half": "fp16"}[k.group(2)],
@@ -426,6 +438,10 @@ FLASH_CASES = [
 ]
 
 
+# flops per visible (query, key) pair, q head and unit of D
+FLASH_FLOPS = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+
+
 def flash_inputs(torch, c, dtype, seed):
     """q, k, v, dO (random normal from a seed) and the normalised mask."""
     from deepspeedsyclsupport_tpu_torch.models.layers import alibi_slopes
@@ -477,11 +493,12 @@ def flash_bounds(c, dtype, pairs):
     es = 4 if dtype == "float32" else 2
     b, s, h, kvh, d = c["b"], c["s"], c["h"], c["kvh"], c["d"]
     qb, kvb, row = b * s * h * d * es, b * s * kvh * d * es, b * h * s * 4
-    work = {"flash_fwd": (qb + 2 * kvb + qb + row, 4 * d * pairs * h),
-            "flash_dq": (3 * qb + 2 * kvb + 2 * row, 6 * d * pairs * h),
-            "flash_dkv": (2 * qb + 4 * kvb + 2 * row, 8 * d * pairs * h)}
+    moved = {"flash_fwd": qb + 2 * kvb + qb + row,
+             "flash_dq": 3 * qb + 2 * kvb + 2 * row,
+             "flash_dkv": 2 * qb + 4 * kvb + 2 * row}
     out = {}
-    for name, (nbytes, flops) in work.items():
+    for name, nbytes in moved.items():
+        flops = FLASH_FLOPS[name] * d * pairs * h
         t_bytes = nbytes / MEM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS[dtype]
         out[name] = (max(t_bytes, t_ops) * 1e3,
@@ -512,6 +529,33 @@ def sdpa_times(torch, q, k, v, do, gqa):
     return fwd_nograd, cuda_ms(torch, fwd_bwd, reps=5) - fwd
 
 
+def flash_routes(fa, dtype, d):
+    """Each flash kernel the built library launches for (dtype, D)."""
+    return {f"flash_{k}": fa.kernel_name(k, dtype, d)
+            for k in ("fwd", "dq", "dkv", "dbias")}
+
+
+def hold_grad_rows(what, grads, refs, tol):
+    """dq, dk and dv held row by row (``hold_rows`` with the floor)."""
+    return {f"{n}_row": hold_rows(f"{what} {n}", g, r, tol, GRAD_ROW_FLOOR)
+            for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+
+
+def hold_kernel_rows(fa, what, args, refs, tol, bias=None):
+    """The dQ and dK/dV kernels on ``args`` (q, k, v, dO, LSE, delta,
+    mask: the plain version's inputs) held row by row against ``refs``."""
+    got = (fa.flash_dq(*args, bias=bias), *fa.flash_dkv(*args, bias=bias))
+    return hold_grad_rows(what, got, refs, tol)
+
+
+def e2e_rows(grads, refs):
+    """Row errors of end-to-end grads (logged, not held: delta comes from
+    each side's own O there, and the forward's rounding of P moves it by
+    an ulp of O, which the dQ rows of a peaked softmax do not absorb)."""
+    return {f"e2e_{n}_row": row_err(g, r, GRAD_ROW_FLOOR)
+            for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+
+
 def check_flash(torch, np, c, dtype, seed):
     """Kernels vs plain versions on one case; returns a result row."""
     from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
@@ -534,12 +578,14 @@ def check_flash(torch, np, c, dtype, seed):
         errs[name] = hold(f"flash {c['name']} {dtype} {name}", got, want,
                           tol)
     errs["o_row"] = hold_rows(f"flash {c['name']} {dtype} o", o, o_ref, tol)
+    errs.update(hold_grad_rows(f"flash {c['name']} {dtype}", (dq, dk, dv),
+                               refs, tol))
     del o_ref, lse_ref, refs, o, dq, dk, dv
     args = (q, k, v, do, lse, delta, mask)
     ms = {"flash_fwd": cuda_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
                                reps=5),
-          "flash_dq": cuda_ms(torch, lambda: fa.flash_dq(*args), reps=3),
-          "flash_dkv": cuda_ms(torch, lambda: fa.flash_dkv(*args), reps=3)}
+          "flash_dq": cuda_ms(torch, lambda: fa.flash_dq(*args), reps=5),
+          "flash_dkv": cuda_ms(torch, lambda: fa.flash_dkv(*args), reps=5)}
     plain = {
         "flash_fwd": cuda_ms(torch, lambda: fa.flash_attention_fwd_reference(
             q, k, v, mask), reps=1, warmup=1),
@@ -553,11 +599,11 @@ def check_flash(torch, np, c, dtype, seed):
         f, bwd = sdpa_times(torch, q, k, v, do, c["kvh"] != c["h"])
         library = {"flash_fwd": f, "flash_dq": bwd, "flash_dkv": bwd}
     pairs = visible_pairs(torch, mask, c["b"], c["s"], c["s"])
-    fwd_flops = 4 * c["d"] * pairs * c["h"]
+    flops = {n: f * c["d"] * pairs * c["h"] for n, f in FLASH_FLOPS.items()}
     return dict(case=c["name"], dtype=dtype, errs=errs, ms=ms, plain=plain,
                 library=library, bounds=flash_bounds(c, dtype, pairs),
-                pairs=pairs, route=fa.fwd_kernel(q.dtype),
-                fwd_tflops=fwd_flops / (ms["flash_fwd"] * 1e-3) / 1e12,
+                pairs=pairs, routes=flash_routes(fa, q.dtype, c["d"]),
+                tflops={n: flops[n] / (ms[n] * 1e-3) / 1e12 for n in ms},
                 host_us=host_us_per_call(torch, lambda: fa.flash_fwd(
                     q, k, v, mask)))
 
@@ -576,9 +622,11 @@ def phase_flash(torch, np):
                 + ")" for n in ("flash_fwd", "flash_dq", "flash_dkv"))
             log("flash", f"{c['name']} {dtype} B={c['b']} S={c['s']} "
                 f"H={c['h']}/{c['kvh']} D={c['d']}, {r['pairs']} visible "
-                f"pairs/head: {err} | {times} | forward kernel {r['route']}, "
-                f"{r['fwd_tflops']:.1f} TFLOP/s, host "
-                f"{r['host_us']:.1f} us per forward call")
+                f"pairs/head: {err} | {times} | kernels "
+                + ", ".join(f"{n[6:]} {r['routes'][n]} "
+                            f"{r['tflops'][n]:.1f} TFLOP/s"
+                            for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+                + f" | host {r['host_us']:.1f} us per forward call")
             rows[(c["name"], dtype)] = r
             torch.cuda.empty_cache()
     return rows
@@ -701,9 +749,9 @@ def phase_train(torch, np):
             raise AssertionError(f"step {step + 1}: flash launches {got}, "
                                  f"want {want} ({cfg.num_layers} layers x "
                                  f"{gas} micro-batches)")
-        if fa.COPIES["flash_fwd"]:
-            raise AssertionError(f"step {step + 1}: the forward copied "
-                                 f"{fa.COPIES['flash_fwd']} operands for TMA")
+        if any(fa.COPIES.values()):
+            raise AssertionError(f"step {step + 1}: operands copied for "
+                                 f"TMA {fa.COPIES}")
     launches = dict(fa.LAUNCHES)
     losses = [x[0] for x in steps]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -714,9 +762,9 @@ def phase_train(torch, np):
         f" ms/step, {n_tok * len(timed) / sum(timed):.0f} tokens/s, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash launches "
-        f"over {TRAIN_STEPS} steps {launches}, forward kernel "
-        f"{fa.fwd_kernel(torch.bfloat16)}, operands copied for TMA "
-        f"{fa.COPIES['flash_fwd']}")
+        f"over {TRAIN_STEPS} steps {launches}, kernels "
+        f"{flash_routes(fa, torch.bfloat16, cfg.head_dim)}, operands copied "
+        f"for TMA {fa.COPIES}")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -955,6 +1003,11 @@ def check_evoformer(torch, c, dtype, seed):
                               (*refs, dpair_ref[:, None])):
         errs[name] = hold(f"evoformer {c['name']} {dtype} {name}",
                           got.grad.reshape(ref.shape), ref, tol)
+    errs.update(hold_kernel_rows(
+        fa, f"evoformer {c['name']} {dtype}",
+        (qf, kf, vf, dof, lse_ref, delta_ref, mask), refs, tol, bias))
+    e2e = e2e_rows([t.grad.reshape(r.shape) for t, r in zip(leaves, refs)],
+                   refs)
     del out, leaves, o_ref, refs, dpair_ref
 
     delta = fa.attention_delta(dof, o)
@@ -986,7 +1039,7 @@ def check_evoformer(torch, c, dtype, seed):
                          dbias_bytes=4 * bias.numel())
     return dict(case=c["name"], dtype=dtype, errs=errs, ms=ms, plain=plain,
                 library=library, note=note, bounds=bounds, launches=launches,
-                wall_ms=wall_ms)
+                wall_ms=wall_ms, routes=flash_routes(fa, q.dtype, d), e2e=e2e)
 
 
 def check_full_bias(torch, dtype, seed):
@@ -1025,7 +1078,10 @@ def check_full_bias(torch, dtype, seed):
     for name, t, ref in zip(("dq", "dk", "dv", "dbias"), leaves,
                             (*refs, dbias_ref)):
         errs[name] = hold(f"full-bias {dtype} {name}", t.grad, ref, tol)
-    return errs, launches
+    errs.update(hold_kernel_rows(fa, f"full-bias {dtype}",
+                                 (q, k, v, do, lse_ref, delta, mask), refs,
+                                 tol, b32))
+    return errs, launches, e2e_rows([t.grad for t in leaves[:3]], refs)
 
 
 def phase_evoformer(torch, np):
@@ -1047,16 +1103,20 @@ def phase_evoformer(torch, np):
             log("evoformer", f"{c['name']} {dtype} B={c['b']} N={c['n']} "
                 f"S={c['s']} H={c['h']} D={c['d']}: fwd+bwd through "
                 f"DS4Sci_EvoformerAttention {r['wall_ms']:.1f} ms wall, "
-                f"launches {r['launches']}; {err} | {times} | sdpa: "
-                f"{r['note']}")
+                f"launches {r['launches']}, kernels {r['routes']}; {err} | "
+                f"end to end (not held) " + ", ".join(
+                    f"{k} {e:.3g}" for k, e in r["e2e"].items())
+                + f" | {times} | sdpa: {r['note']}")
             rows[(c["name"], dtype)] = r
             torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
-        errs, got = check_full_bias(torch, dtype, seed=40)
+        errs, got, e2e = check_full_bias(torch, dtype, seed=40)
         log("evoformer", f"full-shape pair bias [4, 8, 1024, 1024] through "
             f"flash_attention {dtype}, causal, D=64: launches {got}; "
             + ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
-                        for k, (e, lim) in errs.items()))
+                        for k, (e, lim) in errs.items())
+            + " | end to end (not held) "
+            + ", ".join(f"{k} {e:.3g}" for k, e in e2e.items()))
         torch.cuda.empty_cache()
     return rows, launches
 
@@ -1114,6 +1174,10 @@ def phase_sparse(torch, np):
                         relative=False)}
     for name, t, ref in zip(("dq", "dk", "dv"), leaves, refs):
         errs[name] = hold(f"sparse {name}", t.grad, ref, tol)
+    errs.update(hold_kernel_rows(fa, "sparse",
+                                 (q, k, v, do, lse_ref, delta, mask), refs,
+                                 tol))
+    e2e = e2e_rows([t.grad for t in leaves], refs)
     del out, leaves, o_ref, refs
 
     args = (q, k, v, do, lse_ref, delta, mask)
@@ -1151,9 +1215,12 @@ def phase_sparse(torch, np):
         f"block {blk}, layout {tuple(layout.shape)} with "
         f"{int(layout.sum())} live blocks ({pairs / c['s'] ** 2:.1%} of "
         f"pairs), bf16, non-causal: fwd+bwd through sparse_attention "
-        f"{wall_ms:.1f} ms wall, launches {launches}; "
+        f"{wall_ms:.1f} ms wall, launches {launches}, kernels "
+        f"{flash_routes(fa, torch.bfloat16, c['d'])}; "
         + ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
                     for k, (e, lim) in errs.items())
+        + " | end to end (not held) "
+        + ", ".join(f"{k} {e:.3g}" for k, e in e2e.items())
         + " | " + " | ".join(
             f"{n[6:]} {ms[n]:.3f} ms (plain {plain[n]:.3f}, bound "
             f"{bounds[n][0]:.4f} {bounds[n][1]})" for n in ms)

@@ -6,8 +6,11 @@
 //   flash_fwd_sm90_kernel (bfloat16, float16) and
 //   flash_fwd_kernel (float32)
 //                      <- _fwd_kernel   (:145), launched by _fwd_call (:481)
-//   flash_dq_kernel    <- _dq_kernel    (:208), launched by _bwd_call (:535)
-//   flash_dkv_kernel   <- _dkv_kernel   (:273), launched by _bwd_call (:535)
+//   flash_dq_sm90_kernel (bfloat16, float16 at D <= 128) and
+//   flash_dq_kernel (float32; bfloat16, float16 above D = 128)
+//                      <- _dq_kernel    (:208), launched by _bwd_call (:535)
+//   flash_dkv_sm90_kernel / flash_dkv_kernel, the same split
+//                      <- _dkv_kernel   (:273), launched by _bwd_call (:535)
 //   flash_dbias_kernel <- _dbias_kernel (:330), launched by _dbias_call (:384)
 //
 // What they compute. q [B, Sq, H, D], k/v [B, Skv, KVH, D] and o/do/dq/dk/dv
@@ -48,9 +51,11 @@
 // All products accumulate in float32; outputs are stored in the inputs'
 // type (float32, bfloat16 or float16), LSE and dbias in float32.
 //
-// The bfloat16 / float16 forward is a Hopper design of its own (wgmma,
-// TMA, mbarriers, warp specialisation): see flash_fwd_sm90_kernel below.
-// Design of the others (first, simple version). 256 threads as 16 x 16;
+// The bfloat16 / float16 forward, and their dQ and dK/dV at D <= 128, are
+// Hopper designs of their own (wgmma, TMA, mbarriers, warp
+// specialisation): see flash_fwd_sm90_kernel and flash_dq_sm90_kernel
+// below. Design of the others (first, simple version). 256 threads as
+// 16 x 16;
 // each thread owns an RI x CJ tile of the score block and RI rows x D/16
 // columns of its accumulators, as in csrc/paged_attention.cu.
 //   forward (float32): one CTA per (q tile of 64 rows, q head, batch); walks the KV
@@ -1109,6 +1114,47 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Round an accumulator fragment to T in pairs: its 16 columns [16 kk, 16 kk
+// + 16) are the register A fragment of k step kk.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 8][4],
+                                       const float (&x)[N]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Row row of an m64nN accumulator fragment (acc[4 jb + 2 rr + c] is column
+// 8 jb + 2 t4 + c), times mul, in T into the first d columns of `out`;
+// pairs when the row is 4-byte aligned.
+template <typename T, int N>
+__device__ __forceinline__ void store_fragment_row(T* out,
+                                                   const float (&acc)[N],
+                                                   int rr, int t4, int d,
+                                                   float mul, bool pairs) {
+#pragma unroll
+  for (int jb = 0; jb < N / 4; ++jb) {
+    const int c = 8 * jb + 2 * t4;
+    const float x0 = acc[4 * jb + 2 * rr] * mul;
+    const float x1 = acc[4 * jb + 2 * rr + 1] * mul;
+    if (pairs && c + 1 < d) {
+      *reinterpret_cast<uint32_t*>(out + c) = pack2<T>(x0, x1);
+    } else {
+      if (c < d) out[c] = from_f<T>(x0);
+      if (c + 1 < d) out[c + 1] = from_f<T>(x1);
+    }
+  }
+}
+
+// Whether output t can be stored in pairs of T (4-byte aligned rows).
+__device__ __forceinline__ bool pair_aligned(const void* base, const Args& p,
+                                             int t) {
+  return reinterpret_cast<uintptr_t>(base) % 4 == 0 && p.st[t][0] % 2 == 0 &&
+         p.st[t][1] % 2 == 0 && p.st[t][2] % 2 == 0;
+}
+
 // The scores of one S fragment: s[4 jb + 2 rr + c] is q . k of row
 // row0 + 8 rr and column j0 + 8 jb + 2 t4 + c.
 template <bool EXTRA, int N>
@@ -1293,11 +1339,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
       // P in T: the S fragment of columns [16 kk, 16 kk + 16) is the A
       // fragment of k step kk
       uint32_t pa[BC / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BC / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      pack_a<T>(pa, s);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
@@ -1317,9 +1359,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
 
     // O / max(l, 1e-30) in T through the output strides, LSE
     T* out = static_cast<T*>(p.o);
-    const bool pairs = reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
-                       p.st[kO][0] % 2 == 0 && p.st[kO][1] % 2 == 0 &&
-                       p.st[kO][2] % 2 == 0;
+    const bool pairs = pair_aligned(out, p, kO);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
@@ -1344,6 +1384,480 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
         }
       if (t4 == 0)
         p.lse_out[((size_t)b * p.h + hq) * p.sq + i] = m[rr] + logf(denom);
+    }
+  }
+}
+
+// ----------------------------------------------- backward on Hopper (sm_90a)
+// flash_dq_sm90_kernel and flash_dkv_sm90_kernel: the bfloat16 / float16
+// backward at D <= 128 (bwd_on_sm90), with the Args, semantics and outputs
+// of flash_dq_kernel and flash_dkv_kernel, which keep float32 (TF32 would
+// break the float32 contracts) and D > 128 (at DMAX 256 dK and dV alone
+// would be 256 float32 registers a thread). Built like the forward: 384
+// threads, warpgroups 0 and 1 consume 64 rows each, one thread (dQ) or one
+// warp (dK/dV) of warpgroup 2 fills the ring; setmaxnreg 40 / 232; tiles in
+// T as 64-column (128-byte) chunks [chunk][row][64] with the 128-byte
+// swizzle, loaded by TMA; one full and one empty mbarrier per stage.
+//   dQ: 128 q rows of one (q head, batch), q tiles in reverse (the long
+//     causal rows first). Q and dO are loaded once, LSE and delta of the two
+//     rows a thread owns go to registers, and a two-stage ring brings K and
+//     V in tiles of BC = 64 keys over kv_range. Per tile: S = Q K^T and dP =
+//     dO V^T (wgmma, both operands K-major); the scores on the fragment as
+//     in the forward (a whole tile only takes the scale); P = exp(s - LSE)
+//     and dS = P (dP - delta) in registers, dS stored in float32 to the
+//     full-shape dbias when asked; dQ += dS K with dS rounded to T as the
+//     register A operand and K read MN-major (the forward's V).
+//   dK/dV: 128 keys of one (kv head, batch), key tiles in order (tile 0 has
+//     the most q tiles under causality). K and V are loaded once; a
+//     two-stage ring brings (Q, dO) tiles of BQ = 64 q rows over the G q
+//     heads of the kv head and q_range, and the producer warp stores those
+//     rows' LSE and delta into the stage. Per tile: S^T = K Q^T and dP^T =
+//     V dO^T (all four K-major as stored); the scores on a
+//     fragment whose rows are keys and columns queries
+//     (fragment_key_scores); then dV += P^T dO and dK += dS^T Q with P^T and
+//     dS^T rounded to T as register A operands, dO and Q read MN-major. The
+//     group sum stays in the CTA's registers; keys no query sees are
+//     written as zeros.
+// P and dS in T before the three products are the roundings the CUDA-core
+// versions do not do (their P and dS stay float32). Nothing crosses CTAs and
+// every sum runs in a fixed order, so the same inputs give the same bits: no
+// dQ atomics, hence no fused single-pass backward (10 D flops per pair
+// against these kernels' 14 D) until dQ can be accumulated in order.
+// Bound at llama2-1b (S = 4096, D = 128, causal): 206 GFLOP (dQ) and 275
+// GFLOP (dK/dV) on the tensor cores, 0.208 + 0.278 ms at 989 TFLOP/s. A
+// warpgroup waits for its own products before each epilogue and before it
+// releases a stage; only the two warpgroups overlap each other.
+template <int DMAX>
+struct BwdTiles {
+  static constexpr int BR = 128;     // rows a CTA owns: q rows / keys
+  static constexpr int BT = 64;      // rows of a ring tile: keys / q rows
+  static constexpr int CH = DMAX / 64;
+  static constexpr int OWN_BYTES = CH * BR * 128;   // Q, dO / K, V
+  static constexpr int TILE_BYTES = CH * BT * 128;  // K, V / Q, dO
+  // dK/dV: LSE and delta of each stage's rows, float [2 stages][BT] each
+  static constexpr int ROWS_OFF = 2 * OWN_BYTES + 4 * TILE_BYTES;
+  static constexpr int BAR_OFF = ROWS_OFF + 2 * 2 * BT * 4;
+  // barriers: loaded-once full, full[2], empty[2]; 1024 for the swizzle
+  static constexpr int SMEM = BAR_OFF + 5 * 8 + 1024;
+};
+
+// The scores of one S^T fragment (dK/dV): s[4 jb + 2 rr + c] is k . q of key
+// key0 + 8 rr and query i0 + 8 jb + 2 t4 + c; queries at or past hi are
+// hidden by index.
+template <bool EXTRA, int N>
+__device__ __forceinline__ void fragment_key_scores(
+    const Args& p, const Extra& e, float (&s)[N], const int (&kpos)[2],
+    const int (&kseg)[2], const bool (&klive)[2], float slope, int b,
+    int key0, int i0, int hi, int t4) {
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const int jb = x / 2, c = x % 2;
+    const int i = i0 + 8 * jb + 2 * t4 + c;
+    const bool ilive = i < hi;
+    const int qpos = ilive ? qpos_of(p, b, i) : 0;
+    const int qseg = ilive ? qseg_of(p, b, i) : 0;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float& v = s[4 * jb + 2 * rr + c];
+      const bool ok = ilive && klive[rr] &&
+                      visible(p, qpos, kpos[rr], qseg, kseg[rr]);
+      const float xv = v * p.scale + slope * (float)(kpos[rr] - qpos);
+      v = score<EXTRA>(p, e, ok, xv, i, key0 + 8 * rr);
+    }
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
+    const Args p, const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv) {
+  using L = BwdTiles<DMAX>;
+  constexpr int BR = L::BR, BC = L::BT, CH = L::CH;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + L::OWN_BYTES;
+  const uint32_t k_s = do_s + L::OWN_BYTES;       // [stage][chunk][BC][64]
+  const uint32_t v_s = k_s + 2 * L::TILE_BYTES;
+  const uint32_t bar_q = q_s + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_q + 24;   // + 8 s
+
+  // the longest causal rows first: q tiles in reverse, each over every
+  // (head, batch)
+  const int per_tile = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                            blockIdx.z);
+  const int qt = gridDim.x - 1 - lin / per_tile;
+  const int hq = lin % per_tile % gridDim.y, b = lin % per_tile / gridDim.y;
+  const int i0 = qt * BR, i1 = min(i0 + BR, p.sq);
+  const int kh = hq / (p.h / p.kvh);
+  const Extra e = extra_of(p, b, hq);
+  int lo, hi;
+  kv_range(p, i0, i1, lo, hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, 2 * L::OWN_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load(q_s + c * BR * 128, &tq, bar_q, 64 * c, hq, i0, b);
+        tma_load(do_s + c * BR * 128, &tdo, bar_q, 64 * c, hq, i0, b);
+      }
+      int t = 0;
+      for (int j0 = lo; j0 < hi; j0 += BC) {
+        if (!layout_tile_live(p, e.lp, i0, i1, j0, min(j0 + BC, hi)))
+          continue;
+        const int s = t & 1, round = t >> 1;
+        if (round > 0) mbar_wait(bar_empty + 8 * s, (round - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::TILE_BYTES);
+        for (int c = 0; c < CH; ++c) {
+          const uint32_t off = s * L::TILE_BYTES + c * BC * 128;
+          tma_load(k_s + off, &tk, full, 64 * c, kh, j0, b);
+          tma_load(v_s + off, &tv, full, 64 * c, kh, j0, b);
+        }
+        ++t;
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wr0 = i0 + 64 * wg;                 // the warpgroup's rows
+    const int row0 = wr0 + 16 * warp + g;         // mine: row0, row0 + 8
+    int qpos[2], qseg[2];
+    bool qlive[2];
+    float lse[2], dl[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = row0 + 8 * rr;
+      qlive[rr] = i < p.sq;
+      const size_t row = ((size_t)b * p.h + hq) * p.sq + i;
+      qpos[rr] = qlive[rr] ? qpos_of(p, b, i) : 0;
+      qseg[rr] = qlive[rr] ? qseg_of(p, b, i) : 0;
+      lse[rr] = qlive[rr] ? p.lse[row] : 0.f;
+      dl[rr] = qlive[rr] ? p.delta[row] : 0.f;
+    }
+    const float slope = p.alibi ? p.alibi[hq] : 0.f;
+    const bool plain = p.default_pos && p.seg_q == nullptr &&
+                       p.alibi == nullptr && !e.any();
+    float* dbp = p.dbias ? p.dbias + ((size_t)b * p.h + hq) * p.sq * p.skv
+                         : nullptr;
+    float s[BC / 2], dp[BC / 2], dq[DMAX / 2];
+#pragma unroll
+    for (int i = 0; i < BC / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DMAX / 2; ++i) dq[i] = 0.f;
+    const uint32_t q_wg = q_s + wg * 64 * 128, do_wg = do_s + wg * 64 * 128;
+
+    mbar_wait(bar_q, 0);
+    int t = 0;
+    for (int j0 = lo; j0 < hi; j0 += BC) {
+      if (!layout_tile_live(p, e.lp, i0, i1, j0, min(j0 + BC, hi))) continue;
+      const int st = t & 1;
+      mbar_wait(bar_full + 8 * st, (t >> 1) & 1);
+      const uint32_t ks = k_s + st * L::TILE_BYTES;
+      const uint32_t vs = v_s + st * L::TILE_BYTES;
+
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)      // 16 columns of D per step
+          wgmma_ss<T, BC>(
+              s, sw128_desc(q_wg + c * BR * 128 + kk * 32, 16, 1024),
+              sw128_desc(ks + c * BC * 128 + kk * 32, 16, 1024), c + kk > 0);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<T, BC>(
+              dp, sw128_desc(do_wg + c * BR * 128 + kk * 32, 16, 1024),
+              sw128_desc(vs + c * BC * 128 + kk * 32, 16, 1024), c + kk > 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // s - LSE, then dS = P (dP - delta) into s; s[i] belongs to row
+      // rr = (i / 2) % 2. LSE is subtracted before the scaling by log2(e):
+      // a row whose visible scores carry a -1e9 bias has LSE ~ -1e9, and
+      // s log2(e) - LSE log2(e) would lose the difference to rounding.
+      const bool whole =
+          plain && wr0 + 64 <= p.sq && j0 + BC <= hi &&
+          (!p.causal || j0 + BC - 1 <= wr0 + p.offset) &&
+          (p.window <= 0 || wr0 + 63 + p.offset - j0 < p.window);
+      if (whole) {   // every row of the warpgroup sees the tile whole
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i)
+          s[i] = fmaf(s[i], p.scale, -lse[(i >> 1) & 1]);
+      } else {
+        if (e.any())
+          fragment_scores<true>(p, e, s, qpos, qseg, qlive, slope, b, row0,
+                                j0, hi, t4);
+        else
+          fragment_scores<false>(p, e, s, qpos, qseg, qlive, slope, b, row0,
+                                 j0, hi, t4);
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i) s[i] -= lse[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int i = 0; i < BC / 2; ++i)     // exp2(-inf) = 0 where hidden
+        s[i] = exp2f(s[i] * kLog2e) * (dp[i] - dl[(i >> 1) & 1]);
+      if (dbp) {  // s = scaled qk + bias, so the bias gradient is dS itself
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i) {
+          const int rr = (i >> 1) & 1;
+          const int j = j0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          if (qlive[rr] && j < hi)
+            dbp[(size_t)(row0 + 8 * rr) * p.skv + j] = s[i];
+        }
+      }
+      uint32_t da[BC / 16][4];
+      pack_a<T>(da, s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
+        wgmma_rs<T, DMAX>(dq, da[kk],
+                          sw128_desc(ks + kk * 16 * 128, BC * 128, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(dq);
+      mbar_arrive(bar_empty + 8 * st);
+      ++t;
+    }
+
+    // dQ scale in T through the output strides
+    T* out = static_cast<T*>(p.dq);
+    const bool pairs = pair_aligned(out, p, kDQ);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      if (qlive[rr])
+        store_fragment_row<T>(out + at(p, kDQ, b, row0 + 8 * rr, hq), dq,
+                              rr, t4, p.d, p.scale, pairs);
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
+    const Args p, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo) {
+  using L = BwdTiles<DMAX>;
+  constexpr int BR = L::BR, BQ = L::BT, CH = L::CH;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t k_s = (raw + 1023) & ~1023u;
+  const uint32_t v_s = k_s + L::OWN_BYTES;
+  const uint32_t q_s = v_s + L::OWN_BYTES;        // [stage][chunk][BQ][64]
+  const uint32_t do_s = q_s + 2 * L::TILE_BYTES;
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (k_s - raw) +
+                                          L::ROWS_OFF);   // [stage][BQ]
+  float* dl_s = lse_s + 2 * BQ;                           // [stage][BQ]
+  const uint32_t bar_kv = k_s + L::BAR_OFF;
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_kv + 24;
+
+  // key tiles in order (tile 0 has the most q tiles under causality), each
+  // over every (kv head, batch)
+  const int per_tile = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                            blockIdx.z);
+  const int kt = lin / per_tile;
+  const int kh = lin % per_tile % gridDim.y, b = lin % per_tile / gridDim.y;
+  const int j0 = kt * BR, j1 = min(j0 + BR, p.skv);
+  const int G = p.h / p.kvh;
+  int lo, hi;
+  q_range(p, j0, j1, lo, hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_full + 8 * s, 32);        // the producer warp
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * L::OWN_BYTES);
+        for (int c = 0; c < CH; ++c) {
+          tma_load(k_s + c * BR * 128, &tk, bar_kv, 64 * c, kh, j0, b);
+          tma_load(v_s + c * BR * 128, &tv, bar_kv, 64 * c, kh, j0, b);
+        }
+      }
+      int t = 0;
+      for (int g = 0; g < G; ++g) {
+        const int hq = kh * G + g;
+        const Extra e = extra_of(p, b, hq);
+        const size_t rows = ((size_t)b * p.h + hq) * p.sq;
+        for (int i0 = lo; i0 < hi; i0 += BQ) {
+          if (!layout_tile_live(p, e.lp, i0, min(i0 + BQ, hi), j0, j1))
+            continue;
+          const int s = t & 1, round = t >> 1;
+          if (round > 0) mbar_wait(bar_empty + 8 * s, (round - 1) & 1);
+          for (int r = lane; r < BQ; r += 32) {
+            const int i = i0 + r;
+            lse_s[s * BQ + r] = i < p.sq ? p.lse[rows + i] : 0.f;
+            dl_s[s * BQ + r] = i < p.sq ? p.delta[rows + i] : 0.f;
+          }
+          const uint32_t full = bar_full + 8 * s;
+          if (lane == 0) {   // its arrival carries the copies' bytes
+            mbar_expect_tx(full, 2 * L::TILE_BYTES);
+            for (int c = 0; c < CH; ++c) {
+              const uint32_t off = s * L::TILE_BYTES + c * BQ * 128;
+              tma_load(q_s + off, &tq, full, 64 * c, hq, i0, b);
+              tma_load(do_s + off, &tdo, full, 64 * c, hq, i0, b);
+            }
+          } else {
+            mbar_arrive(full);
+          }
+          ++t;
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+    const int g4 = lane / 4, t4 = lane % 4;
+    const int kr0 = j0 + 64 * wg;                 // the warpgroup's keys
+    const int key0 = kr0 + 16 * warp + g4;        // mine: key0, key0 + 8
+    int kpos[2], kseg[2];
+    bool klive[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int j = key0 + 8 * rr;
+      klive[rr] = j < p.skv;
+      kpos[rr] = klive[rr] ? kpos_of(p, b, j) : 0;
+      kseg[rr] = klive[rr] ? kseg_of(p, b, j) : 0;
+    }
+    float s[BQ / 2], dp[BQ / 2], dk[DMAX / 2], dv[DMAX / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DMAX / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t k_wg = k_s + wg * 64 * 128, v_wg = v_s + wg * 64 * 128;
+
+    mbar_wait(bar_kv, 0);
+    int t = 0;
+    for (int g = 0; g < G; ++g) {
+      const int hq = kh * G + g;
+      const float slope = p.alibi ? p.alibi[hq] : 0.f;
+      const Extra e = extra_of(p, b, hq);
+      const bool plain = p.default_pos && p.seg_q == nullptr &&
+                         p.alibi == nullptr && !e.any();
+      for (int i0 = lo; i0 < hi; i0 += BQ) {
+        if (!layout_tile_live(p, e.lp, i0, min(i0 + BQ, hi), j0, j1))
+          continue;
+        const int st = t & 1;
+        mbar_wait(bar_full + 8 * st, (t >> 1) & 1);
+        const uint32_t qs = q_s + st * L::TILE_BYTES;
+        const uint32_t dos = do_s + st * L::TILE_BYTES;
+
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<T, BQ>(
+                s, sw128_desc(k_wg + c * BR * 128 + kk * 32, 16, 1024),
+                sw128_desc(qs + c * BQ * 128 + kk * 32, 16, 1024),
+                c + kk > 0);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<T, BQ>(
+                dp, sw128_desc(v_wg + c * BR * 128 + kk * 32, 16, 1024),
+                sw128_desc(dos + c * BQ * 128 + kk * 32, 16, 1024),
+                c + kk > 0);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // a tile whose every query sees every key of the warpgroup only
+        // takes the scale; LSE is subtracted before the scaling by log2(e)
+        // (see the dQ kernel)
+        const bool whole =
+            plain && kr0 + 64 <= p.skv && i0 + BQ <= hi &&
+            (!p.causal || i0 + p.offset >= kr0 + 63) &&
+            (p.window <= 0 || i0 + BQ - 1 + p.offset - kr0 < p.window);
+        if (!whole) {
+          if (e.any())
+            fragment_key_scores<true>(p, e, s, kpos, kseg, klive, slope, b,
+                                      key0, i0, hi, t4);
+          else
+            fragment_key_scores<false>(p, e, s, kpos, kseg, klive, slope, b,
+                                       key0, i0, hi, t4);
+        }
+        const float mul = whole ? p.scale : 1.f;
+        // P^T into s, dS^T into dp; s[x] is query column 8 (x / 4) + 2 t4
+        // + (x % 2) of the stage
+        const float* ls = lse_s + st * BQ;
+        const float* dls = dl_s + st * BQ;
+#pragma unroll
+        for (int x = 0; x < BQ / 2; ++x) {
+          const int col = 8 * (x / 4) + 2 * t4 + (x & 1);
+          s[x] = exp2f(fmaf(s[x], mul, -ls[col]) * kLog2e);  // 0 if hidden
+          dp[x] = s[x] * (dp[x] - dls[col]);
+        }
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        pack_a<T>(pa, s);
+        pack_a<T>(da, dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {   // 16 q rows per step
+          wgmma_rs<T, DMAX>(dv, pa[kk],
+                            sw128_desc(dos + kk * 16 * 128, BQ * 128, 1024));
+          wgmma_rs<T, DMAX>(dk, da[kk],
+                            sw128_desc(qs + kk * 16 * 128, BQ * 128, 1024));
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+        mbar_arrive(bar_empty + 8 * st);
+        ++t;
+      }
+    }
+
+    // dK scale and dV in T through the output strides (zeros for keys no
+    // query sees: the wrapper does not fill them)
+    T* dko = static_cast<T*>(p.dk);
+    T* dvo = static_cast<T*>(p.dv);
+    const bool kpairs = pair_aligned(dko, p, kDK);
+    const bool vpairs = pair_aligned(dvo, p, kDV);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!klive[rr]) continue;
+      const int j = key0 + 8 * rr;
+      store_fragment_row<T>(dko + at(p, kDK, b, j, kh), dk, rr, t4, p.d,
+                            p.scale, kpairs);
+      store_fragment_row<T>(dvo + at(p, kDV, b, j, kh), dv, rr, t4, p.d,
+                            1.f, vpairs);
     }
   }
 }
@@ -1482,6 +1996,24 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, const Args& a,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// cudaFuncSetAttribute for the dynamic shared memory `kernel` takes, once
+// per device (`allowed` holds one bit per device, per instance).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes,
+                       std::atomic<unsigned long long>& allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int DMAX>
 cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
   using L = FwdTiles<DMAX>;
@@ -1493,20 +2025,46 @@ cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
     err = tensor_map(&tv, a.v, a, kV, a.kvh, a.skv, L::BC, dtype);
   if (err != cudaSuccess) return err;
   const auto kernel = flash_fwd_sm90_kernel<T, DMAX>;
-  // the shared-memory allowance, set once per device for this instance
   static std::atomic<unsigned long long> allowed{0};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  err = allow_smem(kernel, L::SMEM, allowed);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(allowed.load() & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-    if (err != cudaSuccess) return err;
-    allowed.fetch_or(bit);
-  }
   const dim3 grid((a.sq + L::BR - 1) / L::BR, a.h, a.b);
   kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, tq, tk, tv);
+  return cudaGetLastError();
+}
+
+// dQ: q and dO in boxes of the CTA's 128 rows, k and v of the ring's 64;
+// dK/dV: k and v of 128, q and dO of 64. One CTA per (128 rows, head,
+// batch): q rows and q heads for dQ, keys and kv heads for dK/dV.
+template <int KIND, typename T, int DMAX>
+cudaError_t launch_bwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
+  using L = BwdTiles<DMAX>;
+  constexpr bool dq_kind = KIND == kDq;
+  const int own_heads = dq_kind ? a.h : a.kvh;
+  const int own_rows = dq_kind ? a.sq : a.skv;
+  const int ring_heads = dq_kind ? a.kvh : a.h;
+  const int ring_rows = dq_kind ? a.skv : a.sq;
+  CUtensorMap m[4];
+  cudaError_t err = tensor_map(&m[0], dq_kind ? a.q : a.k, a,
+                               dq_kind ? kQ : kK, own_heads, own_rows, L::BR,
+                               dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&m[1], dq_kind ? a.dout : a.v, a, dq_kind ? kDO : kV,
+                     own_heads, own_rows, L::BR, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&m[2], dq_kind ? a.k : a.q, a, dq_kind ? kK : kQ,
+                     ring_heads, ring_rows, L::BT, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&m[3], dq_kind ? a.v : a.dout, a, dq_kind ? kV : kDO,
+                     ring_heads, ring_rows, L::BT, dtype);
+  if (err != cudaSuccess) return err;
+  const auto kernel = dq_kind ? flash_dq_sm90_kernel<T, DMAX>
+                              : flash_dkv_sm90_kernel<T, DMAX>;
+  static std::atomic<unsigned long long> allowed{0};
+  err = allow_smem(kernel, L::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((own_rows + L::BR - 1) / L::BR, own_heads, a.b);
+  kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, m[0], m[1], m[2], m[3]);
   return cudaGetLastError();
 }
 
@@ -1517,10 +2075,19 @@ cudaError_t dispatch_sm90(const Args& a, int dtype, cudaStream_t s) {
   return launch_fwd_sm90<T, 256>(a, dtype, s);
 }
 
-// The forward's route, decided here and nowhere else (dispatch_type and
-// dsst_flash_fwd_kernel both ask): the bfloat16 / float16 forward takes
-// flash_fwd_sm90_kernel; float32, and every backward kernel, the CUDA cores.
+// The routes, decided here and nowhere else (dispatch_type and
+// dsst_flash_kernel both ask): the bfloat16 / float16 forward takes
+// flash_fwd_sm90_kernel at every D, their dQ and dK/dV the sm90 kernels at
+// D <= 128; float32, and bfloat16 / float16 dQ and dK/dV above D = 128, the
+// CUDA cores.
 bool fwd_on_sm90(int dtype) { return dtype == 1 || dtype == 2; }
+bool bwd_on_sm90(int dtype, int d) { return fwd_on_sm90(dtype) && d <= 128; }
+
+template <int KIND, typename T>
+cudaError_t dispatch_bwd_sm90(const Args& a, int dtype, cudaStream_t s) {
+  if (a.d <= 64) return launch_bwd_sm90<KIND, T, 64>(a, dtype, s);
+  return launch_bwd_sm90<KIND, T, 128>(a, dtype, s);
+}
 
 template <int KIND>
 cudaError_t dispatch_type(const Args& a, int dtype, cudaStream_t s) {
@@ -1528,10 +2095,20 @@ cudaError_t dispatch_type(const Args& a, int dtype, cudaStream_t s) {
     if (!fwd_on_sm90(dtype)) return dispatch_dim<KIND, float>(a, s);
     if (dtype == 1) return dispatch_sm90<__nv_bfloat16>(a, dtype, s);
     return dispatch_sm90<__half>(a, dtype, s);
-  } else {
+  } else if constexpr (KIND == kDbias) {
     if (dtype == 0) return dispatch_dim<KIND, float>(a, s);
     if (dtype == 1) return dispatch_dim<KIND, __nv_bfloat16>(a, s);
     return dispatch_dim<KIND, __half>(a, s);
+  } else {
+    if (dtype == 0) return dispatch_dim<KIND, float>(a, s);
+    if (bwd_on_sm90(dtype, a.d)) {
+      if (dtype == 1)
+        return dispatch_bwd_sm90<KIND, __nv_bfloat16>(a, dtype, s);
+      return dispatch_bwd_sm90<KIND, __half>(a, dtype, s);
+    }
+    // bfloat16 / float16 above D = 128: the CUDA-core kernel at DMAX 256
+    if (dtype == 1) return dispatch_shape<KIND, __nv_bfloat16, 256>(a, s);
+    return dispatch_shape<KIND, __half, 256>(a, s);
   }
 }
 
@@ -1726,9 +2303,21 @@ int dsst_flash_dbias(const void* q, const void* k, const void* v,
                    d, causal, window, scale, dtype, stream);
 }
 
-// The kernel dsst_flash_fwd launches for dtype (the same codes).
-const char* dsst_flash_fwd_kernel(int dtype) {
-  return fwd_on_sm90(dtype) ? "flash_fwd_sm90_kernel" : "flash_fwd_kernel";
+// The kernel dsst_flash_<kind> launches for (dtype, d): kind 0 = fwd,
+// 1 = dq, 2 = dkv, 3 = dbias; dtype as above. Null for an unknown kind.
+const char* dsst_flash_kernel(int kind, int dtype, int d) {
+  switch (kind) {
+    case kFwd:
+      return fwd_on_sm90(dtype) ? "flash_fwd_sm90_kernel" : "flash_fwd_kernel";
+    case kDq:
+      return bwd_on_sm90(dtype, d) ? "flash_dq_sm90_kernel" : "flash_dq_kernel";
+    case kDkv:
+      return bwd_on_sm90(dtype, d) ? "flash_dkv_sm90_kernel"
+                                   : "flash_dkv_kernel";
+    case kDbias:
+      return "flash_dbias_kernel";
+  }
+  return nullptr;
 }
 
 const char* dsst_flash_error_string(int err) {

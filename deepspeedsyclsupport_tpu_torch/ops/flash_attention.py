@@ -22,11 +22,13 @@ JAX package wires them as a ``jax.custom_vjp`` (:646-693).
   so that long sequences fit in memory.
 * :data:`LAUNCHES` — how many times each kernel was launched; only a launch
   counts, never a CPU call.
-* Forward routes on the card, decided in the library (:func:`fwd_kernel`):
-  bfloat16 and float16 take the Hopper kernel (wgmma products, TMA loads);
-  float32 the CUDA-core one. TMA reads an operand in place when
-  :func:`tma_ready` says so; otherwise the wrapper copies it first and
-  counts the copy in :data:`COPIES`.
+* Routes on the card, decided in the library before launch
+  (:func:`kernel_name`): bfloat16 and float16 take the Hopper kernels
+  (wgmma products, TMA loads) for the forward at every head dim and for dQ
+  and dK/dV at D <= 128; float32, and dQ and dK/dV above D = 128, the
+  CUDA-core ones. TMA reads an operand in place when :func:`tma_ready` says
+  so; otherwise the wrapper copies it first and counts the copy in
+  :data:`COPIES` under the kernel's name.
 
 Not ported here: the lse-returning variant (ring attention's); it raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
@@ -42,8 +44,8 @@ from . import _build
 NEG_INF = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dbias": 0}
-# operands the forward wrapper copied because TMA could not read them in place
-COPIES = {"flash_fwd": 0}
+# operands each wrapper copied because TMA could not read them in place
+COPIES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 # elements of one [B, H, rows, Skv] score block in the plain versions
 _REF_BLOCK_ELEMS = 1 << 26
@@ -356,9 +358,10 @@ def _library() -> ctypes.CDLL:
                            + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        for name in ("dsst_flash_error_string", "dsst_flash_fwd_kernel"):
-            getattr(lib, name).argtypes = [ctypes.c_int]
-            getattr(lib, name).restype = ctypes.c_char_p
+        lib.dsst_flash_error_string.argtypes = [ctypes.c_int]
+        lib.dsst_flash_error_string.restype = ctypes.c_char_p
+        lib.dsst_flash_kernel.argtypes = [ctypes.c_int] * 3
+        lib.dsst_flash_kernel.restype = ctypes.c_char_p
     return lib
 
 
@@ -466,16 +469,24 @@ def _out(t: Optional[torch.Tensor], like: torch.Tensor, name: str):
     return t
 
 
-# the forward kernel that reads q, k and v through TMA (wgmma products)
-_TMA_KERNEL = "flash_fwd_sm90_kernel"
+# the kernels that read q, k, v (and dO) through TMA (wgmma products)
+_TMA_KERNELS = frozenset({"flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
+                          "flash_dkv_sm90_kernel"})
+_KINDS = {"fwd": 0, "dq": 1, "dkv": 2, "dbias": 3}
 
 
-def fwd_kernel(dtype: torch.dtype) -> str:
-    """The forward kernel the built library launches for ``dtype``, as the
-    library reports it (the route is decided there, before launch):
-    ``"flash_fwd_sm90_kernel"`` (wgmma + TMA) for bfloat16 and float16,
-    ``"flash_fwd_kernel"`` (CUDA cores) for float32. Needs the CUDA build."""
-    return _library().dsst_flash_fwd_kernel(_DTYPE_CODES[dtype]).decode()
+def kernel_name(kind: str, dtype: torch.dtype, d: int) -> str:
+    """The kernel the built library launches for ``kind`` (``"fwd"``,
+    ``"dq"``, ``"dkv"`` or ``"dbias"``), ``dtype`` and head dim ``d``, as
+    the library reports it (the route is decided there, before launch):
+    the ``*_sm90_kernel`` ones (wgmma + TMA) for a bfloat16 / float16
+    forward and, at ``d <= 128``, dQ and dK/dV; the CUDA-core ones
+    otherwise. Needs the CUDA build."""
+    name = _library().dsst_flash_kernel(_KINDS[kind], _DTYPE_CODES[dtype],
+                                        int(d))
+    if name is None:
+        raise ValueError(f"no flash kernel of kind {kind!r}")
+    return name.decode()
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -489,10 +500,10 @@ def tma_ready(t: torch.Tensor) -> bool:
         for i in range(3) if t.shape[i] > 1)
 
 
-def tma_operand(t: torch.Tensor) -> torch.Tensor:
+def tma_operand(t: torch.Tensor, counter: str = "flash_fwd") -> torch.Tensor:
     """``t`` itself when :func:`tma_ready`, else a copy in a new buffer
     whose rows are padded to a multiple of 8 elements (the view of its first
-    D columns), counted in ``COPIES["flash_fwd"]``."""
+    D columns), counted in ``COPIES[counter]``."""
     if tma_ready(t):
         return t
     b, s, h, d = t.shape
@@ -500,13 +511,13 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
                       device=t.device)
     view = buf[..., :d]
     view.copy_(t)
-    COPIES["flash_fwd"] += 1
+    COPIES[counter] += 1
     return view
 
 
 def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None):
-    """Launch the forward kernel (:func:`fwd_kernel`): ``(o [B,Sq,H,D], lse
+    """Launch the forward kernel (:func:`kernel_name`): ``(o [B,Sq,H,D], lse
     [B,H,Sq] float32)``; ``out`` optionally receives o. ``bias``: float32
     contiguous ``[Bb, Hb, Sq, Skv]``; the k-row bias and the layout come in
     ``mask``. Where that kernel reads by TMA, a q, k or v that TMA cannot
@@ -519,7 +530,7 @@ def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None,
         o.zero_()
         lse.fill_(NEG_INF)
         return o, lse
-    if fwd_kernel(q.dtype) == _TMA_KERNEL:
+    if kernel_name("fwd", q.dtype, q.shape[3]) in _TMA_KERNELS:
         q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
     _launch("fwd", "flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -540,10 +551,12 @@ def flash_dq(q, k, v, do, lse, delta, mask: Mask,
              out: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None,
              dbias: Optional[torch.Tensor] = None):
-    """Launch the dQ kernel; dq in q's dtype (float32 accumulation).
-    ``dbias``: optionally a contiguous float32 ``[B, H, Sq, Skv]`` that
-    receives ``ds``, the gradient of a full-shape pair bias (zero where no
-    score is visible)."""
+    """Launch the dQ kernel (:func:`kernel_name`); dq in q's dtype (float32
+    accumulation). ``dbias``: optionally a contiguous float32 ``[B, H, Sq,
+    Skv]`` that receives ``ds``, the gradient of a full-shape pair bias
+    (zero where no score is visible). Where the kernel reads by TMA, a q, k,
+    v or dO it cannot read in place is copied first (:func:`tma_operand`,
+    counted in ``COPIES["flash_dq"]``)."""
     _check(q, k, v, mask, bias, do=do)
     _check_rows(q, lse, delta)
     dq = _out(out, q, "out")
@@ -556,6 +569,8 @@ def flash_dq(q, k, v, do, lse, delta, mask: Mask,
         dbias.zero_()       # the kernel writes only the tiles it walks
     if not q.numel() or not k.shape[1]:
         return dq.zero_()
+    if kernel_name("dq", q.dtype, q.shape[3]) in _TMA_KERNELS:
+        q, k, v, do = (tma_operand(t, "flash_dq") for t in (q, k, v, do))
     _launch("dq", "flash_dq",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias)),
@@ -565,12 +580,17 @@ def flash_dq(q, k, v, do, lse, delta, mask: Mask,
 
 def flash_dkv(q, k, v, do, lse, delta, mask: Mask, out=(None, None),
               bias: Optional[torch.Tensor] = None):
-    """Launch the dK/dV kernel; group-summed dk, dv in k's dtype."""
+    """Launch the dK/dV kernel (:func:`kernel_name`); group-summed dk, dv
+    in k's dtype, every row written (zeros for keys no query sees). Where
+    the kernel reads by TMA, a q, k, v or dO it cannot read in place is
+    copied first (counted in ``COPIES["flash_dkv"]``)."""
     _check(q, k, v, mask, bias, do=do)
     _check_rows(q, lse, delta)
     dk, dv = _out(out[0], k, "out[0]"), _out(out[1], v, "out[1]")
     if not q.numel() or not k.numel():
         return dk.zero_(), dv.zero_()
+    if kernel_name("dkv", q.dtype, q.shape[3]) in _TMA_KERNELS:
+        q, k, v, do = (tma_operand(t, "flash_dkv") for t in (q, k, v, do))
     _launch("dkv", "flash_dkv",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),

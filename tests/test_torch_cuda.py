@@ -14,7 +14,10 @@ in different orders, over contexts of a few hundred tokens); 2e-2 in bf16
 (both round a float32 result to bf16; one rounding step at |x| < 4 may
 differ); 4e-3 in fp16 (10 mantissa bits). Flash backward outputs are held
 relative to their largest magnitude (they are sums over up to a few hundred
-rows). float32 products run without TF32 (set in the fixture).
+rows) and row by row (each row over its own largest magnitude, at least
+``GRAD_ROW_FLOOR`` of the tensor's: dQ of a query that sees one key is
+exactly zero, so both sides' rows are float32 rounding noise there). float32
+products run without TF32 (set in the fixture).
 """
 import math
 
@@ -161,6 +164,11 @@ def test_engine_serves_through_kernel(dev):
 from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+# gradient rows below this share of the tensor's largest magnitude are held
+# against it: dQ of a query that sees one key is exactly zero (its dS row
+# sums to zero) and comes out as float32 noise ~4e-7 of the largest |dQ| on
+# both sides; fp16 keys that only see p below 2^-14 carry subnormal P and dS
+GRAD_ROW_FLOOR = 1e-2
 FLASH_SHAPES = [
     dict(b=2, sq=128, skv=128, h=4, kvh=4, d=128),   # aligned MHA
     dict(b=1, sq=200, skv=200, h=4, kvh=2, d=64),    # unaligned, GQA 2
@@ -207,14 +215,40 @@ def _assert_close_scaled(got, want, tol, what):
     assert err <= tol * scale, f"{what}: max abs err {err} > {tol} x {scale}"
 
 
-def _assert_rows_close(got, want, tol, what):
+def _assert_rows_close(got, want, tol, what, floor=0.0):
     """Each row's (every index but the last) max abs error within ``tol``
-    of that row's largest |want|: the few large rows do not set the limit
-    for the many small ones. A row that is zero in want is zero in got."""
+    of that row's largest |want|, or of ``floor`` times the largest |want|
+    where that is more: the few large rows do not set the limit for the many
+    small ones. With no floor a row that is zero in want is zero in got."""
     g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
-    ratio = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-30)
-    err = float(ratio.max())
+    den = w.abs().amax(-1).clamp_min(max(1e-30,
+                                         floor * float(w.abs().max())))
+    err = float(((g - w).abs().amax(-1) / den).max())
     assert err <= tol, f"{what}: row-relative err {err} > {tol}"
+
+
+def _hold_bwd_rows(q, k, v, do, mask, dtype, bias=None):
+    """The dQ and dK/dV kernels row by row against the plain versions on
+    the same inputs (LSE and delta of the plain forward). An end-to-end
+    comparison is held by the largest magnitude only: there delta comes
+    from each side's own O, and the forward's bf16 / fp16 rounding of P
+    moves it by an ulp of O, which dQ rows of a peaked softmax (dQ much
+    smaller than its terms) do not absorb."""
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, mask, bias)
+    delta = fa.attention_delta(do, o)
+    got = (fa.flash_dq(q, k, v, do, lse, delta, mask, bias=bias),
+           *fa.flash_dkv(q, k, v, do, lse, delta, mask, bias=bias))
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, mask,
+                                            bias=bias)
+    for name, g, w in zip(("dq", "dk", "dv"), got, refs):
+        _assert_rows_close(g, w, FLASH_TOL[dtype], name, floor=GRAD_ROW_FLOOR)
+
+
+def _assert_grads_close(got, want, tol, what):
+    """A gradient held both ways: by its largest magnitude and row by row
+    (with ``GRAD_ROW_FLOOR``)."""
+    _assert_close_scaled(got, want, tol, what)
+    _assert_rows_close(got, want, tol, what, floor=GRAD_ROW_FLOOR)
 
 
 @pytest.mark.parametrize("variant", FLASH_VARIANTS)
@@ -245,7 +279,7 @@ def test_flash_kernels_match_plain(dev, dtype, shape, variant):
     for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
                             ("dv", dv, dv_ref)):
         assert got.dtype == dtype
-        _assert_close_scaled(got, want, tol, name)
+        _assert_grads_close(got, want, tol, name)
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_dbias": 0}
 
@@ -275,20 +309,26 @@ def test_flash_never_writes_past_the_rows(dev):
         assert bool(torch.isnan(buf[:, n:]).all())
 
 
-def test_flash_dkv_gqa_is_the_group_sum(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_dkv_gqa_is_the_group_sum(dev, dtype):
     """GQA dK/dV equal the MHA dK/dV of the repeated kv heads, summed over
-    each group."""
+    each group (float32 exactly to 1e-4; bf16 / fp16, where the MHA heads
+    are rounded to the dtype before the sum, within the dtype's tolerance
+    of the largest magnitude)."""
     s = dict(b=1, sq=150, skv=150, h=8, kvh=2, d=64)
-    q, k, v, do, mask = _flash_case(dev, torch.float32, s, "causal", 2)
+    q, k, v, do, mask = _flash_case(dev, dtype, s, "causal", 2)
     o, lse = fa.flash_fwd(q, k, v, mask)
     delta = fa.attention_delta(do, o)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, mask)
     kr, vr = (t.repeat_interleave(4, dim=2) for t in (k, v))
     dk4, dv4 = fa.flash_dkv(q, kr, vr, do, lse, delta, mask)
-    torch.testing.assert_close(dk, dk4.reshape(1, 150, 2, 4, 64).sum(3),
-                               atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(dv, dv4.reshape(1, 150, 2, 4, 64).sum(3),
-                               atol=1e-4, rtol=1e-4)
+    for got, per_head in ((dk, dk4), (dv, dv4)):
+        want = per_head.float().reshape(1, 150, 2, 4, 64).sum(3)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            _assert_close_scaled(got, want, FLASH_TOL[dtype], "group sum")
 
 
 def test_flash_reads_strided_views(dev):
@@ -308,10 +348,29 @@ def test_flash_reads_strided_views(dev):
 # ------------------------------- the Hopper forward (bf16 / fp16, wgmma+TMA)
 def test_flash_fwd_kernel_route(dev):
     """The library names the forward it launches: the Hopper kernel for
-    bfloat16 and float16, the CUDA-core one for float32."""
-    assert fa.fwd_kernel(torch.bfloat16) == "flash_fwd_sm90_kernel"
-    assert fa.fwd_kernel(torch.float16) == "flash_fwd_sm90_kernel"
-    assert fa.fwd_kernel(torch.float32) == "flash_fwd_kernel"
+    bfloat16 and float16 at every head dim, the CUDA-core one for float32."""
+    for d in (16, 128, 256):
+        assert fa.kernel_name("fwd", torch.bfloat16, d) == \
+            "flash_fwd_sm90_kernel"
+        assert fa.kernel_name("fwd", torch.float16, d) == \
+            "flash_fwd_sm90_kernel"
+        assert fa.kernel_name("fwd", torch.float32, d) == "flash_fwd_kernel"
+
+
+def test_flash_bwd_kernel_routes(dev):
+    """dQ and dK/dV: the Hopper kernels for bfloat16 and float16 at D <=
+    128, the CUDA-core ones at D = 256 and for float32; dbias always on the
+    CUDA cores."""
+    for kind in ("dq", "dkv"):
+        for dtype in (torch.bfloat16, torch.float16):
+            for d in (16, 64, 80, 128):
+                assert fa.kernel_name(kind, dtype, d) == \
+                    f"flash_{kind}_sm90_kernel"
+            assert fa.kernel_name(kind, dtype, 256) == f"flash_{kind}_kernel"
+        for d in (64, 128, 256):
+            assert fa.kernel_name(kind, torch.float32, d) == \
+                f"flash_{kind}_kernel"
+    assert fa.kernel_name("dbias", torch.bfloat16, 32) == "flash_dbias_kernel"
 
 
 def test_flash_fwd_bf16_is_bit_identical_on_repeat(dev):
@@ -334,11 +393,11 @@ def test_flash_reads_strided_views_bf16(dev):
     mask = fa.make_mask(q, k)
     fa.reset_launch_counts()
     o1, l1 = fa.flash_fwd(q, k, v, mask)
-    assert fa.COPIES == {"flash_fwd": 0}
+    assert fa.COPIES == dict.fromkeys(fa.COPIES, 0)
     o2, l2 = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                           mask)
     torch.cuda.synchronize()
-    assert fa.COPIES == {"flash_fwd": 0}
+    assert fa.COPIES == dict.fromkeys(fa.COPIES, 0)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
@@ -353,10 +412,10 @@ def test_flash_fwd_copies_a_misaligned_view(dev):
     assert not fa.tma_ready(odd)
     fa.reset_launch_counts()
     o1, l1 = fa.flash_fwd(odd, k, v, mask)
-    assert fa.COPIES == {"flash_fwd": 1}
+    assert fa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
     o2, l2 = fa.flash_fwd(q, k, v, mask)
     torch.cuda.synchronize()
-    assert fa.COPIES == {"flash_fwd": 1}
+    assert fa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
@@ -393,6 +452,131 @@ def test_flash_fwd_cross_length_tail(dev, dtype, variant):
     _hold_fwd(q, k, v, mask, dtype, out=buf[:, :300])
     assert bool(torch.isfinite(buf[:, :300]).all())
     assert bool(torch.isnan(buf[:, 300:]).all())
+
+
+# ------------------------------ the Hopper backward (bf16 / fp16, wgmma+TMA)
+def _hold_bwd(q, k, v, do, mask, dtype, out=(None, None, None)):
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, mask)
+    delta = fa.attention_delta(do, o)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, mask, out=out[0])
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, mask, out=out[1:])
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, mask)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == dtype
+        _assert_grads_close(got, want, FLASH_TOL[dtype], name)
+    return dq, dk, dv
+
+
+def _bwd(q, k, v, do, mask):
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, mask)
+    delta = fa.attention_delta(do, o)
+    return (fa.flash_dq(q, k, v, do, lse, delta, mask),
+            *fa.flash_dkv(q, k, v, do, lse, delta, mask))
+
+
+def test_flash_bwd_bf16_is_bit_identical_on_repeat(dev):
+    """No atomics and sums in a fixed order: the same bits every run."""
+    s = dict(b=2, sq=300, skv=300, h=4, kvh=2, d=128)
+    q, k, v, do, mask = _flash_case(dev, torch.bfloat16, s, "causal", 15)
+    r1, r2 = _bwd(q, k, v, do, mask), _bwd(q, k, v, do, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_long_causal(dev, dtype):
+    """S = 4096, causal, D = 128: 64 key tiles on the longest dQ rows, 64
+    q tiles under key tile 0."""
+    s = dict(b=1, sq=4096, skv=4096, h=2, kvh=2, d=128)
+    q, k, v, do, mask = _flash_case(dev, dtype, s, "causal", 13)
+    _hold_bwd(q, k, v, do, mask, dtype)
+
+
+@pytest.mark.parametrize("variant", ["causal", "positions"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_cross_length_tail(dev, dtype, variant):
+    """Sq != Skv, neither a multiple of 64 (causal offset 153): dQ, dK and
+    dV land in views of NaN-filled buffers whose spare rows stay NaN."""
+    s = dict(b=2, sq=300, skv=453, h=4, kvh=2, d=128)
+    q, k, v, do, mask = _flash_case(dev, dtype, s, variant, 14)
+    bufs = [torch.full((2, n + 40, hh, 128), float("nan"), dtype=dtype,
+                       device=dev) for n, hh in ((300, 4), (453, 2), (453, 2))]
+    views = [buf[:, :n] for buf, n in zip(bufs, (300, 453, 453))]
+    _hold_bwd(q, k, v, do, mask, dtype, out=views)
+    for buf, n in zip(bufs, (300, 453, 453)):
+        assert bool(torch.isfinite(buf[:, :n]).all())
+        assert bool(torch.isnan(buf[:, n:]).all())
+
+
+def test_flash_bwd_reads_strided_views_bf16(dev):
+    """bf16 q/k/v as views into one packed qkv buffer: the backward's TMA
+    reads them in place (no copy) and gives the bits of contiguous copies."""
+    b, sq, h, kvh, d = 2, 90, 4, 2, 64
+    g = torch.Generator(device="cpu").manual_seed(3)
+    qkv = torch.randn((b, sq, h + 2 * kvh, d), generator=g).to(
+        dev, torch.bfloat16)
+    do = torch.randn((b, sq, h, d), generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    mask = fa.make_mask(q, k)
+    fa.reset_launch_counts()
+    r1 = _bwd(q, k, v, do, mask)
+    assert fa.COPIES == dict.fromkeys(fa.COPIES, 0)
+    r2 = _bwd(q.contiguous(), k.contiguous(), v.contiguous(), do, mask)
+    torch.cuda.synchronize()
+    assert fa.COPIES == dict.fromkeys(fa.COPIES, 0)
+    assert fa.LAUNCHES["flash_dq"] == 2 and fa.LAUNCHES["flash_dkv"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(r1, r2))
+
+
+def test_flash_bwd_copies_a_misaligned_view(dev):
+    """A dO that starts one element into its buffer cannot be read by TMA:
+    each backward wrapper copies it (one copy counted per wrapper) and the
+    result is the same."""
+    s = dict(b=1, sq=150, skv=150, h=4, kvh=4, d=64)
+    q, k, v, do, mask = _flash_case(dev, torch.bfloat16, s, "causal", 12)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)
+    odd = flat[1:].view(do.shape)
+    odd.copy_(do)
+    assert not fa.tma_ready(odd)
+    fa.reset_launch_counts()
+    r1 = _bwd(q, k, v, odd, mask)
+    assert fa.COPIES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    r2 = _bwd(q, k, v, do, mask)
+    torch.cuda.synchronize()
+    assert fa.COPIES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    assert all(torch.equal(x, y) for x, y in zip(r1, r2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_dkv_unseen_keys_are_zero(dev, dtype):
+    """Keys no query sees get exact zeros in dK and dV, written by the
+    kernel into NaN-filled outputs: keys 0-127, whose layout column is dead
+    (their CTA walks no q tile), and keys 200-259, of a kv segment no query
+    has (masked in every tile)."""
+    b, sq, skv, h, d = 1, 256, 384, 2, 64
+    g = torch.Generator(device="cpu").manual_seed(17)
+    q, do = (torch.randn((b, sq, h, d), generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, skv, h, d), generator=g).to(dev, dtype)
+            for _ in range(2))
+    lay = torch.ones((1, 2, 3), dtype=torch.int32)
+    lay[:, :, 0] = 0
+    seg_k = torch.zeros((b, skv), dtype=torch.int32)
+    seg_k[:, 200:260] = 7
+    mask = fa.make_mask(q, k, causal=False,
+                        segment_ids=torch.zeros((b, sq), device=dev),
+                        kv_segment_ids=seg_k.to(dev),
+                        block_layout=lay.to(dev), block_q=128, block_k=128)
+    bufs = [torch.full(k.shape, float("nan"), dtype=dtype, device=dev)
+            for _ in range(2)]
+    _, dk, dv = _hold_bwd(q, k, v, do, mask, dtype, out=(None, *bufs))
+    dead = torch.zeros(skv, dtype=torch.bool)
+    dead[:128] = dead[200:260] = True
+    for t in (dk, dv):
+        assert bool((t[:, dead.to(dev)] == 0).all())
+        assert bool(torch.isfinite(t).all())
+        assert float(t[:, ~dead.to(dev)].abs().max()) > 0
 
 
 def test_flash_autograd_matches_plain_attention(dev):
@@ -569,7 +753,8 @@ def _bias_case(dev, dtype, s, variant, seed):
 
 @pytest.mark.parametrize("variant", BIAS_VARIANTS)
 @pytest.mark.parametrize("shape", range(len(BIAS_SHAPES)))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_bias_kernels_match_plain(dev, dtype, shape, variant):
     s = BIAS_SHAPES[shape]
     q, k, v, do, mask, bias = _bias_case(dev, dtype, s, variant, seed=shape)
@@ -595,7 +780,7 @@ def test_flash_bias_kernels_match_plain(dev, dtype, shape, variant):
                                             mask, bias=bias)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert got.dtype == dtype
-        _assert_close_scaled(got, want, tol, name)
+        _assert_grads_close(got, want, tol, name)
     if bias is not None:
         want = fa.flash_dbias_reference(q, k, v, do, lse_ref, delta, mask,
                                         bias)
@@ -654,7 +839,8 @@ def test_broadcast_dbias_is_the_sum_of_the_full_one(dev):
                          per, 1e-5, "reducing kernel on a full-shape bias")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_evoformer_through_kernels(dev, dtype):
     """``DS4Sci_EvoformerAttention`` forward + backward on the card: one
     launch of each kernel (the reducing dbias kernel for the pair bias), and
@@ -687,10 +873,17 @@ def test_evoformer_through_kernels(dev, dtype):
                                results["cuda"][1], results["cpu"][1]):
         assert got.dtype == want.dtype and got.shape == want.shape
         _assert_close_scaled(got.cpu(), want, tol, name)
+    # the backward kernels row by row on the inputs the op gives them
+    qf, kf, vf, dof = (t.to(dev).reshape(b * n, s, h, d) for t in (q, k, v, w))
+    _hold_bwd_rows(qf, kf, vf, dof, fa.make_mask(
+        qf, kf, causal=False, k_bias=mask_bias.to(dev).reshape(b * n, s)),
+        dtype, bias=fa.check_bias(pair.to(dev)[:, 0], qf, kf))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("block", [16, 64, 128])
-def test_sparse_attention_through_kernels(dev, block):
+def test_sparse_attention_through_kernels(dev, block, dtype):
     """BigBird block-sparse attention on the card against the same call on
     the CPU; the layout never launches the dbias kernel."""
     from deepspeedsyclsupport_tpu_torch.ops.sparse_attention import (
@@ -699,7 +892,7 @@ def test_sparse_attention_through_kernels(dev, block):
     cfg = BigBirdSparsityConfig(4, block, different_layout_per_head=True,
                                 num_random_blocks=1)
     g = torch.Generator(device="cpu").manual_seed(block)
-    q, k, v, w = (torch.randn((2, 256, 4, 64), generator=g)
+    q, k, v, w = (torch.randn((2, 256, 4, 64), generator=g).to(dtype)
                   for _ in range(4))
     results = {}
     for where in ("cuda", "cpu"):
@@ -712,9 +905,16 @@ def test_sparse_attention_through_kernels(dev, block):
                           dict(fa.LAUNCHES))
     assert results["cuda"][1] == {"flash_fwd": 1, "flash_dq": 1,
                                   "flash_dkv": 1, "flash_dbias": 0}
+    tol = FLASH_TOL[dtype]
     for name, got, want in zip(("out", "dq", "dk", "dv"), results["cuda"][0],
                                results["cpu"][0]):
-        _assert_close_scaled(got.cpu(), want, 1e-4, name)
+        _assert_close_scaled(got.cpu(), want, tol, name)
+    # the backward kernels row by row on the inputs the op gives them
+    layout = torch.from_numpy(cfg.make_layout(256, causal=True))
+    qd, kd, vd, wd = (t.to(dev) for t in (q, k, v, w))
+    _hold_bwd_rows(qd, kd, vd, wd, fa.make_mask(
+        qd, kd, causal=True, block_layout=layout.to(dev), block_q=block,
+        block_k=block), dtype)
 
 
 def test_flash_bias_rejects_what_it_does_not_take(dev):

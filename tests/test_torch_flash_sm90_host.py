@@ -91,29 +91,34 @@ def test_tma_operand_copies_only_what_it_must(d):
     tfa.reset_launch_counts()
     ready = _contiguous(24)
     assert tfa.tma_operand(ready) is ready
-    assert tfa.COPIES == {"flash_fwd": 0}
+    assert tfa.COPIES == dict.fromkeys(tfa.COPIES, 0)
     shape = (2, 33, 4, d)
     flat = torch.randn(int(np.prod(shape)) + 1).to(torch.bfloat16)
     odd = flat[1:].view(shape)
     got = tfa.tma_operand(odd)
-    assert tfa.COPIES == {"flash_fwd": 1}
+    assert tfa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
     assert tfa.tma_ready(got) and got.shape == odd.shape
     assert got.stride(2) == tfa.round_up(d, 8)
     assert torch.equal(got, odd)
+    for counter in ("flash_dq", "flash_dkv"):     # the backward's counters
+        tfa.tma_operand(odd, counter)
+        assert tfa.COPIES[counter] == 1
     tfa.reset_launch_counts()
-    assert tfa.COPIES == {"flash_fwd": 0}
+    assert tfa.COPIES == dict.fromkeys(tfa.COPIES, 0)
 
 
 def test_cpu_forward_makes_no_copy():
-    """On a CPU tensor the wrapper takes the plain version: nothing is
-    launched and nothing copied, whatever the alignment."""
+    """On a CPU tensor the wrappers take the plain versions, forward and
+    backward: nothing is launched and nothing copied, whatever the
+    alignment."""
     shape = (1, 40, 2, 20)
     flat = torch.randn(3 * int(np.prod(shape)) + 1).to(torch.bfloat16)
     q, k, v = (flat[1 + i * int(np.prod(shape)):][:int(np.prod(shape))]
                .view(shape) for i in range(3))
     tfa.reset_launch_counts()
-    tfa.flash_attention(q, k, v)
-    assert tfa.COPIES == {"flash_fwd": 0}
+    q.requires_grad_()
+    tfa.flash_attention(q, k, v).sum().backward()
+    assert tfa.COPIES == dict.fromkeys(tfa.COPIES, 0)
     assert tfa.LAUNCHES == dict.fromkeys(tfa.LAUNCHES, 0)
 
 

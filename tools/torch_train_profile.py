@@ -36,7 +36,7 @@ CONFIG = {
 def classify(name: str) -> str:
     low = name.lower()
     for kind in ("fwd", "dq", "dkv"):
-        # the bf16 / fp16 forward is flash_fwd_sm90_kernel
+        # the bf16 / fp16 kernels are flash_{fwd,dq,dkv}_sm90_kernel
         if f"flash_{kind}_kernel" in low or f"flash_{kind}_sm90_kernel" in low:
             return f"flash {kind} (port kernel)"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
