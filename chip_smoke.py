@@ -12,14 +12,22 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              fails without CUDA.
 2. build   — builds both CUDA kernel sources from ``deepspeedsyclsupport_
              tpu_torch/csrc`` with nvcc, in parallel (into
-             ``build/torch_kernels/``); registers and spills per
-             flash-attention instantiation.
-3. kernel  — the ragged paged-attention kernel against its plain PyTorch
+             ``build/torch_kernels/``); registers and spills per kernel
+             instantiation of each library.
+   rehearse— every paged-attention route once at a small shape in a child
+             process under a timeout (a deadlocked mbarrier pipeline would
+             hang the card), held against the plain version.
+3. kernel  — the ragged paged-attention kernels against their plain PyTorch
              version at the serving path's shapes (llama2-7b, mistral-7b with
              its 4096 window, an ALiBi case, decode over 16 sequences), in
-             bf16 and float32, with times (CUDA events), the bound, and the
-             time of one ``scaled_dot_product_attention`` call over the
-             gathered KV as a yardstick (the port never calls it).
+             bf16, fp16 and float32: each case's route as the library names
+             it (the Hopper prefill, the split-KV decode or the CUDA-core
+             kernel), O held by its max error and, in bf16 / fp16, row by
+             row, exact zeros where nothing is visible, the same bits on
+             repeat and no copy of the pool; times (CUDA events), TFLOP/s or
+             GB/s against the bound, the decode wrapper's host time per
+             call, and the time of one ``scaled_dot_product_attention`` call
+             over the gathered KV as a yardstick (the port never calls it).
 4. flash   — the flash-attention forward, dQ and dK/dV kernels against their
              plain versions (O, LSE, dQ, dK, dV) at llama2-1b (B=2, S=4096),
              mistral-7b heads (S=8192, window 4096), 4 packed documents,
@@ -33,7 +41,9 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
 5. serve   — ``InferenceEngineV2`` serving llama2-7b at full width and depth
              (bf16, random weights from a seed): greedy ``generate`` on 8
              prompts of 128-1024 tokens, 32 new tokens each. Kernel launch
-             counts are zeroed just before and read just after.
+             counts are zeroed just before and read just after. Then a short
+             fp16 serve at that width (4 layers): the kernels against the
+             plain path, greedy tokens equal, TTFT and decode tok/s.
 6. train   — ``initialize`` -> ``train_batch`` on llama2-1b at full width
              and depth (bf16, AdamW, WarmupLR, clipping, 2 micro-batches of
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
@@ -75,13 +85,21 @@ import time
 from functools import partial
 
 MEM_BYTES_PER_S = 3.35e12                    # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
+              "float32": 67e12}                   # dense, no sparsity
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 4e-3}
 # gradient rows below this share of the tensor's largest magnitude are held
 # against it: dQ of a query that sees one key is exactly zero (its dS row
 # sums to zero) and comes out as float32 noise on both sides
 GRAD_ROW_FLOOR = 1e-2
 LSE_TOL = 1e-4              # absolute: LSE is float32 in kernel and plain
+# End-to-end bf16 dQ rows held where the reference grounds a limit: twice
+# the JAX package's own end-to-end bf16 dQ row error against an fp64
+# oracle at that shape (tools/flash_e2e_row_error.py: 0.0389 at the
+# full-shape bias, B cut 4 -> 1), since both sides may err by it. At the
+# MSA and triangle shapes the reference errs 0.0088 and the port's rows
+# (0.039, 0.054) exceed twice that: logged, not held (ROADMAP C2).
+E2E_DQ_ROW_LIMIT = {"full-bias": 2 * 0.0389}
 PARITY_TOL = 5e-4
 # train parity, float32 through the kernels vs the plain path: loss and
 # grad_norm relative (summation order in attention, magnified by Adam's
@@ -207,8 +225,10 @@ def _instantiations(log_text):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             k = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_kernel|flash_(?:fwd|dq|"
-                          r"dkv)_sm90_kernel|paged_attention_kernel)I(f|"
-                          r"13__nv_bfloat16|6__half)((?:Li\d+E)+)", name)
+                          r"dkv)_sm90_kernel|paged_attention_kernel|"
+                          r"paged_prefill_sm90_kernel|paged_decode_(?:split|"
+                          r"combine)_kernel)I(f|13__nv_bfloat16|6__half)"
+                          r"((?:Li\d+E)*)", name)
             label = name if k is None else "{}<{},{}>".format(
                 k.group(1), {"f": "fp32", "13__nv_bfloat16": "bf16",
                              "6__half": "fp16"}[k.group(2)],
@@ -232,10 +252,11 @@ def phase_build(_build):
             f"kernel instantiations, max "
             f"{max((r for _, r, _ in inst), default=0)} registers, max "
             f"{max((s for _, _, s in inst), default=0)} bytes spill stores")
-    log("build", f"both sources in {time.perf_counter() - t0:.1f} s; flash "
-        "instantiations (registers, spill bytes): " + "; ".join(
-            f"{k} {r} {s}" for k, r, s in _instantiations(
-                built["flash_attention"].log)))
+    for name in names:
+        log("build", f"{name} instantiations (registers, spill bytes): "
+            + "; ".join(f"{k} {r} {s}" for k, r, s in _instantiations(
+                built[name].log)))
+    log("build", f"both sources in {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------------ cases
@@ -284,7 +305,7 @@ def work_of(np, c):
     """Bytes the function must move and flops it must do on this data:
     live q rows read, the output written, each distinct KV slot any live
     row can see read once (k and v); 4*D flops per (row, head, visible
-    position)."""
+    position). Returns (bound ms, "bytes" or "operations", bytes, flops)."""
     q, bs, window = c["q"], c["bs"], c["window"]
     a, bq, h, d = q.shape
     kvh = c["k"].shape[1]
@@ -310,7 +331,7 @@ def work_of(np, c):
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[c["dtype"]]
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
 def sdpa_inputs(torch, c):
@@ -338,31 +359,52 @@ def sdpa_inputs(torch, c):
     return q.transpose(1, 2), ks.contiguous(), vs.contiguous(), mask
 
 
+def paged_calls(pa, c, decode):
+    """(kernel, plain) calls of one case: the wrapper and its plain version
+    on the same arguments."""
+    kw = dict(block_size=c["bs"], alibi=c["alibi"], window=c["window"])
+    if decode:
+        q = c["q"][:, 0]
+        seq_lens = c["pos0"] + c["qlen"]   # qlen 0 or 1: a dead slot is 0
+        args = (q, c["k"], c["v"], c["tables"], seq_lens)
+        return (partial(pa.paged_decode_attention, *args, **kw),
+                partial(pa.paged_decode_attention_reference, *args, **kw))
+    args = (c["q"], c["k"], c["v"], c["tables"], c["pos0"], c["qlen"])
+    return (partial(pa.ragged_prefill_attention, *args, **kw),
+            partial(pa.ragged_prefill_attention_reference, *args, **kw))
+
+
 def check_attention(torch, np, c, decode):
-    """Kernel vs plain on one case; returns a result row."""
+    """Kernel vs plain on one case: max abs error, row by row in bf16 /
+    fp16, exact zeros where nothing is visible, the same bits on repeat, no
+    copy of the pool (the call's peak allocation stays below one K pool);
+    then times and rates. Returns a result row."""
     import torch.nn.functional as F
 
     from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
 
-    kw = dict(block_size=c["bs"], alibi=c["alibi"], window=c["window"])
-    if decode:
-        q = c["q"][:, 0]
-        seq_lens = torch.where(c["qlen"] > 0, c["pos0"] + 1,
-                               torch.zeros_like(c["pos0"]))
-        args = (q, c["k"], c["v"], c["tables"], seq_lens)
-        kernel = partial(pa.paged_decode_attention, *args, **kw)
-        plain = partial(pa.paged_decode_attention_reference, *args, **kw)
-    else:
-        args = (c["q"], c["k"], c["v"], c["tables"], c["pos0"], c["qlen"])
-        kernel = partial(pa.ragged_prefill_attention, *args, **kw)
-        plain = partial(pa.ragged_prefill_attention_reference, *args, **kw)
+    kernel, plain = paged_calls(pa, c, decode)
+    route = pa.kernel_for(c["q"], c["k"], c["v"], c["bs"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = kernel()
     torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    if extra >= c["k"].nbytes:
+        raise AssertionError(f"{c['name']}: the call allocated {extra} "
+                             f"bytes, a pool is {c['k'].nbytes}")
+    if not torch.equal(kernel(), got):
+        raise AssertionError(f"{c['name']} {c['dtype']}: not bit-identical "
+                             f"on repeat")
     want = plain()
     err = float((got.float() - want.float()).abs().max())
     if not math.isfinite(err) or err > TOL[c["dtype"]]:
         raise AssertionError(f"{c['name']} {c['dtype']}: kernel vs plain "
                              f"max abs err {err} > {TOL[c['dtype']]}")
+    row = (hold_rows(f"{c['name']} {c['dtype']}", got, want,
+                     TOL[c["dtype"]])[0] if c["dtype"] != "float32"
+           else row_err(got, want))
     if decode:
         dead = (c["qlen"] == 0).nonzero().squeeze(1)
         if dead.numel() and float(got[dead].abs().max()) != 0.0:
@@ -378,10 +420,13 @@ def check_attention(torch, np, c, decode):
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         sq, sk, sv, attn_mask=smask), reps=10)
     del sq, sk, sv, smask
-    bound_ms, bound_by = work_of(np, c)
-    return dict(case=c["name"], dtype=c["dtype"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    bound_ms, bound_by, nbytes, flops = work_of(np, c)
+    return dict(case=c["name"], dtype=c["dtype"], max_abs_err=err,
+                row_err=row, route=route, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / (ms * 1e-3) / 1e12,
+                gbps=nbytes / (ms * 1e-3) / 1e9,
+                host_us=host_us_per_call(torch, kernel) if decode else None)
 
 
 def phase_kernels(torch, np):
@@ -395,7 +440,7 @@ def phase_kernels(torch, np):
     decode_lens = [1, 7, 64, 65, 130, 300, 511, 512, 777, 1000, 1024, 1290,
                    1500, 1800, 2047, 2048]
     rows = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16", "float16", "float32"):
         cases = [
             ("prefill", attention_case(torch, np, name="llama2-7b", dtype=dtype,
                                        seed=1, **llama)),
@@ -415,15 +460,83 @@ def phase_kernels(torch, np):
         ]
         for kind, c in cases:
             r = check_attention(torch, np, c, decode=kind == "decode")
-            log("kernel", f"{kind} {r['case']} {dtype}: max_abs_err "
-                f"{r['max_abs_err']:.3g} (tol {TOL[dtype]}) | kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+            rate = (f"{r['tflops']:.1f} TFLOP/s" if r["bound_by"] ==
+                    "operations" else f"{r['gbps']:.0f} GB/s")
+            log("kernel", f"{kind} {r['case']} {dtype} via {r['route']}: "
+                f"max_abs_err {r['max_abs_err']:.3g} (tol {TOL[dtype]}), "
+                f"row {r['row_err']:.3g}"
+                + (" (held)" if dtype != "float32" else "")
+                + f", bits repeat, no pool copy | kernel {r['ms']:.4f} ms "
+                f"({rate}, {r['bound_ms'] / r['ms']:.1%} of the bound), "
+                f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f" | host {r['host_us']:.1f} us per call"
+                   if r["host_us"] is not None else ""))
             rows[(kind, r["case"], dtype)] = r
             del c
             torch.cuda.empty_cache()
     return rows
+
+
+# A new mbarrier pipeline that deadlocks hangs the card: each paged route
+# runs first in a child process with a timeout, at a small shape.
+REHEARSAL = [
+    # (dtype, atoms, bq, h, kvh, d, block_size, bps, window, alibi)
+    ("bfloat16", 4, 128, 4, 4, 128, 64, 8, None, False),
+    ("float16", 3, 64, 8, 1, 64, 8, 12, 37, False),
+    ("bfloat16", 3, 128, 4, 4, 128, 32, 10, None, True),
+    ("float32", 4, 128, 4, 2, 128, 64, 8, None, False),
+    ("bfloat16", 9, 1, 8, 8, 128, 64, 12, None, False),
+    ("float16", 9, 1, 8, 2, 128, 16, 40, 300, True),
+]
+REHEARSAL_TIMEOUT_S = 240
+
+
+def rehearse_child(torch, np):
+    """Each REHEARSAL case once through the wrapper, held against the plain
+    version (the child of ``phase_rehearse``)."""
+    from deepspeedsyclsupport_tpu_torch.models.layers import alibi_slopes
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    for i, (dtype, a, bq, h, kvh, d, bs, bps, window, alibi) in enumerate(
+            REHEARSAL):
+        rng = np.random.RandomState(i)
+        cap, slots = bps * bs, (bps * a + 3) * bs
+        pos0 = rng.randint(0, cap, a)
+        qlen = np.minimum(rng.randint(1, bq + 1, a), cap - pos0)
+        pos0[0], qlen[0], qlen[-1] = 0, min(bq, cap), 0
+        gen = torch.Generator(device=DEV).manual_seed(i)
+        tdt = getattr(torch, dtype)
+        args = [torch.randn(shape, generator=gen, device=DEV).to(tdt)
+                for shape in ((a, bq, h, d), (slots, kvh, d), (slots, kvh, d))]
+        args += [torch.from_numpy(x.astype(np.int32)).to(DEV) for x in (
+            rng.randint(0, slots // bs, (a, bps)), pos0, qlen)]
+        kw = dict(block_size=bs, window=window, alibi=torch.from_numpy(
+            alibi_slopes(h)).to(DEV) if alibi else None)
+        got = pa.ragged_prefill_attention(*args, **kw)
+        torch.cuda.synchronize()
+        want = pa.ragged_prefill_attention_reference(*args, **kw)
+        hold(f"rehearsal {i} {dtype}", got, want, TOL[dtype])
+        print(f"case {i} {dtype} bq {bq} G {h // kvh} D {d} bs {bs} via "
+              f"{pa.kernel_for(*args[:3], bs)}: ok", flush=True)
+
+
+def phase_rehearse():
+    """``rehearse_child`` in a child process under a timeout."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, __file__, "--rehearse"],
+                              capture_output=True, text=True,
+                              timeout=REHEARSAL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"paged rehearsal did not finish in "
+                             f"{REHEARSAL_TIMEOUT_S} s (a hung pipeline?)")
+    if proc.returncode != 0:
+        raise AssertionError(f"paged rehearsal failed (rc {proc.returncode})"
+                             f":\n{proc.stdout}\n{proc.stderr[-4000:]}")
+    log("rehearse", f"every paged route ran once in a child process in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + "; ".join(proc.stdout.strip().splitlines()))
 
 
 # ------------------------------------------------------------------ flash
@@ -695,6 +808,63 @@ def phase_serve(torch, np):
     del eng, params
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_serve_fp16(torch, np):
+    """A short float16 serve at llama2-7b width (4 layers): the engine
+    through the kernels (float16 prefill on the Hopper route, split-KV
+    decode) against the engine through the plain path, greedy tokens
+    equal; TTFT and decode tok/s of the kernel engine."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    model = build_model(SERVE_MODEL, num_layers=4, dtype="float16")
+    cfg = model.config
+    params = model.init_params(
+        generator=torch.Generator(device=DEV).manual_seed(2), device=DEV,
+        dtype=torch.float16)
+    rng = np.random.RandomState(2)
+    lens = SERVE_PROMPT_LENS
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+    new = 16
+    res = {}
+    for impl in ("kernel", "xla"):
+        eng = InferenceEngineV2(model, params, dtype=torch.float16,
+                                block_size=64, max_context=2048,
+                                max_sequences=16, prefill_attn=impl,
+                                decode_attn=impl, device=DEV)
+        eng.generate([prompts[0][:64]], max_new_tokens=2)   # warm-up
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        res[impl] = (outs, ttft, time.perf_counter() - t1 - ttft,
+                     dict(pa.LAUNCHES))
+        del eng
+        torch.cuda.empty_cache()
+    outs, ttft, decode_s, launches = res["kernel"]
+    if outs != res["xla"][0]:
+        raise AssertionError(f"fp16 greedy tokens differ: kernel {outs} "
+                             f"plain {res['xla'][0]}")
+    if min(launches.values()) < 1 or any(res["xla"][3].values()):
+        raise AssertionError(f"fp16 serve launches: kernel {launches}, "
+                             f"plain {res['xla'][3]}")
+    routes = (pa.kernel_name("prefill", torch.float16, cfg.head_dim),
+              pa.kernel_name("decode", torch.float16, cfg.head_dim))
+    n_decode = sum(len(o) - 1 for o in outs)
+    log("serve", f"fp16 {SERVE_MODEL} width, 4 layers, {len(lens)} prompts "
+        f"({sum(lens)} tokens), {new} greedy tokens each through {routes[0]}"
+        f" / {routes[1]}: tokens equal to the plain path's; TTFT "
+        f"{ttft * 1e3:.1f} ms (plain {res['xla'][1] * 1e3:.1f}), decode "
+        f"{n_decode / decode_s:.1f} tok/s (plain "
+        f"{n_decode / res['xla'][2]:.1f}), launches {launches}")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ train
@@ -1111,11 +1281,19 @@ def phase_evoformer(torch, np):
             torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
         errs, got, e2e = check_full_bias(torch, dtype, seed=40)
+        held = ""
+        if dtype == "bfloat16":
+            lim = E2E_DQ_ROW_LIMIT["full-bias"]
+            if not e2e["e2e_dq_row"] <= lim:
+                raise AssertionError(f"full-shape bias bf16: end-to-end dQ "
+                                     f"row error {e2e['e2e_dq_row']} > {lim}")
+            held = (f" | end to end e2e_dq_row {e2e.pop('e2e_dq_row'):.3g} "
+                    f"(held, lim {lim:.3g})")
         log("evoformer", f"full-shape pair bias [4, 8, 1024, 1024] through "
             f"flash_attention {dtype}, causal, D=64: launches {got}; "
             + ", ".join(f"{k} {e:.3g} (lim {lim:.3g})"
                         for k, (e, lim) in errs.items())
-            + " | end to end (not held) "
+            + held + " | end to end (not held) "
             + ", ".join(f"{k} {e:.3g}" for k, e in e2e.items()))
         torch.cuda.empty_cache()
     return rows, launches
@@ -1235,6 +1413,11 @@ def main() -> int:
     import numpy as np
     import torch
 
+    if sys.argv[1:] == ["--rehearse"]:
+        if not torch.cuda.is_available():
+            return 2
+        rehearse_child(torch, np)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no result",
               file=sys.stderr)
@@ -1250,9 +1433,11 @@ def main() -> int:
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
     phase_build(_build)
+    phase_rehearse()
     rows = phase_kernels(torch, np)
     flash_rows = phase_flash(torch, np)
     launches = phase_serve(torch, np)
+    phase_serve_fp16(torch, np)
     launches.update(phase_train(torch, np))
     phase_parity(torch, np)
     phase_train_parity(torch, np)
@@ -1269,8 +1454,9 @@ def main() -> int:
                        ("decode", "decode-llama2-7b", "bfloat16"))):
         r = rows[key]
         entries.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[name],
+            "name": name, "route": "cuda", "kernel": r["route"],
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": launches[name],
             "max_abs_err": max(v["max_abs_err"] for k, v in rows.items()
                                if k[0] == key[0]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],

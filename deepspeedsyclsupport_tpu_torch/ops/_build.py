@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` is compiled for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The library lands
 in ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
-named by a hash of its source, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built when a module is imported.
+named by a hash of its source and of the shared headers (``csrc/*.cuh``), so
+an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported.
 """
 import ctypes
 import hashlib
@@ -44,11 +45,21 @@ def find_nvcc() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu`` and every header under ``csrc/`` (a
+    source may include any of them), in a fixed order."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source
-    exists. Raises with nvcc's output when the compile fails."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    headers exists. Raises with nvcc's output when the compile fails."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = out.with_suffix(".log")
     if out.exists():

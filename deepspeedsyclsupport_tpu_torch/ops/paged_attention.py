@@ -1,22 +1,36 @@
-"""Ragged paged attention: the CUDA kernel's wrappers and plain versions.
+"""Ragged paged attention: the CUDA kernels' wrappers and plain versions.
 
 Port of ``deepspeedsyclsupport_tpu/ops/paged_attention.py``. The TPU kernel
-``_prefill_kernel`` (:96) is replaced by the hand-written CUDA kernel in
+``_prefill_kernel`` (:96) is replaced by the hand-written CUDA kernels in
 ``csrc/paged_attention.cu``; decode is its BQ=1 call, as in the JAX package.
+The library picks one of three routes before launch (:func:`kernel_name`):
+
+* ``paged_decode_split_kernel`` (+ ``paged_decode_combine_kernel``), every
+  dtype, for atoms of at most 16 lanes (BQ * H / KVH <= 16: decode): split
+  KV in fixed chunks of :data:`SPLIT_CHUNK` positions, partials in float32
+  scratch (:func:`split_plan`) folded in chunk order;
+* ``paged_prefill_sm90_kernel``, bfloat16 / float16 prefill at D <= 128 (a
+  multiple of 8), ``block_size`` a multiple or a divisor (>= 8) of 64, H /
+  KVH dividing 128, and q and the pool 16-byte aligned so TMA reads them in
+  place: wgmma products, P rounded to the dtype before P V;
+* ``paged_attention_kernel``, the CUDA-core version, for everything else
+  (float32 prefill, D > 128, a pool TMA cannot read in place). The pool is
+  never copied on any route.
 
 * :func:`ragged_prefill_attention` / :func:`paged_decode_attention` — the
-  wrappers. A CUDA tensor launches the kernel (or raises); a CPU tensor
-  takes the plain version. There is no other fallback.
+  wrappers. A CUDA tensor launches a kernel (or raises); a CPU tensor takes
+  the plain version. There is no other fallback.
 * :func:`ragged_prefill_attention_reference` /
   :func:`paged_decode_attention_reference` — the plain PyTorch versions
   (ports of the JAX package's jnp oracles, :266 and :62). They gather each
-  atom's KV into ``[A, max_ctx, KVH, D]``, which the kernel never builds.
-* :data:`LAUNCHES` — how many times each wrapper launched the kernel; only
-  a launch counts, never a CPU call.
+  atom's KV into ``[A, max_ctx, KVH, D]``, which the kernels never build.
+* :data:`LAUNCHES` — how many times each wrapper launched the kernel (one
+  count per call, whatever the route); only a launch counts, never a CPU
+  call.
 """
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -89,34 +103,90 @@ def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
 
 
 # --------------------------------------------------------------------- kernel
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the split route (csrc/paged_attention.cu `kChunk`, `split_plan`)
+SPLIT_CHUNK = 256          # KV positions per CTA, a constant on every card
+SPLIT_MAX_LANES = 16       # atoms of at most this many lanes take the route
+
+
+def split_plan(a: int, bq: int, h: int, kvh: int, d: int, bps: int,
+               block_size: int) -> Tuple[int, int, int, int]:
+    """The split route's grid for ``a`` atoms: ``(chunks per atom, lanes per
+    tile, lane tiles, scratch floats)``, from shapes alone (no value read
+    from the card). Chunks cover the table's capacity ``bps * block_size``;
+    a CTA holds D / 32 columns of up to 1024 / DMAX lanes (DMAX the head dim
+    rounded up to 64, 128 or 256); the scratch holds one partial (m, l and D
+    accumulator columns, float32) per atom, kv head, lane tile, chunk and
+    lane. The library checks the scratch it is given against its own
+    plan."""
+    lanes = bq * (h // kvh)
+    nch = -(-bps * block_size // SPLIT_CHUNK)
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256
+    lt = min(1024 // dmax, lanes)
+    ltiles = -(-lanes // lt)
+    return nch, lt, ltiles, a * kvh * ltiles * nch * lt * (d + 2)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     fn = lib.dsst_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.dsst_paged_kernel.argtypes = [ctypes.c_int] * 7
+        lib.dsst_paged_kernel.restype = ctypes.c_char_p
         lib.dsst_error_string.argtypes = [ctypes.c_int]
         lib.dsst_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def kernel_name(kind: str, dtype: torch.dtype, d: int, *,
+                block_size: int = 64, bq: Optional[int] = None,
+                group: int = 1, aligned: bool = True) -> str:
+    """The kernel the built library launches, as it reports it (the route
+    is decided there, before launch): ``kind`` ``"prefill"`` (atoms of
+    ``bq`` rows, 128 unless given) or ``"decode"`` (BQ = 1), ``group`` q
+    heads per kv head, ``aligned``: q and the pool start on 16 bytes (see
+    :func:`kernel_for` for given tensors). Needs the CUDA build."""
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"kind must be 'prefill' or 'decode', got {kind!r}")
+    rows = 1 if kind == "decode" else (128 if bq is None else int(bq))
+    name = _library().dsst_paged_kernel(rows, group, 1, int(d),
+                                        int(block_size), _DTYPE_CODES[dtype],
+                                        int(aligned))
+    if name is None:
+        raise ValueError(f"no paged kernel for bq {rows}, group {group}")
+    return name.decode()
+
+
+def kernel_for(q_atoms, k_cache, v_cache, block_size: int) -> str:
+    """The kernel :func:`ragged_prefill_attention` launches for these
+    tensors (q ``[A, BQ, H, D]``; for decode pass ``q[:, None]``)."""
+    _, bq, h, d = q_atoms.shape
+    return kernel_name("prefill", q_atoms.dtype, d, block_size=block_size,
+                       bq=bq, group=h // k_cache.shape[1],
+                       aligned=all(t.data_ptr() % 16 == 0
+                                   for t in (q_atoms, k_cache, v_cache)))
+
+
 def _launch(counter: str, q_atoms, k_cache, v_cache, atom_tables, atom_pos0,
-            atom_qlen, block_size: int, alibi,
-            window: Optional[int]) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream and count the launch under ``LAUNCHES[counter]``. Raises
-    on anything the kernel does not take and on a refused launch."""
+            atom_qlen, block_size: int, alibi, window: Optional[int],
+            seq_lens=None) -> torch.Tensor:
+    """Check what the kernels take, allocate the output (and the split
+    route's scratch), launch on the current stream and count the launch
+    under ``LAUNCHES[counter]``. Decode passes ``seq_lens`` (BQ = 1) in
+    place of ``atom_pos0`` / ``atom_qlen``: the kernels derive them, so the
+    call launches nothing else. Raises on anything the kernels do not take
+    and on a refused launch. Reads nothing back from the card."""
     dev = q_atoms.device
     if dev.type != "cuda":
         raise ValueError(f"the paged-attention kernel runs on CUDA tensors, "
                          f"got {dev}")
     if q_atoms.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged-attention kernel takes float32 or bfloat16, "
-                        f"got {q_atoms.dtype}")
+        raise TypeError(f"paged-attention kernel takes float32, bfloat16 or "
+                        f"float16, got {q_atoms.dtype}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != dev or t.dtype != q_atoms.dtype:
             raise TypeError(f"{name} must be {q_atoms.dtype} on {dev}, got "
@@ -131,21 +201,24 @@ def _launch(counter: str, q_atoms, k_cache, v_cache, atom_tables, atom_pos0,
                          f"H, D], k/v {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} must be [slots, KVH, D]")
     a, bq, h, d = q_atoms.shape
-    kvh = k_cache.shape[1]
+    num_slots, kvh = k_cache.shape[:2]
     if k_cache.shape[2] != d or h % kvh or not 0 < d <= 256:
         raise ValueError(f"head dims: q {d}, pool {k_cache.shape[2]} (<= 256);"
                          f" {h} q heads over {kvh} kv heads")
+    rows = ((seq_lens,) if seq_lens is not None
+            else (atom_pos0, atom_qlen))
     if atom_tables.dim() != 2 or atom_tables.shape[0] != a or \
-            atom_pos0.shape != (a,) or atom_qlen.shape != (a,):
-        raise ValueError("atom_tables must be [A, Bps], pos0/qlen [A]")
+            any(t.shape != (a,) for t in rows):
+        raise ValueError("atom_tables must be [A, Bps], pos0/qlen or "
+                         "seq_lens [A]")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     out = torch.empty_like(q_atoms)
     if a == 0 or bq == 0:
         return out
+    bps = atom_tables.shape[1]
     tables = atom_tables.to(device=dev, dtype=torch.int32).contiguous()
-    pos0 = atom_pos0.to(device=dev, dtype=torch.int32).contiguous()
-    qlen = atom_qlen.to(device=dev, dtype=torch.int32).contiguous()
+    rows = [t.to(device=dev, dtype=torch.int32).contiguous() for t in rows]
     slopes = None
     if alibi is not None:
         slopes = torch.as_tensor(alibi).to(device=dev,
@@ -153,13 +226,21 @@ def _launch(counter: str, q_atoms, k_cache, v_cache, atom_tables, atom_pos0,
         if slopes.shape != (h,):
             raise ValueError(f"alibi slopes must be [{h}], got "
                              f"{tuple(slopes.shape)}")
+    scratch, n_scratch = None, 0
+    if bq * (h // kvh) <= SPLIT_MAX_LANES:
+        n_scratch = split_plan(a, bq, h, kvh, d, bps, block_size)[3]
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     lib = _library()
+    pos0, qlen, lens = ((None, None, rows[0].data_ptr()) if seq_lens
+                        is not None else (rows[0].data_ptr(),
+                                          rows[1].data_ptr(), None))
     with torch.cuda.device(dev):
         rc = lib.dsst_paged_attention(
             q_atoms.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), tables.data_ptr(), pos0.data_ptr(),
-            qlen.data_ptr(), None if slopes is None else slopes.data_ptr(),
-            a, bq, h, kvh, d, atom_tables.shape[1], block_size,
+            out.data_ptr(), tables.data_ptr(), pos0, qlen, lens,
+            None if slopes is None else slopes.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n_scratch,
+            a, bq, h, kvh, d, bps, block_size, num_slots,
             0 if window is None else int(window), 1.0 / math.sqrt(d),
             _DTYPE_CODES[q_atoms.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
@@ -197,6 +278,6 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens, *,
         return paged_decode_attention_reference(
             q, k_cache, v_cache, block_tables, seq_lens,
             block_size=block_size, alibi=alibi, window=window)
-    pos0, qlen = _decode_atoms(seq_lens)
     return _launch("paged_decode_attention", q[:, None], k_cache, v_cache,
-                   block_tables, pos0, qlen, block_size, alibi, window)[:, 0]
+                   block_tables, None, None, block_size, alibi, window,
+                   seq_lens=seq_lens)[:, 0]

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the CUDA ragged paged-attention kernel and the
-CUDA flash-attention kernels (forward, dQ, dK/dV) against their plain
+"""PyTorch port on the card: the CUDA ragged paged-attention kernels (each
+case's route asserted: the Hopper prefill, split-KV decode or CUDA-core
+kernel) and the CUDA flash-attention kernels (forward, dQ, dK/dV) against their plain
 versions over many small shapes, their input checks, and the serving and
 training engines through the kernels. Marked ``cuda``: they skip where
 there is no card.
@@ -29,7 +30,30 @@ from deepspeedsyclsupport_tpu_torch.models.layers import alibi_slopes
 from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+PAGED_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _want_route(dtype, bq, h, kvh, d, bs, aligned=True):
+    """The route the library takes (``route_of`` in
+    csrc/paged_attention.cu), written out for the tests."""
+    g = h // kvh
+    if bq * g <= 16:
+        return "paged_decode_split_kernel"
+    if dtype != torch.float32 and d <= 128 and d % 8 == 0 and aligned and \
+            (bs % 64 == 0 or (64 % bs == 0 and bs >= 8)) and 128 % g == 0:
+        return "paged_prefill_sm90_kernel"
+    return "paged_attention_kernel"
+
+
+def _hold_paged(got, want, dtype, what=""):
+    """Max abs error within TOL (relative to the largest |want| where that
+    is above 1) and, in bf16 / fp16, each row within TOL of its own largest
+    |want| (a row zero in want is zero in got)."""
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    if dtype != torch.float32:
+        _assert_rows_close(got, want, TOL[dtype], what or "paged O")
 
 
 @pytest.fixture
@@ -74,7 +98,7 @@ SHAPES = [
 
 
 @pytest.mark.parametrize("shape", range(len(SHAPES)))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
 @pytest.mark.parametrize("variant", ["plain", "alibi", "window",
                                      "alibi_window"])
 def test_ragged_kernel_matches_plain(dev, shape, dtype, variant):
@@ -85,47 +109,142 @@ def test_ragged_kernel_matches_plain(dev, shape, dtype, variant):
         kw["alibi"] = torch.from_numpy(alibi_slopes(s["h"])).to(dev)
     if "window" in variant:
         kw["window"] = max(1, s["bs"] * s["bps"] // 5)
+    assert pa.kernel_for(*args[:3], s["bs"]) == _want_route(
+        dtype, s["bq"], s["h"], s["kvh"], s["d"], s["bs"])
     before = pa.LAUNCHES["ragged_prefill_attention"]
     got = pa.ragged_prefill_attention(*args, **kw)
     torch.cuda.synchronize()
     assert pa.LAUNCHES["ragged_prefill_attention"] == before + 1
     want = pa.ragged_prefill_attention_reference(*args, **kw)
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    _hold_paged(got, want, dtype)
     rows = torch.arange(s["bq"], device=dev)[None, :]
     assert float(got[rows >= args[5].long()[:, None]].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("kvh,d,bs", [(8, 128, 64), (2, 128, 16), (1, 64, 8),
-                                      (8, 80, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_matches_plain(dev, kvh, d, bs, dtype):
-    rng = np.random.RandomState(d + bs)
-    s, h, bps = 9, 8, 12
+def _decode_args(dev, dtype, *, s, h, kvh, d, bs, bps, seed, lens=None):
+    rng = np.random.RandomState(seed)
     num_slots = (s * bps + 2) * bs
-    lens = rng.randint(0, bps * bs + 1, s).astype(np.int32)
-    lens[0], lens[1] = 0, bps * bs
+    if lens is None:
+        lens = rng.randint(0, bps * bs + 1, s).astype(np.int32)
+        lens[0], lens[1] = 0, bps * bs
     g = torch.Generator(device="cpu").manual_seed(0)
-    args = [torch.randn((s, h, d), generator=g).to(dev, dtype),
+    return [torch.randn((s, h, d), generator=g).to(dev, dtype),
             torch.randn((num_slots, kvh, d), generator=g).to(dev, dtype),
             torch.randn((num_slots, kvh, d), generator=g).to(dev, dtype),
             torch.from_numpy(rng.permutation(num_slots // bs)[:s * bps]
                              .reshape(s, bps).astype(np.int32)).to(dev),
-            torch.from_numpy(lens).to(dev)]
+            torch.from_numpy(np.asarray(lens, np.int32)).to(dev)]
+
+
+@pytest.mark.parametrize("kvh,d,bs", [(8, 128, 64), (2, 128, 16), (1, 64, 8),
+                                      (8, 80, 32), (8, 256, 64), (4, 256, 16)])
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
+def test_decode_kernel_matches_plain(dev, kvh, d, bs, dtype):
+    h = 8
+    args = _decode_args(dev, dtype, s=9, h=h, kvh=kvh, d=d, bs=bs, bps=12,
+                        seed=d + bs)
+    assert pa.kernel_for(args[0][:, None], *args[1:3], bs) == \
+        "paged_decode_split_kernel"
     for kw in (dict(), dict(window=37),
                dict(alibi=torch.from_numpy(alibi_slopes(h)).to(dev))):
         got = pa.paged_decode_attention(*args, block_size=bs, **kw)
         want = pa.paged_decode_attention_reference(*args, block_size=bs, **kw)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   atol=TOL[dtype], rtol=TOL[dtype])
+        _hold_paged(got, want, dtype)
         assert float(got[0].abs().max()) == 0.0     # dead slot
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ragged_long_context_window(dev, dtype):
+    """mistral-7b heads (GQA 32 / 8, D = 128) over an 8192-token context
+    with its 4096 window: atoms at the start, in the middle, at the end of
+    the table, one partial and one dead, on the Hopper route."""
+    rng = np.random.RandomState(3)
+    bs, bps, h, kvh, d, bq = 64, 128, 32, 8, 128, 128
+    pos0 = np.array([0, 4000, 8064, 6100, 0], np.int32)
+    qlen = np.array([128, 128, 128, 37, 0], np.int32)
+    num_slots = (bps * len(pos0) + 2) * bs
+    g = torch.Generator(device="cpu").manual_seed(3)
+    args = [torch.randn((len(pos0), bq, h, d), generator=g).to(dev, dtype),
+            torch.randn((num_slots, kvh, d), generator=g).to(dev, dtype),
+            torch.randn((num_slots, kvh, d), generator=g).to(dev, dtype),
+            torch.from_numpy(rng.permutation(num_slots // bs)[:len(pos0) * bps]
+                             .reshape(len(pos0), bps).astype(np.int32)).to(
+                dev),
+            torch.from_numpy(pos0).to(dev), torch.from_numpy(qlen).to(dev)]
+    assert pa.kernel_for(*args[:3], bs) == "paged_prefill_sm90_kernel"
+    got = pa.ragged_prefill_attention(*args, block_size=bs, window=4096)
+    want = pa.ragged_prefill_attention_reference(*args, block_size=bs,
+                                                 window=4096)
+    _hold_paged(got, want, dtype)
+    assert float(got[-1].abs().max()) == 0.0 and \
+        float(got[3, 37:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
+def test_decode_long_context_spans_chunks(dev, dtype):
+    """Decode over up to 2047 tokens of llama2-7b heads: up to eight chunks
+    of the split route folded by the combine kernel, beside one-chunk
+    sequences the split kernel writes itself and a dead slot."""
+    lens = [2047, 1, 255, 256, 257, 1500, 0, 2048, 513]
+    args = _decode_args(dev, dtype, s=len(lens), h=32, kvh=32, d=128, bs=64,
+                        bps=32, seed=5, lens=lens)
+    got = pa.paged_decode_attention(*args, block_size=64)
+    want = pa.paged_decode_attention_reference(*args, block_size=64)
+    _hold_paged(got, want, dtype)
+    assert float(got[6].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", PAGED_DTYPES)
+def test_paged_routes_are_bit_identical_on_repeat(dev, dtype):
+    """Every route gives the same bits twice: no atomics, the split
+    route's chunks folded in order."""
+    cases = [_case(dev, dtype, seed=2, full=True, **SHAPES[2]),    # prefill
+             _case(dev, dtype, seed=7, full=True, **SHAPES[7])]    # D = 256
+    for args in cases:
+        bs = 64 if args[0].shape[-1] == 128 else 16
+        one = pa.ragged_prefill_attention(*args, block_size=bs, window=300)
+        assert torch.equal(one, pa.ragged_prefill_attention(
+            *args, block_size=bs, window=300))
+    dargs = _decode_args(dev, dtype, s=6, h=32, kvh=8, d=128, bs=16, bps=100,
+                         seed=1)
+    one = pa.paged_decode_attention(*dargs, block_size=16)
+    assert torch.equal(one, pa.paged_decode_attention(*dargs, block_size=16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_unaligned_pool_takes_the_cuda_core_route_without_a_copy(dev, dtype):
+    """A pool view that starts one element into its buffer cannot be read
+    by TMA: the library takes the CUDA-core kernel, which reads it in place
+    (the call allocates less than one pool), and the result holds."""
+    s = SHAPES[2]
+    args = _case(dev, dtype, seed=4, full=True, **s)
+    assert pa.kernel_for(*args[:3], s["bs"]) == "paged_prefill_sm90_kernel"
+    pools = []
+    for t in args[1:3]:
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        pools.append(view)
+    assert pools[0].is_contiguous() and pools[0].data_ptr() % 16 != 0
+    odd = [args[0], *pools, *args[3:]]
+    assert pa.kernel_for(*odd[:3], s["bs"]) == "paged_attention_kernel"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = pa.ragged_prefill_attention(*odd, block_size=s["bs"])
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < pools[0].nbytes
+    _hold_paged(got, pa.ragged_prefill_attention_reference(
+        *args, block_size=s["bs"]), dtype)
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
     args = _case(dev, torch.float32, a=2, bq=4, h=4, kvh=2, d=32, bs=8, bps=2,
                  seed=0)
     with pytest.raises(TypeError):
+        pa.ragged_prefill_attention(args[0].double(), *args[1:], block_size=8)
+    with pytest.raises(TypeError):       # q and pool of different dtypes
         pa.ragged_prefill_attention(args[0].half(), *args[1:], block_size=8)
     with pytest.raises(ValueError, match="contiguous"):
         pa.ragged_prefill_attention(args[0].transpose(1, 2).contiguous()
@@ -158,6 +277,32 @@ def test_engine_serves_through_kernel(dev):
     dense = model.apply(params, torch.tensor([prompts[2]], device=dev))
     assert math.isclose(float((logits - dense[0, -1]).abs().max()), 0.0,
                         abs_tol=2e-4)
+
+
+def test_engine_serves_fp16_through_kernels(dev):
+    """float16 serving end to end: the engine through the kernels (prefill
+    atoms of 16 rows x 2 heads on the Hopper route, decode on the split
+    route) gives the plain path's greedy tokens."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+
+    model = build_model("tiny", dtype="float16")
+    params = model.init_params(device=dev, dtype=torch.float16)
+    kw = dict(dtype=torch.float16, block_size=8, max_context=64,
+              max_tokens_per_batch=32, max_sequences=4, atom_q_size=16)
+    prompts = [[7, 3, 11], [4, 100, 42, 8, 19], list(range(30, 60)), [9]]
+    cfg = model.config
+    assert pa.kernel_name("prefill", torch.float16, cfg.head_dim,
+                          block_size=8, bq=16,
+                          group=cfg.num_heads // cfg.num_kv_heads) == \
+        "paged_prefill_sm90_kernel"
+    pa.reset_launch_counts()
+    kern = InferenceEngineV2(model, params, **kw).generate(prompts, 6)
+    counts = dict(pa.LAUNCHES)
+    plain = InferenceEngineV2(model, params, prefill_attn="xla",
+                              decode_attn="xla", **kw).generate(prompts, 6)
+    assert kern == plain
+    assert counts["ragged_prefill_attention"] > 0
+    assert counts["paged_decode_attention"] > 0
 
 
 # ------------------------------------------------------------ flash attention

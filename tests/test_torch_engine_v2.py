@@ -8,7 +8,8 @@ which takes its plain version on CPU tensors) or ``"xla"``. ``put`` logits
 (ragged prefill, then the decode path) agree to 2e-4, as in the JAX
 package's own engine tests (``tests/unit/test_inference_v2.py:259``);
 greedy ``generate`` tokens are identical. One GQA+window config and one
-ALiBi config (overrides of ``tiny``) ride along.
+ALiBi config (overrides of ``tiny``) ride along, and one float16 serve of
+``tiny`` through both engines' kernel paths (logits at 4e-3).
 """
 import dataclasses
 import functools
@@ -89,6 +90,36 @@ def test_engine_matches_jax(arch, jax_impl, torch_impl):
     tp, td, ttoks = _torch_serve(arch, torch_impl)
     np.testing.assert_allclose(tp, jp, atol=TOL, rtol=TOL)
     np.testing.assert_allclose(td, jd, atol=TOL, rtol=TOL)
+    assert ttoks == jtoks
+    assert all(len(t) == NEW_TOKENS for t in ttoks)
+
+
+FP16_TOL = 4e-3
+
+
+def test_engine_matches_jax_fp16():
+    """float16 serving (the dtype the port's kernel once refused): the same
+    float32 weights served by both engines in float16 on ``tiny``, the JAX
+    engine through its Pallas kernel in interpret mode, the port through
+    its kernel wrapper (the plain version on CPU tensors). Both compute in
+    float16 and round at different places, so the logits are held at the
+    card's float16 tolerance, 4e-3 (an ulp of float16 at |x| ~ 2); greedy
+    tokens are identical."""
+    _, jax_params, np_params = _jax_model("tiny")
+    jax_eng = JaxEngine(jax_build_model("tiny", dtype="float16"), jax_params,
+                        dtype=jnp.float16, prefill_attn="kernel_interpret",
+                        **ENGINE_KW)
+    jp, jd, jtoks = _serve(jax_eng, lambda x: np.asarray(x, np.float32))
+    model = build_model("tiny", dtype="float16")
+    eng = InferenceEngineV2(model, params_from_jax(np_params, model.config,
+                                                   device="cpu"),
+                            device="cpu", dtype=torch.float16,
+                            prefill_attn="kernel", decode_attn="kernel",
+                            **ENGINE_KW)
+    assert eng.kv.k.dtype == torch.float16
+    tp, td, ttoks = _serve(eng, lambda t: t.float().numpy())
+    np.testing.assert_allclose(tp, jp, atol=FP16_TOL, rtol=FP16_TOL)
+    np.testing.assert_allclose(td, jd, atol=FP16_TOL, rtol=FP16_TOL)
     assert ttoks == jtoks
     assert all(len(t) == NEW_TOKENS for t in ttoks)
 

@@ -27,7 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def classify(name: str) -> str:
     low = name.lower()
-    if "paged_attention" in low:
+    if "paged_" in low:     # the port's paged-attention kernels
         return "paged_attention (port kernel)"
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
                               "cublas", "splitk")):
