@@ -11,7 +11,8 @@
 //                      <- _dq_kernel    (:208), launched by _bwd_call (:535)
 //   flash_dkv_sm90_kernel / flash_dkv_kernel, the same split
 //                      <- _dkv_kernel   (:273), launched by _bwd_call (:535)
-//   flash_dbias_kernel <- _dbias_kernel (:330), launched by _dbias_call (:384)
+//   flash_dbias_sm90_kernel / flash_dbias_kernel, the same split
+//                      <- _dbias_kernel (:330), launched by _dbias_call (:384)
 //
 // What they compute. q [B, Sq, H, D], k/v [B, Skv, KVH, D] and o/do/dq/dk/dv
 // are read and written in place through (batch, seq, head) strides with a
@@ -51,11 +52,11 @@
 // All products accumulate in float32; outputs are stored in the inputs'
 // type (float32, bfloat16 or float16), LSE and dbias in float32.
 //
-// The bfloat16 / float16 forward, and their dQ and dK/dV at D <= 128, are
-// Hopper designs of their own (wgmma, TMA, mbarriers, warp
-// specialisation): see flash_fwd_sm90_kernel and flash_dq_sm90_kernel
-// below. Design of the others (first, simple version). 256 threads as
-// 16 x 16;
+// The bfloat16 / float16 forward, and their dQ, dK/dV and reducing dbias
+// at D <= 128, are Hopper designs of their own (wgmma, TMA, mbarriers, warp
+// specialisation): see flash_fwd_sm90_kernel, flash_dq_sm90_kernel and
+// flash_dbias_sm90_kernel below. Design of the others (first, simple
+// version). 256 threads as 16 x 16;
 // each thread owns an RI x CJ tile of the score block and RI rows x D/16
 // columns of its accumulators, as in csrc/paged_attention.cu.
 //   forward (float32): one CTA per (q tile of 64 rows, q head, batch); walks the KV
@@ -70,10 +71,11 @@
 //     CTA: for each replica of its chunk it loads the q, dO, K and V tiles,
 //     recomputes s and dp, and adds p (dp - delta) to a 64 x 64 register
 //     accumulator, then writes the tile once. The replicas are cut into
-//     `chunks` fixed ranges so that the grid fills the card (one chunk
-//     leaves ~1 wave of 288 CTAs at the evoformer MSA shape), and a second
-//     kernel sums the chunks' partial tiles in chunk order. No atomics, so
-//     two runs on one card give the same bits.
+//     `chunks` fixed ranges, a count the wrapper takes from the shapes
+//     alone, so that the grid fills the card (one chunk leaves ~1 wave of
+//     288 CTAs at the evoformer MSA shape), and a second kernel sums the
+//     chunks' partial tiles in chunk order. No atomics, so the same inputs
+//     give the same bits on any card.
 // Nothing crosses CTAs, so results do not depend on scheduling: the same
 // inputs give the same bits (activation checkpointing relies on that).
 // The biases are read from global memory per score element (coalesced
@@ -94,11 +96,12 @@
 // What bounds the dbias kernel. At the evoformer MSA shape (B*N = 512 rows
 // of S = 384, H = 8, D = 32, bf16) it must read q, k, v and dO once (4 x
 // 100.7 MB, ~0.12 ms at 3.35 TB/s) and do 4 * D flops per visible (i, j),
-// head and replica (77 GFLOP, ~0.08 ms at 989 TFLOP/s): bytes bound. This
-// first version re-reads K and V per (q tile, replica) and runs its products
-// on the CUDA cores like the others; it does not take a block layout (the
-// API refuses a layout with a broadcast bias, as the JAX package does), and
-// it recomputes p and dp that the dQ kernel also computes.
+// head and replica (77 GFLOP, ~0.08 ms at 989 TFLOP/s): bytes bound. The
+// CUDA-core version (float32, D > 128) re-reads K and V per (q tile,
+// replica) and runs its products on the CUDA cores like the others; neither
+// version takes a block layout (the API refuses a layout with a broadcast
+// bias, as the JAX package does), and both recompute p and dp that the dQ
+// kernel also computes.
 //
 // Interface: one plain C function per kernel, loaded with ctypes. Each
 // launches on the given stream, allocates nothing, and returns
@@ -946,9 +949,12 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_sum_kernel(
 //     fragment of 16 columns is the A fragment of one k step); V is an
 //     MN-major B operand in shared memory (the transpose bit).
 // P in T before P V is the one rounding the CUDA-core version does not do
-// (its P stays float32). Nothing crosses CTAs: the same inputs give the same
-// bits. Bound at llama2-1b (S = 4096, D = 128, causal): 137 GFLOP on the
-// tensor cores, 0.139 ms at 989 TFLOP/s. Only the two warpgroups overlap
+// (its P stays float32); on the biased routes (SPLIT: a pair or k-row bias)
+// P goes in as two operands, hi = T(P) and lo = T(P - hi), into the same
+// accumulator, ~16 bits of P for one more sweep of P V (ROADMAP C2).
+// Nothing crosses CTAs: the same inputs give the same bits. Bound at
+// llama2-1b (S = 4096, D = 128, causal): 137 GFLOP on the tensor cores,
+// 0.139 ms at 989 TFLOP/s. Only the two warpgroups overlap
 // each other's softmax with products; a warpgroup waits for its own S
 // before its softmax and for its P V before the next tile. Left for later:
 // ordering the two warpgroups' products with named barriers, a persistent
@@ -1024,7 +1030,7 @@ __device__ __forceinline__ void fragment_scores(
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool SPLIT>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
     const Args p, const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
@@ -1181,9 +1187,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
         for (int i = 0; i < OW; ++i) o[h][i] *= alpha[(i >> 1) & 1];
 
       // P in T: the S fragment of columns [16 kk, 16 kk + 16) is the A
-      // fragment of k step kk
-      uint32_t pa[BC / 16][4];
-      pack_a<T>(pa, s);
+      // fragment of k step kk; SPLIT: P as hi + lo, two products
+      uint32_t pa[BC / 16][4], pl[BC / 16][4];
+      if constexpr (SPLIT) pack_split<T>(pa, pl, s);
+      else pack_a<T>(pa, s);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
@@ -1193,6 +1200,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
               o[h], pa[kk],
               sw128_desc(vs + kk * 16 * 128 + h * 2 * BC * 128, BC * 128,
                          1024));
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int kk = 0; kk < BC / 16; ++kk)
+#pragma unroll
+          for (int h = 0; h < OH; ++h)
+            wgmma_rs<T, 2 * OW>(
+                o[h], pl[kk],
+                sw128_desc(vs + kk * 16 * 128 + h * 2 * BC * 128, BC * 128,
+                           1024));
+      }
       wg_commit();
       wg_wait_all();
 #pragma unroll
@@ -1263,7 +1280,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
 //     group sum stays in the CTA's registers; keys no query sees are
 //     written as zeros.
 // P and dS in T before the three products are the roundings the CUDA-core
-// versions do not do (their P and dS stay float32). Nothing crosses CTAs and
+// versions do not do (their P and dS stay float32); the biased routes
+// (SPLIT) multiply each as hi + lo operands, as the forward does P, for one
+// more sweep of dQ, dV and dK (8 D and 12 D flops per pair for dQ and dK/dV
+// instead of 6 D and 8 D). Nothing crosses CTAs and
 // every sum runs in a fixed order, so the same inputs give the same bits: no
 // dQ atomics, hence no fused single-pass backward (10 D flops per pair
 // against these kernels' 14 D) until dQ can be accumulated in order.
@@ -1311,7 +1331,7 @@ __device__ __forceinline__ void fragment_key_scores(
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool SPLIT>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
     const Args p, const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tdo,
@@ -1471,13 +1491,20 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
             dbp[(size_t)(row0 + 8 * rr) * p.skv + j] = s[i];
         }
       }
-      uint32_t da[BC / 16][4];
-      pack_a<T>(da, s);
+      uint32_t da[BC / 16][4], dlo[BC / 16][4];
+      if constexpr (SPLIT) pack_split<T>(da, dlo, s);
+      else pack_a<T>(da, s);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
         wgmma_rs<T, DMAX>(dq, da[kk],
                           sw128_desc(ks + kk * 16 * 128, BC * 128, 1024));
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int kk = 0; kk < BC / 16; ++kk)
+          wgmma_rs<T, DMAX>(dq, dlo[kk],
+                            sw128_desc(ks + kk * 16 * 128, BC * 128, 1024));
+      }
       wg_commit();
       wg_wait_all();
       fence_regs(dq);
@@ -1496,7 +1523,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool SPLIT>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
     const Args p, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
@@ -1669,8 +1696,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
           dp[x] = s[x] * (dp[x] - dls[col]);
         }
         uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-        pack_a<T>(pa, s);
-        pack_a<T>(da, dp);
+        uint32_t pl[BQ / 16][4], dlo[BQ / 16][4];
+        if constexpr (SPLIT) {
+          pack_split<T>(pa, pl, s);
+          pack_split<T>(da, dlo, dp);
+        } else {
+          pack_a<T>(pa, s);
+          pack_a<T>(da, dp);
+        }
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) {   // 16 q rows per step
@@ -1678,6 +1711,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
                             sw128_desc(dos + kk * 16 * 128, BQ * 128, 1024));
           wgmma_rs<T, DMAX>(dk, da[kk],
                             sw128_desc(qs + kk * 16 * 128, BQ * 128, 1024));
+        }
+        if constexpr (SPLIT) {
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            wgmma_rs<T, DMAX>(dv, pl[kk],
+                              sw128_desc(dos + kk * 16 * 128, BQ * 128,
+                                         1024));
+            wgmma_rs<T, DMAX>(dk, dlo[kk],
+                              sw128_desc(qs + kk * 16 * 128, BQ * 128,
+                                         1024));
+          }
         }
         wg_commit();
         wg_wait_all();
@@ -1702,6 +1746,292 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
                             p.scale, kpairs);
       store_fragment_row<T>(dvo + at(p, kDV, b, j, kh), dv, rr, t4, p.d,
                             1.f, vpairs);
+    }
+  }
+}
+
+// ------------------------------------------ reduced dbias on Hopper (sm_90a)
+// flash_dbias_sm90_kernel: the bfloat16 / float16 reducing dbias at D <= 128
+// (bwd_on_sm90), with the Args, semantics and output of flash_dbias_kernel,
+// which keeps float32 (TF32 would break its 1e-4 contract) and D > 128.
+//   CTA: 128 q rows by 64 keys of one bias entry (bb, hb) and one chunk of
+//     its replicas; 384 threads: warpgroups 0 and 1 own 64 rows each, one
+//     warp of warpgroup 2 fills the ring (setmaxnreg 40 / 232).
+//   Replica loop, in order, inside the CTA (the counterpart of the Pallas
+//     kernel's sequential innermost grid axis): the producer warp brings
+//     each replica's Q and dO rows (boxes at (0, hq, i0, b)) and K and V
+//     rows ((0, hq / G, j0, b)) by TMA into a ring of STAGES stages, and
+//     stores the replica's LSE and delta of the 128 rows and its k-row bias
+//     of the 64 keys into the stage beside them (BwdTiles::ROWS_OFF's way).
+//   Products: S = Q K^T and dP = dO V^T by wgmma m64n64k16, both K-major as
+//     stored, skipping the k steps wholly past D (D = 32: half of the
+//     64-column chunk is the TMA's zero fill).
+//   Scores on the fragment: the pair-bias tile is the same for every
+//     replica of the CTA, so it is read once into registers before the
+//     loop; the k-row bias comes from the stage. A tile every row of the
+//     warpgroup sees whole (default positions, no segments or ALiBi) takes
+//     s scale + bias + kbias; any other the mask rules of visible() per
+//     element. Then s - LSE before the scaling by log2(e) (LSE ~ -1e9 under
+//     -1e9 keys) and acc += p (dp - delta) in float32 registers: no dS
+//     operand is rounded, so P and dS stay float32 as in the reference.
+//   Chunks: the wrapper cuts each entry's replicas into a count of fixed
+//     ranges taken from the shapes alone (dbias_chunks), and
+//     flash_dbias_sum_kernel adds the chunks' partial tiles in chunk order:
+//     the bits depend on the inputs and shapes only, on any card.
+// A tile outside the keys its rows can see (kv_range) is written as zeros.
+// Bound at the evoformer MSA shape (512 replicas of S = 384, H = 8, D =
+// 32): 4 x 100.7 MB of q, k, v, dO read once, 0.127 ms at 3.35 TB/s; 4 D
+// flops per (i, j, replica) on the tensor cores, 0.078 ms; 604 M exps at 16
+// an SM a clock, ~0.15 ms; each CTA re-reads its replicas' tiles from L2
+// (24 KB a replica, ~1.8 GB in all).
+template <int DMAX>
+struct DbiasTiles {
+  static constexpr int BR = 128;     // q rows: two warpgroups of 64
+  static constexpr int BC = 64;      // keys
+  static constexpr int CH = DMAX / 64;
+  static constexpr int STAGES = DMAX <= 64 ? 4 : 2;
+  static constexpr int Q_BYTES = CH * BR * 128;      // Q or dO of a stage
+  static constexpr int K_BYTES = CH * BC * 128;      // K or V of a stage
+  static constexpr int STAGE_BYTES = 2 * Q_BYTES + 2 * K_BYTES;
+  // per stage: LSE [BR], delta [BR], k-row bias [BC], float
+  static constexpr int ROW_FLOATS = 2 * BR + BC;
+  static constexpr int ROWS_OFF = STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = ROWS_OFF + STAGES * ROW_FLOATS * 4;
+  // barriers: full[STAGES], empty[STAGES]; 1024 for the swizzle
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;
+};
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_dbias_sm90_kernel(
+    const Args p, const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv) {
+  using L = DbiasTiles<DMAX>;
+  constexpr int BR = L::BR, BC = L::BC, CH = L::CH, NS = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;    // [stage][q, dO, k, v]
+  float* rows_s = reinterpret_cast<float*>(smem_raw + (ring - raw) +
+                                           L::ROWS_OFF);  // [stage][rows]
+  const uint32_t bar_full = ring + L::BAR_OFF;
+  const uint32_t bar_empty = bar_full + 8 * NS;
+
+  const int i0 = blockIdx.x * BR, j0 = blockIdx.y * BC;
+  const int i1 = min(i0 + BR, p.sq);
+  const int entries = p.bias_b * p.bias_h;
+  const int chunk = blockIdx.z / entries, entry = blockIdx.z % entries;
+  const int bb = entry / p.bias_h, hb = entry % p.bias_h;
+  const int G = p.h / p.kvh;
+  const long long nrep = (long long)p.bias_rb * p.bias_rh;
+  const int r0 = (int)(nrep * chunk / p.chunks);
+  const int r1 = (int)(nrep * (chunk + 1) / p.chunks);
+  int lo, hi;
+  kv_range(p, i0, i1, lo, hi);
+  // a tile outside the columns its rows can see is zero: no replica runs
+  const bool live = j0 < hi && j0 + BC > lo;
+  // k steps of 16 columns that hold columns < D
+  const int ksteps = (p.d + 15) / 16;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full + 8 * s, 32);        // the producer warp
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x < 256 + 32 && live) {
+      const int lane = threadIdx.x - 256;
+      for (int r = r0, t = 0; r < r1; ++r, ++t) {
+        const int b = bb * p.bias_rb + r / p.bias_rh;
+        const int hq = hb * p.bias_rh + r % p.bias_rh;
+        const int s = t % NS, round = t / NS;
+        // every load of the replica's rows issued before any store (and
+        // before the wait for the stage), so their latencies overlap: one
+        // round trip to L2 a replica, not one per 32 rows
+        const size_t rows = ((size_t)b * p.h + hq) * p.sq;
+        const float* kb = p.kbias ? p.kbias + (size_t)(b / p.kbias_rb) *
+                                                  p.skv
+                                  : nullptr;
+        float lv[BR / 32], dv[BR / 32], kv[BC / 32];
+#pragma unroll
+        for (int u = 0; u < BR / 32; ++u) {
+          const int i = i0 + lane + 32 * u;
+          lv[u] = i < p.sq ? p.lse[rows + i] : 0.f;
+          dv[u] = i < p.sq ? p.delta[rows + i] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < BC / 32; ++u) {
+          const int j = j0 + lane + 32 * u;
+          kv[u] = kb && j < p.skv ? kb[j] : 0.f;
+        }
+        if (round > 0) mbar_wait(bar_empty + 8 * s, (round - 1) & 1);
+        float* rs = rows_s + s * L::ROW_FLOATS;
+#pragma unroll
+        for (int u = 0; u < BR / 32; ++u) {
+          rs[lane + 32 * u] = lv[u];
+          rs[BR + lane + 32 * u] = dv[u];
+        }
+#pragma unroll
+        for (int u = 0; u < BC / 32; ++u) rs[2 * BR + lane + 32 * u] = kv[u];
+        const uint32_t full = bar_full + 8 * s;
+        if (lane == 0) {   // its arrival carries the copies' bytes
+          mbar_expect_tx(full, L::STAGE_BYTES);
+          const uint32_t st = ring + s * L::STAGE_BYTES;
+          const int kh = hq / G;
+          for (int c = 0; c < CH; ++c) {
+            tma_load(st + c * BR * 128, &tq, full, 64 * c, hq, i0, b);
+            tma_load(st + L::Q_BYTES + c * BR * 128, &tdo, full, 64 * c, hq,
+                     i0, b);
+            tma_load(st + 2 * L::Q_BYTES + c * BC * 128, &tk, full, 64 * c,
+                     kh, j0, b);
+            tma_load(st + 2 * L::Q_BYTES + L::K_BYTES + c * BC * 128, &tv,
+                     full, 64 * c, kh, j0, b);
+          }
+        } else {
+          mbar_arrive(full);
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wr0 = i0 + 64 * wg;                 // the warpgroup's rows
+    const int row0 = wr0 + 16 * warp + g;         // mine: row0, row0 + 8
+    bool qlive[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) qlive[rr] = row0 + 8 * rr < p.sq;
+    // acc[4 jb + 2 rr + c] is row row0 + 8 rr, key j0 + 8 jb + 2 t4 + c
+    float acc[BC / 2], breg[BC / 2], s[BC / 2], dp[BC / 2];
+    const float* bp = p.bias + (size_t)entry * p.sq * p.skv;
+#pragma unroll
+    for (int x = 0; x < BC / 2; ++x) {
+      const int rr = (x >> 1) & 1;
+      const int i = row0 + 8 * rr, j = j0 + 8 * (x / 4) + 2 * t4 + (x & 1);
+      acc[x] = s[x] = dp[x] = 0.f;
+      breg[x] = live && qlive[rr] && j < p.skv ? bp[(size_t)i * p.skv + j]
+                                               : 0.f;
+    }
+    const bool plain = p.default_pos && p.seg_q == nullptr &&
+                       p.alibi == nullptr;
+    const bool whole =
+        plain && wr0 + 64 <= p.sq && j0 + BC <= hi && j0 >= lo &&
+        (!p.causal || j0 + BC - 1 <= wr0 + p.offset) &&
+        (p.window <= 0 || wr0 + 63 + p.offset - j0 < p.window);
+    const uint32_t q_wg = 64 * wg * 128;          // within a stage's Q, dO
+
+    for (int r = r0, t = 0; live && r < r1; ++r, ++t) {
+      const int b = bb * p.bias_rb + r / p.bias_rh;
+      const int hq = hb * p.bias_rh + r % p.bias_rh;
+      const int st = t % NS;
+      mbar_wait(bar_full + 8 * st, (t / NS) & 1);
+      const uint32_t qs = ring + st * L::STAGE_BYTES + q_wg;
+      const uint32_t dos = qs + L::Q_BYTES;
+      const uint32_t ks = ring + st * L::STAGE_BYTES + 2 * L::Q_BYTES;
+      const uint32_t vs = ks + L::K_BYTES;
+
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)      // 16 columns of D per step
+          if (4 * c + kk < ksteps)
+            wgmma_ss<T, BC>(
+                s, sw128_desc(qs + c * BR * 128 + kk * 32, 16, 1024),
+                sw128_desc(ks + c * BC * 128 + kk * 32, 16, 1024),
+                c + kk > 0);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if (4 * c + kk < ksteps)
+            wgmma_ss<T, BC>(
+                dp, sw128_desc(dos + c * BR * 128 + kk * 32, 16, 1024),
+                sw128_desc(vs + c * BC * 128 + kk * 32, 16, 1024),
+                c + kk > 0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const float* rs = rows_s + st * L::ROW_FLOATS;
+      float lse[2], dl[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        lse[rr] = rs[row0 + 8 * rr - i0];
+        dl[rr] = rs[BR + row0 + 8 * rr - i0];
+      }
+      const float* kbs = rs + 2 * BR;
+      if (whole) {
+#pragma unroll
+        for (int x = 0; x < BC / 2; ++x) {
+          const float v = s[x] * p.scale + breg[x] +
+                          kbs[8 * (x / 4) + 2 * t4 + (x & 1)];
+          s[x] = v - lse[(x >> 1) & 1];
+        }
+      } else {
+        // the mask rules and scores of score<true>, the pair bias from
+        // registers and the k-row bias from the stage
+        const float slope = p.alibi ? p.alibi[hq] : 0.f;
+        int qpos[2], qseg[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = row0 + 8 * rr;
+          qpos[rr] = qlive[rr] ? qpos_of(p, b, i) : 0;
+          qseg[rr] = qlive[rr] ? qseg_of(p, b, i) : 0;
+        }
+#pragma unroll
+        for (int jb = 0; jb < BC / 8; ++jb) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 8 * jb + 2 * t4 + c, j = j0 + col;
+            const bool jlive = j < hi;
+            const int kpos = jlive ? kpos_of(p, b, j) : 0;
+            const int kseg = jlive ? kseg_of(p, b, j) : 0;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int e = 4 * jb + 2 * rr + c;
+              const bool ok = jlive && qlive[rr] &&
+                              visible(p, qpos[rr], kpos, qseg[rr], kseg);
+              float v = s[e] * p.scale + slope * (float)(kpos - qpos[rr]);
+              v = ok ? v + breg[e] + kbs[col] : -INFINITY;
+              s[e] = v - lse[rr];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < BC / 2; ++x)     // exp2(-inf) = 0 where hidden
+        acc[x] = fmaf(exp2f(s[x] * kLog2e), dp[x] - dl[(x >> 1) & 1],
+                      acc[x]);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    float* out = p.dbias + ((size_t)chunk * entries + entry) * p.sq * p.skv;
+    const bool pairs = p.skv % 2 == 0;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!qlive[rr]) continue;
+      float* row = out + (size_t)(row0 + 8 * rr) * p.skv;
+#pragma unroll
+      for (int jb = 0; jb < BC / 8; ++jb) {
+        const int j = j0 + 8 * jb + 2 * t4;
+        const float x0 = acc[4 * jb + 2 * rr], x1 = acc[4 * jb + 2 * rr + 1];
+        if (pairs && j + 1 < p.skv) {
+          *reinterpret_cast<float2*>(row + j) = make_float2(x0, x1);
+        } else {
+          if (j < p.skv) row[j] = x0;
+          if (j + 1 < p.skv) row[j + 1] = x1;
+        }
+      }
     }
   }
 }
@@ -1836,6 +2166,15 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
   return cudaSuccess;
 }
 
+// The biased routes (a pair bias or a k-row bias) multiply P and dS as hi
+// + lo operands (SPLIT), the reference's float32 to ~16 bits: their
+// end-to-end rows otherwise move with the forward's rounding of P (through
+// delta) and the backward's of dS (ROADMAP C2). The unbiased routes keep
+// one operand in T.
+bool split_operands(const Args& a) {
+  return a.bias != nullptr || a.kbias != nullptr;
+}
+
 template <typename T, int DMAX>
 cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
   using L = FwdTiles<DMAX>;
@@ -1846,9 +2185,10 @@ cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = tensor_map(&tv, a.v, a, kV, a.kvh, a.skv, L::BC, dtype);
   if (err != cudaSuccess) return err;
-  const auto kernel = flash_fwd_sm90_kernel<T, DMAX>;
-  static std::atomic<unsigned long long> allowed{0};
-  err = allow_smem(kernel, L::SMEM, allowed);
+  const auto kernel = split_operands(a) ? flash_fwd_sm90_kernel<T, DMAX, true>
+                                        : flash_fwd_sm90_kernel<T, DMAX, false>;
+  static std::atomic<unsigned long long> allowed[2] = {{0}, {0}};
+  err = allow_smem(kernel, L::SMEM, allowed[split_operands(a)]);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + L::BR - 1) / L::BR, a.h, a.b);
   kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, tq, tk, tv);
@@ -1880,12 +2220,43 @@ cudaError_t launch_bwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
     err = tensor_map(&m[3], dq_kind ? a.v : a.dout, a, dq_kind ? kV : kDO,
                      ring_heads, ring_rows, L::BT, dtype);
   if (err != cudaSuccess) return err;
-  const auto kernel = dq_kind ? flash_dq_sm90_kernel<T, DMAX>
-                              : flash_dkv_sm90_kernel<T, DMAX>;
+  const bool split = split_operands(a);
+  const auto kernel =
+      dq_kind ? (split ? flash_dq_sm90_kernel<T, DMAX, true>
+                       : flash_dq_sm90_kernel<T, DMAX, false>)
+              : (split ? flash_dkv_sm90_kernel<T, DMAX, true>
+                       : flash_dkv_sm90_kernel<T, DMAX, false>);
+  static std::atomic<unsigned long long> allowed[2] = {{0}, {0}};
+  err = allow_smem(kernel, L::SMEM, allowed[split]);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((own_rows + L::BR - 1) / L::BR, own_heads, a.b);
+  kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, m[0], m[1], m[2], m[3]);
+  return cudaGetLastError();
+}
+
+// The reducing dbias on Hopper: q and dO in boxes of the CTA's 128 rows, k
+// and v of its 64 keys; one CTA per (q tile, key tile, bias entry, chunk).
+template <typename T, int DMAX>
+cudaError_t launch_dbias_sm90(const Args& a, int dtype, cudaStream_t stream) {
+  using L = DbiasTiles<DMAX>;
+  const long long entries = (long long)a.bias_b * a.bias_h;
+  const dim3 grid((a.sq + L::BR - 1) / L::BR, (a.skv + L::BC - 1) / L::BC,
+                  (unsigned)(entries * a.chunks));
+  if (grid.y > 65535 || entries * a.chunks > 65535)
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap m[4];
+  cudaError_t err = tensor_map(&m[0], a.q, a, kQ, a.h, a.sq, L::BR, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&m[1], a.dout, a, kDO, a.h, a.sq, L::BR, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&m[2], a.k, a, kK, a.kvh, a.skv, L::BC, dtype);
+  if (err == cudaSuccess)
+    err = tensor_map(&m[3], a.v, a, kV, a.kvh, a.skv, L::BC, dtype);
+  if (err != cudaSuccess) return err;
+  const auto kernel = flash_dbias_sm90_kernel<T, DMAX>;
   static std::atomic<unsigned long long> allowed{0};
   err = allow_smem(kernel, L::SMEM, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((own_rows + L::BR - 1) / L::BR, own_heads, a.b);
   kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, m[0], m[1], m[2], m[3]);
   return cudaGetLastError();
 }
@@ -1899,9 +2270,9 @@ cudaError_t dispatch_sm90(const Args& a, int dtype, cudaStream_t s) {
 
 // The routes, decided here and nowhere else (dispatch_type and
 // dsst_flash_kernel both ask): the bfloat16 / float16 forward takes
-// flash_fwd_sm90_kernel at every D, their dQ and dK/dV the sm90 kernels at
-// D <= 128; float32, and bfloat16 / float16 dQ and dK/dV above D = 128, the
-// CUDA cores.
+// flash_fwd_sm90_kernel at every D, their dQ, dK/dV and reducing dbias the
+// sm90 kernels at D <= 128; float32, and bfloat16 / float16 dQ, dK/dV and
+// dbias above D = 128, the CUDA cores.
 bool fwd_on_sm90(int dtype) { return dtype == 1 || dtype == 2; }
 bool bwd_on_sm90(int dtype, int d) { return fwd_on_sm90(dtype) && d <= 128; }
 
@@ -1919,6 +2290,14 @@ cudaError_t dispatch_type(const Args& a, int dtype, cudaStream_t s) {
     return dispatch_sm90<__half>(a, dtype, s);
   } else if constexpr (KIND == kDbias) {
     if (dtype == 0) return dispatch_dim<KIND, float>(a, s);
+    if (bwd_on_sm90(dtype, a.d)) {
+      if (dtype == 1) {
+        if (a.d <= 64) return launch_dbias_sm90<__nv_bfloat16, 64>(a, dtype, s);
+        return launch_dbias_sm90<__nv_bfloat16, 128>(a, dtype, s);
+      }
+      if (a.d <= 64) return launch_dbias_sm90<__half, 64>(a, dtype, s);
+      return launch_dbias_sm90<__half, 128>(a, dtype, s);
+    }
     if (dtype == 1) return dispatch_dim<KIND, __nv_bfloat16>(a, s);
     return dispatch_dim<KIND, __half>(a, s);
   } else {
@@ -2137,7 +2516,8 @@ const char* dsst_flash_kernel(int kind, int dtype, int d) {
       return bwd_on_sm90(dtype, d) ? "flash_dkv_sm90_kernel"
                                    : "flash_dkv_kernel";
     case kDbias:
-      return "flash_dbias_kernel";
+      return bwd_on_sm90(dtype, d) ? "flash_dbias_sm90_kernel"
+                                   : "flash_dbias_kernel";
   }
   return nullptr;
 }

@@ -11,8 +11,10 @@
 //                  wgmma_ss (A and B from shared memory, both K-major) and
 //                  wgmma_rs (A from registers, B MN-major), m64 x n{64,128}
 //                  x k16 in bf16 or fp16 with float32 accumulators
-//   registers      pack2 (two floats as a pair of T), pack_a (an accumulator
-//                  fragment rounded to T as the register A operand)
+//   registers      pack2 / unpack2 (two floats as a pair of T and back),
+//                  pack_a (an accumulator fragment rounded to T as the
+//                  register A operand), pack_split (the same fragment as
+//                  two A operands, hi and lo, for a product to ~16 bits)
 // Everything here is inlined into its caller; a source that includes this
 // header and uses none of it compiles to the same code as before.
 
@@ -185,6 +187,36 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 8][4],
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       a[kk][r] = pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// A pair of T in one register back to floats (lo half first).
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t v);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(
+    uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xFFFF0000u));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+  return __half22float2(*reinterpret_cast<__half2*>(&v));
+}
+
+// An accumulator fragment as two register A operands of T, hi = T(x) and lo
+// = T(x - hi): a product with hi and one with lo into the same float32
+// accumulator multiply x to ~16 significant bits (T's 8 or 11 twice) where
+// hi alone keeps 8 or 11.
+template <typename T, int N>
+__device__ __forceinline__ void pack_split(uint32_t (&hi)[N / 8][4],
+                                           uint32_t (&lo)[N / 8][4],
+                                           const float (&x)[N]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = x[8 * kk + 2 * r], b = x[8 * kk + 2 * r + 1];
+      hi[kk][r] = pack2<T>(a, b);
+      const float2 h = unpack2<T>(hi[kk][r]);
+      lo[kk][r] = pack2<T>(a - h.x, b - h.y);
+    }
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's

@@ -24,9 +24,9 @@ JAX package wires them as a ``jax.custom_vjp`` (:646-693).
   counts, never a CPU call.
 * Routes on the card, decided in the library before launch
   (:func:`kernel_name`): bfloat16 and float16 take the Hopper kernels
-  (wgmma products, TMA loads) for the forward at every head dim and for dQ
-  and dK/dV at D <= 128; float32, and dQ and dK/dV above D = 128, the
-  CUDA-core ones. TMA reads an operand in place when :func:`tma_ready` says
+  (wgmma products, TMA loads) for the forward at every head dim and for dQ,
+  dK/dV and the reducing dbias at D <= 128; float32, and dQ, dK/dV and
+  dbias above D = 128, the CUDA-core ones. TMA reads an operand in place when :func:`tma_ready` says
   so; otherwise the wrapper copies it first and counts the copy in
   :data:`COPIES` under the kernel's name.
 
@@ -45,7 +45,7 @@ NEG_INF = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dbias": 0}
 # operands each wrapper copied because TMA could not read them in place
-COPIES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+COPIES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dbias": 0}
 
 # elements of one [B, H, rows, Skv] score block in the plain versions
 _REF_BLOCK_ELEMS = 1 << 26
@@ -344,7 +344,13 @@ _OPERANDS = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
 # pos_q, pos_k, alibi, bias, kbias, layout
 _PTRS = {"fwd": 13, "dq": 16, "dkv": 16, "dbias": 16}
 _GRID_MAX = 65535     # the batch rides gridDim.z, the heads gridDim.y
-_DBIAS_CTAS_PER_SM = 16   # the dbias kernel's chunks fill the card this deep
+# CTAs the reducing dbias kernels' replica chunks aim for, constants so that
+# the chunk count, and with it the bits, follow from the shapes alone: the
+# CUDA-core kernel's 64 x 64 tiles of 256 threads 16 deep on 132 SMs (the
+# depth it was tuned at), flash_dbias_sm90_kernel's 128 x 64 tiles (one CTA
+# of 384 threads an SM) about eight waves of 128
+_DBIAS_CTAS = 16 * 132
+_DBIAS_SM90_CTAS = 1024
 _DBIAS_MAX_CHUNKS = 16
 
 
@@ -471,7 +477,7 @@ def _out(t: Optional[torch.Tensor], like: torch.Tensor, name: str):
 
 # the kernels that read q, k, v (and dO) through TMA (wgmma products)
 _TMA_KERNELS = frozenset({"flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
-                          "flash_dkv_sm90_kernel"})
+                          "flash_dkv_sm90_kernel", "flash_dbias_sm90_kernel"})
 _KINDS = {"fwd": 0, "dq": 1, "dkv": 2, "dbias": 3}
 
 
@@ -480,7 +486,7 @@ def kernel_name(kind: str, dtype: torch.dtype, d: int) -> str:
     ``"dq"``, ``"dkv"`` or ``"dbias"``), ``dtype`` and head dim ``d``, as
     the library reports it (the route is decided there, before launch):
     the ``*_sm90_kernel`` ones (wgmma + TMA) for a bfloat16 / float16
-    forward and, at ``d <= 128``, dQ and dK/dV; the CUDA-core ones
+    forward and, at ``d <= 128``, dQ, dK/dV and dbias; the CUDA-core ones
     otherwise. Needs the CUDA build."""
     name = _library().dsst_flash_kernel(_KINDS[kind], _DTYPE_CODES[dtype],
                                         int(d))
@@ -604,27 +610,40 @@ _LAYOUT_WITH_BROADCAST = (
     "drop the layout")
 
 
-def dbias_chunks(q, k, bias, sm_count: int) -> int:
+def dbias_on_sm90(dtype: torch.dtype, d: int) -> bool:
+    """Whether the reducing dbias runs ``flash_dbias_sm90_kernel`` (the
+    library's ``bwd_on_sm90``: bfloat16 / float16 at D <= 128; the card
+    tests hold the two to agree through :func:`kernel_name`)."""
+    return dtype in (torch.bfloat16, torch.float16) and d <= 128
+
+
+def dbias_chunks(q, k, bias) -> int:
     """How many fixed ranges the reducing kernel cuts each bias entry's
-    replicas into: enough CTAs for ~16 per SM (one range leaves ~1 wave at
-    the evoformer shapes), at most 16 ranges and one replica each. The
-    partial sums are added in range order, so a card gives the same bits on
-    every run."""
+    replicas into, from the shapes and the route alone: enough for the
+    route's CTA target (``_DBIAS_SM90_CTAS`` or ``_DBIAS_CTAS``), at most
+    16 ranges and one replica each. The partial sums are added in range
+    order, so the same inputs give the same bits on any card."""
     b, sq, h, d = q.shape
-    tile = 64 if d <= 128 else 32
+    if dbias_on_sm90(q.dtype, d):
+        rows, cols, target = 128, 64, _DBIAS_SM90_CTAS
+    else:
+        rows = cols = 64 if d <= 128 else 32
+        target = _DBIAS_CTAS
     entries = bias.shape[0] * bias.shape[1]
-    ctas = -(-sq // tile) * -(-k.shape[1] // tile) * entries
+    ctas = -(-sq // rows) * -(-k.shape[1] // cols) * entries
     nrep = (b // bias.shape[0]) * (h // bias.shape[1])
-    want = -(-_DBIAS_CTAS_PER_SM * sm_count // ctas)
+    want = -(-target // ctas)
     return max(1, min(want, nrep, _DBIAS_MAX_CHUNKS, _GRID_MAX // entries))
 
 
 def flash_dbias(q, k, v, do, lse, delta, mask: Mask, bias: torch.Tensor):
-    """Launch the reduced-dbias kernel: the gradient of the pair bias
-    ``bias`` (float32 contiguous ``[Bb, Hb, Sq, Skv]``), float32 of its
-    shape, summed in a fixed order over the B / Bb batches and H / Hb heads
-    that read each entry (with :func:`dbias_chunks` ranges of them summed
-    by a second kernel in range order). It does not take a block layout."""
+    """Launch the reducing dbias kernel (:func:`kernel_name`): the gradient
+    of the pair bias ``bias`` (float32 contiguous ``[Bb, Hb, Sq, Skv]``),
+    float32 of its shape, summed in a fixed order over the B / Bb batches
+    and H / Hb heads that read each entry (with :func:`dbias_chunks` ranges
+    of them summed by a second kernel in range order). It does not take a
+    block layout. Where the kernel reads by TMA, a q, k, v or dO it cannot
+    read in place is copied first (counted in ``COPIES["flash_dbias"]``)."""
     if mask.layout is not None:
         raise NotImplementedError(_LAYOUT_WITH_BROADCAST)
     _check(q, k, v, mask, bias, do=do)
@@ -632,10 +651,11 @@ def flash_dbias(q, k, v, do, lse, delta, mask: Mask, bias: torch.Tensor):
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
     if not q.numel() or not k.shape[1]:
         return dbias.zero_()
-    chunks = dbias_chunks(q, k, bias, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
+    chunks = dbias_chunks(q, k, bias)
     scratch = None if chunks == 1 else torch.empty(
         (chunks, *bias.shape), dtype=torch.float32, device=q.device)
+    if kernel_name("dbias", q.dtype, q.shape[3]) in _TMA_KERNELS:
+        q, k, v, do = (tma_operand(t, "flash_dbias") for t in (q, k, v, do))
     _launch("dbias", "flash_dbias",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),

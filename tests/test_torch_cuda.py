@@ -503,19 +503,23 @@ def test_flash_fwd_kernel_route(dev):
 
 
 def test_flash_bwd_kernel_routes(dev):
-    """dQ and dK/dV: the Hopper kernels for bfloat16 and float16 at D <=
-    128, the CUDA-core ones at D = 256 and for float32; dbias always on the
-    CUDA cores."""
-    for kind in ("dq", "dkv"):
+    """dQ, dK/dV and the reducing dbias: the Hopper kernels for bfloat16
+    and float16 at D <= 128, the CUDA-core ones at D = 256 and for float32;
+    ``dbias_on_sm90`` (which sizes the dbias chunks) agrees with the
+    library."""
+    for kind in ("dq", "dkv", "dbias"):
         for dtype in (torch.bfloat16, torch.float16):
-            for d in (16, 64, 80, 128):
+            for d in (16, 32, 64, 80, 128):
                 assert fa.kernel_name(kind, dtype, d) == \
                     f"flash_{kind}_sm90_kernel"
             assert fa.kernel_name(kind, dtype, 256) == f"flash_{kind}_kernel"
         for d in (64, 128, 256):
             assert fa.kernel_name(kind, torch.float32, d) == \
                 f"flash_{kind}_kernel"
-    assert fa.kernel_name("dbias", torch.bfloat16, 32) == "flash_dbias_kernel"
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (32, 128, 256):
+            assert fa.dbias_on_sm90(dtype, d) == (
+                fa.kernel_name("dbias", dtype, d) == "flash_dbias_sm90_kernel")
 
 
 def test_flash_fwd_bf16_is_bit_identical_on_repeat(dev):
@@ -557,10 +561,12 @@ def test_flash_fwd_copies_a_misaligned_view(dev):
     assert not fa.tma_ready(odd)
     fa.reset_launch_counts()
     o1, l1 = fa.flash_fwd(odd, k, v, mask)
-    assert fa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+    assert fa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0,
+                         "flash_dbias": 0}
     o2, l2 = fa.flash_fwd(q, k, v, mask)
     torch.cuda.synchronize()
-    assert fa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+    assert fa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0,
+                         "flash_dbias": 0}
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
 
 
@@ -686,10 +692,12 @@ def test_flash_bwd_copies_a_misaligned_view(dev):
     assert not fa.tma_ready(odd)
     fa.reset_launch_counts()
     r1 = _bwd(q, k, v, odd, mask)
-    assert fa.COPIES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.COPIES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1,
+                         "flash_dbias": 0}
     r2 = _bwd(q, k, v, do, mask)
     torch.cuda.synchronize()
-    assert fa.COPIES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.COPIES == {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1,
+                         "flash_dbias": 0}
     assert all(torch.equal(x, y) for x, y in zip(r1, r2))
 
 
@@ -937,12 +945,16 @@ def test_flash_bias_kernels_match_plain(dev, dtype, shape, variant):
         "flash_dbias": int(broadcast)}
 
 
-def test_dbias_kernels_are_deterministic(dev):
-    """The reducing kernel and the dQ kernel's dbias output give the same
-    bits on every run (no atomics)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_dbias_kernels_are_deterministic(dev, dtype):
+    """The reducing kernels (the Hopper one in bf16 / fp16, the CUDA-core
+    one in float32) and the dQ kernel's dbias output give the same bits on
+    every run (no atomics); the reducing kernel's over several replica
+    chunks too, at an evoformer-like shape."""
     s = BIAS_SHAPES[0]
-    q, k, v, do, mask, bias = _bias_case(dev, torch.bfloat16, s,
-                                         "bcast_batch", seed=7)
+    q, k, v, do, mask, bias = _bias_case(dev, dtype, s, "bcast_batch",
+                                         seed=7)
     o, lse = fa.flash_fwd(q, k, v, mask, bias=bias)
     delta = fa.attention_delta(do, o)
     args = (q, k, v, do, lse, delta, mask)
@@ -953,8 +965,18 @@ def test_dbias_kernels_are_deterministic(dev):
               for _ in range(2))
     fa.flash_dq(*args, bias=full, dbias=f1)
     fa.flash_dq(*args, bias=full, dbias=f2)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    qe, ke, ve, de = (torch.randn((64, 96, 4, 32), generator=g).to(dev, dtype)
+                      for _ in range(4))
+    pair = torch.randn((1, 4, 96, 96), generator=g).to(dev)
+    me = fa.make_mask(qe, ke, causal=False)
+    oe, le = fa.flash_fwd(qe, ke, ve, me, bias=pair)
+    eargs = (qe, ke, ve, de, le, fa.attention_delta(de, oe), me)
+    assert fa.dbias_chunks(qe, ke, pair) > 1
+    e1, e2 = (fa.flash_dbias(*eargs, pair) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(r1, r2) and torch.equal(f1, f2)
+    assert torch.equal(e1, e2)
 
 
 def test_broadcast_dbias_is_the_sum_of_the_full_one(dev):
@@ -979,9 +1001,63 @@ def test_broadcast_dbias_is_the_sum_of_the_full_one(dev):
                          per.reshape(2, 3, 2, 2, s, s).sum(dim=(1, 3)),
                          1e-5, "reduced vs summed full dbias")
     # one replica per entry: the reducing kernel runs one chunk, no sum pass
-    assert fa.dbias_chunks(q, k, full, 132) == 1
+    assert fa.dbias_chunks(q, k, full) == 1
     _assert_close_scaled(fa.flash_dbias(q, k, v, do, lse, delta, mask, full),
                          per, 1e-5, "reducing kernel on a full-shape bias")
+
+
+# flash_dbias_sm90_kernel (bf16 / fp16 at D <= 128): the broadcast pair
+# bias's gradient against the plain version at the dtype's tolerance of the
+# largest |dbias| and row by row (each row over its largest |dbias|, at least
+# GRAD_ROW_FLOOR of the largest), one launch per call
+DBIAS_SM90_CASES = {
+    # evoformer-like: mask bias and a pair bias broadcast over the batch
+    "evoformer": (dict(b=4, s=96, h=4, kvh=4), (1, 4),
+                  dict(causal=False, kbias=True)),
+    "ragged_70": (dict(b=4, s=70, h=4, kvh=4), (1, 4),
+                  dict(causal=False, kbias=True)),
+    "heads_broadcast": (dict(b=2, s=96, h=8, kvh=4), (2, 2),
+                        dict(causal=False)),
+    "alibi": (dict(b=3, s=96, h=4, kvh=2), (1, 4),
+              dict(causal=True, alibi=True)),
+    "causal_window_ragged": (dict(b=2, s=200, h=2, kvh=2), (1, 1),
+                             dict(causal=True, window=50)),
+}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", sorted(DBIAS_SM90_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dbias_sm90_matches_plain(dev, dtype, case, d):
+    shape, (bb, hb), kw = DBIAS_SM90_CASES[case]
+    b, s, h, kvh = shape["b"], shape["s"], shape["h"], shape["kvh"]
+    g = torch.Generator(device="cpu").manual_seed(sorted(
+        DBIAS_SM90_CASES).index(case) + d)
+    q, do = (torch.randn((b, s, h, d), generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, kvh, d), generator=g).to(dev, dtype)
+            for _ in range(2))
+    bias = torch.randn((bb, hb, s, s), generator=g).to(dev)
+    mkw = dict(causal=kw["causal"], window=kw.get("window"))
+    if kw.get("kbias"):
+        kb = torch.where(torch.rand((b, s), generator=g) < 0.1, -1e9, 0.0)
+        mkw["k_bias"] = kb.to(dev)
+    if kw.get("alibi"):
+        mkw["alibi"] = torch.from_numpy(alibi_slopes(h)).to(dev)
+    mask = fa.make_mask(q, k, **mkw)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, mask, bias)
+    delta = fa.attention_delta(do, o)
+    args = (q, k, v, do, lse, delta, mask)
+    assert fa.kernel_name("dbias", dtype, d) == "flash_dbias_sm90_kernel"
+    before = fa.LAUNCHES["flash_dbias"]
+    got = fa.flash_dbias(*args, bias)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_dbias"] == before + 1
+    want = fa.flash_dbias_reference(*args, bias)
+    assert got.dtype == torch.float32 and got.shape == bias.shape
+    _assert_close_scaled(got, want, FLASH_TOL[dtype], "dbias")
+    _assert_rows_close(got, want, FLASH_TOL[dtype], "dbias",
+                       floor=GRAD_ROW_FLOOR)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

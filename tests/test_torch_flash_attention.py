@@ -396,15 +396,20 @@ def test_broadcast_dbias_is_the_sum_of_the_full_one():
         atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("shape,bias,sms,want", [
-    ((512, 384, 8, 32), (1, 8, 384, 384), 132, 8),    # evoformer MSA rows
-    ((384, 384, 4, 32), (1, 4, 384, 384), 132, 15),   # triangle attention
-    ((6, 96, 4, 32), (2, 4, 96, 96), 132, 3),         # at most one replica
-    ((2, 64, 4, 32), (2, 4, 64, 64), 132, 1),         # full shape: no sum
-    ((4096, 64, 2, 256), (1, 1, 64, 64), 132, 16),    # at most 16
+@pytest.mark.parametrize("shape,bias,dtype,want", [
+    ((512, 384, 8, 32), (1, 8, 384, 384), torch.float32, 8),   # MSA rows
+    ((384, 384, 4, 32), (1, 4, 384, 384), torch.float32, 15),  # triangle
+    ((6, 96, 4, 32), (2, 4, 96, 96), torch.float32, 3),    # one replica each
+    ((2, 64, 4, 32), (2, 4, 64, 64), torch.float32, 1),    # full: no sum
+    ((4096, 64, 2, 256), (1, 1, 64, 64), torch.float32, 16),   # at most 16
+    ((512, 384, 8, 32), (1, 8, 384, 384), torch.bfloat16, 8),  # Hopper route
+    ((384, 384, 4, 32), (1, 4, 384, 384), torch.float16, 15),
+    ((4096, 64, 2, 256), (1, 1, 64, 64), torch.bfloat16, 16),  # D > 128
 ])
-def test_dbias_chunks(shape, bias, sms, want):
+def test_dbias_chunks(shape, bias, dtype, want):
     """The reducing kernel cuts each bias entry's replicas into enough
-    fixed ranges for ~16 CTAs per SM, at most 16 and one replica each."""
-    q = torch.empty(shape)
-    assert tfa.dbias_chunks(q, q, torch.empty(bias), sms) == want
+    fixed ranges for its route's CTA target (the CUDA-core kernel's 64 x 64
+    tiles: 2112; the Hopper kernel's 128 x 64: 1024), at most 16 and one
+    replica each, from the shapes and dtype alone."""
+    q = torch.empty(shape, dtype=dtype)
+    assert tfa.dbias_chunks(q, q, torch.empty(bias)) == want

@@ -6,7 +6,8 @@ The kernels' numerics, emulated here tile by tile: P = exp(s - LSE) and
 dS = P (dO V^T - delta) in float32 as the plain backward computes them,
 then P and dS rounded to bf16 / fp16 before the three products (dV += P^T
 dO, dK += dS^T Q, dQ += dS K: the roundings the plain version does not
-do), dQ summed over key tiles of 64, dK and dV over (q head, q tile of 64)
+do; with a pair or k-row bias each is split into hi + lo operands of the
+type instead), dQ summed over key tiles of 64, dK and dV over (q head, q tile of 64)
 for each key tile of 128, and the outputs rounded to the dtype. LSE and
 delta come from the float32 forward, as the JAX backward takes them (the
 kernels take both as inputs; the autograd backward's delta from O in the
@@ -61,7 +62,8 @@ def emulate_sm90_backward(q, k, v, do, mask, r_dtype, bias=None,
                           skip=None):
     """The Hopper backward's arithmetic on the CPU: ``(dq, dk, dv)`` in q's
     dtype. ``r_dtype`` None keeps P and dS in float32 (the plain version's
-    algebra). ``skip = (key_tile, q_tile)``: that q tile (of the first q
+    algebra); with a pair or k-row bias P and dS are split into hi + lo
+    operands of ``r_dtype``, as the biased routes multiply them. ``skip = (key_tile, q_tile)``: that q tile (of the first q
     head) left out of that key tile's dK and dV, as a faulty kernel would."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -77,7 +79,13 @@ def emulate_sm90_backward(q, k, v, do, mask, r_dtype, bias=None,
     dp = torch.einsum("bqkgd,bjkd->bkgqj", dof, v.float())
     ds = p * (dp - delta.reshape(b, kvh, g, sq, 1))
     if r_dtype is not None:
-        p, ds = p.to(r_dtype).float(), ds.to(r_dtype).float()
+        hi_p, hi_ds = p.to(r_dtype).float(), ds.to(r_dtype).float()
+        if bias is not None or mask.k_bias is not None:
+            # the biased routes multiply hi + lo, two operands of the type
+            p = hi_p + (p - hi_p).to(r_dtype).float()
+            ds = hi_ds + (ds - hi_ds).to(r_dtype).float()
+        else:
+            p, ds = hi_p, hi_ds
     qf = q.float().reshape(b, sq, kvh, g, d)
     kf = k.float()
     dq = torch.zeros((b, kvh, g, sq, d))

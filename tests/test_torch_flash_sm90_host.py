@@ -96,11 +96,12 @@ def test_tma_operand_copies_only_what_it_must(d):
     flat = torch.randn(int(np.prod(shape)) + 1).to(torch.bfloat16)
     odd = flat[1:].view(shape)
     got = tfa.tma_operand(odd)
-    assert tfa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0}
+    assert tfa.COPIES == {"flash_fwd": 1, "flash_dq": 0, "flash_dkv": 0,
+                          "flash_dbias": 0}
     assert tfa.tma_ready(got) and got.shape == odd.shape
     assert got.stride(2) == tfa.round_up(d, 8)
     assert torch.equal(got, odd)
-    for counter in ("flash_dq", "flash_dkv"):     # the backward's counters
+    for counter in ("flash_dq", "flash_dkv", "flash_dbias"):  # backward's
         tfa.tma_operand(odd, counter)
         assert tfa.COPIES[counter] == 1
     tfa.reset_launch_counts()
