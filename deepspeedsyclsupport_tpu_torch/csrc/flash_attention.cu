@@ -945,13 +945,14 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_sum_kernel(
 //     biases or layout, only takes the scale: only diagonal and edge tiles
 //     mask. Online softmax in registers: the row max over the 4 threads of
 //     a row with two shuffles; the row sum stays per thread until the end.
-//   O += P V: P rounded to T in registers is wgmma's A operand (the S
-//     fragment of 16 columns is the A fragment of one k step); V is an
-//     MN-major B operand in shared memory (the transpose bit).
-// P in T before P V is the one rounding the CUDA-core version does not do
-// (its P stays float32); on the biased routes (SPLIT: a pair or k-row bias)
-// P goes in as two operands, hi = T(P) and lo = T(P - hi), into the same
-// accumulator, ~16 bits of P for one more sweep of P V (ROADMAP C2).
+//   O += P V: P in registers is wgmma's A operand (the S fragment of 16
+//     columns is the A fragment of one k step) as two operands, hi = T(P)
+//     and lo = T(P - hi), into the same accumulator; V is an MN-major B
+//     operand in shared memory (the transpose bit).
+// The split keeps ~16 bits of P where one operand in T would keep 8 (bf16)
+// or 11 (fp16): the reference keeps P in float32, and a P rounded to T
+// moves the end-to-end dQ through delta (ROADMAP C2). It costs one more
+// sweep of P V.
 // Nothing crosses CTAs: the same inputs give the same bits. Bound at
 // llama2-1b (S = 4096, D = 128, causal): 137 GFLOP on the tensor cores,
 // 0.139 ms at 989 TFLOP/s. Only the two warpgroups overlap
@@ -1030,7 +1031,7 @@ __device__ __forceinline__ void fragment_scores(
   }
 }
 
-template <typename T, int DMAX, bool SPLIT>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
     const Args p, const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
@@ -1187,10 +1188,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
         for (int i = 0; i < OW; ++i) o[h][i] *= alpha[(i >> 1) & 1];
 
       // P in T: the S fragment of columns [16 kk, 16 kk + 16) is the A
-      // fragment of k step kk; SPLIT: P as hi + lo, two products
+      // fragment of k step kk; P as hi + lo, two products
       uint32_t pa[BC / 16][4], pl[BC / 16][4];
-      if constexpr (SPLIT) pack_split<T>(pa, pl, s);
-      else pack_a<T>(pa, s);
+      pack_split<T>(pa, pl, s);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
@@ -1200,16 +1200,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
               o[h], pa[kk],
               sw128_desc(vs + kk * 16 * 128 + h * 2 * BC * 128, BC * 128,
                          1024));
-      if constexpr (SPLIT) {
 #pragma unroll
-        for (int kk = 0; kk < BC / 16; ++kk)
+      for (int kk = 0; kk < BC / 16; ++kk)
 #pragma unroll
-          for (int h = 0; h < OH; ++h)
-            wgmma_rs<T, 2 * OW>(
-                o[h], pl[kk],
-                sw128_desc(vs + kk * 16 * 128 + h * 2 * BC * 128, BC * 128,
-                           1024));
-      }
+        for (int h = 0; h < OH; ++h)
+          wgmma_rs<T, 2 * OW>(
+              o[h], pl[kk],
+              sw128_desc(vs + kk * 16 * 128 + h * 2 * BC * 128, BC * 128,
+                         1024));
       wg_commit();
       wg_wait_all();
 #pragma unroll
@@ -1266,8 +1264,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
 //     dO V^T (wgmma, both operands K-major); the scores on the fragment as
 //     in the forward (a whole tile only takes the scale); P = exp(s - LSE)
 //     and dS = P (dP - delta) in registers, dS stored in float32 to the
-//     full-shape dbias when asked; dQ += dS K with dS rounded to T as the
-//     register A operand and K read MN-major (the forward's V).
+//     full-shape dbias when asked; dQ += dS K with dS as hi + lo register
+//     A operands in T and K read MN-major (the forward's V).
 //   dK/dV: 128 keys of one (kv head, batch), key tiles in order (tile 0 has
 //     the most q tiles under causality). K and V are loaded once; a
 //     two-stage ring brings (Q, dO) tiles of BQ = 64 q rows over the G q
@@ -1276,13 +1274,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_sm90_kernel(
 //     V dO^T (all four K-major as stored); the scores on a
 //     fragment whose rows are keys and columns queries
 //     (fragment_key_scores); then dV += P^T dO and dK += dS^T Q with P^T and
-//     dS^T rounded to T as register A operands, dO and Q read MN-major. The
-//     group sum stays in the CTA's registers; keys no query sees are
-//     written as zeros.
-// P and dS in T before the three products are the roundings the CUDA-core
-// versions do not do (their P and dS stay float32); the biased routes
-// (SPLIT) multiply each as hi + lo operands, as the forward does P, for one
-// more sweep of dQ, dV and dK (8 D and 12 D flops per pair for dQ and dK/dV
+//     dS^T as register A operands, dO and Q read MN-major. The group sum
+//     stays in the CTA's registers; keys no query sees are written as
+//     zeros.
+// P and dS go into the three products as hi + lo operands in T, as the
+// forward's P does, since the reference keeps both in float32: one more
+// sweep of dQ, dV and dK (8 D and 12 D flops per pair for dQ and dK/dV
 // instead of 6 D and 8 D). Nothing crosses CTAs and
 // every sum runs in a fixed order, so the same inputs give the same bits: no
 // dQ atomics, hence no fused single-pass backward (10 D flops per pair
@@ -1331,7 +1328,7 @@ __device__ __forceinline__ void fragment_key_scores(
   }
 }
 
-template <typename T, int DMAX, bool SPLIT>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
     const Args p, const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tdo,
@@ -1492,19 +1489,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
         }
       }
       uint32_t da[BC / 16][4], dlo[BC / 16][4];
-      if constexpr (SPLIT) pack_split<T>(da, dlo, s);
-      else pack_a<T>(da, s);
+      pack_split<T>(da, dlo, s);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BC / 16; ++kk)   // 16 keys per step
         wgmma_rs<T, DMAX>(dq, da[kk],
                           sw128_desc(ks + kk * 16 * 128, BC * 128, 1024));
-      if constexpr (SPLIT) {
 #pragma unroll
-        for (int kk = 0; kk < BC / 16; ++kk)
-          wgmma_rs<T, DMAX>(dq, dlo[kk],
-                            sw128_desc(ks + kk * 16 * 128, BC * 128, 1024));
-      }
+      for (int kk = 0; kk < BC / 16; ++kk)
+        wgmma_rs<T, DMAX>(dq, dlo[kk],
+                          sw128_desc(ks + kk * 16 * 128, BC * 128, 1024));
       wg_commit();
       wg_wait_all();
       fence_regs(dq);
@@ -1523,7 +1517,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dq_sm90_kernel(
   }
 }
 
-template <typename T, int DMAX, bool SPLIT>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
     const Args p, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
@@ -1697,13 +1691,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
         }
         uint32_t pa[BQ / 16][4], da[BQ / 16][4];
         uint32_t pl[BQ / 16][4], dlo[BQ / 16][4];
-        if constexpr (SPLIT) {
-          pack_split<T>(pa, pl, s);
-          pack_split<T>(da, dlo, dp);
-        } else {
-          pack_a<T>(pa, s);
-          pack_a<T>(da, dp);
-        }
+        pack_split<T>(pa, pl, s);
+        pack_split<T>(da, dlo, dp);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) {   // 16 q rows per step
@@ -1712,16 +1701,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_dkv_sm90_kernel(
           wgmma_rs<T, DMAX>(dk, da[kk],
                             sw128_desc(qs + kk * 16 * 128, BQ * 128, 1024));
         }
-        if constexpr (SPLIT) {
 #pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {
-            wgmma_rs<T, DMAX>(dv, pl[kk],
-                              sw128_desc(dos + kk * 16 * 128, BQ * 128,
-                                         1024));
-            wgmma_rs<T, DMAX>(dk, dlo[kk],
-                              sw128_desc(qs + kk * 16 * 128, BQ * 128,
-                                         1024));
-          }
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          wgmma_rs<T, DMAX>(dv, pl[kk],
+                            sw128_desc(dos + kk * 16 * 128, BQ * 128, 1024));
+          wgmma_rs<T, DMAX>(dk, dlo[kk],
+                            sw128_desc(qs + kk * 16 * 128, BQ * 128, 1024));
         }
         wg_commit();
         wg_wait_all();
@@ -2166,15 +2151,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes,
   return cudaSuccess;
 }
 
-// The biased routes (a pair bias or a k-row bias) multiply P and dS as hi
-// + lo operands (SPLIT), the reference's float32 to ~16 bits: their
-// end-to-end rows otherwise move with the forward's rounding of P (through
-// delta) and the backward's of dS (ROADMAP C2). The unbiased routes keep
-// one operand in T.
-bool split_operands(const Args& a) {
-  return a.bias != nullptr || a.kbias != nullptr;
-}
-
 template <typename T, int DMAX>
 cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
   using L = FwdTiles<DMAX>;
@@ -2185,10 +2161,9 @@ cudaError_t launch_fwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = tensor_map(&tv, a.v, a, kV, a.kvh, a.skv, L::BC, dtype);
   if (err != cudaSuccess) return err;
-  const auto kernel = split_operands(a) ? flash_fwd_sm90_kernel<T, DMAX, true>
-                                        : flash_fwd_sm90_kernel<T, DMAX, false>;
-  static std::atomic<unsigned long long> allowed[2] = {{0}, {0}};
-  err = allow_smem(kernel, L::SMEM, allowed[split_operands(a)]);
+  const auto kernel = flash_fwd_sm90_kernel<T, DMAX>;
+  static std::atomic<unsigned long long> allowed{0};
+  err = allow_smem(kernel, L::SMEM, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + L::BR - 1) / L::BR, a.h, a.b);
   kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, tq, tk, tv);
@@ -2220,14 +2195,10 @@ cudaError_t launch_bwd_sm90(const Args& a, int dtype, cudaStream_t stream) {
     err = tensor_map(&m[3], dq_kind ? a.v : a.dout, a, dq_kind ? kV : kDO,
                      ring_heads, ring_rows, L::BT, dtype);
   if (err != cudaSuccess) return err;
-  const bool split = split_operands(a);
-  const auto kernel =
-      dq_kind ? (split ? flash_dq_sm90_kernel<T, DMAX, true>
-                       : flash_dq_sm90_kernel<T, DMAX, false>)
-              : (split ? flash_dkv_sm90_kernel<T, DMAX, true>
-                       : flash_dkv_sm90_kernel<T, DMAX, false>);
-  static std::atomic<unsigned long long> allowed[2] = {{0}, {0}};
-  err = allow_smem(kernel, L::SMEM, allowed[split]);
+  const auto kernel = dq_kind ? flash_dq_sm90_kernel<T, DMAX>
+                              : flash_dkv_sm90_kernel<T, DMAX>;
+  static std::atomic<unsigned long long> allowed{0};
+  err = allow_smem(kernel, L::SMEM, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((own_rows + L::BR - 1) / L::BR, own_heads, a.b);
   kernel<<<grid, kFwdThreads, L::SMEM, stream>>>(a, m[0], m[1], m[2], m[3]);

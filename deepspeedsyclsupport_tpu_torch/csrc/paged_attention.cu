@@ -67,8 +67,9 @@
 //       window mask on the accumulator fragment (a tile every lane of the
 //       warpgroup sees whole only takes the scale; a tile none of them sees
 //       is not multiplied), register online softmax, O += P V by wgmma with
-//       P rounded to T as the register A operand (the one rounding the
-//       other routes do not do) and V MN-major.
+//       P as two register A operands of T, hi = T(P) and lo = T(P - hi), and
+//       V MN-major: P to ~16 bits, as the reference keeps it in float32, for
+//       one more sweep of P V (ROADMAP C2).
 //
 // paged_attention_kernel, the CUDA-core version (the first design), for what
 //   the others do not take: float32 prefill, D > 128, a pool TMA cannot
@@ -604,15 +605,18 @@ __global__ void __launch_bounds__(kSm90Threads, 1) paged_prefill_sm90_kernel(
 #pragma unroll
         for (int x = 0; x < DMAX / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
 
-        // P in T: the S fragment of columns [16 kk, 16 kk + 16) is the A
-        // fragment of k step kk
-        uint32_t pa[kTok / 16][4];
-        pack_a<T, kTok / 2>(pa, s);
+        // P as hi + lo in T: the S fragment of columns [16 kk, 16 kk + 16)
+        // is the A fragment of k step kk; two products, P to ~16 bits
+        uint32_t pa[kTok / 16][4], pl[kTok / 16][4];
+        pack_split<T>(pa, pl, s);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < kTok / 16; ++kk)   // 16 positions per step
+        for (int kk = 0; kk < kTok / 16; ++kk) {   // 16 positions per step
           wgmma_rs<T, DMAX>(o, pa[kk],
                             sw128_desc(vs + kk * 16 * 128, kTok * 128, 1024));
+          wgmma_rs<T, DMAX>(o, pl[kk],
+                            sw128_desc(vs + kk * 16 * 128, kTok * 128, 1024));
+        }
         wg_commit();
         wg_wait_all();
         fence_regs(o);

@@ -12,9 +12,8 @@
 //                  wgmma_rs (A from registers, B MN-major), m64 x n{64,128}
 //                  x k16 in bf16 or fp16 with float32 accumulators
 //   registers      pack2 / unpack2 (two floats as a pair of T and back),
-//                  pack_a (an accumulator fragment rounded to T as the
-//                  register A operand), pack_split (the same fragment as
-//                  two A operands, hi and lo, for a product to ~16 bits)
+//                  pack_split (an accumulator fragment as two register A
+//                  operands of T, hi and lo, for a product to ~16 bits)
 // Everything here is inlined into its caller; a source that includes this
 // header and uses none of it compiles to the same code as before.
 
@@ -175,18 +174,6 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
                                                              float hi) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Round an accumulator fragment to T in pairs: its 16 columns [16 kk, 16 kk
-// + 16) are the register A fragment of k step kk.
-template <typename T, int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 8][4],
-                                       const float (&x)[N]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 8; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
 // A pair of T in one register back to floats (lo half first).

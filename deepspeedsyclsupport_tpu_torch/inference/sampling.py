@@ -5,6 +5,11 @@ from an explicit ``torch.Generator``; it does not reproduce ``jax.random``'s
 bits, so sampled streams differ between the packages. Greedy decoding is
 exact (``argmax`` picks the first maximum in both) and is what the parity
 tests pin.
+
+``temperature`` and ``top_p`` may be 0-d tensors on the device, as the JAX
+package's may be traced scalars: the fused decode's CUDA graphs take them
+as inputs, so one capture serves every value. Nothing here reads a value
+back to the host, so the sampler can run inside a CUDA graph.
 """
 from typing import NamedTuple, Optional
 
@@ -19,10 +24,13 @@ class SamplingParams(NamedTuple):
 
     @property
     def structure(self) -> tuple:
-        """``(do_sample, top_k, use_top_p)`` — kept for config parity with
-        the JAX package, where it is the compile-relevant part."""
+        """``(do_sample, top_k, use_top_p)``: the part a CUDA graph of the
+        sampler is captured for (in the JAX package, the compile-relevant
+        part); a ``top_p`` tensor keeps the filter in the graph."""
         if not self.do_sample:
             return False, 0, False
+        if isinstance(self.top_p, torch.Tensor):
+            return True, int(self.top_k), True
         return True, int(self.top_k), float(self.top_p) < 1.0
 
 
@@ -40,7 +48,10 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     """logits [B, V] -> token ids [B] (int32)."""
     if not params.do_sample:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits.float() / max(float(params.temperature), 1e-6)
+    if isinstance(params.temperature, torch.Tensor):
+        logits = logits.float() / params.temperature.clamp(min=1e-6)
+    else:
+        logits = logits.float() / max(float(params.temperature), 1e-6)
     if params.top_k and params.top_k > 0:
         kth = torch.topk(logits, params.top_k, dim=-1).values[..., -1:]
         logits = logits.masked_fill(logits < kth, float("-inf"))
@@ -55,5 +66,7 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
                              ).min(dim=-1, keepdim=True).values
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # torch.multinomial's one-sample path without its host-side checks of
+    # the probabilities: argmax(p / q), q ~ Exp(1), the same draws and bits
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)

@@ -35,8 +35,8 @@ class RaggedInferenceConfig:
     atom_q_size: Optional[int] = None  # q rows per atom (default <=128)
     max_prefill_fraction: float = 1.0
     eviction_policy: str = "longest_context"
-    # fused multi-step decode is not ported yet: values > 1 raise at engine
-    # build
+    # fused multi-step decode: up to this many decode steps per dispatch
+    # (one CUDA graph replay per rung of the ladder K, K/2, ..., 2)
     decode_steps_per_dispatch: int = 1
     # KV-pool head-dim alignment (kv_cache.lane_padded_head_dim): None =
     # auto (no padding on CUDA); an int forces that multiple

@@ -10,18 +10,24 @@ Registered implementations:
 
 * ``prefill_attn``: ``kernel`` — the CUDA ragged paged-attention kernel
   over fixed-size single-sequence atoms (``ops/paged_attention.py``);
+  ``flash`` — KV gathered once per sequence and packed, then the flash
+  kernel with segment ids and explicit positions (``ops/flash_attention``);
   ``xla`` — the plain gather-and-softmax version (port of the JAX package's
   ``_paged_attention``; the name is kept so config values carry across).
 * ``decode_attn``: ``kernel`` (alias ``pallas``, so a config written for
   the JAX package still selects the kernel) and ``xla``.
 
 ``auto`` picks ``kernel`` on CUDA tensors and ``xla`` on CPU tensors. The
-JAX package's ``flash``, ``kernel_interpret`` and ``pallas_interpret``
-implementations are not registered here.
+JAX package's ``kernel_interpret`` and ``pallas_interpret`` implementations
+are not registered here.
 
 The JAX package runs the layers with ``lax.scan`` over stacked params and
 donates the KV pool to a jitted program. Here a Python loop runs over the
-per-layer params and k/v are written into the pool IN PLACE.
+per-layer params and k/v are written into the pool IN PLACE. Rows the JAX
+package drops (padded tokens, inactive slots) land in the pool's sink block
+(``kv_cache.sink_slot``), so the forwards read nothing back to the host:
+:func:`decode_forward` and :func:`decode_multi_forward` can be captured in
+a CUDA graph.
 """
 import math
 from typing import Any, NamedTuple, Optional, Tuple
@@ -29,10 +35,12 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .kv_cache import BlockedKV
+from .kv_cache import BlockedKV, sink_slot
 from .module_registry import register_impl, select_impl
-from ...models.layers import alibi_slopes, apply_rope, mlp_block, norm
+from ..sampling import sample_token_dyn
+from ...models.layers import apply_rope, device_constant, mlp_block, norm
 from ...models.transformer import compute_dtype
+from ...ops.flash_attention import flash_attention
 from ...ops.paged_attention import (paged_decode_attention,
                                     paged_decode_attention_reference,
                                     ragged_prefill_attention)
@@ -103,8 +111,8 @@ def _lane_pad(x, d_pad: int, is_q: bool = False):
     if d == d_pad:
         return x
     if is_q:
-        x = x * torch.tensor(math.sqrt(d_pad / d), dtype=x.dtype,
-                             device=x.device)
+        x = x * device_constant("scalar", (math.sqrt(d_pad / d),), x.device,
+                                x.dtype)
     return F.pad(x, (0, d_pad - d))
 
 
@@ -118,8 +126,7 @@ def _positionize(cfg, q, k, positions):
 
 
 def _arch_bias(cfg, device):
-    ab = (torch.from_numpy(alibi_slopes(cfg.num_heads)
-                           * cfg.alibi_scale).to(device)
+    ab = (device_constant("alibi", (cfg.num_heads, cfg.alibi_scale), device)
           if cfg.pos_embed == "alibi" else None)
     return ab, cfg.sliding_window
 
@@ -201,6 +208,38 @@ def _paged_attention(q, k_cache, v_cache, token_seq, token_pos, block_tables,
     return out
 
 
+def _packed_flash_attention(q, k_cache, v_cache, token_seq, token_pos,
+                            block_tables, block_size: int, alibi=None,
+                            window=None):
+    """Chunked-prefill attention through the flash kernel (port of the JAX
+    package's ``_packed_flash_attention``): KV is gathered once per
+    SEQUENCE (``[S, max_ctx]`` resolved from the block table), flattened
+    into one packed stream with per-slot segment ids and positions, and
+    the flat token queries attend through ``flash_attention``'s ragged
+    cross-attention mode: sequence boundaries from q / kv segment ids,
+    causality in position space. Padded tokens carry ``token_seq == S``,
+    which matches no kv segment: their rows come out 0."""
+    t, h, d = q.shape
+    s, bps = block_tables.shape
+    bs = block_size
+    max_ctx = bps * bs
+    dev = q.device
+    j = torch.arange(max_ctx, device=dev)
+    slot_of_pos = block_tables.long()[:, j // bs] * bs + j % bs
+    kvh = k_cache.shape[1]
+    k_flat = k_cache[slot_of_pos].reshape(1, s * max_ctx, kvh, d)
+    v_flat = v_cache[slot_of_pos].reshape(1, s * max_ctx, kvh, d)
+    kv_seg = torch.arange(s, dtype=torch.int32,
+                          device=dev).repeat_interleave(max_ctx)[None]
+    kv_pos = j.to(torch.int32).repeat(s)[None]
+    out = flash_attention(q[None], k_flat, v_flat, causal=True,
+                          segment_ids=token_seq[None].to(torch.int32),
+                          kv_segment_ids=kv_seg,
+                          q_positions=token_pos[None].to(torch.int32),
+                          kv_positions=kv_pos, alibi=alibi, window=window)
+    return out[0]
+
+
 # ------------------------------------------ registered prefill-attn impls
 def _has_atoms(ctx):
     return bool(ctx.get("has_atoms"))
@@ -221,6 +260,16 @@ def _prefill_kernel_impl(q, ctx: PrefillAttnContext):
         window=ctx.window)
     flat = out_at.reshape(-1, *out_at.shape[2:])
     return flat[ctx.atom_inv.long()]                    # back to packed rows
+
+
+# auto only on the TPU in the JAX package: never auto here
+@register_impl("prefill_attn", "flash", priority=5,
+               auto_eligible=lambda c: False)
+def _prefill_flash_impl(q, ctx: PrefillAttnContext):
+    return _packed_flash_attention(q, ctx.k_cache, ctx.v_cache,
+                                   ctx.token_seq, ctx.token_pos,
+                                   ctx.block_tables, ctx.block_size,
+                                   alibi=ctx.alibi, window=ctx.window)
 
 
 @register_impl("prefill_attn", "xla", priority=0)
@@ -251,13 +300,12 @@ register_impl("decode_attn", "pallas", priority=10,
 register_impl("decode_attn", "xla", priority=0)(_decode_xla_impl)
 
 
-def _write_kv(k_cache, v_cache, dest, live, k, v):
-    """Append k/v rows ``live`` at flat slots ``dest`` (in place). The JAX
-    package scatters every row with ``mode="drop"`` so padded rows (dest =
-    num_slots) vanish; PyTorch has no dropping scatter, so only live rows
-    are written."""
-    k_cache.index_copy_(0, dest, k[live].to(k_cache.dtype))
-    v_cache.index_copy_(0, dest, v[live].to(v_cache.dtype))
+def _write_kv(k_cache, v_cache, dest, k, v):
+    """Write every k/v row at its flat slot ``dest`` (in place). Rows the
+    JAX package drops (``mode="drop"`` past the pool) have ``dest`` in the
+    sink block, which no block table names."""
+    k_cache.index_copy_(0, dest, k.to(k_cache.dtype))
+    v_cache.index_copy_(0, dest, v.to(v_cache.dtype))
 
 
 @torch.no_grad()
@@ -277,13 +325,13 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
     spec = select_impl("prefill_attn", attn_impl, {
         "backend": tokens.device.type, "has_atoms": atom_qidx is not None})
 
-    # padded tokens carry token_seq == S; only live rows reach the pool.
-    # JAX clamps out-of-range gathers: clamp explicitly here
-    live = torch.nonzero(token_seq < s).squeeze(1)
+    # padded tokens carry token_seq == S and write the sink block. JAX
+    # clamps out-of-range gathers: clamp explicitly here
     dest_block = block_tables.long()[token_seq.long().clamp(max=s - 1),
                                      (token_pos // bs).long().clamp(
                                          max=bps - 1)]
-    dest = (dest_block * bs + (token_pos % bs).long())[live]
+    dest = torch.where(token_seq < s, dest_block * bs
+                       + (token_pos % bs).long(), sink_slot(kv, bs))
 
     x = _embed(params, tokens, token_pos, cfg)
     for li, p in enumerate(params["layers"]):
@@ -295,7 +343,7 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
             d_pool = k_cache.shape[-1]
             q = _lane_pad(q, d_pool, is_q=True)
             k, v = _lane_pad(k, d_pool), _lane_pad(v, d_pool)
-            _write_kv(k_cache, v_cache, dest, live, k, v)
+            _write_kv(k_cache, v_cache, dest, k, v)
             ctx = PrefillAttnContext(
                 k_cache=k_cache, v_cache=v_cache, token_seq=token_seq,
                 token_pos=token_pos, block_tables=block_tables,
@@ -318,8 +366,9 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
                    attn_impl: str = "auto") -> Tuple[torch.Tensor, BlockedKV]:
     """All-decode forward: one token per slot. ``tokens``/``positions``/
     ``active``: [S]; positions = tokens already cached (the new token
-    writes slot ``positions[s]``). Returns (logits [S, V] float32, kv),
-    ``kv`` updated in place."""
+    writes slot ``positions[s]``; an inactive slot writes the sink block).
+    Returns (logits [S, V] float32, kv), ``kv`` updated in place. Reads
+    nothing back to the host: a CUDA graph can hold it."""
     cfg = model.config
     bs = block_size
     s, bps = block_tables.shape
@@ -327,10 +376,10 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
     spec = select_impl("decode_attn", attn_impl,
                        {"backend": tokens.device.type})
 
-    live = torch.nonzero(active).squeeze(1)
     blk = (positions // bs).long().clamp(max=bps - 1)
     dest_block = block_tables.long().gather(1, blk[:, None])[:, 0]
-    dest = (dest_block * bs + (positions % bs).long())[live]
+    dest = torch.where(active, dest_block * bs + (positions % bs).long(),
+                       sink_slot(kv, bs))
     seq_lens = torch.where(active, positions + 1, torch.zeros_like(positions))
 
     x = _embed(params, tokens, positions, cfg)
@@ -343,7 +392,7 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
             d_pool = k_cache.shape[-1]
             q = _lane_pad(q, d_pool, is_q=True)
             k, v = _lane_pad(k, d_pool), _lane_pad(v, d_pool)
-            _write_kv(k_cache, v_cache, dest, live, k, v)
+            _write_kv(k_cache, v_cache, dest, k, v)
             return spec.fn(q, DecodeAttnContext(
                 k_cache=k_cache, v_cache=v_cache, block_tables=block_tables,
                 seq_lens=seq_lens, block_size=bs, alibi=ab,
@@ -353,3 +402,52 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
 
     x = norm(x, params["final_norm"], cfg)
     return _unembed(params, x, cfg).float(), kv
+
+
+@torch.no_grad()
+def decode_multi_forward(model, params: Any, kv: BlockedKV, logits0,
+                         positions, block_tables, active, steps_left,
+                         generator, temperature, top_p, eos_tok, *,
+                         block_size: int, num_steps: int, samp_struct,
+                         max_context: int, attn_impl: str = "auto"):
+    """``num_steps`` fused decode iterations: sample from the logits, append
+    the token's KV through :func:`decode_forward`, advance positions (port
+    of the JAX package's ``decode_multi_forward``).
+
+    Per-slot retirement mirrors the host loop exactly: a slot samples
+    (emitting the token), decrements its budget, then retires on budget
+    exhaustion, EOS or the context cap; the EOS / terminal token is emitted
+    but never appended. The JAX package's ``while_loop`` exits once every
+    slot has retired; here the body runs all ``num_steps`` (a CUDA graph
+    has a fixed length), and a step after the last retirement changes
+    nothing but the sink block and the generator, so the outputs are the
+    same. The engine's rung ladder bounds that waste.
+
+    ``logits0``: [S, V] last-token logits each slot drained with;
+    ``steps_left``: [S] per-slot new-token budgets; ``temperature``,
+    ``top_p`` (float32) and ``eos_tok`` (int32, -1 = no EOS) may be 0-d
+    device tensors, so one capture serves every value of them;
+    ``samp_struct`` is ``SamplingParams.structure``. Reads nothing back to
+    the host. Returns ``(tokens [num_steps, S] int32 with -1 for
+    retired-slot steps, final logits [S, V], final positions [S], final
+    active [S], final steps_left [S], kv)``, ``kv`` updated in place."""
+    s = positions.shape[0]
+    buf = torch.full((num_steps, s), -1, dtype=torch.int32,
+                     device=positions.device)
+    logits = logits0.float()
+    pos, act, sl = positions, active, steps_left
+    for step in range(num_steps):
+        tok = sample_token_dyn(logits, generator, temperature, top_p,
+                               samp_struct)
+        buf[step] = torch.where(act, tok, -1)
+        sl = torch.where(act, sl - 1, sl)
+        done = (sl <= 0) | ((eos_tok >= 0) & (tok == eos_tok)) \
+            | (pos >= max_context)
+        append = act & ~done
+        new_logits, kv = decode_forward(
+            model, params, kv, tok, pos, block_tables, append,
+            block_size=block_size, attn_impl=attn_impl)
+        logits = torch.where(append[:, None], new_logits, logits)
+        pos = torch.where(append, pos + 1, pos)
+        act = append
+    return buf, logits, pos, act, sl, kv

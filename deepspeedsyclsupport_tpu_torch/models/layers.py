@@ -16,6 +16,7 @@ does in the JAX package.
 Activations follow the ``[B, S, H, D]`` layout of the reference so that the
 parity tests compare like with like.
 """
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -31,6 +32,26 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted type of the two, as ``jnp.einsum`` does."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(kind: str, args: tuple, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A constant built on the host once per (kind, args, device, dtype)
+    and kept on the device: ``"rope"`` (``rope_frequencies(*args)``),
+    ``"alibi"`` (``alibi_slopes(num_heads) * scale``) or ``"scalar"`` (a 0-d
+    tensor of ``args[0]``). A forward then makes no host-to-device copy per
+    call, which a CUDA graph could not hold and which costs the training
+    step a sync. Never written to: every caller shares it."""
+    if kind == "rope":
+        value = rope_frequencies(*args)
+    elif kind == "alibi":
+        value = alibi_slopes(args[0]) * args[1]
+    elif kind == "scalar":
+        value = np.asarray(args[0], np.float64)
+    else:
+        raise ValueError(f"unknown device constant {kind!r}")
+    return torch.from_numpy(value).to(device=device, dtype=dtype)
 
 
 # --------------------------------------------------------------------------- norm
@@ -72,7 +93,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     head_dim = x.shape[-1]
     rd = head_dim if rotary_dim is None else rotary_dim
     x_rot, x_pass = (x, None) if rd == head_dim else (x[..., :rd], x[..., rd:])
-    freqs = torch.from_numpy(rope_frequencies(rd, theta)).to(x.device)
+    freqs = device_constant("rope", (rd, theta), x.device)
     if positions.dim() == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs     # [B, S, rd/2]
@@ -220,14 +241,15 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
-    alibi = (torch.from_numpy(alibi_slopes(cfg.num_heads)
-                              * cfg.alibi_scale).to(x.device)
+    alibi = (device_constant("alibi", (cfg.num_heads, cfg.alibi_scale),
+                             x.device)
              if cfg.pos_embed == "alibi" else None)
     if cfg.attn_scale is not None:
         # non-standard logit scale (GPT-Neo uses 1.0), folded into q so that
         # every attention implementation inherits it
-        q = q * torch.tensor(cfg.attn_scale * np.sqrt(cfg.head_dim),
-                             dtype=q.dtype, device=q.device)
+        q = q * device_constant(
+            "scalar", (cfg.attn_scale * np.sqrt(cfg.head_dim),), q.device,
+            q.dtype)
     out = attention(q, k, v, impl=impl or cfg.attn_impl, causal=True,
                     segment_ids=segment_ids, alibi=alibi, window=window)
     out = matmul(out.reshape(b, s, cfg.q_dim), p["wo"])

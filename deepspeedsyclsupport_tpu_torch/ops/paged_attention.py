@@ -12,7 +12,7 @@ The library picks one of three routes before launch (:func:`kernel_name`):
 * ``paged_prefill_sm90_kernel``, bfloat16 / float16 prefill at D <= 128 (a
   multiple of 8), ``block_size`` a multiple or a divisor (>= 8) of 64, H /
   KVH dividing 128, and q and the pool 16-byte aligned so TMA reads them in
-  place: wgmma products, P rounded to the dtype before P V;
+  place: wgmma products, P as hi + lo operands of the dtype in P V;
 * ``paged_attention_kernel``, the CUDA-core version, for everything else
   (float32 prefill, D > 128, a pool TMA cannot read in place). The pool is
   never copied on any route.

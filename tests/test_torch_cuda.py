@@ -1159,3 +1159,186 @@ def test_flash_bias_rejects_what_it_does_not_take(dev):
     wide = torch.zeros((65536, 1, 1, 8), device=dev)
     with pytest.raises(ValueError, match="65535"):
         fa.flash_fwd(wide, wide, wide, fa.make_mask(wide, wide))
+
+
+# --------------------------------------------- serving decode as CUDA graphs
+def _graph_decode_case(dev, dtype=torch.float32, s=4, bps=8, bs=8):
+    """A tiny model, a random paged pool of ``s`` slots and the inputs of
+    one fused decode dispatch (live, idle and short-budget slots)."""
+    from deepspeedsyclsupport_tpu_torch import build_model
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        RaggedInferenceConfig, init_blocked_kv)
+
+    model = build_model("tiny", dtype="float32" if dtype == torch.float32
+                        else "bfloat16")
+    params = model.init_params(
+        generator=torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=dtype)
+    kv = init_blocked_kv(model.config, RaggedInferenceConfig(
+        dtype=dtype, block_size=bs, max_context=bps * bs, max_sequences=s,
+        num_blocks=s * bps), dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    kv.k.copy_(torch.randn(kv.k.shape, generator=g, device=dev))
+    kv.v.copy_(torch.randn(kv.v.shape, generator=g, device=dev))
+    inputs = dict(
+        logits0=torch.randn((s, model.config.vocab_size), generator=g,
+                            device=dev),
+        positions=np.array([5, 17, 0, 30], np.int32),
+        tables=np.arange(s * bps, dtype=np.int32).reshape(s, bps),
+        active=np.array([True, True, False, True]),
+        steps_left=np.array([3, 1, 0, 5], np.int32),
+        temperature=np.asarray(1.0, np.float32),
+        top_p=np.asarray(1.0, np.float32), eos=np.asarray(-1, np.int32))
+    idle = dict(inputs, positions=np.zeros(s, np.int32),
+                active=np.zeros(s, bool), steps_left=np.zeros(s, np.int32),
+                logits0=torch.zeros_like(inputs["logits0"]))
+    return model, params, kv, inputs, idle
+
+
+def _multi_body(model, params, kv, struct, generator=None, k=4, bs=8,
+                max_context=64):
+    from deepspeedsyclsupport_tpu_torch.inference.v2.model import (
+        decode_multi_forward)
+
+    def body(logits0, positions, tables, active, steps_left, temperature,
+             top_p, eos):
+        buf, logits, pos, act, sl, _ = decode_multi_forward(
+            model, params, kv, logits0, positions, tables, active,
+            steps_left, generator, temperature, top_p, eos, block_size=bs,
+            num_steps=k, samp_struct=struct, max_context=max_context,
+            attn_impl="kernel")
+        return buf, logits, pos, act, sl
+    return body
+
+
+def test_fused_decode_graph_equals_eager_bit_for_bit(dev):
+    """One capture of ``decode_multi_forward`` (4 steps, greedy) replayed
+    gives the eager body's tokens, logits, positions, retirements and KV
+    pool (the sink block aside) bit for bit, and counts its launches per
+    replay, none for the capture."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2.graphs import (
+        DecodeRunner)
+    from deepspeedsyclsupport_tpu_torch.inference.v2.kv_cache import BlockedKV
+
+    model, params, kv, inputs, idle = _graph_decode_case(dev)
+    kv2 = BlockedKV(kv.k.clone(), kv.v.clone())
+    struct = (False, 0, False)
+    eager = DecodeRunner(_multi_body(model, params, kv, struct), idle,
+                         torch.device("cpu"))
+    want = eager(**{n: (torch.from_numpy(x).to(dev)
+                        if isinstance(x, np.ndarray) else x)
+                    for n, x in inputs.items()})
+    pa.reset_launch_counts()
+    runner = DecodeRunner(_multi_body(model, params, kv2, struct), idle, dev)
+    layers = model.config.num_layers
+    assert runner.graph is not None
+    assert runner.launches[0] == {"paged_decode_attention": 4 * layers}
+    warm = dict(pa.LAUNCHES)          # the warm-up run's launches only
+    assert warm["paged_decode_attention"] == 4 * layers
+    got = runner(**inputs)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode_attention"] == 8 * layers
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    sink = kv.num_slots - 8
+    assert torch.equal(kv2.k[:, :sink], kv.k[:, :sink])
+    assert torch.equal(kv2.v[:, :sink], kv.v[:, :sink])
+    runner(**inputs)
+    assert pa.LAUNCHES["paged_decode_attention"] == 12 * layers
+
+
+def test_sampled_fused_decode_draws_anew_on_each_replay(dev):
+    """The engine's generator is registered with the graph: two replays
+    of a sampled body on the same inputs (flat logits) draw other tokens,
+    and the generator's state moves on."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2.graphs import (
+        DecodeRunner)
+
+    model, params, kv, inputs, idle = _graph_decode_case(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    inputs = dict(inputs, logits0=torch.zeros_like(inputs["logits0"]),
+                  active=np.ones(4, bool), steps_left=np.full(4, 9, np.int32),
+                  positions=np.array([5, 17, 3, 30], np.int32))
+    runner = DecodeRunner(_multi_body(model, params, kv, (True, 0, False),
+                                      gen), idle, dev, generator=gen)
+    first = runner(**inputs)[0].clone()
+    state = gen.get_state()
+    second = runner(**inputs)[0].clone()
+    assert not torch.equal(first, second)
+    assert not torch.equal(state, gen.get_state())
+    assert bool((first >= 0).all()) and bool((second >= 0).all())
+
+
+def test_engine_fused_decode_replays_graphs(dev):
+    """The engine on the card: warmup captures the per-token decode graph
+    and every fused rung; fused (K = 8) and per-token generate give the
+    plain path's greedy tokens; decode launches are counted per replay and
+    host dispatches fall by the fusion."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+
+    model = build_model("tiny", dtype="float32")
+    params = model.init_params(device=dev)
+    kw = dict(dtype=torch.float32, block_size=8, max_context=64,
+              max_tokens_per_batch=16, max_sequences=4)
+    prompts = [[7, 3, 11], [4, 100, 42, 8, 19], list(range(30, 52)), [9]]
+    plain = InferenceEngineV2(model, params, prefill_attn="xla",
+                              decode_attn="xla", **kw).generate(prompts, 12)
+    per_tok = InferenceEngineV2(model, params, **kw)
+    per_tok.warmup()
+    assert per_tok._decode_runner.graph is not None
+    fused = InferenceEngineV2(model, params, decode_steps_per_dispatch=8,
+                              **kw)
+    fused.warmup(fused_ladder=True)
+    assert [key[0] for key in fused._decode_multi] == [8, 4, 2]
+    assert all(r.graph is not None for r in fused._decode_multi.values())
+    assert not fused.seqs and fused.host_dispatches == 0
+    assert fused.allocator.free_blocks == fused.config.num_blocks
+    pa.reset_launch_counts()
+    assert fused.generate(prompts, 12) == plain
+    replayed = pa.LAUNCHES["paged_decode_attention"]
+    assert replayed >= 8 * model.config.num_layers
+    assert per_tok.generate(prompts, 12) == plain
+    assert fused.host_dispatches < per_tok.host_dispatches // 2
+
+
+def test_engine_flash_prefill_on_the_card(dev):
+    """``prefill_attn="flash"`` runs the flash forward kernel on the
+    serving path and serves the kernel path's greedy tokens."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+
+    model = build_model("tiny", dtype="float32")
+    params = model.init_params(device=dev)
+    kw = dict(dtype=torch.float32, block_size=8, max_context=64,
+              max_tokens_per_batch=16, max_sequences=4)
+    prompts = [[7, 3, 11], [4, 100, 42, 8, 19], list(range(30, 52)), [9]]
+    want = InferenceEngineV2(model, params, **kw).generate(prompts, 6)
+    fa.reset_launch_counts()
+    got = InferenceEngineV2(model, params, prefill_attn="flash",
+                            **kw).generate(prompts, 6)
+    assert got == want
+    assert fa.LAUNCHES["flash_fwd"] > 0
+
+
+def test_capture_failure_raises(dev, monkeypatch):
+    """A decode body that reads a value back to the host cannot be
+    captured: the engine raises and never serves that body eagerly."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import engine_v2
+
+    real = engine_v2.decode_multi_forward
+
+    def host_reading(*args, **kwargs):
+        out = real(*args, **kwargs)
+        int(out[0].sum())          # a host read: refused under capture
+        return out
+
+    monkeypatch.setattr(engine_v2, "decode_multi_forward", host_reading)
+    model = build_model("tiny", dtype="float32")
+    params = model.init_params(device=dev)
+    eng = InferenceEngineV2(model, params, dtype=torch.float32, block_size=8,
+                            max_context=64, max_tokens_per_batch=16,
+                            max_sequences=4, decode_steps_per_dispatch=4)
+    with pytest.raises(RuntimeError):
+        eng.generate([[7, 3, 11]], 8)
+    assert not eng._decode_multi
+    torch.cuda.synchronize()

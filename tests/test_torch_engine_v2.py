@@ -192,8 +192,12 @@ def test_ragged_and_decode_forward_match_jax():
                                attn_impl="kernel")
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=TOL,
                                rtol=TOL)
-    np.testing.assert_allclose(tkv.k.numpy(), np.asarray(jkv.k), atol=TOL,
-                               rtol=TOL)
+    # the port's pool ends in the sink block, where the rows the JAX
+    # package drops are written: compare the allocatable blocks
+    slots = jkv.k.shape[1]
+    assert tkv.k.shape[1] == slots + 8
+    np.testing.assert_allclose(tkv.k.numpy()[:, :slots], np.asarray(jkv.k),
+                               atol=TOL, rtol=TOL)
     # decode: both sequences append one token at their next position
     tokens = np.array([7, 9, 0, 0], np.int32)
     positions = np.array([11, 9, 0, 0], np.int32)
@@ -210,8 +214,8 @@ def test_ragged_and_decode_forward_match_jax():
                                attn_impl="kernel")
     np.testing.assert_allclose(tlog.numpy()[:2], np.asarray(jlog)[:2],
                                atol=TOL, rtol=TOL)
-    np.testing.assert_allclose(tkv.v.numpy(), np.asarray(jkv.v), atol=TOL,
-                               rtol=TOL)
+    np.testing.assert_allclose(tkv.v.numpy()[:, :slots], np.asarray(jkv.v),
+                               atol=TOL, rtol=TOL)
 
 
 def test_params_from_jax_round_trip():
@@ -239,7 +243,7 @@ def test_engine_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("kind,name", [
-    ("prefill_attn", "flash"), ("prefill_attn", "kernel_interpret"),
+    ("prefill_attn", "kernel_interpret"),
     ("decode_attn", "pallas_interpret"), ("decode_attn", "flash")])
 def test_unported_impls_name_the_registered_ones(kind, name):
     model, params = _torch_model("tiny")
@@ -249,7 +253,6 @@ def test_unported_impls_name_the_registered_ones(kind, name):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(decode_steps_per_dispatch=4), "fused-K decode"),
     (dict(quantize_weights=True), "quantized weights")])
 def test_unported_features_raise(kw, what):
     model, params = _torch_model("tiny")
@@ -262,8 +265,7 @@ def test_unported_methods_and_moe_raise():
     model, params = _torch_model("tiny")
     eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
                             **ENGINE_KW)
-    for call in (lambda: eng.warmup(), lambda: eng.serialize("x"),
-                 lambda: eng.install_prefix_cache(),
+    for call in (lambda: eng.serialize("x"),
                  lambda: InferenceEngineV2.deserialize("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
@@ -293,3 +295,269 @@ def test_structured_admission_and_token_validation():
     assert eng.query(7) is None
     cfg = dataclasses.asdict(eng.config)
     assert cfg["dtype"] == torch.float32
+
+
+# ------------------------------------------------------------ fused decode
+# The JAX package's fused K-step decode (tests/unit/test_inference_v2.py
+# TestMultiStepDecode): the port runs the same ladder and retirement rules,
+# so greedy tokens AND host dispatch counts equal the JAX engine's. On the
+# CPU the port's bodies run eagerly (CUDA graphs on the card).
+FUSED_PROMPTS = [[7, 3, 11], [4, 100, 42, 8, 19], [9]]
+LONG_PROMPT = [int(t) for t in
+               np.random.RandomState(2).randint(1, 500, size=14)]
+WAVES = [[int(t) for t in np.random.RandomState(1).randint(1, 500, size=n)]
+         for n in (2, 5, 3, 4, 2)]
+# name -> (engine overrides, prompts, generate kwargs); "eos" takes its
+# token from the per-token greedy output of its prompts
+FUSED_CASES = {
+    "budget": ({}, FUSED_PROMPTS, dict(max_new_tokens=9)),
+    "eos": ({}, FUSED_PROMPTS[:2], dict(max_new_tokens=8)),
+    "context-cap": (dict(max_context=16), [LONG_PROMPT],
+                    dict(max_new_tokens=8)),
+    "waves": (dict(max_sequences=2), WAVES, dict(max_new_tokens=4)),
+    "kv-pressure": (dict(num_blocks=4, max_context=32),
+                    [[1, 2, 3], [4, 5, 6], [7, 8, 9]],
+                    dict(max_new_tokens=6)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_eos():
+    model, params, _ = _jax_model("tiny")
+    base = JaxEngine(model, params, dtype=jnp.float32, **ENGINE_KW).generate(
+        FUSED_CASES["eos"][1], max_new_tokens=8)
+    return base[0][2]
+
+
+def _fused_case(name, k):
+    over, prompts, gen_kw = FUSED_CASES[name]
+    gen_kw = dict(gen_kw)
+    if name == "eos":
+        gen_kw["eos_token_id"] = _jax_eos()
+    return dict(ENGINE_KW, decode_steps_per_dispatch=k, **over), prompts, \
+        gen_kw
+
+
+@pytest.mark.parametrize("k", [2, 4, 6, 8])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_decode_matches_jax(case, k):
+    """Greedy tokens, host dispatches, the rungs run and the pool after
+    retirement equal the JAX engine's, with retirement on budget, EOS and
+    the context cap inside the fused loop, admission waves and KV-pressure
+    fallback to the per-token path."""
+    kw, prompts, gen_kw = _fused_case(case, k)
+    jmodel, jparams, _ = _jax_model("tiny")
+    jeng = JaxEngine(jmodel, jparams, dtype=jnp.float32, **kw)
+    want = jeng.generate(prompts, **gen_kw)
+    model, params = _torch_model("tiny")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            **kw)
+    got = eng.generate(prompts, **gen_kw)
+    assert got == want
+    assert eng.host_dispatches == jeng.host_dispatches
+    assert list(eng._decode_multi) == list(jeng._decode_multi)
+    assert not eng.seqs
+    assert eng.allocator.free_blocks == jeng.allocator.free_blocks \
+        == eng.config.num_blocks
+    if case == "eos":
+        assert got[0][-1] == gen_kw["eos_token_id"]
+
+
+def test_fused_decode_reduces_dispatches_and_samples_in_budget():
+    """12 tokens at K = 6 take a third of the per-token path's dispatches
+    (the JAX package's test_dispatch_count_amortized); sampled fused decode
+    with tensor temperature / top_p stays within budget and flushes."""
+    model, params = _torch_model("tiny")
+    make = functools.partial(InferenceEngineV2, model, params, device="cpu",
+                             dtype=torch.float32)
+    per_tok = make(**ENGINE_KW)
+    per_tok.generate([[5, 6, 7]], max_new_tokens=12)
+    fused = make(decode_steps_per_dispatch=6, **ENGINE_KW)
+    fused.generate([[5, 6, 7]], max_new_tokens=12)
+    assert fused.host_dispatches <= per_tok.host_dispatches // 3
+    eng = make(decode_steps_per_dispatch=4, **ENGINE_KW)
+    for t, p, eos in [(0.7, 0.9, None), (1.3, 0.8, 42), (0.5, 0.95, 7)]:
+        got = eng.generate([[7, 3, 11], [4, 9]], max_new_tokens=7,
+                           do_sample=True, temperature=t, top_k=20, top_p=p,
+                           eos_token_id=eos)
+        assert all(1 <= len(g) <= 7 for g in got)
+        assert not eng.seqs
+    # temperature / top_p / eos are inputs: one body per structure
+    assert len(eng._decode_multi) == 1
+
+
+@pytest.mark.parametrize("k,ladder", [(1, False), (4, False), (8, True)])
+def test_warmup_leaves_engine_clean_and_serving_exact(k, ladder):
+    """warmup() admits, prefills and decodes a reserved sequence and, with
+    K > 1, runs the fused rung K (every rung with ``fused_ladder``); it
+    leaves no sequence, every block free and ``host_dispatches`` 0, the
+    same rungs as the JAX engine's warmup, and serving exact."""
+    kw = dict(ENGINE_KW, decode_steps_per_dispatch=k)
+    jmodel, jparams, _ = _jax_model("tiny")
+    jeng = JaxEngine(jmodel, jparams, dtype=jnp.float32, **kw)
+    jeng.warmup(fused_ladder=ladder)
+    model, params = _torch_model("tiny")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            **kw)
+    eng.warmup(fused_ladder=ladder)
+    assert not eng.seqs and eng.host_dispatches == 0
+    assert eng.allocator.free_blocks == eng.config.num_blocks
+    assert list(eng._decode_multi) == list(jeng._decode_multi)
+    got = eng.generate(PROMPTS, max_new_tokens=NEW_TOKENS)
+    assert got == jeng.generate(PROMPTS, max_new_tokens=NEW_TOKENS)
+    assert eng.host_dispatches == jeng.host_dispatches
+
+
+def test_warmup_raises_when_it_cannot_admit():
+    model, params = _torch_model("tiny")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            **dict(ENGINE_KW, max_sequences=1))
+    eng.put([3], [[1, 2, 3]])
+    with pytest.raises(RuntimeError, match="warmup could not admit"):
+        eng.warmup()
+    assert list(eng.seqs) == [3]
+
+
+# ---------------------------------------------------- the flash prefill impl
+FLASH_TOL = 2e-5
+
+
+def test_flash_prefill_matches_jax_flash():
+    """``prefill_attn="flash"`` (KV gathered once per sequence, the flash
+    kernel's wrapper with segments and positions; its plain version on the
+    CPU) against the JAX engine's ``flash`` impl (its Pallas kernels in
+    interpret mode, as the JAX package's tests run it): ragged prefill and
+    decode logits within 2e-5 in float32, greedy tokens equal; ``auto``
+    never selects it."""
+    jmodel, jparams, _ = _jax_model("gqa_window")
+    jeng = JaxEngine(jmodel, jparams, dtype=jnp.float32, prefill_attn="flash",
+                     **ENGINE_KW)
+    jp, jd, jtoks = _serve(jeng, np.asarray)
+    model, params = _torch_model("gqa_window")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            prefill_attn="flash", **ENGINE_KW)
+    tp, td, ttoks = _serve(eng, lambda t: t.numpy())
+    np.testing.assert_allclose(tp, jp, atol=FLASH_TOL, rtol=FLASH_TOL)
+    np.testing.assert_allclose(td, jd, atol=FLASH_TOL, rtol=FLASH_TOL)
+    assert ttoks == jtoks
+    from deepspeedsyclsupport_tpu_torch.inference.v2.module_registry import (
+        select_impl)
+    for backend in ("cpu", "cuda"):
+        assert select_impl("prefill_attn", "auto", {
+            "backend": backend, "has_atoms": True}).name != "flash"
+
+
+# --------------------------------------------------------- capture safety
+def _decode_inputs(model, s=4, bps=8, bs=8):
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        RaggedInferenceConfig, init_blocked_kv)
+
+    kv = init_blocked_kv(model.config, RaggedInferenceConfig(
+        dtype=torch.float32, block_size=bs, max_context=bps * bs,
+        max_sequences=s, num_blocks=s * bps), torch.device("cpu"))
+    g = torch.Generator().manual_seed(0)
+    kv.k.normal_(generator=g)
+    kv.v.normal_(generator=g)
+    tables = torch.arange(s * bps, dtype=torch.int32).reshape(s, bps)
+    positions = torch.tensor([5, 17, 0, 30], dtype=torch.int32)
+    active = torch.tensor([True, True, False, True])
+    logits0 = torch.randn((s, model.config.vocab_size), generator=g)
+    return kv, tables, positions, active, logits0
+
+
+def test_decode_bodies_read_nothing_back_to_the_host(monkeypatch):
+    """What a CUDA graph cannot hold: a value read back to the host
+    (``nonzero``, ``item``, ``tolist``, ``bool``) or a tensor made from host
+    data. ``decode_forward`` and ``decode_multi_forward`` (greedy and
+    sampled, tensor temperature / top_p / eos, ALiBi) run with all of those
+    patched to raise, after one unpatched call that builds the cached
+    device constants (the capture's warm-up run)."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2.model import (
+        decode_multi_forward)
+
+    for arch in ("tiny", "alibi"):
+        model, params = _torch_model(arch)
+        kv, tables, positions, active, logits0 = _decode_inputs(model)
+        tokens = torch.tensor([3, 9, 0, 4], dtype=torch.int32)
+        steps = torch.tensor([3, 1, 0, 5], dtype=torch.int32)
+        temp, top_p = torch.tensor(0.8), torch.tensor(0.9)
+        eos = torch.tensor(-1, dtype=torch.int32)
+
+        def run():
+            decode_forward(model, params, kv, tokens, positions, tables,
+                           active, block_size=8, attn_impl="kernel")
+            for struct in ((False, 0, False), (True, 5, True)):
+                decode_multi_forward(
+                    model, params, kv, logits0, positions, tables, active,
+                    steps, torch.Generator().manual_seed(1), temp, top_p,
+                    eos, block_size=8, num_steps=3, samp_struct=struct,
+                    max_context=64, attn_impl="kernel")
+
+        run()
+
+        def refuse(*a, **k):
+            raise AssertionError("host read or host tensor in a decode body")
+
+        with monkeypatch.context() as m:
+            for name in ("nonzero", "item", "tolist", "__bool__"):
+                m.setattr(torch.Tensor, name, refuse)
+            m.setattr(torch, "tensor", refuse)
+            m.setattr(torch, "from_numpy", refuse)
+            run()
+
+
+def test_sink_block_is_never_allocated_or_read():
+    """The pool's last block (the sink) takes the rows the JAX package
+    drops: no allocation hands it out, no block table names it, and a sink
+    full of NaN changes no logit or token (fused and per-token decode)."""
+    model, params = _torch_model("tiny")
+    for k in (1, 4):
+        kw = dict(ENGINE_KW, decode_steps_per_dispatch=k)
+        ref = InferenceEngineV2(model, params, device="cpu",
+                                dtype=torch.float32, **kw)
+        want = ref.generate(PROMPTS, max_new_tokens=NEW_TOKENS)
+        eng = InferenceEngineV2(model, params, device="cpu",
+                                dtype=torch.float32, **kw)
+        bs, nb = eng.config.block_size, eng.config.num_blocks
+        assert eng.kv.k.shape[1] == (nb + 1) * bs
+        eng.kv.k[:, nb * bs:] = float("nan")
+        eng.kv.v[:, nb * bs:] = float("nan")
+        seen = set()
+        put = eng.put
+
+        def spying_put(uids, toks, **kw_):
+            out = put(uids, toks, **kw_)
+            for d in eng.seqs.values():
+                seen.update(d.blocks)
+            assert all(bool(torch.isfinite(lg).all()) for lg in out.values())
+            return out
+
+        eng.put = spying_put
+        assert eng.generate(PROMPTS, max_new_tokens=NEW_TOKENS) == want
+        assert seen and max(seen) < nb
+        assert eng.allocator.free_blocks == nb
+        # dead rows were written there (a padded prefill, an idle slot)
+        assert not bool(torch.isnan(eng.kv.k[:, nb * bs:]).all())
+
+
+def test_engine_is_freed_by_its_last_reference():
+    """The decode bodies hold the model, params and pool, not the engine:
+    dropping the last reference frees the engine and its KV pool at once
+    (on the card, its CUDA graphs and their memory too), with the garbage
+    collector off."""
+    import gc
+    import weakref
+
+    model, params = _torch_model("tiny")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            **dict(ENGINE_KW, decode_steps_per_dispatch=4))
+    eng.install_prefix_cache()
+    eng.warmup(fused_ladder=True)
+    eng.generate(PROMPTS, max_new_tokens=NEW_TOKENS)
+    refs = (weakref.ref(eng), weakref.ref(eng.kv.k))
+    gc.disable()
+    try:
+        del eng
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -4,10 +4,10 @@ backward (``flash_dq_sm90_kernel`` and ``flash_dkv_sm90_kernel`` in
 
 The kernels' numerics, emulated here tile by tile: P = exp(s - LSE) and
 dS = P (dO V^T - delta) in float32 as the plain backward computes them,
-then P and dS rounded to bf16 / fp16 before the three products (dV += P^T
-dO, dK += dS^T Q, dQ += dS K: the roundings the plain version does not
-do; with a pair or k-row bias each is split into hi + lo operands of the
-type instead), dQ summed over key tiles of 64, dK and dV over (q head, q tile of 64)
+then P and dS as hi + lo operands of bf16 / fp16 in the three products
+(dV += P^T dO, dK += dS^T Q, dQ += dS K; the plain version keeps both in
+float32, ROADMAP C2), dQ summed over key tiles of 64, dK and dV over (q
+head, q tile of 64)
 for each key tile of 128, and the outputs rounded to the dtype. LSE and
 delta come from the float32 forward, as the JAX backward takes them (the
 kernels take both as inputs; the autograd backward's delta from O in the
@@ -62,9 +62,10 @@ def emulate_sm90_backward(q, k, v, do, mask, r_dtype, bias=None,
                           skip=None):
     """The Hopper backward's arithmetic on the CPU: ``(dq, dk, dv)`` in q's
     dtype. ``r_dtype`` None keeps P and dS in float32 (the plain version's
-    algebra); with a pair or k-row bias P and dS are split into hi + lo
-    operands of ``r_dtype``, as the biased routes multiply them. ``skip = (key_tile, q_tile)``: that q tile (of the first q
-    head) left out of that key tile's dK and dV, as a faulty kernel would."""
+    algebra); otherwise P and dS are split into hi + lo operands of
+    ``r_dtype``, as the kernels multiply them. ``skip = (key_tile,
+    q_tile)``: that q tile (of the first q head) left out of that key
+    tile's dK and dV, as a faulty kernel would."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -79,13 +80,10 @@ def emulate_sm90_backward(q, k, v, do, mask, r_dtype, bias=None,
     dp = torch.einsum("bqkgd,bjkd->bkgqj", dof, v.float())
     ds = p * (dp - delta.reshape(b, kvh, g, sq, 1))
     if r_dtype is not None:
+        # hi + lo, two operands of the type, into one float32 sum
         hi_p, hi_ds = p.to(r_dtype).float(), ds.to(r_dtype).float()
-        if bias is not None or mask.k_bias is not None:
-            # the biased routes multiply hi + lo, two operands of the type
-            p = hi_p + (p - hi_p).to(r_dtype).float()
-            ds = hi_ds + (ds - hi_ds).to(r_dtype).float()
-        else:
-            p, ds = hi_p, hi_ds
+        p = hi_p + (p - hi_p).to(r_dtype).float()
+        ds = hi_ds + (ds - hi_ds).to(r_dtype).float()
     qf = q.float().reshape(b, sq, kvh, g, d)
     kf = k.float()
     dq = torch.zeros((b, kvh, g, sq, d))
@@ -199,9 +197,8 @@ def test_row_hold_catches_a_q_tile_left_out_of_dkv():
     """bf16, S = 2048 causal, D = 128: a kernel that leaves q tile 30 (rows
     1920-1983) out of the last key tile's (keys 1920-2047) dK / dV errs
     only on keys whose gradients are far below the first keys'. The bf16
-    hold by the largest magnitude lets it pass (errors 0.0145 of max|dK|,
-    0.006 of max|dV|); the row-by-row hold does not (0.98, 0.61), and
-    passes the sound kernel's numerics (0.0055, 0.0057)."""
+    hold by the largest magnitude lets it pass; the row-by-row hold does
+    not, and passes the sound kernel's numerics."""
     dtype = torch.bfloat16
     g = torch.Generator().manual_seed(7)
     q, k, v, do = (torch.randn((1, 2048, 2, 128), generator=g).to(dtype)

@@ -7,13 +7,14 @@ bfloat16 / float16 route).
   each dtype takes is the built library's answer, so its test runs on the
   card (``tests/test_torch_cuda.py``).
 * The kernel's numerics, emulated here: the online softmax over tiles of BC
-  keys with P rounded to bf16 / fp16 before P V (the one rounding the plain
-  version does not do) and O rounded to the dtype, against the JAX package's
+  keys with P as two operands of bf16 / fp16 in P V, hi = T(P) and lo =
+  T(P - hi) (the plain version keeps P in float32; ROADMAP C2), and O
+  rounded to the dtype, against the JAX package's
   Pallas ``_fwd_kernel`` in interpret mode on the same (rounded) inputs in
   float32. The tolerances are the card tests' (``tests/test_torch_cuda.py``
   ``FLASH_TOL``): O within 2e-2 (bf16) or 4e-3 (fp16) of the largest |O|,
   and of each row's largest |O| row by row, LSE within 1e-4. This shows on
-  the CPU that the rounding fits the budget, and that the row-by-row hold
+  the CPU that the arithmetic fits the budget, and that the row-by-row hold
   catches a kernel that leaves one key tile out of P V where the hold by
   the largest |O| does not.
 """
@@ -135,9 +136,10 @@ def row_relative_err(got, want):
 def emulate_sm90_forward(q, k, v, mask, p_dtype, bc, skip_tile=None):
     """The Hopper kernel's arithmetic on the CPU: scores in float32, online
     softmax over tiles of ``bc`` keys (m from -1e30, alpha = exp(m_old -
-    m_new), l summed from the unrounded p), O += round(p, p_dtype) V, then
-    O / max(l, 1e-30) in q's dtype and LSE = m + log(max(l, 1e-30)).
-    ``p_dtype`` None keeps p in float32 (the plain version's algebra).
+    m_new), l summed from the unrounded p), O += P V with P as hi + lo
+    operands of ``p_dtype`` (hi = T(p), lo = T(p - hi)), then O / max(l,
+    1e-30) in q's dtype and LSE = m + log(max(l, 1e-30)). ``p_dtype`` None
+    keeps p in float32 (the plain version's algebra).
     ``skip_tile``: the index of a key tile left out of P V, as a faulty
     kernel would (l and m still count it)."""
     b, sq, h, d = q.shape
@@ -155,7 +157,10 @@ def emulate_sm90_forward(q, k, v, mask, p_dtype, bc, skip_tile=None):
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        pr = p if p_dtype is None else p.to(p_dtype).float()
+        pr = p
+        if p_dtype is not None:
+            pr = p.to(p_dtype).float()
+            pr = pr + (p - pr).to(p_dtype).float()
         if j0 // bc == skip_tile:
             pr = torch.zeros_like(pr)
         acc = acc * alpha + torch.einsum("bkgqj,bjkd->bkgqd", pr,

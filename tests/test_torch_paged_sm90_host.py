@@ -3,9 +3,13 @@ attention (``csrc/paged_attention.cu``).
 
 * The two new routes' numerics, emulated here in torch:
   - ``paged_prefill_sm90_kernel`` (bfloat16 / float16 prefill): an online
-    softmax over tiles of 64 KV positions with P rounded to the dtype before
-    P V (the one rounding the plain version does not do) and O rounded to
-    the dtype;
+    softmax over tiles of 64 KV positions with P as two operands of the
+    dtype, hi + lo, in P V (the JAX kernel keeps P in float32) and O
+    rounded to the dtype. Against the JAX kernel that O errs by one
+    rounding to the dtype, half an ulp (2^-8 of the row's largest |O| in
+    bf16, 2^-11 in fp16), as the plain algebra's does; P rounded to the
+    dtype alone, the route's arithmetic before ROADMAP C2 was closed, errs
+    more in every case;
   - ``paged_decode_split_kernel`` + ``paged_decode_combine_kernel`` (decode):
     float32 partials (m, l, acc) over fixed chunks of ``SPLIT_CHUNK``
     positions, folded in chunk order, O rounded to the dtype.
@@ -34,6 +38,9 @@ from deepspeedsyclsupport_tpu_torch.ops import paged_attention as tpa
 
 TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3}
 TILE = 64                   # KV positions per tile of the prefill route
+# one rounding of O to the dtype: half an ulp is at most 2^-8 (bf16, 8
+# significant bits) or 2^-11 (fp16) of the row's largest |O|
+ONE_ROUNDING = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
 
 def row_relative_err(got, want):
@@ -84,13 +91,15 @@ def _lanes_to_rows(x, bq, h):
 
 
 def emulate_prefill(q, k, v, tables, pos0, qlen, bs, alibi=None,
-                    window=None, p_dtype=None, skip_tile=None):
+                    window=None, p_mode=None, skip_tile=None):
     """``paged_prefill_sm90_kernel``'s arithmetic: online softmax over tiles
     of 64 positions (m from -1e30, alpha = exp(m_old - m_new), l summed from
-    the unrounded p), O += round(p, p_dtype) V, O / max(l, 1e-30) in q's
-    dtype. ``p_dtype`` None keeps p in float32 (the plain version's
-    algebra). ``skip_tile``: the index of a tile left out of P V, as a
-    faulty kernel would (l and m still count it)."""
+    the unrounded p), O += P V, O / max(l, 1e-30) in q's dtype. ``p_mode``:
+    how P reaches P V, as two operands of q's dtype hi = T(p) and lo = T(p -
+    hi) (``"split"``, the route's arithmetic), one operand T(p)
+    (``"round"``, its arithmetic before ROADMAP C2 was closed) or float32
+    (None, the plain version's algebra). ``skip_tile``: the index of a tile
+    left out of P V, as a faulty kernel would (l and m still count it)."""
     a, bq, h, d = q.shape
     s, slot = _scores(q, k, tables, pos0, qlen, bs, alibi, window)
     vs = v[slot].float()                                          # [A,C,KVH,D]
@@ -103,7 +112,11 @@ def emulate_prefill(q, k, v, tables, pos0, qlen, bs, alibi=None,
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        pr = p if p_dtype is None else p.to(p_dtype).float()
+        pr = p
+        if p_mode is not None:
+            pr = p.to(q.dtype).float()
+            if p_mode == "split":
+                pr = pr + (p - pr).to(q.dtype).float()
         if t == skip_tile:
             pr = torch.zeros_like(pr)
         acc = acc * alpha + torch.einsum("aklc,ackd->akld", pr,
@@ -198,7 +211,7 @@ def test_prefill_route_fits_the_card_tolerance(name, dtype):
         *(_jnp(t) for t in args), block_size=bs, interpret=True,
         alibi=None if kw["alibi"] is None else _jnp(kw["alibi"]),
         window=kw["window"])))
-    o = emulate_prefill(*args, bs, p_dtype=dtype, **kw)
+    o = emulate_prefill(*args, bs, p_mode="split", **kw)
     assert o.dtype == dtype
     _hold(o, want, dtype)
     rows = torch.arange(args[0].shape[1])[None, :]
@@ -210,6 +223,27 @@ def test_prefill_route_fits_the_card_tolerance(name, dtype):
         emulate_prefill(*f32, bs, **kw),
         tpa.ragged_prefill_attention_reference(*f32, block_size=bs, **kw),
         atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(PREFILL_CASES))
+def test_prefill_split_p_errs_by_one_rounding_of_o(name, dtype):
+    """ROADMAP C2 on the prefill route: against the JAX Pallas
+    ``_prefill_kernel`` in interpret mode (P in float32), the split
+    arithmetic's O errs row by row within one rounding of O to the dtype
+    (``ONE_ROUNDING``), as the plain algebra does; P rounded to the dtype
+    (the route before the fix) exceeds it."""
+    args, bs, kw = _prefill_inputs(name, dtype)
+    want = torch.from_numpy(np.array(jpa.ragged_prefill_attention_pallas(
+        *(_jnp(t) for t in args), block_size=bs, interpret=True,
+        alibi=None if kw["alibi"] is None else _jnp(kw["alibi"]),
+        window=kw["window"])))
+    lim = ONE_ROUNDING[dtype]
+    err = {mode: row_relative_err(emulate_prefill(*args, bs, p_mode=mode,
+                                                  **kw), want)
+           for mode in (None, "split", "round")}
+    assert err[None] <= lim and err["split"] <= lim, err
+    assert err["round"] > lim, err
 
 
 # name -> (seq_lens, h, kvh, d, block_size, bps, window, alibi)
@@ -277,8 +311,8 @@ def test_row_hold_catches_a_dropped_kv_tile():
     want = tpa.ragged_prefill_attention_reference(*args[:6], block_size=bs)
     tol = TOL[dtype]
     lim = tol * max(1.0, float(want.float().abs().max()))
-    sound = emulate_prefill(*args, p_dtype=dtype)
-    faulty = emulate_prefill(*args, p_dtype=dtype, skip_tile=31)
+    sound = emulate_prefill(*args, p_mode="split")
+    faulty = emulate_prefill(*args, p_mode="split", skip_tile=31)
     assert max_err(faulty, want) <= lim
     assert row_relative_err(faulty, want) > 5 * tol
     assert row_relative_err(sound, want) <= tol

@@ -112,7 +112,10 @@ def test_kv_pool_stats_match():
         dtype=jnp.bfloat16, **kw))
     tpool = tkv.init_blocked_kv(mcfg, tc.RaggedInferenceConfig(
         dtype=torch.bfloat16, **kw), torch.device("cpu"))
-    assert tuple(tpool.k.shape) == jpool.k.shape
+    # the port's pool has one more block, the sink (never allocated); the
+    # stats count the allocator's blocks, as the JAX package's do
+    jl, jslots, *rest = jpool.k.shape
+    assert tuple(tpool.k.shape) == (jl, jslots + kw["block_size"], *rest)
     ja, ta = JaxAllocator(12), BlockedAllocator(12)
     for a in (ja, ta):
         got = a.allocate(5)

@@ -13,11 +13,11 @@ type; the JAX package keeps both in float32. This script measures, at the
 * the port's kernels emulated in torch (:func:`emulate_port`): the
   forward's online softmax over 128-key tiles with P rounded or not, O in
   the input type, delta from that O, then P and dS each rounded to the type,
-  split into two terms of the type (``hi + lo``, what the biased sm90
+  split into two terms of the type (``hi + lo``, what every sm90
   backward multiplies), or kept in float32. The variants are listed in
   ``VARIANTS``: none of the roundings (the plain version's algebra), each
-  alone, all three (the kernels before the C2 fix and, still, the unbiased
-  routes) and all three split (the biased routes since the fix).
+  alone, all three (the kernels before the C2 fix) and all three split
+  (every bf16 / fp16 route since the fix).
 
 Every variant is held against an fp64 oracle on the same (rounded) inputs.
 Row error: each (batch, row, head) row's max abs error over that row's
