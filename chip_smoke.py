@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, evoformer and block-sparse
-attention paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving (dense and MoE, quantized), training,
+evoformer and block-sparse attention paths on one NVIDIA GPU and check
+them.
 
 Run from the repository root on a machine with one H100:
 
@@ -59,8 +60,21 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              serving path): its launches in every layer held, TTFT, and its
              logits and greedy tokens against ``"kernel"`` logged (bf16
              ties part them; phase 7 holds them in float32).
-   Then a short fp16 serve at that width (4 layers): the kernels against the
-             plain path, greedy tokens equal, TTFT and decode tok/s.
+   mixtral — ``mixtral-8x7b`` at full width and depth, its layer weights
+             int8 (built and quantized one layer at a time: 93 GB in bf16),
+             bf16 compute, ``InferenceEngineV2(quantize_weights=True)``
+             through the paged kernels at a GQA group of 4 and the grouped-
+             GEMM MoE route: the 8 prompts' prefill with B1 held row by row
+             in layers 0 and 31 (and one eager decode step likewise),
+             ``warmup``, ``generate`` of 32 greedy tokens (TTFT, decode
+             tok/s, peak memory, B1 launches, the decode window's busy share
+             and kernel time by class); the MoE route against its plain
+             loop (T 4608 and 8, routed and skewed), dequantization bit for
+             bit (int8 and int4), and a 2-layer float32 parity of the
+             kernel and plain engines (int8).
+   Then a short fp16 serve at llama2-7b width (4 layers): the kernels
+             against the plain path, greedy tokens equal, TTFT and decode
+             tok/s.
 6. train   — ``initialize`` -> ``train_batch`` on llama2-1b at full width
              and depth (bf16, AdamW, WarmupLR, clipping, 2 micro-batches of
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
@@ -490,6 +504,12 @@ def phase_kernels(torch, np):
                 torch, np, name="decode-mistral-7b", dtype=dtype, seed=5,
                 h=32, kvh=8, bq=1, max_ctx=8192, n_atoms=16, window=4096,
                 seqs=[(4 * n - 1, 1) for n in decode_lens])),
+            # the mixtral phase's decode: 16 slots, its 8 prompts 16 tokens
+            # into generate(32)
+            ("decode", attention_case(
+                torch, np, name="decode-mixtral-8x7b", dtype=dtype, seed=6,
+                h=32, kvh=8, bq=1, max_ctx=2048, n_atoms=16,
+                seqs=[(n + 15, 1) for n in SERVE_PROMPT_LENS])),
         ]
         for kind, c in cases:
             r = check_attention(torch, np, c, decode=kind == "decode")
@@ -1155,6 +1175,405 @@ def phase_flash_prefill(torch, np, model, params, want):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- mixtral
+MOE_MODEL = "mixtral-8x7b"
+MOE_HOLD_TOKENS = (4608, 8)    # the serve prompts' prefill rows; 8 decodes
+
+
+def _tensors(tree):
+    """Every tensor of a params tree (a quantized leaf's codes and
+    scales)."""
+    from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+        QuantTensor)
+
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, QuantTensor):
+        yield from (tree.q, tree.scale)
+    else:
+        yield tree
+
+
+def moe_params(torch, seed, wdtype, **overrides):
+    """``mixtral-8x7b`` (with ``overrides``) built one layer at a time, its
+    layer weights int8 (``quantize_tree``, group 64): each layer is drawn
+    in ``wdtype`` on the card from a one-layer copy of the config with its
+    own seed, the projections into the residual (``wo``, ``w_down``)
+    rescaled to the full depth's std, quantized, and its float copy freed
+    before the next (the whole tree in bf16 would be 93 GB). Layer 0's
+    draw also gives the embedding, final norm and head, kept in
+    ``wdtype`` as the engine leaves them; the later draws use a tied
+    8-token vocabulary, so each of them draws its layer alone."""
+    from deepspeedsyclsupport_tpu_torch import build_model
+    from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+        quantize_tree)
+
+    model = build_model(MOE_MODEL, **overrides)
+    cfg = model.config
+    first = build_model(MOE_MODEL, **dict(overrides, num_layers=1))
+    rest = build_model(MOE_MODEL, **dict(overrides, num_layers=1,
+                                         vocab_size=8, tie_embeddings=True))
+    depth = math.sqrt(2 * 1) / math.sqrt(2 * cfg.num_layers)
+    params, layers = None, []
+    for li in range(cfg.num_layers):
+        tree = (rest if layers else first).init_params(
+            generator=torch.Generator(device=DEV).manual_seed(seed + li),
+            device=DEV, dtype=wdtype)
+        layer = tree.pop("layers")[0]
+        if params is None:
+            params = tree
+        del tree
+        layer["attn"]["wo"].mul_(depth)
+        layer["moe"]["w_down"].mul_(depth)
+        layers.append(quantize_tree(layer, 64))
+        del layer
+    params["layers"] = layers
+    return model, params
+
+
+@contextlib.contextmanager
+def hold_moe_grouped(num_layers):
+    """While open, the card's bf16 MoE route (``experts_grouped``, as
+    ``moe_mlp_nodrop`` calls it inside the engine) is held in the first and
+    last layer of every forward, row by row (bf16 ``TOL``), against
+    ``experts_plain`` on the same served activations, gates, expert
+    choices and dequantized experts. Runs eagerly: a CUDA graph capture
+    cannot hold. Yields a list that gets (rows held, row err) per held
+    call."""
+    from deepspeedsyclsupport_tpu_torch.parallel import moe
+
+    grouped, held, calls = moe.experts_grouped, [], [0]
+
+    def checked(p, x, gate, experts, act):
+        out = grouped(p, x, gate, experts, act)
+        layer = calls[0] % num_layers
+        calls[0] += 1
+        if layer in (0, num_layers - 1):
+            err, _ = hold_rows(
+                f"MoE grouped route in the engine, layer {layer} of forward "
+                f"{calls[0] // num_layers}", out,
+                moe.experts_plain(p, x, gate, experts, act), TOL["bfloat16"])
+            held.append((x.shape[0], err))
+        return out
+
+    moe.experts_grouped = checked
+    try:
+        yield held
+    finally:
+        moe.experts_grouped = grouped
+    if not held:
+        raise AssertionError("no grouped MoE call was held in the engine")
+
+
+@contextlib.contextmanager
+def hold_paged(kind, num_layers):
+    """While open, the registered ``kernel`` implementation of ``kind``
+    (``prefill_attn``: the ragged paged prefill over atoms;
+    ``decode_attn``: the split-KV decode) is held in the first and last
+    layer of every forward, row by row (``hold_rows`` over token and head,
+    bf16 ``TOL``) against the plain version on the same inputs: the
+    prefill against ``_paged_attention`` on the packed rows (padded rows
+    not held), the decode against ``paged_decode_attention_reference``
+    (inactive slots not held). Runs eagerly: a CUDA graph capture cannot
+    hold. Yields a list that gets (rows held, row err) per held call."""
+    import dataclasses
+
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import model as v2m
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import module_registry
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    reg = module_registry._REGISTRY[kind]
+    spec, held, calls = reg["kernel"], [], [0]
+
+    def checked(q, ctx):
+        out = spec.fn(q, ctx)
+        layer = calls[0] % num_layers
+        calls[0] += 1
+        if layer not in (0, num_layers - 1):
+            return out
+        if kind == "prefill_attn":
+            want = v2m._paged_attention(
+                q, ctx.k_cache, ctx.v_cache, ctx.token_seq, ctx.token_pos,
+                ctx.block_tables, ctx.block_size, alibi=ctx.alibi,
+                window=ctx.window)
+            live = ctx.token_seq < ctx.block_tables.shape[0]
+        else:
+            want = pa.paged_decode_attention_reference(
+                q, ctx.k_cache, ctx.v_cache, ctx.block_tables, ctx.seq_lens,
+                block_size=ctx.block_size, alibi=ctx.alibi,
+                window=ctx.window)
+            live = ctx.seq_lens > 0
+        err, _ = hold_rows(f"{kind} kernel, layer {layer} of forward "
+                           f"{calls[0] // num_layers}", out[live], want[live],
+                           TOL["bfloat16"])
+        held.append((int(live.sum()), err))
+        return out
+
+    reg["kernel"] = dataclasses.replace(spec, fn=checked)
+    try:
+        yield held
+    finally:
+        reg["kernel"] = spec
+    if not held:
+        raise AssertionError(f"{kind}: no kernel call was held")
+
+
+def hold_moe_routes(torch, moe_p):
+    """The card's bf16 MoE route (grouped GEMMs) against the plain version
+    on one Mixtral layer's dequantized experts, at the serve prompts'
+    prefill rows and at 8 decode rows, routed by the router and skewed
+    (expert 0 takes every token, the last expert none); rows held at the
+    bf16 ``TOL``. Returns {(tokens, routing): (err, grouped ms, plain
+    ms)}."""
+    from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+        dequantize_tree)
+    from deepspeedsyclsupport_tpu_torch.parallel import moe
+
+    p = dequantize_tree(moe_p, torch.bfloat16)
+    e = p["w_gate"].shape[0]
+    act = moe._activation("silu")
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    out = {}
+    for t in MOE_HOLD_TOKENS:
+        x = torch.randn((t, p["router"].shape[0]), generator=gen, device=DEV,
+                        dtype=torch.float32).to(torch.bfloat16)
+        gate, experts = moe.topk_route(x, p["router"], 2)
+        skew = torch.stack([torch.zeros(t, dtype=torch.long, device=DEV),
+                            1 + torch.arange(t, device=DEV) % (e - 2)],
+                           dim=1)
+        for routing, ex in (("router", experts), ("skewed", skew)):
+            got = moe.experts_grouped(p, x, gate, ex, act)
+            want = moe.experts_plain(p, x, gate, ex, act)
+            err, _ = hold_rows(f"MoE grouped route, T={t}, {routing}", got,
+                               want, TOL["bfloat16"])
+            reps = 20 if t < 64 else 5
+            out[(t, routing)] = (
+                err, cuda_ms(torch, lambda: moe.experts_grouped(
+                    p, x, gate, ex, act), reps),
+                cuda_ms(torch, lambda: moe.experts_plain(
+                    p, x, gate, ex, act), reps))
+    return out
+
+
+def hold_dequant(torch, np, qt):
+    """Dequantization on the card against the plain formula on the host
+    (codes times scale in float64, exact, rounded once to float32 and then
+    to the type), bit for bit, int8 and int4, bf16 and float32, on one
+    expert matrix. ``qt``: the layer's int8 ``w_gate``; its expert 0 is
+    also quantized to int4 on the card."""
+    from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+        QuantTensor, quantize_leaf)
+
+    q8 = QuantTensor(qt.q[0], qt.scale[0], qt.group_size, qt.bits)
+    q4 = quantize_leaf(q8.dequantize(torch.bfloat16), 64, bits=4)
+    for qx in (q8, q4):
+        codes = qx.q.cpu().numpy()
+        if qx.bits == 4:
+            b = codes.astype(np.int64)
+            codes = np.stack([(b & 0xF) - 8, ((b >> 4) & 0xF) - 8],
+                             -1).reshape(codes.shape[0], -1)
+        g = qx.group_size
+        scale = qx.scale.cpu().numpy().astype(np.float64)
+        plain = (codes.reshape(codes.shape[0], -1, g).astype(np.float64)
+                 * scale[..., None]).astype(np.float32).reshape(codes.shape)
+        for dt in (torch.bfloat16, torch.float32):
+            card = qx.dequantize(dt).cpu()
+            want = torch.from_numpy(plain).to(dt)
+            if not torch.equal(card.view(torch.int16 if dt == torch.bfloat16
+                                         else torch.int32),
+                               want.view(torch.int16 if dt == torch.bfloat16
+                                         else torch.int32)):
+                raise AssertionError(f"int{qx.bits} dequantize to {dt} on the"
+                                     f" card differs from the plain formula")
+    return tuple(q.shape for q in (q8, q4))
+
+
+def phase_mixtral(torch, np):
+    """``mixtral-8x7b`` at full width and depth on one card: int8 layer
+    weights (built one layer at a time), bf16 compute, served by
+    ``InferenceEngineV2(quantize_weights=True)`` through the Hopper paged
+    kernels (GQA group 4) and the grouped-GEMM MoE route. Holds: B1's
+    prefill and decode at these shapes (layers 0 and 31, row by row), the
+    MoE route against the plain version, dequantization bit for bit, and a
+    2-layer float32 parity of the kernel and plain engines."""
+    import gc
+
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import model as v2m
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+    from tools.torch_serve_profile import profile_window
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("mixtral", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated on the card before the phase")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = moe_params(torch, 100, torch.bfloat16)
+    torch.cuda.synchronize()
+    cfg = model.config
+    L = cfg.num_layers
+    built_s = time.perf_counter() - t0
+    nbytes = {"int8 codes": 0, "fp32 scales": 0, "bf16": 0}
+    for t in _tensors(params):
+        key = ("int8 codes" if t.dtype == torch.int8 else "fp32 scales"
+               if t.dtype == torch.float32 else "bf16")
+        nbytes[key] += t.numel() * t.element_size()
+    log("mixtral", f"{MOE_MODEL}: {L} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_experts} experts x FFN {cfg.intermediate_size}, top-"
+        f"{cfg.num_experts_per_tok}, {cfg.num_heads} q / {cfg.num_kv_heads} "
+        f"KV heads; built layer by layer in {built_s:.1f} s: "
+        + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in nbytes.items())
+        + f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    eng = serve_engine(torch, model, params, quantize_weights=True,
+                       prefill_attn="kernel", decode_attn="kernel")
+    pool = 2 * eng.kv.k.numel() * eng.kv.k.element_size()
+    log("mixtral", f"engine: {eng.config.num_blocks} KV blocks of "
+        f"{eng.config.block_size} tokens (+ the sink), pool {pool / 1e9:.2f}"
+        f" GB; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = serve_prompts(np, cfg)
+    uids = list(range(len(prompts)))
+    torch.cuda.reset_peak_memory_stats()     # the serving peak from here
+
+    # holds 1 and 2: B1 and the grouped MoE route at Mixtral's serve
+    # shapes, in the engine's prefill and one eager decode
+    with hold_paged("prefill_attn", L) as held_p, \
+            hold_moe_grouped(L) as held_mp:
+        out = eng.put(uids, prompts)
+    nxt = [int(out[u].argmax()) for u in uids]
+    descs = [eng.seqs[u] for u in uids]
+    positions, tables, active = eng._slot_arrays(descs)
+    toks = np.zeros((eng.config.max_sequences,), np.int32)
+    toks[:len(nxt)] = nxt
+    with hold_paged("decode_attn", L) as held_d, \
+            hold_moe_grouped(L) as held_md:
+        v2m.decode_forward(model, eng.params, eng.kv,
+                           *(torch.from_numpy(a).to(DEV) for a in (
+                               toks, positions, tables, active)),
+                           block_size=eng.config.block_size,
+                           attn_impl="kernel")
+    eng.flush(uids)
+    del out
+    log("mixtral", f"B1 held against the plain paged attention in layers 0 "
+        f"and {L - 1}: prefill {len(held_p)} calls (up to "
+        f"{max(n for n, _ in held_p)} rows), worst row err "
+        f"{max(e for _, e in held_p):.3g}; decode {len(held_d)} calls, worst "
+        f"{max(e for _, e in held_d):.3g} (tol {TOL['bfloat16']})")
+    log("mixtral", f"MoE grouped route held against the plain version on the"
+        f" served activations in layers 0 and {L - 1}: prefill "
+        f"{len(held_mp)} calls (up to {max(n for n, _ in held_mp)} rows), "
+        f"worst row err {max(e for _, e in held_mp):.3g}; decode "
+        f"{len(held_md)} calls ({held_md[0][0]} rows), worst "
+        f"{max(e for _, e in held_md):.3g} (tol {TOL['bfloat16']})")
+
+    # serve: warmup, then generate through the per-token decode graph
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    pa.reset_launch_counts()
+    eng.host_dispatches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = eng.generate(prompts, max_new_tokens=1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0 - ttft
+    n_decode = len(prompts) * 31
+    launches = dict(pa.LAUNCHES)
+    for i, o in enumerate(outs):
+        if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"mixtral prompt {i}: bad output {o}")
+        if o[0] != first[i][0]:
+            raise AssertionError(f"mixtral prompt {i}: first token {o[0]} "
+                                 f"differs between runs ({first[i][0]})")
+    n_pre, n_dec = (launches["ragged_prefill_attention"],
+                    launches["paged_decode_attention"])
+    if n_pre < L or n_dec < 31 * L or n_pre % L or n_dec % L:
+        raise AssertionError(f"mixtral serve missed the kernels: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_window(torch, lambda: eng.generate(prompts,
+                                                      max_new_tokens=8),
+                          decode_after="paged_prefill")["decode"]
+    busy, kernels = prof["busy_share"], prof["kernels"]
+    log("mixtral", f"{len(prompts)} prompts ({sum(SERVE_PROMPT_LENS)} "
+        f"tokens), 32 greedy tokens each, int8 weights, bf16: warmup "
+        f"{warm:.1f} s; TTFT (all first tokens) {ttft * 1e3:.1f} ms; "
+        f"decode {n_decode / decode_s:.2f} tok/s ({n_decode} tokens in "
+        f"{decode_s:.3f} s = generate(32) - generate(1)), "
+        f"{decode_s / 31 * 1e3:.1f} ms a step; B1 launches prefill {n_pre} "
+        f"decode {n_dec} ({L} a forward), host dispatches "
+        f"{eng.host_dispatches}; serving peak {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}; "
+        f"decode window of generate(8) (profiled): card {100 * busy:.1f} % "
+        f"busy, {kernels} kernels")
+    log("mixtral", "decode window of generate(8) (profiled), kernel ms a "
+        "step (7 steps): by class " + ", ".join(
+            f"{k} {v / 7:.2f}" for k, v in prof["by_class_ms"].items())
+        + "; top " + "; ".join(f"{k} {v / 7:.2f}"
+                               for k, v in prof["top_ms"].items()))
+    log("mixtral", f"tokens[0][:8] = {outs[0][:8]}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # holds 2 and 3: the MoE route and dequantization on one layer
+    routes = hold_moe_routes(torch, params["layers"][0]["moe"])
+    log("mixtral", "MoE grouped route vs plain, layer 0's experts, bf16: "
+        + "; ".join(f"T={t} {r}: row err {e:.3g}, {g:.3f} ms vs plain "
+                    f"{p:.3f} ms" for (t, r), (e, g, p) in routes.items())
+        + f" (tol {TOL['bfloat16']}; skewed: expert 0 every token, the "
+        f"last none)")
+    shapes = hold_dequant(torch, np, params["layers"][0]["moe"]["w_gate"])
+    log("mixtral", f"dequantize on the card = the plain formula bit for bit "
+        f"(bf16 and float32), int8 and int4, expert 0's w_gate "
+        f"{list(shapes[0])}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # hold 4: float32 parity at Mixtral width, 2 layers, int8
+    model, params = moe_params(torch, 200, torch.float32, num_layers=2,
+                               dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (300, 130, 77)]
+    res = {}
+    for impl in ("kernel", "xla"):
+        eng = InferenceEngineV2(
+            model, params, dtype=torch.float32, block_size=64,
+            max_context=512, max_tokens_per_batch=256, max_sequences=4,
+            prefill_attn=impl, decode_attn=impl, quantize_weights=True,
+            device=DEV)
+        out = eng.put([0, 1, 2], prompts)
+        logits = torch.stack([out[u] for u in range(3)])
+        eng.flush([0, 1, 2])
+        res[impl] = (logits, eng.generate(prompts, max_new_tokens=8))
+        del eng, out
+        gc.collect()
+    err = float((res["kernel"][0] - res["xla"][0]).abs().max())
+    if not err <= PARITY_TOL or res["kernel"][1] != res["xla"][1]:
+        raise AssertionError(f"mixtral fp32 parity: logits {err} (tol "
+                             f"{PARITY_TOL}), tokens kernel "
+                             f"{res['kernel'][1]} plain {res['xla'][1]}")
+    log("mixtral", f"{MOE_MODEL} width, 2 layers, fp32 (TF32 off), int8, "
+        f"prompts {[len(p) for p in prompts]}: last-token logits kernel vs "
+        f"plain {err:.3g} (tol {PARITY_TOL}); greedy 8 tokens identical; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve_fp16(torch, np):
     """A short float16 serve at llama2-7b width (4 layers): the engine
     through the kernels (float16 prefill on the Hopper route, split-KV
@@ -1799,6 +2218,7 @@ def main() -> int:
     phase_flash_prefill(torch, np, model, params, serve_outs)
     del model, params
     torch.cuda.empty_cache()
+    phase_mixtral(torch, np)
     phase_serve_fp16(torch, np)
     launches.update(phase_train(torch, np))
     phase_parity(torch, np)

@@ -3,11 +3,14 @@
 Replaces ``place_inference_params`` (``deepspeedsyclsupport_tpu/inference/
 params.py:17``): on one GPU there is no mesh and no sharding rule, so
 placement is casting the floating leaves to the serving dtype and moving
-every leaf to the device.
+every leaf to the device. A quantized leaf (``QuantTensor``) moves whole:
+its codes keep int8 / uint8 and its scales float32.
 """
 from typing import Any
 
 import torch
+
+from ..compression.quantize import QuantTensor
 
 
 def place_inference_params(params: Any, dtype: torch.dtype,
@@ -20,6 +23,8 @@ def place_inference_params(params: Any, dtype: torch.dtype,
     if isinstance(params, (list, tuple)):
         return type(params)(place_inference_params(v, dtype, device)
                             for v in params)
+    if isinstance(params, QuantTensor):
+        return params.to(device)
     t = torch.as_tensor(params)
     if t.is_floating_point():
         return t.to(device=device, dtype=dtype)

@@ -23,7 +23,8 @@ class RaggedInferenceConfig:
     num_blocks: Optional[int] = None  # KV pool; default half the worst case
     dtype: Any = torch.bfloat16
     seed: int = 0
-    quantize_weights: bool = False   # not ported yet: raises at engine build
+    # ZeRO-Inference: int8 / int4 layer weights, dequantized per layer
+    quantize_weights: bool = False
     quant_group_size: int = 64
     quant_bits: int = 8
     # mixed/prefill-batch attention impl, resolved through the registry

@@ -16,8 +16,14 @@ and each rung K of the fused decode ladder another, keyed like the JAX
 package's compiled programs by ``(K, SamplingParams.structure)`` in an LRU
 of 16. Prefill forwards run eagerly. On the CPU every body runs eagerly.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-entry): quantized weights, serialize/deserialize, MoE models.
+MoE models (``cfg.any_moe``) serve through an exact top-k MoE
+(``parallel.moe``). With ``quantize_weights`` the layer weights are held as
+int8 or int4 ``QuantTensor`` s (ZeRO-Inference) and each layer is
+dequantized when it runs; a params tree whose layers are quantized already
+is taken as it is.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
+entry): serialize/deserialize.
 """
 import dataclasses
 import time
@@ -27,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...compression.quantize import quantize_tree
 from ...device import resolve_device
 from ..params import place_inference_params
 from ..sampling import SamplingParams, sample_token_dyn
@@ -81,22 +88,25 @@ class InferenceEngineV2:
         pass ``device="cpu"``. ``params`` is the port's params tree
         (``CausalLM.init_params`` or ``params_from_jax``); floating leaves
         are cast to ``config.dtype`` and moved to the device (no copy for
-        leaves already in place)."""
+        leaves already in place), ``QuantTensor`` leaves move whole."""
         self.config = (config if isinstance(config, RaggedInferenceConfig)
                        else RaggedInferenceConfig.from_config(config, **kw))
         cfg = self.config
         mcfg = model.config
-        if mcfg.any_moe:
-            raise _not_ported("MoE serving", "MoE serving")
         if mcfg.attn_windows is not None:
             raise ValueError("per-layer attention windows (attn_windows) are "
                              "not served by the ragged engine, as in the JAX "
                              "package (it requires identical layers)")
-        if cfg.quantize_weights:
-            raise _not_ported("quantize_weights", "quantized weights")
         self.model = model
         self.device = resolve_device(device)
         self.params = place_inference_params(params, cfg.dtype, self.device)
+        if cfg.quantize_weights:
+            # ZeRO-Inference: the placed (cast) layer weights, quantized as
+            # the JAX package quantizes them; each forward dequantizes them
+            # a layer at a time
+            self.params["layers"] = quantize_tree(
+                self.params["layers"], cfg.quant_group_size,
+                bits=cfg.quant_bits)
         self.kv = init_blocked_kv(mcfg, cfg, self.device)
         self.allocator = BlockedAllocator(cfg.num_blocks)
         self.seqs: Dict[int, SequenceDescriptor] = {}

@@ -4,7 +4,9 @@ Port of ``deepspeedsyclsupport_tpu/inference/v2/model.py``: one flat token
 stream ``[T]`` with per-token (sequence slot, position) routing; QKV + RoPE,
 an append of k/v into the flat-slot pool, attention through the registered
 ``prefill_attn`` / ``decode_attn`` implementation, MLP, and logits for each
-sequence's last scheduled token only.
+sequence's last scheduled token only. Each layer's quantized weights
+(``QuantTensor`` leaves) are dequantized at the top of that layer, and its
+MLP is dense or an exact top-k MoE.
 
 Registered implementations:
 
@@ -38,12 +40,14 @@ import torch.nn.functional as F
 from .kv_cache import BlockedKV, sink_slot
 from .module_registry import register_impl, select_impl
 from ..sampling import sample_token_dyn
+from ...compression.quantize import dequantize_tree
 from ...models.layers import apply_rope, device_constant, mlp_block, norm
 from ...models.transformer import compute_dtype
 from ...ops.flash_attention import flash_attention
 from ...ops.paged_attention import (paged_decode_attention,
                                     paged_decode_attention_reference,
                                     ragged_prefill_attention)
+from ...parallel.moe import moe_mlp_nodrop
 
 NEG_INF = torch.finfo(torch.float32).min
 # elements of gathered K per chunk of tokens in the plain (xla) prefill
@@ -79,7 +83,10 @@ class DecodeAttnContext(NamedTuple):
 
 
 def _mlp(p, y, cfg):
-    """Per-layer dense MLP over flat tokens [T, D] (MoE is not ported)."""
+    """Per-layer MLP over flat tokens [T, D]: dense (GLU or fc1/fc2), or
+    exact top-k MoE (``parallel.moe.moe_mlp_nodrop``)."""
+    if cfg.any_moe:
+        return moe_mlp_nodrop(p["moe"], y, cfg)
     return mlp_block(p["mlp"], y, cfg)
 
 
@@ -334,8 +341,11 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
                        + (token_pos % bs).long(), sink_slot(kv, bs))
 
     x = _embed(params, tokens, token_pos, cfg)
-    for li, p in enumerate(params["layers"]):
+    for li, layer in enumerate(params["layers"]):
         k_cache, v_cache = kv.k[li], kv.v[li]
+        # ZeRO-Inference: this layer's QuantTensor leaves, dequantized here
+        # so that at most one layer's weights exist dequantized at a time
+        p = dequantize_tree(layer, x.dtype)
 
         def attn_fn(y):
             q, k, v = _qkv(p["attn"], y, cfg, t)
@@ -354,6 +364,7 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
             return spec.fn(q, ctx)[..., :cfg.head_dim]
 
         x = _block(cfg, p, x, attn_fn)
+        del p   # this layer's dequantized weights go before the next's
 
     x = norm(x, params["final_norm"], cfg)
     h_last = x[last_tok_idx.long()]                     # logits gather
@@ -383,8 +394,9 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
     seq_lens = torch.where(active, positions + 1, torch.zeros_like(positions))
 
     x = _embed(params, tokens, positions, cfg)
-    for li, p in enumerate(params["layers"]):
+    for li, layer in enumerate(params["layers"]):
         k_cache, v_cache = kv.k[li], kv.v[li]
+        p = dequantize_tree(layer, x.dtype)
 
         def attn_fn(y):
             q, k, v = _qkv(p["attn"], y, cfg, s)
@@ -399,6 +411,7 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
                 window=window))[..., :cfg.head_dim]
 
         x = _block(cfg, p, x, attn_fn)
+        del p
 
     x = norm(x, params["final_norm"], cfg)
     return _unembed(params, x, cfg).float(), kv

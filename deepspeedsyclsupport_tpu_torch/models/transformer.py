@@ -12,9 +12,12 @@ engine calls, and per-layer activation checkpointing (``cfg.remat``).
 Attention goes through the ``attention`` dispatch of ``layers.py``
 (``cfg.attn_impl``): on the card the flash kernels, on the CPU the plain
 version; ``attn_impl="xla"`` keeps the plain version anywhere, which is the
-oracle the serving engine and the kernels are held against. The KV-cache
-``decode_step``, MoE, the pipelined trunk, random-LTD and progressive layer
-drop are not ported; they raise ``NotImplementedError``.
+oracle the serving engine and the kernels are held against.
+``init_params`` draws MoE layers (``p["moe"]``: router and stacked
+experts), which the serving engine runs; the MoE trunk here (the JAX
+package's capacity-buffer ``moe_mlp``), the KV-cache ``decode_step``, the
+pipelined trunk, random-LTD and progressive layer drop are not ported;
+they raise ``NotImplementedError``.
 """
 from typing import Any, Dict, Optional, Union
 
@@ -87,10 +90,12 @@ class CausalLM:
             if not cfg.shared_block_norm:
                 p["mlp_norm"] = norm_params()
             if cfg.any_moe:
-                raise NotImplementedError(
-                    "MoE layers are not ported yet (ROADMAP.md, queue A: "
-                    "MoE serving)")
-            if cfg.mlp_type == "mlp":
+                e = cfg.num_experts
+                p["moe"] = {"router": dense((d, e)),
+                            "w_gate": dense((e, d, f)),
+                            "w_up": dense((e, d, f)),
+                            "w_down": dense((e, f, d), out_std)}
+            elif cfg.mlp_type == "mlp":
                 p["mlp"] = {"fc1": dense((d, f)), "fc2": dense((f, d), out_std)}
                 if cfg.use_bias:
                     p["mlp"].update(b1=zeros(f), b2=zeros(d))
@@ -121,8 +126,9 @@ class CausalLM:
         cfg = self.config
         if cfg.any_moe:
             raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md, queue A.2.4 for "
-                "serving, A.3.1 for training)")
+                "the MoE trunk (the capacity-buffer moe_mlp) is not ported "
+                "yet: ROADMAP.md, queue A.3.1 (distributed training); MoE "
+                "models are served by inference.v2.InferenceEngineV2")
         if cfg.pipe_stages is not None and cfg.pipe_stages > 1:
             raise NotImplementedError(
                 "the pipelined trunk (pipe_stages > 1) is not ported yet: "

@@ -1342,3 +1342,121 @@ def test_capture_failure_raises(dev, monkeypatch):
         eng.generate([[7, 3, 11]], 8)
     assert not eng._decode_multi
     torch.cuda.synchronize()
+
+
+# ------------------------------------------ MoE serving, quantized weights
+def _moe_case(dev, dtype, t=24, d=64, f=128, e=8, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    p = {"router": torch.randn(d, e, generator=g),
+         "w_gate": torch.randn(e, d, f, generator=g) * 0.1,
+         "w_up": torch.randn(e, d, f, generator=g) * 0.1,
+         "w_down": torch.randn(e, f, d, generator=g) * 0.1}
+    x = torch.randn(t, d, generator=g)
+    return ({n: v.to(dev, dtype) for n, v in p.items()}, x.to(dev, dtype))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_card_route_matches_plain(dev, dtype, k, monkeypatch):
+    """``moe_mlp_nodrop`` on the card takes the grouped-GEMM route in bf16
+    and the plain version otherwise; the grouped route agrees with the plain
+    version row by row (TOL), also under a skewed routing where expert 0
+    takes every token and expert 7 none."""
+    from deepspeedsyclsupport_tpu_torch.models import get_config
+    from deepspeedsyclsupport_tpu_torch.parallel import moe
+
+    cfg = get_config("tiny-moe", num_experts=8, num_experts_per_tok=k)
+    p, x = _moe_case(dev, dtype)
+    taken = []
+    for name in ("experts_grouped", "experts_plain"):
+        real = getattr(moe, name)
+        monkeypatch.setattr(moe, name, lambda *a, _r=real, _n=name:
+                            taken.append(_n) or _r(*a))
+    got = moe.moe_mlp_nodrop(p, x, cfg)
+    assert taken == ["experts_grouped" if dtype == torch.bfloat16
+                     else "experts_plain"]
+    gate, experts = moe.topk_route(x, p["router"], k)
+    act = moe._activation("silu")
+    want = moe.experts_plain(p, x, gate, experts, act)
+    if dtype != torch.bfloat16:
+        assert torch.equal(got, want)
+        return
+    _hold_paged(got, want, dtype, "MoE")
+    skew = torch.stack([torch.zeros(24, dtype=torch.long, device=dev),
+                        1 + torch.arange(24, device=dev) % 6], 1)[:, :k]
+    _hold_paged(moe.experts_grouped(p, x, gate, skew, act),
+                moe.experts_plain(p, x, gate, skew, act), dtype, "MoE skew")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_route_in_a_cuda_graph(dev, dtype):
+    """The MoE routes read nothing back to the host: captured once, a
+    replay on new tokens gives the eager route's bits."""
+    from deepspeedsyclsupport_tpu_torch.models import get_config
+    from deepspeedsyclsupport_tpu_torch.parallel import moe
+
+    cfg = get_config("tiny-moe", num_experts=8)
+    p, x = _moe_case(dev, dtype)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_mlp_nodrop(p, static, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = moe.moe_mlp_nodrop(p, static, cfg)
+    x2 = _moe_case(dev, dtype, seed=1)[1]
+    static.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, moe.moe_mlp_nodrop(p, x2, cfg))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequantize_on_the_card_is_bit_exact(dev, bits, dtype):
+    """Codes and scales made on the card equal the CPU's, and dequantizing
+    on the card gives the CPU's bits (one float32 product, one rounding)."""
+    from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+        quantize_leaf)
+
+    w = torch.randn(256, 448, generator=torch.Generator().manual_seed(3))
+    cpu = quantize_leaf(w, 64, bits=bits)
+    card = quantize_leaf(w.to(dev), 64, bits=bits)
+    assert torch.equal(card.q.cpu(), cpu.q)
+    assert torch.equal(card.scale.cpu(), cpu.scale)
+    assert torch.equal(card.dequantize(dtype).cpu(), cpu.dequantize(dtype))
+
+
+def test_engine_serves_quantized_moe_on_the_card(dev):
+    """An int8 MoE model on the card: the kernel engine (per-token decode
+    as CUDA graph replays) gives the plain engine's greedy tokens in
+    float32; in bf16 the grouped route serves through the per-token decode
+    graph and through the fused rungs (K = 4), with equal tokens."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+
+    model = build_model("tiny-moe", dtype="float32", num_experts=8)
+    params = model.init_params(device=dev)
+    kw = dict(block_size=8, max_context=64, max_tokens_per_batch=16,
+              max_sequences=4, quantize_weights=True)
+    prompts = [[7, 3, 11], [4, 100, 42, 8, 19], list(range(30, 52)), [9]]
+    plain = InferenceEngineV2(model, params, dtype=torch.float32,
+                              prefill_attn="xla", decode_attn="xla",
+                              **kw).generate(prompts, 8)
+    pa.reset_launch_counts()
+    eng = InferenceEngineV2(model, params, dtype=torch.float32, **kw)
+    assert eng.generate(prompts, 8) == plain
+    assert eng._decode_runner.graph is not None
+    assert pa.LAUNCHES["paged_decode_attention"] >= 7 * model.config.num_layers
+    bf_model = build_model("tiny-moe", num_experts=8)
+    bf = InferenceEngineV2(bf_model, params, dtype=torch.bfloat16, **kw)
+    bf.warmup()
+    out = bf.generate(prompts, 8)
+    assert bf._decode_runner.graph is not None
+    assert all(len(o) == 8 for o in out)
+    fused = InferenceEngineV2(bf_model, params, dtype=torch.bfloat16,
+                              decode_steps_per_dispatch=4, **kw)
+    fused.warmup(fused_ladder=True)
+    assert all(r.graph is not None for r in fused._decode_multi.values())
+    assert fused.generate(prompts, 8) == out

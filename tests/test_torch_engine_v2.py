@@ -9,7 +9,8 @@ which takes its plain version on CPU tensors) or ``"xla"``. ``put`` logits
 package's own engine tests (``tests/unit/test_inference_v2.py:259``);
 greedy ``generate`` tokens are identical. One GQA+window config and one
 ALiBi config (overrides of ``tiny``) ride along, and one float16 serve of
-``tiny`` through both engines' kernel paths (logits at 4e-3).
+``tiny`` through both engines' kernel paths (logits at 4e-3). MoE models
+(``tiny-moe``) and quantized weights (int8, int4) are held the same way.
 """
 import dataclasses
 import functools
@@ -25,6 +26,8 @@ from deepspeedsyclsupport_tpu.inference.v2 import (
 from deepspeedsyclsupport_tpu.inference.v2.model import (
     build_decode_forward_fn, build_ragged_forward_fn)
 from deepspeedsyclsupport_tpu.models import build_model as jax_build_model
+from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+    QuantTensor, quantize_tree)
 from deepspeedsyclsupport_tpu_torch.inference.v2 import (
     InferenceEngineV2, SequenceDescriptor, build_ragged_batch)
 from deepspeedsyclsupport_tpu_torch.inference.v2.model import (
@@ -252,16 +255,25 @@ def test_unported_impls_name_the_registered_ones(kind, name):
                           **dict(ENGINE_KW, **{kind: name}))
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(quantize_weights=True), "quantized weights")])
-def test_unported_features_raise(kw, what):
-    model, params = _torch_model("tiny")
-    with pytest.raises(NotImplementedError, match=what):
-        InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
-                          **dict(ENGINE_KW, **kw))
+@pytest.mark.parametrize("call", ["apply", "loss"])
+def test_unported_features_raise(call):
+    """MoE models serve through the engine; the MoE trunk of the dense
+    model (the JAX package's capacity-buffer ``moe_mlp``, a training path)
+    is not ported and names its queue, A.3.1."""
+    model = build_model("tiny-moe", dtype="float32")
+    params = model.init_params(device="cpu")
+    assert set(params["layers"][0]["moe"]) == {"router", "w_gate", "w_up",
+                                               "w_down"}
+    ids = torch.tensor([[1, 2, 3]])
+    fn = {"apply": lambda: model.apply(params, ids),
+          "loss": lambda: model.loss(params, {"input_ids": ids})}[call]
+    with pytest.raises(NotImplementedError, match="A.3.1"):
+        fn()
 
 
 def test_unported_methods_and_moe_raise():
+    """The engine snapshot is not ported and raises; MoE and quantized
+    models build (they used to raise)."""
     model, params = _torch_model("tiny")
     eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
                             **ENGINE_KW)
@@ -270,13 +282,85 @@ def test_unported_methods_and_moe_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     moe = build_model("tiny-moe", dtype="float32")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        InferenceEngineV2(moe, {}, device="cpu", **ENGINE_KW)
+    InferenceEngineV2(moe, moe.init_params(device="cpu"), device="cpu",
+                      quantize_weights=True, **ENGINE_KW)
     # per-layer windows make layers differ: the ragged engine refuses them,
     # as the JAX package's does (it needs identical, stacked layers)
     neo = build_model("tiny", attn_windows=(None, 4))
     with pytest.raises(ValueError, match="attn_windows"):
         InferenceEngineV2(neo, params, device="cpu", **ENGINE_KW)
+
+
+# --------------------------------------------- MoE and quantized weights
+# The JAX engine with ZeRO-Inference weights (quantize_weights: int8 / int4,
+# group 64) and MoE models (exact top-k through ragged_dot) against the
+# port's: put logits at TOL, greedy tokens equal. "moe-wide-int8" has
+# hidden 512 and 8 experts, so its router [512, 8] reaches min_size and is
+# quantized with one scale a row.
+MOE_CASES = {
+    "moe": ("tiny-moe", (), {}),
+    "int8": ("tiny", (), dict(quantize_weights=True)),
+    "int4": ("tiny", (), dict(quantize_weights=True, quant_bits=4)),
+    "moe-wide-int8": ("tiny-moe", (("hidden_size", 512), ("num_experts", 8)),
+                      dict(quantize_weights=True)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_preset(preset, over):
+    model = jax_build_model(preset, dtype="float32", **dict(over))
+    params = model.init_params(jax.random.PRNGKey(11))
+    return model, params, jax.tree.map(np.asarray, params)
+
+
+def _torch_preset(preset, over=()):
+    _, _, np_params = _jax_preset(preset, over)
+    model = build_model(preset, dtype="float32", **dict(over))
+    return model, params_from_jax(np_params, model.config, device="cpu")
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_and_quantized_engine_match_jax(case):
+    preset, over, qkw = MOE_CASES[case]
+    jmodel, jparams, _ = _jax_preset(preset, over)
+    jp, jd, jtoks = _serve(JaxEngine(jmodel, jparams, dtype=jnp.float32,
+                                     **ENGINE_KW, **qkw), np.asarray)
+    model, params = _torch_preset(preset, over)
+    if model.config.any_moe:     # params_from_jax unstacks the moe subtree
+        np_moe = _jax_preset(preset, over)[2]["layers"]["moe"]
+        for li, layer in enumerate(params["layers"]):
+            for name, t in layer["moe"].items():
+                np.testing.assert_array_equal(t.numpy(), np_moe[name][li])
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            **ENGINE_KW, **qkw)
+    layer = eng.params["layers"][0]
+    if qkw:
+        wq = layer["attn"]["wq"]
+        assert isinstance(wq, QuantTensor)
+        assert wq.bits == qkw.get("quant_bits", 8)
+        assert not isinstance(layer["attn_norm"]["scale"], QuantTensor)
+    router = layer["moe"]["router"] if model.config.any_moe else None
+    assert isinstance(router, QuantTensor) == (case == "moe-wide-int8")
+    tp, td, ttoks = _serve(eng, lambda t: t.numpy())
+    np.testing.assert_allclose(tp, jp, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(td, jd, atol=TOL, rtol=TOL)
+    assert ttoks == jtoks
+    assert all(len(t) == NEW_TOKENS for t in ttoks)
+
+
+def test_fused_decode_matches_jax_moe():
+    """Fused K = 4 decode of an int8 MoE model: greedy tokens, host
+    dispatches and the rungs run equal the JAX engine's."""
+    kw = dict(ENGINE_KW, decode_steps_per_dispatch=4, quantize_weights=True)
+    jmodel, jparams, _ = _jax_preset("tiny-moe", ())
+    jeng = JaxEngine(jmodel, jparams, dtype=jnp.float32, **kw)
+    want = jeng.generate(FUSED_PROMPTS, max_new_tokens=9)
+    model, params = _torch_preset("tiny-moe")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            **kw)
+    assert eng.generate(FUSED_PROMPTS, max_new_tokens=9) == want
+    assert eng.host_dispatches == jeng.host_dispatches
+    assert list(eng._decode_multi) == list(jeng._decode_multi)
 
 
 def test_structured_admission_and_token_validation():
@@ -471,12 +555,16 @@ def test_decode_bodies_read_nothing_back_to_the_host(monkeypatch):
     data. ``decode_forward`` and ``decode_multi_forward`` (greedy and
     sampled, tensor temperature / top_p / eos, ALiBi) run with all of those
     patched to raise, after one unpatched call that builds the cached
-    device constants (the capture's warm-up run)."""
+    device constants (the capture's warm-up run); the third model is an
+    int8 MoE model (dequantized per layer, experts through the CPU's plain
+    route)."""
     from deepspeedsyclsupport_tpu_torch.inference.v2.model import (
         decode_multi_forward)
 
-    for arch in ("tiny", "alibi"):
-        model, params = _torch_model(arch)
+    moe_model, moe_params = _torch_preset("tiny-moe")
+    moe_params["layers"] = quantize_tree(moe_params["layers"], 64)
+    for model, params in (_torch_model("tiny"), _torch_model("alibi"),
+                          (moe_model, moe_params)):
         kv, tables, positions, active, logits0 = _decode_inputs(model)
         tokens = torch.tensor([3, 9, 0, 4], dtype=torch.int32)
         steps = torch.tensor([3, 1, 0, 5], dtype=torch.int32)

@@ -47,8 +47,9 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 29
-    for name in ("ops.flash_attention", "ops.evoformer_attn",
+    assert int(proc.stdout.split()[0]) >= 33
+    for name in ("compression.quantize", "parallel.moe",
+                 "ops.flash_attention", "ops.evoformer_attn",
                  "ops.sparse_attention", "runtime.engine", "runtime.config",
                  "runtime.optimizers", "runtime.lr_schedules",
                  "runtime.loss_scaler", "runtime.constants"):
