@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving (dense and MoE, quantized), training,
+"""Drive the PyTorch port's serving (dense and MoE, quantized; the SLA
+serving session, its supervisor and the engine snapshot), training,
 evoformer and block-sparse attention paths on one NVIDIA GPU and check
 them.
 
@@ -21,7 +22,8 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              would hang the card), held against the plain versions.
 3. kernel  — the ragged paged-attention kernels against their plain PyTorch
              version at the serving path's shapes (llama2-7b, mistral-7b with
-             its 4096 window, an ALiBi case, decode over 16 sequences), in
+             its 4096 window, an ALiBi case, Mixtral-8x7B's prefill (36
+             atoms, GQA group 4), decode over 16 sequences), in
              bf16, fp16 and float32: each case's route as the library names
              it (the Hopper prefill, the split-KV decode or the CUDA-core
              kernel), O held by its max error and, in bf16 / fp16, row by
@@ -60,6 +62,33 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              serving path): its launches in every layer held, TTFT, and its
              logits and greedy tokens against ``"kernel"`` logged (bf16
              ties part them; phase 7 holds them in float32).
+   session — ``ServingSession`` over the same llama2-7b (K = 8 after
+             ``warmup(fused_ladder=True)``, a 32-block KV pool with evicted
+             streams requeued, the prefix cache, the journal, the watchdog
+             at 60 s): 48 requests from
+             seed 0 (two tenants, prompts 128-1024, 32-128 new tokens,
+             TTFT SLA 1.5 s, rate SLA 15 tok/s; 16 at 4 req/s, then 32 at
+             once). Held: one terminal outcome per request, the journal's
+             reconstructed outputs equal the delivered tokens, the trace
+             join closes each admitted request once, eviction ran, the
+             watchdog never fired, B1 launched in the window (counts zeroed
+             just before, read just after). Logged: outcome counts, TTFT
+             and ITL p50 / p99, goodput, host dispatches a token, the share
+             of fused rounds, the capacity model's estimates; then decode
+             tok/s with the journal on and off (16 requests at once) and
+             the card's busy share over that decode window.
+   session-parity — the paced part of that traffic at 4 layers, float32
+             (TF32 off): each completed request's greedy tokens equal
+             ``generate`` of its prompt alone.
+   supervise — ``ReplicaSupervisor`` running ``serve_worker`` in a child
+             process on the card (llama2-7b float32, 4 prompts of 64-256
+             tokens, 16 new tokens): uninterrupted, then ``serve_crash``
+             after 8 tokens; the worker's exit codes (0) and (1, 0), the
+             replayed outputs equal the uninterrupted run's; time to
+             recover.
+   snapshot — ``serialize`` then ``deserialize(device="cuda")`` at 4
+             layers, bf16: prefill logits bit-equal, greedy tokens equal;
+             GB written and GB/s each way.
    mixtral — ``mixtral-8x7b`` at full width and depth, its layer weights
              int8 (built and quantized one layer at a time: 93 GB in bf16),
              bf16 compute, ``InferenceEngineV2(quantize_weights=True)``
@@ -113,6 +142,7 @@ and exits non-zero without that last line.
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -424,7 +454,8 @@ def paged_calls(pa, c, decode):
 def check_attention(torch, np, c, decode):
     """Kernel vs plain on one case: max abs error, row by row in bf16 /
     fp16, exact zeros where nothing is visible, the same bits on repeat, no
-    copy of the pool (the call's peak allocation stays below one K pool);
+    copy of the pool (beyond its output, the call allocates less than one K
+    pool);
     then times and rates. Returns a result row."""
     import torch.nn.functional as F
 
@@ -437,10 +468,13 @@ def check_attention(torch, np, c, decode):
     base = torch.cuda.memory_allocated()
     got = kernel()
     torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - base
+    # beyond its output (at Mixtral's 36 atoms and 8 KV heads the output
+    # outweighs a K pool)
+    extra = torch.cuda.max_memory_allocated() - base - got.nbytes
     if extra >= c["k"].nbytes:
         raise AssertionError(f"{c['name']}: the call allocated {extra} "
-                             f"bytes, a pool is {c['k'].nbytes}")
+                             f"bytes beyond its output, a pool is "
+                             f"{c['k'].nbytes}")
     if not torch.equal(kernel(), got):
         raise AssertionError(f"{c['name']} {c['dtype']}: not bit-identical "
                              f"on repeat")
@@ -459,7 +493,7 @@ def check_attention(torch, np, c, decode):
     else:
         rows = torch.arange(c["q"].shape[1], device=got.device)[None, :]
         pad = rows >= c["qlen"].long()[:, None]
-        if float(got[pad].abs().max()) != 0.0:
+        if bool(pad.any()) and float(got[pad].abs().max()) != 0.0:
             raise AssertionError(f"{c['name']}: rows past qlen not zero")
     ms = cuda_ms(torch, kernel, reps=20)
     plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
@@ -504,6 +538,13 @@ def phase_kernels(torch, np):
                 torch, np, name="decode-mistral-7b", dtype=dtype, seed=5,
                 h=32, kvh=8, bq=1, max_ctx=8192, n_atoms=16, window=4096,
                 seqs=[(4 * n - 1, 1) for n in decode_lens])),
+            # the mixtral phase's prefill: its 8 prompts (4608 tokens) as
+            # one batch of 36 atoms from position 0 (the engine runs them
+            # in 6 forwards of <= 768 tokens: the same query-key pairs)
+            ("prefill", attention_case(
+                torch, np, name="mixtral-8x7b", dtype=dtype, seed=7, h=32,
+                kvh=8, bq=128, max_ctx=2048, n_atoms=36,
+                seqs=[(0, n) for n in SERVE_PROMPT_LENS])),
             # the mixtral phase's decode: 16 slots, its 8 prompts 16 tokens
             # into generate(32)
             ("decode", attention_case(
@@ -1172,6 +1213,464 @@ def phase_flash_prefill(torch, np, model, params, want):
         + ", ".join(f"{float(x):.3g}" for x in top2[:, 0] - top2[:, 1])
         + f", first differing greedy token per prompt {parted}")
     del eng
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- session
+# The session cell: 48 requests from seed 0 in two tenants, prompts uniform
+# over 128-1024 tokens, 32-128 new tokens, a TTFT SLA of 1.5 s and a rate
+# SLA of 15 tok/s; 16 arrive at 4 req/s, then 32 at once. The KV pool of
+# 32 blocks (2048 tokens: ~3 of these requests) makes the burst evict, and
+# evicted streams are requeued (tools/session_evictions.py counts the
+# evictions per pool size and policy: requeue evicts more often than
+# reject, whose victims leave).
+SESSION_REQUESTS = 48
+SESSION_PACED = 16
+SESSION_RATE = 4.0            # req/s of the paced arrivals
+SESSION_TTFT_SLA = 1.5
+SESSION_RATE_SLA = 15.0
+SESSION_BLOCKS = 32
+SESSION_DECODE_NEW = 128      # new tokens of the journal on / off runs
+
+
+def session_traffic(np, vocab, burst=True):
+    """[(arrival s, uid, prompt, new tokens, tenant)], seed 0."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(128, 1025, SESSION_REQUESTS)
+    news = rng.randint(32, 129, SESSION_REQUESTS)
+    prompts = [rng.randint(1, vocab, n).tolist() for n in lens]
+    n = SESSION_REQUESTS if burst else SESSION_PACED
+    return [(min(i, SESSION_PACED) / SESSION_RATE, i, prompts[i],
+             int(news[i]), "ab"[i % 2]) for i in range(n)]
+
+
+def drive_session(sess, traffic, sla=True):
+    """Submit each request at its arrival time (the session's clock) and
+    step the session until every request is done. Returns the events, the
+    submit verdicts, the submit times and the wall seconds."""
+    pending = list(traffic)
+    events, verdicts, submitted = [], {}, {}
+    start = sess.clock()
+    while pending or not sess.idle:
+        now = sess.clock()
+        while pending and pending[0][0] <= now - start:
+            _t, uid, toks, n, tenant = pending.pop(0)
+            submitted[uid] = sess.clock()
+            verdicts[uid] = sess.submit(
+                uid, toks, n, tenant=tenant,
+                ttft_sla_s=SESSION_TTFT_SLA if sla else None,
+                rate_sla=SESSION_RATE_SLA if sla else None)
+        if not sess.idle:
+            events += sess.step()
+        elif pending:
+            time.sleep(max(0.0, pending[0][0] - (sess.clock() - start)))
+    return events, verdicts, submitted, sess.clock() - start
+
+
+def delivered(events):
+    """uid -> [(t, tokens)] of the token events."""
+    out = {}
+    for e in events:
+        if e.kind == "token":
+            out.setdefault(e.uid, []).append((e.t, list(e.tokens)))
+    return out
+
+
+def session_latency(np, events, submitted, traffic):
+    """TTFT per request, ITL samples (a fused round's gap over its tokens,
+    per token), and the tokens of requests that met both SLAs."""
+    toks = delivered(events)
+    finish = {e.uid: e.reason for e in events if e.kind == "finish"}
+    want = {uid: n for _t, uid, _p, n, _tn in traffic}
+    ttft, itl, good = {}, [], 0
+    for uid, evs in toks.items():
+        ttft[uid] = evs[0][0] - submitted[uid]
+        for (t0, _a), (t1, b) in zip(evs, evs[1:]):
+            itl += [(t1 - t0) / len(b)] * len(b)
+        n = sum(len(b) for _t, b in evs)
+        span = evs[-1][0] - evs[0][0]
+        rate = (n - 1) / span if span > 0 else float("inf")
+        if finish.get(uid) in ("done", "eos") and n == want[uid] and \
+                ttft[uid] <= SESSION_TTFT_SLA and rate >= SESSION_RATE_SLA:
+            good += n
+    return ttft, np.asarray(itl), good
+
+
+def decode_run(torch, eng, prompts, journal_dir=None):
+    """16 requests at once, ``SESSION_DECODE_NEW`` greedy tokens each, no
+    SLA: the decode tok/s from the moment every request has its first token
+    to idle, with the journal on (``journal_dir``) or off."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession, journal_path)
+
+    policy = ServingPolicyConfig(
+        journal_path=journal_path(journal_dir) if journal_dir else None)
+    sess = ServingSession(eng, policy)
+    for uid, p in enumerate(prompts):
+        sess.submit(uid, p, SESSION_DECODE_NEW)
+    seen = set()
+    while len(seen) < len(prompts) and not sess.idle:
+        for e in sess.step():
+            if e.kind == "token":
+                seen.add(e.uid)
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    while not sess.idle:
+        n += sum(len(e.tokens) for e in sess.step() if e.kind == "token")
+    torch.cuda.synchronize()
+    sess.close()
+    return n / (time.perf_counter() - t0), n
+
+
+def phase_session(torch, np, model, params):
+    """``ServingSession`` over llama2-7b at full width and depth (bf16):
+    the SLA gate, slack-ordered batches, KV-pressure eviction (victims
+    requeued), K-capped
+    fused decode (K = 8, every rung captured by ``warmup``), the prefix
+    cache, the journal and the stuck-decode watchdog (60 s), under the
+    session cell's traffic. Holds: one terminal outcome per request, the
+    journal's reconstructed outputs equal the delivered tokens, the trace
+    join closes every admitted request once, eviction ran, the watchdog
+    never fired, B1 launched in the window. Then decode tok/s with the
+    journal on and off (16 requests at once, same traffic both times) and
+    the card's busy share over that decode window."""
+    import shutil
+    import tempfile
+
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession, journal_path, load_journal,
+        reconstruct_outputs)
+    from deepspeedsyclsupport_tpu_torch.monitor import reqtrace
+    from deepspeedsyclsupport_tpu_torch.monitor.telemetry import (
+        metrics_registry, resilience_counters)
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+    from tools.torch_serve_profile import profile_window
+
+    traffic = session_traffic(np, model.config.vocab_size)
+    eng = serve_engine(torch, model, params, decode_steps_per_dispatch=8,
+                       num_blocks=SESSION_BLOCKS)
+    t0 = time.perf_counter()
+    eng.warmup(fused_ladder=True)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    jdir = tempfile.mkdtemp(prefix="dstpu_session_")
+    metrics_registry.reset()
+    resilience_counters.reset()
+    sess = ServingSession(eng, ServingPolicyConfig(
+        prefix_cache={"enabled": True}, journal_path=journal_path(jdir),
+        watchdog_enabled=True, watchdog_deadline_s=60.0, trace_stages=True,
+        preempt_policy="requeue"))
+    pa.reset_launch_counts()
+    eng.host_dispatches = 0
+    events, verdicts, submitted, wall = drive_session(sess, traffic)
+    torch.cuda.synchronize()
+    launches = dict(pa.LAUNCHES)
+    sess.close()
+    c = dict(sess.counters)
+
+    # hold 1: exactly one terminal outcome per request
+    terminal = {uid: int(v == "shed") for uid, v in verdicts.items()}
+    for e in events:
+        if e.kind in ("finish", "shed"):
+            terminal[e.uid] += 1
+    bad = {u: n for u, n in terminal.items() if n != 1}
+    if len(terminal) != SESSION_REQUESTS or bad:
+        raise AssertionError(f"session: terminal outcomes per uid {bad} "
+                             f"({len(terminal)} requests)")
+    # hold 2: the journal is the delivery record
+    states, _t = load_journal(jdir)
+    got = {u: [t for _tt, b in evs for t in b]
+           for u, evs in delivered(events).items()}
+    rebuilt = reconstruct_outputs(states)
+    for uid in verdicts:
+        if rebuilt.get(uid, []) != got.get(uid, []):
+            raise AssertionError(f"session uid {uid}: journal outputs "
+                                 f"{rebuilt.get(uid)} != delivered "
+                                 f"{got.get(uid)}")
+    # hold 3: the trace join closes every admitted request exactly once
+    records = [r for p in sorted(os.listdir(jdir)) if p.endswith(".jsonl")
+               for r in reqtrace.load_stream(os.path.join(jdir, p))]
+    traces = reqtrace.join_traces([("0", "0", records)])
+    for uid, v in verdicts.items():
+        tr = traces.get(uid)
+        closes = tr["closes"] if tr is not None else 0
+        if closes != (0 if v == "shed" else 1):
+            raise AssertionError(f"session uid {uid} ({v}): {closes} "
+                                 f"closes in the joined trace")
+    # holds 4-6: eviction ran, the watchdog never fired, B1 launched
+    hangs = [r for r in records if r.get("name") == "serve/hang"]
+    if c["evicted"] < 1:
+        raise AssertionError(f"session: no eviction with {SESSION_BLOCKS} "
+                             f"blocks: {c}")
+    if hangs or resilience_counters.get("serve_hang_aborts"):
+        raise AssertionError(f"session: the watchdog fired: {hangs}")
+    if launches["ragged_prefill_attention"] < 1 or \
+            launches["paged_decode_attention"] < 1:
+        raise AssertionError(f"session missed the kernels: {launches}")
+    rounds = [r["data"].get("mode") for r in records
+              if r.get("name") == "serve/stage"
+              and r["data"].get("stage") == "decode_round"]
+    ttft, itl, good = session_latency(np, events, submitted, traffic)
+    tt = np.asarray(list(ttft.values()))
+    n_tok = sum(len(t) for t in got.values())
+    log("session", f"{SESSION_REQUESTS} requests (2 tenants, prompts "
+        f"128-1024, 32-128 new, TTFT SLA {SESSION_TTFT_SLA} s, rate SLA "
+        f"{SESSION_RATE_SLA} tok/s; {SESSION_PACED} at {SESSION_RATE:g} "
+        f"req/s then {SESSION_REQUESTS - SESSION_PACED} at once), K=8 "
+        f"(warmup {warm:.1f} s), {SESSION_BLOCKS} KV blocks (victims "
+        f"requeued), prefix cache, "
+        f"journal, watchdog 60 s: admitted {c['admitted']}, queued "
+        f"{c['queued']}, shed {c['shed']}, evicted {c['evicted']}, "
+        f"completed {c['completed']} in {wall:.2f} s; TTFT p50 "
+        f"{np.percentile(tt, 50) * 1e3:.1f} ms p99 "
+        f"{np.percentile(tt, 99) * 1e3:.1f} ms ({len(tt)} requests), ITL "
+        f"p50 {np.percentile(itl, 50) * 1e3:.2f} ms p99 "
+        f"{np.percentile(itl, 99) * 1e3:.2f} ms; {n_tok} tokens delivered, "
+        f"goodput (both SLAs met) {good / wall:.1f} tok/s of "
+        f"{n_tok / wall:.1f}; host dispatches {eng.host_dispatches / n_tok:.3f}"
+        f" a token; rounds fused {rounds.count('fused')} of {len(rounds)} "
+        f"({rounds.count('fused') / max(1, len(rounds)):.1%}); B1 launches "
+        f"prefill {launches['ragged_prefill_attention']} decode "
+        f"{launches['paged_decode_attention']} (a graph replay counts the "
+        f"launches its capture recorded); capacity model: prefill "
+        f"{sess.capacity.prefill_tok_s:.0f} tok/s (best "
+        f"{sess.capacity.prefill_tok_s_best:.0f}), decode "
+        f"{sess.capacity.decode_step_s * 1e3:.2f} ms a step; prefix "
+        f"{sess.prefix_stats()}")
+    log("session", f"holds: one terminal outcome per request, journal "
+        f"outputs = delivered tokens ({len(states)} journaled), "
+        f"{len(traces)} traces joined, every admitted one closed once, "
+        f"evictions {c['evicted']}, no serve/hang record")
+    shutil.rmtree(jdir, ignore_errors=True)
+    del eng, sess
+    torch.cuda.empty_cache()
+
+    # decode tok/s with the journal on and off, 16 requests at once
+    eng = serve_engine(torch, model, params, decode_steps_per_dispatch=8)
+    eng.warmup(fused_ladder=True)
+    prompts = [p for _t, _u, p, _n, _tn in traffic[:16]]
+    rates = {}
+    for arm in ("on", "off", "on", "off"):
+        jd = tempfile.mkdtemp(prefix="dstpu_decode_") if arm == "on" else None
+        rate, n = decode_run(torch, eng, prompts, jd)
+        rates.setdefault(arm, []).append(rate)
+        if jd:
+            shutil.rmtree(jd, ignore_errors=True)
+    jd = tempfile.mkdtemp(prefix="dstpu_decode_")
+    prof = profile_window(torch, lambda: decode_run(torch, eng, prompts, jd),
+                          decode_after="paged_prefill")["decode"]
+    shutil.rmtree(jd, ignore_errors=True)
+    log("session", f"decode, 16 requests at once, {SESSION_DECODE_NEW} "
+        f"greedy tokens each ({n} tokens after the last first token), K=8:"
+        f" journal on {', '.join(f'{r:.1f}' for r in rates['on'])} tok/s, "
+        f"off {', '.join(f'{r:.1f}' for r in rates['off'])} tok/s (runs "
+        f"in the order on, off, on, off); decode window (profiled, journal "
+        f"on): card {100 * prof['busy_share']:.1f} % busy, "
+        f"{prof['kernels']} kernels")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_session_parity(torch, np):
+    """The session traffic's paced part (no burst, no eviction) through
+    ``ServingSession`` at llama2-7b width cut to 4 layers, float32 (TF32
+    off), K = 8: each completed request's greedy tokens equal
+    ``generate`` of its prompt alone."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession)
+
+    model = build_model(SERVE_MODEL, num_layers=4, dtype="float32")
+    params = model.init_params(
+        generator=torch.Generator(device=DEV).manual_seed(1),
+        device=DEV, dtype=torch.float32)
+    traffic = session_traffic(np, model.config.vocab_size, burst=False)
+    eng = InferenceEngineV2(model, params, dtype=torch.float32,
+                            block_size=64, max_context=2048,
+                            max_sequences=16, decode_steps_per_dispatch=8,
+                            device=DEV)
+    eng.warmup(fused_ladder=True)
+    sess = ServingSession(eng, ServingPolicyConfig())
+    events, verdicts, _sub, wall = drive_session(sess, traffic)
+    c = dict(sess.counters)
+    got = {u: [t for _tt, b in evs for t in b]
+           for u, evs in delivered(events).items()}
+    done = [e.uid for e in events if e.kind == "finish"
+            and e.reason in ("done", "eos")]
+    if c["evicted"] or not done:
+        raise AssertionError(f"session-parity: {c}, completed {done}")
+    want = {uid: n for _t, uid, _p, n, _tn in traffic}
+    for _t, uid, p, n, _tn in traffic:
+        if uid not in done:
+            continue
+        ref = eng.generate([p], max_new_tokens=n)[0]
+        if got[uid] != ref or len(ref) != want[uid]:
+            raise AssertionError(f"session-parity uid {uid}: session "
+                                 f"{got[uid]} vs generate {ref}")
+    log("session-parity", f"{SERVE_MODEL} width, 4 layers, fp32 (TF32 off),"
+        f" K=8, {len(traffic)} requests at {SESSION_RATE:g} req/s with the "
+        f"SLAs: {c} in {wall:.2f} s; every completed request's greedy "
+        f"tokens ({len(done)}) equal generate of its prompt alone")
+    del eng, sess, params
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- supervise
+SUPERVISE_PROMPTS = 4
+SUPERVISE_NEW = 16
+SUPERVISE_CRASH_TOKENS = 8
+
+
+def phase_supervise(torch, np):
+    """``ReplicaSupervisor`` running ``serve_worker`` in a child process on
+    the card: llama2-7b at full width and depth in float32, 4 prompts of
+    64-256 tokens, 16 greedy tokens each. First an uninterrupted run, then
+    one with ``serve_crash`` after 8 emitted tokens in the first
+    incarnation. Holds: the worker's exit codes are (0) and (1, 0), and the
+    crashed run's journal-reconstructed outputs equal the uninterrupted
+    run's. Logs the time to recover."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import ReplicaSupervisor
+
+    from deepspeedsyclsupport_tpu_torch.models import get_config
+
+    root = Path(__file__).resolve().parent
+    rng = np.random.RandomState(5)
+    vocab = get_config(SERVE_MODEL).vocab_size
+    prompts = [rng.randint(1, vocab, n).tolist()
+               for n in rng.randint(64, 257, SUPERVISE_PROMPTS)]
+    tmp = tempfile.mkdtemp(prefix="dstpu_supervise_")
+    torch.cuda.empty_cache()
+
+    def run(name, inject):
+        jdir = os.path.join(tmp, f"j_{name}")
+        spec = {"model": SERVE_MODEL, "dtype": "float32", "device": DEV,
+                "engine": {"dtype": "float32", "block_size": 64,
+                           "max_context": 2048, "max_sequences": 16,
+                           "num_blocks": 32},
+                "journal_dir": jdir, "out": os.path.join(tmp, f"{name}.json"),
+                "requests": [{"uid": u, "tokens": p,
+                              "max_new_tokens": SUPERVISE_NEW}
+                             for u, p in enumerate(prompts)]}
+        path = os.path.join(tmp, f"spec_{name}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        env = {"PYTHONPATH": str(root)}
+        if inject:
+            env["DSTPU_FAULT_INJECTION"] = json.dumps(inject)
+        rs = ReplicaSupervisor(
+            [sys.executable, "-m",
+             "deepspeedsyclsupport_tpu_torch.inference.v2.supervisor",
+             "--worker", "--spec", path], restart_limit=1, poll_s=0.2,
+            backoff_seconds=0.0, env=env,
+            health_file=os.path.join(tmp, f"health_{name}.json"))
+        t0 = time.perf_counter()
+        rc = rs.run()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"supervise {name}: rc {rc}, launches "
+                                 f"{rs.launch_history}")
+        with open(spec["out"]) as f:
+            return [h["rc"] for h in rs.launch_history], json.load(f), wall
+
+    rcs0, base, wall0 = run("clean", None)
+    rcs1, crash, wall1 = run("crash", {"serve_crash": {
+        "tokens": SUPERVISE_CRASH_TOKENS, "attempt": 0}})
+    shutil.rmtree(tmp, ignore_errors=True)
+    if rcs0 != [0] or rcs1 != [1, 0]:
+        raise AssertionError(f"supervise: worker rcs {rcs0} and {rcs1}, "
+                             f"want [0] and [1, 0]")
+    if crash["outputs"] != base["outputs"]:
+        supervise_gap(torch, prompts, base["outputs"], crash["outputs"])
+        raise AssertionError(f"supervise: outputs after the crash "
+                             f"{crash['outputs']} != {base['outputs']}")
+    log("supervise", f"{SERVE_MODEL} fp32 in a supervised child, "
+        f"{SUPERVISE_PROMPTS} prompts {[len(p) for p in prompts]}, "
+        f"{SUPERVISE_NEW} greedy tokens: uninterrupted rcs {rcs0} "
+        f"({wall0:.1f} s); serve_crash after {SUPERVISE_CRASH_TOKENS} tokens "
+        f"rcs {rcs1} ({wall1:.1f} s), replayed "
+        f"{sorted(crash['recovery']['replayed'])}, time_to_recover_s "
+        f"{crash['recovery']['time_to_recover_s']}; outputs equal the "
+        f"uninterrupted run's")
+
+
+def supervise_gap(torch, prompts, base, crash):
+    """On a differing token: the top-2 logit gap of the uninterrupted
+    run's context at the first differing step (the worker's weights)."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+
+    model = build_model(SERVE_MODEL, dtype="float32")
+    eng = InferenceEngineV2(model, model.init_params(device=DEV),
+                            dtype=torch.float32, block_size=64,
+                            max_context=2048, max_sequences=16,
+                            num_blocks=32, device=DEV)
+    for uid, want in base.items():
+        have = crash.get(uid, [])
+        j = next((i for i, (a, b) in enumerate(zip(want, have)) if a != b),
+                 None)
+        if j is None:
+            continue
+        lg = eng.put([0], [prompts[int(uid)] + want[:j]])[0]
+        eng.flush([0])
+        top = lg.topk(2).values
+        log("supervise", f"uid {uid}: first differing step {j} ({want[j]} vs"
+            f" {have[j]}), top-2 logit gap {float(top[0] - top[1]):.4g}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- snapshot
+def phase_snapshot(torch, np):
+    """``serialize`` then ``deserialize(device="cuda")`` at llama2-7b width
+    cut to 4 layers, bf16: prefill logits bit-equal to the original
+    engine's, greedy tokens equal; GB written, seconds and GB/s each way
+    (the read follows the write, so the page cache may serve it)."""
+    import shutil
+    import tempfile
+
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+    from deepspeedsyclsupport_tpu_torch.checkpoint.engine import DATA_FILE
+
+    model = build_model(SERVE_MODEL, num_layers=4)
+    params = model.init_params(
+        generator=torch.Generator(device=DEV).manual_seed(2), device=DEV,
+        dtype=torch.bfloat16)
+    eng = serve_engine(torch, model, params)
+    del params
+    tmp = tempfile.mkdtemp(prefix="dstpu_snapshot_")
+    path = os.path.join(tmp, "snap")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.serialize(path)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(path, DATA_FILE))
+    t0 = time.perf_counter()
+    eng2 = InferenceEngineV2.deserialize(path, device=DEV)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    prompts = serve_prompts(np, model.config)
+    uids = list(range(len(prompts)))
+    logits = []
+    for e in (eng, eng2):
+        out = e.put(uids, prompts)
+        logits.append(torch.stack([out[u] for u in uids]))
+        e.flush(uids)
+    if not torch.equal(logits[0], logits[1]):
+        raise AssertionError(f"snapshot: prefill logits differ by "
+                             f"{float((logits[0] - logits[1]).abs().max())}")
+    outs = [e.generate(prompts, max_new_tokens=16) for e in (eng, eng2)]
+    if outs[0] != outs[1]:
+        raise AssertionError("snapshot: greedy tokens differ")
+    log("snapshot", f"{SERVE_MODEL} width, 4 layers, bf16: {nbytes / 1e9:.3f}"
+        f" GB written in {write_s:.2f} s ({nbytes / 1e9 / write_s:.2f} GB/s, "
+        f"layers restacked a leaf at a time, fsynced), read onto the card in "
+        f"{read_s:.2f} s ({nbytes / 1e9 / read_s:.2f} GB/s); 8 prompts' "
+        f"prefill logits bit-equal, 16 greedy tokens equal")
+    del eng, eng2
     torch.cuda.empty_cache()
 
 
@@ -2216,6 +2715,10 @@ def main() -> int:
     phase_serve_fused(torch, np, model, params, serve_outs)
     phase_prefix(torch, np, model, params)
     phase_flash_prefill(torch, np, model, params, serve_outs)
+    phase_session(torch, np, model, params)
+    phase_session_parity(torch, np)
+    phase_supervise(torch, np)
+    phase_snapshot(torch, np)
     del model, params
     torch.cuda.empty_cache()
     phase_mixtral(torch, np)

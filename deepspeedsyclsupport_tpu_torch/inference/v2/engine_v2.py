@@ -22,8 +22,10 @@ int8 or int4 ``QuantTensor`` s (ZeRO-Inference) and each layer is
 dequantized when it runs; a params tree whose layers are quantized already
 is taken as it is.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
-entry): serialize/deserialize.
+:meth:`serialize` / :meth:`deserialize` write and read the JAX package's
+engine snapshot format (``checkpoint/engine.py``): the JAX tree stacks
+layers ``[L, ...]`` where the port keeps a list per layer, so each layer
+leaf is restacked on save (one leaf at a time) and unstacked on load.
 """
 import dataclasses
 import time
@@ -33,7 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...compression.quantize import quantize_tree
+from ...compression.quantize import QuantTensor, quantize_tree
 from ...device import resolve_device
 from ..params import place_inference_params
 from ..sampling import SamplingParams, sample_token_dyn
@@ -45,12 +47,6 @@ from .module_registry import select_impl
 from .prefix_cache import PrefixCache, chain_hash
 from .ragged import BlockedAllocator, SequenceDescriptor, build_ragged_batch
 from .scheduler import schedule_chunks
-
-
-def _not_ported(what: str, entry: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
-        f"queue A: {entry})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,13 +130,104 @@ class InferenceEngineV2:
         self._use_atoms = bool(spec.metadata.get("needs_atoms"))
         _select("decode_attn", cfg.decode_attn, {"backend": backend})
 
-    # ------------------------------------------------------ not yet ported
+    # ----------------------------------------------------------- persistence
     def serialize(self, save_path: str) -> None:
-        raise _not_ported("serialize", "engine snapshot")
+        """Model snapshot in the JAX package's format: the placed parameter
+        tree (dequantized if ZeRO-Inference is on, as the reference saves
+        it) with layer leaves stacked ``[L, ...]``, plus both configs;
+        reloadable with :meth:`deserialize` here or in the JAX package.
+        Each stacked leaf is built when the writer reaches it, so at most
+        one leaf is held twice."""
+        from ...checkpoint.engine import dtype_name, save_tree
+        from ...models.config import ModelConfig
+
+        if not isinstance(getattr(self.model, "config", None), ModelConfig):
+            raise TypeError(
+                f"serialize() supports models carrying a ModelConfig "
+                f"(models.CausalLM family); got {type(self.model).__name__} "
+                f"— fail at save, not with a confusing load-time error")
+        layers = self.params["layers"]
+        dtype = self.config.dtype
+
+        def stacked(*path):
+            def leaf():
+                parts = []
+                for layer in layers:
+                    x = layer
+                    for k in path:
+                        x = x[k]
+                    if isinstance(x, QuantTensor):
+                        x = x.dequantize(dtype)
+                    parts.append(x)
+                return torch.stack(parts)
+            return leaf
+
+        def restack(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: restack(v, path + (k,)) for k, v in tree.items()}
+            return stacked(*path)
+
+        params = dict(self.params)
+        params["layers"] = restack(layers[0])
+        eng_cfg = {f.name: getattr(self.config, f.name)
+                   for f in dataclasses.fields(self.config)}
+        eng_cfg["dtype"] = dtype_name(eng_cfg["dtype"])   # JSON-safe
+        meta = {"model_class": type(self.model).__name__,
+                "model_config": dataclasses.asdict(self.model.config),
+                "engine_config": eng_cfg}
+        save_tree(save_path, {"params": params}, meta)
 
     @classmethod
-    def deserialize(cls, save_path: str, **config_overrides):
-        raise _not_ported("deserialize", "engine snapshot")
+    def deserialize(cls, save_path: str, device=None,
+                    **config_overrides) -> "InferenceEngineV2":
+        """Rebuild an engine from a snapshot written by :meth:`serialize`
+        or by the JAX package's. ``device`` (default: the card) takes the
+        place of the reference's topology; leaves are read one at a time
+        straight in the engine's dtype and onto the device."""
+        import json
+        import os
+
+        from ...checkpoint.engine import META_FILE, load_tree
+        from ...device import parse_dtype
+        from ...models.config import ModelConfig
+        from ...models.transformer import CausalLM
+
+        with open(os.path.join(save_path, META_FILE)) as f:
+            meta = json.load(f)
+        cls_name = meta.get("model_class", "CausalLM")
+        if cls_name != "CausalLM":
+            raise TypeError(f"snapshot was serialized from {cls_name}; "
+                            f"deserialize() rebuilds CausalLM models only")
+        model = CausalLM(ModelConfig(**meta["model_config"]))
+        eng_cfg = dict(meta.get("engine_config", {}))
+        eng_cfg.update(config_overrides)
+        dtype = eng_cfg.get("dtype", torch.bfloat16)
+        if isinstance(dtype, str):
+            dtype = parse_dtype(dtype)
+        # the example tree: shapes and the engine's dtype, no storage
+        example = model.init_params(generator=torch.Generator(),
+                                    device="meta", dtype=dtype)
+        layer0 = example["layers"][0]
+        n = len(example["layers"])
+
+        def stack_meta(tree):
+            if isinstance(tree, dict):
+                return {k: stack_meta(v) for k, v in tree.items()}
+            return torch.empty((n, *tree.shape), dtype=tree.dtype,
+                               device="meta")
+
+        example["layers"] = stack_meta(layer0)
+        state, _ = load_tree(save_path, {"params": example}, device=device)
+        params = state["params"]
+
+        def unstack(tree, i):
+            if isinstance(tree, dict):
+                return {k: unstack(v, i) for k, v in tree.items()}
+            return tree[i]
+
+        stacked_layers = params["layers"]
+        params["layers"] = [unstack(stacked_layers, i) for i in range(n)]
+        return cls(model, params, config=eng_cfg, device=device)
 
     # --------------------------------------------------------------- warmup
     def warmup(self, fused_ladder: bool = False) -> None:

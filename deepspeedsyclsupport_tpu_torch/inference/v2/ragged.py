@@ -80,13 +80,17 @@ class BlockedAllocator:
             self.reclaim_cb(n - len(self._free))
 
     def try_allocate(self, n: int) -> Optional[List[int]]:
-        """``allocate`` that reports exhaustion as ``None`` instead of
-        raising — the serving engine's backpressure seam. (The reference's
-        ``kv_alloc_fail`` fault-injection hook is not carried over: the
-        port has no fault injector yet.)"""
+        """``allocate`` that reports exhaustion (or an injected allocation
+        fault) as ``None`` instead of raising — the serving engine's
+        backpressure seam."""
         self._relieve(n)
         if n > len(self._free):
             return None
+        if n > 0:
+            from ...utils.fault_injection import get_fault_injector
+
+            if get_fault_injector().should_fail_kv_alloc():
+                return None
         out, self._free = self._free[:n], self._free[n:]
         for b in out:
             self._refs[b] = 1

@@ -1460,3 +1460,73 @@ def test_engine_serves_quantized_moe_on_the_card(dev):
     fused.warmup(fused_ladder=True)
     assert all(r.graph is not None for r in fused._decode_multi.values())
     assert fused.generate(prompts, 8) == out
+
+
+# ----------------------------------------------------- serving plane, snapshot
+def _llama_cut(dev, dtype, layers, seed):
+    from deepspeedsyclsupport_tpu_torch import build_model
+
+    model = build_model("llama2-7b", num_layers=layers,
+                        dtype="float32" if dtype == torch.float32
+                        else "bfloat16")
+    params = model.init_params(
+        generator=torch.Generator(device=dev).manual_seed(seed), device=dev,
+        dtype=dtype)
+    return model, params
+
+
+def test_session_tokens_equal_generate_on_the_card(dev):
+    """``ServingSession`` (fused K = 8 after ``warmup(fused_ladder=True)``,
+    graph replays) at llama2-7b width cut to 4 layers, float32: each
+    request's greedy tokens equal ``generate`` of its prompt alone."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession)
+
+    model, params = _llama_cut(dev, torch.float32, 4, 1)
+    eng = InferenceEngineV2(model, params, dtype=torch.float32,
+                            block_size=64, max_context=1024, max_sequences=8,
+                            decode_steps_per_dispatch=8, device=dev)
+    eng.warmup(fused_ladder=True)
+    rng = np.random.RandomState(0)
+    reqs = [(u, rng.randint(1, 32000, rng.randint(64, 300)).tolist(),
+             int(rng.randint(8, 25))) for u in range(6)]
+    sess = ServingSession(eng, ServingPolicyConfig())
+    got = {}
+    for u, p, n in reqs:
+        sess.submit(u, p, n)
+    while not sess.idle:
+        for e in sess.step():
+            if e.kind == "token":
+                got.setdefault(e.uid, []).extend(e.tokens)
+    assert sess.counters["completed"] == len(reqs)
+    for u, p, n in reqs:
+        assert got[u] == eng.generate([p], max_new_tokens=n)[0], u
+
+
+def test_snapshot_round_trip_on_the_card(dev, tmp_path):
+    """``serialize`` then ``deserialize(device="cuda")`` at llama2-7b width
+    cut to 2 layers, bf16: prefill logits bit-equal, greedy tokens equal,
+    every parameter equal bit for bit."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2
+
+    model, params = _llama_cut(dev, torch.bfloat16, 2, 2)
+    eng = InferenceEngineV2(model, params, dtype=torch.bfloat16,
+                            block_size=64, max_context=1024, max_sequences=4,
+                            device=dev)
+    eng.serialize(str(tmp_path / "snap"))
+    eng2 = InferenceEngineV2.deserialize(str(tmp_path / "snap"), device=dev)
+    assert eng2.device.type == "cuda"
+    for a, b in zip(eng.params["layers"], eng2.params["layers"]):
+        for k in a["attn"]:
+            assert torch.equal(a["attn"][k], b["attn"][k]), k
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 32000, n).tolist() for n in (77, 300)]
+    logits = []
+    for e in (eng, eng2):
+        out = e.put([0, 1], prompts)
+        logits.append(torch.stack([out[0], out[1]]))
+        e.flush([0, 1])
+    assert torch.equal(logits[0], logits[1])
+    assert eng.generate(prompts, max_new_tokens=8) == \
+        eng2.generate(prompts, max_new_tokens=8)

@@ -271,16 +271,18 @@ def test_unported_features_raise(call):
         fn()
 
 
-def test_unported_methods_and_moe_raise():
-    """The engine snapshot is not ported and raises; MoE and quantized
-    models build (they used to raise)."""
+def test_unported_methods_and_moe_raise(tmp_path):
+    """The engine snapshot used to raise: it is ported now and round-trips
+    (``tests/test_torch_snapshot.py`` holds it against the JAX package's);
+    MoE and quantized models build (they used to raise); per-layer windows
+    still raise."""
     model, params = _torch_model("tiny")
     eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
                             **ENGINE_KW)
-    for call in (lambda: eng.serialize("x"),
-                 lambda: InferenceEngineV2.deserialize("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    eng.serialize(str(tmp_path / "snap"))
+    again = InferenceEngineV2.deserialize(str(tmp_path / "snap"),
+                                          device="cpu", **ENGINE_KW)
+    assert torch.equal(again.put([0], [PROMPT])[0], eng.put([0], [PROMPT])[0])
     moe = build_model("tiny-moe", dtype="float32")
     InferenceEngineV2(moe, moe.init_params(device="cpu"), device="cpu",
                       quantize_weights=True, **ENGINE_KW)
