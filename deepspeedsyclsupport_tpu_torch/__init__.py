@@ -14,11 +14,13 @@ Ported so far:
 * the training path — ``initialize`` -> ``Engine.train_batch`` on one card
   (``runtime``), whose attention forward and backward are the hand-written
   CUDA flash kernels (``ops.flash_attention``, source
-  ``csrc/flash_attention.cu``) wired as a ``torch.autograd.Function``.
+  ``csrc/flash_attention.cu``) wired as a ``torch.autograd.Function``,
+  with checkpoints in the JAX package's format, resume, preemption
+  handling, the data loaders and the training-health sentinel.
 """
 from .models import (CausalLM, ModelConfig, PRESETS, build_model,  # noqa: F401
                      get_config, params_from_jax)
 from .inference.v2 import InferenceEngineV2, RaggedInferenceConfig  # noqa: F401
-from .runtime import Engine, initialize  # noqa: F401
+from .runtime import Engine, engine_state_from_jax, initialize  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Checkpointing of the port: the native single-process format."""
+"""Checkpointing of the port: the single-process native format, tag
+history and the synchronous and async checkpoint engines."""

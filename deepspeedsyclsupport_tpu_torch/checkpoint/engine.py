@@ -14,15 +14,26 @@ written by either package loads in the other.
 
 A leaf may be a tensor, a numpy array or a zero-argument callable returning
 one: the writer calls it when it reaches that leaf, so a caller can build
-each leaf (a restacked layer weight, say) one at a time.
+each leaf (a restacked layer weight, say) one at a time. A ``NamedTuple``
+is named by its fields in their order, as ``jax.tree_util`` names one (the
+loss scaler's ``scaler/scale``, ``scaler/good_steps``, ...).
 
-Not ported yet (ROADMAP.md A.3.3): the orbax backend, pods of more than one
-rank that share no process group, tags, ``latest`` and rotation.
+Tag history as in the JAX package: the ``latest`` pointer, tags listed
+newest first by their recorded ``global_steps``, quarantine of a corrupt
+tag (renamed ``<tag>.corrupt``), the fallback walk past corrupt or torn
+tags (:func:`find_latest_valid_tag`, :func:`load_latest_valid`), the
+training sentinel's ``last_good`` pointer (:func:`promote_last_good`,
+:func:`find_last_good_tag`) and rotation (:func:`rotate_checkpoints`).
+
+Not ported yet: the orbax backend (multi-host writes, ROADMAP.md A.3.1) and
+pods of more than one rank that share no process group (A.3.3b's pod
+commit).
 """
 import itertools
 import json
 import os
 import re
+import shutil
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -35,6 +46,13 @@ from ..utils.logging import logger
 META_FILE = "dstpu_meta.json"
 INDEX_FILE = "state_index.json"
 DATA_FILE = "state.bin"
+STATE_DIR = "state"  # the JAX package's orbax subdir (a tag listed, never read)
+LATEST_FILE = "latest"  # tag-pointer file
+# Health-gated tag pointer (runtime/sentinel.py): the newest tag the training
+# sentinel PROMOTED after K healthy steps beyond it, so a divergence rollback
+# never resumes from a checkpoint that may already hold the poisoned state
+# ``latest`` points at.
+LAST_GOOD_FILE = "last_good"
 INTEGRITY_KEY = "__integrity__"  # manifest section inside META_FILE
 # Two-phase pod commit: phase 1 = every rank durably writes its own rank
 # manifest after its payload; phase 2 = rank 0 writes the commit record
@@ -79,11 +97,17 @@ def _key_str(k) -> str:
 
 def _flatten(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
-    sequences in order; ``None`` is an empty subtree, as in JAX."""
+    a ``NamedTuple``'s fields in their order and by name, sequences in
+    order; ``None`` is an empty subtree, as in JAX."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(_flatten(tree[k], prefix + (k,)))
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = []
+        for k in tree._fields:
+            out.extend(_flatten(getattr(tree, k), prefix + (k,)))
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -117,8 +141,9 @@ def dtype_name(dtype: torch.dtype) -> str:
         raise TypeError(f"no checkpoint dtype for {dtype}") from None
 
 
-def _leaf_bytes(leaf) -> Tuple[bytes, str, List[int]]:
-    """(raw bytes, dtype name, shape) of one leaf; a callable is called."""
+def _leaf_bytes(leaf) -> Tuple[memoryview, str, List[int]]:
+    """(raw bytes, dtype name, shape) of one leaf; a callable is called.
+    The bytes are a view of a host copy, not a second copy."""
     if callable(leaf):
         leaf = leaf()
     if isinstance(leaf, torch.Tensor):
@@ -126,9 +151,49 @@ def _leaf_bytes(leaf) -> Tuple[bytes, str, List[int]]:
         name = dtype_name(t.dtype)
         if t.dtype == torch.bfloat16:   # numpy has no bfloat16: raw bits
             t = t.view(torch.int16)
-        return t.numpy().tobytes(), name, list(leaf.shape)
+        return _raw(t.numpy()), name, list(leaf.shape)
     arr = np.asarray(leaf)
-    return arr.tobytes(), str(arr.dtype), list(arr.shape)
+    return _raw(arr), str(arr.dtype), list(arr.shape)
+
+
+def _raw(arr: np.ndarray) -> memoryview:
+    return memoryview(np.ascontiguousarray(arr).reshape(-1)).cast("B")
+
+
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """crc32 of A + B from crc32(A), crc32(B) and len(B): zlib's
+    ``crc32_combine`` (which Python's ``zlib`` does not expose), the
+    zero-extension of A by len(B) bytes in GF(2). The file's crc32 comes
+    from its leaves' crc32s, so no byte is checksummed twice."""
+    if len2 <= 0:
+        return crc1
+    odd = [0xEDB88320] + [1 << n for n in range(31)]   # one zero bit
+    even = [_gf2_times(odd, odd[n]) for n in range(32)]  # two zero bits
+    odd = [_gf2_times(even, even[n]) for n in range(32)]  # four zero bits
+    while True:
+        even = [_gf2_times(odd, odd[n]) for n in range(32)]
+        if len2 & 1:
+            crc1 = _gf2_times(even, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+        odd = [_gf2_times(even, even[n]) for n in range(32)]
+        if len2 & 1:
+            crc1 = _gf2_times(odd, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+    return crc1 ^ crc2
 
 
 def save_tree(path: str, state: Dict[str, Any], meta: Dict[str, Any]) -> None:
@@ -146,9 +211,9 @@ def save_tree(path: str, state: Dict[str, Any], meta: Dict[str, Any]) -> None:
     if rank == 0:
         # every member of a pod holds the same full state: rank 0 owns the
         # payload and the others only take part in the commit below
-        _save_native(path, state)
+        digests = _save_native(path, state)
         meta = dict(meta)
-        meta[INTEGRITY_KEY] = _build_manifest(path)
+        meta[INTEGRITY_KEY] = {"version": 1, "files": digests}
         meta_path = os.path.join(path, META_FILE)
         _durable_write(meta_path, json.dumps(_jsonable(meta), indent=2),
                        what=f"checkpoint meta write {meta_path}")
@@ -191,16 +256,6 @@ def _file_digest(path: str) -> Dict[str, int]:
             crc = zlib.crc32(chunk, crc)
             nbytes += len(chunk)
     return {"nbytes": nbytes, "crc32": crc}
-
-
-def _build_manifest(path: str) -> Dict[str, Any]:
-    """File-level manifest, recorded in META_FILE, checked by verify_tree."""
-    files = {}
-    for fname in (DATA_FILE, INDEX_FILE):
-        p = os.path.join(path, fname)
-        if os.path.exists(p):
-            files[fname] = _file_digest(p)
-    return {"version": 1, "files": files}
 
 
 # ------------------------------------------------------------ pod commit
@@ -342,6 +397,19 @@ def pod_complete(path: str) -> Tuple[bool, str]:
     return True, "ok"
 
 
+def is_torn_pod(path: str) -> bool:
+    """True when the tag carries pod-commit files that do NOT add up to a
+    complete pod: the quarantine predicate of the resume-time sweep (a tag
+    without the protocol's files is old, not torn)."""
+    try:
+        names = os.listdir(path)
+    except OSError:
+        return False
+    has_protocol = (COMMIT_FILE in names
+                    or any(_RANK_MANIFEST_RE.match(n) for n in names))
+    return has_protocol and not pod_complete(path)[0]
+
+
 def load_tree(path: str, template: Dict[str, Any], device=None
               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Restore ``path`` into ``template``'s structure.
@@ -364,38 +432,50 @@ def load_tree(path: str, template: Dict[str, Any], device=None
 
 
 # ---------------------------------------------------------------- native backend
-def _save_native(path: str, state) -> None:
+def _save_native(path: str, state) -> Dict[str, Dict[str, int]]:
+    """Write ``state.bin`` and its index; returns the integrity manifest's
+    per-file digests (size and crc32). The file's crc32 is kept while
+    writing, combined from the leaves' (``_crc32_combine``), so no file is
+    read back."""
     flat = _flatten(state)
     names = ["/".join(_key_str(k) for k in p) for p, _ in flat]
     data_path = os.path.join(path, DATA_FILE)
     index_path = os.path.join(path, INDEX_FILE)
     index: List[Dict[str, Any]] = []
+    data_digest: Dict[str, int] = {}
 
     def write_data():
         # the whole file is one retry unit: "wb" re-truncates, so a retry
         # after a partial write starts from a clean slate
         index.clear()
         get_fault_injector().maybe_fail_write(data_path)
-        offset = 0
+        offset = crc = 0
         with open(data_path, "wb") as f:
             for name, (_p, leaf) in zip(names, flat):
                 data, dtype, shape = _leaf_bytes(leaf)
+                leaf_crc = zlib.crc32(data)
                 index.append({"name": name, "offset": offset,
                               "nbytes": len(data), "dtype": dtype,
-                              "shape": shape, "crc32": zlib.crc32(data)})
+                              "shape": shape, "crc32": leaf_crc})
                 f.write(data)
+                crc = _crc32_combine(crc, leaf_crc, len(data))
                 offset += len(data)
                 del data
             f.flush()
             os.fsync(f.fileno())
+        data_digest.update(nbytes=offset, crc32=crc)
 
     retry_io(write_data, what=f"checkpoint data write {data_path}")
-    _durable_write(index_path, json.dumps(index),
+    text = json.dumps(index)
+    _durable_write(index_path, text,
                    what=f"checkpoint index write {index_path}")
     from ..monitor.telemetry import metrics_registry
 
     metrics_registry.counter("ckpt_bytes_written").incr(
         sum(e["nbytes"] for e in index))
+    raw = text.encode()
+    return {DATA_FILE: dict(data_digest),
+            INDEX_FILE: {"nbytes": len(raw), "crc32": zlib.crc32(raw)}}
 
 
 def _unflatten(template, leaves):
@@ -403,6 +483,9 @@ def _unflatten(template, leaves):
     iterator, in ``_flatten``'s order)."""
     if isinstance(template, dict):
         return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_unflatten(getattr(template, k), leaves)
+                                for k in template._fields))
     if isinstance(template, (list, tuple)):
         return type(template)(_unflatten(v, leaves) for v in template)
     if template is None:
@@ -528,6 +611,191 @@ def verify_tree(path: str, deep: bool = True) -> Tuple[bool, str]:
         # exception: callers walk past bad checkpoints on this answer
         return False, f"malformed index/manifest: {e!r}"
     return True, "ok"
+
+
+# ------------------------------------------------------------ tag history
+def _read_latest(load_dir: str) -> Optional[str]:
+    latest = os.path.join(load_dir, LATEST_FILE)
+    if not os.path.exists(latest):
+        return None
+    with open(latest) as f:
+        tag = f.read().strip()
+    return tag or None
+
+
+def _tag_steps(tag_dir: str) -> int:
+    """The ``global_steps`` a tag's meta records; -1 when it is unreadable
+    (a torn meta still ranks, by mtime only)."""
+    try:
+        with open(os.path.join(tag_dir, META_FILE)) as f:
+            return int(json.load(f).get("global_steps", -1))
+    except (OSError, ValueError, TypeError):
+        return -1
+
+
+def list_tags(load_dir: str) -> List[str]:
+    """Checkpoint tags under ``load_dir``, newest first (by recorded
+    ``global_steps``, then mtime: mtime alone lies after copies)."""
+    out = []
+    try:
+        names = os.listdir(load_dir)
+    except OSError:
+        return []
+    for name in names:
+        p = os.path.join(load_dir, name)
+        if not os.path.isdir(p) or name.startswith(".staging") \
+                or _QUARANTINE_RE.search(name):
+            continue
+        if not (os.path.exists(os.path.join(p, META_FILE))
+                or os.path.exists(os.path.join(p, INDEX_FILE))
+                or os.path.isdir(os.path.join(p, STATE_DIR))):
+            continue
+        try:
+            mtime = os.path.getmtime(p)
+        except OSError:
+            continue  # renamed or deleted under the walk (a quarantine)
+        out.append((_tag_steps(p), mtime, name))
+    out.sort(reverse=True)
+    return [name for _, _, name in out]
+
+
+def _candidate_tags(load_dir: str) -> Tuple[Optional[str], List[str]]:
+    """The candidate order every fallback walk shares: the tag ``latest``
+    names first, then the others newest first."""
+    pointed = _read_latest(load_dir)
+    candidates = [pointed] if pointed is not None else []
+    candidates.extend(t for t in list_tags(load_dir) if t != pointed)
+    return pointed, candidates
+
+
+# names quarantine_tag makes: <tag>.corrupt, <tag>.corrupt.1, ... (list_tags
+# skips every generation, or a quarantined tag would re-enter the walk)
+_QUARANTINE_RE = re.compile(r"\.corrupt(\.\d+)?$")
+
+
+def quarantine_tag(path: str) -> str:
+    """Rename a corrupt tag out of the candidate walk, keeping it on disk as
+    evidence, under a name no earlier quarantine took."""
+    dst = path + ".corrupt"
+    n = 1
+    while os.path.exists(dst):
+        dst = f"{path}.corrupt.{n}"
+        n += 1
+    os.replace(path, dst)
+    return dst
+
+
+def find_latest_valid_tag(load_dir: str, deep: bool = True
+                          ) -> Tuple[Optional[str], List[Tuple[str, str]]]:
+    """Newest tag that passes :func:`verify_tree`, ``latest``'s first,
+    walking back past corrupt or torn tags. Returns ``(tag or None,
+    [(skipped tag, reason), ...])``; ``deep=False`` skips the crc re-read
+    (right when the caller streams the tag next: the reader checks every
+    leaf's crc32)."""
+    skipped: List[Tuple[str, str]] = []
+    _, candidates = _candidate_tags(load_dir)
+    for tag in candidates:
+        ok, reason = verify_tree(os.path.join(load_dir, tag), deep=deep)
+        if ok:
+            return tag, skipped
+        skipped.append((tag, reason))
+    return None, skipped
+
+
+def promote_last_good(save_dir: str, tag: str) -> None:
+    """Durably point ``last_good`` at ``tag`` (the training sentinel, once
+    it has seen K healthy steps beyond the tag's step)."""
+    path = os.path.join(save_dir, LAST_GOOD_FILE)
+    _durable_write(path + f".tmp{os.getpid()}", tag,
+                   what=f"last_good pointer -> {tag}", rename_to=path)
+
+
+def read_last_good(load_dir: str) -> Optional[str]:
+    try:
+        with open(os.path.join(load_dir, LAST_GOOD_FILE)) as f:
+            tag = f.read().strip()
+    except OSError:
+        return None
+    return tag or None
+
+
+def find_last_good_tag(load_dir: str, deep: bool = False
+                       ) -> Tuple[Optional[str], List[Tuple[str, str]]]:
+    """Newest promoted tag that passes :func:`verify_tree`: the tag
+    ``last_good`` names, then only tags whose recorded ``global_steps`` is
+    no newer (an unpromoted newer tag may hold diverged state). Returns
+    ``(tag or None, [(skipped tag, reason), ...])``."""
+    skipped: List[Tuple[str, str]] = []
+    promoted = read_last_good(load_dir)
+    if promoted is None:
+        return None, skipped
+    tags = list_tags(load_dir)
+    steps_of = {t: _tag_steps(os.path.join(load_dir, t)) for t in tags}
+    cap = steps_of.get(promoted, -1)
+    candidates = [promoted] + [t for t in tags if t != promoted
+                               and 0 <= steps_of[t] <= cap]
+    for tag in candidates:
+        ok, reason = verify_tree(os.path.join(load_dir, tag), deep=deep)
+        if ok:
+            return tag, skipped
+        skipped.append((tag, reason))
+    return None, skipped
+
+
+def load_latest_valid(load_dir: str, template: Dict[str, Any], device=None
+                      ) -> Tuple[Optional[str], Any, Dict[str, Any]]:
+    """Load the newest verified checkpoint under ``load_dir``, falling back
+    through tag history on corruption. Candidates are verified shallowly
+    (the reader checks every leaf's crc32 and raises
+    :class:`CheckpointCorruptionError`, which quarantines the tag and moves
+    on). Returns ``(tag, state, meta)``, or ``(None, None, {})``."""
+    counters = _counters()
+    pointed, candidates = _candidate_tags(load_dir)
+    skipped_any = False
+    for tag in candidates:
+        path = os.path.join(load_dir, tag)
+        ok, reason = verify_tree(path, deep=False)
+        if not ok:
+            logger.warning("skipping corrupt checkpoint %s: %s", path, reason)
+            counters.incr("corrupt_tags_skipped")
+            skipped_any = True
+            continue
+        try:
+            state, meta = load_tree(path, template, device=device)
+        except CheckpointCorruptionError as e:
+            logger.warning("checkpoint %s corrupt on read (%s); quarantining",
+                           path, e.reason)
+            counters.incr("corrupt_tags_skipped")
+            skipped_any = True
+            quarantine_tag(path)
+            continue
+        if tag != pointed or skipped_any:
+            counters.incr("fallback_loads")
+            logger.warning("fallback load: resumed %s (latest pointer was "
+                           "%r)", path, pointed)
+        return tag, state, meta
+    return None, None, {}
+
+
+def rotate_checkpoints(save_dir: str, keep_last_n: int) -> List[str]:
+    """Delete old tags, keeping the newest ``keep_last_n`` verified ones.
+    Deletes only verified tags older than those; never the tag ``latest``
+    or ``last_good`` names, never a corrupt one (evidence). Returns the
+    deleted tags."""
+    if keep_last_n < 1:
+        raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
+    pinned = {_read_latest(save_dir), read_last_good(save_dir)}
+    # shallow: rotation runs after every save, and a full crc pass would
+    # re-read every kept tag each time
+    verified = [t for t in list_tags(save_dir)
+                if verify_tree(os.path.join(save_dir, t), deep=False)[0]]
+    doomed = [t for t in verified[keep_last_n:] if t not in pinned]
+    for tag in doomed:
+        shutil.rmtree(os.path.join(save_dir, tag), ignore_errors=True)
+        logger.info("rotated out checkpoint %s", os.path.join(save_dir, tag))
+    if doomed:
+        _counters().incr("checkpoints_rotated", len(doomed))
+    return doomed
 
 
 def _jsonable(obj):

@@ -4,9 +4,9 @@ Port of ``deepspeedsyclsupport_tpu/runtime/config.py`` (``DSTpuConfig``) for
 the sections the single-card engine uses: the batch family and its
 invariant (``resolve_batch_sizes``, ``config.py:750-795``), ``optimizer``,
 ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage``,
-``gradient_clipping``, ``activation_checkpointing``, ``seed`` and
-``steps_per_print``. Key names are the reference's, so one JSON file drives
-both packages.
+``gradient_clipping``, ``activation_checkpointing``, ``checkpoint``,
+``sentinel``, ``seed`` and ``steps_per_print``. Key names are the
+reference's, so one JSON file drives both packages.
 
 ZeRO stages 0-3 are placement policies over a data-parallel mesh; on one
 card there is nothing to shard, so every stage runs the same program, as
@@ -14,7 +14,7 @@ the JAX package does on one device.
 
 Every enabled section the port does not do yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload, ZeRO++,
-any parallelism above 1, the sentinel, telemetry, monitors, the flops
+any parallelism above 1, elasticity, telemetry, monitors, the flops
 profiler, compression/QAT, curriculum learning, progressive layer drop and
 random-LTD. None is silently ignored.
 """
@@ -82,10 +82,8 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
             raise _unported(f"{name} = {n} (more than one card)",
                             "A.3.1 (distributed training)")
     checks = [
-        ("sentinel", "the training sentinel", "A.3.3 (resilience and "
-         "training health)"),
-        (C.ELASTICITY, "elasticity", "A.3.3 (resilience and training "
-         "health)"),
+        (C.ELASTICITY, "elasticity (elastic batch sizes over a changing "
+         "card count)", "A.3.1 (distributed training)"),
         (C.TELEMETRY, "telemetry", "A.3.4 (observability)"),
         (C.MONITOR_TENSORBOARD, "the tensorboard monitor",
          "A.3.4 (observability)"),
@@ -198,6 +196,108 @@ class ActivationCheckpointingConfig:
 
 
 @dataclass
+class CheckpointConfig:
+    """``checkpoint`` section (JAX ``runtime/config.py:557``): the engine
+    (``native``, synchronous, or ``async``; ``async_save`` is the
+    reference's spelling of the same choice), rotation (``keep_last_n``
+    newest verified tags kept after each durable save; 0 keeps all) and
+    ``tag_validation`` (a cross-rank check, validated here and moot on one
+    process)."""
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    engine: str = "native"  # native | async (checkpoint/ckpt_engine.py)
+    keep_last_n: int = 0
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "CheckpointConfig":
+        tv = str(d.get("tag_validation", "Warn")).capitalize()
+        if tv not in ("Ignore", "Warn", "Fail"):
+            raise ValueError(f"checkpoint.tag_validation must be "
+                             f"Ignore|Warn|Fail, got {tv}")
+        async_save = bool(d.get("async_save", False))
+        engine = str(d.get("engine", "async" if async_save else "native"))
+        if engine not in ("native", "async"):
+            raise ValueError(f"checkpoint.engine must be native|async, got "
+                             f"{engine!r}")
+        if "engine" in d and "async_save" in d and \
+                async_save != (engine == "async"):
+            raise ValueError(
+                f"contradictory checkpoint config: engine={engine!r} with "
+                f"async_save={async_save}")
+        keep_last_n = int(d.get("keep_last_n", 0))
+        if keep_last_n < 0:
+            raise ValueError(
+                f"checkpoint.keep_last_n must be >= 0, got {keep_last_n}")
+        if d.get("load_universal"):
+            raise _unported("checkpoint.load_universal (universal "
+                            "checkpoints)", "A.3.5 (checkpoint formats)")
+        if d.get("use_node_local_storage"):
+            raise _unported("checkpoint.use_node_local_storage (per-node "
+                            "storage of a multi-node run)",
+                            "A.3.1 (distributed training)")
+        return cls(tag_validation=tv, engine=engine, keep_last_n=keep_last_n)
+
+
+@dataclass
+class SentinelConfig:
+    """``sentinel`` section (JAX ``runtime/config.py:448``): the training
+    health sentinel (``runtime/sentinel.py``). Detection arms after
+    ``warmup_steps`` healthy steps; robust z over a ``window`` of history
+    warns at ``z_warn`` and discards the update at ``z_skip``;
+    ``skip_limit`` consecutive anomalies roll back to the last-good tag
+    (promoted ``last_good_k`` healthy steps beyond its save), at most
+    ``rollback_limit`` times before the rc-220 abort; ``lr_cut`` scales the
+    grads for ``lr_cut_steps`` steps after a rollback; a step's verdict is
+    taken ``lag`` steps later."""
+    enabled: bool = False
+    warmup_steps: int = 20
+    window: int = 64
+    ewma_alpha: float = 0.1
+    z_warn: float = 4.0
+    z_skip: float = 8.0
+    skip_limit: int = 3
+    rollback_limit: int = 2
+    last_good_k: int = 4
+    lr_cut: float = 1.0
+    lr_cut_steps: int = 0
+    lag: int = 1
+    checkpoint_dir: Optional[str] = None   # default: where the engine saved
+    journal_dir: Optional[str] = None      # default: checkpoint_dir
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SentinelConfig":
+        z_warn = float(d.get("z_warn", 4.0))
+        z_skip = float(d.get("z_skip", 8.0))
+        if z_skip < z_warn:
+            raise ValueError(f"sentinel.z_skip ({z_skip}) must be >= z_warn "
+                             f"({z_warn}) — the ladder escalates, it does "
+                             f"not invert")
+        lag = int(d.get("lag", 1))
+        if lag < 1:
+            raise ValueError(f"sentinel.lag must be >= 1, got {lag} — lag 0 "
+                             f"would block the host on the in-flight step")
+        for key, lo in (("warmup_steps", 1), ("window", 4),
+                        ("skip_limit", 1), ("rollback_limit", 0),
+                        ("last_good_k", 1), ("lr_cut_steps", 0)):
+            if int(d.get(key, lo)) < lo:
+                raise ValueError(f"sentinel.{key} must be >= {lo}, got "
+                                 f"{d.get(key)}")
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            warmup_steps=int(d.get("warmup_steps", 20)),
+            window=int(d.get("window", 64)),
+            ewma_alpha=float(d.get("ewma_alpha", 0.1)),
+            z_warn=z_warn, z_skip=z_skip,
+            skip_limit=int(d.get("skip_limit", 3)),
+            rollback_limit=int(d.get("rollback_limit", 2)),
+            last_good_k=int(d.get("last_good_k", 4)),
+            lr_cut=float(d.get("lr_cut", 1.0)),
+            lr_cut_steps=int(d.get("lr_cut_steps", 0)),
+            lag=lag,
+            checkpoint_dir=d.get("checkpoint_dir"),
+            journal_dir=d.get("journal_dir"))
+
+
+@dataclass
 class DSTpuConfig:
     """Top-level typed config of the single-card engine (reference:
     ``DeepSpeedConfig``). ``zero_stage`` 0-3 all run one program on one
@@ -217,6 +317,8 @@ class DSTpuConfig:
     gradient_clipping: float = C.GRADIENT_CLIPPING_DEFAULT
     steps_per_print: int = C.STEPS_PER_PRINT_DEFAULT
     seed: int = C.SEED_DEFAULT
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    sentinel: SentinelConfig = field(default_factory=SentinelConfig)
 
     @classmethod
     def from_config(cls, config, dp_world_size: Optional[int] = None
@@ -256,7 +358,9 @@ class DSTpuConfig:
                                           C.GRADIENT_CLIPPING_DEFAULT)),
             steps_per_print=int(d.get(C.STEPS_PER_PRINT,
                                       C.STEPS_PER_PRINT_DEFAULT)),
-            seed=int(d.get(C.SEED, C.SEED_DEFAULT)))
+            seed=int(d.get(C.SEED, C.SEED_DEFAULT)),
+            checkpoint=CheckpointConfig.from_dict(_sub(d, C.CHECKPOINT)),
+            sentinel=SentinelConfig.from_dict(_sub(d, "sentinel")))
         if dp_world_size is not None:
             cfg.resolve_batch_sizes(dp_world_size)
         return cfg

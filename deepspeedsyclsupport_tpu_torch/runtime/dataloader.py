@@ -1,0 +1,190 @@
+"""Card-feeding data loader.
+
+Port of ``deepspeedsyclsupport_tpu/runtime/dataloader.py``. It takes any
+host iterable of batches (dicts, lists or tuples of numpy arrays or
+tensors) and hands the engine batches already on its device: on the card
+each leaf is copied into pinned host memory and then to the card with a
+``non_blocking`` copy (PyTorch's pinned allocator keeps the buffer until
+the copy has run), ``prefetch`` batches ahead, so the copies overlap the
+step in flight. There is no topology argument: one card.
+
+Iterator state is checkpointable (``state_dict`` / ``load_state_dict``:
+epoch and offset within it, plus the shuffle seed), the engine carries it in
+the checkpoint meta, and the training sentinel's rollback rewinds it.
+:class:`CheckpointableDataLoader` reads a ``Sequence`` by index and derives
+every batch from its ``(epoch, offset)`` state, so a rewind takes effect on
+the very next ``__next__``; its per-epoch shuffle is
+``np.random.default_rng((seed, epoch)).permutation``, the JAX loader's
+order exactly.
+"""
+import itertools
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def _to_device(batch: Any, device: torch.device) -> Any:
+    if isinstance(batch, dict):
+        return {k: _to_device(v, device) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_to_device(v, device) for v in batch)
+    t = torch.as_tensor(np.asarray(batch) if not isinstance(
+        batch, torch.Tensor) else batch)
+    if device.type == "cuda":
+        if t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+    # a copy: the caller may mutate what it is handed
+    return t.to(device, copy=True)
+
+
+class DSTpuDataLoader:
+    """Generator loader over any iterable (``__iter__`` starts an epoch
+    from the saved offset). ``device``: None means the card."""
+
+    def __init__(self, dataset: Iterable, device=None,
+                 batch_fn: Optional[Callable[[Any], Any]] = None,
+                 prefetch: int = 2):
+        self.dataset = dataset
+        self.device = resolve_device(device)
+        self.batch_fn = batch_fn
+        self.prefetch = max(0, prefetch)
+        self._len = None
+        self._epoch = 0    # completed passes over the dataset
+        self._offset = 0   # batches yielded within the current epoch
+        try:
+            self._len = len(dataset)  # type: ignore[arg-type]
+        except TypeError:
+            pass
+
+    def __len__(self):
+        if self._len is None:
+            raise TypeError("underlying dataset has no length")
+        return self._len
+
+    # ------------------------------------------------------------ state
+    @property
+    def position(self) -> int:
+        """Batches yielded over the loader's life (epoch-major) when the
+        dataset is sized; the offset within the epoch otherwise."""
+        if self._len is None:
+            return self._offset
+        return self._epoch * self._len + self._offset
+
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch, "offset": self._offset}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore the stream position; takes effect at the next
+        ``__iter__``, which skips the epoch's first ``offset`` batches."""
+        self._epoch = int(sd.get("epoch", 0))
+        self._offset = int(sd.get("offset", 0))
+
+    def _place(self, batch):
+        return _to_device(batch, self.device)
+
+    def __iter__(self) -> Iterator[Any]:
+        it = iter(self.dataset)
+        if self._offset:
+            # resume: burn the head of the epoch the saved run consumed
+            it = itertools.islice(it, self._offset, None)
+        if self.batch_fn is not None:
+            it = (self.batch_fn(b) for b in it)
+
+        def track(source):
+            # count BEFORE yield: while batch k trains the offset is k+1, so
+            # a save at that step resumes on the next batch. (With prefetch
+            # the count runs ahead by the ring; exact positions want
+            # prefetch=0 or CheckpointableDataLoader.)
+            for b in source:
+                self._offset += 1
+                yield b
+            self._epoch += 1
+            self._offset = 0
+
+        placed = (self._place(b) for b in track(it))
+        if self.prefetch == 0:
+            yield from placed
+            return
+        # keep `prefetch` batches in flight: their copies are queued ahead
+        # of the consumer's step
+        buf = list(itertools.islice(placed, self.prefetch))
+        for nxt in placed:
+            yield buf.pop(0)
+            buf.append(nxt)
+        yield from buf
+
+
+class CheckpointableDataLoader(DSTpuDataLoader):
+    """Random-access loader over a ``Sequence`` with a deterministic
+    per-epoch shuffle and a rewind that takes effect at once: ``__iter__``
+    returns ``self`` and each ``__next__`` derives its index from the
+    ``(epoch, offset)`` state. No prefetch (a rewind would have to drop
+    batches in flight)."""
+
+    def __init__(self, dataset: Sequence, device=None,
+                 batch_fn: Optional[Callable[[Any], Any]] = None,
+                 shuffle: bool = False, seed: int = 0):
+        super().__init__(dataset, device, batch_fn=batch_fn, prefetch=0)
+        if self._len is None:
+            raise TypeError("CheckpointableDataLoader needs a Sequence "
+                            "dataset (random access + __len__)")
+        self.shuffle = bool(shuffle)
+        self.seed = int(seed)
+        self._perm_epoch = None
+        self._perm = None
+
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch, "offset": self._offset,
+                "shuffle": self.shuffle, "seed": self.seed}
+
+    def load_state_dict(self, sd: dict) -> None:
+        super().load_state_dict(sd)
+        if "seed" in sd:
+            self.seed = int(sd["seed"])
+
+    def _order(self, epoch: int) -> np.ndarray:
+        if self._perm_epoch != epoch:
+            if self.shuffle:
+                rng = np.random.default_rng((self.seed, epoch))
+                self._perm = rng.permutation(self._len)
+            else:
+                self._perm = np.arange(self._len)
+            self._perm_epoch = epoch
+        return self._perm
+
+    def __iter__(self) -> Iterator[Any]:
+        return self
+
+    def __next__(self) -> Any:
+        if self._offset >= self._len:
+            self._epoch += 1
+            self._offset = 0
+            raise StopIteration
+        idx = int(self._order(self._epoch)[self._offset])
+        self._offset += 1
+        b = self.dataset[idx]
+        if self.batch_fn is not None:
+            b = self.batch_fn(b)
+        return self._place(b)
+
+
+class RepeatingLoader:
+    """Restart an iterator on exhaustion (reference ``RepeatingLoader``)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.data_iter = iter(self.loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self.data_iter)
+        except StopIteration:
+            self.data_iter = iter(self.loader)
+            return next(self.data_iter)

@@ -17,25 +17,43 @@ program; here the same step runs eagerly:
   (:862-917). Losses and metrics are averaged over micro-batches.
 
 With fp16 the overflow gate reads ``finite`` on the host (one device sync
-per step); without it nothing in the step waits for the card. ZeRO stages
-0-3 are one program on one card. Checkpointing, offload, the resilience
-hooks, the sentinel and telemetry are not ported: they raise
-``NotImplementedError`` naming their ``ROADMAP.md`` entry.
+per step); so does the training sentinel's gate while it is armed
+(``runtime/sentinel.py``: the step count and learning rate live on the
+host, so a gated step is skipped there). Otherwise nothing in the step
+waits for the card. ZeRO stages 0-3 are one program on one card.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``, ``:1732-1980``) are
+the JAX package's native format, leaf for leaf: ``params`` with the layers
+stacked ``[L, ...]`` (the JAX model's ``scan_layers`` layout; the port
+holds a list of layers), ``opt_state`` in optax's layout
+(``Adam.state_tree``) and ``scaler``, so a tag written by either package
+loads in the other. The step boundary (``_post_step``, ``:1601``) feeds the
+sentinel and the preemption handler (``runtime/resilience.py``);
+``initialize(training_data=...)`` builds and registers a
+``runtime/dataloader.py`` loader whose position rides the checkpoint meta.
+Offload and telemetry are not ported: they raise ``NotImplementedError``
+naming their ``ROADMAP.md`` entry.
 """
 import copy
 import dataclasses
+import glob
 import inspect
 import logging
+import math
+import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .config import DSTpuConfig
-from .loss_scaler import (grads_finite, init_loss_scale, scale_loss,
-                          unscale_grads, update_loss_scale)
+from .loss_scaler import (LossScaleState, grads_finite, init_loss_scale,
+                          scale_loss, unscale_grads, update_loss_scale)
 from .lr_schedules import build_schedule
 from .optimizers import build_optimizer, current_lr
+from ..checkpoint.engine import LATEST_FILE
 from ..device import resolve_device
+from ..utils.fault_injection import get_fault_injector
 
 logger = logging.getLogger(__name__)
 
@@ -53,13 +71,17 @@ def initialize(model: Any = None, loss_fn: Optional[Callable] = None,
                params: Any = None, config: Any = None,
                topology: Any = None, training_data: Any = None,
                lr_schedule: Optional[Callable] = None, device=None,
+               collate_fn: Optional[Callable] = None,
                config_params: Any = None) -> _InitTuple:
     """Build an :class:`Engine` (reference ``deepspeed.initialize``).
 
     ``model``: anything with ``loss(params, batch, rng, train=...)`` (the
     port's ``CausalLM``) — or pass ``loss_fn``. ``params``: the initial
     params tree (default ``model.init_params`` on the engine's device).
-    ``device``: None means the card (and raises without one)."""
+    ``training_data``: an iterable of batches; the returned loader
+    (``runtime/dataloader.py``, ``collate_fn`` applied to each) is
+    registered with the engine. ``device``: None means the card (and
+    raises without one)."""
     config = config if config is not None else config_params
     if config is None:
         raise ValueError("config (dict or json path) is required")
@@ -67,10 +89,6 @@ def initialize(model: Any = None, loss_fn: Optional[Callable] = None,
         raise NotImplementedError(
             "a device mesh / topology is not ported yet: ROADMAP.md, queue "
             "A.3.1 (distributed training)")
-    if training_data is not None:
-        raise NotImplementedError(
-            "the engine's data loader is not ported yet: ROADMAP.md, queue "
-            "A.3.3 (runtime/dataloader.py); pass batches to train_batch")
     dev = resolve_device(device)
     if loss_fn is None:
         if model is None or not hasattr(model, "loss"):
@@ -82,7 +100,14 @@ def initialize(model: Any = None, loss_fn: Optional[Callable] = None,
         params = model.init_params(device=dev)
     engine = Engine(loss_fn=loss_fn, params=params, config=config,
                     lr_schedule=lr_schedule, module=model, device=dev)
-    return _InitTuple(engine, engine.optimizer, None, engine.lr_schedule)
+    dataloader = None
+    if training_data is not None:
+        from .dataloader import DSTpuDataLoader
+
+        dataloader = engine.register_dataloader(
+            DSTpuDataLoader(training_data, dev, batch_fn=collate_fn))
+    return _InitTuple(engine, engine.optimizer, dataloader,
+                      engine.lr_schedule)
 
 
 def _leaves(tree, path=()):
@@ -103,9 +128,73 @@ def _leaves(tree, path=()):
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _index_tree(tree, counter):
+    """``tree``'s structure with each leaf replaced by its position in
+    :func:`_leaves`' order."""
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, counter) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index_tree(v, counter) for v in tree]
+    counter[0] += 1
+    return counter[0] - 1
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _meta(leaf):
+    """A checkpoint-template leaf (shape and dtype, no storage) for a
+    tensor, a numpy value or a zero-argument callable returning one."""
+    if callable(leaf):
+        leaf = leaf()
+    if leaf is None or isinstance(leaf, torch.Tensor) and leaf.is_meta:
+        return leaf
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+    return torch.empty(np.shape(leaf), device="meta",
+                       dtype=torch.from_numpy(np.asarray(leaf)).dtype)
+
+
+def _host_scaler(s: LossScaleState) -> LossScaleState:
+    """A scaler as the JAX package stores it: float32 scale, int32
+    counters."""
+    return LossScaleState(np.float32(s.scale), np.int32(s.good_steps),
+                          np.int32(s.hysteresis_left), np.int32(s.overflows))
+
+
+def _py_scaler(s) -> LossScaleState:
+    """A stored scaler (tensors or numpy) as the port keeps it."""
+    return LossScaleState(float(s.scale), int(s.good_steps),
+                          int(s.hysteresis_left), int(s.overflows))
+
+
+def engine_state_from_jax(opt_state: Any, scaler: Any) -> Dict[str, Any]:
+    """The JAX engine's ``opt_state`` and ``scaler_state`` with numpy
+    leaves (``jax.tree.map(np.asarray, ...)``: optax NamedTuples, tuples
+    and dicts) -> the port's layout for :meth:`Engine.load_engine_state`:
+    ``{"opt_state": nested dicts keyed by the JAX leaf names' segments,
+    "scaler": LossScaleState}``. The counterpart of ``params_from_jax``."""
+    from ..checkpoint.engine import _flatten
+
+    nested: Dict[str, Any] = {}
+    for path, leaf in _flatten(opt_state):
+        node = nested
+        for k in path[:-1]:
+            node = node.setdefault(str(k), {})
+        node[str(path[-1])] = np.asarray(leaf)
+    return {"opt_state": nested,
+            "scaler": _py_scaler(LossScaleState(*(np.asarray(x)
+                                                  for x in scaler)))}
 
 
 class Engine:
@@ -154,9 +243,23 @@ class Engine:
             return t.to(self.device)
 
         self.params = _tree_map(master, params)
-        named = [(p, t) for p, t in _leaves(self.params)
-                 if t.is_floating_point()]
+        # the checkpoint layout: every leaf by its position in _leaves'
+        # order; a "layers" list is stacked [L, ...] when the model's
+        # config says the JAX model scans its layers
+        all_named = list(_leaves(self.params))
+        self._param_leaves = [t for _, t in all_named]
+        self._index = _index_tree(self.params, [0])
+        self._float_pos = [i for i, t in enumerate(self._param_leaves)
+                           if t.is_floating_point()]
+        self._stack_layers = bool(
+            isinstance(self.params, dict)
+            and isinstance(self.params.get("layers"), list)
+            and self.params["layers"]
+            and getattr(getattr(self.module, "config", None), "scan_layers",
+                        False))
+        named = [all_named[i] for i in self._float_pos]
         self._leaf_tensors: List[torch.Tensor] = [t for _, t in named]
+        self._grad_paths = ["/".join(p) for p, _ in named]
 
         # ------------------------------------------------------- optimizer
         sched = self.config.scheduler
@@ -175,6 +278,23 @@ class Engine:
         self._pending: Optional[torch.Tensor] = None
         self._last_grad_norm: Optional[torch.Tensor] = None
         self.losses = None
+
+        # ------------------------------------------------------ resilience
+        from ..checkpoint.ckpt_engine import build_checkpoint_engine
+        from ..utils.podid import pod_rank
+
+        self.checkpoint_engine = build_checkpoint_engine(
+            self.config.checkpoint.engine)
+        self._fi_rank = pod_rank()
+        self._resilience = None   # ResilienceManager (preemption handling)
+        self._dataloader = None   # registered loader (its position is saved)
+        self._sentinel = None
+        self._host_metrics: Optional[Dict[str, Any]] = None
+        if self.config.sentinel.enabled:
+            from .sentinel import TrainingSentinel
+
+            self._sentinel = TrainingSentinel(self, self.config.sentinel,
+                                              rank=self._fi_rank)
 
     # =============================================================== loss core
     def _cast_params(self, params):
@@ -208,32 +328,71 @@ class Engine:
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
-    def _apply_grads(self, grads: List[torch.Tensor]) -> Dict[str, Any]:
+    def _apply_grads(self, grads: List[torch.Tensor],
+                     loss: Optional[torch.Tensor] = None,
+                     gate: Optional[np.ndarray] = None) -> Dict[str, Any]:
         """Unscale, overflow check, pre-clip norm, clip, gated update and
         loss-scale transition (``engine.py:862-917``). Grads are modified in
-        place."""
+        place.
+
+        ``gate`` (the sentinel's ``[loss_cap, grad_scale]``, with the step's
+        mean ``loss``) arms the health gate: the grads are scaled by
+        ``grad_scale`` first; ``finite`` is computed in any precision, with
+        the health scalars (on the unclipped grads, as the JAX package's
+        optax chain clips after them); and the update is applied only when
+        ``finite`` and ``loss <= loss_cap`` (read on the host). A gated step
+        leaves the whole optimizer state as it was; the scaler moves on
+        ``finite`` alone."""
+        health: Dict[str, Any] = {}
+        if gate is not None and float(gate[1]) != 1.0 and grads:
+            torch._foreach_mul_(grads, float(gate[1]))
         unscale_grads(grads, self.scaler_state)
-        finite = grads_finite(grads) if self.fp16_enabled \
-            else torch.ones((), dtype=torch.bool, device=self.device)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads))) if grads \
+        norms = torch._foreach_norm(grads) if grads else []
+        grad_norm = torch.linalg.vector_norm(torch.stack(norms)) if grads \
             else torch.zeros((), device=self.device)
+        if gate is not None:
+            from .sentinel import nonfinite_count, region_norms
+
+            health = region_norms(self._grad_paths, norms)
+            # one host read: the gate's inputs and the sentinel's scalars
+            # (NaN compares false: a nonfinite loss is gated at any cap)
+            host = dict(zip(("loss_ok", "loss", "grad_norm", *health),
+                            torch.stack([(loss <= float(gate[0])).float(),
+                                         loss, grad_norm, *health.values()]
+                                        ).tolist()))
+            # a finite global norm means no nonfinite element: the count (a
+            # pass over the grads, a second read) only when it is not
+            nonfinite = 0 if math.isfinite(host["grad_norm"]) else \
+                int(nonfinite_count(grads))
+            finite_h = nonfinite == 0
+            apply = finite_h and host.pop("loss_ok") > 0
+            health["health_nonfinite"] = torch.tensor(
+                nonfinite, dtype=torch.int32, device=self.device)
+            finite = torch.tensor(finite_h, device=self.device)
+            self._host_metrics = dict(host, finite=finite_h,
+                                      health_nonfinite=nonfinite)
+        elif self.fp16_enabled:
+            finite = grads_finite(grads)
+            finite_h = apply = bool(finite)
+        else:
+            finite = torch.ones((), dtype=torch.bool, device=self.device)
+            finite_h = apply = True
         clip = self.config.gradient_clipping
         if clip and clip > 0 and grads:
             # optax.clip_by_global_norm: scale only when norm > max_norm
             factor = torch.where(grad_norm < clip,
                                  torch.ones_like(grad_norm), clip / grad_norm)
             torch._foreach_mul_(grads, factor)
-        ok = bool(finite) if self.fp16_enabled else True
-        if ok:
+        if apply:
             self.optimizer.step(grads)
         fp16 = self.config.fp16
         self.scaler_state = update_loss_scale(
-            self.scaler_state, ok, dynamic=self.fp16_enabled and fp16.dynamic,
+            self.scaler_state, finite_h,
+            dynamic=self.fp16_enabled and fp16.dynamic,
             scale_window=fp16.loss_scale_window,
             min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
         self._last_grad_norm = grad_norm
-        return {"grad_norm": grad_norm, "finite": finite,
+        return {**health, "grad_norm": grad_norm, "finite": finite,
                 "loss_scale": self.scaler_state.scale}
 
     # ============================================================ fused path
@@ -241,7 +400,12 @@ class Engine:
         """One optimizer step on one global batch (leading dim =
         ``train_batch_size``), cut into ``gradient_accumulation_steps``
         micro-batches. Returns ``loss``, the loss function's metrics
-        (``lm_loss``), ``grad_norm``, ``finite`` and ``loss_scale``."""
+        (``lm_loss``), ``grad_norm``, ``finite``, ``loss_scale`` and, with
+        the sentinel armed, its ``health_*`` scalars; None when the sentinel
+        drops a journaled bad batch before dispatch (the step count does
+        not move, so the replayed run keeps the clean run's numbering)."""
+        if self._sentinel is not None and self._sentinel.offer_batch():
+            return None
         gas = self.config.gradient_accumulation_steps
         batch = self._to_device(batch)
         for k, v in batch.items():
@@ -249,6 +413,13 @@ class Engine:
                 raise ValueError(f"batch[{k!r}] leading dim {v.shape[0]} is "
                                  f"not a multiple of gradient_accumulation_"
                                  f"steps={gas}")
+        fi = get_fault_injector()
+        if fi.armed:
+            # numerical fault: poison the data of step global_steps + 1
+            batch = fi.corrupt_batch(self._fi_rank, self.global_steps + 1,
+                                     batch)
+        gate = self._sentinel.gate_array() if self._sentinel is not None \
+            else None
         self._zero_grads()
         losses, metrics = [], []
         for i in range(gas):
@@ -262,12 +433,22 @@ class Engine:
             torch._foreach_div_(grads, float(gas))
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
-        out.update(self._apply_grads(grads))
-        out["loss"] = torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        out.update(self._apply_grads(grads, loss=loss, gate=gate))
+        out["loss"] = loss
         self._zero_grads()
         self.global_steps += 1
         self.micro_steps += gas
         self._log(out)
+        self._post_step(out)
+        if fi.armed:
+            rc = fi.should_kill(self._fi_rank, self.global_steps)
+            if rc is not None:
+                # a crash, not a preemption: no save, no cleanup
+                logger.error("fault injection: rank %d dying with rc=%d "
+                             "after step %d", self._fi_rank, rc,
+                             self.global_steps)
+                os._exit(rc)
         return out
 
     # ============================================================ eager path
@@ -317,7 +498,20 @@ class Engine:
         self._accum_losses = []
         self.global_steps += 1
         self._log(out)
+        self._post_step(out)
         return out
+
+    def _post_step(self, out: Dict[str, Any]) -> None:
+        """The step boundary (``engine.py:1601``): the sentinel queues this
+        step's scalars (and decides the ones ``lag`` steps old); a pending
+        preemption saves and exits here, where nothing is in flight."""
+        if self._sentinel is not None:
+            # the gate's host copy of the scalars when the step had one (no
+            # second read), else the device metrics
+            host, self._host_metrics = self._host_metrics, None
+            self._sentinel.at_step_boundary(self.global_steps, host or out)
+        if self._resilience is not None:
+            self._resilience.at_step_boundary()
 
     def __call__(self, batch):
         return self.forward(batch)
@@ -359,18 +553,278 @@ class Engine:
     def train_batch_size(self) -> int:
         return self.config.train_batch_size
 
-    # ================================================ not ported (queue A.3)
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpointing is not ported yet: ROADMAP.md, queue A.3.3 "
-            "(resilience: checkpoint/engine.py)")
+    def register_dataloader(self, loader):
+        """Attach the loader feeding ``train_batch``: its position
+        (``state_dict``) rides the checkpoint meta, so a resume continues
+        the stream and the sentinel's rollback rewinds it. ``initialize``
+        registers the loader it builds."""
+        self._dataloader = loader
+        return loader
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpointing is not ported yet: ROADMAP.md, queue A.3.3 "
-            "(resilience: checkpoint/engine.py)")
+    # ============================================================ resilience
+    def enable_preemption_handling(self, save_dir: str,
+                                   install_signal_handlers: bool = True,
+                                   exit_fn: Optional[Callable[[int], None]]
+                                   = None):
+        """Arm preemption handling: a SIGTERM / SIGINT (or an injected
+        ``preempt_at_step``) saves a checkpoint into ``save_dir`` at the
+        next step boundary, then exits with ``PREEMPTION_EXIT_CODE`` (217),
+        which the elastic agent restarts for free. Returns the
+        :class:`~.resilience.ResilienceManager`."""
+        from .resilience import ResilienceManager
 
-    def enable_preemption_handling(self, *args, **kwargs):
+        self._resilience = ResilienceManager(self, save_dir, exit_fn=exit_fn)
+        if install_signal_handlers:
+            self._resilience.install()
+        return self._resilience
+
+    # ============================================================ checkpoint
+    def _layout(self, values: List[Any]) -> Any:
+        """One value per param leaf (None drops it) -> the JAX package's
+        params tree. Stacked layer leaves are callables that stack when the
+        writer reaches them, so one stacked leaf at a time is held."""
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [build(v) for v in node]
+            return values[node]
+
+        if not self._stack_layers:
+            return build(self._index)
+        out = {k: build(v) for k, v in self._index.items() if k != "layers"}
+        layers = self._index["layers"]
+
+        def stack(node, path):
+            if isinstance(node, dict):
+                return {k: stack(v, path + (k,)) for k, v in node.items()}
+            parts = [values[_get(layer, path)] for layer in layers]
+            if parts[0] is None:
+                return None
+            return lambda: torch.stack(parts)
+
+        out["layers"] = stack(layers[0], ())
+        return out
+
+    def _unlayout(self, tree: Any) -> List[Any]:
+        """:meth:`_layout`'s inverse: one value per param leaf (layer ``i``
+        of a stacked leaf is its ``[i]``)."""
+        out: List[Any] = [None] * len(self._param_leaves)
+
+        def walk(node, val):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, val[k])
+            elif isinstance(node, list):
+                for n, v in zip(node, val):
+                    walk(n, v)
+            else:
+                out[node] = val
+
+        if not self._stack_layers:
+            walk(self._index, tree)
+            return out
+        for k, v in self._index.items():
+            if k != "layers":
+                walk(v, tree[k])
+        for i, node in enumerate(self._index["layers"]):
+            walk(node, _tree_map(lambda x, i=i: x[i], tree["layers"]))
+        return out
+
+    def _moments_layout(self, values: List[Any]) -> Any:
+        """Optimizer values (one per floating param) in the params
+        layout."""
+        full: List[Any] = [None] * len(self._param_leaves)
+        for i, v in zip(self._float_pos, values):
+            full[i] = v
+        return self._layout(full)
+
+    @property
+    def _clip(self) -> bool:
+        return bool(self.config.gradient_clipping
+                    and self.config.gradient_clipping > 0)
+
+    def _state_tree(self, template: bool = False) -> Dict[str, Any]:
+        """What a checkpoint holds: ``params``, ``opt_state`` and
+        ``scaler`` in the JAX package's layout; with ``template``, leaves
+        of the same shapes and dtypes on the ``meta`` device."""
+        meta = ((lambda ts: [_meta(t) for t in ts]) if template
+                else (lambda ts: [t.detach() for t in ts]))
+        tree = {"params": self._layout(meta(self._param_leaves)),
+                "opt_state": self.optimizer.state_tree(
+                    lambda ts: self._moments_layout(meta(ts)), self._clip),
+                "scaler": _host_scaler(self.scaler_state)}
+        return _tree_map(_meta, tree) if template else tree
+
+    @torch.no_grad()
+    def load_engine_state(self, state: Dict[str, Any],
+                          params: Any = None) -> None:
+        """Take ``opt_state`` and ``scaler`` (the layout a checkpoint
+        holds, or :func:`engine_state_from_jax`'s) and, when given,
+        ``params`` in the JAX layout, copying into the engine's own
+        tensors."""
+        if params is not None:
+            self._load_params(params)
+        floats = set(self._float_pos)
+        self.optimizer.load_state_tree(
+            state["opt_state"],
+            lambda tree: [v for i, v in enumerate(self._unlayout(tree))
+                          if i in floats], self._clip)
+        self.scaler_state = _py_scaler(state["scaler"])
+
+    @torch.no_grad()
+    def _load_params(self, params: Any) -> None:
+        for dst, src in zip(self._param_leaves, self._unlayout(params)):
+            dst.copy_(src if isinstance(src, torch.Tensor)
+                      else torch.from_numpy(np.array(src)))
+
+    @staticmethod
+    def _refuse_process_group(what: str) -> None:
+        """Tag validation and resume-tag agreement across ranks (JAX
+        ``engine.py:2040, 1982``) are the identity on one process; a
+        process group of more is not ported."""
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                f"{what} across a process group is not ported yet: "
+                f"ROADMAP.md, queue A.3.1 (distributed training)")
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True) -> str:
+        """Save through the configured checkpoint engine (``native``, or
+        ``async``, which returns after the host copy) as
+        ``<save_dir>/<tag>`` (default ``global_step<N>``), then point
+        ``latest`` at it and rotate (``checkpoint.keep_last_n``). Returns
+        the tag's path."""
+        tag = tag or f"global_step{self.global_steps}"
+        self._refuse_process_group("checkpoint tag validation")
+        path = os.path.join(save_dir, tag)
+        meta = {"global_steps": self.global_steps,
+                "micro_steps": self.micro_steps,
+                "skipped_steps": self.skipped_steps,
+                "config": {"zero_stage": self.zero_stage},
+                "client_state": client_state or {}}
+        if self._dataloader is not None and \
+                hasattr(self._dataloader, "state_dict"):
+            meta["dataloader"] = self._dataloader.state_dict()
+        if self._sentinel is not None:
+            meta["sentinel"] = self._sentinel.state_dict()
+        post_commit = None
+        keep = self.config.checkpoint.keep_last_n
+        if keep and self._fi_rank == 0:
+            from ..checkpoint.engine import rotate_checkpoints
+
+            # rides the post-commit hook: rotation sees the new tag durable
+            post_commit = lambda: rotate_checkpoints(save_dir, keep)  # noqa: E731
+        self.checkpoint_engine.save(
+            path, self._state_tree(), meta,
+            latest_file=(os.path.join(save_dir, LATEST_FILE)
+                         if save_latest else None),
+            tag=tag, post_commit=post_commit)
+        if self._sentinel is not None:
+            # queued for last-good promotion K healthy steps from now
+            self._sentinel.note_checkpoint(tag, self.global_steps, save_dir)
+        logger.info("saved checkpoint %s (%s engine)", path,
+                    self.checkpoint_engine.name)
+        return path
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True
+                        ) -> Tuple[Optional[str], Dict]:
+        """Restore ``<load_dir>/<tag>``, or with no tag the newest verified
+        one (``latest``'s first). A tag that verifies but tears before the
+        read (``CheckpointCorruptionError``) is quarantined and the
+        resolution retried; an explicit ``tag`` is never walked past.
+        Returns ``(path or None, client_state)``."""
+        from ..checkpoint.engine import (CheckpointCorruptionError,
+                                         quarantine_tag)
+        from ..monitor.monitor import resilience_counters
+
+        while True:
+            try:
+                return self._load_checkpoint_once(load_dir, tag,
+                                                  load_optimizer_states)
+            except CheckpointCorruptionError as e:
+                if tag is not None:
+                    raise
+                logger.warning("checkpoint %s corrupt on read (%s); "
+                               "quarantining and retrying resolution",
+                               e.path, e.reason)
+                resilience_counters.incr("corrupt_tags_skipped")
+                quarantine_tag(e.path)
+
+    def _load_checkpoint_once(self, load_dir: str, tag: Optional[str],
+                              load_optimizer_states: bool
+                              ) -> Tuple[Optional[str], Dict]:
+        # an async save may still be writing `latest`
+        self.checkpoint_engine.wait()
+        if self._fi_rank == 0:
+            # a save killed before this restart left .staging-* orphans (or
+            # a torn-pod tag): resume is the sweep point
+            from ..checkpoint.ckpt_engine import sweep_staging_dirs
+
+            sweep_staging_dirs(load_dir)
+        if tag is None:
+            tag = self._resolve_resume_tag(load_dir)
+            if tag is None:
+                return None, {}
+        path = os.path.join(load_dir, tag)
+        self._refuse_reference_format(path)
+        state, meta = self.checkpoint_engine.load(
+            path, self._state_tree(template=True), device=self.device)
+        if load_optimizer_states:
+            self.load_engine_state(state, params=state["params"])
+        else:
+            self._load_params(state["params"])
+        del state
+        self.global_steps = meta.get("global_steps", 0)
+        self.micro_steps = meta.get("micro_steps", 0)
+        if self._dataloader is not None and "dataloader" in meta and \
+                hasattr(self._dataloader, "load_state_dict"):
+            self._dataloader.load_state_dict(meta["dataloader"])
+        if self._sentinel is not None and "sentinel" in meta:
+            self._sentinel.load_state_dict(meta["sentinel"])
+        logger.info("loaded checkpoint %s", path)
+        return path, meta.get("client_state", {})
+
+    def _resolve_resume_tag(self, load_dir: str) -> Optional[str]:
+        """The tag ``latest`` names if it verifies, else the newest that
+        does (shallow: the read checks every leaf's crc32). None when
+        nothing is loadable."""
+        from ..checkpoint.engine import _read_latest, find_latest_valid_tag
+        from ..monitor.monitor import resilience_counters
+
+        pointed = _read_latest(load_dir)
+        if pointed is not None:
+            self._refuse_reference_format(os.path.join(load_dir, pointed))
+        tag, skipped = find_latest_valid_tag(load_dir, deep=False)
+        for skipped_tag, reason in skipped:
+            logger.warning("skipping corrupt checkpoint %s: %s",
+                           os.path.join(load_dir, skipped_tag), reason)
+            resilience_counters.incr("corrupt_tags_skipped")
+        self._refuse_process_group("resume-tag agreement")
+        if tag is None:
+            logger.warning("no loadable checkpoint in %s; nothing loaded",
+                           load_dir)
+            return None
+        if tag != pointed or skipped:
+            resilience_counters.incr("fallback_loads")
+            logger.warning("fallback load: resuming %s (latest pointer was "
+                           "%r)", os.path.join(load_dir, tag), pointed)
+        return tag
+
+    @staticmethod
+    def _refuse_reference_format(path: str) -> None:
+        if glob.glob(os.path.join(path, "mp_rank_*_model_states.pt")):
+            raise NotImplementedError(
+                f"{path} is a reference-format (mp_rank_*_model_states.pt) "
+                f"checkpoint; its importer is not ported yet: ROADMAP.md, "
+                f"queue A.3.5 (checkpoint formats, checkpoint/ds_import.py)")
+
+    def save_16bit_model(self, *args, **kwargs):
         raise NotImplementedError(
-            "preemption handling is not ported yet: ROADMAP.md, queue A.3.3 "
-            "(resilience: runtime/resilience.py)")
+            "save_16bit_model (a reference-format state dict) is not ported "
+            "yet: ROADMAP.md, queue A.3.5 (checkpoint formats)")

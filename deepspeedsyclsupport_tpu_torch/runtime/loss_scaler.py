@@ -68,3 +68,10 @@ def unscale_grads(grads: List[torch.Tensor], state: LossScaleState) -> None:
     """Multiply float32 grads by ``1 / scale`` in place."""
     if state.scale != 1.0 and grads:
         torch._foreach_mul_(grads, 1.0 / state.scale)
+
+
+def overflow_ledger(state: LossScaleState) -> dict:
+    """The scaler's overflow bookkeeping for the training sentinel's
+    journal (its divergence abort record)."""
+    return {"overflows": int(state.overflows), "scale": float(state.scale),
+            "good_steps": int(state.good_steps)}

@@ -15,6 +15,18 @@ under ``inject_hyperparams``; :class:`Adam` follows the same algebra with
   incremented, as ``optax.inject_hyperparams`` does; :attr:`Adam.last_lr`
   is what ``current_lr`` reports (the reference's ``param_groups[0]['lr']``).
 
+The state is checkpointed in the JAX package's optax layout, leaf for leaf
+(:meth:`Adam.state_tree`): ``inject_hyperparams``' ``count``,
+``hyperparams`` (``b1``, ``b2``, ``eps``, ``eps_root``, ``learning_rate``
+and, for AdamW, ``weight_decay``: float32) and the schedule's ``count``,
+then ``scale_by_adam``'s ``count``, ``mu`` and ``nu`` (counts int32), all
+under ``1/`` when gradient clipping puts ``clip_by_global_norm``'s empty
+state at index 0 of a chain. The stored ``learning_rate`` is the float32
+value of the last update's rate (the schedule at step 0 before one), as
+optax carries it; a loaded value is carried as it was read. The config's
+betas and eps drive the arithmetic; the stored ones are carried for the
+format.
+
 The reference's fused Adam is not a TPU kernel (``optimizers.py:10-13``: a
 jitted optax update is the fused multi-tensor kernel there), so none is
 written here: the foreach ops are PyTorch's multi-tensor kernels. Lamb,
@@ -23,6 +35,7 @@ Lion, SGD, Adagrad and the 1-bit family raise ``NotImplementedError``.
 import fnmatch
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 ADAM_FAMILY = ("adam", "adamw", "fusedadam", "cpuadam")
@@ -77,10 +90,19 @@ class Adam:
         self.schedule = schedule
         self.b1, self.b2 = betas
         self.eps = eps
+        self.decoupled = decoupled
         self.weight_decay = weight_decay if decoupled else 0.0
         self.mask = mask
         self.count = 0
         self.last_lr = float(schedule(0))
+        # optax's stored hyperparams (float32), carried into checkpoints
+        self.hyperparams = {"b1": np.float32(self.b1),
+                            "b2": np.float32(self.b2),
+                            "eps": np.float32(eps),
+                            "eps_root": np.float32(0.0),
+                            "learning_rate": np.float32(self.last_lr)}
+        if decoupled:
+            self.hyperparams["weight_decay"] = np.float32(weight_decay)
         self.params: List[torch.Tensor] = []
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
@@ -130,6 +152,39 @@ class Adam:
             torch._foreach_add_(p, upd, alpha=-lr)
         self.count = t
         self.last_lr = lr
+        self.hyperparams["learning_rate"] = np.float32(lr)
+
+    def state_tree(self, layout: Callable[[List[Any]], Any],
+                   clip: bool) -> Dict[str, Any]:
+        """The state in the JAX package's optax layout (module docstring).
+        ``layout`` turns a list parallel to the params (the moments) into
+        the JAX package's params tree; ``clip``: gradient clipping is on."""
+        count = np.int32(self.count)
+        inject = {"count": count,
+                  "hyperparams": dict(self.hyperparams),
+                  "hyperparams_states": {"learning_rate": {"count": count}},
+                  "inner_state": {"0": {"count": count,
+                                        "mu": layout(self.mu),
+                                        "nu": layout(self.nu)}}}
+        return {"1": inject} if clip else inject
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict[str, Any],
+                        unlayout: Callable[[Any], List[Any]],
+                        clip: bool) -> None:
+        """Restore from :meth:`state_tree`'s layout (leaves tensors or
+        numpy): the moments are copied into the existing tensors;
+        ``unlayout`` is ``layout``'s inverse."""
+        inject = tree["1"] if clip else tree
+        self.count = int(inject["count"])
+        self.hyperparams = {k: np.float32(float(v)) for k, v in
+                            inject["hyperparams"].items()}
+        self.last_lr = float(self.hyperparams["learning_rate"])
+        adam = inject["inner_state"]["0"]
+        for dst, src in ((self.mu, adam["mu"]), (self.nu, adam["nu"])):
+            for d, x in zip(dst, unlayout(src)):
+                d.copy_(x if isinstance(x, torch.Tensor)
+                        else torch.from_numpy(np.array(x)))
 
 
 def build_optimizer(opt_type: str, params: Dict[str, Any],

@@ -1530,3 +1530,109 @@ def test_snapshot_round_trip_on_the_card(dev, tmp_path):
     assert torch.equal(logits[0], logits[1])
     assert eng.generate(prompts, max_new_tokens=8) == \
         eng2.generate(prompts, max_new_tokens=8)
+
+
+# ------------------------------------------------ checkpoints and the sentinel
+def test_async_checkpoint_copies_card_tensors_before_return(dev, tmp_path):
+    """The async engine's ``save`` returns after a device -> pinned host
+    copy it waited for: updating the card tensors in place right after (as
+    the optimizer does) leaves the saved bytes those of the step saved."""
+    from deepspeedsyclsupport_tpu_torch.checkpoint import ckpt_engine as ce
+    from deepspeedsyclsupport_tpu_torch.checkpoint.engine import load_tree
+    from deepspeedsyclsupport_tpu_torch.utils.fault_injection import (
+        configure_fault_injection)
+
+    w = torch.randn(1 << 22, device=dev)
+    h = torch.randn(64, 64, device=dev).to(torch.bfloat16)
+    want = (w.cpu().clone(), h.cpu().clone())
+    configure_fault_injection({"async_delay": 0.3})
+    try:
+        eng = ce.build_checkpoint_engine("async")
+        eng.save(str(tmp_path / "t"), {"w": w, "h": lambda: h * 1},
+                 {"global_steps": 1})
+        w.add_(1.0)
+        h.mul_(2)
+        eng.wait()
+    finally:
+        configure_fault_injection(None)
+    got, _ = load_tree(str(tmp_path / "t"), {
+        "w": torch.empty(w.shape, device="meta"),
+        "h": torch.empty(h.shape, dtype=torch.bfloat16, device="meta")},
+        device=dev)
+    assert got["w"].device.type == dev.type
+    assert torch.equal(got["w"].cpu(), want[0])
+    assert torch.equal(got["h"].cpu(), want[1])
+
+
+def test_dataloader_pins_and_copies_to_the_card(dev):
+    from deepspeedsyclsupport_tpu_torch.runtime.dataloader import (
+        CheckpointableDataLoader, DSTpuDataLoader)
+
+    rng = np.random.RandomState(0)
+    data = [{"ids": rng.randint(0, 9, (2, 8)), "x": rng.randn(2, 4)}
+            for _ in range(5)]
+    for loader in (DSTpuDataLoader(data, dev, prefetch=2),
+                   CheckpointableDataLoader(data, dev, shuffle=True, seed=1)):
+        order = loader._order(0) if hasattr(loader, "_order") else range(5)
+        for i, b in zip(order, loader):
+            assert b["ids"].device.type == dev.type
+            np.testing.assert_array_equal(b["ids"].cpu().numpy(),
+                                          data[i]["ids"])
+            np.testing.assert_array_equal(b["x"].cpu().numpy(), data[i]["x"])
+
+
+def test_sentinel_gate_on_the_card(dev, tmp_path):
+    """A NaN step is discarded on the card (params and the optimizer
+    state bit-unchanged) and journaled as a skip; an armed clean run equals
+    an unarmed one bit for bit; a save / load round trip resumes bit for
+    bit."""
+    import json
+
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+    from deepspeedsyclsupport_tpu_torch.utils.fault_injection import (
+        configure_fault_injection)
+
+    def engine(extra):
+        model = build_model("tiny", dtype="bfloat16", attn_impl="xla")
+        params = model.init_params(
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        cfg = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+               "gradient_clipping": 1.0, **extra}
+        return initialize(model=model, params=params, config=cfg,
+                          device=dev)[0]
+
+    rng = np.random.RandomState(1)
+    batches = [{"input_ids": rng.randint(0, 512, (2, 64)),
+                "loss_mask": np.ones((2, 64), np.float32)} for _ in range(4)]
+    sentinel = {"sentinel": {"enabled": True,
+                             "journal_dir": str(tmp_path / "j")}}
+    plain, armed = engine({}), engine(sentinel)
+    for b in batches:
+        assert float(plain.train_batch(b)["loss"]) == float(
+            armed.train_batch(b)["loss"])
+    armed.save_checkpoint(str(tmp_path / "ckpt"))
+    fresh = engine(sentinel)
+    fresh.load_checkpoint(str(tmp_path / "ckpt"))
+    for a, b in zip(armed._leaf_tensors, fresh._leaf_tensors):
+        assert torch.equal(a, b)
+    configure_fault_injection({"nan_step": {"rank": 0, "step": 6}})
+    try:
+        assert float(armed.train_batch(batches[0])["loss"]) == float(
+            fresh.train_batch(batches[0])["loss"])
+        before = [t.detach().clone() for t in fresh._leaf_tensors]
+        mu = [t.clone() for t in fresh.optimizer.mu]
+        m = fresh.train_batch(batches[1])       # step 6: NaN
+        for a, b in zip(before, fresh._leaf_tensors):
+            assert torch.equal(a, b.detach())
+        for a, b in zip(mu, fresh.optimizer.mu):
+            assert torch.equal(a, b)
+        fresh.train_batch(batches[2])           # its verdict (lag 1)
+    finally:
+        configure_fault_injection(None)
+    assert not bool(m["finite"]) and int(m["health_nonfinite"]) > 0
+    assert fresh.optimizer.count == 6 and fresh.skipped_steps == 1
+    lines = (tmp_path / "j" / "health_journal_rank0.jsonl").read_text()
+    skips = [json.loads(x) for x in lines.splitlines()
+             if json.loads(x)["event"] == "skip"]
+    assert [(r["step"], r["cause"]) for r in skips] == [(6, "nonfinite")]

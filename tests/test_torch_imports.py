@@ -47,13 +47,14 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 53
+    assert int(proc.stdout.split()[0]) >= 55
     for name in ("compression.quantize", "parallel.moe",
                  "ops.flash_attention", "ops.evoformer_attn",
                  "ops.sparse_attention", "runtime.engine", "runtime.config",
                  "runtime.optimizers", "runtime.lr_schedules",
                  "runtime.loss_scaler", "runtime.constants",
                  "runtime.resilience", "runtime.sentinel",
+                 "runtime.dataloader", "checkpoint.ckpt_engine",
                  "utils.logging", "utils.podid", "utils.fault_injection",
                  "comm.watchdog", "monitor.reqtrace", "monitor.telemetry",
                  "monitor.monitor", "inference.v2.serving",

@@ -375,7 +375,9 @@ def test_activation_checkpointing_config_sets_remat():
      "A.3.1"),
     ({"parallelism": {"tp": 2}}, "A.3.1"),
     ({"pipeline": {"stages": 2}}, "A.3.1"),
-    ({"sentinel": {"enabled": True}}, "A.3.3"),
+    ({"elasticity": {"enabled": True}}, "A.3.1"),
+    ({"checkpoint": {"load_universal": True}}, "A.3.5"),
+    ({"checkpoint": {"use_node_local_storage": True}}, "A.3.1"),
     ({"telemetry": {"enabled": True}}, "A.3.4"),
     ({"tensorboard": {"enabled": True}}, "A.3.4"),
     ({"flops_profiler": {"enabled": True}}, "A.3.4"),
@@ -415,10 +417,8 @@ def test_initialize_without_device_raises_here():
 def test_unported_engine_features_raise():
     _, jparams = _jax_tiny()
     eng, _ = _port_engine(ENGINE_CFG, "float32", jparams)
-    for fn in (eng.save_checkpoint, eng.load_checkpoint,
-               eng.enable_preemption_handling):
-        with pytest.raises(NotImplementedError, match="A.3.3"):
-            fn("somewhere")
+    with pytest.raises(NotImplementedError, match=r"A\.3\.5"):
+        eng.save_16bit_model("somewhere")
     with pytest.raises(NotImplementedError, match="A.3.1"):
         teng.initialize(model=build_model("tiny"), config=ENGINE_CFG,
                         topology=object(), device="cpu")

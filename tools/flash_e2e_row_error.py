@@ -8,8 +8,9 @@ backward) and dS (dQ and dK) to the tensor cores as operands of the input
 type; the JAX package keeps both in float32. This script measures, at the
 ``chip_smoke.py`` phase 9 shapes cut for CPU time:
 
-* ``jax``: bf16 inputs, ``jax.vjp`` of the JAX flash attention (its Pallas
-  kernels in interpret mode), delta from its own bf16 O;
+* ``jax``: inputs of ``--dtype`` (bf16 or fp16), ``jax.vjp`` of the JAX
+  flash attention (its Pallas kernels in interpret mode), delta from its
+  own O in that type;
 * the port's kernels emulated in torch (:func:`emulate_port`): the
   forward's online softmax over 128-key tiles with P rounded or not, O in
   the input type, delta from that O, then P and dS each rounded to the type,
@@ -38,8 +39,8 @@ CPU time:
   B 4 -> 1;
 * causal: the full-bias shape without any bias (the unbiased route).
 Inputs are random normal from ``--seed`` (numpy), rounded to the dtype
-(``--dtype``; the JAX rows are bf16 only). Prints one line per shape and
-variant and a JSON line. Run from the repository root:
+(``--dtype``, bf16 by default; the JAX rows take the same type). Prints
+one line per shape and variant and a JSON line. Run from the repository root:
 
     JAX_PLATFORMS=cpu python tools/flash_e2e_row_error.py [--no-jax]
 """
@@ -264,35 +265,35 @@ def port_rows(c, arrays, dtype, variants=VARIANTS, rows_per_pass=8):
             for name, st in stats.items()}
 
 
-def jax_grads(c, arrays):
-    """dq, dk, dv of the JAX flash attention in bf16 (its Pallas kernels in
-    interpret mode, delta from its own bf16 O) on ``arrays`` (from
-    :func:`inputs`), as float32 numpy arrays."""
+def jax_grads(c, arrays, dtype="bfloat16"):
+    """dq, dk, dv of the JAX flash attention in ``dtype`` (its Pallas
+    kernels in interpret mode, delta from its own O in that type) on
+    ``arrays`` (from :func:`inputs`), as float32 numpy arrays."""
     import jax
     import jax.numpy as jnp
 
     from deepspeedsyclsupport_tpu.ops.flash_attention import flash_attention
 
     q, k, v, do, bias, kbias = arrays
+    jt = getattr(jnp, dtype)
 
     def f(q_, k_, v_):
         return flash_attention(
             q_, k_, v_, causal=c["causal"],
-            bias=None if bias is None else jnp.asarray(bias, jnp.bfloat16),
-            k_bias=None if kbias is None else jnp.asarray(kbias,
-                                                          jnp.bfloat16),
+            bias=None if bias is None else jnp.asarray(bias, jt),
+            k_bias=None if kbias is None else jnp.asarray(kbias, jt),
             block_q=128, block_k=128, interpret=True)
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, jt) for x in (q, k, v)))
     return [np.asarray(x.astype(jnp.float32))
-            for x in vjp(jnp.asarray(do, jnp.bfloat16))]
+            for x in vjp(jnp.asarray(do, jt))]
 
 
-def measure(name, c, seed):
-    """The JAX package's bf16 end-to-end rows against fp64."""
-    arrays = inputs(c, seed)
+def measure(name, c, seed, dtype="bfloat16"):
+    """The JAX package's end-to-end rows in ``dtype`` against fp64."""
+    arrays = inputs(c, seed, dtype)
     t0 = time.perf_counter()
-    dq, dk, dv = jax_grads(c, arrays)
+    dq, dk, dv = jax_grads(c, arrays, dtype)
     secs = time.perf_counter() - t0
     rq, rk, rv = oracle(*arrays, c["causal"])
     return dict(shape=name, dq_row=row_err(dq, rq), dk_row=row_err(dk, rk),
@@ -305,7 +306,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=sorted(shapes(1)))
     ap.add_argument("--dtype", choices=("bfloat16", "float16"),
-                    default="bfloat16", help="the port's rows' input type")
+                    default="bfloat16", help="the input type of both packages' rows")
     ap.add_argument("--rows-per-pass", type=int, default=8,
                     help="batch rows the port's emulation takes at once")
     ap.add_argument("--variants", nargs="+", choices=sorted(VARIANTS),
@@ -322,8 +323,8 @@ def main():
                 f"{' causal' if c['causal'] else ''}")
         r = dict(shape=name, dims=dict(c, bias=c["bias"] and list(c["bias"])))
         if not args.no_jax:
-            r["jax"] = measure(name, c, args.seed)
-            print(f"{name}: {dims}: JAX bf16 end to end vs fp64 row error "
+            r["jax"] = measure(name, c, args.seed, args.dtype)
+            print(f"{name}: {dims}: JAX {args.dtype} end to end vs fp64 row error "
                   f"dQ {r['jax']['dq_row']:.4g}, dK {r['jax']['dk_row']:.4g}, "
                   f"dV {r['jax']['dv_row']:.4g} ({r['jax']['seconds']} s)",
                   flush=True)
