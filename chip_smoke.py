@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (dense and MoE, quantized; the SLA
-serving session, its supervisor and the engine snapshot), training (with
-checkpoints, resume, preemption and the training sentinel), evoformer and
-block-sparse attention paths on one NVIDIA GPU and check them.
+serving session, its supervisor, the engine snapshot and the serving fleet
+with cross-replica failover), training (dense and MoE, with checkpoints,
+resume, preemption and the training sentinel), the lse-returning flash
+attention, evoformer and block-sparse attention paths on one NVIDIA GPU
+and check them.
 
 Run from the repository root on a machine with one H100:
 
@@ -44,6 +46,16 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              (llama2-1b, unaligned-4000). In bf16 the end-to-end dQ rows
              (the kernels' own O and LSE) are held at llama2-1b
              (``E2E_DQ_ROW_LIMIT``, ROADMAP C2) and logged elsewhere.
+   flash-lse — ``flash_attention(..., return_lse=True)`` forward and
+             backward with a random dLSE (ring attention's block combiner)
+             at llama2-1b's shape, a ring block whose first 2048 query rows
+             and last 2048 keys see nothing, and the MSA pair-bias shape
+             (the reducing dbias on delta - dLSE), in bf16, fp16 and
+             float32: one launch of each kernel a call, O and LSE against
+             the plain forward, the grads end to end by their largest
+             magnitude and the backward kernels on the plain forward's
+             LSE and delta - dLSE also row by row, exact -1e30 LSE and zero
+             O / dQ / dK / dV where nothing is visible, bits repeat.
 5. serve   — ``InferenceEngineV2`` serving llama2-7b at full width and depth
              (bf16, random weights from a seed, one params tree for the
              four phases below): greedy ``generate`` on 8 prompts of
@@ -92,6 +104,17 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
    snapshot — ``serialize`` then ``deserialize(device="cuda")`` at 4
              layers, bf16: prefill logits bit-equal, greedy tokens equal;
              GB written and GB/s each way.
+   fleet   — after the parent frees its model: a ``ReplicaPool`` of two
+             ``ProcessReplica``s (supervised workers, llama2-7b float32 at
+             full depth each, the model's default seed) behind a
+             ``FleetRouter``: 6 prompts of 64-256 tokens, 16 greedy
+             tokens, clean, then again under new uids with replica 0
+             killed once 8 tokens of each of its streams were seen, then
+             replica 0 respawned. Held: one close per uid, the claim =
+             the dead replica's in-flight uids, outputs equal the clean
+             run's, failover replays = streams in flight, the respawned
+             replica recovers nothing. Logged: kill to first replayed
+             token, time to ready, device memory, the router's stats.
    mixtral — ``mixtral-8x7b`` at full width and depth, its layer weights
              int8 (built and quantized one layer at a time: 93 GB in bf16),
              bf16 compute, ``InferenceEngineV2(quantize_weights=True)``
@@ -142,6 +165,14 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
 8. trainpar— llama2-1b width cut to 2 layers, float32, TF32 off, B=2,
              S=2048, 3 steps through the kernels, the plain path and the
              kernels with activation checkpointing.
+   train-moe— mixtral-8x7b at its published widths cut to 2 layers
+             (3.165B params), bf16, ``TRAIN_CONFIG``'s optimizer, B 1 x S
+             4096, remat, through the capacity-buffer MoE: ms a step,
+             tokens/s, peak memory, loss and moe_aux_loss a step, rows
+             dropped at capacity per layer, flash launches held a step;
+             then 1 layer in float32, B 1 x S 2048, 3 steps: kernels vs
+             plain path (``TRAIN_PARITY_TOL``), remat bit-identical to
+             itself.
 9. evoformer— ``DS4Sci_EvoformerAttention`` forward + backward at two
              OpenFold shapes (MSA row attention with pair bias, N_seq 512 x
              N_res 384, 8 heads x 32; triangle attention, 384 x 384, 4 heads
@@ -167,6 +198,7 @@ and, last, ``{"ok": true, "device": {...}}``. Any failure prints its error
 and exits non-zero without that last line.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -933,6 +965,151 @@ def phase_flash(torch, np):
             rows[(c["name"], dtype)] = r
             torch.cuda.empty_cache()
     return rows
+
+
+# --------------------------------------------------------------- flash-lse
+LSE_CASES = [
+    # llama2-1b's training shape, causal
+    dict(name="llama2-1b", b=2, s=4096, h=16, kvh=16, d=128, causal=True),
+    # a ring-attention block: queries at positions 4096-8191 against keys at
+    # 6144-10239, so query rows 0-2047 see no key and keys 2048-4095 no query
+    dict(name="ring-block", b=1, s=4096, h=16, kvh=16, d=128, causal=True,
+         q0=4096, k0=6144),
+    # MSA row attention's shape with its pair bias (the reducing dbias)
+    dict(name="msa-pair-bias", b=512, s=384, h=8, kvh=8, d=32, causal=False,
+         pair=True),
+]
+
+
+def lse_inputs(torch, c, dtype, seed):
+    """q, k, v, dO, dLSE [B, S, H] float32 and the keyword arguments of
+    ``flash_attention`` (positions, pair bias), random from a seed."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    qs = (c["b"], c["s"], c["h"], c["d"])
+    ks = (c["b"], c["s"], c["kvh"], c["d"])
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(tdt)
+                   for shape in (qs, ks, ks, qs))
+    dlse = torch.randn((c["b"], c["s"], c["h"]), generator=gen, device=DEV)
+    kw = dict(causal=c["causal"])
+    if "q0" in c:
+        ar = torch.arange(c["s"], dtype=torch.int32, device=DEV)[None]
+        kw["q_positions"] = (ar + c["q0"]).expand(c["b"], -1)
+        kw["kv_positions"] = (ar + c["k0"]).expand(c["b"], -1)
+    if c.get("pair"):
+        kw["bias"] = torch.randn((1, c["h"], c["s"], c["s"]), generator=gen,
+                                 device=DEV).to(tdt)
+    return q, k, v, do, dlse, kw
+
+
+def lse_call(torch, fa, q, k, v, do, dlse, kw):
+    """The lse variant forward and backward through the autograd Function
+    (the kernels on the card): o, lse and the grads of q, k, v (and the
+    pair bias) for cotangents dO and dLSE."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    kw = dict(kw)
+    if "bias" in kw:
+        kw["bias"] = kw["bias"].detach().requires_grad_()
+        leaves.append(kw["bias"])
+    o, lse = fa.flash_attention(*leaves[:3], return_lse=True, **kw)
+    grads = torch.autograd.grad((o, lse), leaves, (do, dlse))
+    return o.detach(), lse.detach(), grads
+
+
+def check_lse(torch, c, dtype, seed):
+    """One case of the lse variant: end to end through the kernels against
+    the plain versions; the backward kernels alone on the plain forward's
+    LSE and delta - dLSE, by the largest magnitude and row by row; exact
+    -1e30 / 0 where nothing is visible; the same bits on repeat."""
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, dlse, kw = lse_inputs(torch, c, dtype, seed)
+    tol = TOL[dtype]
+    bias = kw.get("bias")
+    b32 = None if bias is None else fa.check_bias(bias, q, k)
+    mask = fa.make_mask(q, k, kw["causal"], None, None,
+                        kw.get("q_positions"), kw.get("kv_positions"))
+    fa.reset_launch_counts()
+    o, lse, grads = lse_call(torch, fa, q, k, v, do, dlse, kw)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    want = {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+            "flash_dbias": 1 if bias is not None else 0}
+    if launches != want:
+        raise AssertionError(f"flash-lse {c['name']} {dtype}: launches "
+                             f"{launches}, want {want}")
+    o2, lse2, grads2 = lse_call(torch, fa, q, k, v, do, dlse, kw)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(grads, grads2))):
+        raise AssertionError(f"flash-lse {c['name']} {dtype}: the bits "
+                             f"differ on repeat")
+    del o2, lse2, grads2
+    # the plain versions: forward, then the backward with delta - dLSE
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask, b32)
+    delta = (fa.attention_delta(do, o_ref)
+             - dlse.transpose(1, 2)).contiguous()
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta,
+                                            mask, bias=b32)
+    if b32 is not None:
+        refs = refs + (fa.flash_dbias_reference(q, k, v, do, lse_ref, delta,
+                                                mask, b32),)
+    name = f"flash-lse {c['name']} {dtype}"
+    errs = {"o": hold(f"{name} o", o, o_ref, tol),
+            "o_row": hold_rows(f"{name} o", o, o_ref, tol),
+            "lse": hold(f"{name} lse", lse, lse_ref.transpose(1, 2), LSE_TOL,
+                        relative=False)}
+    for n, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+        errs[f"e2e_{n}"] = hold(f"{name} end-to-end {n}", g, r, tol)
+    # the backward kernels on the plain forward's LSE and delta - dLSE
+    args = (q, k, v, do, lse_ref, delta, mask)
+    errs.update(hold_kernel_rows(fa, name, args, refs[:3], tol, bias=b32))
+    if b32 is not None:
+        errs["dbias"] = hold(f"{name} dbias", fa.flash_dbias(*args, b32),
+                             refs[3], tol)
+    dead = {}
+    if "q0" in c:
+        rows = c["k0"] - c["q0"]            # query rows that see no key
+        keys = c["k0"] + c["s"] - (c["q0"] + c["s"])  # keys seen by none
+        exact = {"lse": bool((lse[:, :rows] == fa.NEG_INF).all()),
+                 "o": bool((o[:, :rows] == 0).all()),
+                 "dq": bool((grads[0][:, :rows] == 0).all()),
+                 "dk": bool((grads[1][:, -keys:] == 0).all()),
+                 "dv": bool((grads[2][:, -keys:] == 0).all()),
+                 "plain lse": bool((lse_ref[:, :, :rows] == fa.NEG_INF).all())}
+        if not all(exact.values()):
+            raise AssertionError(f"{name}: rows with nothing visible are not "
+                                 f"exact: {exact}")
+        dead = {"query rows": rows, "keys": keys}
+    del refs, o_ref, lse_ref
+    ms = cuda_ms(torch, lambda: lse_call(torch, fa, q, k, v, do, dlse, kw),
+                 reps=3, warmup=1)
+    return errs, dead, launches, ms
+
+
+def phase_flash_lse(torch, np):
+    """``flash_attention(..., return_lse=True)`` forward and backward with a
+    random dLSE (the block combiner of ring attention) at llama2-1b's shape,
+    a ring block with fully masked rows and the MSA pair-bias shape, in
+    bf16, fp16 and float32 (each dtype's routes); returns the launches."""
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    total = dict.fromkeys(fa.LAUNCHES, 0)
+    for dtype in ("bfloat16", "float16", "float32"):
+        for i, c in enumerate(LSE_CASES):
+            errs, dead, launches, ms = check_lse(torch, c, dtype, 40 + i)
+            for n, x in launches.items():
+                total[n] += x
+            log("flash-lse", f"{c['name']} {dtype} B={c['b']} S={c['s']} "
+                f"H={c['h']} D={c['d']}: "
+                + ", ".join(f"{n} {e:.3g} (lim {lim:.3g})"
+                            for n, (e, lim) in errs.items())
+                + (f" | exact -1e30 LSE, zero O and dQ over {dead['query rows']}"
+                   f" query rows, zero dK and dV over {dead['keys']} keys"
+                   if dead else "")
+                + f" | launches {launches}; bits repeat; fwd+bwd {ms:.3f} ms;"
+                f" kernels {flash_routes(fa, getattr(torch, dtype), c['d'])}")
+            torch.cuda.empty_cache()
+    return total
 
 
 # ------------------------------------------------------------------ serve
@@ -1722,6 +1899,236 @@ def supervise_gap(torch, prompts, base, crash):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- fleet
+FLEET_PROMPTS = 6
+FLEET_NEW = 16
+FLEET_KILL_TOKENS = 8        # tokens seen from each of replica 0's streams
+FLEET_ENGINE = {"dtype": "float32", "block_size": 64, "max_context": 2048,
+                "max_sequences": 16, "num_blocks": 32}
+FLEET_TIMEOUT_S = 300
+
+
+def gpu_process_mib():
+    """``(pid, MiB)`` of device memory in use for each process nvidia-smi
+    lists (in a container it may list fewer processes than run)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return [tuple(x.strip() for x in line.split(","))
+            for line in out.strip().splitlines() if line]
+
+
+def live_cuda_tensors(torch, n=8):
+    """``(MiB, shape, dtype, referrer types)`` of the ``n`` largest CUDA
+    tensors the collector can see: what a phase left behind."""
+    found = []
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            found.append((obj.untyped_storage().nbytes(), obj))
+    found.sort(key=lambda x: -x[0])
+    return [(round(nb / 2**20), tuple(t.shape), str(t.dtype),
+             sorted({type(r).__name__ for r in gc.get_referrers(t)}))
+            for nb, t in found[:n]]
+
+
+def phase_fleet(torch, np):
+    """A ``ReplicaPool`` of two ``ProcessReplica``s (supervised workers, each
+    serving llama2-7b at full width and depth in float32 from the model's
+    default seed) behind a ``FleetRouter`` on the one card: the supervise
+    phase's kind of prompts, 16 greedy tokens, first clean, then the same
+    prompts under new uids with replica 0 killed (SIGKILL to its process
+    group) once the router has seen 8 tokens of each of its streams; then
+    replica 0 respawned. Holds: every uid closes once (router events and
+    journals); the claim covers exactly the dead replica's in-flight uids;
+    the killed run's outputs (the fleet-wide journal merge) equal the clean
+    run's prompt for prompt; the survivor's failover replays equal the
+    streams in flight; the respawned replica recovers none of the claimed
+    streams. The heartbeat timeout is sized from a build of the worker's
+    engine timed here. Logs the time from the kill to the first replayed
+    token, each replica's time to ready, device memory per process and the
+    router's ``stats()``."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        load_journal, reconstruct_outputs)
+    from deepspeedsyclsupport_tpu_torch.inference.v2.fleet import (
+        FleetConfig, FleetRequest, FleetRouter, ProcessReplica, ReplicaPool,
+        read_claims)
+    from deepspeedsyclsupport_tpu_torch.models import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2**30:
+        raise AssertionError(f"fleet: the parent holds {held / 2**30:.2f} GiB"
+                             f" on the card; two fp32 replicas need it free;"
+                             f" the largest live tensors "
+                             f"{live_cuda_tensors(torch)}")
+    t0 = time.perf_counter()
+    model = build_model(SERVE_MODEL, dtype="float32")
+    eng = InferenceEngineV2(model, model.init_params(device=DEV),
+                            config=dict(FLEET_ENGINE), device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del eng, model
+    torch.cuda.empty_cache()
+    # the reference's 30 s covers the worker's start-up (import, CUDA
+    # init); the build is added four times over (two share the card)
+    hb_timeout = math.ceil(30 + 4 * build_s)
+    rng = np.random.RandomState(5)
+    vocab = get_config(SERVE_MODEL).vocab_size
+    prompts = [rng.randint(1, vocab, n).tolist()
+               for n in rng.randint(64, 257, FLEET_PROMPTS)]
+    root = tempfile.mkdtemp(prefix="dstpu_fleet_")
+    worker = {"model": SERVE_MODEL, "dtype": "float32", "device": DEV,
+              "engine": dict(FLEET_ENGINE)}
+    reps = [ProcessReplica(str(i), os.path.join(root, f"replica{i}"),
+                           dict(worker), supervisor_args=[
+                               "--heartbeat-timeout", str(hb_timeout)])
+            for i in range(2)]
+    pool = ReplicaPool(reps)
+    router = FleetRouter(reps, FleetConfig(
+        affinity="none", log_path=os.path.join(root, "router.jsonl")))
+    mem = {}
+
+    def sample_mem(when):
+        free, total = torch.cuda.mem_get_info()
+        mem[when] = (gpu_process_mib(), round((total - free) / 2**20))
+
+    def wait_ready(which, t_start):
+        """Seconds from ``t_start`` until each replica probes ready with a
+        probe written after the call (a dead generation's probe may still
+        be fresh)."""
+        wall = time.time()
+        ready = {}
+        deadline = time.monotonic() + hb_timeout + FLEET_TIMEOUT_S
+        while len(ready) < len(which):
+            for r in which:
+                if r.replica_id not in ready and r.ready() and \
+                        r.health()["t"] > wall:
+                    ready[r.replica_id] = round(time.perf_counter() - t_start,
+                                                2)
+                if r.proc.poll() is not None:
+                    raise AssertionError(f"fleet: replica {r.replica_id}'s "
+                                         f"supervisor exited rc "
+                                         f"{r.proc.poll()} before ready")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: replicas not ready: {ready}")
+            time.sleep(0.1)
+        return ready
+
+    def drive(base, kill=False):
+        uids = [base + i for i in range(FLEET_PROMPTS)]
+        for u, p in zip(uids, prompts):
+            outcome, _rid = router.submit(FleetRequest(
+                uid=u, tokens=p, max_new_tokens=FLEET_NEW))
+            if outcome != "routed":
+                raise AssertionError(f"fleet: uid {u} {outcome} at the edge")
+        seen, closes = Counter(), Counter()
+        victims, t_kill, first_replay = None, None, None
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while not router.idle:
+            for ev in router.poll():
+                if ev.kind == "token":
+                    seen[ev.uid] += len(ev.tokens)
+                    if victims and first_replay is None and \
+                            ev.uid in victims and ev.replica_id == "1":
+                        first_replay = time.perf_counter() - t_kill
+                else:
+                    closes[ev.uid] += 1
+            if kill and victims is None:
+                mine = [u for u, f in router.flights.items()
+                        if f.replica_id == "0"]
+                if mine and all(seen[u] >= FLEET_KILL_TOKENS for u in mine):
+                    sample_mem("at the kill")
+                    victims = sorted(mine)
+                    reps[0].kill()
+                    t_kill = time.perf_counter()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: {len(router.flights)} streams "
+                                     f"still in flight")
+            time.sleep(0.01)
+        if any(closes[u] != 1 for u in uids):
+            raise AssertionError(f"fleet: closes per uid {dict(closes)}")
+        return uids, victims, first_replay
+
+    try:
+        t_start = time.perf_counter()
+        pool.start()
+        ready = wait_ready(reps, t_start)
+        sample_mem("ready")
+        t = time.perf_counter()
+        clean, _, _ = drive(0)
+        clean_s = time.perf_counter() - t
+        sample_mem("after the clean run")
+        killed, victims, first_replay = drive(100, kill=True)
+        if not victims:
+            raise AssertionError("fleet: replica 0 held no stream to kill")
+        stats = router.stats()
+        claim = read_claims(reps[0].journal_dir)
+        dead_states, _ = load_journal(reps[0].journal_dir)
+        in_flight = sorted(u for u, st in dead_states.items() if st.in_flight)
+        if sorted(int(u) for u in claim.uids) != victims or \
+                in_flight != victims:
+            raise AssertionError(f"fleet: claim {sorted(claim.uids)}, dead "
+                                 f"replica in flight {in_flight}, router's "
+                                 f"victims {victims}")
+        if stats["failover_replays"] != len(victims) or \
+                stats["per_replica"]["1"]["failover_in"] != len(victims):
+            raise AssertionError(f"fleet: failover replays {stats}, want "
+                                 f"{len(victims)}")
+        states, _ = load_journal([r.journal_dir for r in reps])
+        outs = reconstruct_outputs(states)
+        closes = Counter()
+        for r in reps:
+            for name in os.listdir(r.journal_dir):
+                if name.startswith("journal_rank"):
+                    with open(os.path.join(r.journal_dir, name)) as f:
+                        for line in f:
+                            if '"serve/close"' in line:
+                                closes[json.loads(line)["data"]["uid"]] += 1
+        if any(closes[u] != 1 for u in clean + killed):
+            raise AssertionError(f"fleet: journal closes {dict(closes)}")
+        diff = [i for i in range(FLEET_PROMPTS)
+                if outs[killed[i]] != outs[clean[i]]]
+        if diff or any(len(outs[u]) != FLEET_NEW for u in clean):
+            raise AssertionError(f"fleet: outputs after the kill differ from "
+                                 f"the clean run's for prompts {diff}")
+        t = time.perf_counter()
+        pool.respawn("0")
+        respawn = wait_ready([reps[0]], t)
+        router.close()
+        rcs = pool.stop(timeout=120.0)
+        with open(reps[0].spec["out"]) as f:
+            recovery = json.load(f)["recovery"]
+        if recovery["replayed"] or set(recovery["skipped_closed"]) \
+                & set(victims):
+            raise AssertionError(f"fleet: the respawned replica recovered "
+                                 f"{recovery}")
+        if any(rc != 0 for rc in rcs.values()):
+            raise AssertionError(f"fleet: supervisors exited {rcs}")
+    finally:
+        router.close()
+        pool.stop(timeout=60.0)
+    shutil.rmtree(root, ignore_errors=True)
+    log("fleet", f"{SERVE_MODEL} fp32 full depth, 2 supervised replicas on "
+        f"one card ({FLEET_ENGINE['num_blocks']} KV blocks each): engine "
+        f"built in {build_s:.1f} s here, heartbeat timeout {hb_timeout} s; "
+        f"time to ready per replica {ready} s; {FLEET_PROMPTS} prompts "
+        f"{[len(p) for p in prompts]}, {FLEET_NEW} greedy tokens: clean in "
+        f"{clean_s:.1f} s; killed replica 0 with {len(victims)} streams in "
+        f"flight {victims}: first replayed token on replica 1 "
+        f"{first_replay:.3f} s after the kill; outputs equal the clean run's;"
+        f" every uid closed once; claim = in flight; respawned replica 0 "
+        f"ready in {respawn['0']} s, recovered {recovery['replayed']}; "
+        f"supervisor rcs {rcs}; device memory (nvidia-smi (pid, MiB) per "
+        f"process; MiB in use on the card) {mem}; router stats {stats}")
+
+
 # ---------------------------------------------------------------- snapshot
 def phase_snapshot(torch, np):
     """``serialize`` then ``deserialize(device="cuda")`` at llama2-7b width
@@ -1998,8 +2405,6 @@ def phase_mixtral(torch, np):
     prefill and decode at these shapes (layers 0 and 31, row by row), the
     MoE route against the plain version, dequantization bit for bit, and a
     2-layer float32 parity of the kernel and plain engines."""
-    import gc
-
     from deepspeedsyclsupport_tpu_torch import InferenceEngineV2
     from deepspeedsyclsupport_tpu_torch.inference.v2 import model as v2m
     from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
@@ -2345,6 +2750,175 @@ def phase_train_parity(torch, np):
         f"{runs['xla']}; worst relative diff {worst} (tol "
         f"{TRAIN_PARITY_TOL}); kernel with activation checkpointing "
         f"identical")
+
+
+# ---------------------------------------------------------------- train-moe
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1,
+                        gradient_accumulation_steps=1,
+                        activation_checkpointing={})
+# fp32 master, fp32 grad and Adam's two fp32 moments
+STATE_BYTES_PER_PARAM = 16
+
+
+def moe_dropped(moe):
+    """Wrap ``moe._capacity_route`` to collect each call's count of (token,
+    choice) rows dropped at capacity, as a device tensor (read after the
+    step). Returns the list and the restore function."""
+    calls, route = [], moe._capacity_route
+
+    def counting(*a, **kw):
+        out = route(*a, **kw)
+        calls.append((~out[2]).sum())
+        return out
+
+    moe._capacity_route = counting
+
+    def restore():
+        moe._capacity_route = route
+    return calls, restore
+
+
+def phase_train_moe(torch, np):
+    """``mixtral-8x7b`` at its published widths cut to 2 layers, through
+    ``initialize`` -> ``train_batch`` (bf16, ``TRAIN_CONFIG``'s AdamW,
+    WarmupLR and clipping, remat, B 1 x S 4096): the capacity-buffer MoE in
+    every layer, attention through the flash kernels (launches held a
+    step). Then the same widths at 1 layer in float32, B 1 x S 2048, 3
+    steps: kernels against the plain path (``TRAIN_PARITY_TOL``) and the
+    kernels with remat bit-identical to themselves. Returns the launches."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+    from deepspeedsyclsupport_tpu_torch.parallel import moe
+
+    model = build_model(MOE_MODEL, num_layers=MOE_TRAIN_LAYERS)
+    cfg = model.config
+    free, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    n_params = sum(t.numel() for t in _tensors(params))
+    need = n_params * STATE_BYTES_PER_PARAM
+    log("train-moe", f"{MOE_MODEL} widths, {cfg.num_layers} layers: hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} q / {cfg.num_kv_heads} KV heads "
+        f"x {cfg.head_dim}, {cfg.num_experts} experts x FFN "
+        f"{cfg.intermediate_size}, top-{cfg.num_experts_per_tok}, capacity "
+        f"factor {cfg.capacity_factor}: {n_params / 1e9:.3f}B params, state "
+        f"{need / 2**30:.2f} GiB at {STATE_BYTES_PER_PARAM} B a param "
+        f"(card {free / 2**30:.2f} of {total / 2**30:.2f} GiB free)")
+    # [0]: the rest of the tuple holds the optimizer and its state
+    eng = initialize(model=model, params=params, config=MOE_TRAIN_CONFIG,
+                     device=DEV)[0]
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_tok = eng.train_batch_size() * TRAIN_SEQ
+    cap = moe.capacity(n_tok, cfg)
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                           (eng.train_batch_size(), TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
+    want = flash_per_step(eng)
+    calls, restore = moe_dropped(moe)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    steps = []
+    try:
+        for step in range(MOE_TRAIN_STEPS):
+            del calls[:]
+            before = dict(fa.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = eng.train_batch(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            got = {k: fa.LAUNCHES[k] - before[k] for k in before}
+            # the forward's routing: the first call of each layer (remat
+            # routes each layer again in the backward)
+            dropped = [int(x) for x in calls[:cfg.num_layers]]
+            rec = (float(m["loss"]), float(m["moe_aux_loss"]),
+                   float(m["grad_norm"]), dt)
+            steps.append(rec)
+            log("train-moe", f"step {step + 1}{' (warm-up)' if step == 0 else ''}"
+                f": {dt * 1e3:.1f} ms, {n_tok / dt:.0f} tokens/s, loss "
+                f"{rec[0]:.4f}, moe_aux_loss {rec[1]:.4f}, grad_norm "
+                f"{rec[2]:.4f}, dropped (token, choice) rows per layer "
+                f"{dropped} of {n_tok * cfg.num_experts_per_tok} (capacity "
+                f"{cap} a expert), flash launches {got}")
+            if got != want:
+                raise AssertionError(f"train-moe step {step + 1}: flash "
+                                     f"launches {got}, want {want}")
+            if not all(math.isfinite(x) for x in rec[:3]):
+                raise AssertionError(f"train-moe step {step + 1}: {rec}")
+    finally:
+        restore()
+    launches = dict(fa.LAUNCHES)
+    timed = [x[3] for x in steps[1:]]
+    log("train-moe", f"{len(timed)} timed steps: mean "
+        f"{1e3 * sum(timed) / len(timed):.1f} ms/step, "
+        f"{n_tok * len(timed) / sum(timed):.0f} tokens/s, loss "
+        f"{steps[0][0]:.4f} -> {steps[-1][0]:.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; built in "
+        f"{build_s:.1f} s; flash launches over {MOE_TRAIN_STEPS} steps "
+        f"{launches}")
+    if steps[-1][0] >= steps[0][0]:
+        raise AssertionError(f"train-moe losses {[x[0] for x in steps]}: "
+                             f"not falling")
+    del eng
+    torch.cuda.empty_cache()
+    train_moe_parity(torch, np)
+    return launches
+
+
+def train_moe_parity(torch, np):
+    """``MOE_MODEL`` widths at 1 layer, float32 (TF32 off), B 1 x S 2048, 3
+    steps: the kernels against the plain path, and the kernels with remat
+    against themselves (bit-identical)."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+
+    cfg = {"train_micro_batch_size_per_gpu": 1,
+           "optimizer": {"type": "AdamW", "params": {"lr": 3e-4,
+                                                     "weight_decay": 0.1}},
+           "gradient_clipping": 1.0}
+    vocab = build_model(MOE_MODEL).config.vocab_size
+    ids = np.random.RandomState(4).randint(0, vocab, (1, 2048))
+    batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
+    runs = {}
+    for name, impl, extra in (("kernel", "flash", {}), ("xla", "xla", {}),
+                              ("remat", "flash",
+                               {"activation_checkpointing": {}}),
+                              ("remat again", "flash",
+                               {"activation_checkpointing": {}})):
+        model = build_model(MOE_MODEL, num_layers=1, dtype="float32",
+                            attn_impl=impl)
+        params = model.init_params(
+            generator=torch.Generator(device=DEV).manual_seed(1), device=DEV)
+        eng = initialize(model=model, params=params,
+                         config=dict(cfg, **extra), device=DEV)[0]
+        del params
+        runs[name] = [(float(m["loss"]), float(m["moe_aux_loss"]),
+                       float(m["grad_norm"]))
+                      for m in (eng.train_batch(batch) for _ in range(3))]
+        del eng
+        torch.cuda.empty_cache()
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for (kl, _ka, kg), (xl, _xa, xg) in zip(runs["kernel"], runs["xla"]):
+        worst["loss"] = max(worst["loss"], abs(kl - xl) / abs(xl))
+        worst["grad_norm"] = max(worst["grad_norm"], abs(kg - xg) / abs(xg))
+    if any(worst[k] > TRAIN_PARITY_TOL[k] for k in worst):
+        raise AssertionError(f"train-moe parity kernel vs xla {runs}: "
+                             f"relative {worst} > {TRAIN_PARITY_TOL}")
+    if runs["remat again"] != runs["remat"]:
+        raise AssertionError(f"train-moe with remat is not bit-identical to "
+                             f"itself: {runs['remat']} vs "
+                             f"{runs['remat again']}")
+    log("train-moe", f"parity: {MOE_MODEL} widths, 1 layer, fp32 (TF32 off), "
+        f"B=1 S=2048, 3 steps: (loss, moe_aux_loss, grad_norm) kernel "
+        f"{runs['kernel']}, xla {runs['xla']}; worst relative diff {worst} "
+        f"(tol {TRAIN_PARITY_TOL}); remat {runs['remat']}, bit-identical on "
+        f"a second run; remat vs no remat "
+        f"{'identical' if runs['remat'] == runs['kernel'] else 'differs'}")
 
 
 # ------------------------------------------------------------- resilience
@@ -3244,32 +3818,57 @@ def main() -> int:
         f"{torch.cuda.device_count()} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase_build(_build)
-    phase_rehearse()
-    rows = phase_kernels(torch, np)
-    flash_rows = phase_flash(torch, np)
+    phase_s, phase_left = {}, {}
+
+    def run(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        name = fn.__name__[len("phase_"):]
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        # a phase's objects may sit in reference cycles until the collector
+        # runs, and when it runs depends on the threads' timing: collect
+        # here, so that every phase starts from what is really live
+        left = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_left[name] = (round(left / 2**30, 2),
+                            round(torch.cuda.memory_allocated() / 2**30, 2))
+        return out
+
+    run(phase_build, _build)
+    run(phase_rehearse)
+    rows = run(phase_kernels, torch, np)
+    flash_rows = run(phase_flash, torch, np)
+    lse_launches = run(phase_flash_lse, torch, np)
     model, params = serve_params(torch)
-    launches, serve_outs = phase_serve(torch, np, model, params)
-    phase_serve_fused(torch, np, model, params, serve_outs)
-    phase_prefix(torch, np, model, params)
-    phase_flash_prefill(torch, np, model, params, serve_outs)
-    phase_session(torch, np, model, params)
-    phase_session_parity(torch, np)
-    phase_supervise(torch, np)
-    phase_snapshot(torch, np)
+    launches, serve_outs = run(phase_serve, torch, np, model, params)
+    run(phase_serve_fused, torch, np, model, params, serve_outs)
+    run(phase_prefix, torch, np, model, params)
+    run(phase_flash_prefill, torch, np, model, params, serve_outs)
+    run(phase_session, torch, np, model, params)
+    run(phase_session_parity, torch, np)
+    run(phase_supervise, torch, np)
+    run(phase_snapshot, torch, np)
     del model, params
     torch.cuda.empty_cache()
-    phase_mixtral(torch, np)
-    phase_serve_fp16(torch, np)
-    launches.update(phase_train(torch, np))
-    phase_train_resume(torch, np)
-    phase_preempt(torch, np)
-    phase_sentinel(torch, np)
-    phase_parity(torch, np)
-    phase_train_parity(torch, np)
-    evo_rows, evo_launches = phase_evoformer(torch, np)
-    phase_sparse(torch, np)
+    run(phase_fleet, torch, np)
+    run(phase_mixtral, torch, np)
+    run(phase_serve_fp16, torch, np)
+    launches.update(run(phase_train, torch, np))
+    run(phase_train_resume, torch, np)
+    run(phase_preempt, torch, np)
+    run(phase_sentinel, torch, np)
+    run(phase_parity, torch, np)
+    run(phase_train_parity, torch, np)
+    moe_launches = run(phase_train_moe, torch, np)
+    evo_rows, evo_launches = run(phase_evoformer, torch, np)
+    run(phase_sparse, torch, np)
 
+    log("phases", f"GiB allocated on the card after each phase (before, "
+        f"after the collector) {phase_left}")
+    log("phases", f"seconds per phase {phase_s}; flash launches on the "
+        f"train-moe path {moe_launches}, on the flash-lse phase "
+        f"{lse_launches}")
     log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
                               for k, src in TPU_KERNELS)
         + f" | all phases in {time.perf_counter() - t_start:.1f} s")

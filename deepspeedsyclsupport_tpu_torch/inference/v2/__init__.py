@@ -15,7 +15,8 @@
   composition, KV-pressure eviction, K-capped fused decode
 * :mod:`.supervisor` — request journal, crash-replay recovery, the replica
   supervisor and its worker CLI (rc 219 stuck-decode contract)
-* :mod:`.fleet` — the failover claim file the worker reads
+* :mod:`.fleet` — the serving fleet: router, replica pool, cross-replica
+  failover and its CLI
 """
 from .config import RaggedInferenceConfig, ServingPolicyConfig  # noqa: F401
 from .engine_v2 import (AdmissionResult, InferenceEngineV2,  # noqa: F401

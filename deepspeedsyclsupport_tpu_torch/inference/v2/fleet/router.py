@@ -1,0 +1,836 @@
+"""Fleet router: edge admission, affinity placement, health gating,
+journal-based cross-replica failover.
+
+Port of ``deepspeedsyclsupport_tpu/inference/v2/fleet/router.py``: the same
+policy, ``Fleet/*`` event names, counters, trace records and clock calls in
+the same order, so a router of either package fed the same replica events
+under one injected clock makes the same decisions (held EQUAL on the CPU by
+``tests/test_torch_fleet.py``).
+
+One :class:`FleetRouter` fronts N replicas behind a uniform
+:class:`ReplicaEndpoint` seam — in-process sessions
+(:class:`LocalReplica`, what the unit tests drive) and supervised worker
+processes (:class:`~.pool.ProcessReplica`) route identically. The router
+never touches engine internals: it observes each replica through the SAME
+artifacts an operator has — the ``health.json`` readiness probe and the
+request-journal stream — so everything here keeps working when the
+replica is a process on another core (or, with a shared filesystem,
+another host).
+
+Clocks: the router runs on **wall time**. Its observations join
+timestamps from other processes (journal records, health probes), and a
+monotonic clock does not survive a process boundary — the same tradeoff
+``supervisor.recover_requests`` documents.
+"""
+import hashlib
+import os
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..serving import CapacityModel
+from ..supervisor import ReplayRequest
+from ....utils.logging import logger
+
+#: ``Fleet/*`` names this module emits (declared in
+#: ``monitor.telemetry.EVENT_NAMES``; per-replica members ride the
+#: ``Fleet/replica.`` prefix family). Full literals on purpose — the
+#: static event-name lint resolves each against the registry (the
+#: ``Serve/recovery.*`` convention).
+FLEET_COUNTERS = ("Fleet/routed", "Fleet/shed", "Fleet/completed",
+                  "Fleet/affinity_hits")
+_FAILOVER_COUNTERS = {"deaths": "Fleet/failover.deaths",
+                      "replays": "Fleet/failover.replays",
+                      "replay_sheds": "Fleet/failover.replay_sheds"}
+FLEET_FAILOVER = (_FAILOVER_COUNTERS["deaths"],
+                  _FAILOVER_COUNTERS["replays"],
+                  _FAILOVER_COUNTERS["replay_sheds"])
+FLEET_GAUGES = ("Fleet/replicas_ready", "Fleet/inflight",
+                "Fleet/slo.ttft_miss_frac", "Fleet/slo.shed_frac",
+                "Fleet/slo.burn_rate")
+FLEET_HISTOGRAMS = ("Fleet/routed_ttft_s",)
+FLEET_EVENT_NAMES = (FLEET_COUNTERS + FLEET_FAILOVER + FLEET_GAUGES
+                     + FLEET_HISTOGRAMS)
+
+
+@dataclass
+class FleetRequest:
+    """One request at the fleet edge (immutable routing view)."""
+
+    uid: int
+    tokens: List[int]
+    max_new_tokens: int
+    tenant: str = "default"
+    ttft_sla_s: Optional[float] = None
+    rate_sla: float = 0.0
+    #: explicit co-location key; None derives one per ``FleetConfig.affinity``
+    affinity_key: Optional[str] = None
+
+
+@dataclass
+class FleetEvent:
+    """One observable fleet outcome: ``token`` / ``finish`` / ``shed``,
+    stamped with the replica that produced it (``replica_id`` is empty for
+    edge sheds — no replica ever saw the request)."""
+
+    kind: str
+    uid: int
+    t: float
+    replica_id: str = ""
+    tokens: List[int] = field(default_factory=list)
+    reason: str = ""
+
+
+@dataclass
+class FleetConfig:
+    """Router policy knobs (the JAX package's ``docs/serving.md``, "fleet
+    control plane")."""
+
+    admission: str = "sla"          # "sla" (edge gate projects) | "none"
+    sla_headroom: float = 1.15      # safety factor on projected TTFT
+    rate_feasibility_margin: float = 0.8   # same semantics as the replica gate
+    affinity: str = "tenant"        # "tenant" | "prompt" | "none"
+    affinity_prefix_tokens: int = 16  # prompt-head window hashed for "prompt"
+    #: seconds of health staleness before a replica is declared dead and its
+    #: journaled in-flight streams fail over to survivors
+    dead_after_s: float = 5.0
+    telemetry: bool = True
+    ewma_alpha: float = 0.25
+    prefill_tok_s_prior: float = 1000.0
+    decode_step_s_prior: float = 0.05
+    #: router flight-recorder JSONL (``fleet/route``/``fleet/death``/
+    #: ``fleet/failover`` records + the final metrics dump) — what
+    #: ``tools/trace_report.py --fleet`` reads. None = no stream.
+    log_path: Optional[str] = None
+    #: sliding window (s) for the ``Fleet/slo.*`` burn gauges
+    slo_window_s: float = 60.0
+    #: allowed bad-request fraction in the window; burn = worst_frac / budget
+    slo_budget: float = 0.05
+
+    def __post_init__(self):
+        if self.admission not in ("sla", "none"):
+            raise ValueError(f"admission must be sla|none, got "
+                             f"{self.admission!r}")
+        if self.affinity not in ("tenant", "prompt", "none"):
+            raise ValueError(f"affinity must be tenant|prompt|none, got "
+                             f"{self.affinity!r}")
+        if self.dead_after_s <= 0:
+            raise ValueError(f"dead_after_s must be > 0, got "
+                             f"{self.dead_after_s}")
+        if self.slo_window_s <= 0:
+            raise ValueError(f"slo_window_s must be > 0, got "
+                             f"{self.slo_window_s}")
+        if not 0 < self.slo_budget <= 1:
+            raise ValueError(f"slo_budget must be in (0, 1], got "
+                             f"{self.slo_budget}")
+
+
+class ReplicaEndpoint:
+    """What the router needs from one replica — implemented by
+    :class:`LocalReplica` (in-process) and :class:`~.pool.ProcessReplica`
+    (supervised worker process). All methods are host-side and cheap."""
+
+    replica_id: str = ""
+    journal_dir: Optional[str] = None
+    max_live: Optional[int] = None  # structural stream slots (placement cap)
+
+    def ready(self) -> bool:  # in rotation?
+        raise NotImplementedError
+
+    def draining(self) -> bool:
+        return False
+
+    def dead(self) -> bool:   # failover-eligible?
+        raise NotImplementedError
+
+    def load(self) -> Dict[str, int]:  # {"live": int, "queued": int}
+        raise NotImplementedError
+
+    def submit(self, req: FleetRequest) -> str:
+        """"admitted" | "queued" | "shed" | "dispatched" (async transport:
+        the outcome arrives later through the journal stream)."""
+        raise NotImplementedError
+
+    def replay(self, rr: ReplayRequest) -> str:
+        """"replayed" | "shed" | "completed" | "dispatched"."""
+        raise NotImplementedError
+
+    def advance(self) -> None:
+        """Give an in-process replica a scheduling round (no-op for a
+        worker process, which advances itself)."""
+
+    def poll_events(self) -> List[FleetEvent]:
+        raise NotImplementedError
+
+    def prefix_stats(self) -> Optional[Dict[str, float]]:
+        """Engine-reported prefix-cache counters (``hits``/``misses``/
+        ``tokens_saved``/``hit_ratio``/...), or None when the replica has
+        no cache (or the transport cannot report) — what the router joins
+        with its placement-side ``Fleet/affinity_hits`` to tell REALIZED
+        reuse from mere co-location."""
+        return None
+
+
+class LocalReplica(ReplicaEndpoint):
+    """In-process replica: one :class:`~..serving.ServingSession` behind the
+    endpoint seam. ``kill()`` emulates a hard replica death (engine KV and
+    session state dropped, journal left UNclosed — exactly what a crash
+    leaves on disk), which is how an in-process fleet injects a replica
+    death."""
+
+    def __init__(self, replica_id: str, session, *,
+                 journal_dir: Optional[str] = None):
+        self.replica_id = str(replica_id)
+        self.session = session
+        self.journal_dir = journal_dir
+        self.max_live = int(session.eng.config.max_sequences)
+        self._alive = True
+        self._buf: List[FleetEvent] = []
+        # session events are stamped on the session clock (perf_counter);
+        # fleet observations join cross-process wall timestamps, so map
+        # them through a fixed offset taken at construction
+        self._wall_offset = time.time() - self.session.clock()
+
+    def ready(self) -> bool:
+        return self._alive
+
+    def dead(self) -> bool:
+        return not self._alive
+
+    def load(self) -> Dict[str, int]:
+        if not self._alive:
+            return {"live": 0, "queued": 0}
+        return {"live": len(self.session.running),
+                "queued": len(self.session.queue)}
+
+    def submit(self, req: FleetRequest) -> str:
+        return self.session.submit(
+            req.uid, req.tokens, req.max_new_tokens, tenant=req.tenant,
+            ttft_sla_s=req.ttft_sla_s, rate_sla=req.rate_sla)
+
+    def replay(self, rr: ReplayRequest) -> str:
+        return self.session.replay(
+            rr.uid, rr.tokens, rr.max_new_tokens, emitted_tokens=rr.out,
+            tenant=rr.tenant, rate_sla=rr.rate_sla)
+
+    def advance(self) -> None:
+        if not self._alive:
+            return
+        for ev in self.session.step():
+            self._buf.append(FleetEvent(
+                ev.kind, ev.uid, ev.t + self._wall_offset,
+                replica_id=self.replica_id, tokens=list(ev.tokens),
+                reason=ev.reason))
+
+    def poll_events(self) -> List[FleetEvent]:
+        out, self._buf = self._buf, []
+        return out
+
+    def prefix_stats(self) -> Optional[Dict[str, float]]:
+        return self.session.prefix_stats() if self._alive else None
+
+    def kill(self) -> None:
+        """Hard death: drop engine KV + session state, keep the journal
+        stream truthfully un-closed (the failover manager's input).
+
+        ``flush`` only returns the dead streams' blocks to this engine's
+        allocator: it neither replays nor frees a captured decode graph,
+        and every engine captures its own graphs in its own pool, so a
+        surviving replica's engine in the same process is untouched."""
+        if not self._alive:
+            return
+        self._alive = False
+        eng = self.session.eng
+        eng.flush(list(eng.seqs))
+        if self.session.watchdog is not None:
+            try:
+                self.session.watchdog.stop()
+            except Exception:  # a dead replica's teardown must not raise
+                pass
+
+    def close(self) -> None:
+        self._alive = False
+        self.session.close()
+
+
+@dataclass
+class _Flight:
+    """Router-side bookkeeping for one routed request."""
+
+    req: FleetRequest
+    replica_id: str
+    routed_t: float
+    first_token_t: Optional[float] = None
+    last_emit_t: Optional[float] = None
+    emitted: int = 0
+    replays: int = 0
+
+
+def slack_affinity_placement(req: FleetRequest, candidates: List[Tuple[str, Dict[str, Any]]],
+                             sticky_id: Optional[str]) -> str:
+    """Default placement: the sticky affinity target when it has headroom,
+    else the replica with the smallest projected wait (prefill backlog at
+    its measured prefill rate + live streams at its measured step time) —
+    i.e. the one that leaves the request the most SLA slack.
+
+    ``candidates`` is ``[(replica_id, view)]`` where ``view`` carries
+    ``live``, ``queued``, ``backlog_tokens``, ``max_live``,
+    ``prefill_tok_s`` and ``decode_step_s``. Pluggable: pass any callable
+    with this signature as ``FleetRouter(placement=...)``.
+    """
+    def headroom(view) -> bool:
+        cap = view.get("max_live")
+        return cap is None or view["live"] + view["queued"] < cap
+
+    if sticky_id is not None:
+        for rid, view in candidates:
+            if rid == sticky_id and headroom(view):
+                return rid
+
+    def wait_s(view) -> float:
+        return (view["backlog_tokens"] / max(view["prefill_tok_s"], 1e-9)
+                + view["live"] * view["decode_step_s"])
+
+    with_room = [(rid, v) for rid, v in candidates if headroom(v)]
+    pool = with_room or candidates
+    return min(pool, key=lambda rv: (wait_s(rv[1]), rv[0]))[0]
+
+
+class FleetRouter:
+    """Routes requests across replicas; owns fleet-edge admission, sticky
+    affinity, per-replica capacity observation, and cross-replica failover.
+
+    The driving loop calls :meth:`submit` for arrivals and :meth:`poll`
+    every tick; ``poll`` advances in-process replicas, ingests replica
+    events (updating the per-replica capacity models and the routed-TTFT
+    histogram), detects replica deaths and fails their journaled in-flight
+    streams over to survivors. All returned :class:`FleetEvent` streams are
+    what a frontend delivers to clients.
+    """
+
+    def __init__(self, replicas: Sequence[ReplicaEndpoint],
+                 config: Optional[FleetConfig] = None, *,
+                 placement: Callable = slack_affinity_placement,
+                 clock: Callable[[], float] = time.time):
+        self.cfg = config or FleetConfig()
+        self.replicas: Dict[str, ReplicaEndpoint] = {
+            r.replica_id: r for r in replicas}
+        if len(self.replicas) != len(replicas):
+            raise ValueError("replica ids must be unique")
+        self.placement = placement
+        self.clock = clock
+        self.caps: Dict[str, CapacityModel] = {
+            rid: CapacityModel(self.cfg.prefill_tok_s_prior,
+                               self.cfg.decode_step_s_prior,
+                               self.cfg.ewma_alpha)
+            for rid in self.replicas}
+        self.flights: Dict[int, _Flight] = {}
+        self._sticky: Dict[str, str] = {}
+        self._dead: set = set()
+        #: in-memory mirror of the router stream — journal-record-shaped
+        #: dicts a request-waterfall join drains
+        #: (``monitor.reqtrace`` reads the same shape off disk)
+        self.trace_log: deque = deque(maxlen=65536)
+        self._slo_ttft: deque = deque()   # (t, ok) at first token
+        self._slo_shed: deque = deque()   # (t, shed) at edge verdict
+        self._poll_n = 0
+        self.counters: Dict[str, int] = {
+            "routed": 0, "shed": 0, "completed": 0, "affinity_hits": 0}
+        self.failover_counters: Dict[str, int] = {
+            "deaths": 0, "replays": 0, "replay_sheds": 0}
+        self.per_replica: Dict[str, Dict[str, int]] = {
+            rid: {"routed": 0, "tokens": 0, "shed": 0, "completed": 0,
+                  "failover_in": 0}
+            for rid in self.replicas}
+        if self.cfg.telemetry:
+            from ....monitor.telemetry import metrics_registry as _mr
+
+            self._metrics = _mr
+        else:
+            self._metrics = None
+        self._rec = None
+        self._jsonl = None
+        if self.cfg.log_path:
+            from ....monitor.monitor import JsonlMonitor
+            from ....monitor.telemetry import FlightRecorder
+
+            self._rec = FlightRecorder(capacity=256)
+            self._jsonl = JsonlMonitor(path=self.cfg.log_path,
+                                       flush_interval=1)
+            self._jsonl.attach_recorder(self._rec)
+            self._rec.record("meta", "fleet/start",
+                             data={"replicas": sorted(self.replicas)})
+
+    # ------------------------------------------------------------- plumbing
+    def _record(self, name: str, data: Dict[str, Any]) -> None:
+        # the in-memory ring always mirrors the stream (a join reads it
+        # without a log_path); the flight recorder only when configured
+        self.trace_log.append({"name": name, "t": self.clock(),
+                               "data": dict(data)})
+        if self._rec is not None:
+            self._rec.record("event", name, data=data)
+
+    def _stage(self, uid: int, stage: str, **data: Any) -> None:
+        """Stamp one ``fleet/stage`` lifecycle record (uid −1 = fleet
+        scope). Stage names are validated against the
+        ``monitor.reqtrace`` registry — the join refuses typos."""
+        from ....monitor.reqtrace import check_stage
+
+        check_stage(stage, fleet=True)
+        self._record("fleet/stage", {"uid": int(uid), "stage": stage,
+                                     **data})
+
+    def drain_trace(self) -> List[Dict[str, Any]]:
+        """Return and clear the in-memory router stream mirror."""
+        out = list(self.trace_log)
+        self.trace_log.clear()
+        return out
+
+    def _count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+        if self._metrics is not None:
+            self._metrics.counter(f"Fleet/{name}").incr(n)
+
+    def _count_failover(self, name: str, n: int = 1) -> None:
+        self.failover_counters[name] = \
+            self.failover_counters.get(name, 0) + n
+        if self._metrics is not None:
+            self._metrics.counter(_FAILOVER_COUNTERS[name]).incr(n)
+
+    def close(self) -> None:
+        """Flush the router stream (metrics snapshot included) — idempotent."""
+        if self._rec is not None:
+            try:
+                self.export_metrics()
+            except Exception:
+                pass
+            try:
+                self._rec.dump("fleet_close")
+            except Exception:
+                pass
+        if self._jsonl is not None:
+            try:
+                self._jsonl.close()
+            except Exception as e:
+                logger.warning("fleet router log close failed: %s", e)
+            self._jsonl = None
+            self._rec = None
+
+    # ------------------------------------------------------------- rotation
+    def rotation(self) -> List[str]:
+        """Replica ids currently eligible for NEW work: ready, not
+        draining, not declared dead. Stale-health replicas fall out here
+        long before the failover grace declares them dead."""
+        return [rid for rid, r in self.replicas.items()
+                if rid not in self._dead and r.ready() and not r.draining()]
+
+    def _views(self, rids: List[str]) -> List[Tuple[str, Dict[str, Any]]]:
+        out = []
+        for rid in rids:
+            r = self.replicas[rid]
+            ld = r.load()
+            cap = self.caps[rid]
+            backlog = sum(
+                len(f.req.tokens) for f in self.flights.values()
+                if f.replica_id == rid and f.first_token_t is None)
+            out.append((rid, {
+                "live": ld["live"], "queued": ld["queued"],
+                "backlog_tokens": backlog, "max_live": r.max_live,
+                "prefill_tok_s": cap.prefill_tok_s,
+                "decode_step_s": cap.decode_step_s}))
+        return out
+
+    def _affinity_key(self, req: FleetRequest) -> Optional[str]:
+        if req.affinity_key is not None:
+            return req.affinity_key
+        if self.cfg.affinity == "tenant":
+            return f"tenant:{req.tenant}"
+        if self.cfg.affinity == "prompt":
+            head = ",".join(str(t) for t in
+                            req.tokens[:self.cfg.affinity_prefix_tokens])
+            return "prompt:" + hashlib.sha1(head.encode()).hexdigest()[:12]
+        return None
+
+    # ------------------------------------------------------------ admission
+    def submit(self, req: FleetRequest,
+               now: Optional[float] = None) -> Tuple[str, Optional[str]]:
+        """Fleet-edge gate + placement. Returns ``(outcome, replica_id)``
+        where outcome is ``"routed"`` or ``"shed"`` (edge shed: no replica
+        ever queues the request — the client learns in O(1))."""
+        if req.uid in self.flights:
+            raise ValueError(f"uid {req.uid} is already routed")
+        now = self.clock() if now is None else now
+        rids = self.rotation()
+        if not rids:
+            return self._edge_shed(req, now, "no_ready_replica")
+        views = self._views(rids)
+        if self.cfg.admission == "sla":
+            # rate feasibility against the BEST replica: a per-stream rate
+            # no replica's measured decode step can deliver is never
+            # meetable — same margin semantics as the replica-local gate
+            best_rate = max(self.caps[rid].decode_tok_s_best for rid in rids)
+            if req.rate_sla > 0 and best_rate \
+                    < self.cfg.rate_feasibility_margin * req.rate_sla:
+                return self._edge_shed(req, now, "rate_unmeetable")
+            # TTFT projection on the LEAST-backlogged candidate: if even it
+            # cannot land the first token inside the deadline, no placement
+            # can — shed at the edge instead of letting a replica queue it
+            if req.ttft_sla_s is not None:
+                eta = min(
+                    self.cfg.sla_headroom
+                    * (v["backlog_tokens"] + len(req.tokens))
+                    / max(v["prefill_tok_s"], 1e-9)
+                    + v["live"] * v["decode_step_s"]
+                    for _rid, v in views)
+                if eta > req.ttft_sla_s:
+                    return self._edge_shed(req, now, "deadline_unmeetable")
+        self._stage(req.uid, "edge_gate", verdict="admit",
+                    n_prompt=len(req.tokens))
+        key = self._affinity_key(req)
+        sticky = self._sticky.get(key) if key is not None else None
+        rid = self.placement(req, views, sticky)
+        if rid not in self.replicas:
+            raise ValueError(f"placement returned unknown replica {rid!r}")
+        if rid == sticky:
+            self._count("affinity_hits")
+        if key is not None:
+            self._sticky[key] = rid
+        self._stage(req.uid, "placement", replica=rid,
+                    sticky=bool(rid == sticky))
+        outcome = self.replicas[rid].submit(req)
+        if outcome == "shed":
+            # replica-local gate disagreed (structural edge case): terminal
+            self._count("shed")
+            self.per_replica[rid]["shed"] += 1
+            self._slo_shed.append((now, True))
+            self._record("fleet/shed", {"uid": req.uid, "replica": rid,
+                                        "reason": "replica_gate"})
+            return "shed", rid
+        self.flights[req.uid] = _Flight(req=req, replica_id=rid,
+                                        routed_t=now)
+        self._count("routed")
+        self.per_replica[rid]["routed"] += 1
+        self._slo_shed.append((now, False))
+        self._record("fleet/route",
+                     {"uid": req.uid, "replica": rid, "tenant": req.tenant,
+                      **({"key": key} if key is not None else {})})
+        return "routed", rid
+
+    def _edge_shed(self, req: FleetRequest, now: float,
+                   reason: str) -> Tuple[str, Optional[str]]:
+        self._count("shed")
+        self._slo_shed.append((now, True))
+        self._stage(req.uid, "edge_gate", verdict="shed", reason=reason)
+        self._record("fleet/shed", {"uid": req.uid, "reason": reason})
+        return "shed", None
+
+    # ------------------------------------------------------------- stepping
+    def poll(self, now: Optional[float] = None) -> List[FleetEvent]:
+        """One router tick: advance in-process replicas, ingest replica
+        events, refresh capacity observations, detect deaths and fail
+        their in-flight streams over. Returns the tick's delivery stream
+        (edge-shed events are returned by :meth:`submit` directly)."""
+        now = self.clock() if now is None else now
+        for rid in self.rotation():
+            self.replicas[rid].advance()
+        out: List[FleetEvent] = []
+        for rid, r in self.replicas.items():
+            for ev in r.poll_events():
+                self._ingest(rid, ev, now)
+                out.append(ev)
+        for rid, r in self.replicas.items():
+            if rid in self._dead or not r.dead():
+                continue
+            out.extend(self.failover(rid, now))
+        self._flush_gauges(now)
+        self._poll_n += 1
+        if self.cfg.log_path and self._poll_n % 512 == 0:
+            self.export_metrics()
+        return out
+
+    def _ingest(self, rid: str, ev: FleetEvent, now: float) -> None:
+        fl = self.flights.get(ev.uid)
+        if ev.kind == "token":
+            self.per_replica[rid]["tokens"] += len(ev.tokens)
+            if fl is None:
+                return
+            if fl.first_token_t is None:
+                fl.first_token_t = ev.t
+                self.caps[rid].record_prefill(
+                    len(fl.req.tokens), max(ev.t - fl.routed_t, 1e-9))
+                if fl.replays == 0:
+                    self._observe("Fleet/routed_ttft_s", ev.t - fl.routed_t)
+                    if fl.req.ttft_sla_s is not None:
+                        self._slo_ttft.append(
+                            (ev.t,
+                             ev.t - fl.routed_t <= fl.req.ttft_sla_s))
+            elif fl.last_emit_t is not None:
+                self.caps[rid].record_decode(
+                    len(ev.tokens), max(ev.t - fl.last_emit_t, 1e-9))
+            fl.last_emit_t = ev.t
+            fl.emitted += len(ev.tokens)
+        elif ev.kind == "finish":
+            self.per_replica[rid]["completed"] += 1
+            self._count("completed")
+            self.flights.pop(ev.uid, None)
+        elif ev.kind == "shed":
+            self.per_replica[rid]["shed"] += 1
+            if ev.reason == "replay_shed":
+                self._count_failover("replay_sheds")
+            self._count("shed")
+            self.flights.pop(ev.uid, None)
+
+    # ------------------------------------------------------------- failover
+    def mark_dead(self, replica_id: str,
+                  now: Optional[float] = None) -> List[FleetEvent]:
+        """Operator override: declare a replica dead NOW (an
+        injected kill) and run failover without waiting for the health
+        grace."""
+        if replica_id in self._dead:
+            return []
+        return self.failover(replica_id, self.clock() if now is None
+                             else now)
+
+    def failover(self, replica_id: str, now: float) -> List[FleetEvent]:
+        """Journal-based cross-replica failover of one dead replica: claim
+        its journals (exactly-once across router restarts), merge with the
+        router's own routed-but-never-admitted flights, and re-admit every
+        in-flight stream on a surviving replica from its emitted-token
+        watermark. Streams no survivor can take are shed terminally."""
+        from .failover import claim_in_flight
+
+        self._dead.add(replica_id)
+        self._count_failover("deaths")
+        ep = self.replicas[replica_id]
+        self._record("fleet/death", {"replica": replica_id})
+        logger.warning("fleet router: replica %s dead — failing over its "
+                       "in-flight streams", replica_id)
+        states: Dict[int, ReplayRequest] = {}
+        if ep.journal_dir:
+            states = claim_in_flight(ep.journal_dir, claimer="router")
+        # routed to the dead replica but never journal-admitted there (the
+        # request died in transport): resubmit from scratch — no token was
+        # ever delivered, so a fresh admit loses nothing. Claim these uids
+        # too: a respawned worker must skip their stale spool files.
+        lost = []
+        for uid, fl in self.flights.items():
+            if fl.replica_id == replica_id and uid not in states:
+                states[uid] = ReplayRequest(
+                    uid=uid, tokens=list(fl.req.tokens),
+                    max_new_tokens=fl.req.max_new_tokens,
+                    tenant=fl.req.tenant, rate_sla=fl.req.rate_sla)
+                lost.append(uid)
+        if lost and ep.journal_dir:
+            from .failover import claim_uids
+
+            claim_uids(ep.journal_dir, lost, claimer="router")
+        self._stage(-1, "failover_claim", replica=replica_id,
+                    claimed=sorted(states), lost_in_transport=sorted(lost))
+        events: List[FleetEvent] = []
+        for uid in sorted(states):
+            st = states[uid]
+            events.extend(self._failover_one(uid, st, now))
+        return events
+
+    def _failover_one(self, uid: int, st: ReplayRequest,
+                      now: float) -> List[FleetEvent]:
+        rids = self.rotation()
+        fl = self.flights.get(uid)
+        if not rids:
+            self._count_failover("replay_sheds")
+            self._count("shed")
+            self.flights.pop(uid, None)
+            self._record("fleet/failover",
+                         {"uid": uid, "outcome": "shed",
+                          "reason": "no_surviving_replica"})
+            return [FleetEvent("shed", uid, now,
+                               reason="failover:no_surviving_replica")]
+        views = self._views(rids)
+        rid = self.placement(
+            FleetRequest(uid=uid, tokens=st.tokens,
+                         max_new_tokens=st.max_new_tokens, tenant=st.tenant,
+                         rate_sla=st.rate_sla),
+            views, None)
+        outcome = self.replicas[rid].replay(st)
+        self._record("fleet/failover",
+                     {"uid": uid, "replica": rid, "outcome": outcome,
+                      "watermark": len(st.out)})
+        if outcome == "shed":
+            # terminal, counted by _ingest for async transports; local
+            # replay answers synchronously so count here
+            self._count_failover("replay_sheds")
+            self._count("shed")
+            self.per_replica[rid]["shed"] += 1
+            self.flights.pop(uid, None)
+            return [FleetEvent("shed", uid, now, replica_id=rid,
+                               reason="replay_shed")]
+        if outcome == "completed":
+            self._count("completed")
+            self.per_replica[rid]["completed"] += 1
+            self.flights.pop(uid, None)
+            return [FleetEvent("finish", uid, now, replica_id=rid,
+                               reason="done")]
+        # replayed (sync) or dispatched (async): the stream continues on
+        # the survivor from its watermark
+        self._count_failover("replays")
+        self.per_replica[rid]["failover_in"] += 1
+        self._stage(uid, "replay_segment", replica=rid,
+                    watermark=len(st.out))
+        if fl is None:
+            fl = _Flight(req=FleetRequest(
+                uid=uid, tokens=list(st.tokens),
+                max_new_tokens=st.max_new_tokens, tenant=st.tenant,
+                rate_sla=st.rate_sla), replica_id=rid, routed_t=now)
+            self.flights[uid] = fl
+        fl.replica_id = rid
+        fl.replays += 1
+        fl.emitted = len(st.out)
+        # the first token on the survivor is a REPLAY landing, not a fresh
+        # TTFT — skip the routed-TTFT histogram, and re-base routed_t to
+        # NOW so the survivor's prefill sample measures ITS re-prefill, not
+        # the dead replica's whole lifetime (which would crater the
+        # survivor's capacity model and edge-shed everything after it)
+        fl.routed_t = now
+        fl.first_token_t = None
+        fl.last_emit_t = None
+        return []
+
+    # ------------------------------------------------------------ reporting
+    def _observe(self, name: str, value: float) -> None:
+        if self._metrics is not None:
+            self._metrics.histogram(name).observe(value)
+
+    def _slo_snapshot(self, now: float) -> Tuple[float, float, float]:
+        """Sliding-window SLO burn: (ttft_miss_frac, shed_frac, burn_rate)
+        over the last ``cfg.slo_window_s`` seconds. Burn is the worse of
+        the two bad-fractions over the configured error budget — >1 means
+        the fleet is spending budget faster than the SLO allows."""
+        cut = now - self.cfg.slo_window_s
+        for dq in (self._slo_ttft, self._slo_shed):
+            while dq and dq[0][0] < cut:
+                dq.popleft()
+        miss = (sum(1 for _t, ok in self._slo_ttft if not ok)
+                / len(self._slo_ttft)) if self._slo_ttft else 0.0
+        shed = (sum(1 for _t, s in self._slo_shed if s)
+                / len(self._slo_shed)) if self._slo_shed else 0.0
+        return miss, shed, max(miss, shed) / self.cfg.slo_budget
+
+    def export_metrics(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the Prometheus textfile snapshot (atomic rename, same
+        contract as the training exporter). Defaults to
+        ``metrics_router.prom`` beside ``cfg.log_path``."""
+        if self._metrics is None:
+            return None
+        if path is None:
+            if not self.cfg.log_path:
+                return None
+            path = os.path.join(os.path.dirname(self.cfg.log_path) or ".",
+                                "metrics_router.prom")
+        from ....monitor.telemetry import export_metrics_textfile
+
+        return export_metrics_textfile(
+            path, self._metrics.snapshot(), labels={"role": "router"},
+            extra_counters={f"fleet_{k}": v for k, v in
+                            self.counters.items()})
+
+    def _flush_gauges(self, now: Optional[float] = None) -> None:
+        if self._metrics is None:
+            return
+        self._metrics.gauge("Fleet/replicas_ready").set(len(self.rotation()))
+        self._metrics.gauge("Fleet/inflight").set(len(self.flights))
+        if now is not None:
+            miss, shed, burn = self._slo_snapshot(now)
+            self._metrics.gauge("Fleet/slo.ttft_miss_frac").set(miss)
+            self._metrics.gauge("Fleet/slo.shed_frac").set(shed)
+            self._metrics.gauge("Fleet/slo.burn_rate").set(burn)
+        for rid, r in self.replicas.items():
+            ld = r.load()
+            self._metrics.gauge(f"Fleet/replica.{rid}.live").set(ld["live"])
+            self._metrics.gauge(
+                f"Fleet/replica.{rid}.queued").set(ld["queued"])
+            ps = r.prefix_stats()
+            if ps is not None:
+                # engine-reported reuse per replica (the Fleet/replica.
+                # prefix family covers the data-dependent member names) —
+                # the counterpart of the placement-side affinity_hits
+                self._metrics.gauge(
+                    f"Fleet/replica.{rid}.prefix_hits").set(ps["hits"])
+                self._metrics.gauge(
+                    f"Fleet/replica.{rid}.prefix_hit_ratio").set(
+                        ps["hit_ratio"])
+                self._metrics.gauge(
+                    f"Fleet/replica.{rid}.prefix_tokens_saved").set(
+                        ps["tokens_saved"])
+
+    @property
+    def idle(self) -> bool:
+        return not self.flights
+
+    def realized_reuse(self) -> Optional[Dict[str, Any]]:
+        """Join placement-side affinity with engine-reported prefix reuse.
+
+        ``Fleet/affinity_hits`` alone only proves the router SENT
+        same-key requests to the same replica; whether the engine
+        actually reused KV is the replicas' ``Serve/prefix.*`` story.
+        Returns None when no replica reports a prefix cache. The joined
+        view answers the operator question the placement counter cannot:
+        "is sticky placement converting into skipped prefill?"
+        """
+        per: Dict[str, Dict[str, float]] = {}
+        for rid, r in self.replicas.items():
+            ps = r.prefix_stats()
+            if ps is not None:
+                per[rid] = ps
+        if not per:
+            return None
+        hits = sum(int(p["hits"]) for p in per.values())
+        misses = sum(int(p["misses"]) for p in per.values())
+        lookups = hits + misses
+        return {"affinity_hits": self.counters.get("affinity_hits", 0),
+                "prefix_hits": hits,
+                "prefix_lookups": lookups,
+                "prefix_hit_ratio": round(hits / lookups, 4) if lookups
+                else 0.0,
+                "tokens_saved": sum(int(p["tokens_saved"])
+                                    for p in per.values()),
+                "per_replica": per}
+
+    def stats(self) -> Dict[str, Any]:
+        """Counters + per-replica breakdown for reports and operators."""
+        out = {**self.counters,
+               **{f"failover_{n}": v
+                  for n, v in self.failover_counters.items()},
+               "inflight": len(self.flights),
+               "replicas_ready": len(self.rotation()),
+               "replicas_dead": sorted(self._dead),
+               "per_replica": {rid: dict(c)
+                               for rid, c in self.per_replica.items()}}
+        reuse = self.realized_reuse()
+        if reuse is not None:
+            out["realized_reuse"] = reuse
+        return out
+
+    def summary_events(self, step: Optional[int] = None) -> List[Tuple]:
+        """Scalar ``Fleet/*`` events, registry-validated (strict safe)."""
+        from ....monitor.telemetry import check_events
+
+        ev = [(f"Fleet/{n}", float(v), step)
+              for n, v in self.counters.items()]
+        ev += [(_FAILOVER_COUNTERS[n], float(v), step)
+               for n, v in self.failover_counters.items()]
+        ev += [("Fleet/replicas_ready", float(len(self.rotation())), step),
+               ("Fleet/inflight", float(len(self.flights)), step)]
+        miss, shed, burn = self._slo_snapshot(self.clock())
+        ev += [("Fleet/slo.ttft_miss_frac", miss, step),
+               ("Fleet/slo.shed_frac", shed, step),
+               ("Fleet/slo.burn_rate", burn, step)]
+        if self._metrics is not None:
+            for name in FLEET_HISTOGRAMS:
+                hist = self._metrics.histogram(name)
+                if not hist.count:
+                    continue
+                for q, value in hist.quantiles().items():
+                    if value is not None:
+                        ev.append((f"{name}/{q}", float(value), step))
+        return check_events(ev)

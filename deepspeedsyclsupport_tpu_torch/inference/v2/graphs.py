@@ -10,10 +10,11 @@ graph, one host dispatch for some two thousand kernels. On a CPU device the
 runner calls the body eagerly on the given inputs; there is no eager route
 on the card, and a capture or replay that fails raises.
 
-Before capture the body runs once on a side stream with the ``idle`` inputs
-(every slot inactive, so it writes only the KV pool's sink block): lazy
-initialisation (cuBLAS workspaces, the kernels' build, cached device
-constants) happens there and not inside the capture. A generator the body
+Before capture the body runs once on a side stream (one a device, shared
+by every runner) with the ``idle`` inputs (every slot inactive, so it
+writes only the KV pool's sink block): lazy initialisation (cuBLAS
+workspaces, the kernels' build, cached device constants) happens there and
+not inside the capture. A generator the body
 samples from is registered with the graph, so each replay draws new
 numbers. The wrappers count a kernel launch when Python calls them, which
 during a capture launches nothing: each runner keeps the launches its
@@ -28,6 +29,10 @@ from ...ops import flash_attention as _fa
 from ...ops import paged_attention as _pa
 
 _COUNTERS = (_pa.LAUNCHES, _fa.LAUNCHES)
+# one warm-up stream per device for every runner: cuBLAS keeps a workspace
+# for each stream it has run on until the process ends, so a stream of
+# each runner's own would keep one more workspace for every capture
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def _counts() -> Tuple[Dict[str, int], ...]:
@@ -63,7 +68,9 @@ class DecodeRunner:
                                     pin_memory=True)
                      for k, v in idle.items() if isinstance(v, np.ndarray)}
         self._filled = torch.cuda.Event()
-        side = torch.cuda.Stream(device)
+        side = _WARMUP_STREAMS.get(device)
+        if side is None:
+            side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             body(**self.static)

@@ -6,16 +6,21 @@ as the JAX package's), but ``layers`` is a Python list of per-layer dicts —
 the JAX package stacks them ``[L, ...]`` for ``lax.scan``; here a Python loop
 runs over the list. :func:`params_from_jax` converts a JAX params tree.
 
-Ported: the dense, no-cache forward (differentiable ``_forward``; the
-no-grad :meth:`CausalLM.apply`), the next-token ``loss`` the training
-engine calls, and per-layer activation checkpointing (``cfg.remat``).
+Ported: the no-cache forward (differentiable ``_forward``; the no-grad
+:meth:`CausalLM.apply`), the next-token ``loss`` the training engine calls
+(plus ``aux_loss_coef`` times the MoE layers' summed load-balance loss),
+and per-layer activation checkpointing (``cfg.remat``).
 Attention goes through the ``attention`` dispatch of ``layers.py``
 (``cfg.attn_impl``): on the card the flash kernels, on the CPU the plain
 version; ``attn_impl="xla"`` keeps the plain version anywhere, which is the
 oracle the serving engine and the kernels are held against.
-``init_params`` draws MoE layers (``p["moe"]``: router and stacked
-experts), which the serving engine runs; the MoE trunk here (the JAX
-package's capacity-buffer ``moe_mlp``), the KV-cache ``decode_step``, the
+MoE layers (``p["moe"]``: router and stacked experts) run the JAX
+package's capacity-buffer ``moe_mlp`` (``parallel/moe.py``) in every
+forward here, train and eval alike; the serving engine runs the exact
+``moe_mlp_nodrop`` instead. ``router_jitter > 0`` draws its noise from a
+``torch.Generator`` (``loss``'s ``rng``): one seed a layer is drawn from
+it before the layer runs, so a layer recomputed under activation
+checkpointing draws the same noise. The KV-cache ``decode_step``, the
 pipelined trunk, random-LTD and progressive layer drop are not ported;
 they raise ``NotImplementedError``.
 """
@@ -29,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import parse_dtype, resolve_device
 from .config import ModelConfig, get_config
 from .layers import attention_block, mlp_block, norm
+from ..parallel.moe import moe_mlp
 
 Params = Dict[str, Any]
 
@@ -124,11 +130,6 @@ class CausalLM:
     # ------------------------------------------------------------------ forward
     def _check_trunk(self, train: bool) -> None:
         cfg = self.config
-        if cfg.any_moe:
-            raise NotImplementedError(
-                "the MoE trunk (the capacity-buffer moe_mlp) is not ported "
-                "yet: ROADMAP.md, queue A.3.1 (distributed training); MoE "
-                "models are served by inference.v2.InferenceEngineV2")
         if cfg.pipe_stages is not None and cfg.pipe_stages > 1:
             raise NotImplementedError(
                 "the pipelined trunk (pipe_stages > 1) is not ported yet: "
@@ -139,30 +140,49 @@ class CausalLM:
                 "queue A.3.7 (training-time model options)")
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
-               segment_ids: Optional[torch.Tensor],
-               window: Optional[int]) -> torch.Tensor:
+               segment_ids: Optional[torch.Tensor], window: Optional[int],
+               jitter_seed: Optional[int] = None):
+        """One block; returns ``(x, aux)`` with ``aux`` the MoE layer's
+        load-balance loss (a float32 tensor; 0.0 for a dense MLP)."""
         cfg = self.config
         dtype = x.dtype   # pin the activation dtype: fp32 params must not
         #                   promote bf16 activations (transformer.py:149)
+
+        def run_mlp(y):
+            if cfg.any_moe:
+                gen = None
+                if jitter_seed is not None:
+                    gen = torch.Generator(device=y.device).manual_seed(
+                        jitter_seed)
+                return moe_mlp(p["moe"], y, cfg, gen)
+            return mlp_block(p["mlp"], y, cfg), 0.0
+
         x_norm = norm(x, p["attn_norm"], cfg)
         h = attention_block(p["attn"], x_norm, cfg, positions, segment_ids,
                             window=window)
         if cfg.parallel_block:
             y = x_norm if cfg.shared_block_norm else norm(x, p["mlp_norm"], cfg)
-            return (x + h + mlp_block(p["mlp"], y, cfg)).to(dtype)
+            m, aux = run_mlp(y)
+            return (x + h + m).to(dtype), aux
         x = (x + h).to(dtype)
-        return (x + mlp_block(p["mlp"], norm(x, p["mlp_norm"], cfg),
-                              cfg)).to(dtype)
+        m, aux = run_mlp(norm(x, p["mlp_norm"], cfg))
+        return (x + m).to(dtype), aux
 
     def _forward(self, params: Params, input_ids: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  segment_ids: Optional[torch.Tensor] = None,
-                 train: bool = True) -> torch.Tensor:
-        """Differentiable dense forward over ``input_ids`` [B, S] (no KV
-        cache). Returns float32 logits [B, S, V]. With ``cfg.remat`` each
+                 rng: Optional[torch.Generator] = None,
+                 train: bool = True):
+        """Differentiable forward over ``input_ids`` [B, S] (no KV cache).
+        Returns ``(logits [B, S, V] float32, aux)``, ``aux`` the layers'
+        summed MoE load-balance loss (a float32 tensor; 0.0 for a dense
+        model). With ``cfg.remat`` each
         layer runs under ``torch.utils.checkpoint`` (non-reentrant): its
         activations are recomputed in the backward, the port of
-        ``jax.checkpoint`` with policy ``nothing_saveable``."""
+        ``jax.checkpoint`` with policy ``nothing_saveable``. ``rng``: the
+        router jitter's generator (a generator seeded from ``self.seed``
+        on the ids' device when None, as the JAX package draws from key 0
+        without one)."""
         cfg = self.config
         self._check_trunk(train)
         b, s = input_ids.shape
@@ -177,14 +197,25 @@ class CausalLM:
         x = x.to(compute_dtype(cfg))
         if cfg.embed_norm:
             x = norm(x, params["embed_norm"], cfg)
+        jitter = cfg.any_moe and cfg.router_jitter > 0.0
+        if jitter and rng is None:
+            rng = torch.Generator(device=input_ids.device).manual_seed(
+                self.seed)
+        aux = 0.0
         for i, p in enumerate(params["layers"]):
             window = (cfg.attn_windows[i] if cfg.attn_windows is not None
                       else cfg.sliding_window)
+            seed = None
+            if jitter:
+                seed = int(torch.randint(2 ** 62, (1,), generator=rng,
+                                         device=rng.device))
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(self._layer, p, x, positions, segment_ids,
-                               window, use_reentrant=False)
+                x, a = checkpoint(self._layer, p, x, positions, segment_ids,
+                                  window, seed, use_reentrant=False)
             else:
-                x = self._layer(p, x, positions, segment_ids, window)
+                x, a = self._layer(p, x, positions, segment_ids, window,
+                                   seed)
+            aux = aux + a
         x = norm(x, params["final_norm"], cfg)
         if cfg.tie_embeddings:
             logits = x @ params["embed"]["embedding"].to(x.dtype).T
@@ -192,7 +223,7 @@ class CausalLM:
             logits = x @ params["lm_head"]["kernel"].to(x.dtype)
             if cfg.lm_head_bias:
                 logits = logits + params["lm_head"]["bias"].to(logits.dtype)
-        return logits.float()
+        return logits.float(), aux
 
     @torch.no_grad()
     def apply(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -200,7 +231,7 @@ class CausalLM:
         float32 logits [B, S, V]. Attention follows ``cfg.attn_impl``
         (``auto``: the flash kernels on the card, the plain version on the
         CPU)."""
-        return self._forward(params, input_ids, train=False)
+        return self._forward(params, input_ids, train=False)[0]
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -211,17 +242,20 @@ class CausalLM:
         replaces that mask); without: the labels are ``input_ids`` shifted
         left, the last position masked, times ``loss_mask`` when given. The
         loss is the masked sum over ``max(mask.sum(), 1)``, with a float32
-        logsumexp. Returns ``(loss, {"lm_loss": ...})``. ``rng`` is accepted
-        for the protocol; the dense model draws no random numbers."""
+        logsumexp. An MoE model adds ``aux_loss_coef`` times the layers'
+        summed load-balance loss and reports that sum as ``moe_aux_loss``.
+        Returns ``(loss, {"lm_loss": ..., ["moe_aux_loss": ...]})``.
+        ``rng``: the router jitter's ``torch.Generator`` (only an MoE model
+        with ``router_jitter > 0`` draws from it)."""
         if "pld_theta" in batch:
             raise NotImplementedError(
                 "progressive layer drop is not ported yet: ROADMAP.md, "
                 "queue A.3.7 (training-time model options)")
         input_ids = batch["input_ids"]
-        logits = self._forward(params, input_ids,
-                               positions=batch.get("positions"),
-                               segment_ids=batch.get("segment_ids"),
-                               train=train)
+        logits, aux = self._forward(params, input_ids,
+                                    positions=batch.get("positions"),
+                                    segment_ids=batch.get("segment_ids"),
+                                    rng=rng, train=train)
         if "labels" in batch:
             labels = batch["labels"].long()
             mask = batch["loss_mask"].float() if "loss_mask" in batch \
@@ -240,7 +274,11 @@ class CausalLM:
         gold = logits.gather(-1, labels[..., None])[..., 0]
         nll = (logz - gold) * mask
         lm_loss = nll.sum() / mask.sum().clamp_min(1.0)
-        return lm_loss, {"lm_loss": lm_loss.detach()}
+        metrics = {"lm_loss": lm_loss.detach()}
+        if not self.config.any_moe:
+            return lm_loss, metrics
+        metrics["moe_aux_loss"] = aux.detach()
+        return lm_loss + self.config.aux_loss_coef * aux, metrics
 
 
 def build_model(name_or_config: Union[str, ModelConfig], **overrides

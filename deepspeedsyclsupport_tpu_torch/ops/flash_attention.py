@@ -9,7 +9,11 @@ JAX package wires them as a ``jax.custom_vjp`` (:646-693).
 * :func:`flash_attention` — the public function, layout ``[B, S, H, D]`` /
   ``[B, Skv, KVH, D]`` as in the JAX package (:752). Differentiable,
   including the additive pair ``bias`` (the evoformer pair bias); the k-row
-  bias and the block-sparse layout ride along, non-differentiable.
+  bias and the block-sparse layout ride along, non-differentiable. With
+  ``return_lse=True`` it also returns the LSE ``[B, Sq, H]`` float32, both
+  differentiable (the block combiner ring attention needs; JAX :696-734):
+  the backward runs the same kernels with ``delta - dlse`` in delta's
+  slot.
 * :func:`flash_attention_fwd` / :func:`flash_attention_bwd` — the wrappers.
   A CUDA tensor launches the kernels (or raises); a CPU tensor takes the
   plain versions. There is no other fallback.
@@ -29,9 +33,6 @@ JAX package wires them as a ``jax.custom_vjp`` (:646-693).
   dbias above D = 128, the CUDA-core ones. TMA reads an operand in place when :func:`tma_ready` says
   so; otherwise the wrapper copies it first and counts the copy in
   :data:`COPIES` under the kernel's name.
-
-Not ported here: the lse-returning variant (ring attention's); it raises
-``NotImplementedError`` naming its ``ROADMAP.md`` entry.
 """
 import ctypes
 import math
@@ -705,10 +706,19 @@ class FlashAttention(torch.autograd.Function):
     """Forward saves ``o``, ``lse`` and the float32 pair bias; backward
     computes ``delta`` and runs dQ and dK/dV (and the pair bias's gradient),
     returning grads in the inputs' dtypes. The k-row bias gets zeros, as
-    the JAX package's ``f_bwd`` gives it (:683-690): it is a mask."""
+    the JAX package's ``f_bwd`` gives it (:683-690): it is a mask.
+
+    With ``return_lse`` the forward also returns the LSE transposed to
+    ``[B, Sq, H]`` and the backward takes its cotangent ``dlse``: since
+    dLSE_i/dS_ij = P_ij, ``dS_ij = P_ij (dO_i . V_j - (delta_i -
+    dlse_i))``, so the same kernels run with ``delta - dlse`` in delta's
+    slot, the reducing dbias kernel included; dV has no lse term (JAX
+    ``_make_flash_lse``, :696-734). No new kernel: delta is computed here,
+    outside the kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, k_bias, mask: Mask):
+    def forward(ctx, q, k, v, bias, k_bias, mask: Mask,
+                return_lse: bool = False):
         b32 = None if bias is None else check_bias(bias, q, k)
         o, lse = flash_attention_fwd(q, k, v, mask, b32)
         ctx.save_for_backward(q, k, v, o, lse, b32)
@@ -716,22 +726,27 @@ class FlashAttention(torch.autograd.Function):
         ctx.bias_dtype = None if bias is None else bias.dtype
         ctx.k_bias_like = None if k_bias is None else (
             k_bias.shape, k_bias.dtype, k_bias.device)
+        if return_lse:
+            return o, lse.transpose(1, 2).contiguous()
         return o
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse=None):
         q, k, v, o, lse, b32 = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
+        delta = attention_delta(do, o)
+        if dlse is not None:
+            delta = (delta - dlse.float().transpose(1, 2)).contiguous()
         dq, dk, dv, dbias = flash_attention_bwd(
-            q, k, v, do, lse, attention_delta(do, o), ctx.mask, b32)
+            q, k, v, do, lse, delta, ctx.mask, b32)
         if dbias is not None:
             dbias = dbias.to(ctx.bias_dtype)
         dkb = None
         if ctx.k_bias_like is not None and ctx.needs_input_grad[4]:
             shape, dtype, dev = ctx.k_bias_like
             dkb = torch.zeros(shape, dtype=dtype, device=dev)
-        return dq, dk, dv, dbias, dkb, None
+        return dq, dk, dv, dbias, dkb, None, None
 
 
 # -------------------------------------------------------------------- public
@@ -745,7 +760,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     k_bias: Optional[torch.Tensor] = None,
                     block_layout=None, block_q: int = 512, block_k: int = 512,
-                    return_lse: bool = False) -> torch.Tensor:
+                    return_lse: bool = False):
     """Flash attention over ``q [B,Sq,H,D]``, ``k/v [B,Skv,KVH,D]``.
     Differentiable; GQA when ``KVH < H``; ``segment_ids [B,Sq]`` masks across
     packed-sequence boundaries; ``kv_segment_ids`` with explicit
@@ -760,12 +775,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ceil(Sq/bq), ceil(Skv/bk)]`` (0 = dead block), ``Hl`` in {1, H}, over
     blocks of ``bq = min(block_q, round_up(Sq, 128))`` rows and ``bk`` the
     same for keys; ``block_q``/``block_k`` mean nothing else. Returns
-    ``[B,Sq,H,D]`` in q's dtype. Scale 1/sqrt(D)."""
-    if return_lse:
-        raise NotImplementedError(
-            "flash_attention return_lse (the lse-returning variant ring "
-            "attention needs) is not ported yet: ROADMAP.md, queue A.3.1 "
-            "(ring attention)")
+    ``[B,Sq,H,D]`` in q's dtype, or with ``return_lse`` ``(o, lse)``, lse
+    ``[B,Sq,H]`` float32 (-1e30 for a row with nothing visible), both
+    differentiable. Scale 1/sqrt(D)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B,Sq,H,D] and k/v [B,Skv,KVH,D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -785,4 +797,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(_LAYOUT_WITH_BROADCAST)
     return FlashAttention.apply(
         q, k, v, bias, k_bias if isinstance(k_bias, torch.Tensor) else None,
-        mask)
+        mask, bool(return_lse))

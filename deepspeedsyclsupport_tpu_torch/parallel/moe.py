@@ -1,14 +1,30 @@
-"""Exact top-k Mixture-of-Experts over a flat token stream (serving).
+"""Mixture-of-Experts: the capacity-buffer training path and exact top-k
+serving.
 
-Port of ``moe_mlp_nodrop`` (``deepspeedsyclsupport_tpu/parallel/moe.py``):
-router logits in float32, softmax, top-k, the gate weights renormalised
-with a floor of 1e-9; each (token, choice) row goes to its expert's GLU
-and the weighted rows are summed back per token. No token is dropped.
-The capacity-buffer training path (``moe_mlp``, ``topk_gating``) is not
-ported (ROADMAP.md, queue A.3.1).
+Port of ``deepspeedsyclsupport_tpu/parallel/moe.py`` on one card (expert
+parallelism 1; the JAX package's expert-axis sharding is A.3.1's ``comm/``
+step).
 
-Two routes compute the expert part, chosen by the tensor's device and
-dtype, never by a failure:
+Training (:func:`topk_gating`, :func:`moe_mlp`): router logits in float32,
+softmax, top-k (ties to the lower expert index, as ``jax.lax.top_k``),
+the load-balance aux loss ``E * sum_e(mean_prob_e * top1_frac_e)``, and
+capacity ``C = max(ceil(T * capacity_factor * k / E), k)`` slots per
+expert, every top-1 choice taking a slot before any top-2 spill; a choice
+past its expert's capacity is dropped (its token gets nothing from that
+expert). :func:`topk_gating` returns the JAX package's dense one-hot
+dispatch and combine ``[T, E, C]``; :func:`moe_mlp` computes the same
+function from the slot indices instead (a scatter of the kept rows into
+``[E, C, D]``, batched expert GEMMs, a gather back weighted by the
+combine weights), because the dense ``[k*T, E, C]`` one-hot is 335 MB a
+layer in float32 at Mixtral's width and T = 4096. ``router_jitter`` draws
+its multiplicative noise from an explicit ``torch.Generator`` (the JAX
+package draws from ``jax.random``: the two give other numbers).
+
+Serving (:func:`moe_mlp_nodrop`): router logits in float32, softmax,
+top-k, the gate weights renormalised with a floor of 1e-9; each (token,
+choice) row goes to its expert's GLU and the weighted rows are summed back
+per token. No token is dropped. Two routes compute the expert part,
+chosen by the tensor's device and dtype, never by a failure:
 
 * bf16 CUDA tensors take grouped GEMMs (:func:`experts_grouped`): rows
   stably sorted by expert, group ends counted on the device and
@@ -24,8 +40,13 @@ Neither route reads back to the host, so the decode step's CUDA graph
 holds them. Each token's choices are put in expert order, and its
 weighted rows are summed in that order, as the JAX package's scatter-add
 sums them: the result does not depend on the order of the sorted rows.
+
+The expert GEMMs of both paths are plain products (``torch.matmul`` /
+``bmm`` / ``_grouped_mm``), as the JAX package leaves them to XLA: no
+TPU kernel of the JAX package is on either path.
 """
-from typing import Any, Callable, Dict, Tuple
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +57,103 @@ def _activation(name: str) -> Callable:
     if name == "silu":
         return F.silu
     return lambda x: F.gelu(x, approximate="tanh")
+
+
+def _capacity_route(logits: torch.Tensor, k: int, capacity: int,
+                    generator: Optional[torch.Generator] = None,
+                    jitter: float = 0.0):
+    """The capacity routing of :func:`topk_gating` over its ``k * T``
+    (choice, token) rows, choice-major (row ``c * T + t``: all top-1
+    choices first, so they win capacity slots over top-2 spill). Returns
+    ``(expert [kT] int64, pos [kT] int64 slot in the expert's buffer,
+    keep [kT] bool, gate [kT] float32 renormalised weight, 0 where
+    dropped, aux float32 scalar)``."""
+    t, e = logits.shape
+    if jitter > 0.0 and generator is not None:
+        noise = torch.empty(logits.shape, dtype=logits.dtype,
+                            device=logits.device)
+        noise.uniform_(1.0 - jitter, 1.0 + jitter, generator=generator)
+        logits = logits * noise
+    probs = torch.softmax(logits.float(), dim=-1)                # [T, E]
+    # jax.lax.top_k takes the lower index on a tie; a stable descending
+    # sort keeps equal probabilities in index order (torch.topk promises
+    # no order among ties)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]                     # [T, k]
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
+    aux = (me * ce).sum() * e
+    expert = top_e.t().reshape(k * t)
+    onehot = F.one_hot(expert, e)                                 # [kT, E]
+    pos = (onehot.cumsum(0) - onehot).gather(1, expert[:, None])[:, 0]
+    keep = pos < capacity
+    gate = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    gate = gate.t().reshape(k * t) * keep
+    return expert, pos, keep, gate, aux
+
+
+def topk_gating(logits: torch.Tensor, k: int, capacity: int,
+                generator: Optional[torch.Generator] = None,
+                jitter: float = 0.0
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k gating with capacity (JAX ``topk_gating``). ``logits`` [T, E].
+    Returns ``(dispatch [T, E, C] one-hot, combine [T, E, C] weights,
+    aux_loss)`` in float32. ``jitter > 0`` with a ``generator`` multiplies
+    the logits by uniform noise in ``[1 - jitter, 1 + jitter]``."""
+    t, e = logits.shape
+    expert, pos, keep, gate, aux = _capacity_route(logits, k, capacity,
+                                                   generator, jitter)
+    tok = torch.arange(t, device=logits.device).repeat(k)
+    # a dropped row adds 0 to slot 0 of its expert, as the JAX package's
+    # zeroed one-hot does
+    flat = (tok * e + expert) * capacity + torch.where(keep, pos, 0)
+    zeros = torch.zeros(t * e * capacity, dtype=torch.float32,
+                        device=logits.device)
+    dispatch = zeros.index_add(0, flat, keep.float())
+    combine = zeros.index_add(0, flat, gate)
+    return (dispatch.view(t, e, capacity), combine.view(t, e, capacity),
+            aux)
+
+
+def capacity(tokens: int, cfg) -> int:
+    """Slots per expert: ``max(ceil(T * capacity_factor * k / E), k)``."""
+    k = cfg.num_experts_per_tok
+    return max(int(math.ceil(tokens * cfg.capacity_factor * k
+                             / cfg.num_experts)), k)
+
+
+def moe_mlp(p: Dict[str, Any], x: torch.Tensor, cfg,
+            generator: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE GLU block with capacity buffers (JAX ``moe_mlp``), the training
+    path. ``x`` [B, S, D] -> ``(out [B, S, D], aux_loss float32)``.
+
+    The same function as the JAX package's dense einsums, from indices: the
+    kept (choice, token) rows are scattered into the experts' buffers
+    ``[E, C, D]`` (each slot holds at most one row; empty slots are 0),
+    the experts run as batched GEMMs in ``x``'s dtype, and each token sums
+    its kept choices' rows times their combine weights (rounded to ``x``'s
+    dtype, as the JAX package casts combine) in float32, rounded once."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    cap = capacity(t, cfg)
+    xt = x.reshape(t, d)
+    logits = xt.float() @ p["router"].float()
+    expert, pos, keep, gate, aux = _capacity_route(
+        logits, k, cap, generator, cfg.router_jitter)
+    # kept rows to their slots; dropped rows to one sink row past the
+    # buffers, which no expert reads
+    slot = torch.where(keep, expert * cap + pos, e * cap)
+    buf = xt.new_zeros(e * cap + 1, d).index_add(0, slot, xt.repeat(k, 1))
+    h = buf[:e * cap].view(e, cap, d)
+    act = _activation(cfg.activation)
+    wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
+    y = torch.bmm(act(torch.bmm(h, wg)) * torch.bmm(h, wu), wd)  # [E, C, D]
+    y = torch.cat([y.reshape(e * cap, d), y.new_zeros(1, d)])
+    w = gate.to(x.dtype).float()
+    out = (y[slot].float() * w[:, None]).view(k, t, d).sum(dim=0)
+    return out.to(x.dtype).view(b, s, d), aux
 
 
 def topk_route(x: torch.Tensor, router: torch.Tensor, k: int

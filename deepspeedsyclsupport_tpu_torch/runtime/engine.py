@@ -302,12 +302,24 @@ class Engine:
         return _tree_map(
             lambda t: t.to(dtype) if t.is_floating_point() else t, params)
 
-    def _loss_and_metrics(self, params, batch, train: bool = True
+    def _generator(self, *stream: int) -> torch.Generator:
+        """The loss's random generator (an MoE router's jitter) for one
+        micro-batch, seeded from ``config.seed`` and the step: the JAX
+        engine folds the step (and micro-batch) into its key, so a resumed
+        run draws what the uninterrupted one drew. The two packages' draws
+        differ."""
+        seed = hash((self.config.seed, *stream)) & (2 ** 63 - 1)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _loss_and_metrics(self, params, batch, train: bool = True,
+                          rng: Optional[torch.Generator] = None
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         p = self._cast_params(params)
-        out = (self.loss_fn_raw(p, batch, None, train=train)
+        if rng is None:
+            rng = self._generator(self.micro_steps)
+        out = (self.loss_fn_raw(p, batch, rng, train=train)
                if self._loss_accepts_train else self.loss_fn_raw(p, batch,
-                                                                  None))
+                                                                  rng))
         loss, metrics = out if isinstance(out, tuple) else (out, {})
         return loss.float(), dict(metrics)
 
@@ -322,8 +334,9 @@ class Engine:
         return [t.grad if t.grad is not None else torch.zeros_like(t)
                 for t in self._leaf_tensors]
 
-    def _micro_backward(self, batch) -> Tuple[torch.Tensor, Dict]:
-        loss, metrics = self._loss_and_metrics(self.params, batch)
+    def _micro_backward(self, batch, rng: torch.Generator
+                        ) -> Tuple[torch.Tensor, Dict]:
+        loss, metrics = self._loss_and_metrics(self.params, batch, rng=rng)
         scale_loss(loss, self.scaler_state).backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
@@ -425,7 +438,8 @@ class Engine:
         for i in range(gas):
             mb = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, m = self._micro_backward(mb)
+            loss, m = self._micro_backward(
+                mb, self._generator(self.global_steps, i))
             losses.append(loss)
             metrics.append(m)
         grads = self._grads()

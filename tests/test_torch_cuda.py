@@ -1269,6 +1269,28 @@ def test_sampled_fused_decode_draws_anew_on_each_replay(dev):
     assert bool((first >= 0).all()) and bool((second >= 0).all())
 
 
+def test_runners_leave_no_memory_behind(dev):
+    """Runners captured and dropped one after another leave the card's
+    allocation where the first left it: their warm-ups share one stream,
+    so cuBLAS keeps one workspace (MiBs) and not one for each capture."""
+    import gc
+
+    from deepspeedsyclsupport_tpu_torch.inference.v2.graphs import (
+        DecodeRunner)
+
+    model, params, kv, inputs, idle = _graph_decode_case(dev)
+    left = []
+    for _ in range(5):
+        body = _multi_body(model, params, kv, (False, 0, False))
+        runner = DecodeRunner(body, idle, dev)
+        runner(**inputs)
+        torch.cuda.synchronize()
+        del runner
+        gc.collect()
+        left.append(torch.cuda.memory_allocated())
+    assert max(left[1:]) - left[0] < 2**20, left
+
+
 def test_engine_fused_decode_replays_graphs(dev):
     """The engine on the card: warmup captures the per-token decode graph
     and every fused rung; fused (K = 8) and per-token generate give the
@@ -1636,3 +1658,189 @@ def test_sentinel_gate_on_the_card(dev, tmp_path):
     skips = [json.loads(x) for x in lines.splitlines()
              if json.loads(x)["event"] == "skip"]
     assert [(r["step"], r["cause"]) for r in skips] == [(6, "nonfinite")]
+
+
+# ------------------------------------------- lse-returning flash attention
+LSE_CASES = {
+    "causal_gqa": dict(b=2, s=192, h=4, kvh=2, d=64, kw=dict(causal=True)),
+    # a ring block: queries at 256-447 against keys at 352-543, so query
+    # rows 0-95 see no key and keys 96-191 no query
+    "ring_block": dict(b=1, s=192, h=4, kvh=4, d=128, q0=256, k0=352,
+                       kw=dict(causal=True)),
+    "pair_bias": dict(b=6, s=96, h=4, kvh=4, d=32, kw=dict(causal=False),
+                      bias=(1, 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LSE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_lse_matches_plain(dev, dtype, case):
+    """``flash_attention(..., return_lse=True)`` through the kernels with a
+    random dLSE: o and lse against the plain forward, the grads end to end
+    by their largest magnitude, the dQ and dK/dV kernels (and the reducing
+    dbias) on the plain forward's LSE and delta - dLSE also row by row; one
+    launch of each kernel; exact -1e30 / 0 where nothing is visible."""
+    c = LSE_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn((c["b"], c["s"], c["h"], c["d"]), generator=g)
+    k, v = (torch.randn((c["b"], c["s"], c["kvh"], c["d"]), generator=g)
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=g)
+    dlse = torch.randn((c["b"], c["s"], c["h"]), generator=g).to(dev)
+    q, k, v, do = (t.to(dev, dtype) for t in (q, k, v, do))
+    kw = dict(c["kw"])
+    if "q0" in c:
+        ar = torch.arange(c["s"], device=dev)[None]
+        kw["q_positions"] = ar + c["q0"]
+        kw["kv_positions"] = ar + c["k0"]
+    bias = None
+    if "bias" in c:
+        bias = (0.5 * torch.randn((*c["bias"], c["s"], c["s"]), generator=g)
+                ).to(dev, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if bias is not None:
+        leaves.append(bias.clone().requires_grad_())
+        kw["bias"] = leaves[3]
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_attention(*leaves[:3], return_lse=True, **kw)
+    grads = torch.autograd.grad((o, lse), leaves, (do, dlse))
+    o, lse = o.detach(), lse.detach()
+    torch.cuda.synchronize()
+    got = {n: fa.LAUNCHES[n] - before[n] for n in before}
+    assert got == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                   "flash_dbias": int(bias is not None)}
+    mask = fa.make_mask(q, k, kw["causal"], None, None,
+                        kw.get("q_positions"), kw.get("kv_positions"))
+    b32 = None if bias is None else fa.check_bias(bias, q, k)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, mask, b32)
+    tol = FLASH_TOL[dtype]
+    _assert_close_scaled(o, o_ref, tol, "o")
+    _assert_rows_close(o, o_ref, tol, "o")
+    torch.testing.assert_close(lse, lse_ref.transpose(1, 2), atol=1e-4,
+                               rtol=1e-5)
+    delta = (fa.attention_delta(do, o_ref) - dlse.transpose(1, 2)
+             ).contiguous()
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, lse_ref, delta,
+                                            mask, bias=b32)
+    if b32 is not None:
+        refs = refs + (fa.flash_dbias_reference(q, k, v, do, lse_ref, delta,
+                                                mask, b32),)
+    for name, gr, ref in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+        _assert_close_scaled(gr, ref, tol, f"end-to-end {name}")
+    kern = (fa.flash_dq(q, k, v, do, lse_ref, delta, mask, bias=b32),
+            *fa.flash_dkv(q, k, v, do, lse_ref, delta, mask, bias=b32))
+    for name, gr, ref in zip(("dq", "dk", "dv"), kern, refs):
+        _assert_grads_close(gr, ref, tol, name)
+    if b32 is not None:
+        _assert_close_scaled(fa.flash_dbias(q, k, v, do, lse_ref, delta,
+                                            mask, b32), refs[3], tol, "dbias")
+    if "q0" in c:
+        rows = keys = c["k0"] - c["q0"]
+        assert bool((lse[:, :rows] == fa.NEG_INF).all())
+        assert bool((o[:, :rows] == 0).all())
+        assert bool((grads[0][:, :rows] == 0).all())
+        assert bool((grads[1][:, -keys:] == 0).all())
+        assert bool((grads[2][:, -keys:] == 0).all())
+
+
+# ---------------------------------------------------------- MoE training
+def test_moe_train_step_through_kernels_matches_plain(dev):
+    """``tiny-moe`` in float32 through ``initialize`` -> ``train_batch``:
+    the flash kernels (launches held a step) against the plain attention,
+    loss 1e-4 and grad_norm 1e-3 relative over 3 steps (one on a repeated
+    token, which drops rows at capacity); with remat bit-identical to
+    itself."""
+    from deepspeedsyclsupport_tpu_torch import build_model, initialize
+
+    rng = np.random.RandomState(3)
+    batches = [{"input_ids": rng.randint(0, 512, (2, 128))} for _ in range(3)]
+    batches[1]["input_ids"][:] = 17
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+           "gradient_clipping": 1.0}
+    runs = {}
+    for name, impl, extra in (("kernel", "flash", {}), ("xla", "xla", {}),
+                              ("remat", "flash",
+                               {"activation_checkpointing": {}}),
+                              ("remat2", "flash",
+                               {"activation_checkpointing": {}})):
+        model = build_model("tiny-moe", dtype="float32", attn_impl=impl)
+        params = model.init_params(
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        eng = initialize(model=model, params=params,
+                         config=dict(cfg, **extra), device=dev)[0]
+        out = []
+        for b in batches:
+            before = dict(fa.LAUNCHES)
+            m = eng.train_batch(b)
+            got = {n: fa.LAUNCHES[n] - before[n] for n in before}
+            layers = model.config.num_layers
+            assert got == ({"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "flash_dbias": 0} if impl == "xla" else
+                           {"flash_fwd": layers * (2 if extra else 1),
+                            "flash_dq": layers, "flash_dkv": layers,
+                            "flash_dbias": 0})
+            out.append((float(m["loss"]), float(m["moe_aux_loss"]),
+                        float(m["grad_norm"])))
+        runs[name] = out
+    for (kl, ka, kg), (xl, xa, xg) in zip(runs["kernel"], runs["xla"]):
+        assert abs(kl - xl) <= 1e-4 * abs(xl)
+        assert abs(ka - xa) <= 1e-4 * abs(xa)
+        assert abs(kg - xg) <= 1e-3 * abs(xg)
+    assert runs["remat"] == runs["remat2"]
+
+
+# ------------------------------------------------------------- the fleet
+def test_fleet_of_two_on_the_card_with_a_kill(dev, tmp_path):
+    """Two in-process replicas (``tiny`` sessions, float32, decode as CUDA
+    graphs) behind a ``FleetRouter``; replica 0 is killed mid-decode. Its
+    in-flight streams replay on replica 1, whose graphs the kill leaves
+    alone: the journals' outputs equal ``generate`` of each prompt, every
+    stream closes once."""
+    import os
+
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession, journal_path, load_journal,
+        reconstruct_outputs)
+    from deepspeedsyclsupport_tpu_torch.inference.v2.fleet import (
+        FleetConfig, FleetRequest, FleetRouter, LocalReplica)
+
+    kw = dict(dtype=torch.float32, block_size=8, max_context=64,
+              max_tokens_per_batch=16, max_sequences=4)
+    model = build_model("tiny", dtype="float32")
+    params = model.init_params(device=dev)
+    reps, dirs = [], []
+    for rid in ("0", "1"):
+        jdir = str(tmp_path / f"replica{rid}")
+        os.makedirs(jdir)
+        dirs.append(jdir)
+        sess = ServingSession(
+            InferenceEngineV2(model, params, device=dev, **kw),
+            ServingPolicyConfig(journal_path=journal_path(jdir, attempt=0)))
+        reps.append(LocalReplica(rid, sess, journal_dir=jdir))
+    router = FleetRouter(reps, FleetConfig(affinity="none"))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 500, n).tolist()
+               for n in rng.randint(3, 20, 6)]
+    for u, p in enumerate(prompts):
+        assert router.submit(FleetRequest(uid=u, tokens=p,
+                                          max_new_tokens=10))[0] == "routed"
+    seen, polls = 0, 0
+    while not router.idle:
+        seen += sum(len(e.tokens) for e in router.poll() if e.kind == "token")
+        polls += 1
+        assert polls < 500
+        if seen >= 12 and reps[0].ready():
+            reps[0].kill()
+    assert router.failover_counters["deaths"] == 1
+    assert router.failover_counters["replays"] >= 1
+    router.close()
+    reps[1].close()
+    states, _ = load_journal(dirs)
+    eng = InferenceEngineV2(model, params, device=dev, **kw)
+    assert reconstruct_outputs(states) == {
+        u: eng.generate([p], max_new_tokens=10)[0]
+        for u, p in enumerate(prompts)}
+    assert all(st.closed for st in states.values())

@@ -257,18 +257,24 @@ def test_unported_impls_name_the_registered_ones(kind, name):
 
 @pytest.mark.parametrize("call", ["apply", "loss"])
 def test_unported_features_raise(call):
-    """MoE models serve through the engine; the MoE trunk of the dense
-    model (the JAX package's capacity-buffer ``moe_mlp``, a training path)
-    is not ported and names its queue, A.3.1."""
-    model = build_model("tiny-moe", dtype="float32")
-    params = model.init_params(device="cpu")
-    assert set(params["layers"][0]["moe"]) == {"router", "w_gate", "w_up",
-                                               "w_down"}
+    """MoE models run the dense model's MoE trunk (the capacity-buffer
+    ``moe_mlp``, ``tests/test_torch_moe_train.py``); the pipelined trunk is
+    not ported and names its queue, A.3.1."""
     ids = torch.tensor([[1, 2, 3]])
-    fn = {"apply": lambda: model.apply(params, ids),
-          "loss": lambda: model.loss(params, {"input_ids": ids})}[call]
-    with pytest.raises(NotImplementedError, match="A.3.1"):
-        fn()
+    for name, over, raises in (("tiny-moe", {}, False),
+                               ("tiny", {"pipe_stages": 2}, True)):
+        model = build_model(name, dtype="float32", **over)
+        params = model.init_params(device="cpu")
+        fn = {"apply": lambda: model.apply(params, ids),
+              "loss": lambda: model.loss(params, {"input_ids": ids})}[call]
+        if raises:
+            with pytest.raises(NotImplementedError, match="A.3.1"):
+                fn()
+        else:
+            assert set(params["layers"][0]["moe"]) == {
+                "router", "w_gate", "w_up", "w_down"}
+            out = fn()
+            assert torch.isfinite(out if call == "apply" else out[0]).all()
 
 
 def test_unported_methods_and_moe_raise(tmp_path):

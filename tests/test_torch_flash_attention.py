@@ -193,12 +193,13 @@ def test_reference_blocks_agree_with_one_block(monkeypatch):
 
 
 def test_unported_arguments_raise():
-    """What the port refuses: the lse-returning variant (ring attention's,
-    not ported) and, as the JAX function does, a block layout with a
-    broadcast pair bias; and malformed bias, k-bias and layout shapes."""
+    """What the port refuses, as the JAX function does: a block layout with
+    a broadcast pair bias; and malformed bias, k-bias and layout shapes.
+    The lse-returning variant is ported (``tests/test_torch_flash_lse.py``):
+    it returns ``(o, lse [B, Sq, H])``."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(0, b=2, sq=16, d=8))
-    with pytest.raises(NotImplementedError, match="A.3.1"):
-        tfa.flash_attention(q, k, v, return_lse=True)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    assert o.shape == q.shape and lse.shape == (2, 16, 4)
     with pytest.raises(NotImplementedError, match="BROADCAST"):
         tfa.flash_attention(q, k, v, bias=torch.zeros(1, 4, 16, 16),
                             block_layout=torch.ones(1, 1, 1))

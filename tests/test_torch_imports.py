@@ -47,7 +47,7 @@ def test_port_imports_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 55
+    assert int(proc.stdout.split()[0]) >= 59
     for name in ("compression.quantize", "parallel.moe",
                  "ops.flash_attention", "ops.evoformer_attn",
                  "ops.sparse_attention", "runtime.engine", "runtime.config",
@@ -59,6 +59,8 @@ def test_port_imports_no_jax():
                  "comm.watchdog", "monitor.reqtrace", "monitor.telemetry",
                  "monitor.monitor", "inference.v2.serving",
                  "inference.v2.supervisor", "inference.v2.fleet.failover",
+                 "inference.v2.fleet.router", "inference.v2.fleet.pool",
+                 "inference.v2.fleet.cli", "inference.v2.fleet.__main__",
                  "elasticity.elasticity", "elasticity.elastic_agent",
                  "checkpoint.engine"):
         assert importlib.util.find_spec(
