@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving (dense and MoE, quantized; the SLA
 serving session, its supervisor, the engine snapshot and the serving fleet
 with cross-replica failover), training (dense and MoE, with checkpoints,
-resume, preemption and the training sentinel), the lse-returning flash
+resume, preemption and the training sentinel; ZeRO and tensor parallelism
+over torch.distributed, four ranks on the one card), the lse-returning flash
 attention, evoformer and block-sparse attention paths on one NVIDIA GPU
 and check them.
 
@@ -191,7 +192,24 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              S=4096, non-causal, bf16): launches around the call, outputs
              against the plain versions, times, bounds and SDPA with the
              expanded layout as a mask.
-11. kernels — every TPU kernel of the JAX package and its status here.
+11. dist    — distributed training (``comm/`` on torch.distributed, the
+             named mesh, ZeRO, TP): (a) ``init_distributed`` at a world of
+             one (NCCL) and a topology of all ones, llama2-1b at full depth
+             in bf16 through the ZeRO-3 config for 3 steps of phase 6's
+             batch: losses and grad norms bit-equal to phase 6's first 3,
+             flash launches held a step; (b) four ranks of this script
+             (``--dist-rank``) on the one card over gloo (NCCL takes one
+             rank a card): every façade op held exact on CUDA tensors, then
+             the JAX package's dryrun_multichip twins (dp1/fsdp2/tp2 ZeRO-3,
+             the same axes at ZeRO-2 in fp16, MiCS shard groups of 2) at
+             llama2-1b widths cut to 2 layers, B 4 x S 2048, fp32 with TF32
+             off (the fp16 twin fp16), 3 steps, held against world-1 runs
+             of the same configs (loss 1e-4, grad_norm 1e-3; fp16: skips
+             and scales equal, loss ``DIST_FP16_LOSS_TOL``); per rank and
+             step the bytes handed to each collective held equal to the
+             plan's count, flash launches held; peak memory beside
+             ``predict_memory_per_device``, step times, host-staged ops.
+12. kernels — every TPU kernel of the JAX package and its status here.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure prints its error
@@ -2705,7 +2723,7 @@ def phase_train(torch, np):
         f"for TMA {fa.COPIES}")
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, steps
 
 
 def phase_train_parity(torch, np):
@@ -3789,6 +3807,454 @@ def phase_sparse(torch, np):
     return launches
 
 
+# -------------------------------------------------------------------- dist
+DIST_STEPS = 3
+DIST_LAYERS = 2
+DIST_SEQ = 2048
+DIST_WORLD = 4
+DIST_TIMEOUT_S = 600
+DIST_BASE = {
+    "train_batch_size": 4, "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "AdamW", "params": {"lr": 3e-4,
+                                              "weight_decay": 0.1}},
+    "gradient_clipping": 1.0, "comms_logger": {"enabled": True}}
+# the three legs of the JAX package's dryrun_multichip ported so far
+# (__graft_entry__.py:132, :135, :214): name -> (config, model dtype)
+DIST_TWINS = {
+    "dp1_fsdp2_tp2_zero3": (dict(DIST_BASE, zero_optimization={"stage": 3},
+                                 parallelism={"dp": 1, "fsdp": 2, "tp": 2}),
+                            "float32"),
+    # the JAX leg's fp16 section: dynamic scaling from its default 2^16,
+    # well below where llama2-1b's widths overflow (~2^24 at step 1: there
+    # one split of the matmuls overflowed and the other did not)
+    "fp16_zero2": (dict(DIST_BASE, zero_optimization={"stage": 2},
+                        parallelism={"dp": 1, "fsdp": 2, "tp": 2},
+                        fp16={"enabled": True}), "float16"),
+    "mics2_zero3": (dict(DIST_BASE, zero_optimization={
+        "stage": 3, "mics_shard_size": 2}), "float32"),
+}
+# fp16 twin against its world-1 run: fp16 activations and grads (2^-11
+# relative a rounding) rounded at other places when the matmuls split over
+# two ranks, over 2 layers and the vocab-parallel loss
+DIST_FP16_LOSS_TOL = 1e-2
+
+
+def dist_reference_config(cfg):
+    """A twin's config on one card without a process group: the same
+    optimizer, precision and stage, no mesh sizes."""
+    out = {k: v for k, v in cfg.items() if k != "parallelism"}
+    out["zero_optimization"] = {"stage": cfg["zero_optimization"]["stage"]}
+    return out
+
+
+def dist_batch(np, vocab, seq=None):
+    return {"input_ids": np.random.RandomState(3).randint(
+        0, vocab, (DIST_BASE["train_batch_size"], seq or DIST_SEQ)).astype(
+            np.int64)}
+
+
+def dist_model(dtype, num_layers=None, model=None):
+    from deepspeedsyclsupport_tpu_torch import build_model
+
+    return build_model(model or TRAIN_MODEL,
+                       num_layers=num_layers or DIST_LAYERS, dtype=dtype,
+                       attn_impl="flash")
+
+
+def dist_comm_bytes(torch, eng, rows, seq, applied):
+    """The bytes each collective of one step is handed, by logger key,
+    from the plan and the shapes alone: ZeRO-3 gathers each fsdp-sharded
+    leaf in the forward and (a matrix the backward keeps) again in the
+    backward, and reduce-scatters its full gradient; stage 2
+    reduce-scatters each update-sharded gradient and (an applied step)
+    all-gathers the updated shards; TP all-reduces [rows, S, H] twice a
+    sublayer, once at the embedding and once at the head, and the loss's
+    max, sum and gold logit [rows, S] in fp32; plus the grads' reductions
+    over data / (data, fsdp) and the step's scalars."""
+    from deepspeedsyclsupport_tpu_torch.runtime.zero import _walk
+
+    topo, stage = eng.topology, eng.zero_stage
+    cfg = eng.module.config
+    cb = torch.empty((), dtype=eng.compute_dtype).element_size()
+    gas = eng.gradient_accumulation_steps()
+    sizes = topo.axis_sizes
+    tp, fsdp, data = sizes["model"], sizes["fsdp"], sizes["data"]
+    want = {}
+
+    def add(key, n):
+        if n:
+            want[key] = want.get(key, 0) + int(n)
+
+    batch_key = f"all_reduce[{('data', 'fsdp')}]"
+    float_paths = set(eng._float_paths)
+    for path, t in _walk(eng.params):
+        if path not in float_paths:
+            continue
+        spec = eng._specs[path]
+        d = eng._shard_dim(spec)
+        k = eng._float_paths.index(path)
+        ud = eng._update_dim[k]
+        if stage >= 3 and d is not None:
+            saved = path[-1] != "embedding"   # a lookup keeps the ids only
+            add("all_gather[fsdp]", gas * t.numel() * cb * (1 + saved))
+            add("reduce_scatter[fsdp]", gas * t.numel() * fsdp * cb)
+            if data > 1:
+                add("all_reduce[data]", t.numel() * 4)
+        elif stage == 2 and ud is not None:
+            add("reduce_scatter[fsdp]", t.numel() * 4)
+            if data > 1:
+                add("all_reduce[data]", t.numel() * 4 // fsdp)
+            if applied:
+                add("all_gather[fsdp]", t.numel() * 4 // fsdp)
+        elif fsdp * data > 1:
+            add(batch_key, t.numel() * 4)
+    if tp > 1:
+        act = rows * seq * cfg.hidden_size * cb
+        add("all_reduce[model]", gas * (cfg.num_layers * 4 * act + 2 * act
+                                        + 3 * rows * seq * 4))
+    add(batch_key, gas * 4 + 4 * (gas + gas))   # token counts; loss, lm_loss
+    everyone = f"all_reduce[{tuple(sizes)}]"
+    add(everyone, 4 * (2 if eng.fp16_enabled else 1))   # norm (+ verdict)
+    return want
+
+
+def dist_memory_prediction(torch, eng, rows, seq):
+    """``predict_memory_per_device`` for this rank's params (the model's
+    count over tp) and the activations of one micro-batch: 3 x 4 bytes a
+    token of the logits' V / tp, and (10 + 24 / tp) x H bytes a token a
+    layer at 2-byte activations (the flash kernels keep no S x S score),
+    twice that at 4 bytes."""
+    from deepspeedsyclsupport_tpu_torch.runtime.zero import (
+        predict_memory_per_device)
+
+    cfg = eng.module.config
+    tp = eng.topology.axis_sizes["model"]
+    n = sum(math.prod(s) for s in eng._full_shapes.values())
+    cb = torch.empty((), dtype=eng.compute_dtype).element_size()
+    act = cfg.num_layers * rows * seq * cfg.hidden_size * (10 + 24 / tp) \
+        * cb / 2 + 4 * rows * seq * cfg.vocab_size / tp * 3
+    return predict_memory_per_device(
+        n // tp, eng.topology.axis_sizes["fsdp"], eng.zero_stage,
+        compute_bytes=cb, activation_bytes=act), n
+
+
+def dist_facade_check(torch, device):
+    """Every façade op on this rank's tensors over the world's ``data``
+    axis, held EXACT against its known result (integers as floats)."""
+    from deepspeedsyclsupport_tpu_torch import comm
+    from deepspeedsyclsupport_tpu_torch.comm.topology import build_topology
+
+    build_topology(dp=-1)
+    n, r = comm.get_world_size(), comm.get_rank()
+    x = torch.tensor([float(r + 1)], device=device)
+    g = torch.arange(6.0, device=device).reshape(3, 2) + 6 * r
+    full = torch.arange(4.0 * n, device=device).reshape(n, 4) * (r + 1)
+    rows = torch.arange(16.0, device=device).reshape(4, 4)
+    want = {
+        "all_reduce": (comm.all_reduce(x, "data"), [n * (n + 1) / 2]),
+        "all_reduce_max": (comm.all_reduce(x, "data", op="max"), [n]),
+        "all_gather": (comm.all_gather(g, "data"),
+                       torch.arange(6.0 * n).reshape(3 * n, 2).tolist()),
+        "reduce_scatter": (comm.reduce_scatter(full, "data"),
+                           (torch.arange(4.0 * n).reshape(n, 4)[r:r + 1]
+                            * (n * (n + 1) / 2)).tolist()),
+        "all_to_all": (comm.all_to_all(rows + 100 * r, "data", split_axis=1,
+                                       concat_axis=1),
+                       torch.cat([rows[:, r * 4 // n:(r + 1) * 4 // n]
+                                  + 100 * j for j in range(n)],
+                                 dim=1).tolist()),
+        "broadcast": (comm.broadcast(x, "data", src=n - 1), [float(n)]),
+        "ppermute": (comm.send_recv_next(x, "data"),
+                     [float((r - 1) % n + 1)]),
+    }
+    bad = {k: (got.tolist(), w) for k, (got, w) in want.items()
+           if got.tolist() != (w if isinstance(w, list) else w)}
+    if bad:
+        raise AssertionError(f"rank {r}: façade ops on {device} tensors "
+                             f"disagree {bad}")
+    return sorted(want)
+
+
+def dist_rank_child(torch, np, spec_path):
+    """One rank of the dist phase (``--dist-rank``): the façade check, then
+    each twin's ``DIST_STEPS`` steps; writes ``rank<r>.json``."""
+    import torch.distributed as tdist
+
+    from deepspeedsyclsupport_tpu_torch import comm, initialize
+    from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = spec["device"]
+    cuda = dev == "cuda"
+    comm.init_distributed(device_type=dev, timeout_s=DIST_TIMEOUT_S)
+    rank = comm.get_rank()
+    out = {"rank": rank, "backend": tdist.get_backend(),
+           "facade": dist_facade_check(torch, dev), "twins": {}}
+    reset_world_topology()
+    for name, (cfg, dtype) in spec["twins"].items():
+        model = dist_model(dtype, spec["layers"], spec["model"])
+        params = model.init_params(generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        eng = initialize(model=model, params=params, config=cfg,
+                         device=dev)[0]
+        del params
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in dist_batch(
+            np, model.config.vocab_size, spec["seq"]).items()}
+        rows = DIST_BASE["train_batch_size"] // eng.dp_world_size
+        steps = []
+        for _ in range(spec["steps"]):
+            comms_logger.reset()
+            fa.reset_launch_counts()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = eng.train_batch(batch)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            if cuda:
+                torch.cuda.synchronize()
+            finite = bool(m["finite"])
+            steps.append({
+                "loss": loss, "grad_norm": gn, "finite": finite,
+                "scale": float(m["loss_scale"]),
+                "s": time.perf_counter() - t0,
+                "bytes": {k: v["total_bytes"] for k, v in
+                          comms_logger.snapshot().items()},
+                "want_bytes": dist_comm_bytes(torch, eng, rows,
+                                              spec["seq"], finite),
+                "launches": dict(fa.LAUNCHES)})
+        pred, n_params = dist_memory_prediction(torch, eng, rows,
+                                                spec["seq"])
+        out["twins"][name] = {
+            "steps": steps, "skipped": eng.skipped_steps,
+            "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+            "predicted": pred, "n_params": n_params,
+            "local_params": sum(t.numel() for t in eng._leaf_tensors),
+            "staged": comm.staged_ops(), "sizes": eng.topology.axis_sizes}
+        del eng
+        reset_world_topology()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    comm.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
+                     timeout=DIST_TIMEOUT_S):
+    """``world`` ranks of this script (``--dist-rank``) with the torch
+    launcher's environment; waits for all, kills any left on a failure,
+    and returns their ``rank<r>.json``."""
+    spec = dict(spec, out=out_dir)
+    path = os.path.join(out_dir, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", path],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, failed = [], []
+    try:
+        t_end = time.time() + timeout
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=max(1.0, t_end - time.time()))
+            logs.append(text)
+            if p.returncode != 0:
+                failed.append((r, p.returncode, text[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError(f"dist ranks failed: {failed}")
+    return [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(world)]
+
+
+def dist_reference(torch, np, cfg, dtype):
+    """A twin's world-1 run: the single-card engine, no process group."""
+    from deepspeedsyclsupport_tpu_torch import initialize
+
+    model = dist_model(dtype)
+    params = model.init_params(generator=torch.Generator(
+        device=DEV).manual_seed(1), device=DEV)
+    eng = initialize(model=model, params=params,
+                     config=dist_reference_config(cfg), device=DEV)[0]
+    del params
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in dist_batch(np, model.config.vocab_size).items()}
+    out = []
+    for _ in range(DIST_STEPS):
+        m = eng.train_batch(batch)
+        out.append({"loss": float(m["loss"]), "grad_norm": float(
+            m["grad_norm"]), "finite": bool(m["finite"]),
+            "scale": float(m["loss_scale"])})
+    skipped = eng.skipped_steps
+    del eng
+    torch.cuda.empty_cache()
+    return out, skipped
+
+
+def phase_dist(torch, np, train_steps):
+    """(a) NCCL at a world of one: llama2-1b at full depth through the
+    ZeRO-3 config, bit-equal to the train phase's single-card steps;
+    (b) four ranks on the one card over gloo: the dryrun_multichip twins
+    at llama2-1b widths, 2 layers, fp32 (fp16 twin: fp16), held against
+    their world-1 runs. Returns the flash launches of both."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from deepspeedsyclsupport_tpu_torch import comm
+    from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    # ---- (a) world 1, NCCL
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                          world_size=1, rank=0, device_type="cuda")
+    backend = tdist.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"world 1 on one card chose {backend}")
+    eng = train_engine(torch, 0, extra={"zero_optimization": {"stage": 3},
+                                        "comms_logger": {"enabled": True}})
+    cfg = eng.module.config
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (eng.train_batch_size(), TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
+    fa.reset_launch_counts()
+    launches = {k: 0 for k in fa.LAUNCHES}
+    got, times, step_bytes = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(DIST_STEPS):
+        comms_logger.reset()
+        before = dict(fa.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = eng.train_batch(batch)
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        step_bytes.append(sum(v["total_bytes"] for v in
+                              comms_logger.snapshot().values()))
+        per = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        if per != flash_per_step(eng):
+            raise AssertionError(f"dist world 1 step {step + 1}: flash "
+                                 f"launches {per}, want "
+                                 f"{flash_per_step(eng)}")
+    for k in launches:
+        launches[k] += fa.LAUNCHES[k]
+    want = [(x[0], x[1]) for x in train_steps[:DIST_STEPS]]
+    log("dist", f"(a) world 1, {backend}, topology "
+        f"{eng.topology.axis_sizes}, ZeRO-3, {TRAIN_MODEL} full depth bf16, "
+        f"phase 6's batch: (loss, grad_norm) {got} vs the single-card "
+        f"engine {want}: {'bit-equal' if got == want else 'DIFFER'}; "
+        f"ms/step {[round(t * 1e3, 1) for t in times]}, bytes handed to "
+        f"collectives a step {step_bytes}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+        f"launches {launches}")
+    if got != want:
+        raise AssertionError(f"world-1 NCCL ZeRO-3 {got} != single card "
+                             f"{want}")
+    del eng
+    reset_world_topology()
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) four ranks over gloo on the one card
+    refs = {"float32": dist_reference(torch, np, DIST_TWINS[
+        "dp1_fsdp2_tp2_zero3"][0], "float32"),
+        "float16": dist_reference(torch, np, DIST_TWINS["fp16_zero2"][0],
+                                  "float16")}
+    log("dist", f"(b) world-1 references ({TRAIN_MODEL} widths, "
+        f"{DIST_LAYERS} layers, B {DIST_BASE['train_batch_size']} x S "
+        f"{DIST_SEQ}, TF32 off): {refs}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = spawn_dist_ranks(
+            {"device": "cuda", "twins": DIST_TWINS, "steps": DIST_STEPS,
+             "layers": DIST_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL},
+            d)
+        wall = time.perf_counter() - t0
+    log("dist", f"(b) {DIST_WORLD} ranks, backend {ranks[0]['backend']}, "
+        f"façade ops held exact on CUDA tensors {ranks[0]['facade']}, host-"
+        f"staged (backend, op) {sorted(comm.HOST_STAGED)}; ranks ran in "
+        f"{wall:.1f} s")
+    for name, (cfg_t, dtype) in DIST_TWINS.items():
+        ref, ref_skipped = refs[dtype]
+        r0 = ranks[0]["twins"][name]
+        for r in ranks[1:]:
+            if [(x["loss"], x["grad_norm"]) for x in r["twins"][name][
+                    "steps"]] != [(x["loss"], x["grad_norm"])
+                                  for x in r0["steps"]]:
+                raise AssertionError(f"{name}: ranks report different "
+                                     f"global numbers")
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for g, w in zip(r0["steps"], ref):
+            if (g["finite"], g["scale"]) != (w["finite"], w["scale"]):
+                raise AssertionError(f"{name}: finite / scale {g} vs {w}")
+            for k in worst:
+                if w["finite"]:
+                    worst[k] = max(worst[k], abs(g[k] - w[k]) / abs(w[k]))
+        tol = ({"loss": DIST_FP16_LOSS_TOL} if dtype == "float16"
+               else TRAIN_PARITY_TOL)
+        if r0["skipped"] != ref_skipped or \
+                any(worst[k] > tol[k] for k in tol):
+            raise AssertionError(f"{name}: {r0['steps']} vs world 1 {ref} "
+                                 f"(skipped {r0['skipped']} vs "
+                                 f"{ref_skipped}): worst {worst} > {tol}")
+        for r in ranks:
+            for i, st in enumerate(r["twins"][name]["steps"]):
+                if st["bytes"] != st["want_bytes"]:
+                    raise AssertionError(
+                        f"{name} rank {r['rank']} step {i + 1}: collective "
+                        f"bytes {st['bytes']} != plan {st['want_bytes']}")
+                want_l = {"flash_fwd": DIST_LAYERS, "flash_dq": DIST_LAYERS,
+                          "flash_dkv": DIST_LAYERS, "flash_dbias": 0}
+                if st["launches"] != want_l:
+                    raise AssertionError(f"{name} rank {r['rank']}: flash "
+                                         f"launches {st['launches']}")
+                for k, v in st["launches"].items():
+                    launches[k] += v
+        per_rank = " | ".join(
+            f"rank {r['rank']}: peak {r['twins'][name]['peak'] / 2**30:.2f}"
+            f" GiB (predicted {r['twins'][name]['predicted'] / 2**30:.2f}),"
+            f" {r['twins'][name]['local_params'] / 1e6:.1f}M of "
+            f"{r['twins'][name]['n_params'] / 1e6:.1f}M params held, ms/step"
+            f" {[round(x['s'] * 1e3, 1) for x in r['twins'][name]['steps']]}"
+            f", staged {r['twins'][name]['staged']}" for r in ranks)
+        log("dist", f"(b) {name} {r0['sizes']}: (loss, grad_norm, finite, "
+            f"scale) {[(x['loss'], x['grad_norm'], x['finite'], x['scale']) for x in r0['steps']]}"
+            f" vs world 1 {[(x['loss'], x['grad_norm'], x['finite'], x['scale']) for x in ref]};"
+            f" skipped {r0['skipped']} vs {ref_skipped}; worst relative "
+            f"{worst} (tol {tol}); rank 0 collective bytes a step "
+            f"{r0['steps'][-1]['bytes']} = plan; {per_rank}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3797,6 +4263,15 @@ def main() -> int:
         if not torch.cuda.is_available():
             return 2
         rehearse_child(torch, np)
+        return 0
+    if sys.argv[1:2] == ["--dist-rank"]:
+        with open(sys.argv[2]) as f:
+            if json.load(f)["device"] == "cuda" and \
+                    not torch.cuda.is_available():
+                return 2
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist_rank_child(torch, np, sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--preempt-child"]:
         if not torch.cuda.is_available():
@@ -3854,7 +4329,8 @@ def main() -> int:
     run(phase_fleet, torch, np)
     run(phase_mixtral, torch, np)
     run(phase_serve_fp16, torch, np)
-    launches.update(run(phase_train, torch, np))
+    train_launches, train_steps = run(phase_train, torch, np)
+    launches.update(train_launches)
     run(phase_train_resume, torch, np)
     run(phase_preempt, torch, np)
     run(phase_sentinel, torch, np)
@@ -3863,12 +4339,13 @@ def main() -> int:
     moe_launches = run(phase_train_moe, torch, np)
     evo_rows, evo_launches = run(phase_evoformer, torch, np)
     run(phase_sparse, torch, np)
+    dist_launches = run(phase_dist, torch, np, train_steps)
 
     log("phases", f"GiB allocated on the card after each phase (before, "
         f"after the collector) {phase_left}")
     log("phases", f"seconds per phase {phase_s}; flash launches on the "
         f"train-moe path {moe_launches}, on the flash-lse phase "
-        f"{lse_launches}")
+        f"{lse_launches}, on the dist path {dist_launches}")
     log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
                               for k, src in TPU_KERNELS)
         + f" | all phases in {time.perf_counter() - t_start:.1f} s")
@@ -3901,7 +4378,8 @@ def main() -> int:
             "ms": main_row["ms"][name], "plain_ms": main_row["plain"][name],
             "bound_ms": main_row["bounds"][name][0],
             "bound_by": main_row["bounds"][name][1],
-            "library_ms": main_row["library"][name]})
+            "library_ms": main_row["library"][name],
+            "launches_dist": dist_launches[name]})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks
     msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]

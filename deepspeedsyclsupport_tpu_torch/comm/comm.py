@@ -1,0 +1,531 @@
+"""Collectives façade on ``torch.distributed``.
+
+Port of ``deepspeedsyclsupport_tpu/comm/comm.py``. A JAX call names a mesh
+axis inside ``shard_map``; here the same call names an axis (or a tuple of
+axes) of the world topology (``comm/topology.py``), which resolves it to
+that axis's process group, and runs the collective eagerly on this rank's
+tensor. The results are the JAX package's: ``all_gather`` concatenates
+(``tiled``) or stacks the shards along ``axis``, ``reduce_scatter`` sums
+and hands out the pieces along ``axis``, ``all_to_all`` splits along
+``split_axis`` and concatenates what arrives along ``concat_axis``,
+``ppermute`` zero-fills a rank nobody sends to. Each call returns a new
+tensor and leaves its input as it was. None of them is differentiable:
+the model's autograd functions (``parallel/tensor_parallel.py``,
+``runtime/zero.py``) call them in their forward and backward.
+
+The backend is chosen once, by :func:`init_distributed`, from an explicit
+argument, else by :func:`choose_backend`'s rule (NCCL when every rank has a
+card of its own; gloo for CPU tensors and for ranks that share one card),
+and logged. On gloo a CUDA tensor goes through the ops gloo takes for CUDA
+tensors as it is; the ops of :data:`HOST_STAGED` are staged through pinned
+host memory (copied out, run on the host copy, copied back). That rule is
+one table keyed on (backend, op): nothing here catches a collective's
+failure and tries another way.
+
+Kill switches (``DSTPU_COMM_<OP>_OFF``, the reference's ``DS_COMM_*_OFF``)
+turn a collective into the identity; every call is recorded by the comms
+logger (``comm/comms_logging.py``) under ``"<op>[<axis>]"`` with the bytes
+of the tensor handed to it.
+"""
+import logging
+import os
+import time
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .comms_logging import comms_logger
+from . import topology as topo_mod
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "all_reduce", "pmean", "all_gather", "reduce_scatter", "all_to_all",
+    "ppermute", "send_recv_next", "send_recv_prev", "broadcast",
+    "all_reduce_coalesced", "all_gather_coalesced", "axis_size",
+    "axis_index", "init_distributed", "is_initialized", "barrier",
+    "get_world_size", "get_rank", "get_local_rank", "get_device_count",
+    "new_group", "destroy_process_group", "choose_backend", "HOST_STAGED",
+    "staged_ops",
+]
+
+_DEFAULT_SLURM_PORT = 29500
+# (backend, op) pairs whose CUDA tensors are staged through pinned host
+# memory. On torch 2.11 gloo takes CUDA tensors for all_reduce,
+# all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single and
+# broadcast, and its send / recv fail on them ("writev: Bad address");
+# chip_smoke.py's dist phase holds every façade op on CUDA tensors over gloo
+# and prints which calls were staged
+HOST_STAGED = frozenset({("gloo", "ppermute")})
+_STAGED_CALLS: Dict[str, int] = {}
+
+
+# ---------------------------------------------------------------------------
+# kill switches and logging (JAX comm.py:56-72)
+# ---------------------------------------------------------------------------
+def _off(op: str) -> bool:
+    return os.environ.get(f"DSTPU_COMM_{op}_OFF", "").lower() in (
+        "1", "true", "yes")
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+
+
+def _log(op: str, axis, x, seconds: Optional[float] = None):
+    comms_logger.append(op, axis, _nbytes(x),
+                        tuple(getattr(x, "shape", ())), seconds)
+
+
+def staged_ops() -> Dict[str, int]:
+    """Calls staged through host memory so far, by op."""
+    return dict(_STAGED_CALLS)
+
+
+# ---------------------------------------------------------------------------
+# axis resolution
+# ---------------------------------------------------------------------------
+def _resolve(axis_name):
+    """(group, size, axes) of ``axis_name`` on the world topology. The
+    group is None when there is no process group (a world of one)."""
+    topo = topo_mod.get_world_topology()
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    return topo.get_group(axes), topo.axis_size(axes), axes
+
+
+def axis_size(axis_name) -> int:
+    return topo_mod.get_world_topology().axis_size(
+        (axis_name,) if isinstance(axis_name, str) else tuple(axis_name))
+
+
+def axis_index(axis_name) -> int:
+    return topo_mod.get_world_topology().axis_index(axis_name)
+
+
+def _staged(group, op: str, x: torch.Tensor) -> bool:
+    import torch.distributed as dist
+
+    if x.device.type != "cuda" or group is None:
+        return False
+    if (dist.get_backend(group), op) in HOST_STAGED:
+        _STAGED_CALLS[op] = _STAGED_CALLS.get(op, 0) + 1
+        return True
+    return False
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    buf.copy_(x)
+    return buf
+
+
+def _run(op: str, axis_name, x: torch.Tensor, fn):
+    """Log ``x`` under ``op``, then ``fn(group, n, x)``: on the host copy of
+    ``x`` when (backend, op) is staged (the result copied back to ``x``'s
+    device), timed when the logger is."""
+    group, n, _ = _resolve(axis_name)
+    timed = comms_logger.enabled and comms_logger.timed
+    if timed and x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    if _staged(group, op, x):
+        out = fn(group, n, _to_host(x)).to(x.device, non_blocking=True)
+    else:
+        out = fn(group, n, x)
+    seconds = None
+    if timed:
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        seconds = time.perf_counter() - t0
+    _log(op, axis_name, x, seconds)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# named-axis collectives
+# ---------------------------------------------------------------------------
+def _reduce_op(op: str):
+    import torch.distributed as dist
+
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT,
+           "mean": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM}
+    if op not in ops:
+        raise ValueError(f"unsupported reduce op {op!r}")
+    return ops[op]
+
+
+def all_reduce(x: torch.Tensor, axis_name, op: str = "sum") -> torch.Tensor:
+    """Reduce across a mesh axis: ``sum``, ``max``, ``min``, ``prod``, or
+    ``mean`` / ``avg`` (the sum over the axis size, as ``lax.pmean``)."""
+    if _off("ALL_REDUCE"):
+        return x
+    red = _reduce_op(op)
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        out = t.clone()
+        if group is not None:
+            dist.all_reduce(out, op=red, group=group)
+        return out / n if op in ("mean", "avg") else out
+
+    return _run("all_reduce", axis_name, x, fn)
+
+
+def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
+    if _off("ALL_REDUCE"):
+        return x
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        out = t.clone()
+        if group is not None:
+            dist.all_reduce(out, group=group)
+        return out / n
+
+    return _run("all_reduce_mean", axis_name, x, fn)
+
+
+def _gather_stacked(group, n, t: torch.Tensor) -> torch.Tensor:
+    """``[n, *t.shape]``: every rank's ``t`` by its index along the axis."""
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    if group is None:
+        return t[None].clone()
+    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device) if t.dim() else \
+        torch.empty((n,), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.reshape(-1) if not t.dim() else t,
+                                group=group)
+    return out.reshape((n,) + tuple(t.shape))
+
+
+def all_gather(x: torch.Tensor, axis_name, axis: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+    """Every rank's ``x`` along the mesh axis: concatenated along ``axis``
+    (``tiled``) or stacked in a new dim ``axis``."""
+    if _off("ALL_GATHER"):
+        return x
+
+    def fn(group, n, t):
+        g = _gather_stacked(group, n, t)
+        if not tiled:
+            return g.movedim(0, axis)
+        return torch.cat(list(g.unbind(0)), dim=axis)
+
+    return _run("all_gather", axis_name, x, fn)
+
+
+def reduce_scatter(x: torch.Tensor, axis_name, axis: int = 0
+                   ) -> torch.Tensor:
+    """Sum over the mesh axis, then piece ``i`` (of ``n`` along ``axis``)
+    to the rank at index ``i``."""
+    if _off("REDUCE_SCATTER"):
+        return x
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        if t.shape[axis] % n:
+            raise ValueError(f"dim {axis} of {tuple(t.shape)} does not "
+                             f"divide by the axis size {n}")
+        tm = t.movedim(axis, 0).contiguous()
+        if group is None:
+            return tm.movedim(0, axis).clone()
+        out = torch.empty((tm.shape[0] // n,) + tuple(tm.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, tm, group=group)
+        return out.movedim(0, axis)
+
+    return _run("reduce_scatter", axis_name, x, fn)
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Piece ``j`` of ``x`` along ``split_axis`` goes to the rank at index
+    ``j``; what arrives is concatenated along ``concat_axis`` by sender
+    index (``lax.all_to_all`` with ``tiled=True``, the JAX façade's
+    default and its callers' only use)."""
+    if _off("ALL_TO_ALL"):
+        return x
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        if t.shape[split_axis] % n:
+            raise ValueError(f"split dim {t.shape[split_axis]} not "
+                             f"divisible by axis size {n}")
+        inp = torch.stack(t.chunk(n, dim=split_axis), 0).contiguous()
+        out = torch.empty_like(inp)
+        if group is None:
+            out.copy_(inp)
+        else:
+            dist.all_to_all_single(out, inp, group=group)
+        return torch.cat(list(out.unbind(0)), dim=concat_axis)
+
+    return _run("all_to_all", axis_name, x, fn)
+
+
+def ppermute(x: torch.Tensor, axis_name,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Point-to-point permutation along the axis, ``perm`` pairs of
+    (source index, destination index); a rank that no pair sends to gets
+    zeros (``lax.ppermute``). One batch of isend / irecv."""
+    if _off("P2P"):
+        return x
+    topo = topo_mod.get_world_topology()
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        me = topo.axis_index(axis_name)
+        ranks = topo.group_ranks(axis_name)
+        t = t.contiguous()
+        out = torch.zeros_like(t)
+        ops = []
+        for src, dst in perm:
+            if src == me and dst == me:
+                out.copy_(t)
+            elif src == me:
+                ops.append(dist.P2POp(dist.isend, t, ranks[dst], group))
+            elif dst == me:
+                ops.append(dist.P2POp(dist.irecv, out, ranks[src], group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+    return _run("ppermute", axis_name, x, fn)
+
+
+def send_recv_next(x: torch.Tensor, axis_name, n: Optional[int] = None,
+                   wrap: bool = True) -> torch.Tensor:
+    """Shift +1 along the axis (index i -> i+1); without ``wrap`` index 0
+    receives zeros (the pipeline's p2p contract)."""
+    n = n or axis_size(axis_name)
+    pairs = [(i, (i + 1) % n) for i in range(n if wrap else n - 1)]
+    return ppermute(x, axis_name, pairs)
+
+
+def send_recv_prev(x: torch.Tensor, axis_name, n: Optional[int] = None,
+                   wrap: bool = True) -> torch.Tensor:
+    """Shift -1 along the axis; see :func:`send_recv_next`."""
+    n = n or axis_size(axis_name)
+    pairs = [(i, (i - 1) % n) for i in (range(n) if wrap else range(1, n))]
+    return ppermute(x, axis_name, pairs)
+
+
+def broadcast(x: torch.Tensor, axis_name, src: int = 0) -> torch.Tensor:
+    """The value of the rank at index ``src`` along the axis, on every rank
+    of it (what the other ranks held, NaN included, is overwritten)."""
+    if _off("BROADCAST"):
+        return x
+    topo = topo_mod.get_world_topology()
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        out = t.clone()
+        if group is not None:
+            dist.broadcast(out, src=topo.group_ranks(axis_name)[src],
+                           group=group)
+        return out
+
+    return _run("broadcast", axis_name, x, fn)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def all_reduce_coalesced(tensors, axis_name, op: str = "sum"):
+    """:func:`all_reduce` over a list / dict tree of tensors."""
+    return _tree_map(lambda t: all_reduce(t, axis_name, op), tensors)
+
+
+def all_gather_coalesced(tensors, axis_name):
+    """:func:`all_gather` over a list / dict tree of tensors."""
+    return _tree_map(lambda t: all_gather(t, axis_name), tensors)
+
+
+# ---------------------------------------------------------------------------
+# process bootstrap (JAX comm.py:226-304)
+# ---------------------------------------------------------------------------
+def _int_env(env, name: str) -> Optional[int]:
+    v = env.get(name)
+    return int(v) if v is not None else None
+
+
+def discover(env=None, init_method: Optional[str] = None,
+             world_size: Optional[int] = None, rank: Optional[int] = None,
+             auto_mpi_discovery: bool = True) -> Dict[str, Any]:
+    """What a launcher's environment says: ``init_method`` (``tcp://host:
+    port``), ``world_size``, ``rank`` and ``local_rank``, from explicit
+    arguments first, then the torch launcher's ``RANK`` / ``WORLD_SIZE`` /
+    ``MASTER_ADDR`` / ``MASTER_PORT`` / ``LOCAL_RANK``, then (with
+    ``auto_mpi_discovery``) OpenMPI's ``OMPI_COMM_WORLD_*``, PMI's and an
+    ``srun`` step's SLURM variables, as the JAX package reads them. An MPI /
+    PMI launch without an address raises."""
+    env = os.environ if env is None else env
+    nprocs = world_size if world_size is not None \
+        else _int_env(env, "WORLD_SIZE")
+    pid = rank if rank is not None else _int_env(env, "RANK")
+    local = _int_env(env, "LOCAL_RANK")
+    addr = init_method
+    if addr is None and "MASTER_ADDR" in env:
+        addr = f"tcp://{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '1234')}"
+    if auto_mpi_discovery and "OMPI_COMM_WORLD_SIZE" in env:
+        nprocs = nprocs if nprocs is not None \
+            else int(env["OMPI_COMM_WORLD_SIZE"])
+        pid = pid if pid is not None else int(env["OMPI_COMM_WORLD_RANK"])
+        local = local if local is not None \
+            else _int_env(env, "OMPI_COMM_WORLD_LOCAL_RANK")
+        if addr is None and nprocs > 1:
+            raise RuntimeError(
+                "MPI launch detected but no rendezvous address; set "
+                "MASTER_ADDR/MASTER_PORT to a host:port on rank 0")
+    if auto_mpi_discovery and nprocs is None and "PMI_SIZE" in env:
+        nprocs = int(env["PMI_SIZE"])
+        pid = pid if pid is not None else int(env.get("PMI_RANK", 0))
+        if addr is None and nprocs > 1:
+            raise RuntimeError(
+                "PMI launch detected but no rendezvous address; set "
+                "MASTER_ADDR/MASTER_PORT to a host:port on rank 0")
+    if auto_mpi_discovery and nprocs is None and "SLURM_NTASKS" in env \
+            and "SLURM_STEP_ID" in env:
+        nprocs = int(env["SLURM_NTASKS"])
+        pid = pid if pid is not None else int(env.get("SLURM_PROCID", 0))
+        local = local if local is not None \
+            else _int_env(env, "SLURM_LOCALID")
+        if addr is None and nprocs > 1:
+            nodelist = env.get("SLURM_JOB_NODELIST") or \
+                env.get("SLURM_NODELIST")
+            if nodelist and "[" not in nodelist:
+                addr = f"tcp://{nodelist.split(',')[0]}:{_DEFAULT_SLURM_PORT}"
+            else:
+                raise RuntimeError(
+                    "SLURM launch detected but no rendezvous address and "
+                    "the nodelist is compressed; set MASTER_ADDR/MASTER_PORT")
+    return {"init_method": addr, "world_size": nprocs,
+            "rank": pid if pid is not None else 0,
+            "local_rank": local if local is not None else 0}
+
+
+def choose_backend(device_type: str, world_size: int,
+                   device_count: int) -> Tuple[str, str]:
+    """(backend, why): NCCL when the ranks run on CUDA and each has a card
+    of its own; gloo for CPU tensors, and for ranks that share a card (NCCL
+    refuses two ranks on one device)."""
+    if device_type != "cuda":
+        return "gloo", "CPU tensors"
+    if world_size <= device_count:
+        return "nccl", f"{world_size} rank(s) on {device_count} card(s)"
+    return "gloo", (f"{world_size} ranks share {device_count} card(s); NCCL "
+                    f"takes one rank a card")
+
+
+def init_distributed(backend: Optional[str] = None,
+                     init_method: Optional[str] = None,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None,
+                     device_type: Optional[str] = None,
+                     auto_mpi_discovery: bool = True,
+                     timeout_s: Optional[float] = None) -> bool:
+    """Start the default process group (reference ``init_distributed``).
+
+    The address, world size and ranks come from the arguments, else the
+    launcher's environment (:func:`discover`). With none (a plain single
+    process) nothing is started and False is returned, as the JAX package
+    does on one host; so does an already started group. ``backend`` is
+    used as given; None applies :func:`choose_backend` to ``device_type``
+    (default: ``"cuda"`` when a card is visible), the world size and the
+    visible cards. The choice is logged. On CUDA each rank takes card
+    ``local_rank % device_count``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return False
+    info = discover(init_method=init_method, world_size=world_size,
+                    rank=rank, auto_mpi_discovery=auto_mpi_discovery)
+    if info["init_method"] is None or not info["world_size"]:
+        return False
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    n_cards = torch.cuda.device_count() if device_type == "cuda" else 0
+    why = "given"
+    if backend is None:
+        backend, why = choose_backend(device_type, info["world_size"],
+                                      n_cards)
+    if device_type == "cuda":
+        torch.cuda.set_device(info["local_rank"] % max(n_cards, 1))
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, init_method=info["init_method"],
+                            world_size=info["world_size"], rank=info["rank"],
+                            **kw)
+    logger.info("init_distributed: rank %d of %d, backend %s (%s), %s",
+                info["rank"], info["world_size"], backend, why,
+                info["init_method"])
+    return True
+
+
+def is_initialized() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def get_world_size() -> int:
+    """Ranks of the default group (1 without one): one process a rank."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def get_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if is_initialized() else 0
+
+
+def get_local_rank() -> int:
+    """Rank within this host: the launcher's ``LOCAL_RANK`` (0 without)."""
+    v = os.environ.get("LOCAL_RANK")
+    return int(v) if v is not None else 0
+
+
+def get_device_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def barrier() -> None:
+    import torch.distributed as dist
+
+    if is_initialized():
+        dist.barrier()
+
+
+def new_group(ranks: Sequence[int]):
+    """A process group over ``ranks`` (a collective of the default group)."""
+    import torch.distributed as dist
+
+    return dist.new_group(list(ranks))
+
+
+def destroy_process_group(group=None) -> None:
+    import torch.distributed as dist
+
+    if is_initialized():
+        dist.destroy_process_group(group)
+    if group is None:
+        topo_mod.reset_world_topology()

@@ -224,26 +224,42 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None,
                     impl: Optional[str] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    tp_axis: Optional[str] = None) -> torch.Tensor:
     """Self-attention sublayer without a KV cache (``layers.py:388-473``):
     qkv projection → RoPE → attention → out projection. ``window`` is the
     layer's sliding window (the caller resolves ``cfg.sliding_window`` /
-    ``cfg.attn_windows``). Returns [B, S, hidden]."""
+    ``cfg.attn_windows``). Returns [B, S, hidden].
+
+    ``tp_axis``: the params are this rank's column (q/k/v) and row (o)
+    shards over that mesh axis; attention runs on the rank's ``H / tp``
+    query and ``KVH / tp`` KV heads (``x`` enters through
+    ``copy_to_model_region``, the output leaves through
+    ``reduce_from_model_region``, the bias ``bo`` is added after it)."""
     b, s, _ = x.shape
+    if tp_axis is not None:
+        from ..parallel.tensor_parallel import copy_to_model_region
+
+        x = copy_to_model_region(x, tp_axis)
     q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_dim)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_dim)
     alibi = (device_constant("alibi", (cfg.num_heads, cfg.alibi_scale),
                              x.device)
              if cfg.pos_embed == "alibi" else None)
+    if alibi is not None and tp_axis is not None:
+        from ..comm import comm
+
+        h = q.shape[2]
+        alibi = alibi[comm.axis_index(tp_axis) * h:][:h]
     if cfg.attn_scale is not None:
         # non-standard logit scale (GPT-Neo uses 1.0), folded into q so that
         # every attention implementation inherits it
@@ -252,7 +268,11 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
             q.dtype)
     out = attention(q, k, v, impl=impl or cfg.attn_impl, causal=True,
                     segment_ids=segment_ids, alibi=alibi, window=window)
-    out = matmul(out.reshape(b, s, cfg.q_dim), p["wo"])
+    out = matmul(out.reshape(b, s, -1), p["wo"])
+    if tp_axis is not None:
+        from ..parallel.tensor_parallel import reduce_from_model_region
+
+        out = reduce_from_model_region(out, tp_axis)
     if cfg.attn_out_bias:
         out = out + p["bo"].to(out.dtype)
     return out
@@ -287,5 +307,26 @@ def std_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out
 
 
-def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return std_mlp(p, x, cfg) if cfg.mlp_type == "mlp" else glu_mlp(p, x, cfg)
+def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              tp_axis: Optional[str] = None) -> torch.Tensor:
+    """The MLP; with ``tp_axis`` the params are this rank's column (gate /
+    up / fc1) and row (down / fc2) shards: ``x`` enters through
+    ``copy_to_model_region`` and the output leaves through
+    ``reduce_from_model_region`` (a ``b2`` bias, replicated, after it)."""
+    if tp_axis is None:
+        return std_mlp(p, x, cfg) if cfg.mlp_type == "mlp" \
+            else glu_mlp(p, x, cfg)
+    from ..parallel.tensor_parallel import (copy_to_model_region,
+                                            reduce_from_model_region)
+
+    x = copy_to_model_region(x, tp_axis)
+    if cfg.mlp_type == "mlp":
+        act = _activation(cfg.activation)
+        h = matmul(x, p["fc1"])
+        if cfg.use_bias:
+            h = h + p["b1"].to(h.dtype)
+        out = reduce_from_model_region(matmul(act(h), p["fc2"]), tp_axis)
+        if cfg.use_bias:
+            out = out + p["b2"].to(out.dtype)
+        return out
+    return reduce_from_model_region(glu_mlp(p, x, cfg), tp_axis)

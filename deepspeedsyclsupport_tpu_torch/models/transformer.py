@@ -23,8 +23,24 @@ it before the layer runs, so a layer recomputed under activation
 checkpointing draws the same noise. The KV-cache ``decode_step``, the
 pipelined trunk, random-LTD and progressive layer drop are not ported;
 they raise ``NotImplementedError``.
+
+Distributed training (``runtime/engine.py`` over ``comm/``): the engine
+hands its private view of the model a :class:`ParallelPlan`. Under tensor
+parallelism (``model`` axis > 1) the params are this rank's shards of the
+JAX package's layout (:meth:`CausalLM.sharding_rules`): q/k/v and gate/up
+column-parallel, o and down row-parallel, so attention runs on the
+``H / tp`` query and ``KVH / tp`` KV heads of this rank through the same
+attention dispatch (the flash kernels on the card); the embedding and LM
+head are vocab-parallel and the loss is the vocab-parallel cross-entropy
+(``parallel/tensor_parallel.py``: the logits stay ``[B, S, V / tp]``).
+ZeRO-3's sharded leaves arrive as ``runtime/zero.ZeroShard`` and are
+gathered per layer just before it runs (``run_gathered``). The loss is
+this rank's share of the GLOBAL masked mean: its masked sum over the token
+count all-reduced over ``(data, fsdp)``, so the shares sum to the JAX
+package's loss over the global batch whatever the per-rank counts.
 """
-from typing import Any, Dict, Optional, Union
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +55,20 @@ from ..parallel.moe import moe_mlp
 Params = Dict[str, Any]
 
 
+# the mesh axes the model's collectives name: the batch is split over
+# BATCH_AXES (the loss's token count is all-reduced over them), tensor
+# parallelism runs over TP_AXIS
+BATCH_AXES = ("data", "fsdp")
+TP_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class ParallelPlan:
+    """What the model needs to know of the mesh: the size of ``TP_AXIS``
+    (tensor parallelism)."""
+    tp: int = 1
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     """The activation dtype named by ``cfg.dtype`` (a string, as in JAX)."""
     return parse_dtype(str(cfg.dtype))
@@ -50,6 +80,13 @@ class CausalLM:
     def __init__(self, config: ModelConfig, seed: int = 0):
         self.config = config
         self.seed = seed
+        # set by the engine on its private view under torch.distributed
+        self.parallel: Optional[ParallelPlan] = None
+
+    @property
+    def _tp_axis(self) -> Optional[str]:
+        par = self.parallel
+        return TP_AXIS if par is not None and par.tp > 1 else None
 
     # ------------------------------------------------------------------ init
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -59,15 +96,18 @@ class CausalLM:
         output projections scaled by 1/sqrt(2L), unit norm scales, zero
         biases. Each leaf is drawn in float32 from ``generator`` (seeded
         from ``self.seed`` when None) and cast to ``dtype``, one leaf at a
-        time, so a 7B model never holds a float32 copy."""
+        time, so a 7B model never holds a float32 copy. ``device="meta"``
+        gives the shapes alone (the engine's sharding plan)."""
         cfg = self.config
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(self.seed)
         std = cfg.initializer_range
         out_std = std / np.sqrt(2 * cfg.num_layers)
 
         def dense(shape, scale=std):
+            if dev.type == "meta":
+                return torch.empty(shape, device=dev, dtype=dtype)
             x = torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32) * scale
             return x.to(dtype)
@@ -141,10 +181,24 @@ class CausalLM:
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
                segment_ids: Optional[torch.Tensor], window: Optional[int],
-               jitter_seed: Optional[int] = None):
+               jitter_seed: Optional[int] = None, regather: bool = True):
         """One block; returns ``(x, aux)`` with ``aux`` the MoE layer's
-        load-balance loss (a float32 tensor; 0.0 for a dense MLP)."""
+        load-balance loss (a float32 tensor; 0.0 for a dense MLP). ZeRO-3
+        shards of ``p`` are gathered for the block alone (``regather``:
+        no activation checkpointing around it, see ``run_gathered``)."""
+        if self.parallel is None:
+            return self._block(p, x, positions, segment_ids, window,
+                               jitter_seed)
+        from ..runtime.zero import run_gathered
+
+        return run_gathered(p, self._block, x, positions, segment_ids,
+                            window, jitter_seed, regather=regather)
+
+    def _block(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
+               segment_ids: Optional[torch.Tensor], window: Optional[int],
+               jitter_seed: Optional[int] = None):
         cfg = self.config
+        tp_axis = self._tp_axis
         dtype = x.dtype   # pin the activation dtype: fp32 params must not
         #                   promote bf16 activations (transformer.py:149)
 
@@ -155,11 +209,11 @@ class CausalLM:
                     gen = torch.Generator(device=y.device).manual_seed(
                         jitter_seed)
                 return moe_mlp(p["moe"], y, cfg, gen)
-            return mlp_block(p["mlp"], y, cfg), 0.0
+            return mlp_block(p["mlp"], y, cfg, tp_axis=tp_axis), 0.0
 
         x_norm = norm(x, p["attn_norm"], cfg)
         h = attention_block(p["attn"], x_norm, cfg, positions, segment_ids,
-                            window=window)
+                            window=window, tp_axis=tp_axis)
         if cfg.parallel_block:
             y = x_norm if cfg.shared_block_norm else norm(x, p["mlp_norm"], cfg)
             m, aux = run_mlp(y)
@@ -174,9 +228,10 @@ class CausalLM:
                  rng: Optional[torch.Generator] = None,
                  train: bool = True):
         """Differentiable forward over ``input_ids`` [B, S] (no KV cache).
-        Returns ``(logits [B, S, V] float32, aux)``, ``aux`` the layers'
-        summed MoE load-balance loss (a float32 tensor; 0.0 for a dense
-        model). With ``cfg.remat`` each
+        Returns ``(logits [B, S, V] float32, aux)`` (under tensor
+        parallelism this rank's ``V / tp`` vocab columns), ``aux`` the
+        layers' summed MoE load-balance loss (a float32 tensor; 0.0 for a
+        dense model). With ``cfg.remat`` each
         layer runs under ``torch.utils.checkpoint`` (non-reentrant): its
         activations are recomputed in the backward, the port of
         ``jax.checkpoint`` with policy ``nothing_saveable``. ``rng``: the
@@ -189,14 +244,38 @@ class CausalLM:
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None].expand(
                 b, s)
-        x = F.embedding(input_ids.long(), params["embed"]["embedding"])
+        par = self.parallel
+        tp_axis = self._tp_axis
+        use_remat = cfg.remat and torch.is_grad_enabled()
+
+        def gathered(tree, fn, *args):
+            if par is None:
+                return fn(tree, *args)
+            from ..runtime.zero import run_gathered
+
+            return run_gathered(tree, fn, *args)
+
+        def lookup(table, ids):
+            if tp_axis is None:
+                return F.embedding(ids.long(), table)
+            from ..parallel.tensor_parallel import vocab_parallel_embedding
+
+            return vocab_parallel_embedding(table, ids, tp_axis)
+
+        x = gathered(params["embed"], lambda e: lookup(e["embedding"],
+                                                       input_ids))
         if cfg.pos_embed == "learned":
-            table = params["pos_embed"]["embedding"]
-            pos = (positions + cfg.pos_embed_offset).clamp(0, table.shape[0] - 1)
-            x = x + F.embedding(pos.long(), table).to(x.dtype)
+            def add_pos(pe, x):
+                table = pe["embedding"]
+                pos = (positions + cfg.pos_embed_offset).clamp(
+                    0, cfg.max_seq_len + cfg.pos_embed_offset - 1)
+                return x + lookup(table, pos).to(x.dtype)
+
+            x = gathered(params["pos_embed"], add_pos, x)
         x = x.to(compute_dtype(cfg))
         if cfg.embed_norm:
-            x = norm(x, params["embed_norm"], cfg)
+            x = gathered(params["embed_norm"], lambda p, x: norm(x, p, cfg),
+                         x)
         jitter = cfg.any_moe and cfg.router_jitter > 0.0
         if jitter and rng is None:
             rng = torch.Generator(device=input_ids.device).manual_seed(
@@ -209,20 +288,31 @@ class CausalLM:
             if jitter:
                 seed = int(torch.randint(2 ** 62, (1,), generator=rng,
                                          device=rng.device))
-            if cfg.remat and torch.is_grad_enabled():
+            if use_remat:
                 x, a = checkpoint(self._layer, p, x, positions, segment_ids,
-                                  window, seed, use_reentrant=False)
+                                  window, seed, False, use_reentrant=False)
             else:
                 x, a = self._layer(p, x, positions, segment_ids, window,
                                    seed)
             aux = aux + a
-        x = norm(x, params["final_norm"], cfg)
-        if cfg.tie_embeddings:
-            logits = x @ params["embed"]["embedding"].to(x.dtype).T
-        else:
-            logits = x @ params["lm_head"]["kernel"].to(x.dtype)
+
+        def head(hp, x):
+            x = norm(x, hp["final_norm"], cfg)
+            if tp_axis is not None:
+                from ..parallel.tensor_parallel import copy_to_model_region
+
+                x = copy_to_model_region(x, tp_axis)
+            if cfg.tie_embeddings:
+                return x @ hp["embed"]["embedding"].to(x.dtype).T
+            logits = x @ hp["lm_head"]["kernel"].to(x.dtype)
             if cfg.lm_head_bias:
-                logits = logits + params["lm_head"]["bias"].to(logits.dtype)
+                logits = logits + hp["lm_head"]["bias"].to(logits.dtype)
+            return logits
+
+        hp = {"final_norm": params["final_norm"]}
+        hp.update({"embed": params["embed"]} if cfg.tie_embeddings
+                  else {"lm_head": params["lm_head"]})
+        logits = gathered(hp, head, x)
         return logits.float(), aux
 
     @torch.no_grad()
@@ -242,7 +332,10 @@ class CausalLM:
         replaces that mask); without: the labels are ``input_ids`` shifted
         left, the last position masked, times ``loss_mask`` when given. The
         loss is the masked sum over ``max(mask.sum(), 1)``, with a float32
-        logsumexp. An MoE model adds ``aux_loss_coef`` times the layers'
+        logsumexp; under a :class:`ParallelPlan` the sum is this rank's and
+        the count is all-reduced over the batch axes (this rank's share of
+        the global mean), and under TP the logsumexp is the vocab-parallel
+        one. An MoE model adds ``aux_loss_coef`` times the layers'
         summed load-balance loss and reports that sum as ``moe_aux_loss``.
         Returns ``(loss, {"lm_loss": ..., ["moe_aux_loss": ...]})``.
         ``rng``: the router jitter's ``torch.Generator`` (only an MoE model
@@ -270,15 +363,71 @@ class CausalLM:
                                                dtype=torch.float32)], dim=1)
             if "loss_mask" in batch:
                 mask = mask * batch["loss_mask"].float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[..., None])[..., 0]
+        par = self.parallel
+        if self._tp_axis is not None:
+            from ..parallel.tensor_parallel import vocab_parallel_logz
+
+            logz, gold = vocab_parallel_logz(logits, labels, self._tp_axis)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[..., None])[..., 0]
         nll = (logz - gold) * mask
-        lm_loss = nll.sum() / mask.sum().clamp_min(1.0)
+        count = mask.sum()
+        if par is not None:
+            from ..comm import comm
+
+            # this rank's share of the mean over the global batch
+            count = comm.all_reduce(count, BATCH_AXES)
+        lm_loss = nll.sum() / count.clamp_min(1.0)
         metrics = {"lm_loss": lm_loss.detach()}
         if not self.config.any_moe:
             return lm_loss, metrics
         metrics["moe_aux_loss"] = aux.detach()
         return lm_loss + self.config.aux_loss_coef * aux, metrics
+
+    # ------------------------------------------------------------------ sharding
+    def sharding_rules(self, path, shape) -> Optional[Tuple]:
+        """Megatron TP plus explicit FSDP dims (JAX ``transformer.py:493``),
+        composed by ``runtime/zero.py`` (which strips ``fsdp`` below stage
+        3). ``path``: the JAX leaf path's names (``("layers", "attn",
+        "wq")``); a stacked layer leaf leads with its layer dim, which
+        shards over ``pipe`` under a pipelined trunk and never otherwise."""
+        names = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
+        s = "/".join(names)
+        stacked = "layers" in names and self.config.scan_layers
+        if stacked:
+            if self.config.pipe_stages is not None:
+                pipe = self.config.pipe_stages > 1
+            else:
+                from ..comm import topology as topo_mod
+
+                t = topo_mod._WORLD_TOPOLOGY
+                pipe = t is not None and t.axis_sizes.get("pipe", 1) > 1
+            pre: Tuple = ("pipe",) if pipe else (None,)
+        else:
+            pre = ()
+        if s.endswith("embed/embedding"):
+            return ("model", "fsdp")
+        if s.endswith("lm_head/kernel"):
+            return ("fsdp", "model")
+        if "attn/" in s or s.endswith(("wq", "wk", "wv", "wo")):
+            if s.endswith(("wq", "wk", "wv")):
+                return pre + ("fsdp", "model")
+            if s.endswith("wo"):
+                return pre + ("model", "fsdp")
+        if s.endswith(("mlp/w_gate", "mlp/w_up", "mlp/fc1")):
+            return pre + ("fsdp", "model")
+        if s.endswith(("mlp/w_down", "mlp/fc2")):
+            return pre + ("model", "fsdp")
+        if s.endswith("pos_embed/embedding"):
+            return ("model", "fsdp")
+        if s.endswith("moe/router"):
+            return pre + (None, None)
+        if s.endswith(("moe/w_gate", "moe/w_up")):
+            return pre + ("expert", "fsdp", "model")
+        if s.endswith("moe/w_down"):
+            return pre + ("expert", "model", "fsdp")
+        return pre or None
 
 
 def build_model(name_or_config: Union[str, ModelConfig], **overrides

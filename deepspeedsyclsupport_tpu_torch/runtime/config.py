@@ -1,22 +1,24 @@
-"""JSON config for the single-card training engine.
+"""JSON config for the training engine.
 
 Port of ``deepspeedsyclsupport_tpu/runtime/config.py`` (``DSTpuConfig``) for
-the sections the single-card engine uses: the batch family and its
-invariant (``resolve_batch_sizes``, ``config.py:750-795``), ``optimizer``,
-``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage``,
+the sections the engine uses: the batch family and its invariant
+(``resolve_batch_sizes``, ``config.py:750-795``), ``optimizer``,
+``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage`` and
+``mics_shard_size``, the mesh sizes (``parallelism.dp / fsdp / tp``,
+``tensor_parallel.tp_size``: :class:`ParallelismConfig`),
 ``gradient_clipping``, ``activation_checkpointing``, ``checkpoint``,
-``sentinel``, ``seed`` and ``steps_per_print``. Key names are the
-reference's, so one JSON file drives both packages.
+``sentinel``, ``comms_logger``, ``seed`` and ``steps_per_print``. Key names
+are the reference's, so one JSON file drives both packages.
 
-ZeRO stages 0-3 are placement policies over a data-parallel mesh; on one
-card there is nothing to shard, so every stage runs the same program, as
-the JAX package does on one device.
+ZeRO stages 0-3 are placement policies over the data / fsdp axes of the
+mesh (``runtime/zero.py``); on one card there is nothing to shard, so every
+stage runs the same program, as the JAX package does on one device.
 
 Every enabled section the port does not do yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload, ZeRO++,
-any parallelism above 1, elasticity, telemetry, monitors, the flops
-profiler, compression/QAT, curriculum learning, progressive layer drop and
-random-LTD. None is silently ignored.
+pipeline / expert / sequence parallelism, elasticity, telemetry, monitors,
+the flops profiler, compression/QAT, curriculum learning, progressive layer
+drop and random-LTD. None is silently ignored.
 """
 import json
 import logging
@@ -64,23 +66,20 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
                             "A.3.2 (offload)")
     if zero.get("zero_quantized_weights") or \
             zero.get("zero_quantized_gradients") or \
-            int(zero.get("zero_hpz_partition_size", 1)) > 1 or \
-            int(zero.get("mics_shard_size", -1)) > 0:
-        raise _unported("ZeRO++ / MiCS (quantized or hierarchical "
-                        "partitions)", "A.3.1 (distributed training)")
+            int(zero.get("zero_hpz_partition_size", 1)) > 1:
+        raise _unported("ZeRO++ (quantized weights / gradients, hpZ "
+                        "partitions)", "A.3.1 (distributed training: "
+                        "ZeRO++)")
     par = _sub(d, C.PARALLELISM)
-    sizes = {f"parallelism.{k}": par.get(k, 1)
-             for k in ("dp", "fsdp", "tp", "pp", "ep", "sp")}
-    sizes["tensor_parallel.tp_size"] = _sub(d, C.TENSOR_PARALLEL).get(
-        "tp_size", 1)
+    sizes = {f"parallelism.{k}": par.get(k, 1) for k in ("pp", "ep", "sp")}
     sizes["pipeline.stages"] = _sub(d, C.PIPELINE).get("stages", 1)
     sizes["moe.expert_parallel_size"] = _sub(d, C.MOE).get(
         "expert_parallel_size", 1)
     sizes[C.SEQUENCE_PARALLEL_SIZE] = d.get(C.SEQUENCE_PARALLEL_SIZE, 1)
     for name, n in sizes.items():
         if int(n) > 1:
-            raise _unported(f"{name} = {n} (more than one card)",
-                            "A.3.1 (distributed training)")
+            raise _unported(f"{name} = {n} (pipeline, expert or sequence "
+                            f"parallelism)", "A.3.1 (distributed training)")
     checks = [
         (C.ELASTICITY, "elasticity (elastic batch sizes over a changing "
          "card count)", "A.3.1 (distributed training)"),
@@ -90,7 +89,6 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
         (C.MONITOR_WANDB, "the wandb monitor", "A.3.4 (observability)"),
         (C.MONITOR_CSV, "the csv monitor", "A.3.4 (observability)"),
         (C.MONITOR_JSONL, "the jsonl monitor", "A.3.4 (observability)"),
-        (C.COMMS_LOGGER, "the comms logger", "A.3.4 (observability)"),
         (C.FLOPS_PROFILER, "the flops profiler", "A.3.4 (observability)"),
         ("jax_profiler", "profiler trace windows", "A.3.4 (observability)"),
         (C.COMPRESSION_TRAINING, "compression / QAT",
@@ -298,6 +296,62 @@ class SentinelConfig:
 
 
 @dataclass
+class ParallelismConfig:
+    """Mesh axis sizes (JAX ``ParallelismConfig``, ``config.py:211-240``):
+    the ``parallelism`` section, or the reference's ``tensor_parallel.
+    tp_size``. MiCS (``zero_optimization.mics_shard_size``) puts the ZeRO
+    shard group on fsdp (``fsdp = mics_shard_size``) and replicates over
+    data (``dp = -1``); ZeRO stage >= 1 with no sizes puts every rank on
+    fsdp, stage 0 on data. ``-1`` is the rest of the world. Pipeline,
+    expert and sequence sizes above 1 are refused before this is built."""
+    dp: int = -1
+    fsdp: int = 1
+    tp: int = 1
+    pp: int = 1
+    ep: int = 1
+    sp: int = 1
+
+    @classmethod
+    def from_config_dict(cls, d: Dict[str, Any], zero_stage: int,
+                         mics_shard_size: int = -1) -> "ParallelismConfig":
+        p = _sub(d, C.PARALLELISM)
+        tp = int(p.get("tp", _sub(d, C.TENSOR_PARALLEL).get("tp_size", 1)))
+        fsdp = int(p.get("fsdp", 0)) or 0
+        dp = int(p.get("dp", 0)) or 0
+        if mics_shard_size and mics_shard_size > 0:
+            if fsdp and fsdp != mics_shard_size:
+                raise ValueError(
+                    f"mics_shard_size {mics_shard_size} conflicts with "
+                    f"explicit fsdp={fsdp}")
+            fsdp, dp = mics_shard_size, (dp or -1)
+        elif not fsdp and not dp:
+            if zero_stage >= 1:
+                fsdp, dp = -1, 1
+            else:
+                dp, fsdp = -1, 1
+        elif not fsdp:
+            fsdp = 1
+        elif not dp:
+            dp = 1
+        return cls(dp=dp, fsdp=fsdp, tp=tp)
+
+
+@dataclass
+class CommsLoggerConfig:
+    """``comms_logger`` (reference keys): ``enabled``, ``verbose``, and
+    ``timed`` (a device sync around each collective; off by default)."""
+    enabled: bool = False
+    verbose: bool = False
+    timed: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "CommsLoggerConfig":
+        return cls(enabled=bool(d.get("enabled", False)),
+                   verbose=bool(d.get("verbose", False)),
+                   timed=bool(d.get("timed", False)))
+
+
+@dataclass
 class DSTpuConfig:
     """Top-level typed config of the single-card engine (reference:
     ``DeepSpeedConfig``). ``zero_stage`` 0-3 all run one program on one
@@ -319,6 +373,10 @@ class DSTpuConfig:
     seed: int = C.SEED_DEFAULT
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     sentinel: SentinelConfig = field(default_factory=SentinelConfig)
+    parallelism: ParallelismConfig = field(default_factory=ParallelismConfig)
+    mics_shard_size: int = -1
+    comms_logger: CommsLoggerConfig = field(
+        default_factory=CommsLoggerConfig)
 
     @classmethod
     def from_config(cls, config, dp_world_size: Optional[int] = None
@@ -343,6 +401,7 @@ class DSTpuConfig:
                                                      C.ZERO_STAGE_DEFAULT))
         if stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage must be 0-3, got {stage}")
+        mics = int(_sub(d, C.ZERO_OPTIMIZATION).get("mics_shard_size", -1))
         ac = None
         if C.ACTIVATION_CHECKPOINTING in d:
             ac = ActivationCheckpointingConfig.from_dict(
@@ -360,7 +419,12 @@ class DSTpuConfig:
                                       C.STEPS_PER_PRINT_DEFAULT)),
             seed=int(d.get(C.SEED, C.SEED_DEFAULT)),
             checkpoint=CheckpointConfig.from_dict(_sub(d, C.CHECKPOINT)),
-            sentinel=SentinelConfig.from_dict(_sub(d, "sentinel")))
+            sentinel=SentinelConfig.from_dict(_sub(d, "sentinel")),
+            parallelism=ParallelismConfig.from_config_dict(
+                d, stage, mics_shard_size=mics),
+            mics_shard_size=mics,
+            comms_logger=CommsLoggerConfig.from_dict(
+                _sub(d, C.COMMS_LOGGER)))
         if dp_world_size is not None:
             cfg.resolve_batch_sizes(dp_world_size)
         return cfg

@@ -6,7 +6,16 @@ tensors) and hands the engine batches already on its device: on the card
 each leaf is copied into pinned host memory and then to the card with a
 ``non_blocking`` copy (PyTorch's pinned allocator keeps the buffer until
 the copy has run), ``prefetch`` batches ahead, so the copies overlap the
-step in flight. There is no topology argument: one card.
+step in flight.
+
+With a ``topology`` (``comm/topology.py``) each batch of the dataset is a
+GLOBAL batch and each rank is handed its rows of it by its (data, fsdp)
+coordinate, as the JAX loader's ``data_sharding`` places them
+(``dataloader.py:29-110``, ``topology.py:148``): block ``c`` of ``n``. With
+``gradient_accumulation_steps`` > 1 the rows come in the order the engine's
+micro-batches take them (the JAX engine cuts the global batch into
+micro-batches first and splits each over the ranks). Ranks that differ
+only on ``model`` get the same rows.
 
 Iterator state is checkpointable (``state_dict`` / ``load_state_dict``:
 epoch and offset within it, plus the shuffle seed), the engine carries it in
@@ -23,7 +32,30 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..comm.topology import MeshTopology
 from ..device import resolve_device
+
+
+def rank_rows(x, topology: MeshTopology, gas: int = 1,
+              rank: Optional[int] = None):
+    """``rank``'s (default: this process's) rows of a global batch leaf
+    ``x`` (see the module docstring): for each of the ``gas`` micro-batches
+    of consecutive rows, its ``c``-th of ``n`` blocks, (data, fsdp) index
+    ``c``."""
+    n = topology.get_data_parallel_world_size()
+    if n == 1:
+        return x
+    c = topology.axis_index(("data", "fsdp"), rank)
+    lead = x.shape[0]
+    if lead % (gas * n):
+        raise ValueError(f"global batch of {lead} rows does not split into "
+                         f"{gas} micro-batches over {n} ranks")
+    per = lead // gas
+    mb = per // n
+    parts = [x[i * per + c * mb:i * per + (c + 1) * mb] for i in range(gas)]
+    if isinstance(x, torch.Tensor):
+        return torch.cat(parts) if gas > 1 else parts[0]
+    return np.concatenate(parts) if gas > 1 else parts[0]
 
 
 def _to_device(batch: Any, device: torch.device) -> Any:
@@ -43,15 +75,22 @@ def _to_device(batch: Any, device: torch.device) -> Any:
 
 class DSTpuDataLoader:
     """Generator loader over any iterable (``__iter__`` starts an epoch
-    from the saved offset). ``device``: None means the card."""
+    from the saved offset). ``device``: None means the card; a
+    ``MeshTopology`` in its place is the ``topology`` (the JAX loader's
+    ``DSTpuDataLoader(dataset, topology)``), the device then the card."""
 
     def __init__(self, dataset: Iterable, device=None,
                  batch_fn: Optional[Callable[[Any], Any]] = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, topology: Optional[MeshTopology] = None,
+                 gradient_accumulation_steps: int = 1):
+        if isinstance(device, MeshTopology):
+            topology, device = device, None
         self.dataset = dataset
         self.device = resolve_device(device)
         self.batch_fn = batch_fn
         self.prefetch = max(0, prefetch)
+        self.topology = topology
+        self.gas = int(gradient_accumulation_steps)
         self._len = None
         self._epoch = 0    # completed passes over the dataset
         self._offset = 0   # batches yielded within the current epoch
@@ -83,7 +122,17 @@ class DSTpuDataLoader:
         self._epoch = int(sd.get("epoch", 0))
         self._offset = int(sd.get("offset", 0))
 
+    def _rows(self, batch):
+        if isinstance(batch, dict):
+            return {k: self._rows(v) for k, v in batch.items()}
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self._rows(v) for v in batch)
+        x = batch if isinstance(batch, torch.Tensor) else np.asarray(batch)
+        return rank_rows(x, self.topology, self.gas)
+
     def _place(self, batch):
+        if self.topology is not None:
+            batch = self._rows(batch)
         return _to_device(batch, self.device)
 
     def __iter__(self) -> Iterator[Any]:
@@ -127,8 +176,13 @@ class CheckpointableDataLoader(DSTpuDataLoader):
 
     def __init__(self, dataset: Sequence, device=None,
                  batch_fn: Optional[Callable[[Any], Any]] = None,
-                 shuffle: bool = False, seed: int = 0):
-        super().__init__(dataset, device, batch_fn=batch_fn, prefetch=0)
+                 shuffle: bool = False, seed: int = 0,
+                 topology: Optional[MeshTopology] = None,
+                 gradient_accumulation_steps: int = 1):
+        super().__init__(
+            dataset, device, batch_fn=batch_fn, prefetch=0,
+            topology=topology,
+            gradient_accumulation_steps=gradient_accumulation_steps)
         if self._len is None:
             raise TypeError("CheckpointableDataLoader needs a Sequence "
                             "dataset (random access + __len__)")

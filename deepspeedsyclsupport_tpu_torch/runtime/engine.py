@@ -1,8 +1,8 @@
-"""Training engine on one card.
+"""Training engine, on one card or over ``torch.distributed``.
 
 Port of ``deepspeedsyclsupport_tpu/runtime/engine.py`` (``initialize``:64,
-``Engine.train_batch``:989, the eager ``forward/backward/step``:1482-1592)
-for one card. The JAX package compiles the whole step — forward, backward,
+``Engine.train_batch``:989, the eager ``forward/backward/step``:1482-1592).
+The JAX package compiles the whole step — forward, backward,
 accumulation, clipping, update, loss-scale bookkeeping — into one jitted
 program; here the same step runs eagerly:
 
@@ -21,6 +21,35 @@ per step); so does the training sentinel's gate while it is armed
 (``runtime/sentinel.py``: the step count and learning rate live on the
 host, so a gated step is skipped there). Otherwise nothing in the step
 waits for the card. ZeRO stages 0-3 are one program on one card.
+
+Under a process group (``comm.init_distributed``) the engine builds the
+named mesh from the config (``initialize(topology=...)`` or the
+``parallelism`` sizes, JAX ``engine.py:130-134``) and keeps the JAX
+package's step semantics (``engine.py:12-20``: one global step over a batch
+split on (data, fsdp)):
+
+* each rank holds its shards of the JAX layout (``runtime/zero.py``: TP
+  dims always, fsdp at stage 3) and trains on its rows of the global batch;
+  the model (a private view with a ``ParallelPlan``) runs TP on its shards
+  and gathers ZeRO-3 leaves layer by layer;
+* the loss is the GLOBAL masked mean: each rank's masked sum over the token
+  count all-reduced over (data, fsdp), and the reported loss the sum of
+  the shares;
+* gradients are reduced over the batch axes: all-reduced at stages 0-1,
+  reduce-scattered onto the update's fsdp shard at 2 (ZeRO-3's leaves are
+  reduce-scattered by their gather's backward) and all-reduced over data;
+* the update runs over this rank's shard of each leaf as
+  ``zero.moment_spec`` lays it out (stages 1-2 then all-gather the updated
+  shards), the count and learning rate on the host, equal on every rank;
+* the global grad norm counts each replicated leaf once and each sharded
+  leaf's shards once (one all-reduce over the world), and the fp16
+  overflow verdict is agreed over the world before any rank skips, so the
+  loss scaler stays identical everywhere.
+
+``shard_params_from_jax`` and ``gather_params`` carry weights between the
+JAX package's global tree and the ranks' shards. The sentinel, preemption
+handling and checkpoints across ranks (A.3.3b) are refused at a world
+above one.
 
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``, ``:1732-1980``) are
 the JAX package's native format, leaf for leaf: ``params`` with the layers
@@ -51,7 +80,11 @@ from .loss_scaler import (LossScaleState, grads_finite, init_loss_scale,
                           scale_loss, unscale_grads, update_loss_scale)
 from .lr_schedules import build_schedule
 from .optimizers import build_optimizer, current_lr
+from . import zero as zero_lib
 from ..checkpoint.engine import LATEST_FILE
+from ..comm import comm
+from ..comm.comms_logging import comms_logger
+from ..comm.topology import MeshTopology, build_topology, set_world_topology
 from ..device import resolve_device
 from ..utils.fault_injection import get_fault_injector
 
@@ -81,14 +114,13 @@ def initialize(model: Any = None, loss_fn: Optional[Callable] = None,
     ``training_data``: an iterable of batches; the returned loader
     (``runtime/dataloader.py``, ``collate_fn`` applied to each) is
     registered with the engine. ``device``: None means the card (and
-    raises without one)."""
+    raises without one). ``topology``: the named mesh (default: built from
+    the config's ``parallelism`` sizes when a process group exists); under
+    a process group ``params`` may be the full tree (each rank keeps its
+    shards) or this rank's shards (``shard_params_from_jax``)."""
     config = config if config is not None else config_params
     if config is None:
         raise ValueError("config (dict or json path) is required")
-    if topology is not None:
-        raise NotImplementedError(
-            "a device mesh / topology is not ported yet: ROADMAP.md, queue "
-            "A.3.1 (distributed training)")
     dev = resolve_device(device)
     if loss_fn is None:
         if model is None or not hasattr(model, "loss"):
@@ -99,13 +131,16 @@ def initialize(model: Any = None, loss_fn: Optional[Callable] = None,
             raise ValueError("provide params, or a model with init_params()")
         params = model.init_params(device=dev)
     engine = Engine(loss_fn=loss_fn, params=params, config=config,
-                    lr_schedule=lr_schedule, module=model, device=dev)
+                    lr_schedule=lr_schedule, module=model, device=dev,
+                    topology=topology)
     dataloader = None
     if training_data is not None:
         from .dataloader import DSTpuDataLoader
 
-        dataloader = engine.register_dataloader(
-            DSTpuDataLoader(training_data, dev, batch_fn=collate_fn))
+        dataloader = engine.register_dataloader(DSTpuDataLoader(
+            training_data, dev, batch_fn=collate_fn,
+            topology=engine.topology if engine.distributed else None,
+            gradient_accumulation_steps=engine.gradient_accumulation_steps()))
     return _InitTuple(engine, engine.optimizer, dataloader,
                       engine.lr_schedule)
 
@@ -144,6 +179,16 @@ def _index_tree(tree, counter):
         return [_index_tree(v, counter) for v in tree]
     counter[0] += 1
     return counter[0] - 1
+
+
+def _rebuild(tree, leaves: Dict[Tuple, Any], path=()):
+    """``tree``'s structure with the leaf at each path (as
+    ``zero._walk`` yields them) replaced by ``leaves[path]``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, leaves, path + (i,)) for i, v in enumerate(tree)]
+    return leaves[path]
 
 
 def _get(tree, path):
@@ -197,13 +242,56 @@ def engine_state_from_jax(opt_state: Any, scaler: Any) -> Dict[str, Any]:
                                                   for x in scaler)))}
 
 
+def shard_params_from_jax(np_tree: Any, cfg: Any, topology: MeshTopology,
+                          stage: int, rank: Optional[int] = None) -> Any:
+    """The JAX package's global params (numpy leaves, layers stacked
+    ``[L, ...]`` or listed) as ``rank``'s shards (default: this process's)
+    in the port's tree (a list of layers), numpy leaves: the plan of
+    ``runtime/zero.py`` with the port model's ``sharding_rules``. What
+    ``initialize`` takes as this rank's params."""
+    from ..models.transformer import CausalLM, params_from_jax
+
+    model = CausalLM(cfg)
+    full = params_from_jax(np_tree, cfg, device="cpu")
+    specs = zero_lib.tree_param_shardings(
+        full, topology, stage, extra_rules=model.sharding_rules,
+        stacked=bool(getattr(cfg, "scan_layers", True)))
+    leaves = {path: t.numpy()[topology.shard_slices(
+        tuple(t.shape), specs[path], rank)]
+              for path, t in zero_lib._walk(full)}
+    return _rebuild(full, leaves)
+
+
+@torch.no_grad()
+def gather_params(engine: "Engine") -> Any:
+    """The full params tree (numpy, the port's layout) on rank 0, gathered
+    from every rank's shards; None on the other ranks. A collective: every
+    rank calls it."""
+    if not engine.distributed:
+        return _tree_map(lambda t: t.detach().cpu().numpy(), engine.params)
+    leaves = {}
+    for path, t in zero_lib._walk(engine.params):
+        t = t.detach()
+        for d, entry in enumerate(engine._specs[path]):
+            if entry and engine.topology.axis_size(entry) > 1:
+                t = comm.all_gather(t.contiguous(), entry, axis=d)
+        leaves[path] = t.cpu().numpy()
+    if engine.topology.rank != 0:
+        return None
+    return _rebuild(engine.params, leaves)
+
+
 class Engine:
     def __init__(self, loss_fn: Callable, params: Any, config: Any,
                  lr_schedule: Optional[Callable] = None, module: Any = None,
-                 device=None):
+                 device=None, topology: Optional[MeshTopology] = None):
         self.device = resolve_device(device)
         self.config = DSTpuConfig.from_config(config)
-        self.config.resolve_batch_sizes(1)
+        self.topology = self._build_topology(topology)
+        self.distributed = self.topology is not None
+        self.dp_world_size = (self.topology.get_data_parallel_world_size()
+                              if self.distributed else 1)
+        self.config.resolve_batch_sizes(self.dp_world_size)
         self.module = module
         self.loss_fn_raw = loss_fn
         try:
@@ -214,14 +302,29 @@ class Engine:
         self.zero_stage = self.config.zero_stage
         ac = self.config.activation_checkpointing
         mcfg = getattr(module, "config", None)
-        if ac is not None and mcfg is not None and hasattr(mcfg, "remat"):
-            # a private view of the model with remat set (engine.py:430-459):
-            # the caller's model and config are left untouched
+        if (ac is not None or self.distributed) and mcfg is not None:
+            # a private view of the model (engine.py:430-459): remat set
+            # from the config, the parallel plan under a process group; the
+            # caller's model and config are left untouched
             view = copy.copy(module)
-            view.config = dataclasses.replace(mcfg, remat=ac.enabled)
+            if ac is not None and hasattr(mcfg, "remat"):
+                view.config = dataclasses.replace(mcfg, remat=ac.enabled)
+            if self.distributed:
+                view.parallel = self._parallel_plan(view)
             if getattr(loss_fn, "__self__", None) is module:
                 self.loss_fn_raw = getattr(view, loss_fn.__name__)
+            elif self.distributed:
+                raise NotImplementedError(
+                    "under torch.distributed the loss must be the model's "
+                    "own (its token count is all-reduced over the batch "
+                    "axes); a custom loss_fn is not ported: ROADMAP.md, "
+                    "queue A.3.1 (distributed training)")
             self.module = view
+        elif self.distributed:
+            raise NotImplementedError(
+                "under torch.distributed the engine needs a model with a "
+                "config and sharding_rules (the port's CausalLM): ROADMAP.md,"
+                " queue A.3.1 (distributed training)")
         elif ac is not None:
             logger.warning("activation_checkpointing configured but the "
                            "model exposes no remat flag")
@@ -242,6 +345,8 @@ class Engine:
                                      copy=True).requires_grad_(True)
             return t.to(self.device)
 
+        if self.distributed:
+            params = self._plan(params)
         self.params = _tree_map(master, params)
         # the checkpoint layout: every leaf by its position in _leaves'
         # order; a "layers" list is stacked [L, ...] when the model's
@@ -268,7 +373,8 @@ class Engine:
         self.optimizer = build_optimizer(self.config.optimizer.type,
                                          self.config.optimizer.params,
                                          self.lr_schedule)
-        self.optimizer.init(self._leaf_tensors, [p for p, _ in named])
+        self.optimizer.init(self._update_views() if self.distributed
+                            else self._leaf_tensors, [p for p, _ in named])
 
         # ----------------------------------------------------- bookkeeping
         self.global_steps = 0
@@ -291,16 +397,180 @@ class Engine:
         self._sentinel = None
         self._host_metrics: Optional[Dict[str, Any]] = None
         if self.config.sentinel.enabled:
+            if self.distributed:
+                raise NotImplementedError(
+                    "the training sentinel under torch.distributed is not "
+                    "ported yet: "
+                    "ROADMAP.md, queue A.3.3b (pod-wide resilience)")
             from .sentinel import TrainingSentinel
 
             self._sentinel = TrainingSentinel(self, self.config.sentinel,
                                               rank=self._fi_rank)
+        cl = self.config.comms_logger
+        comms_logger.configure(enabled=cl.enabled, verbose=cl.verbose,
+                               timed=cl.timed)
+
+    # ============================================================ the mesh
+    def _build_topology(self, topology: Optional[MeshTopology]
+                        ) -> Optional[MeshTopology]:
+        """The named mesh (JAX ``engine.py:130-134``): ``topology`` as
+        given, else built from the config's sizes over the default process
+        group. None on one card without a process group."""
+        import torch.distributed as dist
+
+        started = dist.is_available() and dist.is_initialized()
+        p = self.config.parallelism
+        if topology is None:
+            if not started:
+                if p.tp > 1 or p.fsdp > 1 or p.dp > 1:
+                    raise RuntimeError(
+                        f"parallelism dp={p.dp} fsdp={p.fsdp} tp={p.tp} "
+                        f"needs a process group: call comm.init_distributed "
+                        f"first")
+                return None
+            topology = build_topology(dp=p.dp, fsdp=p.fsdp, tp=p.tp)
+        for ax, entry in (("pipe", "pipeline parallelism"),
+                          ("expert", "expert parallelism"),
+                          ("seq", "sequence parallelism")):
+            if topology.axis_sizes[ax] > 1:
+                raise NotImplementedError(
+                    f"{entry} (mesh axis {ax!r} = {topology.axis_sizes[ax]}) "
+                    f"is not ported yet: ROADMAP.md, queue A.3.1 "
+                    f"(distributed training)")
+        if not started:
+            if topology.world_size() > 1:
+                raise RuntimeError(f"{topology} spans "
+                                   f"{topology.world_size()} ranks: call "
+                                   f"comm.init_distributed first")
+            return None
+        set_world_topology(topology)
+        topology.init_groups()
+        return topology
+
+    def _parallel_plan(self, view):
+        from ..models.transformer import ParallelPlan
+
+        cfg = view.config
+        tp = self.topology.axis_sizes["model"]
+        if getattr(cfg, "any_moe", False):
+            raise NotImplementedError(
+                "MoE layers under torch.distributed (the routing statistics "
+                "and the experts across ranks) are not ported yet: ROADMAP."
+                "md, queue A.3.1 (distributed training: EP MoE)")
+        if tp > 1:
+            if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+                raise ValueError(f"tensor parallelism {tp} must divide the "
+                                 f"{cfg.num_heads} query and "
+                                 f"{cfg.num_kv_heads} KV heads")
+            if cfg.qkv_bias or (cfg.mlp_type == "mlp" and cfg.use_bias):
+                raise NotImplementedError(
+                    "biases of column-parallel layers under tensor "
+                    "parallelism are not ported yet: ROADMAP.md, queue "
+                    "A.3.1 (distributed training)")
+        return ParallelPlan(tp=tp)
+
+    def _plan(self, params):
+        """Lay the params out on the mesh: the JAX plan on the model's full
+        shapes (``zero.tree_param_shardings`` / ``tree_optimizer_shardings``),
+        and this rank's shard of every leaf (a full leaf is sliced; a leaf
+        of the shard's shape is taken as it is)."""
+        topo, stage = self.topology, self.zero_stage
+        mcfg = self.module.config
+        full = self.module.init_params(device="meta")
+        stacked = bool(getattr(mcfg, "scan_layers", True))
+        self._specs = zero_lib.tree_param_shardings(
+            full, topo, stage, extra_rules=self.module.sharding_rules,
+            stacked=stacked)
+        moments = zero_lib.tree_optimizer_shardings(
+            full, self._specs, topo, stage, stacked=stacked)
+        # the update's layout: the moments' (stage 0 keeps them beside the
+        # param's TP shard; the JAX package leaves stage-0 moments whole)
+        self._full_shapes = {p: tuple(t.shape)
+                             for p, t in zero_lib._walk(full)}
+        pad = {p: len(s) for p, s in self._full_shapes.items()}
+        self._specs = {p: tuple(s) + ((),) * (pad[p] - len(s))
+                       for p, s in self._specs.items()}
+        self._update_specs = {
+            p: tuple(s) + ((),) * (pad[p] - len(s))
+            for p, s in (moments if stage >= 1 else self._specs).items()}
+        given = dict(zero_lib._walk(params))
+        if set(given) != set(self._full_shapes):
+            raise ValueError("params do not match the model's tree: "
+                             f"{sorted(set(given) ^ set(self._full_shapes))}")
+        out = {}
+        for path, shape in self._full_shapes.items():
+            t = torch.as_tensor(np.asarray(given[path]) if not isinstance(
+                given[path], torch.Tensor) else given[path])
+            local = topo.shard_shape(shape, self._specs[path])
+            if tuple(t.shape) == shape:
+                t = t[topo.shard_slices(shape, self._specs[path])]
+            elif tuple(t.shape) != local:
+                raise ValueError(f"param {path}: shape {tuple(t.shape)} is "
+                                 f"neither the full {shape} nor this rank's "
+                                 f"shard {local}")
+            out[path] = t
+        logger.info("%s", zero_lib.describe_memory_plan(full, topo, stage))
+        local = _rebuild(params, out)
+        self._paths = [path for path, _ in zero_lib._walk(local)]
+        return local
+
+    @staticmethod
+    def _shard_dim(spec) -> Optional[int]:
+        """The dim ``spec`` splits over fsdp (None: none)."""
+        for d, entry in enumerate(spec):
+            if "fsdp" in entry:
+                return d
+        return None
+
+    def _update_views(self) -> List[torch.Tensor]:
+        """For each float leaf, the part this rank updates: the held tensor,
+        or (stages 1-2) a view of its fsdp shard."""
+        topo = self.topology
+        k = topo.axis_index("fsdp")
+        self._float_paths = [self._paths[i] for i in self._float_pos]
+        self._update_dim: List[Optional[int]] = []
+        self._owner: List[bool] = []
+        views = []
+        coords = topo.coords()
+        with torch.no_grad():
+            for path, t in zip(self._float_paths, self._leaf_tensors):
+                held, upd = self._specs[path], self._update_specs[path]
+                d = None
+                if tuple(upd) != tuple(held):
+                    d = self._shard_dim(upd)
+                    if d is None or held[d]:
+                        raise AssertionError(f"{path}: update {upd} vs "
+                                             f"held {held}")
+                    n = t.shape[d] // topo.axis_sizes["fsdp"]
+                    views.append(t.narrow(d, k * n, n))
+                else:
+                    views.append(t)
+                self._update_dim.append(d)
+                used = {a for e in upd for a in e}
+                # counted once: the rank at index 0 of every axis the
+                # update does not split
+                self._owner.append(all(coords[a] == 0 for a in coords
+                                       if a not in used))
+        return views
 
     # =============================================================== loss core
     def _cast_params(self, params):
+        """The params in the compute dtype; at ZeRO-3 a leaf held as an
+        fsdp shard is cast as a shard and handed over as a ``ZeroShard``,
+        which the model gathers when its layer runs."""
         dtype = self.compute_dtype
-        return _tree_map(
-            lambda t: t.to(dtype) if t.is_floating_point() else t, params)
+
+        def cast(t):
+            return t.to(dtype) if t.is_floating_point() else t
+
+        if not self.distributed or self.zero_stage < 3:
+            return _tree_map(cast, params)
+        leaves = {}
+        for path, t in zero_lib._walk(params):
+            d = self._shard_dim(self._specs[path])
+            leaves[path] = cast(t) if d is None else \
+                zero_lib.ZeroShard(cast(t), d, "fsdp")
+        return _rebuild(params, leaves)
 
     def _generator(self, *stream: int) -> torch.Generator:
         """The loss's random generator (an MoE router's jitter) for one
@@ -408,6 +678,125 @@ class Engine:
         return {**health, "grad_norm": grad_norm, "finite": finite,
                 "loss_scale": self.scaler_state.scale}
 
+    # ======================================================== distributed
+    def _batch_split(self) -> Tuple[int, int]:
+        """(ranks the batch is split over, this rank's index among them)."""
+        if not self.distributed:
+            return 1, 0
+        return (self.dp_world_size,
+                self.topology.axis_index(("data", "fsdp")))
+
+    def _micro_batches(self, batch: Dict[str, torch.Tensor], gas: int
+                       ) -> List[Dict[str, torch.Tensor]]:
+        """This rank's rows of each of the step's ``gas`` micro-batches. A
+        global batch (leading dim ``train_batch_size``) is cut as the JAX
+        engine cuts it: into ``gas`` micro-batches of consecutive rows, each
+        split over (data, fsdp) in rank order; any other batch is this
+        rank's own (a ``DSTpuDataLoader`` with the topology gives it in that
+        order) and is cut into ``gas`` in order."""
+        n, c = self._batch_split()
+        lead = next(iter(batch.values())).shape[0]
+        if n > 1 and lead == self.config.train_batch_size:
+            per = lead // gas
+            mb = per // n
+            return [{k: v[i * per + c * mb:i * per + (c + 1) * mb]
+                     for k, v in batch.items()} for i in range(gas)]
+        return [{k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:])[i]
+                 for k, v in batch.items()} for i in range(gas)]
+
+    def _rank_rows(self, batch: Dict[str, torch.Tensor], local: int
+                   ) -> Dict[str, torch.Tensor]:
+        """This rank's block of a batch split over (data, fsdp), unless the
+        batch already has ``local`` rows."""
+        n, c = self._batch_split()
+        lead = next(iter(batch.values())).shape[0]
+        if n == 1 or lead == local:
+            return batch
+        if lead % n:
+            raise ValueError(f"batch of {lead} rows does not split over "
+                             f"{n} ranks")
+        m = lead // n
+        return {k: v[c * m:(c + 1) * m] for k, v in batch.items()}
+
+    def _global_sum(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each rank's shares summed over the batch axes, in one call."""
+        if not self.distributed or not values:
+            return values
+        total = comm.all_reduce(torch.stack(values), ("data", "fsdp"))
+        return list(total.unbind(0))
+
+    def _reduce(self, g: torch.Tensor, axes) -> torch.Tensor:
+        return comm.all_reduce(g, axes) \
+            if self.topology.axis_size(axes) > 1 else g
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum each leaf's grad over the batch axes into its update layout:
+        stage 3's sharded leaves were reduce-scattered over fsdp by their
+        gather's backward (all-reduce over data left); stage 2
+        reduce-scatters onto the update's fsdp shard; otherwise all-reduce
+        (stage 1 then keeps the update's shard)."""
+        topo, stage = self.topology, self.zero_stage
+        k = topo.axis_index("fsdp")
+        out = []
+        for i, g in enumerate(grads):
+            held = self._specs[self._float_paths[i]]
+            d = self._update_dim[i]
+            if stage >= 3 and self._shard_dim(held) is not None:
+                g = self._reduce(g, "data")
+            elif stage == 2 and d is not None:
+                g = self._reduce(comm.reduce_scatter(g, "fsdp", axis=d),
+                                 "data")
+            else:
+                g = self._reduce(g, ("data", "fsdp"))
+                if d is not None:
+                    n = g.shape[d] // topo.axis_sizes["fsdp"]
+                    g = g.narrow(d, k * n, n)
+            out.append(g)
+        return out
+
+    @torch.no_grad()
+    def _apply_grads_dist(self, grads: List[torch.Tensor]) -> Dict[str, Any]:
+        """:meth:`_apply_grads` over this rank's update shards: the global
+        norm from each leaf's owner (one all-reduce over the world), the
+        fp16 verdict agreed over the world, then clip, update, and (stages
+        1-2) the updated shards all-gathered into the held params."""
+        everyone = tuple(self.topology.axis_sizes)
+        unscale_grads(grads, self.scaler_state)
+        norms = torch._foreach_norm(grads) if grads else []
+        own = [n for n, o in zip(norms, self._owner) if o]
+        local = torch.linalg.vector_norm(torch.stack(own)) if own \
+            else torch.zeros((), device=self.device)
+        grad_norm = comm.all_reduce(local * local, everyone).sqrt()
+        if self.fp16_enabled:
+            ok = grads_finite(grads).float() if grads else \
+                torch.ones((), device=self.device)
+            finite = comm.all_reduce(ok, everyone, op="min") > 0
+            finite_h = apply = bool(finite)
+        else:
+            finite = torch.ones((), dtype=torch.bool, device=self.device)
+            finite_h = apply = True
+        clip = self.config.gradient_clipping
+        if clip and clip > 0 and grads:
+            factor = torch.where(grad_norm < clip,
+                                 torch.ones_like(grad_norm), clip / grad_norm)
+            torch._foreach_mul_(grads, factor)
+        if apply:
+            self.optimizer.step(grads)
+            for t, view, d in zip(self._leaf_tensors, self.optimizer.params,
+                                  self._update_dim):
+                if d is not None:
+                    t.copy_(comm.all_gather(view.contiguous(), "fsdp",
+                                            axis=d))
+        fp16 = self.config.fp16
+        self.scaler_state = update_loss_scale(
+            self.scaler_state, finite_h,
+            dynamic=self.fp16_enabled and fp16.dynamic,
+            scale_window=fp16.loss_scale_window,
+            min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
+        self._last_grad_norm = grad_norm
+        return {"grad_norm": grad_norm, "finite": finite,
+                "loss_scale": self.scaler_state.scale}
+
     # ============================================================ fused path
     def train_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """One optimizer step on one global batch (leading dim =
@@ -435,20 +824,28 @@ class Engine:
             else None
         self._zero_grads()
         losses, metrics = [], []
-        for i in range(gas):
-            mb = {k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:])[i]
-                  for k, v in batch.items()}
+        for i, mb in enumerate(self._micro_batches(batch, gas)):
             loss, m = self._micro_backward(
                 mb, self._generator(self.global_steps, i))
             losses.append(loss)
             metrics.append(m)
         grads = self._grads()
+        if self.distributed:
+            grads = self._reduce_grads(grads)
+            keys = list(metrics[0])
+            vals = self._global_sum(losses + [m[k] for m in metrics
+                                              for k in keys])
+            losses = vals[:gas]
+            metrics = [dict(zip(keys, vals[gas + i * len(keys):
+                                           gas + (i + 1) * len(keys)]))
+                       for i in range(gas)]
         if gas > 1:
             torch._foreach_div_(grads, float(gas))
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
         loss = torch.stack(losses).mean()
-        out.update(self._apply_grads(grads, loss=loss, gate=gate))
+        out.update(self._apply_grads_dist(grads) if self.distributed
+                   else self._apply_grads(grads, loss=loss, gate=gate))
         out["loss"] = loss
         self._zero_grads()
         self.global_steps += 1
@@ -469,8 +866,13 @@ class Engine:
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """Loss on one micro-batch (reference ``engine.forward``). The
         autograd graph is kept for :meth:`backward`, which runs it instead
-        of recomputing the forward as the JAX package must."""
-        loss, _ = self._loss_and_metrics(self.params, self._to_device(batch))
+        of recomputing the forward as the JAX package must. Under a process
+        group a global micro-batch is cut to this rank's rows and the loss
+        is this rank's share of the global one (``self.losses`` too; the
+        loss ``step`` reports is the global mean)."""
+        batch = self._rank_rows(self._to_device(batch),
+                                self.config.train_micro_batch_size_per_gpu)
+        loss, _ = self._loss_and_metrics(self.params, batch)
         self._pending = loss
         self.losses = loss.detach()
         return loss
@@ -503,10 +905,15 @@ class Engine:
         if self._accum_count == 0:
             raise RuntimeError("step() before backward()")
         grads = self._grads()
+        losses = self._accum_losses
+        if self.distributed:
+            grads = self._reduce_grads(grads)
+            losses = self._global_sum(losses)
         if self._accum_count > 1:
             torch._foreach_div_(grads, float(self._accum_count))
-        out = self._apply_grads(grads)
-        out["loss"] = torch.stack(self._accum_losses).mean()
+        out = self._apply_grads_dist(grads) if self.distributed \
+            else self._apply_grads(grads)
+        out["loss"] = torch.stack(losses).mean()
         self._zero_grads()
         self._accum_count = 0
         self._accum_losses = []
@@ -532,9 +939,11 @@ class Engine:
 
     @torch.no_grad()
     def eval_batch(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Loss on a batch without touching training state."""
-        return self._loss_and_metrics(self.params, self._to_device(batch),
-                                      train=False)[0]
+        """Loss on a batch without touching training state (under a process
+        group: the global batch, each rank on its block of rows)."""
+        batch = self._rank_rows(self._to_device(batch), -1)
+        loss = self._loss_and_metrics(self.params, batch, train=False)[0]
+        return self._global_sum([loss])[0]
 
     def _log(self, out: Dict[str, Any]) -> None:
         if self.global_steps % self.config.steps_per_print == 0:

@@ -62,6 +62,8 @@ def test_port_imports_no_jax():
                  "inference.v2.fleet.router", "inference.v2.fleet.pool",
                  "inference.v2.fleet.cli", "inference.v2.fleet.__main__",
                  "elasticity.elasticity", "elasticity.elastic_agent",
-                 "checkpoint.engine"):
+                 "checkpoint.engine", "comm.comm", "comm.topology",
+                 "comm.comms_logging", "runtime.zero",
+                 "parallel.tensor_parallel"):
         assert importlib.util.find_spec(
             f"deepspeedsyclsupport_tpu_torch.{name}") is not None, name

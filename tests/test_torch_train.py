@@ -373,7 +373,7 @@ def test_activation_checkpointing_config_sets_remat():
                             {"device": "cpu"}}}, "A.3.2"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
      "A.3.1"),
-    ({"parallelism": {"tp": 2}}, "A.3.1"),
+    ({"parallelism": {"sp": 2}}, "A.3.1"),
     ({"pipeline": {"stages": 2}}, "A.3.1"),
     ({"elasticity": {"enabled": True}}, "A.3.1"),
     ({"checkpoint": {"load_universal": True}}, "A.3.5"),
@@ -419,6 +419,11 @@ def test_unported_engine_features_raise():
     eng, _ = _port_engine(ENGINE_CFG, "float32", jparams)
     with pytest.raises(NotImplementedError, match=r"A\.3\.5"):
         eng.save_16bit_model("somewhere")
+    from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
+
+    # a pipelined mesh is a later part of A.3.1 (tensor and data axes are
+    # ported: tests/test_torch_dist_train.py)
     with pytest.raises(NotImplementedError, match="A.3.1"):
         teng.initialize(model=build_model("tiny"), config=ENGINE_CFG,
-                        topology=object(), device="cpu")
+                        topology=MeshTopology({"pipe": 2}, world_size=2),
+                        device="cpu")

@@ -1,0 +1,219 @@
+"""One rank of the port's distributed CPU tests (not a test module).
+
+Run as ``python tests/torch_dist_worker.py <spec.json>`` with the torch
+launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``): it starts a gloo process group through
+``comm.init_distributed`` (the env:// path), runs the spec's ``kind`` —
+``"comm"`` (the façade's cases) or ``"train"`` (legs of ``tiny`` through
+``initialize`` -> ``train_batch``) — and writes this rank's results as
+``<out>/<leg>_rank<r>.npz``. It imports torch and the port, never jax.
+"""
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from deepspeedsyclsupport_tpu_torch import comm  # noqa: E402
+from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger  # noqa: E402
+from deepspeedsyclsupport_tpu_torch.comm.topology import (  # noqa: E402
+    build_topology, reset_world_topology)
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from flat(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def unflat(arrays):
+    tree = {}
+    for key, v in arrays.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+# ------------------------------------------------------------------- comm
+def run_comm(spec, rank, out):
+    """The façade's cases on a 4-rank ``data`` axis, inputs as the JAX test
+    shards them: rank r holds ``x[r]`` of the global array."""
+    build_topology(dp=-1)
+    res = {}
+    x = torch.arange(4.0) + 1.0                       # global [1, 2, 3, 4]
+    mine = x[rank:rank + 1]
+    for op in ("sum", "max", "min", "prod", "mean"):
+        res[f"all_reduce_{op}"] = comm.all_reduce(mine, "data", op=op)
+    xi = torch.arange(8, dtype=torch.int64)[2 * rank:2 * rank + 2]
+    res["all_reduce_int"] = comm.all_reduce(xi, "data")
+    res["pmean"] = comm.pmean(mine, "data")
+    g = torch.arange(24.0).reshape(4, 3, 2)[rank]     # [3, 2] each
+    res["all_gather0"] = comm.all_gather(g, "data")
+    res["all_gather1"] = comm.all_gather(g, "data", axis=1)
+    res["all_gather_stack"] = comm.all_gather(g, "data", tiled=False)
+    full = torch.arange(32.0).reshape(8, 4) * (rank + 1)
+    res["reduce_scatter0"] = comm.reduce_scatter(full, "data")
+    res["reduce_scatter1"] = comm.reduce_scatter(full, "data", axis=1)
+    a2a = torch.arange(64.0).reshape(4, 16)[rank:rank + 1].reshape(1, 16)
+    res["all_to_all"] = comm.all_to_all(a2a, "data", split_axis=1,
+                                        concat_axis=0)
+    res["ring_next"] = comm.send_recv_next(mine, "data")
+    res["ring_prev"] = comm.send_recv_prev(mine, "data")
+    res["shift_next"] = comm.send_recv_next(mine, "data", wrap=False)
+    res["shift_prev"] = comm.send_recv_prev(mine, "data", wrap=False)
+    res["ppermute"] = comm.ppermute(mine, "data", [(0, 2), (2, 0), (1, 3)])
+    nanx = torch.where(torch.tensor(rank == 3), torch.tensor([42.0]),
+                       torch.tensor([float("nan")]))
+    res["broadcast"] = comm.broadcast(nanx, "data", src=3)
+    res["coalesced"] = torch.cat(comm.all_reduce_coalesced(
+        [mine, 2 * mine], "data"))
+    # 2-D mesh: the reduce over one axis, and over both
+    build_topology(dp=2, fsdp=2)
+    res["mesh_fsdp"] = comm.all_reduce(mine, "fsdp")
+    res["mesh_data"] = comm.all_reduce(mine, "data")
+    res["mesh_both"] = comm.all_gather(mine, ("data", "fsdp"))
+    build_topology(dp=-1)
+    os.environ["DSTPU_COMM_ALL_REDUCE_OFF"] = "1"
+    res["kill_switch"] = comm.all_reduce(mine, "data")
+    del os.environ["DSTPU_COMM_ALL_REDUCE_OFF"]
+    comms_logger.reset()
+    comms_logger.configure(enabled=True)
+    comm.all_reduce(mine, "data")
+    comm.all_gather(g, "data")
+    snap = comms_logger.snapshot()
+    table = comms_logger.log_summary()
+    comms_logger.reset()
+    comms_logger.configure(timed=True)
+    comm.all_reduce(mine, "data")
+    timed = comms_logger.snapshot()["all_reduce[data]"]
+    comms_logger.configure(enabled=False, timed=False)
+    np.savez(os.path.join(out, f"comm_rank{rank}.npz"),
+             **{k: v.numpy() for k, v in res.items()},
+             logger=np.array(json.dumps(snap)),
+             timed=np.array(json.dumps(timed)),
+             table_has_op=np.array("all_reduce" in table))
+
+
+# ------------------------------------------------------------------ train
+def run_train(spec, rank, out):
+    from deepspeedsyclsupport_tpu_torch import build_model, params_from_jax
+    from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
+    from deepspeedsyclsupport_tpu_torch.runtime import (
+        gather_params, initialize, shard_params_from_jax)
+
+    raw = dict(np.load(spec["params"]))
+    for leg in spec["legs"]:
+        name, cfg = leg["name"], leg["config"]
+        batches = [dict(np.load(p)) for p in leg["batches"]]
+        model = build_model("tiny", dtype=leg["dtype"], attn_impl="flash")
+        np_tree = unflat({k: v for k, v in raw.items()
+                          if k.startswith(leg["params_prefix"])}
+                         )[leg["params_prefix"].rstrip("/")]
+        topo = MeshTopology(leg["sizes"]) if leg["pass_topology"] else None
+        if leg["local_params"]:
+            params = shard_params_from_jax(
+                np_tree, model.config, MeshTopology(leg["sizes"]),
+                cfg["zero_optimization"]["stage"])
+        else:
+            params = params_from_jax(np_tree, model.config, device="cpu")
+        eng, *_ = initialize(model=model, params=params, config=cfg,
+                             topology=topo, device="cpu")
+        steps = []
+        if leg.get("loader"):
+            # the ranks' own rows, as the topology-aware loader hands them
+            from deepspeedsyclsupport_tpu_torch.runtime.dataloader import (
+                DSTpuDataLoader)
+
+            feed = list(DSTpuDataLoader(
+                batches, "cpu", prefetch=0, topology=eng.topology,
+                gradient_accumulation_steps=eng.gradient_accumulation_steps()))
+        else:
+            feed = batches
+        for b in feed[:leg["steps"]]:
+            m = eng.train_batch(b)
+            steps.append([float(m["loss"]), float(m["grad_norm"]),
+                          float(bool(m["finite"])), float(m["loss_scale"])])
+        full = gather_params(eng)
+        try:   # checkpoints across ranks are not ported (A.3.3b)
+            eng.save_checkpoint(os.path.join(out, f"ckpt_{name}_{rank}"))
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        res = {"steps": np.array(steps), "ckpt_refused": np.array(refused),
+               "skipped": np.array(eng.skipped_steps),
+               "eval": np.array(float(eng.eval_batch(batches[0])))}
+        for k, v in flat(eng.params):
+            res[f"local/{k}"] = v.detach().numpy()
+        if full is not None:
+            for k, v in flat(full):
+                res[f"full/{k}"] = v
+        np.savez(os.path.join(out, f"{name}_rank{rank}.npz"), **res)
+        del eng
+        reset_world_topology()
+
+
+def launch(spec, out_dir, world: int = 4, timeout: float = 240.0):
+    """Run ``spec`` on ``world`` ranks (one subprocess each, the env://
+    variables set, a free localhost port) and wait for them; raises with
+    the ranks' stderr when one fails."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spec = dict(spec, out=str(out_dir))
+    path = os.path.join(str(out_dir), f"spec_{spec['kind']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   PYTHONPATH=REPO)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errs = []
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                errs.append(f"rank {r} rc {p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errs:
+        raise RuntimeError("\n".join(errs))
+
+
+def main():
+    spec = json.load(open(sys.argv[1]))
+    torch.manual_seed(0)
+    assert comm.init_distributed(backend="gloo", device_type="cpu",
+                                 timeout_s=120)
+    rank = comm.get_rank()
+    try:
+        {"comm": run_comm, "train": run_train}[spec["kind"]](
+            spec, rank, spec["out"])
+    finally:
+        comm.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
