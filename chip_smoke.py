@@ -3837,12 +3837,48 @@ DIST_TWINS = {
 # relative a rounding) rounded at other places when the matmuls split over
 # two ranks, over 2 layers and the vocab-parallel loss
 DIST_FP16_LOSS_TOL = 1e-2
+# (c): the pipeline and sequence-parallel legs of dryrun_multichip
+# (__graft_entry__.py:149-188) at llama2-1b widths cut to 4 layers: name ->
+# (config, model dtype, model overrides)
+DIST_PS_LAYERS = 4
+DIST_PS_TWINS = {
+    "pp2_tp2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
+                           parallelism={"dp": 1, "tp": 2},
+                           pipeline={"stages": 2, "micro_batches": 2}),
+                      "float32", {}),
+    # one layer a stage: the 3-deep warmup and drain
+    "pp4_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
+                       parallelism={"dp": 1},
+                       pipeline={"stages": 4, "micro_batches": 4}),
+                  "float32", {}),
+    "pp2_fsdp2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
+                             parallelism={"dp": 1, "fsdp": 2},
+                             pipeline={"stages": 2, "micro_batches": 2}),
+                        "float32", {}),
+    "ulysses_sp2_tp2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
+                                   parallelism={"dp": 1, "sp": 2, "tp": 2}),
+                              "float32", {"attn_impl": "ulysses:flash"}),
+    "ring_flash_sp4_zero0": (dict(DIST_BASE, zero_optimization={"stage": 0},
+                                  parallelism={"dp": 1, "sp": 4}),
+                             "float32", {"attn_impl": "ring:flash"}),
+}
+# the same two in bf16 (the Hopper routes of the flash kernels)
+DIST_PS_BF16 = {
+    f"{name}_bf16": (dict(DIST_PS_TWINS[name][0], bf16={"enabled": True}),
+                     "bfloat16", DIST_PS_TWINS[name][2])
+    for name in ("pp2_tp2_zero1", "ring_flash_sp4_zero0")}
+# bf16 twins against their world-1 bf16 runs: a split moves where the
+# activations round to bf16 (2^-9 relative a rounding, 4x fp16's), over 4
+# layers, the pipeline's micro-batch sums and the ring's LSE merges, and
+# Adam carries it into steps 2-3: the fp16 twin's limit, no looser
+DIST_BF16_LOSS_TOL = DIST_FP16_LOSS_TOL
 
 
 def dist_reference_config(cfg):
     """A twin's config on one card without a process group: the same
     optimizer, precision and stage, no mesh sizes."""
-    out = {k: v for k, v in cfg.items() if k != "parallelism"}
+    out = {k: v for k, v in cfg.items()
+           if k not in ("parallelism", "pipeline")}
     out["zero_optimization"] = {"stage": cfg["zero_optimization"]["stage"]}
     return out
 
@@ -3853,12 +3889,12 @@ def dist_batch(np, vocab, seq=None):
             np.int64)}
 
 
-def dist_model(dtype, num_layers=None, model=None):
+def dist_model(dtype, num_layers=None, model=None, **overrides):
     from deepspeedsyclsupport_tpu_torch import build_model
 
     return build_model(model or TRAIN_MODEL,
                        num_layers=num_layers or DIST_LAYERS, dtype=dtype,
-                       attn_impl="flash")
+                       **dict({"attn_impl": "flash"}, **overrides))
 
 
 def dist_comm_bytes(torch, eng, rows, seq, applied):
@@ -3918,6 +3954,57 @@ def dist_comm_bytes(torch, eng, rows, seq, applied):
     return want
 
 
+def dist_p2p_bytes(torch, eng, rows, seq):
+    """The bytes one step hands each point-to-point and all-to-all op, by
+    logger key, from the schedule and the shapes alone. Pipeline: each
+    micro-batch's activation ``[rows / n, S, H]`` goes to the next stage
+    and its gradient comes back (send and recv log the tensor handed, each
+    way). Ulysses: a layer's q, k, v and output through an all-to-all,
+    and their gradients back (the transposes). Ring: K and V rotate n - 1
+    times a layer, and their gradients as often back."""
+    topo = eng.topology
+    cfg = eng.module.config
+    cb = torch.empty((), dtype=eng.compute_dtype).element_size()
+    gas = eng.gradient_accumulation_steps()
+    pp, sp, tp = (topo.axis_sizes[a] for a in ("pipe", "seq", "model"))
+    want = {}
+    if pp > 1:
+        n = cfg.pipe_microbatches or pp
+        act = rows // n * seq * cfg.hidden_size * cb
+        s = topo.axis_index("pipe")
+        ways = (s < pp - 1) + (s > 0)
+        want["send[pipe]"] = want["recv[pipe]"] = gas * n * act * ways
+    if sp > 1:
+        layers = cfg.num_layers
+        c = seq // sp
+        q = rows * c * cfg.num_heads // tp * cfg.head_dim * cb
+        kv = rows * c * cfg.num_kv_heads // tp * cfg.head_dim * cb
+        impl = cfg.attn_impl.split(":")[0]
+        if impl == "ulysses":
+            g = sp * tp
+            kvh = cfg.num_kv_heads
+            rep = 1 if kvh % g == 0 else math.lcm(kvh, g) // kvh
+            want["all_to_all[seq]"] = gas * layers * 2 * (2 * q + 2 * kv *
+                                                         rep)
+        else:
+            want["ppermute[seq]"] = gas * layers * 4 * (sp - 1) * kv
+    return want
+
+
+def dist_flash_per_step(eng):
+    """Flash launches a rank and step: the stage's layers x the pipeline's
+    micro-batches (x 2 forwards under remat), x the ring's blocks."""
+    cfg = eng.module.config
+    topo = eng.topology
+    per = len(eng.params["layers"]) * eng.gradient_accumulation_steps()
+    if topo.axis_sizes["pipe"] > 1:
+        per *= cfg.pipe_microbatches or topo.axis_sizes["pipe"]
+    if cfg.attn_impl.startswith("ring"):
+        per *= topo.axis_sizes["seq"]
+    return {"flash_fwd": per * (2 if cfg.remat else 1), "flash_dq": per,
+            "flash_dkv": per, "flash_dbias": 0}
+
+
 def dist_memory_prediction(torch, eng, rows, seq):
     """``predict_memory_per_device`` for this rank's params (the model's
     count over tp) and the activations of one micro-batch: 3 x 4 bytes a
@@ -3929,10 +4016,11 @@ def dist_memory_prediction(torch, eng, rows, seq):
 
     cfg = eng.module.config
     tp = eng.topology.axis_sizes["model"]
+    seq //= eng.topology.axis_sizes["seq"]
     n = sum(math.prod(s) for s in eng._full_shapes.values())
     cb = torch.empty((), dtype=eng.compute_dtype).element_size()
-    act = cfg.num_layers * rows * seq * cfg.hidden_size * (10 + 24 / tp) \
-        * cb / 2 + 4 * rows * seq * cfg.vocab_size / tp * 3
+    act = len(eng.params["layers"]) * rows * seq * cfg.hidden_size * (
+        10 + 24 / tp) * cb / 2 + 4 * rows * seq * cfg.vocab_size / tp * 3
     return predict_memory_per_device(
         n // tp, eng.topology.axis_sizes["fsdp"], eng.zero_stage,
         compute_bytes=cb, activation_bytes=act), n
@@ -3977,7 +4065,11 @@ def dist_facade_check(torch, device):
 
 def dist_rank_child(torch, np, spec_path):
     """One rank of the dist phase (``--dist-rank``): the façade check, then
-    each twin's ``DIST_STEPS`` steps; writes ``rank<r>.json``."""
+    each twin's ``DIST_STEPS`` steps; writes ``rank<r>.json``. A twin is
+    (config, dtype) or (config, dtype, model overrides); the spec's
+    ``plan`` names the bytes plan held: ``"all"`` (every collective,
+    :func:`dist_comm_bytes`) or ``"p2p"`` (point-to-point and all-to-all,
+    :func:`dist_p2p_bytes`)."""
     import torch.distributed as tdist
 
     from deepspeedsyclsupport_tpu_torch import comm, initialize
@@ -3995,8 +4087,12 @@ def dist_rank_child(torch, np, spec_path):
     out = {"rank": rank, "backend": tdist.get_backend(),
            "facade": dist_facade_check(torch, dev), "twins": {}}
     reset_world_topology()
-    for name, (cfg, dtype) in spec["twins"].items():
-        model = dist_model(dtype, spec["layers"], spec["model"])
+    plan = dist_comm_bytes if spec.get("plan", "all") == "all" else \
+        (lambda torch, eng, rows, seq, applied:
+         dist_p2p_bytes(torch, eng, rows, seq))
+    for name, (cfg, dtype, *over) in spec["twins"].items():
+        model = dist_model(dtype, spec["layers"], spec["model"],
+                           **(over[0] if over else {}))
         params = model.init_params(generator=torch.Generator(
             device=dev).manual_seed(1), device=dev)
         if cuda:
@@ -4004,6 +4100,7 @@ def dist_rank_child(torch, np, spec_path):
         eng = initialize(model=model, params=params, config=cfg,
                          device=dev)[0]
         del params
+        staged0 = comm.staged_ops()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in dist_batch(
             np, model.config.vocab_size, spec["seq"]).items()}
         rows = DIST_BASE["train_batch_size"] // eng.dp_world_size
@@ -4025,8 +4122,8 @@ def dist_rank_child(torch, np, spec_path):
                 "s": time.perf_counter() - t0,
                 "bytes": {k: v["total_bytes"] for k, v in
                           comms_logger.snapshot().items()},
-                "want_bytes": dist_comm_bytes(torch, eng, rows,
-                                              spec["seq"], finite),
+                "want_bytes": plan(torch, eng, rows, spec["seq"], finite),
+                "want_launches": dist_flash_per_step(eng),
                 "launches": dict(fa.LAUNCHES)})
         pred, n_params = dist_memory_prediction(torch, eng, rows,
                                                 spec["seq"])
@@ -4035,7 +4132,10 @@ def dist_rank_child(torch, np, spec_path):
             "peak": torch.cuda.max_memory_allocated() if cuda else 0,
             "predicted": pred, "n_params": n_params,
             "local_params": sum(t.numel() for t in eng._leaf_tensors),
-            "staged": comm.staged_ops(), "sizes": eng.topology.axis_sizes}
+            "staged": {k: v - staged0.get(k, 0) for k, v in
+                       comm.staged_ops().items() if v > staged0.get(k, 0)},
+            "sizes": eng.topology.axis_sizes,
+            "stage_layers": len(eng.params["layers"])}
         del eng
         reset_world_topology()
         gc.collect()
@@ -4092,11 +4192,12 @@ def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
             for r in range(world)]
 
 
-def dist_reference(torch, np, cfg, dtype):
-    """A twin's world-1 run: the single-card engine, no process group."""
+def dist_reference(torch, np, cfg, dtype, layers=DIST_LAYERS):
+    """A twin's world-1 run: the single-card engine, no process group (one
+    card runs every ZeRO stage as one program)."""
     from deepspeedsyclsupport_tpu_torch import initialize
 
-    model = dist_model(dtype)
+    model = dist_model(dtype, layers)
     params = model.init_params(generator=torch.Generator(
         device=DEV).manual_seed(1), device=DEV)
     eng = initialize(model=model, params=params,
@@ -4121,7 +4222,12 @@ def phase_dist(torch, np, train_steps):
     ZeRO-3 config, bit-equal to the train phase's single-card steps;
     (b) four ranks on the one card over gloo: the dryrun_multichip twins
     at llama2-1b widths, 2 layers, fp32 (fp16 twin: fp16), held against
-    their world-1 runs. Returns the flash launches of both."""
+    their world-1 runs; (c) four ranks the same way: the pipeline (pp2 x
+    tp2, pp4, pp2 x fsdp2), Ulysses (sp2 x tp2) and ring:flash (sp4) twins
+    at 4 layers, fp32, then pp2 x tp2 and the ring in bf16, each held
+    against its world-1 run, its point-to-point and all-to-all bytes and
+    its flash launches against the plan. Returns the flash launches of
+    (a) + (b), and of (c)."""
     import tempfile
 
     import torch.distributed as tdist
@@ -4203,7 +4309,59 @@ def phase_dist(torch, np, train_steps):
         f"façade ops held exact on CUDA tensors {ranks[0]['facade']}, host-"
         f"staged (backend, op) {sorted(comm.HOST_STAGED)}; ranks ran in "
         f"{wall:.1f} s")
-    for name, (cfg_t, dtype) in DIST_TWINS.items():
+    hold_dist_twins("(b)", DIST_TWINS, ranks, refs, launches,
+                    {"float16": {"loss": DIST_FP16_LOSS_TOL}}, full_plan=True)
+
+    return launches, dist_pipe_seq(torch, np)
+
+
+def dist_pipe_seq(torch, np):
+    """Phase ``dist`` (c): the pipeline and sequence-parallel twins on four
+    ranks over gloo, held against their world-1 runs; returns their flash
+    launches."""
+    import tempfile
+
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    t_c = time.perf_counter()
+    twins = dict(DIST_PS_TWINS, **DIST_PS_BF16)
+    refs = {dtype: dist_reference(torch, np, twins[name][0], dtype,
+                                  DIST_PS_LAYERS)
+            for name, dtype in (("pp2_tp2_zero1", "float32"),
+                                ("pp2_tp2_zero1_bf16", "bfloat16"))}
+    log("dist", f"(c) world-1 references ({TRAIN_MODEL} widths, "
+        f"{DIST_PS_LAYERS} layers, B {DIST_BASE['train_batch_size']} x S "
+        f"{DIST_SEQ}): {refs}")
+    launches_ps = {k: 0 for k in fa.LAUNCHES}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = spawn_dist_ranks(
+            {"device": "cuda", "twins": twins, "steps": DIST_STEPS,
+             "layers": DIST_PS_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL,
+             "plan": "p2p"}, d)
+        wall = time.perf_counter() - t0
+    log("dist", f"(c) {DIST_WORLD} ranks, backend {ranks[0]['backend']}; "
+        f"ranks ran in {wall:.1f} s")
+    hold_dist_twins("(c)", twins, ranks, refs, launches_ps,
+                    {"bfloat16": {"loss": DIST_BF16_LOSS_TOL}},
+                    full_plan=False)
+    log("dist", f"(c) took {time.perf_counter() - t_c:.1f} s; flash "
+        f"launches on its legs {launches_ps}")
+    return launches_ps
+
+
+P2P_OPS = ("send", "recv", "all_to_all", "ppermute")
+
+
+def hold_dist_twins(label, twins, ranks, refs, launches, tols, full_plan):
+    """Hold each twin's ranks: the same global numbers on every rank;
+    against its world-1 run (finite, scale and skips EQUAL; loss and
+    grad_norm within ``TRAIN_PARITY_TOL`` or ``tols[dtype]``); a rank's
+    bytes a step EQUAL to the plan (``full_plan``: every collective; else
+    the point-to-point and all-to-all ops); its flash launches a step EQUAL
+    to :func:`dist_flash_per_step`'s. Adds the launches to ``launches``
+    and logs each twin."""
+    for name, (cfg_t, dtype, *_) in twins.items():
         ref, ref_skipped = refs[dtype]
         r0 = ranks[0]["twins"][name]
         for r in ranks[1:]:
@@ -4219,8 +4377,7 @@ def phase_dist(torch, np, train_steps):
             for k in worst:
                 if w["finite"]:
                     worst[k] = max(worst[k], abs(g[k] - w[k]) / abs(w[k]))
-        tol = ({"loss": DIST_FP16_LOSS_TOL} if dtype == "float16"
-               else TRAIN_PARITY_TOL)
+        tol = tols.get(dtype, TRAIN_PARITY_TOL)
         if r0["skipped"] != ref_skipped or \
                 any(worst[k] > tol[k] for k in tol):
             raise AssertionError(f"{name}: {r0['steps']} vs world 1 {ref} "
@@ -4228,31 +4385,36 @@ def phase_dist(torch, np, train_steps):
                                  f"{ref_skipped}): worst {worst} > {tol}")
         for r in ranks:
             for i, st in enumerate(r["twins"][name]["steps"]):
-                if st["bytes"] != st["want_bytes"]:
+                got = st["bytes"] if full_plan else {
+                    k: v for k, v in st["bytes"].items()
+                    if k.split("[")[0] in P2P_OPS}
+                if got != st["want_bytes"]:
                     raise AssertionError(
                         f"{name} rank {r['rank']} step {i + 1}: collective "
-                        f"bytes {st['bytes']} != plan {st['want_bytes']}")
-                want_l = {"flash_fwd": DIST_LAYERS, "flash_dq": DIST_LAYERS,
-                          "flash_dkv": DIST_LAYERS, "flash_dbias": 0}
-                if st["launches"] != want_l:
-                    raise AssertionError(f"{name} rank {r['rank']}: flash "
-                                         f"launches {st['launches']}")
+                        f"bytes {got} != plan {st['want_bytes']}")
+                if st["launches"] != st["want_launches"]:
+                    raise AssertionError(
+                        f"{name} rank {r['rank']}: flash launches "
+                        f"{st['launches']}, want {st['want_launches']}")
                 for k, v in st["launches"].items():
                     launches[k] += v
         per_rank = " | ".join(
             f"rank {r['rank']}: peak {r['twins'][name]['peak'] / 2**30:.2f}"
             f" GiB (predicted {r['twins'][name]['predicted'] / 2**30:.2f}),"
-            f" {r['twins'][name]['local_params'] / 1e6:.1f}M of "
+            f" {r['twins'][name]['stage_layers']} layers, "
+            f"{r['twins'][name]['local_params'] / 1e6:.1f}M of "
             f"{r['twins'][name]['n_params'] / 1e6:.1f}M params held, ms/step"
             f" {[round(x['s'] * 1e3, 1) for x in r['twins'][name]['steps']]}"
+            f", flash launches a step {r['twins'][name]['steps'][-1]['launches']}"
             f", staged {r['twins'][name]['staged']}" for r in ranks)
-        log("dist", f"(b) {name} {r0['sizes']}: (loss, grad_norm, finite, "
-            f"scale) {[(x['loss'], x['grad_norm'], x['finite'], x['scale']) for x in r0['steps']]}"
+        held = "" if full_plan else " (send / recv / all_to_all / ppermute)"
+        log("dist", f"{label} {name} {r0['sizes']}: (loss, grad_norm, "
+            f"finite, scale) {[(x['loss'], x['grad_norm'], x['finite'], x['scale']) for x in r0['steps']]}"
             f" vs world 1 {[(x['loss'], x['grad_norm'], x['finite'], x['scale']) for x in ref]};"
             f" skipped {r0['skipped']} vs {ref_skipped}; worst relative "
             f"{worst} (tol {tol}); rank 0 collective bytes a step "
-            f"{r0['steps'][-1]['bytes']} = plan; {per_rank}")
-    return launches
+            f"{r0['steps'][-1]['bytes']}, plan{held} "
+            f"{r0['steps'][-1]['want_bytes']}; {per_rank}")
 
 
 def main() -> int:
@@ -4339,13 +4501,14 @@ def main() -> int:
     moe_launches = run(phase_train_moe, torch, np)
     evo_rows, evo_launches = run(phase_evoformer, torch, np)
     run(phase_sparse, torch, np)
-    dist_launches = run(phase_dist, torch, np, train_steps)
+    dist_launches, ps_launches = run(phase_dist, torch, np, train_steps)
 
     log("phases", f"GiB allocated on the card after each phase (before, "
         f"after the collector) {phase_left}")
     log("phases", f"seconds per phase {phase_s}; flash launches on the "
         f"train-moe path {moe_launches}, on the flash-lse phase "
-        f"{lse_launches}, on the dist path {dist_launches}")
+        f"{lse_launches}, on the dist path {dist_launches}, on its pipeline "
+        f"and sequence-parallel legs {ps_launches}")
     log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
                               for k, src in TPU_KERNELS)
         + f" | all phases in {time.perf_counter() - t_start:.1f} s")
@@ -4379,7 +4542,8 @@ def main() -> int:
             "bound_ms": main_row["bounds"][name][0],
             "bound_by": main_row["bounds"][name][1],
             "library_ms": main_row["library"][name],
-            "launches_dist": dist_launches[name]})
+            "launches_dist": dist_launches[name],
+            "launches_dist_pipe_seq": ps_launches[name]})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks
     msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]

@@ -22,9 +22,12 @@ from .comm import (  # noqa: F401
     init_distributed,
     is_initialized,
     new_group,
+    p2p,
     pmean,
     ppermute,
+    recv,
     reduce_scatter,
+    send,
     send_recv_next,
     send_recv_prev,
     staged_ops,

@@ -9,9 +9,19 @@ tensor. The results are the JAX package's: ``all_gather`` concatenates
 and hands out the pieces along ``axis``, ``all_to_all`` splits along
 ``split_axis`` and concatenates what arrives along ``concat_axis``,
 ``ppermute`` zero-fills a rank nobody sends to. Each call returns a new
-tensor and leaves its input as it was. None of them is differentiable:
-the model's autograd functions (``parallel/tensor_parallel.py``,
-``runtime/zero.py``) call them in their forward and backward.
+tensor and leaves its input as it was. ``ppermute`` and ``all_to_all`` are
+differentiable on a tensor that needs a gradient (their backward is the
+transpose JAX's AD derives: the inverse permutation, and the all-to-all
+with its split and concat axes swapped); the others are not: the model's
+autograd functions (``parallel/tensor_parallel.py``, ``runtime/zero.py``)
+call them in their forward and backward.
+
+``send`` / ``recv`` are the reference's one-sided point-to-point ops (the
+JAX façade maps both to the collective ``p2p``, because under SPMD every
+device runs the same call; here a process is a rank). Between neighbours
+of an axis that the topology built direction groups for (``pipe``) each
+direction has a process group of its own, so a send one way never queues
+behind a send the other way on one communicator.
 
 The backend is chosen once, by :func:`init_distributed`, from an explicit
 argument, else by :func:`choose_backend`'s rule (NCCL when every rank has a
@@ -46,7 +56,7 @@ __all__ = [
     "axis_index", "init_distributed", "is_initialized", "barrier",
     "get_world_size", "get_rank", "get_local_rank", "get_device_count",
     "new_group", "destroy_process_group", "choose_backend", "HOST_STAGED",
-    "staged_ops",
+    "staged_ops", "send", "recv", "p2p",
 ]
 
 _DEFAULT_SLURM_PORT = 29500
@@ -56,7 +66,8 @@ _DEFAULT_SLURM_PORT = 29500
 # broadcast, and its send / recv fail on them ("writev: Bad address");
 # chip_smoke.py's dist phase holds every façade op on CUDA tensors over gloo
 # and prints which calls were staged
-HOST_STAGED = frozenset({("gloo", "ppermute")})
+HOST_STAGED = frozenset({("gloo", "ppermute"), ("gloo", "send"),
+                         ("gloo", "recv")})
 _STAGED_CALLS: Dict[str, int] = {}
 
 
@@ -243,15 +254,7 @@ def reduce_scatter(x: torch.Tensor, axis_name, axis: int = 0
     return _run("reduce_scatter", axis_name, x, fn)
 
 
-def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """Piece ``j`` of ``x`` along ``split_axis`` goes to the rank at index
-    ``j``; what arrives is concatenated along ``concat_axis`` by sender
-    index (``lax.all_to_all`` with ``tiled=True``, the JAX façade's
-    default and its callers' only use)."""
-    if _off("ALL_TO_ALL"):
-        return x
-
+def _all_to_all(x, axis_name, split_axis, concat_axis):
     def fn(group, n, t):
         import torch.distributed as dist
 
@@ -269,13 +272,36 @@ def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
     return _run("all_to_all", axis_name, x, fn)
 
 
-def ppermute(x: torch.Tensor, axis_name,
-             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """Point-to-point permutation along the axis, ``perm`` pairs of
-    (source index, destination index); a rank that no pair sends to gets
-    zeros (``lax.ppermute``). One batch of isend / irecv."""
-    if _off("P2P"):
+class _AllToAll(torch.autograd.Function):
+    """all_to_all; backward: the all-to-all with split and concat swapped
+    (its transpose: the piece rank i sent to rank j goes back)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis):
+        ctx.args = (axis_name, split_axis, concat_axis)
+        return _all_to_all(x, axis_name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, split_axis, concat_axis = ctx.args
+        return _all_to_all(g.contiguous(), axis_name, concat_axis,
+                           split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Piece ``j`` of ``x`` along ``split_axis`` goes to the rank at index
+    ``j``; what arrives is concatenated along ``concat_axis`` by sender
+    index (``lax.all_to_all`` with ``tiled=True``, the JAX façade's
+    default and its callers' only use). Differentiable."""
+    if _off("ALL_TO_ALL"):
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, axis_name, split_axis, concat_axis)
+    return _all_to_all(x, axis_name, split_axis, concat_axis)
+
+
+def _ppermute(x, axis_name, perm):
     topo = topo_mod.get_world_topology()
 
     def fn(group, n, t):
@@ -299,6 +325,115 @@ def ppermute(x: torch.Tensor, axis_name,
         return out
 
     return _run("ppermute", axis_name, x, fn)
+
+
+class _PPermute(torch.autograd.Function):
+    """ppermute; backward: the inverse permutation (a cotangent goes back
+    from each destination to its source; a rank that sent nothing gets
+    zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, perm):
+        ctx.axis_name, ctx.perm = axis_name, perm
+        return _ppermute(x, axis_name, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = tuple((dst, src) for src, dst in ctx.perm)
+        return _ppermute(g.contiguous(), ctx.axis_name, inv), None, None
+
+
+def ppermute(x: torch.Tensor, axis_name,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Point-to-point permutation along the axis, ``perm`` pairs of
+    (source index, destination index); a rank that no pair sends to gets
+    zeros (``lax.ppermute``). One batch of isend / irecv. Differentiable."""
+    if _off("P2P"):
+        return x
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PPermute.apply(x, axis_name, perm)
+    return _ppermute(x, axis_name, perm)
+
+
+class _Sent:
+    """An unfinished :func:`send`: ``wait()`` ends it (the host copy of a
+    staged tensor lives until then)."""
+    __slots__ = ("work", "buf")
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.work.wait()
+        self.work = self.buf = None
+
+
+def _peer(axis_name, me: int, other: int, send_side: bool):
+    """(group, global rank of index ``other``) for a send from ``me`` to
+    ``other`` (``send_side``) or from ``other`` to ``me``."""
+    topo = topo_mod.get_world_topology()
+    src, dst = (me, other) if send_side else (other, me)
+    group = topo.p2p_group(axis_name, src, dst)
+    return group, topo.group_ranks(axis_name)[other]
+
+
+def send(x: torch.Tensor, dst: int, axis_name, src: Optional[int] = None,
+         async_op: bool = False):
+    """Reference ``comm.send``: ``x`` to the rank at index ``dst`` along the
+    axis, from this rank (``src``, when given, must be this rank's index).
+    With ``async_op`` returns a handle whose ``wait()`` ends the send
+    (``x`` is to stay as it is until then, unless it was staged: then a
+    host copy was sent); otherwise waits and returns None."""
+    import torch.distributed as dist
+
+    if _off("P2P"):
+        return None
+    me = axis_index(axis_name)
+    if src is not None and src != me:
+        raise ValueError(f"send from index {src} called on index {me}")
+    group, peer = _peer(axis_name, me, dst, True)
+    t = _to_host(x) if _staged(group, "send", x) else x.contiguous()
+    work = dist.isend(t, peer, group=group) if group is not None else None
+    _log("send", axis_name, x)
+    handle = _Sent(work, t)
+    if async_op:
+        return handle
+    handle.wait()
+    return None
+
+
+def recv(x: torch.Tensor, src: int, axis_name,
+         dst: Optional[int] = None) -> torch.Tensor:
+    """Reference ``comm.recv``: a tensor of ``x``'s shape, dtype and device
+    from the rank at index ``src`` along the axis (``x`` is left as it
+    was; ``dst``, when given, must be this rank's index)."""
+    import torch.distributed as dist
+
+    if _off("P2P"):
+        return x
+    me = axis_index(axis_name)
+    if dst is not None and dst != me:
+        raise ValueError(f"recv into index {dst} called on index {me}")
+    group, peer = _peer(axis_name, me, src, False)
+    staged = _staged(group, "recv", x)
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True) if staged \
+        else torch.empty_like(x, memory_format=torch.contiguous_format)
+    if group is not None:
+        dist.recv(buf, peer, group=group)
+    else:
+        buf.copy_(x)
+    _log("recv", axis_name, x)
+    return buf.to(x.device, non_blocking=True) if staged else buf
+
+
+def p2p(x: torch.Tensor, src: int, dst: int, axis_name) -> torch.Tensor:
+    """The JAX façade's ``p2p`` (a collective over the axis): the rank at
+    index ``dst`` returns the value of the rank at ``src``, every other
+    rank its own. A ``ppermute`` of one pair, so differentiable."""
+    moved = ppermute(x, axis_name, [(src, dst)])
+    return moved if axis_index(axis_name) == dst else x
 
 
 def send_recv_next(x: torch.Tensor, axis_name, n: Optional[int] = None,

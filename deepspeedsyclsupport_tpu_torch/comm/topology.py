@@ -107,6 +107,8 @@ class MeshTopology:
         self._ranks = np.arange(n).reshape(self.shape)
         self._mesh = None
         self._groups: Dict[Tuple[str, ...], Any] = {}
+        # (axis, src index, dst index) -> this rank's direction group
+        self._p2p: Dict[Tuple[str, int, int], Any] = {}
 
     # ----------------------------------------------------------- the mesh
     @property
@@ -161,9 +163,11 @@ class MeshTopology:
 
     def init_groups(self, combined: Iterable[Sequence[str]] = (
             ("data", "fsdp"),)) -> None:
-        """Build the ``DeviceMesh`` (one group per axis) and a group for
-        each multi-axis tuple of ``combined``. A collective: every rank of
-        the default group calls it, with the same ``combined``."""
+        """Build the ``DeviceMesh`` (one group per axis), a group for
+        each multi-axis tuple of ``combined``, and, when ``pipe`` is longer
+        than 1, the direction groups of :meth:`p2p_group`. A collective:
+        every rank of the default group calls it, with the same
+        ``combined``."""
         import torch
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
@@ -183,6 +187,37 @@ class MeshTopology:
                 mesh_dim_names=AXIS_ORDER)
         for axes in combined:
             self._combined_group(tuple(axes))
+        self._direction_groups("pipe")
+
+    def _direction_groups(self, axis: str) -> None:
+        """Two groups of two ranks for each pair of neighbours along
+        ``axis`` (index i -> i+1 and i+1 -> i), every rank creating every
+        group in one order."""
+        import torch.distributed as dist
+
+        n = self.axis_sizes[axis]
+        if n == 1 or any(k[0] == axis for k in self._p2p):
+            return
+        seen = set()
+        for r in range(self._ranks.size):
+            ranks = tuple(self.group_ranks(axis, r))
+            if ranks in seen:
+                continue
+            seen.add(ranks)
+            for i in range(n - 1):
+                for src, dst in ((i, i + 1), (i + 1, i)):
+                    g = dist.new_group([ranks[src], ranks[dst]])
+                    if self.rank in (ranks[src], ranks[dst]):
+                        self._p2p[(axis, src, dst)] = g
+
+    def p2p_group(self, axis: str, src: int, dst: int):
+        """The process group a send from index ``src`` to index ``dst``
+        along ``axis`` goes through: the pair's direction group when
+        :meth:`init_groups` built one (neighbours along ``pipe``, where a
+        pipeline's activations go one way and its gradients the other),
+        else the axis's group."""
+        group = self.get_group(axis)   # builds the mesh (direction groups)
+        return self._p2p.get((axis, src, dst), group)
 
     def _combined_group(self, axes: Tuple[str, ...]):
         import torch.distributed as dist

@@ -189,17 +189,40 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       (``ops/flash_attention.py``; on a CPU tensor their plain versions);
     * ``xla`` — :func:`reference_attention` (the name is kept so that
       configs carry across);
-    * ``ring``/``ulysses`` (and their ``:inner`` spellings) are not ported.
+    * ``ring`` / ``ulysses`` (and ``ring:flash`` / ``ring:xla`` /
+      ``ulysses:flash`` / ``ulysses:xla``, the inner attention; bare: flash
+      on a CUDA tensor) — sequence parallelism over the ``seq`` axis
+      (``parallel/ring_attention.py``, ``parallel/ulysses.py``): ``q`` /
+      ``k`` / ``v`` are this rank's chunk of the sequence. Neither takes
+      ALiBi or a window (as in the JAX package); ``ring`` takes no
+      ``segment_ids`` either, where the JAX package drops them and lets a
+      packed batch attend across documents.
     """
+    inner = None
     if impl and ":" in impl:
         outer, inner = impl.split(":", 1)
         if outer not in ("ring", "ulysses") or inner not in ("flash", "xla"):
             raise ValueError(f"unknown attention impl {impl!r}")
         impl = outer
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} (sequence parallelism) is not ported yet: "
-            f"ROADMAP.md, queue A.3.1 (distributed training)")
+        if alibi is not None or window is not None:
+            # silently materializing O(S²) logits would defeat the point
+            raise NotImplementedError(
+                f"attn_impl={impl!r} does not support alibi/sliding-window "
+                f"yet; use attn_impl='flash' or 'xla'")
+        if impl == "ring":
+            if segment_ids is not None:
+                raise ValueError(
+                    "attn_impl='ring' takes no segment_ids: a packed batch "
+                    "would attend across documents (use 'ulysses', which "
+                    "masks them exactly)")
+            from ..parallel.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, causal=causal, inner=inner)
+        from ..parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, causal=causal,
+                                 segment_ids=segment_ids, inner=inner)
     if window is not None and not causal and kv_positions is None:
         raise ValueError("window requires causal=True (the sliding window "
                          "only bounds attention to the past)")

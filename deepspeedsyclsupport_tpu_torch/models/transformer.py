@@ -20,9 +20,18 @@ forward here, train and eval alike; the serving engine runs the exact
 ``moe_mlp_nodrop`` instead. ``router_jitter > 0`` draws its noise from a
 ``torch.Generator`` (``loss``'s ``rng``): one seed a layer is drawn from
 it before the layer runs, so a layer recomputed under activation
-checkpointing draws the same noise. The KV-cache ``decode_step``, the
-pipelined trunk, random-LTD and progressive layer drop are not ported;
-they raise ``NotImplementedError``.
+checkpointing draws the same noise. The KV-cache ``decode_step``,
+random-LTD and progressive layer drop are not ported; they raise
+``NotImplementedError``.
+
+The pipelined trunk (``cfg.pipe_stages > 1``): the forward is cut into
+:meth:`CausalLM.embed`, :meth:`CausalLM.trunk` (a run of layers, under
+remat one checkpoint a layer) and :meth:`CausalLM.head`, and the loss into
+:meth:`CausalLM.targets`, :meth:`CausalLM.nll_sum` and
+:meth:`CausalLM.token_count`, which ``parallel/pipeline.py`` runs stage by
+stage. Called directly, the model runs the layers its params hold in
+order, which is the pipeline's function; the JAX package's refusals under
+a pipeline stand (random-LTD, progressive layer drop, ``scan_layers=False``).
 
 Distributed training (``runtime/engine.py`` over ``comm/``): the engine
 hands its private view of the model a :class:`ParallelPlan`. Under tensor
@@ -36,8 +45,10 @@ head are vocab-parallel and the loss is the vocab-parallel cross-entropy
 ZeRO-3's sharded leaves arrive as ``runtime/zero.ZeroShard`` and are
 gathered per layer just before it runs (``run_gathered``). The loss is
 this rank's share of the GLOBAL masked mean: its masked sum over the token
-count all-reduced over ``(data, fsdp)``, so the shares sum to the JAX
-package's loss over the global batch whatever the per-rank counts.
+count all-reduced over the plan's batch axes (``(data, fsdp)``, and
+``seq`` under sequence parallelism, where a rank holds a contiguous chunk
+of each row's tokens), so the shares sum to the JAX package's loss over
+the global batch whatever the per-rank counts.
 """
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
@@ -65,8 +76,10 @@ TP_AXIS = "model"
 @dataclass(frozen=True)
 class ParallelPlan:
     """What the model needs to know of the mesh: the size of ``TP_AXIS``
-    (tensor parallelism)."""
+    (tensor parallelism), and the axes the loss's token count is summed
+    over (the batch axes, plus ``seq`` under sequence parallelism)."""
     tp: int = 1
+    batch_axes: Tuple[str, ...] = BATCH_AXES
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -171,9 +184,14 @@ class CausalLM:
     def _check_trunk(self, train: bool) -> None:
         cfg = self.config
         if cfg.pipe_stages is not None and cfg.pipe_stages > 1:
-            raise NotImplementedError(
-                "the pipelined trunk (pipe_stages > 1) is not ported yet: "
-                "ROADMAP.md, queue A.3.1 (distributed training)")
+            # the JAX package's refusals under a pipeline (its messages)
+            if cfg.random_ltd and train:
+                raise ValueError(
+                    "pipeline parallelism is incompatible with random-LTD / "
+                    "progressive layer dropping (they restructure the stack)")
+            if not cfg.scan_layers:
+                raise ValueError("pipeline parallelism requires "
+                                 "scan_layers=True (stacked layer params)")
         if cfg.random_ltd and train:
             raise NotImplementedError(
                 "random-LTD token dropping is not ported yet: ROADMAP.md, "
@@ -222,6 +240,98 @@ class CausalLM:
         m, aux = run_mlp(norm(x, p["mlp_norm"], cfg))
         return (x + m).to(dtype), aux
 
+    def _gathered(self, tree, fn, *args):
+        """``fn(tree, *args)``, ZeRO-3 shards of ``tree`` gathered for the
+        call alone."""
+        if self.parallel is None:
+            return fn(tree, *args)
+        from ..runtime.zero import run_gathered
+
+        return run_gathered(tree, fn, *args)
+
+    def _lookup(self, table, ids):
+        tp_axis = self._tp_axis
+        if tp_axis is None:
+            return F.embedding(ids.long(), table)
+        from ..parallel.tensor_parallel import vocab_parallel_embedding
+
+        return vocab_parallel_embedding(table, ids, tp_axis)
+
+    def embed(self, params: Params, input_ids: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+        """The token (and learned position) embedding and the embedding
+        norm: ``[B, S, hidden]`` in the compute dtype (the first pipe
+        stage's part)."""
+        cfg = self.config
+        x = self._gathered(params["embed"],
+                           lambda e: self._lookup(e["embedding"], input_ids))
+        if cfg.pos_embed == "learned":
+            def add_pos(pe, x):
+                pos = (positions + cfg.pos_embed_offset).clamp(
+                    0, cfg.max_seq_len + cfg.pos_embed_offset - 1)
+                return x + self._lookup(pe["embedding"], pos).to(x.dtype)
+
+            x = self._gathered(params["pos_embed"], add_pos, x)
+        x = x.to(compute_dtype(cfg))
+        if cfg.embed_norm:
+            x = self._gathered(params["embed_norm"],
+                               lambda p, x: norm(x, p, cfg), x)
+        return x
+
+    def trunk(self, layers, x: torch.Tensor, positions: torch.Tensor,
+              segment_ids: Optional[torch.Tensor] = None,
+              rng: Optional[torch.Generator] = None, first: int = 0):
+        """Run ``layers`` (a list of layer params, the first being layer
+        ``first`` of the stack: a pipe stage's block) over ``x``; returns
+        ``(x, aux)``. With ``cfg.remat`` (and autograd on) each layer runs
+        under ``torch.utils.checkpoint`` (non-reentrant)."""
+        cfg = self.config
+        use_remat = cfg.remat and torch.is_grad_enabled()
+        jitter = cfg.any_moe and cfg.router_jitter > 0.0
+        if jitter and rng is None:
+            rng = torch.Generator(device=x.device).manual_seed(self.seed)
+        aux = 0.0
+        for i, p in enumerate(layers, start=first):
+            window = (cfg.attn_windows[i] if cfg.attn_windows is not None
+                      else cfg.sliding_window)
+            seed = None
+            if jitter:
+                seed = int(torch.randint(2 ** 62, (1,), generator=rng,
+                                         device=rng.device))
+            if use_remat:
+                x, a = checkpoint(self._layer, p, x, positions, segment_ids,
+                                  window, seed, False, use_reentrant=False)
+            else:
+                x, a = self._layer(p, x, positions, segment_ids, window,
+                                   seed)
+            aux = aux + a
+        return x, aux
+
+    def head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and the LM head: float32 logits ``[B, S, V]``
+        (under TP this rank's ``V / tp`` columns; the last pipe stage's
+        part)."""
+        cfg = self.config
+        tp_axis = self._tp_axis
+
+        def run(hp, x):
+            x = norm(x, hp["final_norm"], cfg)
+            if tp_axis is not None:
+                from ..parallel.tensor_parallel import copy_to_model_region
+
+                x = copy_to_model_region(x, tp_axis)
+            if cfg.tie_embeddings:
+                return x @ hp["embed"]["embedding"].to(x.dtype).T
+            logits = x @ hp["lm_head"]["kernel"].to(x.dtype)
+            if cfg.lm_head_bias:
+                logits = logits + hp["lm_head"]["bias"].to(logits.dtype)
+            return logits
+
+        hp = {"final_norm": params["final_norm"]}
+        hp.update({"embed": params["embed"]} if cfg.tie_embeddings
+                  else {"lm_head": params["lm_head"]})
+        return self._gathered(hp, run, x).float()
+
     def _forward(self, params: Params, input_ids: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  segment_ids: Optional[torch.Tensor] = None,
@@ -238,82 +348,14 @@ class CausalLM:
         router jitter's generator (a generator seeded from ``self.seed``
         on the ids' device when None, as the JAX package draws from key 0
         without one)."""
-        cfg = self.config
         self._check_trunk(train)
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None].expand(
                 b, s)
-        par = self.parallel
-        tp_axis = self._tp_axis
-        use_remat = cfg.remat and torch.is_grad_enabled()
-
-        def gathered(tree, fn, *args):
-            if par is None:
-                return fn(tree, *args)
-            from ..runtime.zero import run_gathered
-
-            return run_gathered(tree, fn, *args)
-
-        def lookup(table, ids):
-            if tp_axis is None:
-                return F.embedding(ids.long(), table)
-            from ..parallel.tensor_parallel import vocab_parallel_embedding
-
-            return vocab_parallel_embedding(table, ids, tp_axis)
-
-        x = gathered(params["embed"], lambda e: lookup(e["embedding"],
-                                                       input_ids))
-        if cfg.pos_embed == "learned":
-            def add_pos(pe, x):
-                table = pe["embedding"]
-                pos = (positions + cfg.pos_embed_offset).clamp(
-                    0, cfg.max_seq_len + cfg.pos_embed_offset - 1)
-                return x + lookup(table, pos).to(x.dtype)
-
-            x = gathered(params["pos_embed"], add_pos, x)
-        x = x.to(compute_dtype(cfg))
-        if cfg.embed_norm:
-            x = gathered(params["embed_norm"], lambda p, x: norm(x, p, cfg),
-                         x)
-        jitter = cfg.any_moe and cfg.router_jitter > 0.0
-        if jitter and rng is None:
-            rng = torch.Generator(device=input_ids.device).manual_seed(
-                self.seed)
-        aux = 0.0
-        for i, p in enumerate(params["layers"]):
-            window = (cfg.attn_windows[i] if cfg.attn_windows is not None
-                      else cfg.sliding_window)
-            seed = None
-            if jitter:
-                seed = int(torch.randint(2 ** 62, (1,), generator=rng,
-                                         device=rng.device))
-            if use_remat:
-                x, a = checkpoint(self._layer, p, x, positions, segment_ids,
-                                  window, seed, False, use_reentrant=False)
-            else:
-                x, a = self._layer(p, x, positions, segment_ids, window,
-                                   seed)
-            aux = aux + a
-
-        def head(hp, x):
-            x = norm(x, hp["final_norm"], cfg)
-            if tp_axis is not None:
-                from ..parallel.tensor_parallel import copy_to_model_region
-
-                x = copy_to_model_region(x, tp_axis)
-            if cfg.tie_embeddings:
-                return x @ hp["embed"]["embedding"].to(x.dtype).T
-            logits = x @ hp["lm_head"]["kernel"].to(x.dtype)
-            if cfg.lm_head_bias:
-                logits = logits + hp["lm_head"]["bias"].to(logits.dtype)
-            return logits
-
-        hp = {"final_norm": params["final_norm"]}
-        hp.update({"embed": params["embed"]} if cfg.tie_embeddings
-                  else {"lm_head": params["lm_head"]})
-        logits = gathered(hp, head, x)
-        return logits.float(), aux
+        x = self.embed(params, input_ids, positions)
+        x, aux = self.trunk(params["layers"], x, positions, segment_ids, rng)
+        return self.head(params, x), aux
 
     @torch.no_grad()
     def apply(self, params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -341,29 +383,54 @@ class CausalLM:
         ``rng``: the router jitter's ``torch.Generator`` (only an MoE model
         with ``router_jitter > 0`` draws from it)."""
         if "pld_theta" in batch:
+            if self.config.pipe_stages is not None and \
+                    self.config.pipe_stages > 1:
+                raise ValueError(
+                    "pipeline parallelism is incompatible with random-LTD / "
+                    "progressive layer dropping (they restructure the stack)")
             raise NotImplementedError(
                 "progressive layer drop is not ported yet: ROADMAP.md, "
                 "queue A.3.7 (training-time model options)")
-        input_ids = batch["input_ids"]
-        logits, aux = self._forward(params, input_ids,
+        logits, aux = self._forward(params, batch["input_ids"],
                                     positions=batch.get("positions"),
                                     segment_ids=batch.get("segment_ids"),
                                     rng=rng, train=train)
+        labels, mask = self.targets(batch)
+        lm_loss = self.nll_sum(logits, labels, mask) / \
+            self.token_count(mask).clamp_min(1.0)
+        metrics = {"lm_loss": lm_loss.detach()}
+        if not self.config.any_moe:
+            return lm_loss, metrics
+        metrics["moe_aux_loss"] = aux.detach()
+        return lm_loss + self.config.aux_loss_coef * aux, metrics
+
+    @staticmethod
+    def targets(batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(labels, mask)`` of the loss (``transformer.py:442-452``):
+        ``labels`` (negatives masked, or ``loss_mask`` as the mask) or the
+        ids shifted left, the last position masked, times ``loss_mask``.
+        Under sequence parallelism the engine takes them on the whole row,
+        before the split, so a chunk's last label is the next chunk's
+        first token."""
         if "labels" in batch:
             labels = batch["labels"].long()
             mask = batch["loss_mask"].float() if "loss_mask" in batch \
                 else (labels >= 0).float()
-            labels = labels.clamp_min(0)
-        else:
-            ids = input_ids.long()
-            labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])],
-                               dim=1)
-            mask = torch.cat([torch.ones_like(ids[:, 1:], dtype=torch.float32),
-                              torch.zeros_like(ids[:, :1],
-                                               dtype=torch.float32)], dim=1)
-            if "loss_mask" in batch:
-                mask = mask * batch["loss_mask"].float()
-        par = self.parallel
+            return labels.clamp_min(0), mask
+        ids = batch["input_ids"].long()
+        labels = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+        mask = torch.cat([torch.ones_like(ids[:, 1:], dtype=torch.float32),
+                          torch.zeros_like(ids[:, :1], dtype=torch.float32)],
+                         dim=1)
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"].float()
+        return labels, mask
+
+    def nll_sum(self, logits: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """The masked sum of the token losses, a float32 logsumexp (under
+        TP the vocab-parallel one)."""
         if self._tp_axis is not None:
             from ..parallel.tensor_parallel import vocab_parallel_logz
 
@@ -371,19 +438,18 @@ class CausalLM:
         else:
             logz = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(-1, labels[..., None])[..., 0]
-        nll = (logz - gold) * mask
+        return ((logz - gold) * mask).sum()
+
+    def token_count(self, mask: torch.Tensor) -> torch.Tensor:
+        """The loss's denominator before its floor of 1: ``mask``'s sum,
+        all-reduced over the plan's batch axes under a process group (the
+        global batch's count)."""
         count = mask.sum()
-        if par is not None:
+        if self.parallel is not None:
             from ..comm import comm
 
-            # this rank's share of the mean over the global batch
-            count = comm.all_reduce(count, BATCH_AXES)
-        lm_loss = nll.sum() / count.clamp_min(1.0)
-        metrics = {"lm_loss": lm_loss.detach()}
-        if not self.config.any_moe:
-            return lm_loss, metrics
-        metrics["moe_aux_loss"] = aux.detach()
-        return lm_loss + self.config.aux_loss_coef * aux, metrics
+            count = comm.all_reduce(count, self.parallel.batch_axes)
+        return count
 
     # ------------------------------------------------------------------ sharding
     def sharding_rules(self, path, shape) -> Optional[Tuple]:

@@ -4,8 +4,9 @@ Port of ``deepspeedsyclsupport_tpu/runtime/config.py`` (``DSTpuConfig``) for
 the sections the engine uses: the batch family and its invariant
 (``resolve_batch_sizes``, ``config.py:750-795``), ``optimizer``,
 ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage`` and
-``mics_shard_size``, the mesh sizes (``parallelism.dp / fsdp / tp``,
-``tensor_parallel.tp_size``: :class:`ParallelismConfig`),
+``mics_shard_size``, the mesh sizes (``parallelism.dp / fsdp / tp / pp /
+sp``, ``tensor_parallel.tp_size``, ``pipeline.stages`` / ``micro_batches``,
+``sequence_parallel_size``: :class:`ParallelismConfig`),
 ``gradient_clipping``, ``activation_checkpointing``, ``checkpoint``,
 ``sentinel``, ``comms_logger``, ``seed`` and ``steps_per_print``. Key names
 are the reference's, so one JSON file drives both packages.
@@ -16,7 +17,7 @@ stage runs the same program, as the JAX package does on one device.
 
 Every enabled section the port does not do yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload, ZeRO++,
-pipeline / expert / sequence parallelism, elasticity, telemetry, monitors,
+expert parallelism, elasticity, telemetry, monitors,
 the flops profiler, compression/QAT, curriculum learning, progressive layer
 drop and random-LTD. None is silently ignored.
 """
@@ -71,15 +72,13 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
                         "partitions)", "A.3.1 (distributed training: "
                         "ZeRO++)")
     par = _sub(d, C.PARALLELISM)
-    sizes = {f"parallelism.{k}": par.get(k, 1) for k in ("pp", "ep", "sp")}
-    sizes["pipeline.stages"] = _sub(d, C.PIPELINE).get("stages", 1)
-    sizes["moe.expert_parallel_size"] = _sub(d, C.MOE).get(
-        "expert_parallel_size", 1)
-    sizes[C.SEQUENCE_PARALLEL_SIZE] = d.get(C.SEQUENCE_PARALLEL_SIZE, 1)
+    sizes = {"parallelism.ep": par.get("ep", 1),
+             "moe.expert_parallel_size": _sub(d, C.MOE).get(
+                 "expert_parallel_size", 1)}
     for name, n in sizes.items():
         if int(n) > 1:
-            raise _unported(f"{name} = {n} (pipeline, expert or sequence "
-                            f"parallelism)", "A.3.1 (distributed training)")
+            raise _unported(f"{name} = {n} (expert parallelism)",
+                            "A.3.1 (distributed training: EP MoE)")
     checks = [
         (C.ELASTICITY, "elasticity (elastic batch sizes over a changing "
          "card count)", "A.3.1 (distributed training)"),
@@ -302,20 +301,29 @@ class ParallelismConfig:
     tp_size``. MiCS (``zero_optimization.mics_shard_size``) puts the ZeRO
     shard group on fsdp (``fsdp = mics_shard_size``) and replicates over
     data (``dp = -1``); ZeRO stage >= 1 with no sizes puts every rank on
-    fsdp, stage 0 on data. ``-1`` is the rest of the world. Pipeline,
-    expert and sequence sizes above 1 are refused before this is built."""
+    fsdp, stage 0 on data. ``-1`` is the rest of the world. ``pp`` is
+    ``parallelism.pp`` or ``pipeline.stages``, ``pp_microbatches``
+    ``pipeline.micro_batches`` (None: one a stage), ``sp``
+    ``parallelism.sp`` or ``sequence_parallel_size``. Expert sizes above 1
+    are refused before this is built."""
     dp: int = -1
     fsdp: int = 1
     tp: int = 1
     pp: int = 1
     ep: int = 1
     sp: int = 1
+    pp_microbatches: Optional[int] = None
 
     @classmethod
     def from_config_dict(cls, d: Dict[str, Any], zero_stage: int,
                          mics_shard_size: int = -1) -> "ParallelismConfig":
         p = _sub(d, C.PARALLELISM)
         tp = int(p.get("tp", _sub(d, C.TENSOR_PARALLEL).get("tp_size", 1)))
+        pipe_sec = _sub(d, C.PIPELINE)
+        pp = int(p.get("pp", pipe_sec.get("stages", 1)))
+        pp_micro = pipe_sec.get("micro_batches")
+        pp_micro = int(pp_micro) if pp_micro is not None else None
+        sp = int(p.get("sp", d.get(C.SEQUENCE_PARALLEL_SIZE, 1)))
         fsdp = int(p.get("fsdp", 0)) or 0
         dp = int(p.get("dp", 0)) or 0
         if mics_shard_size and mics_shard_size > 0:
@@ -333,7 +341,8 @@ class ParallelismConfig:
             fsdp = 1
         elif not dp:
             dp = 1
-        return cls(dp=dp, fsdp=fsdp, tp=tp)
+        return cls(dp=dp, fsdp=fsdp, tp=tp, pp=pp, sp=sp,
+                   pp_microbatches=pp_micro)
 
 
 @dataclass

@@ -41,7 +41,10 @@ def rank_rows(x, topology: MeshTopology, gas: int = 1,
     """``rank``'s (default: this process's) rows of a global batch leaf
     ``x`` (see the module docstring): for each of the ``gas`` micro-batches
     of consecutive rows, its ``c``-th of ``n`` blocks, (data, fsdp) index
-    ``c``."""
+    ``c``. Every ``pipe`` and ``seq`` rank of a (data, fsdp) coordinate
+    reads the same rows: a pipeline's stages all need them (the first the
+    ids, the last the labels), and a ``seq`` rank's chunk of each row is
+    cut by the engine after the labels' shift."""
     n = topology.get_data_parallel_world_size()
     if n == 1:
         return x

@@ -46,6 +46,24 @@ split on (data, fsdp)):
   overflow verdict is agreed over the world before any rank skips, so the
   loss scaler stays identical everywhere.
 
+Pipeline parallelism (mesh axis ``pipe``, ``parallel/pipeline.py``): a
+rank holds its stage's block of layers and the entries replicated over
+``pipe`` (embedding, final norm, head); each (gradient-accumulation)
+micro-batch runs the 1F1B schedule through the host-loop executor
+(``pipeline.micro_batches`` micro-batches, default one a stage); layer
+grads are reduced over the batch axes, the replicated entries' also over
+``pipe`` (the tied embedding's two uses meet there); a leaf of a stage's
+block is counted in the grad norm by index 0 of every axis but ``pipe``;
+the loss is broadcast from the last stage. Only ``train_batch`` and
+``eval_batch`` drive a pipeline (the reference's ``PipelineEngine``
+refuses ``forward`` / ``backward`` / ``step`` the same way).
+
+Sequence parallelism (mesh axis ``seq``, ``attn_impl`` ``ring`` or
+``ulysses``): each ``seq`` rank holds the contiguous tokens ``[r C, (r +
+1) C)`` of its rows, with the labels and the loss mask taken on the whole
+row first and positions global; the token count is summed over (data,
+fsdp, seq) and every grad also over ``seq``.
+
 ``shard_params_from_jax`` and ``gather_params`` carry weights between the
 JAX package's global tree and the ranks' shards. The sentinel, preemption
 handling and checkpoints across ranks (A.3.3b) are refused at a world
@@ -251,34 +269,54 @@ def shard_params_from_jax(np_tree: Any, cfg: Any, topology: MeshTopology,
     ``initialize`` takes as this rank's params."""
     from ..models.transformer import CausalLM, params_from_jax
 
+    pp = topology.axis_sizes["pipe"]
+    if pp > 1:
+        cfg = dataclasses.replace(cfg, pipe_stages=pp)
     model = CausalLM(cfg)
     full = params_from_jax(np_tree, cfg, device="cpu")
+    mine = zero_lib.stage_tree(full, topology, rank)
     specs = zero_lib.tree_param_shardings(
-        full, topology, stage, extra_rules=model.sharding_rules,
-        stacked=bool(getattr(cfg, "scan_layers", True)))
+        mine, topology, stage, extra_rules=model.sharding_rules,
+        stacked=bool(getattr(cfg, "scan_layers", True)),
+        n_layers=len(full["layers"]))
     leaves = {path: t.numpy()[topology.shard_slices(
         tuple(t.shape), specs[path], rank)]
-              for path, t in zero_lib._walk(full)}
-    return _rebuild(full, leaves)
+              for path, t in zero_lib._walk(mine)}
+    return _rebuild(mine, leaves)
 
 
 @torch.no_grad()
 def gather_params(engine: "Engine") -> Any:
     """The full params tree (numpy, the port's layout) on rank 0, gathered
-    from every rank's shards; None on the other ranks. A collective: every
-    rank calls it."""
+    from every rank's shards (under a pipeline every stage's block of
+    layers); None on the other ranks. A collective: every rank calls
+    it."""
     if not engine.distributed:
         return _tree_map(lambda t: t.detach().cpu().numpy(), engine.params)
+    topo = engine.topology
     leaves = {}
     for path, t in zero_lib._walk(engine.params):
         t = t.detach()
         for d, entry in enumerate(engine._specs[path]):
-            if entry and engine.topology.axis_size(entry) > 1:
+            if entry and topo.axis_size(entry) > 1:
                 t = comm.all_gather(t.contiguous(), entry, axis=d)
-        leaves[path] = t.cpu().numpy()
-    if engine.topology.rank != 0:
+        leaves[path] = t
+    pp = topo.axis_sizes["pipe"]
+    n = len(engine.params["layers"])
+    out = {}
+    for path, t in leaves.items():
+        if pp > 1 and path[0] == "layers":
+            # layer i of every stage's block: [pp, ...] by stage
+            for s, ts in enumerate(comm.all_gather(t, "pipe", tiled=False)):
+                out[("layers", s * n + path[1]) + path[2:]] = ts
+        else:
+            out[path] = t
+    if topo.rank != 0:
         return None
-    return _rebuild(engine.params, leaves)
+    template = engine.params if pp == 1 else dict(
+        engine.params, layers=[engine.params["layers"][i % n]
+                               for i in range(n * pp)])
+    return _rebuild(template, {k: v.cpu().numpy() for k, v in out.items()})
 
 
 class Engine:
@@ -309,6 +347,14 @@ class Engine:
             view = copy.copy(module)
             if ac is not None and hasattr(mcfg, "remat"):
                 view.config = dataclasses.replace(mcfg, remat=ac.enabled)
+            if self.distributed and hasattr(mcfg, "pipe_stages"):
+                # the pipelined trunk an explicit property of the view
+                # (JAX engine.py:144-148)
+                over = {"pipe_stages": self.topology.axis_sizes["pipe"]}
+                if self.config.parallelism.pp_microbatches:
+                    over["pipe_microbatches"] = \
+                        self.config.parallelism.pp_microbatches
+                view.config = dataclasses.replace(view.config, **over)
             if self.distributed:
                 view.parallel = self._parallel_plan(view)
             if getattr(loss_fn, "__self__", None) is module:
@@ -422,21 +468,19 @@ class Engine:
         p = self.config.parallelism
         if topology is None:
             if not started:
-                if p.tp > 1 or p.fsdp > 1 or p.dp > 1:
+                if max(p.tp, p.fsdp, p.dp, p.pp, p.sp) > 1:
                     raise RuntimeError(
                         f"parallelism dp={p.dp} fsdp={p.fsdp} tp={p.tp} "
-                        f"needs a process group: call comm.init_distributed "
-                        f"first")
+                        f"pp={p.pp} sp={p.sp} needs a process group: call "
+                        f"comm.init_distributed first")
                 return None
-            topology = build_topology(dp=p.dp, fsdp=p.fsdp, tp=p.tp)
-        for ax, entry in (("pipe", "pipeline parallelism"),
-                          ("expert", "expert parallelism"),
-                          ("seq", "sequence parallelism")):
-            if topology.axis_sizes[ax] > 1:
-                raise NotImplementedError(
-                    f"{entry} (mesh axis {ax!r} = {topology.axis_sizes[ax]}) "
-                    f"is not ported yet: ROADMAP.md, queue A.3.1 "
-                    f"(distributed training)")
+            topology = build_topology(dp=p.dp, fsdp=p.fsdp, tp=p.tp,
+                                      pp=p.pp, sp=p.sp)
+        if topology.axis_sizes["expert"] > 1:
+            raise NotImplementedError(
+                f"expert parallelism (mesh axis 'expert' = "
+                f"{topology.axis_sizes['expert']}) is not ported yet: "
+                f"ROADMAP.md, queue A.3.1 (distributed training: EP MoE)")
         if not started:
             if topology.world_size() > 1:
                 raise RuntimeError(f"{topology} spans "
@@ -451,7 +495,18 @@ class Engine:
         from ..models.transformer import ParallelPlan
 
         cfg = view.config
-        tp = self.topology.axis_sizes["model"]
+        sizes = self.topology.axis_sizes
+        tp = sizes["model"]
+        if sizes["seq"] > 1:
+            impl = str(getattr(cfg, "attn_impl", "auto")).split(":")[0]
+            if impl not in ("ring", "ulysses"):
+                raise ValueError(
+                    f"sequence parallelism (mesh axis 'seq' = {sizes['seq']})"
+                    f" needs attn_impl 'ring' or 'ulysses' (a rank holds a "
+                    f"chunk of each row; attn_impl={cfg.attn_impl!r} attends "
+                    f"within it)")
+        if sizes["pipe"] > 1:
+            zero_lib.layer_block(cfg.num_layers, self.topology)
         if getattr(cfg, "any_moe", False):
             raise NotImplementedError(
                 "MoE layers under torch.distributed (the routing statistics "
@@ -467,7 +522,15 @@ class Engine:
                     "biases of column-parallel layers under tensor "
                     "parallelism are not ported yet: ROADMAP.md, queue "
                     "A.3.1 (distributed training)")
-        return ParallelPlan(tp=tp)
+        return ParallelPlan(tp=tp, batch_axes=self._batch_axes)
+
+    @property
+    def _batch_axes(self) -> Tuple[str, ...]:
+        """The axes a token's loss and a param's grad are summed over
+        besides the model's own: (data, fsdp), and seq under sequence
+        parallelism."""
+        seq = self.topology.axis_sizes["seq"] > 1
+        return ("data", "fsdp") + (("seq",) if seq else ())
 
     def _plan(self, params):
         """Lay the params out on the mesh: the JAX plan on the model's full
@@ -476,13 +539,19 @@ class Engine:
         of the shard's shape is taken as it is)."""
         topo, stage = self.topology, self.zero_stage
         mcfg = self.module.config
-        full = self.module.init_params(device="meta")
+        whole = self.module.init_params(device="meta")
+        n_layers = len(whole["layers"])
+        # this stage's block of layers (a whole tree given is cut too)
+        full = zero_lib.stage_tree(whole, topo)
+        if len(params["layers"]) == n_layers:
+            params = zero_lib.stage_tree(params, topo)
         stacked = bool(getattr(mcfg, "scan_layers", True))
         self._specs = zero_lib.tree_param_shardings(
             full, topo, stage, extra_rules=self.module.sharding_rules,
-            stacked=stacked)
+            stacked=stacked, n_layers=n_layers)
         moments = zero_lib.tree_optimizer_shardings(
-            full, self._specs, topo, stage, stacked=stacked)
+            full, self._specs, topo, stage, stacked=stacked,
+            n_layers=n_layers)
         # the update's layout: the moments' (stage 0 keeps them beside the
         # param's TP shard; the JAX package leaves stage-0 moments whole)
         self._full_shapes = {p: tuple(t.shape)
@@ -509,7 +578,7 @@ class Engine:
                                  f"neither the full {shape} nor this rank's "
                                  f"shard {local}")
             out[path] = t
-        logger.info("%s", zero_lib.describe_memory_plan(full, topo, stage))
+        logger.info("%s", zero_lib.describe_memory_plan(whole, topo, stage))
         local = _rebuild(params, out)
         self._paths = [path for path, _ in zero_lib._walk(local)]
         return local
@@ -547,6 +616,10 @@ class Engine:
                     views.append(t)
                 self._update_dim.append(d)
                 used = {a for e in upd for a in e}
+                if path[0] == "layers":
+                    # a stage's block: split over pipe on the dropped
+                    # layer dim
+                    used.add("pipe")
                 # counted once: the rank at index 0 of every axis the
                 # update does not split
                 self._owner.append(all(coords[a] == 0 for a in coords
@@ -606,9 +679,28 @@ class Engine:
 
     def _micro_backward(self, batch, rng: torch.Generator
                         ) -> Tuple[torch.Tensor, Dict]:
+        if self._pipelined:
+            loss = self._pipe_loss(batch, train=True)
+            return loss, {"lm_loss": loss}
         loss, metrics = self._loss_and_metrics(self.params, batch, rng=rng)
         scale_loss(loss, self.scaler_state).backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    @property
+    def _pipelined(self) -> bool:
+        return self.distributed and self.topology.axis_sizes["pipe"] > 1
+
+    def _pipe_loss(self, batch, train: bool) -> torch.Tensor:
+        """One micro-batch through the pipeline (``parallel/pipeline.py``):
+        forward and, when ``train``, the 1F1B backward with the loss scale;
+        this rank's share of the loss (0 off the last stage)."""
+        from ..parallel.pipeline import pipelined_loss
+
+        n = self.module.config.pipe_microbatches or \
+            self.topology.axis_sizes["pipe"]
+        return pipelined_loss(self.module, self._cast_params(self.params),
+                              batch, n, train=train,
+                              loss_scale=self.scaler_state.scale)
 
     @torch.no_grad()
     def _apply_grads(self, grads: List[torch.Tensor],
@@ -699,10 +791,36 @@ class Engine:
         if n > 1 and lead == self.config.train_batch_size:
             per = lead // gas
             mb = per // n
-            return [{k: v[i * per + c * mb:i * per + (c + 1) * mb]
-                     for k, v in batch.items()} for i in range(gas)]
-        return [{k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:])[i]
-                 for k, v in batch.items()} for i in range(gas)]
+            return [self._seq_chunk({
+                k: v[i * per + c * mb:i * per + (c + 1) * mb]
+                for k, v in batch.items()}) for i in range(gas)]
+        return [self._seq_chunk({
+            k: v.reshape(gas, v.shape[0] // gas, *v.shape[1:])[i]
+            for k, v in batch.items()}) for i in range(gas)]
+
+    def _seq_chunk(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """This ``seq`` rank's contiguous chunk ``[r C, (r + 1) C)`` of each
+        row: the labels and loss mask taken on the whole row first (so a
+        chunk's last label is the next chunk's first token), positions
+        global (RoPE sees the same angles)."""
+        if not self.distributed or self.topology.axis_sizes["seq"] == 1:
+            return batch
+        sp = self.topology.axis_sizes["seq"]
+        ids = batch["input_ids"]
+        rows, seq = ids.shape
+        if seq % sp:
+            raise ValueError(f"sequence length {seq} does not split over "
+                             f"{sp} seq ranks")
+        c = seq // sp
+        r = self.topology.axis_index("seq")
+        labels, mask = self.module.targets(batch)
+        out = {"labels": labels, "loss_mask": mask,
+               "positions": batch.get("positions", torch.arange(
+                   seq, device=ids.device)[None].expand(rows, seq))}
+        out.update({k: v for k, v in batch.items()
+                    if k in ("input_ids", "segment_ids")})
+        return {k: v[:, r * c:(r + 1) * c] for k, v in out.items()}
 
     def _rank_rows(self, batch: Dict[str, torch.Tensor], local: int
                    ) -> Dict[str, torch.Tensor]:
@@ -711,18 +829,24 @@ class Engine:
         n, c = self._batch_split()
         lead = next(iter(batch.values())).shape[0]
         if n == 1 or lead == local:
-            return batch
+            return self._seq_chunk(batch)
         if lead % n:
             raise ValueError(f"batch of {lead} rows does not split over "
                              f"{n} ranks")
         m = lead // n
-        return {k: v[c * m:(c + 1) * m] for k, v in batch.items()}
+        return self._seq_chunk({k: v[c * m:(c + 1) * m]
+                                for k, v in batch.items()})
 
     def _global_sum(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each rank's shares summed over the batch axes, in one call."""
+        """Each rank's shares summed over the batch axes, in one call; under
+        a pipeline the last stage's sums broadcast over ``pipe`` (JAX
+        ``broadcast_from_last``), so every rank returns the same value."""
         if not self.distributed or not values:
             return values
-        total = comm.all_reduce(torch.stack(values), ("data", "fsdp"))
+        total = comm.all_reduce(torch.stack(values), self._batch_axes)
+        pp = self.topology.axis_sizes["pipe"]
+        if pp > 1:
+            total = comm.broadcast(total, "pipe", src=pp - 1)
         return list(total.unbind(0))
 
     def _reduce(self, g: torch.Tensor, axes) -> torch.Tensor:
@@ -734,23 +858,34 @@ class Engine:
         stage 3's sharded leaves were reduce-scattered over fsdp by their
         gather's backward (all-reduce over data left); stage 2
         reduce-scatters onto the update's fsdp shard; otherwise all-reduce
-        (stage 1 then keeps the update's shard)."""
+        (stage 1 then keeps the update's shard). Under sequence parallelism
+        every grad is also summed over ``seq`` (params are replicated
+        there); under a pipeline the leaves replicated over ``pipe``
+        (embedding, final norm, head: ``ReduceTiedGrads``) also over
+        ``pipe``."""
         topo, stage = self.topology, self.zero_stage
         k = topo.axis_index("fsdp")
+        # the replicas of an fsdp shard (one axis named by itself, as the
+        # comms logger keys its bytes)
+        data = ("data", "seq") if "seq" in self._batch_axes else "data"
+        pipe = topo.axis_sizes["pipe"] > 1
         out = []
         for i, g in enumerate(grads):
-            held = self._specs[self._float_paths[i]]
+            path = self._float_paths[i]
+            held = self._specs[path]
             d = self._update_dim[i]
             if stage >= 3 and self._shard_dim(held) is not None:
-                g = self._reduce(g, "data")
+                g = self._reduce(g, data)
             elif stage == 2 and d is not None:
                 g = self._reduce(comm.reduce_scatter(g, "fsdp", axis=d),
-                                 "data")
+                                 data)
             else:
-                g = self._reduce(g, ("data", "fsdp"))
+                g = self._reduce(g, self._batch_axes)
                 if d is not None:
                     n = g.shape[d] // topo.axis_sizes["fsdp"]
                     g = g.narrow(d, k * n, n)
+            if pipe and path[0] != "layers":
+                g = comm.all_reduce(g, "pipe")
             out.append(g)
         return out
 
@@ -869,7 +1004,12 @@ class Engine:
         of recomputing the forward as the JAX package must. Under a process
         group a global micro-batch is cut to this rank's rows and the loss
         is this rank's share of the global one (``self.losses`` too; the
-        loss ``step`` reports is the global mean)."""
+        loss ``step`` reports is the global mean). Under a pipeline only
+        :meth:`train_batch` / :meth:`eval_batch` run (as the reference's
+        ``PipelineEngine``)."""
+        if self._pipelined:
+            raise RuntimeError("Only train_batch() and eval_batch() are "
+                               "accessible in pipeline mode")
         batch = self._rank_rows(self._to_device(batch),
                                 self.config.train_micro_batch_size_per_gpu)
         loss, _ = self._loss_and_metrics(self.params, batch)
@@ -942,7 +1082,10 @@ class Engine:
         """Loss on a batch without touching training state (under a process
         group: the global batch, each rank on its block of rows)."""
         batch = self._rank_rows(self._to_device(batch), -1)
-        loss = self._loss_and_metrics(self.params, batch, train=False)[0]
+        if self._pipelined:
+            loss = self._pipe_loss(batch, train=False)
+        else:
+            loss = self._loss_and_metrics(self.params, batch, train=False)[0]
         return self._global_sum([loss])[0]
 
     def _log(self, out: Dict[str, Any]) -> None:

@@ -21,7 +21,12 @@ The JAX package stacks a model's layers ``[L, ...]`` and plans on the
 stacked leaves; the port keeps ``params["layers"]`` as a list. So the plan
 is made on the stacked shape (the persistence threshold and the largest-dim
 choice see ``[L, ...]``, as in the JAX package) and the layer dim is then
-dropped; a plan that would shard the layer dim itself raises.
+dropped. Under a pipelined trunk the JAX plan shards the layer dim over
+``pipe`` (each stage owns a contiguous block of layers, JAX
+``models/transformer.py:501-513``): here a rank keeps the block
+:func:`layer_block` names as its list of layers, and the rest of each spec
+is planned as without a pipeline. A plan that would shard the layer dim
+over any other axis raises.
 
 Under XLA the partitioner inserts ZeRO-3's gathers; here the model asks for
 them: :func:`gather_params` all-gathers each :class:`ZeroShard` of a
@@ -154,30 +159,69 @@ def _shape(leaf) -> Tuple[int, ...]:
     return tuple(int(d) for d in getattr(leaf, "shape", ()))
 
 
+def layer_block(n_layers: int, topo: MeshTopology,
+                rank: Optional[int] = None) -> Tuple[int, int]:
+    """``(lo, hi)``: the layers ``rank``'s pipe stage owns, the contiguous
+    block ``[s L / pp, (s + 1) L / pp)`` (the whole stack without a
+    pipeline)."""
+    pp = topo.axis_sizes["pipe"]
+    if n_layers % pp:
+        raise ValueError(
+            f"num_layers {n_layers} must divide evenly into {pp} pipe "
+            f"stages for the SPMD pipeline (pad with identity layers to "
+            f"round up, as the reference's uniform partitioner does "
+            f"implicitly)")
+    n = n_layers // pp
+    s = topo.axis_index("pipe", rank)
+    return s * n, (s + 1) * n
+
+
+def stage_tree(params, topo: MeshTopology, rank: Optional[int] = None):
+    """``params`` with its ``layers`` list cut to ``rank``'s pipe stage's
+    block (:func:`layer_block`); the other entries, replicated over
+    ``pipe``, as they are."""
+    layers = params.get("layers") if isinstance(params, dict) else None
+    if topo.axis_sizes["pipe"] == 1 or not isinstance(layers, list):
+        return params
+    lo, hi = layer_block(len(layers), topo, rank)
+    return dict(params, layers=layers[lo:hi])
+
+
+def _layer_entry(spec, jpath) -> Tuple[str, ...]:
+    """The stacked layer dim's entry of a plan: ``()`` or ``("pipe",)``."""
+    entry = tuple(spec[0]) if spec else ()
+    if entry not in ((), ("pipe",)):
+        raise ValueError(
+            f"the plan shards the stacked layer dim of "
+            f"{'/'.join(map(str, jpath))} over {entry}; the port keeps its "
+            f"layers as a list and holds that dim split over pipe alone")
+    return entry
+
+
 def tree_param_shardings(params, topo: MeshTopology, stage: int,
                          threshold: int = DEFAULT_PERSISTENCE_THRESHOLD,
                          extra_rules: Optional[Callable] = None,
-                         stacked: bool = True) -> Dict[Tuple, Spec]:
+                         stacked: bool = True,
+                         n_layers: Optional[int] = None
+                         ) -> Dict[Tuple, Spec]:
     """``{path: spec}`` for every leaf of the port's params tree (paths as
     :func:`_walk` yields them; the JAX function maps the tree to
-    ``NamedSharding``\ s). With ``stacked`` (a JAX model that scans its
+    ``NamedSharding`` objects). With ``stacked`` (a JAX model that scans its
     layers) a layer leaf is planned on ``[L, *shape]`` under the JAX path
-    ``layers/...`` and its layer dim dropped."""
+    ``layers/...`` and its layer dim dropped (under a pipeline it is split
+    over ``pipe``: ``params`` may then hold one stage's block, and
+    ``n_layers`` names the whole stack's L)."""
     rule = param_sharding(topo, stage, threshold, extra_rules)
     layers = params.get("layers") if isinstance(params, dict) else None
-    n_layers = len(layers) if isinstance(layers, list) else 0
+    if n_layers is None:
+        n_layers = len(layers) if isinstance(layers, list) else 0
     out: Dict[Tuple, Spec] = {}
     for path, leaf in _walk(params):
         shape = _shape(leaf)
         if stacked and n_layers and path[0] == "layers":
             jpath = ("layers",) + path[2:]
             spec = rule(jpath, (n_layers,) + shape)
-            if spec and spec[0]:
-                raise ValueError(
-                    f"the plan shards the stacked layer dim of "
-                    f"{'/'.join(map(str, jpath))} over {spec[0]}; the port "
-                    f"keeps its layers as a list and cannot hold that "
-                    f"layout")
+            _layer_entry(spec, jpath)
             out[path] = tuple(spec[1:])
         else:
             jpath = path if path[:1] != ("layers",) else \
@@ -189,23 +233,26 @@ def tree_param_shardings(params, topo: MeshTopology, stage: int,
 def tree_optimizer_shardings(params, param_specs: Dict[Tuple, Spec],
                              topo: MeshTopology, stage: int,
                              threshold: int = DEFAULT_PERSISTENCE_THRESHOLD,
-                             stacked: bool = True) -> Dict[Tuple, Spec]:
+                             stacked: bool = True,
+                             n_layers: Optional[int] = None
+                             ) -> Dict[Tuple, Spec]:
     """``{path: spec}`` of each param leaf's Adam moments
     (:func:`moment_spec`; the JAX function walks optax's state, whose
     ``mu`` / ``nu`` leaves follow their params), planned on the stacked
-    shape as :func:`tree_param_shardings` does."""
+    shape as :func:`tree_param_shardings` does (under a pipeline the layer
+    dim is the param's, split over ``pipe``, and is dropped)."""
     layers = params.get("layers") if isinstance(params, dict) else None
-    n_layers = len(layers) if isinstance(layers, list) else 0
+    if n_layers is None:
+        n_layers = len(layers) if isinstance(layers, list) else 0
+    pipe = ("pipe",) if topo.axis_sizes["pipe"] > 1 else ()
     out: Dict[Tuple, Spec] = {}
     for path, leaf in _walk(params):
         shape = _shape(leaf)
         if stacked and n_layers and path[0] == "layers":
             spec = moment_spec((n_layers,) + shape,
-                               ((),) + tuple(param_specs[path]), topo, stage,
-                               threshold)
-            if spec and spec[0]:
-                raise ValueError(f"the moment plan shards the stacked layer "
-                                 f"dim of {path}")
+                               (pipe,) + tuple(param_specs[path]), topo,
+                               stage, threshold)
+            _layer_entry(spec, path)
             out[path] = tuple(spec[1:])
         else:
             out[path] = moment_spec(shape, param_specs[path], topo, stage,
@@ -247,8 +294,14 @@ def predict_memory_per_device(n_params: int, fsdp: int, stage: int, *,
 
 def describe_memory_plan(params, topo: MeshTopology, stage: int) -> str:
     """The partition report (reference ``see_memory_usage`` + stage-3
-    partition logging; offload is A.3.2)."""
-    n_params = sum(math.prod(_shape(p)) for _, p in _walk(params))
+    partition logging; offload is A.3.2). Under a pipeline the count is
+    this rank's stage's (its block of layers and the replicated rest: what
+    :func:`predict_memory_per_device` is to be given) and the report says
+    which block."""
+    pp = topo.axis_sizes["pipe"]
+    layers = params.get("layers") if isinstance(params, dict) else None
+    mine = stage_tree(params, topo)
+    n_params = sum(math.prod(_shape(p)) for _, p in _walk(mine))
     n = topo.axis_sizes["fsdp"]
     param_factor = n if stage >= 3 and n > 1 else 1
     grad_factor = n if stage >= 2 and n > 1 else 1
@@ -256,6 +309,10 @@ def describe_memory_plan(params, topo: MeshTopology, stage: int) -> str:
     msg = (f"ZeRO stage {stage}: {n_params / 1e6:.1f}M params, fsdp={n}; "
            f"param mem 1/{param_factor}, grad mem 1/{grad_factor}, "
            f"optimizer mem 1/{opt_factor} per device")
+    if pp > 1 and isinstance(layers, list):
+        lo, hi = layer_block(len(layers), topo)
+        msg += (f"; pipe stage {topo.axis_index('pipe')} of {pp} holds "
+                f"layers {lo}-{hi - 1} of {len(layers)}")
     return msg
 
 

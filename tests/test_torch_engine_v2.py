@@ -258,23 +258,29 @@ def test_unported_impls_name_the_registered_ones(kind, name):
 @pytest.mark.parametrize("call", ["apply", "loss"])
 def test_unported_features_raise(call):
     """MoE models run the dense model's MoE trunk (the capacity-buffer
-    ``moe_mlp``, ``tests/test_torch_moe_train.py``); the pipelined trunk is
-    not ported and names its queue, A.3.1."""
+    ``moe_mlp``, ``tests/test_torch_moe_train.py``); a model built for a
+    pipelined trunk (A.3.1.1), called directly, runs the layers its params
+    hold in order, which is the pipeline's function: equal to the
+    unpipelined model's."""
     ids = torch.tensor([[1, 2, 3]])
-    for name, over, raises in (("tiny-moe", {}, False),
-                               ("tiny", {"pipe_stages": 2}, True)):
+    plain = build_model("tiny", dtype="float32")
+    for name, over, pipelined in (("tiny-moe", {}, False),
+                                  ("tiny", {"pipe_stages": 2}, True)):
         model = build_model(name, dtype="float32", **over)
         params = model.init_params(device="cpu")
-        fn = {"apply": lambda: model.apply(params, ids),
-              "loss": lambda: model.loss(params, {"input_ids": ids})}[call]
-        if raises:
-            with pytest.raises(NotImplementedError, match="A.3.1"):
-                fn()
+
+        def fn(m):
+            return {"apply": lambda: m.apply(params, ids),
+                    "loss": lambda: m.loss(params, {"input_ids": ids})[0]
+                    }[call]()
+
+        out = fn(model)
+        if pipelined:
+            assert torch.equal(out, fn(plain))
         else:
             assert set(params["layers"][0]["moe"]) == {
                 "router", "w_gate", "w_up", "w_down"}
-            out = fn()
-            assert torch.isfinite(out if call == "apply" else out[0]).all()
+            assert torch.isfinite(out).all()
 
 
 def test_unported_methods_and_moe_raise(tmp_path):

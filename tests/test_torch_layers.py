@@ -246,9 +246,12 @@ def test_attention_dispatch_matches_jax(case, impl):
 
 def test_attention_dispatch_refuses_what_it_does_not_do():
     q, k, v = map(torch.from_numpy, _attn_inputs(0))
+    # sequence parallelism is ported (A.3.1.2); what it does not take stays
+    # refused: ALiBi and windows under ring / ulysses (as in the JAX
+    # package), segment ids under ring (tests/test_torch_pipeline.py)
     for impl in ("ring", "ulysses", "ring:flash", "ulysses:xla"):
-        with pytest.raises(NotImplementedError, match="A.3.1"):
-            tl.attention(q, k, v, impl=impl)
+        with pytest.raises(NotImplementedError, match="alibi"):
+            tl.attention(q, k, v, impl=impl, window=3)
     for impl in ("ring:flsh", "pallas", "flash:xla"):
         with pytest.raises(ValueError, match="impl"):
             tl.attention(q, k, v, impl=impl)

@@ -244,12 +244,24 @@ def test_a_plan_on_the_layer_dim_raises():
     {"elasticity": {"enabled": True}},
 ])
 def test_unported_parts_of_distributed_training_raise(section):
-    """Pipeline, expert and sequence parallelism, ZeRO++ and elasticity
-    stay refused, naming A.3.1; data, fsdp, tp and MiCS are accepted."""
+    """Expert parallelism, ZeRO++ and elasticity stay refused, naming
+    A.3.1; data, fsdp, tp and MiCS are accepted, and so are the pipeline
+    and sequence sizes (A.3.1.1-2), parsed as the JAX package parses
+    them."""
     from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
 
+    d = dict(train_batch_size=8, **section)
+    if "pp" in section.get("parallelism", {}) or "pipeline" in section or \
+            "sp" in section.get("parallelism", {}) or \
+            "sequence_parallel_size" in section:
+        got = DSTpuConfig.from_config(d).parallelism
+        want = JParallelism.from_config_dict(d, 0)
+        assert (got.pp, got.sp, got.pp_microbatches) == (
+            want.pp, want.sp, want.pp_microbatches)
+        assert max(got.pp, got.sp) > 1
+        return
     with pytest.raises(NotImplementedError, match=r"A\.3\.1"):
-        DSTpuConfig.from_config(dict(train_batch_size=8, **section))
+        DSTpuConfig.from_config(d)
     DSTpuConfig.from_config({"train_batch_size": 8, "parallelism": {
         "dp": 2, "fsdp": 2, "tp": 2}, "zero_optimization": {"stage": 3}})
     DSTpuConfig.from_config({"train_batch_size": 8, "zero_optimization": {

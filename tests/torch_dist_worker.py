@@ -4,8 +4,9 @@ Run as ``python tests/torch_dist_worker.py <spec.json>`` with the torch
 launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``): it starts a gloo process group through
 ``comm.init_distributed`` (the env:// path), runs the spec's ``kind`` —
-``"comm"`` (the façade's cases) or ``"train"`` (legs of ``tiny`` through
-``initialize`` -> ``train_batch``) — and writes this rank's results as
+``"comm"`` (the façade's cases), ``"p2p"`` (send / recv / p2p over
+``pipe`` and the differentiable collectives' gradients) or ``"train"``
+(legs of ``tiny`` through ``initialize`` -> ``train_batch``) — and writes this rank's results as
 ``<out>/<leg>_rank<r>.npz``. It imports torch and the port, never jax.
 """
 import json
@@ -106,6 +107,56 @@ def run_comm(spec, rank, out):
              table_has_op=np.array("all_reduce" in table))
 
 
+# -------------------------------------------------------------------- p2p
+def run_p2p(spec, rank, out):
+    """Point-to-point along a 4-rank ``pipe`` axis (its direction groups),
+    the differentiable collectives' gradients and a ``PipelineModule``
+    forward over the four stages."""
+    build_topology(pp=4)
+    comms_logger.reset()
+    comms_logger.configure(enabled=True)
+    res = {}
+    x = torch.arange(3.0) + 10 * rank
+    sent = comm.send(x, rank + 1, "pipe", async_op=True) if rank < 3 \
+        else None
+    res["recv_prev"] = comm.recv(torch.empty(3), rank - 1, "pipe") \
+        if rank > 0 else x.clone()
+    if sent is not None:
+        sent.wait()
+    # the other direction, waiting on each send
+    if rank > 0:
+        comm.send(2 * x, rank - 1, "pipe", src=rank)
+    res["recv_next"] = comm.recv(torch.empty(3), rank + 1, "pipe",
+                                 dst=rank) if rank < 3 else x.clone()
+    res["p2p"] = comm.p2p(x, 1, 3, "pipe")
+    snap = comms_logger.snapshot()
+    comms_logger.configure(enabled=False)
+    xg = x.clone().requires_grad_(True)
+    y = comm.send_recv_next(xg, "pipe")
+    (y * (rank + 1)).sum().backward()
+    res["ppermute_grad"] = xg.grad
+    a = (torch.arange(8.0).reshape(4, 2) + 100 * rank).requires_grad_(True)
+    y = comm.all_to_all(a, "pipe", split_axis=0, concat_axis=1)
+    res["all_to_all"] = y.detach()
+    (y * (torch.arange(8.0) + 8 * rank)).sum().backward()
+    res["all_to_all_grad"] = a.grad
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        get_world_topology)
+    from deepspeedsyclsupport_tpu_torch.parallel.pipeline import (
+        PipelineModule)
+
+    # a stage a rank, layer i multiplies by i + 2 and adds 1
+    pm = PipelineModule(lambda p, h: h * p + 1, 4, get_world_topology(),
+                        embed_fn=lambda e, x: x + e, remat=False)
+    res["pipeline_module"] = pm({"embed": 1.0, "layers": [2.0 + rank]},
+                                torch.arange(8.0).reshape(4, 2),
+                                n_microbatches=2)
+    np.savez(os.path.join(out, f"p2p_rank{rank}.npz"),
+             **{k: v.detach().numpy() for k, v in res.items()},
+             logger=np.array(json.dumps({k: v["total_bytes"]
+                                         for k, v in snap.items()})))
+
+
 # ------------------------------------------------------------------ train
 def run_train(spec, rank, out):
     from deepspeedsyclsupport_tpu_torch import build_model, params_from_jax
@@ -117,7 +168,8 @@ def run_train(spec, rank, out):
     for leg in spec["legs"]:
         name, cfg = leg["name"], leg["config"]
         batches = [dict(np.load(p)) for p in leg["batches"]]
-        model = build_model("tiny", dtype=leg["dtype"], attn_impl="flash")
+        model = build_model("tiny", dtype=leg["dtype"], **dict(
+            {"attn_impl": "flash"}, **leg.get("model_kw", {})))
         np_tree = unflat({k: v for k, v in raw.items()
                           if k.startswith(leg["params_prefix"])}
                          )[leg["params_prefix"].rstrip("/")]
@@ -209,7 +261,7 @@ def main():
                                  timeout_s=120)
     rank = comm.get_rank()
     try:
-        {"comm": run_comm, "train": run_train}[spec["kind"]](
+        {"comm": run_comm, "train": run_train, "p2p": run_p2p}[spec["kind"]](
             spec, rank, spec["out"])
     finally:
         comm.destroy_process_group()
