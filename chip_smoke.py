@@ -136,8 +136,9 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
              and read just after, asserted per step, and no operand copied
              for any kernel's TMA (forward, dQ, dK/dV).
-   train-resume — the same model and config: 3 steps, a native
-             ``save_checkpoint`` (~11.3 GB), steps 4-6; a fresh engine
+   train-resume — the same width and config at 8 of its 16 layers
+             (depth cut): 3 steps, a native
+             ``save_checkpoint`` (~6.2 GB), steps 4-6; a fresh engine
              (another init, built after the first is deleted)
              loads ``latest`` and takes steps 4-6 on the
              same batches: loss and grad_norm bit-equal, flash launches
@@ -208,7 +209,14 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              and scales equal, loss ``DIST_FP16_LOSS_TOL``); per rank and
              step the bytes handed to each collective held equal to the
              plan's count, flash launches held; peak memory beside
-             ``predict_memory_per_device``, step times, host-staged ops.
+             ``predict_memory_per_device``, step times, host-staged ops;
+             (c) the pipeline and sequence-parallel twins the same way
+             (``DIST_PS_TWINS``, 4 layers); (d) MoE across ranks: the
+             train-moe model at a world of one on NCCL through ZeRO-2,
+             bit-equal to that phase's steps, then ``DIST_MOE_TWINS``
+             (mixtral-8x7b widths: fsdp2 x ep2 and ep2 x tp2 at 1 layer,
+             pp2 x ep2 at 2) on four ranks, each against its world-1 run,
+             every collective's bytes against ``dist_moe_bytes``.
 12. kernels — every TPU kernel of the JAX package and its status here.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
@@ -2805,7 +2813,8 @@ def phase_train_moe(torch, np):
     every layer, attention through the flash kernels (launches held a
     step). Then the same widths at 1 layer in float32, B 1 x S 2048, 3
     steps: kernels against the plain path (``TRAIN_PARITY_TOL``) and the
-    kernels with remat bit-identical to themselves. Returns the launches."""
+    kernels with remat bit-identical to themselves. Returns the launches
+    and the steps' ``(loss, moe_aux_loss, grad_norm, seconds)``."""
     from deepspeedsyclsupport_tpu_torch import build_model, initialize
     from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
     from deepspeedsyclsupport_tpu_torch.parallel import moe
@@ -2886,7 +2895,7 @@ def phase_train_moe(torch, np):
     del eng
     torch.cuda.empty_cache()
     train_moe_parity(torch, np)
-    return launches
+    return launches, steps
 
 
 def train_moe_parity(torch, np):
@@ -2941,6 +2950,10 @@ def train_moe_parity(torch, np):
 
 # ------------------------------------------------------------- resilience
 RESUME_STEPS = 3            # steps before the save, and again after it
+# train-resume's depth: half of llama2-1b's 16 layers (a 6.2 GB tag instead
+# of 11.3 GB) keeps chip_smoke near half its time limit beside phase dist
+# (d); every hold of the phase stands at any depth
+RESUME_LAYERS = 8
 TAG_BYTES_PER_PARAM = 12    # fp32 master + Adam's two fp32 moments
 SENTINEL_SEQ = 2048
 SENTINEL_CFG = {"enabled": True, "warmup_steps": 3, "window": 8,
@@ -3042,7 +3055,8 @@ def ckpt_dir(need_bytes):
 
 
 def phase_train_resume(torch, np):
-    """llama2-1b at full width and depth, bf16, ``TRAIN_CONFIG``: 3 steps,
+    """llama2-1b at full width, ``RESUME_LAYERS`` deep, bf16,
+    ``TRAIN_CONFIG``: 3 steps,
     a native ``save_checkpoint``, steps 4-6; a fresh engine (built after
     the first is deleted, from another init) loads ``latest``
     and takes steps 4-6 on the same batches: loss and grad_norm
@@ -3056,7 +3070,8 @@ def phase_train_resume(torch, np):
         DATA_FILE, INDEX_FILE, list_tags)
 
     vocab = None
-    a = train_engine(torch, 0, {"checkpoint": {"keep_last_n": 1}})
+    a = train_engine(torch, 0, {"checkpoint": {"keep_last_n": 1}},
+                     num_layers=RESUME_LAYERS)
     vocab = a.module.config.vocab_size
     n_params = sum(t.numel() for t in a._leaf_tensors)
     # the async save writes the new tag before rotation drops the old one
@@ -3078,7 +3093,8 @@ def phase_train_resume(torch, np):
         torch.cuda.empty_cache()
         b = train_engine(torch, 1, {
             "checkpoint": {"engine": "async", "keep_last_n": 1},
-            "sentinel": {"enabled": True, "journal_dir": journal}})
+            "sentinel": {"enabled": True, "journal_dir": journal}},
+            num_layers=RESUME_LAYERS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loaded, _ = b.load_checkpoint(root)
@@ -3125,7 +3141,8 @@ def phase_train_resume(torch, np):
     armed, unarmed = (float(np.median(times[k])) for k in ("armed",
                                                             "unarmed"))
     gb = nbytes / 1e9
-    log("train-resume", f"{TRAIN_MODEL} full width and depth, bf16, "
+    log("train-resume", f"{TRAIN_MODEL} full width, {RESUME_LAYERS} "
+        f"layers (depth cut), bf16, "
         f"{n_params / 1e9:.3f}B params: a tag is {gb:.2f} GB (fp32 params "
         f"and moments, layers stacked); {free / 1e9:.0f} GB free under "
         f"{os.path.dirname(root)}; native save {save_s:.2f} s "
@@ -3883,10 +3900,10 @@ def dist_reference_config(cfg):
     return out
 
 
-def dist_batch(np, vocab, seq=None):
+def dist_batch(np, vocab, seq=None, rows=None):
     return {"input_ids": np.random.RandomState(3).randint(
-        0, vocab, (DIST_BASE["train_batch_size"], seq or DIST_SEQ)).astype(
-            np.int64)}
+        0, vocab, (rows or DIST_BASE["train_batch_size"],
+                   seq or DIST_SEQ)).astype(np.int64)}
 
 
 def dist_model(dtype, num_layers=None, model=None, **overrides):
@@ -4007,23 +4024,41 @@ def dist_flash_per_step(eng):
 
 def dist_memory_prediction(torch, eng, rows, seq):
     """``predict_memory_per_device`` for this rank's params (the model's
-    count over tp) and the activations of one micro-batch: 3 x 4 bytes a
-    token of the logits' V / tp, and (10 + 24 / tp) x H bytes a token a
-    layer at 2-byte activations (the flash kernels keep no S x S score),
-    twice that at 4 bytes."""
+    count over tp, its experts also over ep) and the activations of one
+    micro-batch: 3 x 4 bytes a token of the logits' V / tp, and (10 + 24 /
+    tp) x H bytes a token a layer at 2-byte activations (the flash kernels
+    keep no S x S score), twice that at 4 bytes; an MoE layer adds its
+    expert buffers (the tokens k times and the rank's ``E / ep`` capacity
+    buffers in and out ``[C, D]``, its GLU's four ``[C, F / tp]``) and its
+    float32 combine ``[T, D]`` twice."""
+    from deepspeedsyclsupport_tpu_torch.parallel.moe import capacity
     from deepspeedsyclsupport_tpu_torch.runtime.zero import (
-        predict_memory_per_device)
+        is_expert_leaf, predict_memory_per_device)
 
     cfg = eng.module.config
-    tp = eng.topology.axis_sizes["model"]
-    seq //= eng.topology.axis_sizes["seq"]
+    sizes = eng.topology.axis_sizes
+    tp, ep = sizes["model"], sizes["expert"]
+    seq //= sizes["seq"]
     n = sum(math.prod(s) for s in eng._full_shapes.values())
+    experts = sum(math.prod(s) for p, s in eng._full_shapes.items()
+                  if is_expert_leaf(p))
     cb = torch.empty((), dtype=eng.compute_dtype).element_size()
-    act = len(eng.params["layers"]) * rows * seq * cfg.hidden_size * (
+    layers = len(eng.params["layers"])
+    act = layers * rows * seq * cfg.hidden_size * (
         10 + 24 / tp) * cb / 2 + 4 * rows * seq * cfg.vocab_size / tp * 3
+    if cfg.any_moe:
+        t = rows * seq // ((cfg.pipe_microbatches or sizes["pipe"])
+                           if sizes["pipe"] > 1 else 1)
+        c = capacity(t * eng.dp_world_size * sizes["seq"], cfg)
+        el = cfg.num_experts // ep
+        act += layers * (cb * (el * c * (2 * cfg.hidden_size + 4 *
+                                         cfg.intermediate_size / tp)
+                               + 2 * cfg.num_experts_per_tok * t *
+                               cfg.hidden_size)
+                         + 4 * 2 * t * cfg.hidden_size)
     return predict_memory_per_device(
-        n // tp, eng.topology.axis_sizes["fsdp"], eng.zero_stage,
-        compute_bytes=cb, activation_bytes=act), n
+        n // tp, sizes["fsdp"], eng.zero_stage, compute_bytes=cb,
+        activation_bytes=act, expert_params=experts // tp, ep=ep), n
 
 
 def dist_facade_check(torch, device):
@@ -4032,8 +4067,9 @@ def dist_facade_check(torch, device):
     from deepspeedsyclsupport_tpu_torch import comm
     from deepspeedsyclsupport_tpu_torch.comm.topology import build_topology
 
-    build_topology(dp=-1)
+    topo = build_topology(dp=-1)
     n, r = comm.get_world_size(), comm.get_rank()
+    topo.init_groups(hierarchical=[("data", 2)])
     x = torch.tensor([float(r + 1)], device=device)
     g = torch.arange(6.0, device=device).reshape(3, 2) + 6 * r
     full = torch.arange(4.0 * n, device=device).reshape(n, 4) * (r + 1)
@@ -4054,7 +4090,34 @@ def dist_facade_check(torch, device):
         "broadcast": (comm.broadcast(x, "data", src=n - 1), [float(n)]),
         "ppermute": (comm.send_recv_next(x, "data"),
                      [float((r - 1) % n + 1)]),
+        # the rest of the façade: root-based ops, aliases, the
+        # two-hop all-to-all (EQUAL to the plain one) and the untiled one
+        "reduce": (comm.reduce(x, "data", dst=n - 1),
+                   [n * (n + 1) / 2 if r == n - 1 else float(r + 1)]),
+        "gather": (comm.gather(x, "data", dst=0),
+                   [[float(i + 1)] for i in range(n)]),
+        "scatter": (comm.scatter(torch.arange(float(n), device=device)
+                                 [:, None] + 10 * r, "data", src=1),
+                    [float(r + 10)]),
+        "hierarchical_all_to_all": (
+            comm.hierarchical_all_to_all(rows + 100 * r, "data", 2,
+                                         split_axis=1, concat_axis=1),
+            comm.all_to_all(rows + 100 * r, "data", split_axis=1,
+                            concat_axis=1).tolist()),
+        "all_to_all_untiled": (
+            comm.all_to_all(rows[:n] + 100 * r, "data", 0, 1, tiled=False),
+            [[float(4 * r + c + 100 * j) for j in range(n)]
+             for c in range(4)]),
+        "all_gather_into_tensor": (comm.all_gather_into_tensor(x, "data"),
+                                   [float(i + 1) for i in range(n)]),
+        "reduce_scatter_tensor": (
+            comm.reduce_scatter_tensor(full, "data"),
+            (torch.arange(4.0 * n).reshape(n, 4)[r:r + 1]
+             * (n * (n + 1) / 2)).tolist()),
+        "inference_all_reduce": (comm.inference_all_reduce(x, "data"),
+                                 [n * (n + 1) / 2]),
     }
+    comm.monitored_barrier(timeout=60)
     bad = {k: (got.tolist(), w) for k, (got, w) in want.items()
            if got.tolist() != (w if isinstance(w, list) else w)}
     if bad:
@@ -4075,8 +4138,10 @@ def dist_rank_child(torch, np, spec_path):
     from deepspeedsyclsupport_tpu_torch import comm, initialize
     from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger
     from deepspeedsyclsupport_tpu_torch.comm.topology import (
-        reset_world_topology)
+        MeshTopology, reset_world_topology)
     from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+    from deepspeedsyclsupport_tpu_torch.runtime import shard_params
+    from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -4087,14 +4152,31 @@ def dist_rank_child(torch, np, spec_path):
     out = {"rank": rank, "backend": tdist.get_backend(),
            "facade": dist_facade_check(torch, dev), "twins": {}}
     reset_world_topology()
-    plan = dist_comm_bytes if spec.get("plan", "all") == "all" else \
-        (lambda torch, eng, rows, seq, applied:
-         dist_p2p_bytes(torch, eng, rows, seq))
+    plan = {"all": dist_comm_bytes, "moe": dist_moe_bytes,
+            "p2p": lambda torch, eng, rows, seq, applied: dist_p2p_bytes(
+                torch, eng, rows, seq)}[spec.get("plan", "all")]
     for name, (cfg, dtype, *over) in spec["twins"].items():
-        model = dist_model(dtype, spec["layers"], spec["model"],
-                           **(over[0] if over else {}))
-        params = model.init_params(generator=torch.Generator(
-            device=dev).manual_seed(1), device=dev)
+        over = dict(over[0]) if over else {}
+        model = dist_model(dtype, over.pop("num_layers", spec["layers"]),
+                           spec["model"], **over)
+        # the full tree is drawn (as the world-1 run draws it) and cut to
+        # this rank's shards one rank at a time: four full trees at once
+        # do not fit beside the ranks' state at Mixtral's widths
+        par = DSTpuConfig.from_config(cfg).parallelism
+        sizes = MeshTopology({"data": par.dp, "fsdp": par.fsdp,
+                              "model": par.tp, "pipe": par.pp,
+                              "expert": par.ep, "seq": par.sp},
+                             world_size=comm.get_world_size())
+        for turn in range(comm.get_world_size()):
+            if turn == rank:
+                full = model.init_params(generator=torch.Generator(
+                    device=dev).manual_seed(1), device=dev)
+                params = shard_params(full, model.config, sizes,
+                                      cfg["zero_optimization"]["stage"])
+                del full
+                if cuda:
+                    torch.cuda.empty_cache()
+            comm.barrier()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         eng = initialize(model=model, params=params, config=cfg,
@@ -4102,8 +4184,9 @@ def dist_rank_child(torch, np, spec_path):
         del params
         staged0 = comm.staged_ops()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in dist_batch(
-            np, model.config.vocab_size, spec["seq"]).items()}
-        rows = DIST_BASE["train_batch_size"] // eng.dp_world_size
+            np, model.config.vocab_size, spec["seq"],
+            cfg["train_batch_size"]).items()}
+        rows = cfg["train_batch_size"] // eng.dp_world_size
         steps = []
         for _ in range(spec["steps"]):
             comms_logger.reset()
@@ -4118,6 +4201,7 @@ def dist_rank_child(torch, np, spec_path):
             finite = bool(m["finite"])
             steps.append({
                 "loss": loss, "grad_norm": gn, "finite": finite,
+                "moe_aux_loss": float(m.get("moe_aux_loss", float("nan"))),
                 "scale": float(m["loss_scale"]),
                 "s": time.perf_counter() - t0,
                 "bytes": {k: v["total_bytes"] for k, v in
@@ -4168,7 +4252,7 @@ def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
+                   MASTER_PORT=str(port), **spec.get("env", {}))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dist-rank", path],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -4217,7 +4301,7 @@ def dist_reference(torch, np, cfg, dtype, layers=DIST_LAYERS):
     return out, skipped
 
 
-def phase_dist(torch, np, train_steps):
+def phase_dist(torch, np, train_steps, moe_steps):
     """(a) NCCL at a world of one: llama2-1b at full depth through the
     ZeRO-3 config, bit-equal to the train phase's single-card steps;
     (b) four ranks on the one card over gloo: the dryrun_multichip twins
@@ -4312,7 +4396,8 @@ def phase_dist(torch, np, train_steps):
     hold_dist_twins("(b)", DIST_TWINS, ranks, refs, launches,
                     {"float16": {"loss": DIST_FP16_LOSS_TOL}}, full_plan=True)
 
-    return launches, dist_pipe_seq(torch, np)
+    return launches, dist_pipe_seq(torch, np), dist_moe(torch, np,
+                                                         moe_steps)
 
 
 def dist_pipe_seq(torch, np):
@@ -4350,6 +4435,296 @@ def dist_pipe_seq(torch, np):
     return launches_ps
 
 
+# (d): MoE across ranks, the train-moe model (MOE_MODEL at its published
+# widths), depth cut: name -> (config, dtype, model overrides)
+DIST_MOE_TWINS = {
+    # the JAX leg "moe dp/fsdp/tp/ep zero2" without tp: the batch split
+    # over two ranks (global slots and the aux), the experts over two
+    "moe_fsdp2_ep2_zero2": (dict(DIST_BASE, zero_optimization={"stage": 2},
+                                 parallelism={"dp": 1, "fsdp": 2, "ep": 2}),
+                            "float32", {"num_layers": 1}),
+    # the expert region over (expert, model)
+    "moe_ep2_tp2_zero2": (dict(DIST_BASE, zero_optimization={"stage": 2},
+                               parallelism={"dp": 1, "tp": 2, "ep": 2}),
+                          "float32", {"num_layers": 1}),
+    # MoE under the pipeline: a layer a stage, the aux through the
+    # executor, each layer under activation checkpointing (its recompute
+    # posts the expert region's forward again). B 2: a rank holds 16.1 GB
+    # of fp32 Adam state (1.01 B params: the embedding and head on both
+    # stages), so four ranks leave ~15 GiB of the card for activations
+    "moe_pp2_ep2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
+                               train_batch_size=2,
+                               activation_checkpointing={},
+                               parallelism={"dp": 1, "ep": 2},
+                               pipeline={"stages": 2, "micro_batches": 2}),
+                          "float32", {"num_layers": 2}),
+}
+
+
+def pipelined_moe_loss(model, n_micro):
+    """The loss the JAX pipeline computes, on one card without a pipeline
+    (the world-1 run of a pipelined MoE twin): the micro-batches split
+    strided, each routed over its own tokens, the LM loss the global
+    masked mean, the aux summed over the micro-batches and the layers."""
+    import torch
+
+    def loss_fn(params, batch, rng=None, train=True):
+        labels, mask = model.targets(batch)
+        count = mask.sum().clamp_min(1.0)
+        lm, aux = 0.0, 0.0
+        for m in range(n_micro):
+            logits, a = model._forward(params, batch["input_ids"][m::n_micro],
+                                       rng=rng, train=train)
+            lm = lm + model.nll_sum(logits, labels[m::n_micro],
+                                    mask[m::n_micro]) / count
+            aux = aux + a
+        return lm + model.config.aux_loss_coef * aux, {
+            "lm_loss": lm.detach(), "moe_aux_loss": torch.as_tensor(
+                aux).detach()}
+
+    return loss_fn
+
+
+def dist_moe_reference(torch, np, name):
+    """A (d) twin's world-1 run: the single-card engine on the twin's
+    model and config without mesh sizes (a pipelined twin: the loss of
+    :func:`pipelined_moe_loss`), 3 steps."""
+    from deepspeedsyclsupport_tpu_torch import initialize
+
+    cfg, dtype, over = DIST_MOE_TWINS[name]
+    over = dict(over)
+    layers = over.pop("num_layers")
+    model = dist_model(dtype, layers, MOE_MODEL, **over)
+    params = model.init_params(generator=torch.Generator(
+        device=DEV).manual_seed(1), device=DEV)
+    loss_fn = None
+    if "pipeline" in cfg:
+        loss_fn = pipelined_moe_loss(model, cfg["pipeline"]["micro_batches"])
+    eng = initialize(model=model, params=params, loss_fn=loss_fn,
+                     config=dist_reference_config(cfg), device=DEV)[0]
+    del params
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in dist_batch(
+        np, model.config.vocab_size, rows=cfg["train_batch_size"]).items()}
+    cuda = DEV == "cuda"     # the CPU rehearses the phase
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(DIST_STEPS):
+        m = eng.train_batch(batch)
+        out.append({"loss": float(m["loss"]), "grad_norm": float(
+            m["grad_norm"]), "finite": bool(m["finite"]),
+            "scale": float(m["loss_scale"]),
+            "moe_aux_loss": float(m["moe_aux_loss"])})
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    skipped = eng.skipped_steps
+    del eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, skipped, peak
+
+
+def dist_moe_bytes(torch, eng, rows, seq, applied):
+    """The bytes each collective of one step of an MoE twin is handed, by
+    logger key, from the plan and the shapes alone (ZeRO stages 0-2;
+    under activation checkpointing a layer's forward collectives twice,
+    up to its last saved tensor).
+    Per MoE layer and micro-batch of T tokens: the routing counts
+    ``[1, k, E]`` int64 all-gathered over the live batch axes; the expert
+    region (``parallel/moe.expert_region``: expert, and model under TP)
+    all-reduces the partial output ``[T, D]`` float32 forward, and the
+    tokens' gradient ``[T, D]`` and the combine weights' ``[k T]`` float32
+    backward. TP: a layer's attention all-reduces ``[T, H]`` twice, the
+    embedding once and the head once (first and last stage), the loss
+    ``[T]`` thrice in float32. Pipeline: each micro-batch's activation
+    ``[rows / n, S, H]`` one way and its gradient back; the step's three
+    scalars (loss, lm_loss, moe_aux_loss) a micro-batch over (pipe, data,
+    fsdp), the token count on the last stage. Grads: over the batch axes
+    (stage 2 reduce-scatters onto the update's fsdp shard, an applied step
+    all-gathers the updated shards at stages 1-2), the entries replicated
+    over ``pipe`` also over ``pipe``; the norm over the world."""
+    from deepspeedsyclsupport_tpu_torch.parallel.moe import expert_region
+    from deepspeedsyclsupport_tpu_torch.runtime.zero import _walk
+
+    topo, stage = eng.topology, eng.zero_stage
+    if stage > 2:
+        raise ValueError("dist_moe_bytes plans ZeRO stages 0-2")
+    cfg = eng.module.config
+    cb = torch.empty((), dtype=eng.compute_dtype).element_size()
+    gas = eng.gradient_accumulation_steps()
+    sizes = topo.axis_sizes
+    tp, fsdp, data, pp = (sizes[a] for a in ("model", "fsdp", "data",
+                                              "pipe"))
+    n_micro = (cfg.pipe_microbatches or pp) if pp > 1 else 1
+    s = topo.axis_index("pipe")
+    first, last = s == 0, s == pp - 1
+    want = {}
+
+    def add(key, n):
+        if n:
+            want[key] = want.get(key, 0) + int(n)
+
+    batch_key = f"all_reduce[{('data', 'fsdp')}]"
+    for path, t in _walk(eng.params):
+        if path not in set(eng._float_paths):
+            continue
+        ud = eng._update_dim[eng._float_paths.index(path)]
+        n = t.numel() * 4
+        if stage == 2 and ud is not None:
+            add("reduce_scatter[fsdp]", n)
+            n //= fsdp
+            if data > 1:
+                add("all_reduce[data]", n)
+        else:
+            if fsdp * data > 1:
+                add(batch_key, n)
+            if ud is not None:
+                n //= fsdp
+        if ud is not None and applied:
+            add("all_gather[fsdp]", n)
+        if pp > 1 and path[0] != "layers":
+            add("all_reduce[pipe]", n)
+    rows_m = rows // n_micro
+    t_m = rows_m * seq
+    batch = topo.live(("data", "fsdp"))
+    region = expert_region(eng.module.parallel)
+    fwd = 2 if cfg.remat else 1     # a layer's recompute posts its forward
+    per_layer = {}
+    if batch:
+        key = batch[0] if len(batch) == 1 else batch
+        per_layer[f"all_gather[{key}]"] = fwd * cfg.num_experts_per_tok * \
+            cfg.num_experts * 8
+    if region is not None:
+        # the region's forward all-reduce is the layer's last op: the
+        # recompute (non-reentrant checkpoint) stops at the last tensor
+        # the backward saved, before it
+        per_layer[f"all_reduce[{region}]"] = t_m * cfg.hidden_size * 4 \
+            + t_m * cfg.hidden_size * cb + cfg.num_experts_per_tok * t_m * 4
+    act = t_m * cfg.hidden_size * cb
+    if tp > 1:
+        per_layer["all_reduce[model]"] = (fwd + 1) * act
+    micros = gas * n_micro
+    for key, n in per_layer.items():
+        add(key, micros * len(eng.params["layers"]) * n)
+    if tp > 1:
+        add("all_reduce[model]", micros * (act * first
+                                           + (act + 3 * t_m * 4) * last))
+    if pp > 1:
+        way = rows_m * seq * cfg.hidden_size * cb
+        add("send[pipe]", micros * way * ((s < pp - 1) + (s > 0)))
+        add("recv[pipe]", micros * way * ((s < pp - 1) + (s > 0)))
+        add(batch_key, gas * 4 * last)
+        add(f"all_reduce[{('pipe', 'data', 'fsdp')}]", 4 * 3 * gas)
+    else:
+        add(batch_key, gas * 4 + 4 * 3 * gas)
+    add(f"all_reduce[{tuple(sizes)}]", 4)
+    return want
+
+
+def dist_moe(torch, np, moe_steps):
+    """Phase ``dist`` (d): MoE across ranks at ``MOE_MODEL``'s published
+    widths. (d0) the train-moe phase's model, config and batch through the
+    distributed engine at a world of one on NCCL (ZeRO-2, ep 1), held
+    BIT-EQUAL to that phase's first 3 steps; then each four-rank twin of
+    ``DIST_MOE_TWINS`` over gloo held against its world-1 run (run first,
+    alone on the card, and freed), its bytes a step EQUAL to
+    :func:`dist_moe_bytes` and its flash launches to the plan's. Returns
+    the flash launches of (d)."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from deepspeedsyclsupport_tpu_torch import build_model, comm, initialize
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    t_d = time.perf_counter()
+    launches = {k: 0 for k in fa.LAUNCHES}
+    # ---- (d0) world 1, NCCL, the train-moe model
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                          world_size=1, rank=0, device_type="cuda")
+    backend = tdist.get_backend()
+    model = build_model(MOE_MODEL, num_layers=MOE_TRAIN_LAYERS)
+    params = model.init_params(
+        generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    eng = initialize(model=model, params=params, config=dict(
+        MOE_TRAIN_CONFIG, zero_optimization={"stage": 2}), device=DEV)[0]
+    del params
+    torch.cuda.empty_cache()
+    ids = np.random.RandomState(3).randint(0, model.config.vocab_size,
+                                           (eng.train_batch_size(), TRAIN_SEQ))
+    batch = {"input_ids": torch.from_numpy(ids).to(DEV)}
+    got, times = [], []
+    for step in range(DIST_STEPS):
+        before = dict(fa.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = eng.train_batch(batch)
+        got.append((float(m["loss"]), float(m["moe_aux_loss"]),
+                    float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        per = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        if per != dist_flash_per_step(eng):
+            raise AssertionError(f"dist (d0) step {step + 1}: flash launches"
+                                 f" {per}, want {dist_flash_per_step(eng)}")
+        for k in per:
+            launches[k] += per[k]
+    want = [tuple(x[:3]) for x in moe_steps[:DIST_STEPS]]
+    log("dist", f"(d0) world 1, {backend}, topology {eng.topology.axis_sizes},"
+        f" ZeRO-2, {MOE_MODEL} widths {MOE_TRAIN_LAYERS} layers bf16, the "
+        f"train-moe batch: (loss, moe_aux_loss, grad_norm) {got} vs the "
+        f"single-card engine {want}: "
+        f"{'bit-equal' if got == want else 'DIFFER'}; ms/step "
+        f"{[round(t * 1e3, 1) for t in times]}")
+    if backend != "nccl" or got != want:
+        raise AssertionError(f"(d0) {backend}: {got} != single card {want}")
+    del eng
+    reset_world_topology()
+    comm.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d1)-(d3) four ranks over gloo, each against its world-1 run
+    refs, ref_peaks = {}, {}
+    for name in DIST_MOE_TWINS:
+        if name == "moe_ep2_tp2_zero2":      # the same world-1 run as d1
+            refs[name] = refs["moe_fsdp2_ep2_zero2"]
+            continue
+        out, skipped, peak = dist_moe_reference(torch, np, name)
+        refs[name], ref_peaks[name] = (out, skipped), peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("dist", f"(d) the parent holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before "
+        f"the ranks start")
+    log("dist", f"(d) world-1 references ({MOE_MODEL} widths, B "
+        f"{DIST_BASE['train_batch_size']} x S {DIST_SEQ}, fp32, TF32 off; "
+        f"the pipelined twin's with the JAX pipeline's loss): {refs}; peak "
+        f"GiB {({k: round(v / 2**30, 2) for k, v in ref_peaks.items()})}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        # four ranks' fp32 Adam state fills most of the card: segments
+        # that grow in place keep the allocator's cache from splitting it
+        ranks = spawn_dist_ranks(
+            {"device": "cuda", "twins": DIST_MOE_TWINS, "steps": DIST_STEPS,
+             "layers": 1, "seq": DIST_SEQ, "model": MOE_MODEL,
+             "plan": "moe", "env": {
+                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}},
+            d)
+        wall = time.perf_counter() - t0
+    log("dist", f"(d) {DIST_WORLD} ranks, backend {ranks[0]['backend']}, "
+        f"façade ops held exact on CUDA tensors {ranks[0]['facade']}; ranks "
+        f"ran in {wall:.1f} s")
+    hold_dist_twins("(d)", DIST_MOE_TWINS, ranks, refs, launches, {},
+                    full_plan=True)
+    log("dist", f"(d) took {time.perf_counter() - t_d:.1f} s; flash "
+        f"launches on its legs {launches}")
+    return launches
+
+
 P2P_OPS = ("send", "recv", "all_to_all", "ppermute")
 
 
@@ -4362,7 +4737,7 @@ def hold_dist_twins(label, twins, ranks, refs, launches, tols, full_plan):
     to :func:`dist_flash_per_step`'s. Adds the launches to ``launches``
     and logs each twin."""
     for name, (cfg_t, dtype, *_) in twins.items():
-        ref, ref_skipped = refs[dtype]
+        ref, ref_skipped = refs[name] if name in refs else refs[dtype]
         r0 = ranks[0]["twins"][name]
         for r in ranks[1:]:
             if [(x["loss"], x["grad_norm"]) for x in r["twins"][name][
@@ -4498,17 +4873,19 @@ def main() -> int:
     run(phase_sentinel, torch, np)
     run(phase_parity, torch, np)
     run(phase_train_parity, torch, np)
-    moe_launches = run(phase_train_moe, torch, np)
+    moe_launches, moe_steps = run(phase_train_moe, torch, np)
     evo_rows, evo_launches = run(phase_evoformer, torch, np)
     run(phase_sparse, torch, np)
-    dist_launches, ps_launches = run(phase_dist, torch, np, train_steps)
+    dist_launches, ps_launches, moe_dist_launches = run(
+        phase_dist, torch, np, train_steps, moe_steps)
 
     log("phases", f"GiB allocated on the card after each phase (before, "
         f"after the collector) {phase_left}")
     log("phases", f"seconds per phase {phase_s}; flash launches on the "
         f"train-moe path {moe_launches}, on the flash-lse phase "
         f"{lse_launches}, on the dist path {dist_launches}, on its pipeline "
-        f"and sequence-parallel legs {ps_launches}")
+        f"and sequence-parallel legs {ps_launches}, on its MoE legs "
+        f"{moe_dist_launches}")
     log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
                               for k, src in TPU_KERNELS)
         + f" | all phases in {time.perf_counter() - t_start:.1f} s")
@@ -4543,7 +4920,8 @@ def main() -> int:
             "bound_by": main_row["bounds"][name][1],
             "library_ms": main_row["library"][name],
             "launches_dist": dist_launches[name],
-            "launches_dist_pipe_seq": ps_launches[name]})
+            "launches_dist_pipe_seq": ps_launches[name],
+            "launches_dist_moe": moe_dist_launches[name]})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks
     msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]

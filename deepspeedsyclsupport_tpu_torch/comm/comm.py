@@ -16,6 +16,16 @@ with its split and concat axes swapped); the others are not: the model's
 autograd functions (``parallel/tensor_parallel.py``, ``runtime/zero.py``)
 call them in their forward and backward.
 
+``hierarchical_all_to_all`` is the all-to-all in two hops (within groups
+of consecutive indices, then across them, over sub-groups the topology
+builds); ``reduce``, ``gather`` and ``scatter`` give every rank the JAX
+package's defined value (the root's result, or the stack on every rank);
+``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single`` and ``inference_all_reduce`` are the reference's
+aliases of the ops they name; ``monitored_barrier``, ``get_global_rank``,
+``get_world_group`` and ``get_all_ranks_from_group`` its bookkeeping over
+torch's process groups.
+
 ``send`` / ``recv`` are the reference's one-sided point-to-point ops (the
 JAX façade maps both to the collective ``p2p``, because under SPMD every
 device runs the same call; here a process is a rank). Between neighbours
@@ -51,21 +61,26 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "all_reduce", "pmean", "all_gather", "reduce_scatter", "all_to_all",
-    "ppermute", "send_recv_next", "send_recv_prev", "broadcast",
-    "all_reduce_coalesced", "all_gather_coalesced", "axis_size",
-    "axis_index", "init_distributed", "is_initialized", "barrier",
-    "get_world_size", "get_rank", "get_local_rank", "get_device_count",
-    "new_group", "destroy_process_group", "choose_backend", "HOST_STAGED",
-    "staged_ops", "send", "recv", "p2p",
+    "hierarchical_all_to_all", "ppermute", "send_recv_next",
+    "send_recv_prev", "broadcast", "all_reduce_coalesced",
+    "all_gather_coalesced", "axis_size", "axis_index", "init_distributed",
+    "is_initialized", "barrier", "get_world_size", "get_rank",
+    "get_local_rank", "get_device_count", "new_group",
+    "destroy_process_group", "choose_backend", "HOST_STAGED", "staged_ops",
+    # the reference's surface (root-based ops, p2p, aliases)
+    "reduce", "gather", "scatter", "send", "recv", "p2p",
+    "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
+    "inference_all_reduce", "monitored_barrier", "get_global_rank",
+    "get_world_group", "get_all_ranks_from_group",
 ]
 
 _DEFAULT_SLURM_PORT = 29500
 # (backend, op) pairs whose CUDA tensors are staged through pinned host
 # memory. On torch 2.11 gloo takes CUDA tensors for all_reduce,
 # all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single and
-# broadcast, and its send / recv fail on them ("writev: Bad address");
-# chip_smoke.py's dist phase holds every façade op on CUDA tensors over gloo
-# and prints which calls were staged
+# broadcast (and reduce and scatter), and its send / recv fail on
+# them ("writev: Bad address"); chip_smoke.py's dist phase holds every façade
+# op on CUDA tensors over gloo and prints which calls were staged
 HOST_STAGED = frozenset({("gloo", "ppermute"), ("gloo", "send"),
                          ("gloo", "recv")})
 _STAGED_CALLS: Dict[str, int] = {}
@@ -254,20 +269,35 @@ def reduce_scatter(x: torch.Tensor, axis_name, axis: int = 0
     return _run("reduce_scatter", axis_name, x, fn)
 
 
-def _all_to_all(x, axis_name, split_axis, concat_axis):
-    def fn(group, n, t):
-        import torch.distributed as dist
+def _exchange(inp: torch.Tensor, group) -> torch.Tensor:
+    """``inp`` [m, ...]: piece ``j`` to the group's rank ``j``; returns
+    [m, ...], piece ``i`` from the group's rank ``i``."""
+    import torch.distributed as dist
 
-        if t.shape[split_axis] % n:
-            raise ValueError(f"split dim {t.shape[split_axis]} not "
-                             f"divisible by axis size {n}")
-        inp = torch.stack(t.chunk(n, dim=split_axis), 0).contiguous()
-        out = torch.empty_like(inp)
-        if group is None:
-            out.copy_(inp)
-        else:
-            dist.all_to_all_single(out, inp, group=group)
-        return torch.cat(list(out.unbind(0)), dim=concat_axis)
+    inp = inp.contiguous()
+    out = torch.empty_like(inp)
+    if group is None:
+        out.copy_(inp)
+    else:
+        dist.all_to_all_single(out, inp, group=group)
+    return out
+
+
+def _all_to_all(x, axis_name, split_axis, concat_axis, tiled=True):
+    def fn(group, n, t):
+        if tiled:
+            if t.shape[split_axis] % n:
+                raise ValueError(f"split dim {t.shape[split_axis]} not "
+                                 f"divisible by axis size {n}")
+            out = _exchange(torch.stack(t.chunk(n, dim=split_axis), 0),
+                            group)
+            return torch.cat(list(out.unbind(0)), dim=concat_axis)
+        if t.shape[split_axis] != n:
+            raise ValueError(f"untiled all_to_all: split dim "
+                             f"{t.shape[split_axis]} must equal the axis "
+                             f"size {n}")
+        return _exchange(t.movedim(split_axis, 0), group).movedim(
+            0, concat_axis)
 
     return _run("all_to_all", axis_name, x, fn)
 
@@ -277,28 +307,94 @@ class _AllToAll(torch.autograd.Function):
     (its transpose: the piece rank i sent to rank j goes back)."""
 
     @staticmethod
-    def forward(ctx, x, axis_name, split_axis, concat_axis):
-        ctx.args = (axis_name, split_axis, concat_axis)
-        return _all_to_all(x, axis_name, split_axis, concat_axis)
+    def forward(ctx, x, axis_name, split_axis, concat_axis, tiled):
+        ctx.args = (axis_name, split_axis, concat_axis, tiled)
+        return _all_to_all(x, axis_name, split_axis, concat_axis, tiled)
 
     @staticmethod
     def backward(ctx, g):
-        axis_name, split_axis, concat_axis = ctx.args
+        axis_name, split_axis, concat_axis, tiled = ctx.args
         return _all_to_all(g.contiguous(), axis_name, concat_axis,
-                           split_axis), None, None, None
+                           split_axis, tiled), None, None, None, None
 
 
 def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """Piece ``j`` of ``x`` along ``split_axis`` goes to the rank at index
-    ``j``; what arrives is concatenated along ``concat_axis`` by sender
-    index (``lax.all_to_all`` with ``tiled=True``, the JAX façade's
-    default and its callers' only use). Differentiable."""
+               concat_axis: int, tiled: bool = True) -> torch.Tensor:
+    """``lax.all_to_all``. ``tiled``: piece ``j`` of ``x`` along
+    ``split_axis`` (of ``n`` equal pieces) goes to the rank at index ``j``,
+    and what arrives is concatenated along ``concat_axis`` by sender index.
+    Untiled: ``split_axis`` has size ``n``, index ``j`` of it goes to rank
+    ``j``, and what arrives is stacked in a new dim ``concat_axis`` (of the
+    result, whose ``split_axis`` is gone) by sender index.
+    Differentiable."""
     if _off("ALL_TO_ALL"):
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _AllToAll.apply(x, axis_name, split_axis, concat_axis)
-    return _all_to_all(x, axis_name, split_axis, concat_axis)
+        return _AllToAll.apply(x, axis_name, split_axis, concat_axis, tiled)
+    return _all_to_all(x, axis_name, split_axis, concat_axis, tiled)
+
+
+def _hierarchical(x, axis_name, gs, split_axis, concat_axis):
+    topo = topo_mod.get_world_topology()
+    intra, inter = topo.hierarchical_groups(axis_name, gs)
+
+    def fn(group, n, t):
+        if t.shape[split_axis] % n:
+            raise ValueError(f"split dim {t.shape[split_axis]} not "
+                             f"divisible by axis size {n}")
+        ng = n // gs
+        # parts [ng, gs, ...]: chunk (tg, tl) goes to index tg * gs + tl
+        parts = torch.stack(t.chunk(n, dim=split_axis), 0)
+        parts = parts.reshape((ng, gs) + tuple(parts.shape[1:]))
+        # hop 1, within the group: z[tg, sl] = source (G, sl)'s (tg, my l)
+        z = _exchange(parts.transpose(0, 1), intra).transpose(0, 1)
+        # hop 2, across groups: w[sg, sl] = source (sg, sl)'s (my g, my l)
+        w = _exchange(z, inter)
+        w = w.reshape((n,) + tuple(w.shape[2:]))   # source-major
+        return torch.cat(list(w.unbind(0)), dim=concat_axis)
+
+    return _run("hierarchical_all_to_all", axis_name, x, fn)
+
+
+class _HierarchicalAllToAll(torch.autograd.Function):
+    """hierarchical_all_to_all; backward: the same exchange with split and
+    concat swapped (the plain all-to-all's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, gs, split_axis, concat_axis):
+        ctx.args = (axis_name, gs, split_axis, concat_axis)
+        return _hierarchical(x, axis_name, gs, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, gs, split_axis, concat_axis = ctx.args
+        return _hierarchical(g.contiguous(), axis_name, gs, concat_axis,
+                             split_axis), None, None, None, None
+
+
+def hierarchical_all_to_all(x: torch.Tensor, axis_name, group_size: int,
+                            split_axis: int = 0,
+                            concat_axis: int = 0) -> torch.Tensor:
+    """``all_to_all(x, axis_name, split_axis, concat_axis)`` in two hops
+    (JAX ``hierarchical_all_to_all``, the reference's hierarchical MoE
+    dispatch): with the axis's ``n`` ranks in groups of ``group_size``
+    consecutive indices, every rank first exchanges within its group, then
+    once across groups (with the ranks of its place in the other groups),
+    over the sub-groups ``MeshTopology.hierarchical_groups`` holds. The
+    result is the plain all-to-all's; with ``group_size`` 1 or ``n`` it is
+    the plain all-to-all. Differentiable."""
+    if _off("ALL_TO_ALL"):
+        return x
+    n = axis_size(axis_name)
+    gs = int(group_size)
+    if n % gs:
+        raise ValueError(f"axis size {n} not divisible by group_size {gs}")
+    if gs == 1 or gs == n:
+        return all_to_all(x, axis_name, split_axis, concat_axis)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _HierarchicalAllToAll.apply(x, axis_name, gs, split_axis,
+                                           concat_axis)
+    return _hierarchical(x, axis_name, gs, split_axis, concat_axis)
 
 
 def _ppermute(x, axis_name, perm):
@@ -488,6 +584,161 @@ def all_reduce_coalesced(tensors, axis_name, op: str = "sum"):
 def all_gather_coalesced(tensors, axis_name):
     """:func:`all_gather` over a list / dict tree of tensors."""
     return _tree_map(lambda t: all_gather(t, axis_name), tensors)
+
+
+# ---------------------------------------------------------------------------
+# the reference's surface: root-based ops and aliases (JAX comm.py:369-532).
+# The results are the JAX package's: there every rank runs the op, so a
+# rank that is not the root gets a defined value (named by each op).
+# ---------------------------------------------------------------------------
+def reduce(x: torch.Tensor, axis_name, dst: int = 0) -> torch.Tensor:
+    """Sum onto the rank at index ``dst`` (reference ``comm.reduce``):
+    ``dst`` returns the sum over the axis, every other rank its input (a
+    copy)."""
+    if _off("ALL_REDUCE"):
+        return x
+    topo = topo_mod.get_world_topology()
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        out = t.clone()
+        if group is not None:
+            dist.reduce(out, dst=topo.group_ranks(axis_name)[dst],
+                        group=group)
+        return out if topo.axis_index(axis_name) == dst else t.clone()
+
+    return _run("reduce", axis_name, x, fn)
+
+
+def gather(x: torch.Tensor, axis_name, dst: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` stacked ``[n, ...]`` by index (reference
+    ``comm.gather``). As in the JAX package EVERY rank returns the stack,
+    so ``dst`` reads it and the others may ignore it."""
+    del dst   # every rank gets the result, as in the JAX package
+    if _off("ALL_GATHER"):
+        return x
+    return _run("gather", axis_name, x, _gather_stacked)
+
+
+def scatter(x: torch.Tensor, axis_name, src: int = 0) -> torch.Tensor:
+    """The rank at index ``src`` hands out ``x[i]`` (``x`` is ``[n, ...]``
+    on every rank) to the rank at index ``i`` (reference
+    ``comm.scatter``); each rank returns its ``[...]`` piece."""
+    if _off("BROADCAST"):
+        return x
+    topo = topo_mod.get_world_topology()
+
+    def fn(group, n, t):
+        import torch.distributed as dist
+
+        if t.shape[0] != n:
+            raise ValueError(f"scatter input leading dim {t.shape[0]} != "
+                             f"axis size {n}")
+        out = torch.empty(tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        if group is None:
+            out.copy_(t[0])
+            return out
+        me = topo.axis_index(axis_name)
+        pieces = [p.contiguous() for p in t.unbind(0)] if me == src \
+            else None
+        dist.scatter(out, pieces, src=topo.group_ranks(axis_name)[src],
+                     group=group)
+        return out
+
+    return _run("scatter", axis_name, x, fn)
+
+
+def all_gather_into_tensor(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Reference ``all_gather_into_tensor``: :func:`all_gather` along dim
+    0."""
+    return all_gather(x, axis_name)
+
+
+def reduce_scatter_tensor(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Reference ``reduce_scatter_tensor``: :func:`reduce_scatter` along
+    dim 0."""
+    return reduce_scatter(x, axis_name)
+
+
+def all_to_all_single(x: torch.Tensor, axis_name, split_axis: int = 0,
+                      concat_axis: int = 0, **kw) -> torch.Tensor:
+    """Reference ``all_to_all_single``: :func:`all_to_all`, dim 0 both
+    ways by default."""
+    return all_to_all(x, axis_name, split_axis=split_axis,
+                      concat_axis=concat_axis, **kw)
+
+
+def inference_all_reduce(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Reference ``inference_all_reduce``: :func:`all_reduce` (sum)."""
+    return all_reduce(x, axis_name)
+
+
+def monitored_barrier(timeout=None) -> None:
+    """Reference ``monitored_barrier``: logged (a 4-byte entry under
+    ``world``, as the JAX package logs it), then a barrier over the default
+    group; on gloo ``torch.distributed.monitored_barrier``, which names the
+    ranks that did not arrive within ``timeout`` (seconds)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    _log("monitored_barrier", "world", torch.zeros((), dtype=torch.float32))
+    if not is_initialized():
+        return
+    if dist.get_backend() == "gloo":
+        kw = {} if timeout is None else {
+            "timeout": datetime.timedelta(seconds=float(timeout))}
+        dist.monitored_barrier(**kw)
+    else:
+        dist.barrier()
+
+
+def get_global_rank(group=None, group_rank: int = 0) -> int:
+    """Reference ``get_global_rank``: the global rank of ``group_rank`` in
+    ``group`` (a process group of :func:`new_group`; None is the world,
+    where the two are equal)."""
+    import torch.distributed as dist
+
+    if group is None or (is_initialized() and group is dist.group.WORLD):
+        return int(group_rank)
+    _member(group)
+    if isinstance(group, dist.ProcessGroup):
+        return int(dist.get_global_rank(group, group_rank))
+    raise TypeError(f"get_global_rank needs a new_group() handle or None, "
+                    f"got {group!r}")
+
+
+def _member(group) -> None:
+    """A torch process group is known to its members alone: a rank outside
+    it holds a sentinel from ``new_group``, not a handle."""
+    import torch.distributed as dist
+
+    if group is dist.GroupMember.NON_GROUP_MEMBER:
+        raise ValueError("this rank is not a member of the group "
+                         "(new_group gives the others no handle)")
+
+
+def get_world_group():
+    """Reference ``get_world_group``: the default process group (None
+    without one: a world of one)."""
+    import torch.distributed as dist
+
+    return dist.group.WORLD if is_initialized() else None
+
+
+def get_all_ranks_from_group(group=None) -> list:
+    """Reference ``get_all_ranks_from_group``: the global ranks of ``group``
+    (default the world) in group-rank order."""
+    import torch.distributed as dist
+
+    if group is None:
+        group = get_world_group()
+    if group is None:
+        return [0]
+    _member(group)
+    return [int(r) for r in dist.get_process_group_ranks(group)]
 
 
 # ---------------------------------------------------------------------------

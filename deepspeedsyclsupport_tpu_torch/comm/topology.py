@@ -35,6 +35,17 @@ Axes = Union[str, Sequence[str]]
 
 _WORLD_TOPOLOGY: Optional["MeshTopology"] = None
 
+# the axis tuples a training step reduces over, each built by init_groups
+# as named and as its live part (the axes of size > 1): the batch axes
+# with seq (the loss's token count; an MoE layer's routing counts), the
+# same with pipe (the step's losses and metrics), data with seq (ZeRO-2/3
+# grads under sequence parallelism) and the expert region (an MoE layer's
+# partial outputs over expert and model). A group made in the middle of a
+# step could deadlock a pipeline: its stages reach it at other times.
+COMBINED: Tuple[Tuple[str, ...], ...] = (
+    ("data", "fsdp"), ("data", "fsdp", "seq"), ("pipe", "data", "fsdp"),
+    ("pipe", "data", "fsdp", "seq"), ("data", "seq"), ("expert", "model"))
+
 
 def spec_entry(entry) -> Tuple[str, ...]:
     """One ``PartitionSpec`` entry (None, a name or a tuple of names) as a
@@ -109,6 +120,8 @@ class MeshTopology:
         self._groups: Dict[Tuple[str, ...], Any] = {}
         # (axis, src index, dst index) -> this rank's direction group
         self._p2p: Dict[Tuple[str, int, int], Any] = {}
+        # (axis, group size) -> this rank's (intra, inter) groups
+        self._hier: Dict[Tuple[str, int], Tuple[Any, Any]] = {}
 
     # ----------------------------------------------------------- the mesh
     @property
@@ -161,13 +174,19 @@ class MeshTopology:
             self.init_groups()
         return self._mesh
 
-    def init_groups(self, combined: Iterable[Sequence[str]] = (
-            ("data", "fsdp"),)) -> None:
+    def live(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        """``axes`` without those of size 1."""
+        return tuple(a for a in axes if self.axis_sizes[a] > 1)
+
+    def init_groups(self, combined: Optional[Iterable[Sequence[str]]] = None,
+                    hierarchical: Iterable[Tuple[str, int]] = ()) -> None:
         """Build the ``DeviceMesh`` (one group per axis), a group for
-        each multi-axis tuple of ``combined``, and, when ``pipe`` is longer
-        than 1, the direction groups of :meth:`p2p_group`. A collective:
-        every rank of the default group calls it, with the same
-        ``combined``."""
+        each multi-axis tuple of ``combined`` (default: each tuple of
+        :data:`COMBINED` and its live part), the sub-groups of
+        :meth:`hierarchical_groups` for each ``(axis, group size)`` of
+        ``hierarchical``, and, when ``pipe`` is longer than 1, the direction
+        groups of :meth:`p2p_group`. A collective: every rank of the default
+        group calls it, with the same arguments."""
         import torch
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
@@ -185,9 +204,50 @@ class MeshTopology:
                 "cuda" if dist.get_backend() == "nccl" else "cpu",
                 torch.from_numpy(self._ranks.copy()),
                 mesh_dim_names=AXIS_ORDER)
+        if combined is None:
+            combined = [t for axes in COMBINED
+                        for t in (axes, self.live(axes)) if len(t) > 1]
         for axes in combined:
             self._combined_group(tuple(axes))
+        for axis, gs in hierarchical:
+            self.hierarchical_groups(axis, gs)
         self._direction_groups("pipe")
+
+    def hierarchical_groups(self, axis: str, group_size: int):
+        """``(intra, inter)``: this rank's process groups for a two-hop
+        all-to-all along ``axis`` in groups of ``group_size`` consecutive
+        indices: its group (indices ``G gs .. G gs + gs - 1``) and the ranks
+        at its place in every group (indices ``g gs + l``). Built by
+        :meth:`init_groups`, else here, which is then a collective like
+        it: every rank of the default group asks together."""
+        import torch.distributed as dist
+
+        key = (axis, int(group_size))
+        if key in self._hier:
+            return self._hier[key]
+        gs = int(group_size)
+        n = self.axis_sizes[axis]
+        if n % gs:
+            raise ValueError(f"axis {axis} of size {n} not divisible by "
+                             f"group_size {gs}")
+        ng = n // gs
+        mine = [None, None]
+        seen = set()
+        for r in range(self._ranks.size):   # every group, in one order
+            ranks = tuple(self.group_ranks(axis, r))
+            if ranks in seen:
+                continue
+            seen.add(ranks)
+            for which, sets in enumerate((
+                    [[g * gs + l for l in range(gs)] for g in range(ng)],
+                    [[g * gs + l for g in range(ng)] for l in range(gs)])):
+                for idx in sets:
+                    members = [ranks[i] for i in idx]
+                    group = dist.new_group(members)
+                    if self.rank in members:
+                        mine[which] = group
+        self._hier[key] = (mine[0], mine[1])
+        return self._hier[key]
 
     def _direction_groups(self, axis: str) -> None:
         """Two groups of two ranks for each pair of neighbours along

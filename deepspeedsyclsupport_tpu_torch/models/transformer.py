@@ -43,7 +43,11 @@ attention dispatch (the flash kernels on the card); the embedding and LM
 head are vocab-parallel and the loss is the vocab-parallel cross-entropy
 (``parallel/tensor_parallel.py``: the logits stay ``[B, S, V / tp]``).
 ZeRO-3's sharded leaves arrive as ``runtime/zero.ZeroShard`` and are
-gathered per layer just before it runs (``run_gathered``). The loss is
+gathered per layer just before it runs (``run_gathered``). An MoE layer
+runs ``moe_mlp`` with the plan: its routing over the global token set of
+the batch axes, this rank's ``num_experts / ep`` experts (split over
+``expert``, and on F over ``model``) between the expert region's
+collectives, and its aux loss as this rank's share of the global one. The loss is
 this rank's share of the GLOBAL masked mean: its masked sum over the token
 count all-reduced over the plan's batch axes (``(data, fsdp)``, and
 ``seq`` under sequence parallelism, where a rank holds a contiguous chunk
@@ -76,10 +80,13 @@ TP_AXIS = "model"
 @dataclass(frozen=True)
 class ParallelPlan:
     """What the model needs to know of the mesh: the size of ``TP_AXIS``
-    (tensor parallelism), and the axes the loss's token count is summed
-    over (the batch axes, plus ``seq`` under sequence parallelism)."""
+    (tensor parallelism), the axes the loss's token count is summed over
+    (the batch axes, plus ``seq`` under sequence parallelism: an MoE
+    layer routes over the tokens of the same axes), and the size of the
+    ``expert`` axis (an MoE layer holds ``num_experts / ep`` experts)."""
     tp: int = 1
     batch_axes: Tuple[str, ...] = BATCH_AXES
+    ep: int = 1
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -226,7 +233,7 @@ class CausalLM:
                 if jitter_seed is not None:
                     gen = torch.Generator(device=y.device).manual_seed(
                         jitter_seed)
-                return moe_mlp(p["moe"], y, cfg, gen)
+                return moe_mlp(p["moe"], y, cfg, gen, plan=self.parallel)
             return mlp_block(p["mlp"], y, cfg, tp_axis=tp_axis), 0.0
 
         x_norm = norm(x, p["attn_norm"], cfg)
@@ -291,6 +298,10 @@ class CausalLM:
         if jitter and rng is None:
             rng = torch.Generator(device=x.device).manual_seed(self.seed)
         aux = 0.0
+        if jitter:
+            # a pipe stage's block draws the seeds of its own layers
+            for _ in range(first):
+                torch.randint(2 ** 62, (1,), generator=rng, device=rng.device)
         for i, p in enumerate(layers, start=first):
             window = (cfg.attn_windows[i] if cfg.attn_windows is not None
                       else cfg.sliding_window)
@@ -378,7 +389,9 @@ class CausalLM:
         the count is all-reduced over the batch axes (this rank's share of
         the global mean), and under TP the logsumexp is the vocab-parallel
         one. An MoE model adds ``aux_loss_coef`` times the layers'
-        summed load-balance loss and reports that sum as ``moe_aux_loss``.
+        summed load-balance loss and reports that sum as ``moe_aux_loss``
+        (under a plan this rank's share of it, as the LM loss is: the
+        shares sum over the batch axes to the global values).
         Returns ``(loss, {"lm_loss": ..., ["moe_aux_loss": ...]})``.
         ``rng``: the router jitter's ``torch.Generator`` (only an MoE model
         with ``router_jitter > 0`` draws from it)."""

@@ -1,9 +1,15 @@
 """Mixture-of-Experts: the capacity-buffer training path and exact top-k
 serving.
 
-Port of ``deepspeedsyclsupport_tpu/parallel/moe.py`` on one card (expert
-parallelism 1; the JAX package's expert-axis sharding is A.3.1's ``comm/``
-step).
+Port of ``deepspeedsyclsupport_tpu/parallel/moe.py``, on one card and
+across ranks. The JAX package writes the MoE layer as one global function
+that GSPMD partitions (tokens split over (data, fsdp), experts over
+``expert``); here each rank computes its part of that function
+(:func:`moe_mlp` with a ``plan``): the routing over the GLOBAL token set
+from all-gathered counts (:func:`global_slots`), its ``E / ep`` experts
+on its own tokens, and the expert region's two collectives (tokens are
+replicated over ``expert`` and ``model``, so no token moves between
+ranks: the partial outputs are all-reduced instead).
 
 Training (:func:`topk_gating`, :func:`moe_mlp`): router logits in float32,
 softmax, top-k (ties to the lower expert index, as ``jax.lax.top_k``),
@@ -59,33 +65,103 @@ def _activation(name: str) -> Callable:
     return lambda x: F.gelu(x, approximate="tanh")
 
 
-def _capacity_route(logits: torch.Tensor, k: int, capacity: int,
-                    generator: Optional[torch.Generator] = None,
-                    jitter: float = 0.0):
-    """The capacity routing of :func:`topk_gating` over its ``k * T``
-    (choice, token) rows, choice-major (row ``c * T + t``: all top-1
-    choices first, so they win capacity slots over top-2 spill). Returns
-    ``(expert [kT] int64, pos [kT] int64 slot in the expert's buffer,
-    keep [kT] bool, gate [kT] float32 renormalised weight, 0 where
-    dropped, aux float32 scalar)``."""
-    t, e = logits.shape
-    if jitter > 0.0 and generator is not None:
-        noise = torch.empty(logits.shape, dtype=logits.dtype,
-                            device=logits.device)
-        noise.uniform_(1.0 - jitter, 1.0 + jitter, generator=generator)
+def _topk(logits: torch.Tensor, k: int,
+          noise: Optional[torch.Tensor] = None):
+    """``(probs [T, E] float32, top_w [T, k], top_e [T, k] int64)``: the
+    softmax of the (jittered) logits and its top-k, ties to the lower
+    expert index."""
+    if noise is not None:
         logits = logits * noise
     probs = torch.softmax(logits.float(), dim=-1)                # [T, E]
     # jax.lax.top_k takes the lower index on a tie; a stable descending
     # sort keeps equal probabilities in index order (torch.topk promises
     # no order among ties)
     top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[:, :k], top_e[:, :k]                     # [T, k]
-    me = probs.mean(dim=0)
-    ce = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
-    aux = (me * ce).sum() * e
+    return probs, top_w[:, :k], top_e[:, :k]
+
+
+def _jitter(shape, dtype, device, generator: Optional[torch.Generator],
+            jitter: float) -> Optional[torch.Tensor]:
+    """The router's multiplicative noise, uniform in ``[1 - jitter, 1 +
+    jitter]`` (None without jitter or generator)."""
+    if not (jitter > 0.0 and generator is not None):
+        return None
+    noise = torch.empty(shape, dtype=dtype, device=device)
+    return noise.uniform_(1.0 - jitter, 1.0 + jitter, generator=generator)
+
+
+def segment_counts(top_e: torch.Tensor, e: int, segments: int = 1
+                   ) -> torch.Tensor:
+    """``[G, k, E]`` int64: how many of each of ``segments`` (G) runs of
+    consecutive tokens chose each expert as their choice ``c``. ``top_e``
+    [T, k], T = G x L."""
+    t, k = top_e.shape
+    onehot = F.one_hot(top_e.reshape(segments, t // segments, k), e)
+    return onehot.sum(dim=1)
+
+
+def global_slots(top_e: torch.Tensor, all_counts: torch.Tensor,
+                 mine: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity slots of this rank's (choice, token) rows in the order
+    of the GLOBAL token set (the JAX package's cumsum over every token of
+    the micro-batch, choice-major), from this rank's choices alone and
+    every segment's counts.
+
+    ``top_e`` [T, k]: this rank's choices, its tokens in G segments of L
+    consecutive tokens; ``all_counts`` [N, k, E]: every segment's
+    :func:`segment_counts` in global token order (candidates before the
+    capacity cut: a dropped row still takes its place in the order);
+    ``mine`` [G] int64: the global index of each of this rank's segments.
+    A row's slot is the count of every segment's rows of earlier choices
+    for its expert, plus earlier segments' rows of its choice, plus the
+    rows before it in its segment. Returns ``(expert [kT], pos [kT])``,
+    row ``c * T + t``; with one segment holding every token it is the
+    single-card cumsum."""
+    t, k = top_e.shape
+    e = all_counts.shape[-1]
+    g = int(mine.numel())
     expert = top_e.t().reshape(k * t)
-    onehot = F.one_hot(expert, e)                                 # [kT, E]
-    pos = (onehot.cumsum(0) - onehot).gather(1, expert[:, None])[:, 0]
+    onehot = F.one_hot(expert, e).view(k, g, t // g, e)
+    within = onehot.cumsum(2) - onehot                          # [k,G,L,E]
+    totals = all_counts.sum(dim=0)                              # [k, E]
+    before_choice = totals.cumsum(0) - totals
+    before_seg = all_counts.cumsum(0) - all_counts              # [N, k, E]
+    offset = before_choice[:, None] + before_seg[mine].transpose(0, 1)
+    pos = (within + offset[:, :, None]).view(k * t, e)
+    return expert, pos.gather(1, expert[:, None])[:, 0]
+
+
+def _capacity_route(logits: torch.Tensor, k: int, capacity: int,
+                    generator: Optional[torch.Generator] = None,
+                    jitter: float = 0.0, tokens: Optional["_Tokens"] = None):
+    """The capacity routing of :func:`topk_gating` over its ``k * T``
+    (choice, token) rows, choice-major (row ``c * T + t``: all top-1
+    choices first, so they win capacity slots over top-2 spill). Returns
+    ``(expert [kT] int64, pos [kT] int64 slot in the expert's buffer,
+    keep [kT] bool, gate [kT] float32 renormalised weight, 0 where
+    dropped, aux float32 scalar)``. ``tokens`` (a :class:`_Tokens`, under a
+    process group): ``logits`` are this rank's tokens of the micro-batch,
+    routed over its global token set (``capacity`` is the global one), and
+    ``aux`` is this rank's share (:func:`moe_mlp`); None: every token of
+    the micro-batch is here."""
+    t, e = logits.shape
+    if tokens is None:
+        tokens = _Tokens(1, t, None, logits.device)
+    n = tokens.n
+    noise = _jitter((t * n, e), logits.dtype, logits.device, generator,
+                    jitter)
+    if noise is not None:
+        noise = noise.view(tokens.segments, -1, e)[tokens.mine].reshape(t, e)
+    probs, top_w, top_e = _topk(logits, k, noise)
+    all_counts = tokens.gather(segment_counts(top_e, e, tokens.g))
+    expert, pos = global_slots(top_e, all_counts, tokens.mine)
+    if n == 1:
+        me = probs.mean(dim=0)
+        ce = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
+    else:
+        me = probs.mean(dim=0) / n
+        ce = all_counts[:, 0].sum(dim=0).float() / (t * n)
+    aux = (me * ce).sum() * e
     keep = pos < capacity
     gate = top_w / top_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     gate = gate.t().reshape(k * t) * keep
@@ -122,8 +198,61 @@ def capacity(tokens: int, cfg) -> int:
                              / cfg.num_experts)), k)
 
 
+class _Tokens:
+    """Where this rank's tokens sit in the micro-batch's global token order
+    (row-major over (row, position); rows split over (data, fsdp) in rank
+    order, positions over ``seq`` in contiguous chunks under sequence
+    parallelism): ``n`` ranks share the micro-batch, and this rank's T
+    tokens are G segments of L consecutive global tokens (G = its rows
+    under sequence parallelism, else 1) whose global segment indices, of
+    ``segments``, are ``mine`` [G]. Without a plan every token is here
+    (n = G = 1)."""
+
+    def __init__(self, rows: int, t: int, plan, device):
+        from ..comm import comm
+
+        axes = tuple(getattr(plan, "batch_axes", ()) or ())
+        sizes = {a: comm.axis_size(a) for a in axes}
+        self.axes = tuple(a for a in axes if sizes[a] > 1)
+        self.n = math.prod(sizes.values()) if sizes else 1
+        self.sp = sizes.get("seq", 1)
+        self.g = rows if self.sp > 1 else 1
+        r = comm.axis_index(("data", "fsdp")) if self.n > self.sp else 0
+        q = comm.axis_index("seq") if self.sp > 1 else 0
+        self.segments = self.n * self.g
+        self.mine = (r * self.g) * self.sp + q + self.sp * torch.arange(
+            self.g, device=device)
+
+    def gather(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every rank's :func:`segment_counts` ``[G, k, E]`` -> ``[N, k,
+        E]`` in global segment order (one all-gather over the batch
+        axes)."""
+        from ..comm import comm
+
+        if not self.axes:
+            return counts
+        axis = self.axes[0] if len(self.axes) == 1 else self.axes
+        got = comm.all_gather(counts, axis, tiled=False)   # [n, G, k, E]
+        got = got.view(self.n // self.sp, self.sp, *counts.shape)
+        return got.transpose(1, 2).reshape(self.segments,
+                                           *counts.shape[1:])
+
+
+def expert_region(plan) -> Optional[Any]:
+    """The axes an MoE layer's expert part is partial over: ``expert`` (a
+    rank holds E / ep experts) and ``model`` (each expert's GLU split on F
+    over tp), those of size > 1 (a name, a tuple, or None)."""
+    if plan is None:
+        return None
+    axes = tuple(a for a, n in (("expert", plan.ep), ("model", plan.tp))
+                 if n > 1)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
 def moe_mlp(p: Dict[str, Any], x: torch.Tensor, cfg,
-            generator: Optional[torch.Generator] = None
+            generator: Optional[torch.Generator] = None, plan=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE GLU block with capacity buffers (JAX ``moe_mlp``), the training
     path. ``x`` [B, S, D] -> ``(out [B, S, D], aux_loss float32)``.
@@ -133,26 +262,66 @@ def moe_mlp(p: Dict[str, Any], x: torch.Tensor, cfg,
     ``[E, C, D]`` (each slot holds at most one row; empty slots are 0),
     the experts run as batched GEMMs in ``x``'s dtype, and each token sums
     its kept choices' rows times their combine weights (rounded to ``x``'s
-    dtype, as the JAX package casts combine) in float32, rounded once."""
+    dtype, as the JAX package casts combine) in float32, rounded once.
+
+    ``plan`` (the model's ``ParallelPlan`` under a process group): ``x``
+    holds this rank's tokens of the micro-batch (its rows of the batch
+    axes, its chunk under ``seq``), and the routing is the JAX package's
+    over the GLOBAL token set: capacity from the global token count, each
+    row's slot from every rank's counts (:func:`global_slots` after one
+    all-gather of ``[G, k, E]`` counts over the batch axes), and the aux
+    loss returned as this rank's share ``E * sum_e (probs_e summed here /
+    T_global) * top1_frac_e (global)``: the shares sum over the batch
+    ranks to the JAX aux, and a share's gradient reaches this rank's probs
+    alone. The jitter noise is drawn for the global token set and this
+    rank's tokens take theirs from it, so ranks holding the same tokens
+    draw the same noise. The rank runs its ``E / ep`` experts (its shards
+    of ``w_*``, split on F over ``model`` under tensor parallelism) on the
+    kept rows routed to them: the tokens and the combine weights enter
+    through ``copy_to_model_region`` over :func:`expert_region` (identity;
+    the gradient all-reduced) and the partial output ``[T, D]`` (float32)
+    leaves through ``reduce_from_model_region`` (all-reduced; identity
+    backward), so the leaves replicated over the region (router,
+    attention, norms) get full and equal gradients on each of its ranks.
+    At a world of one every step is the single-card arithmetic."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    cap = capacity(t, cfg)
+    tok = _Tokens(b, t, plan, x.device)
+    cap = capacity(t * tok.n, cfg)
     xt = x.reshape(t, d)
     logits = xt.float() @ p["router"].float()
     expert, pos, keep, gate, aux = _capacity_route(
-        logits, k, cap, generator, cfg.router_jitter)
-    # kept rows to their slots; dropped rows to one sink row past the
-    # buffers, which no expert reads
-    slot = torch.where(keep, expert * cap + pos, e * cap)
-    buf = xt.new_zeros(e * cap + 1, d).index_add(0, slot, xt.repeat(k, 1))
-    h = buf[:e * cap].view(e, cap, d)
+        logits, k, cap, generator, cfg.router_jitter, tokens=tok)
+    # this rank's experts [lo, lo + el): the kept rows routed to them to
+    # their slots, every other row to one sink row past the buffers, which
+    # no expert reads
+    ep = getattr(plan, "ep", 1)
+    el, lo = e // ep, 0
+    if ep > 1:
+        from ..comm import comm
+
+        lo = comm.axis_index("expert") * el
+    here = keep & (expert >= lo) & (expert < lo + el)
+    slot = torch.where(here, (expert - lo) * cap + pos, el * cap)
+    region = expert_region(plan)
+    if region is not None:
+        from .tensor_parallel import copy_to_model_region
+
+        xt = copy_to_model_region(xt, region)
+        gate = copy_to_model_region(gate, region)
+    buf = xt.new_zeros(el * cap + 1, d).index_add(0, slot, xt.repeat(k, 1))
+    h = buf[:el * cap].view(el, cap, d)
     act = _activation(cfg.activation)
     wg, wu, wd = (p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down"))
     y = torch.bmm(act(torch.bmm(h, wg)) * torch.bmm(h, wu), wd)  # [E, C, D]
-    y = torch.cat([y.reshape(e * cap, d), y.new_zeros(1, d)])
+    y = torch.cat([y.reshape(el * cap, d), y.new_zeros(1, d)])
     w = gate.to(x.dtype).float()
     out = (y[slot].float() * w[:, None]).view(k, t, d).sum(dim=0)
+    if region is not None:
+        from .tensor_parallel import reduce_from_model_region
+
+        out = reduce_from_model_region(out, region)
     return out.to(x.dtype).view(b, s, d), aux
 
 

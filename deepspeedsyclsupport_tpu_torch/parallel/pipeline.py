@@ -268,23 +268,31 @@ def partition_uniform(num_layers: int, num_parts: int) -> List[int]:
 def run_schedule(schedule: PipeSchedule, first_input: Callable,
                  forward: Callable, last_part: Callable,
                  recv_like: Callable, *, train: bool,
-                 loss_scale: float = 1.0, axis: str = "pipe"
+                 loss_scale: float = 1.0, axis: str = "pipe",
+                 aux_coef: float = 0.0,
+                 aux_out: Optional[Dict[int, torch.Tensor]] = None
                  ) -> Dict[int, torch.Tensor]:
     """Walk ``schedule.steps()`` on this rank (the stage
     ``schedule.stage_id`` of ``axis``) up to its reduce / step
     instructions.
 
     ``first_input(m)``: the first stage's input of micro-batch ``m``;
-    ``forward(m, x)``: this stage's output on ``x``; ``last_part(m, y)``:
-    the last stage's scalar part of micro-batch ``m``; ``recv_like(m)``: an
-    empty tensor of the activation's shape, dtype and device. With
-    ``train`` the walk runs the backward (the last stage's parts times
-    ``loss_scale``) and leaves the grads in the params' ``.grad``; without
-    it (``InferenceSchedule``) autograd is off. Returns ``{m: the detached
-    part}`` on the last stage, ``{}`` elsewhere."""
+    ``forward(m, x)``: this stage's output on ``x``, or ``(output, aux)``
+    with ``aux`` a scalar of this stage's own (an MoE layer's load-balance
+    loss); ``last_part(m, y)``: the last stage's scalar part of micro-batch
+    ``m``; ``recv_like(m)``: an empty tensor of the activation's shape,
+    dtype and device. With ``train`` the walk runs the backward (the last
+    stage's parts times ``loss_scale``; a stage's ``aux`` seeded with
+    ``aux_coef * loss_scale`` beside its output's gradient, so the aux's
+    gradient reaches the stages before through the SendGrad of the
+    activation it was computed from) and leaves the grads in the params'
+    ``.grad``; without it (``InferenceSchedule``) autograd is off. Returns
+    ``{m: the detached part}`` on the last stage, ``{}`` elsewhere;
+    ``aux_out`` collects ``{m: the detached aux}`` on every stage."""
     first, last = schedule.is_first_stage, schedule.is_last_stage
     inputs: Dict[int, Any] = {}
     outputs: Dict[int, torch.Tensor] = {}
+    auxes: Dict[int, torch.Tensor] = {}
     grads: Dict[int, torch.Tensor] = {}
     parts: Dict[int, torch.Tensor] = {}
     sends = []
@@ -303,6 +311,13 @@ def run_schedule(schedule: PipeSchedule, first_input: Callable,
                 elif isinstance(cmd, ForwardPass):
                     x = first_input(m) if first else inputs[buf]
                     y = forward(m, x)
+                    if isinstance(y, tuple):
+                        y, aux = y
+                        if isinstance(aux, torch.Tensor):
+                            if aux_out is not None:
+                                aux_out[m] = aux.detach()
+                            if train and aux.requires_grad:
+                                auxes[buf] = aux
                     if last:
                         y = last_part(m, y)
                         parts[m] = y.detach()
@@ -318,7 +333,14 @@ def run_schedule(schedule: PipeSchedule, first_input: Callable,
                                            schedule.next_stage, axis)
                 elif isinstance(cmd, BackwardPass):
                     y = outputs.pop(buf)
-                    if last:
+                    aux = auxes.pop(buf, None)
+                    if aux is not None:
+                        seed = y.new_tensor(loss_scale) if last \
+                            else grads.pop(buf)
+                        torch.autograd.backward(
+                            [y, aux],
+                            [seed, aux.new_tensor(aux_coef * loss_scale)])
+                    elif last:
                         torch.autograd.backward(y * loss_scale)
                     else:
                         torch.autograd.backward(y, grads.pop(buf))
@@ -345,16 +367,23 @@ def _strided(t: Optional[torch.Tensor], m: int, n: int):
 
 def pipelined_loss(model, params, batch: Dict[str, torch.Tensor],
                    n_micro: int, *, train: bool = True,
-                   loss_scale: float = 1.0, axis: str = "pipe"
-                   ) -> torch.Tensor:
+                   loss_scale: float = 1.0, axis: str = "pipe",
+                   rng: Optional[torch.Generator] = None):
     """One (gradient-accumulation) micro-batch of a causal LM through the
     pipeline: ``params`` hold this stage's block of layers (and the
     entries replicated over ``pipe``), ``batch`` this rank's rows, the
     same on every stage. Embedding on the first stage, the head and the
     loss on the last, ``n_micro`` micro-batches, strided. With ``train``
-    the backward runs too (1F1B). Returns this rank's share of the loss:
-    the sum of its parts on the last stage (each a micro-batch's masked
-    sum over the token count summed over the batch axes), 0 elsewhere."""
+    the backward runs too (1F1B). Returns this rank's share of the LM
+    loss: the sum of its parts on the last stage (each a micro-batch's
+    masked sum over the token count summed over the batch axes), 0
+    elsewhere. An MoE model returns ``(lm share, aux share)``: the aux is
+    this stage's layers' load-balance loss summed over its layers and the
+    micro-batches, as the JAX pipeline sums it (``aux.sum()``, not a
+    mean); each micro-batch routes over its global tokens, and each stage
+    seeds its aux with ``aux_loss_coef`` times the loss scale in its own
+    backward. ``rng``: the router jitter's generator, from which one seed a
+    micro-batch is drawn (on every stage alike)."""
     topo = get_world_topology()
     stages, stage = topo.axis_size(axis), topo.axis_index(axis)
     ids = batch["input_ids"]
@@ -377,15 +406,26 @@ def pipelined_loss(model, params, batch: Dict[str, torch.Tensor],
     cfg = model.config
     from ..models.transformer import compute_dtype
 
+    moe = bool(getattr(cfg, "any_moe", False))
+    seeds = [None] * n_micro
+    if moe and cfg.router_jitter > 0.0 and rng is not None:
+        seeds = [int(torch.randint(2 ** 62, (1,), generator=rng,
+                                   device=rng.device))
+                 for _ in range(n_micro)]
+
     def first_input(m):
         return model.embed(params, _strided(ids, m, n_micro),
                            _strided(positions, m, n_micro))
 
     def forward(m, x):
-        return model.trunk(params["layers"], x,
-                           _strided(positions, m, n_micro),
-                           _strided(segment_ids, m, n_micro),
-                           first=first_layer)[0]
+        gen = None
+        if seeds[m] is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seeds[m])
+        y, aux = model.trunk(params["layers"], x,
+                             _strided(positions, m, n_micro),
+                             _strided(segment_ids, m, n_micro), rng=gen,
+                             first=first_layer)
+        return (y, aux) if moe else y
 
     def last_part(m, y):
         return model.nll_sum(model.head(params, y),
@@ -396,11 +436,17 @@ def pipelined_loss(model, params, batch: Dict[str, torch.Tensor],
         return torch.empty((rows // n_micro, seq, cfg.hidden_size),
                            dtype=compute_dtype(cfg), device=ids.device)
 
+    auxes: Dict[int, torch.Tensor] = {}
     parts = run_schedule(sched, first_input, forward, last_part, recv_like,
-                         train=train, loss_scale=loss_scale, axis=axis)
-    if not parts:
-        return torch.zeros((), device=ids.device)
-    return torch.stack([parts[m] for m in sorted(parts)]).sum()
+                         train=train, loss_scale=loss_scale, axis=axis,
+                         aux_coef=float(getattr(cfg, "aux_loss_coef", 0.0)),
+                         aux_out=auxes)
+    zero = torch.zeros((), device=ids.device)
+    lm = torch.stack([parts[m] for m in sorted(parts)]).sum() if parts \
+        else zero
+    if not moe:
+        return lm
+    return lm, torch.stack([auxes[m] for m in sorted(auxes)]).sum()
 
 
 # ============================================================================

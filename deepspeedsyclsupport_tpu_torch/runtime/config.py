@@ -6,7 +6,8 @@ the sections the engine uses: the batch family and its invariant
 ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage`` and
 ``mics_shard_size``, the mesh sizes (``parallelism.dp / fsdp / tp / pp /
 sp``, ``tensor_parallel.tp_size``, ``pipeline.stages`` / ``micro_batches``,
-``sequence_parallel_size``: :class:`ParallelismConfig`),
+``sequence_parallel_size``, ``parallelism.ep`` /
+``moe.expert_parallel_size``: :class:`ParallelismConfig`),
 ``gradient_clipping``, ``activation_checkpointing``, ``checkpoint``,
 ``sentinel``, ``comms_logger``, ``seed`` and ``steps_per_print``. Key names
 are the reference's, so one JSON file drives both packages.
@@ -17,7 +18,7 @@ stage runs the same program, as the JAX package does on one device.
 
 Every enabled section the port does not do yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload, ZeRO++,
-expert parallelism, elasticity, telemetry, monitors,
+elasticity, telemetry, monitors,
 the flops profiler, compression/QAT, curriculum learning, progressive layer
 drop and random-LTD. None is silently ignored.
 """
@@ -71,14 +72,6 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
         raise _unported("ZeRO++ (quantized weights / gradients, hpZ "
                         "partitions)", "A.3.1 (distributed training: "
                         "ZeRO++)")
-    par = _sub(d, C.PARALLELISM)
-    sizes = {"parallelism.ep": par.get("ep", 1),
-             "moe.expert_parallel_size": _sub(d, C.MOE).get(
-                 "expert_parallel_size", 1)}
-    for name, n in sizes.items():
-        if int(n) > 1:
-            raise _unported(f"{name} = {n} (expert parallelism)",
-                            "A.3.1 (distributed training: EP MoE)")
     checks = [
         (C.ELASTICITY, "elasticity (elastic batch sizes over a changing "
          "card count)", "A.3.1 (distributed training)"),
@@ -304,8 +297,8 @@ class ParallelismConfig:
     fsdp, stage 0 on data. ``-1`` is the rest of the world. ``pp`` is
     ``parallelism.pp`` or ``pipeline.stages``, ``pp_microbatches``
     ``pipeline.micro_batches`` (None: one a stage), ``sp``
-    ``parallelism.sp`` or ``sequence_parallel_size``. Expert sizes above 1
-    are refused before this is built."""
+    ``parallelism.sp`` or ``sequence_parallel_size``, ``ep``
+    ``parallelism.ep`` or ``moe.expert_parallel_size``."""
     dp: int = -1
     fsdp: int = 1
     tp: int = 1
@@ -323,6 +316,7 @@ class ParallelismConfig:
         pp = int(p.get("pp", pipe_sec.get("stages", 1)))
         pp_micro = pipe_sec.get("micro_batches")
         pp_micro = int(pp_micro) if pp_micro is not None else None
+        ep = int(p.get("ep", _sub(d, C.MOE).get("expert_parallel_size", 1)))
         sp = int(p.get("sp", d.get(C.SEQUENCE_PARALLEL_SIZE, 1)))
         fsdp = int(p.get("fsdp", 0)) or 0
         dp = int(p.get("dp", 0)) or 0
@@ -341,7 +335,7 @@ class ParallelismConfig:
             fsdp = 1
         elif not dp:
             dp = 1
-        return cls(dp=dp, fsdp=fsdp, tp=tp, pp=pp, sp=sp,
+        return cls(dp=dp, fsdp=fsdp, tp=tp, pp=pp, ep=ep, sp=sp,
                    pp_microbatches=pp_micro)
 
 

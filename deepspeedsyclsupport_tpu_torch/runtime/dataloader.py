@@ -15,7 +15,9 @@ coordinate, as the JAX loader's ``data_sharding`` places them
 ``gradient_accumulation_steps`` > 1 the rows come in the order the engine's
 micro-batches take them (the JAX engine cuts the global batch into
 micro-batches first and splits each over the ranks). Ranks that differ
-only on ``model`` get the same rows.
+only on ``model`` or ``expert`` get the same rows (the JAX package
+replicates tokens over both: an MoE layer's expert ranks see the same
+tokens and each runs its own experts on them).
 
 Iterator state is checkpointable (``state_dict`` / ``load_state_dict``:
 epoch and offset within it, plus the shuffle seed), the engine carries it in
@@ -41,8 +43,9 @@ def rank_rows(x, topology: MeshTopology, gas: int = 1,
     """``rank``'s (default: this process's) rows of a global batch leaf
     ``x`` (see the module docstring): for each of the ``gas`` micro-batches
     of consecutive rows, its ``c``-th of ``n`` blocks, (data, fsdp) index
-    ``c``. Every ``pipe`` and ``seq`` rank of a (data, fsdp) coordinate
-    reads the same rows: a pipeline's stages all need them (the first the
+    ``c``. Every ``pipe``, ``seq``, ``expert`` and ``model`` rank of a
+    (data, fsdp) coordinate reads the same rows: a pipeline's stages all
+    need them (the first the
     ids, the last the labels), and a ``seq`` rank's chunk of each row is
     cut by the engine after the labels' shift."""
     n = topology.get_data_parallel_world_size()

@@ -64,6 +64,19 @@ Sequence parallelism (mesh axis ``seq``, ``attn_impl`` ``ring`` or
 row first and positions global; the token count is summed over (data,
 fsdp, seq) and every grad also over ``seq``.
 
+Expert parallelism (mesh axis ``expert``, an MoE model): a rank holds
+``num_experts / ep`` experts of each MoE layer (under tensor parallelism
+their F / tp columns), its tokens are replicated over ``expert``, and each
+MoE layer routes the global tokens of its micro-batch
+(``parallel/moe.py``); the leaves replicated over ``expert`` get their
+full gradient on every expert rank through the expert region, so no grad
+is summed over ``expert``: every leaf's over the batch axes alone, and an
+expert leaf counts as split in the grad norm. The loss carries each
+rank's share of the aux loss, so the reported loss and ``moe_aux_loss``
+count it once. Under a pipeline each stage seeds its own aux in its
+backward and the aux is summed over stages, micro-batches and layers, as
+the JAX pipeline sums it.
+
 ``shard_params_from_jax`` and ``gather_params`` carry weights between the
 JAX package's global tree and the ranks' shards. The sentinel, preemption
 handling and checkpoints across ranks (A.3.3b) are refused at a world
@@ -260,29 +273,41 @@ def engine_state_from_jax(opt_state: Any, scaler: Any) -> Dict[str, Any]:
                                                   for x in scaler)))}
 
 
-def shard_params_from_jax(np_tree: Any, cfg: Any, topology: MeshTopology,
-                          stage: int, rank: Optional[int] = None) -> Any:
-    """The JAX package's global params (numpy leaves, layers stacked
-    ``[L, ...]`` or listed) as ``rank``'s shards (default: this process's)
-    in the port's tree (a list of layers), numpy leaves: the plan of
-    ``runtime/zero.py`` with the port model's ``sharding_rules``. What
-    ``initialize`` takes as this rank's params."""
-    from ..models.transformer import CausalLM, params_from_jax
+def shard_params(params: Any, cfg: Any, topology: MeshTopology, stage: int,
+                 rank: Optional[int] = None) -> Any:
+    """The port's full params tree (torch leaves, a list of layers) as
+    ``rank``'s shards (default: this process's): the plan of
+    ``runtime/zero.py`` with the port model's ``sharding_rules``, each
+    shard a copy (the full tree can be freed). What ``initialize`` takes as
+    this rank's params."""
+    from ..models.transformer import CausalLM
 
     pp = topology.axis_sizes["pipe"]
     if pp > 1:
         cfg = dataclasses.replace(cfg, pipe_stages=pp)
     model = CausalLM(cfg)
-    full = params_from_jax(np_tree, cfg, device="cpu")
-    mine = zero_lib.stage_tree(full, topology, rank)
+    mine = zero_lib.stage_tree(params, topology, rank)
     specs = zero_lib.tree_param_shardings(
         mine, topology, stage, extra_rules=model.sharding_rules,
         stacked=bool(getattr(cfg, "scan_layers", True)),
-        n_layers=len(full["layers"]))
-    leaves = {path: t.numpy()[topology.shard_slices(
-        tuple(t.shape), specs[path], rank)]
+        n_layers=len(params["layers"]))
+    leaves = {path: t[topology.shard_slices(tuple(t.shape), specs[path],
+                                            rank)].clone()
               for path, t in zero_lib._walk(mine)}
     return _rebuild(mine, leaves)
+
+
+def shard_params_from_jax(np_tree: Any, cfg: Any, topology: MeshTopology,
+                          stage: int, rank: Optional[int] = None) -> Any:
+    """The JAX package's global params (numpy leaves, layers stacked
+    ``[L, ...]`` or listed) as ``rank``'s shards (default: this process's)
+    in the port's tree (a list of layers), numpy leaves
+    (:func:`shard_params` of ``params_from_jax``)."""
+    from ..models.transformer import params_from_jax
+
+    full = params_from_jax(np_tree, cfg, device="cpu")
+    return _tree_map(lambda t: t.numpy(),
+                     shard_params(full, cfg, topology, stage, rank))
 
 
 @torch.no_grad()
@@ -468,19 +493,14 @@ class Engine:
         p = self.config.parallelism
         if topology is None:
             if not started:
-                if max(p.tp, p.fsdp, p.dp, p.pp, p.sp) > 1:
+                if max(p.tp, p.fsdp, p.dp, p.pp, p.sp, p.ep) > 1:
                     raise RuntimeError(
                         f"parallelism dp={p.dp} fsdp={p.fsdp} tp={p.tp} "
-                        f"pp={p.pp} sp={p.sp} needs a process group: call "
-                        f"comm.init_distributed first")
+                        f"pp={p.pp} sp={p.sp} ep={p.ep} needs a process "
+                        f"group: call comm.init_distributed first")
                 return None
             topology = build_topology(dp=p.dp, fsdp=p.fsdp, tp=p.tp,
-                                      pp=p.pp, sp=p.sp)
-        if topology.axis_sizes["expert"] > 1:
-            raise NotImplementedError(
-                f"expert parallelism (mesh axis 'expert' = "
-                f"{topology.axis_sizes['expert']}) is not ported yet: "
-                f"ROADMAP.md, queue A.3.1 (distributed training: EP MoE)")
+                                      pp=p.pp, ep=p.ep, sp=p.sp)
         if not started:
             if topology.world_size() > 1:
                 raise RuntimeError(f"{topology} spans "
@@ -507,11 +527,10 @@ class Engine:
                     f"within it)")
         if sizes["pipe"] > 1:
             zero_lib.layer_block(cfg.num_layers, self.topology)
-        if getattr(cfg, "any_moe", False):
-            raise NotImplementedError(
-                "MoE layers under torch.distributed (the routing statistics "
-                "and the experts across ranks) are not ported yet: ROADMAP."
-                "md, queue A.3.1 (distributed training: EP MoE)")
+        ep = sizes["expert"]
+        if getattr(cfg, "any_moe", False) and cfg.num_experts % ep:
+            raise ValueError(f"expert parallelism {ep} must divide the "
+                             f"{cfg.num_experts} experts")
         if tp > 1:
             if cfg.num_heads % tp or cfg.num_kv_heads % tp:
                 raise ValueError(f"tensor parallelism {tp} must divide the "
@@ -522,7 +541,7 @@ class Engine:
                     "biases of column-parallel layers under tensor "
                     "parallelism are not ported yet: ROADMAP.md, queue "
                     "A.3.1 (distributed training)")
-        return ParallelPlan(tp=tp, batch_axes=self._batch_axes)
+        return ParallelPlan(tp=tp, batch_axes=self._batch_axes, ep=ep)
 
     @property
     def _batch_axes(self) -> Tuple[str, ...]:
@@ -680,8 +699,7 @@ class Engine:
     def _micro_backward(self, batch, rng: torch.Generator
                         ) -> Tuple[torch.Tensor, Dict]:
         if self._pipelined:
-            loss = self._pipe_loss(batch, train=True)
-            return loss, {"lm_loss": loss}
+            return self._pipe_loss(batch, train=True, rng=rng)
         loss, metrics = self._loss_and_metrics(self.params, batch, rng=rng)
         scale_loss(loss, self.scaler_state).backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
@@ -690,17 +708,29 @@ class Engine:
     def _pipelined(self) -> bool:
         return self.distributed and self.topology.axis_sizes["pipe"] > 1
 
-    def _pipe_loss(self, batch, train: bool) -> torch.Tensor:
+    def _pipe_loss(self, batch, train: bool,
+                   rng: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One micro-batch through the pipeline (``parallel/pipeline.py``):
         forward and, when ``train``, the 1F1B backward with the loss scale;
-        this rank's share of the loss (0 off the last stage)."""
+        ``(this rank's share of the loss, its metrics)``: the LM loss's
+        share (0 off the last stage) and, for an MoE model, the aux loss's
+        (this stage's layers over the pipeline's micro-batches, summed as
+        the JAX pipeline sums it) times ``aux_loss_coef`` added to it, so
+        that the shares summed over pipe and the batch axes are the JAX
+        package's loss, ``lm_loss`` and ``moe_aux_loss``."""
         from ..parallel.pipeline import pipelined_loss
 
-        n = self.module.config.pipe_microbatches or \
-            self.topology.axis_sizes["pipe"]
-        return pipelined_loss(self.module, self._cast_params(self.params),
-                              batch, n, train=train,
-                              loss_scale=self.scaler_state.scale)
+        cfg = self.module.config
+        n = cfg.pipe_microbatches or self.topology.axis_sizes["pipe"]
+        out = pipelined_loss(self.module, self._cast_params(self.params),
+                             batch, n, train=train,
+                             loss_scale=self.scaler_state.scale, rng=rng)
+        if not isinstance(out, tuple):
+            return out, {"lm_loss": out}
+        lm, aux = out
+        return lm + cfg.aux_loss_coef * aux, {"lm_loss": lm,
+                                              "moe_aux_loss": aux}
 
     @torch.no_grad()
     def _apply_grads(self, grads: List[torch.Tensor],
@@ -839,15 +869,16 @@ class Engine:
 
     def _global_sum(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
         """Each rank's shares summed over the batch axes, in one call; under
-        a pipeline the last stage's sums broadcast over ``pipe`` (JAX
-        ``broadcast_from_last``), so every rank returns the same value."""
+        a pipeline over ``pipe`` too (the LM loss's shares are 0 off the
+        last stage, as JAX's ``broadcast_from_last`` reads them; an MoE
+        aux's shares are every stage's), so every rank returns the same
+        value."""
         if not self.distributed or not values:
             return values
-        total = comm.all_reduce(torch.stack(values), self._batch_axes)
-        pp = self.topology.axis_sizes["pipe"]
-        if pp > 1:
-            total = comm.broadcast(total, "pipe", src=pp - 1)
-        return list(total.unbind(0))
+        axes = self._batch_axes
+        if self.topology.axis_sizes["pipe"] > 1:
+            axes = ("pipe",) + axes
+        return list(comm.all_reduce(torch.stack(values), axes).unbind(0))
 
     def _reduce(self, g: torch.Tensor, axes) -> torch.Tensor:
         return comm.all_reduce(g, axes) \
@@ -862,7 +893,8 @@ class Engine:
         every grad is also summed over ``seq`` (params are replicated
         there); under a pipeline the leaves replicated over ``pipe``
         (embedding, final norm, head: ``ReduceTiedGrads``) also over
-        ``pipe``."""
+        ``pipe``. Each leaf's unreduced gradient is released (from
+        ``grads`` and its ``.grad``) as soon as its reduction is made."""
         topo, stage = self.topology, self.zero_stage
         k = topo.axis_index("fsdp")
         # the replicas of an fsdp shard (one axis named by itself, as the
@@ -887,6 +919,11 @@ class Engine:
             if pipe and path[0] != "layers":
                 g = comm.all_reduce(g, "pipe")
             out.append(g)
+            # the unreduced gradient is dead once its reduction is made:
+            # drop it now, not after the update (a ZeRO-2 leaf's full
+            # gradient is twice its reduced shard)
+            grads[i] = None
+            self._leaf_tensors[i].grad = None
         return out
 
     @torch.no_grad()
@@ -1083,7 +1120,8 @@ class Engine:
         group: the global batch, each rank on its block of rows)."""
         batch = self._rank_rows(self._to_device(batch), -1)
         if self._pipelined:
-            loss = self._pipe_loss(batch, train=False)
+            loss = self._pipe_loss(batch, train=False,
+                                   rng=self._generator(self.micro_steps))[0]
         else:
             loss = self._loss_and_metrics(self.params, batch, train=False)[0]
         return self._global_sum([loss])[0]

@@ -41,8 +41,9 @@ import torch
 ADAM_FAMILY = ("adam", "adamw", "fusedadam", "cpuadam")
 NOT_PORTED = ("lamb", "fusedlamb", "lion", "fusedlion", "sgd", "adagrad",
               "onebitadam", "zerooneadam", "onebitlamb")
-# leaves per foreach call: bounds the float32 temporaries of one update
-_CHUNK_ELEMS = 1 << 28
+# elements per foreach call: bounds the float32 temporaries of one update
+# (two of them: 512 MiB); a larger contiguous leaf is cut into flat views
+_CHUNK_ELEMS = 1 << 26
 
 
 def _common(params: Dict[str, Any]):
@@ -115,24 +116,40 @@ class Adam:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.decay = [self.mask is None or self.mask(s) for s in paths]
 
-    def _chunks(self):
+    def _pieces(self, grads: List[torch.Tensor]) -> List[tuple]:
+        """``(param, grad, mu, nu, decay)`` a leaf; a leaf of more than
+        ``_CHUNK_ELEMS`` elements whose four tensors are contiguous comes
+        as flat views of at most that many (the update is elementwise: the
+        cut changes no bit)."""
+        out = []
+        for *leaf, dec in zip(self.params, grads, self.mu, self.nu,
+                              self.decay):
+            if leaf[0].numel() > _CHUNK_ELEMS and \
+                    all(x.is_contiguous() for x in leaf):
+                out += [(*views, dec) for views in zip(
+                    *(x.view(-1).split(_CHUNK_ELEMS) for x in leaf))]
+            else:
+                out.append((*leaf, dec))
+        return out
+
+    @staticmethod
+    def _chunks(pieces: List[tuple]):
         start, elems = 0, 0
-        for i, p in enumerate(self.params):
-            if elems and elems + p.numel() > _CHUNK_ELEMS:
-                yield start, i
+        for i, piece in enumerate(pieces):
+            if elems and elems + piece[0].numel() > _CHUNK_ELEMS:
+                yield pieces[start:i]
                 start, elems = i, 0
-            elems += p.numel()
-        if start < len(self.params):
-            yield start, len(self.params)
+            elems += piece[0].numel()
+        if start < len(pieces):
+            yield pieces[start:]
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
         lr = float(self.schedule(self.count))
         t = self.count + 1
         bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
-        for a, z in self._chunks():
-            p, g = self.params[a:z], grads[a:z]
-            mu, nu = self.mu[a:z], self.nu[a:z]
+        for chunk in self._chunks(self._pieces(grads)):
+            p, g, mu, nu, decay = (list(x) for x in zip(*chunk))
             torch._foreach_mul_(mu, self.b1)
             torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
             torch._foreach_mul_(nu, self.b2)
@@ -144,7 +161,7 @@ class Adam:
             torch._foreach_div_(upd, denom)
             del denom
             if self.weight_decay:
-                keep = [i for i in range(z - a) if self.decay[a + i]]
+                keep = [i for i, d in enumerate(decay) if d]
                 if keep:
                     torch._foreach_add_([upd[i] for i in keep],
                                         [p[i] for i in keep],

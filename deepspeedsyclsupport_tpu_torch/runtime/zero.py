@@ -260,17 +260,40 @@ def tree_optimizer_shardings(params, param_specs: Dict[Tuple, Spec],
     return out
 
 
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def is_expert_leaf(path) -> bool:
+    """A leaf split over ``expert`` on its leading dim: an MoE layer's
+    ``moe/w_gate``, ``moe/w_up`` or ``moe/w_down``."""
+    names = [str(k) for k in path if not isinstance(k, int)]
+    return len(names) >= 2 and names[-2] == "moe" and \
+        names[-1] in EXPERT_LEAVES
+
+
+def expert_param_count(params) -> int:
+    """The elements of ``params``' expert leaves (:func:`is_expert_leaf`)."""
+    return sum(math.prod(_shape(p)) for path, p in _walk(params)
+               if is_expert_leaf(path))
+
+
 def predict_memory_per_device(n_params: int, fsdp: int, stage: int, *,
                               offload: bool = False,
                               compute_bytes: int = 4,
                               activation_bytes: float = 0.0,
                               remat: bool = False,
-                              num_layers: int = 1) -> float:
+                              num_layers: int = 1,
+                              expert_params: int = 0,
+                              ep: int = 1) -> float:
     """Predicted peak device bytes for one training step (the JAX
     package's model, term for term): fp32 master, fp32 grads and Adam's two
     moments, each divided by fsdp from its stage on, the compute-dtype copy
     when it is not fp32, and the activations (one layer's worth plus the
-    residual checkpoints under ``remat``)."""
+    residual checkpoints under ``remat``). Of the ``n_params``,
+    ``expert_params`` are experts split over ``ep`` ranks (a rank holds
+    ``E / ep`` of them); with the defaults it is the JAX function."""
+    if ep > 1 and expert_params:
+        n_params = n_params - expert_params + expert_params / ep
     n = max(fsdp, 1)
     param_factor = n if stage >= 3 and n > 1 else 1
     grad_factor = n if stage >= 2 and n > 1 else 1
@@ -297,11 +320,15 @@ def describe_memory_plan(params, topo: MeshTopology, stage: int) -> str:
     partition logging; offload is A.3.2). Under a pipeline the count is
     this rank's stage's (its block of layers and the replicated rest: what
     :func:`predict_memory_per_device` is to be given) and the report says
-    which block."""
-    pp = topo.axis_sizes["pipe"]
+    which block; under expert parallelism it counts this rank's
+    ``E / ep`` experts."""
+    pp, ep = topo.axis_sizes["pipe"], topo.axis_sizes["expert"]
     layers = params.get("layers") if isinstance(params, dict) else None
     mine = stage_tree(params, topo)
     n_params = sum(math.prod(_shape(p)) for _, p in _walk(mine))
+    experts = expert_param_count(mine)
+    if ep > 1 and experts:
+        n_params -= experts - experts // ep
     n = topo.axis_sizes["fsdp"]
     param_factor = n if stage >= 3 and n > 1 else 1
     grad_factor = n if stage >= 2 and n > 1 else 1
@@ -309,6 +336,9 @@ def describe_memory_plan(params, topo: MeshTopology, stage: int) -> str:
     msg = (f"ZeRO stage {stage}: {n_params / 1e6:.1f}M params, fsdp={n}; "
            f"param mem 1/{param_factor}, grad mem 1/{grad_factor}, "
            f"optimizer mem 1/{opt_factor} per device")
+    if ep > 1 and experts:
+        msg += (f"; expert={ep}: a rank holds 1/{ep} of the experts' "
+                f"{experts / 1e6:.1f}M")
     if pp > 1 and isinstance(layers, list):
         lo, hi = layer_block(len(layers), topo)
         msg += (f"; pipe stage {topo.axis_index('pipe')} of {pp} holds "

@@ -373,8 +373,10 @@ def test_activation_checkpointing_config_sets_remat():
                             {"device": "cpu"}}}, "A.3.2"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
      "A.3.1"),
-    ({"parallelism": {"ep": 2}}, "A.3.1"),
-    ({"moe": {"expert_parallel_size": 2}}, "A.3.1"),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True},
+      "parallelism": {"ep": 2}}, "A.3.1"),
+    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2},
+      "moe": {"expert_parallel_size": 2}}, "A.3.1"),
     ({"elasticity": {"enabled": True}}, "A.3.1"),
     ({"checkpoint": {"load_universal": True}}, "A.3.5"),
     ({"checkpoint": {"use_node_local_storage": True}}, "A.3.1"),
@@ -421,9 +423,15 @@ def test_unported_engine_features_raise():
         eng.save_16bit_model("somewhere")
     from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
 
-    # an expert mesh is a later part of A.3.1 (tensor, data, pipeline and
-    # sequence axes are ported: tests/test_torch_dist_{train,pipe,sp}.py)
-    with pytest.raises(NotImplementedError, match="A.3.1"):
+    # an expert mesh is ported (tests/test_torch_dist_moe.py) and asks for
+    # a process group; ZeRO++ on it is a later part of A.3.1
+    with pytest.raises(RuntimeError, match="init_distributed"):
         teng.initialize(model=build_model("tiny"), config=ENGINE_CFG,
+                        topology=MeshTopology({"expert": 2}, world_size=2),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="A.3.1"):
+        teng.initialize(model=build_model("tiny"), config=dict(
+            ENGINE_CFG, zero_optimization={
+                "stage": 3, "zero_quantized_weights": True}),
                         topology=MeshTopology({"expert": 2}, world_size=2),
                         device="cpu")

@@ -130,6 +130,29 @@ def test_loader_rows_by_coordinate(dims):
         np.testing.assert_array_equal(got, want)
 
 
+def test_loader_rows_shared_over_expert():
+    """ep2 x fsdp2 x tp2: the ranks that differ only on ``expert`` (or
+    ``model``) read the same rows, the JAX loader's shard of their
+    (data, fsdp) coordinate (tokens are replicated over both axes)."""
+    from deepspeedsyclsupport_tpu.runtime.dataloader import (
+        DSTpuDataLoader as JLoader)
+    from deepspeedsyclsupport_tpu_torch.runtime.dataloader import rank_rows
+
+    x = np.arange(8 * 3, dtype=np.int32).reshape(8, 3)
+    jt = jbuild(dp=1, fsdp=2, tp=2, ep=2, devices=jax.devices()[:8])
+    placed = next(iter(JLoader([{"x": x}], jt, prefetch=0)))["x"]
+    tt = MeshTopology({"fsdp": 2, "expert": 2, "model": 2}, world_size=8)
+    by_fsdp = {}
+    for shard in placed.addressable_shards:
+        r = shard.device.id
+        got = rank_rows(x, tt, rank=r)
+        np.testing.assert_array_equal(got, np.asarray(shard.data))
+        by_fsdp.setdefault(tt.axis_index("fsdp", r), []).append(got)
+    assert len(by_fsdp) == 2
+    for rows in by_fsdp.values():     # 4 ranks (expert x model) each
+        assert len(rows) == 4 and all((g == rows[0]).all() for g in rows)
+
+
 # ------------------------------------------------------------------- config
 @pytest.mark.parametrize("d,stage", [
     ({}, 0), ({}, 1), ({}, 3),
@@ -141,12 +164,16 @@ def test_loader_rows_by_coordinate(dims):
     ({"zero_optimization": {"mics_shard_size": 2}}, 3),
     ({"zero_optimization": {"mics_shard_size": 4},
       "parallelism": {"dp": 2}}, 3),
+    ({"parallelism": {"fsdp": 2, "tp": 2, "ep": 2}}, 2),
+    ({"moe": {"expert_parallel_size": 4}}, 1),
+    ({"parallelism": {"ep": 2}, "moe": {"expert_parallel_size": 4}}, 0),
 ])
 def test_parallelism_config_equals_jax(d, stage):
     mics = int(d.get("zero_optimization", {}).get("mics_shard_size", -1))
     want = JParallelism.from_config_dict(d, stage, mics_shard_size=mics)
     got = ParallelismConfig.from_config_dict(d, stage, mics_shard_size=mics)
-    assert (got.dp, got.fsdp, got.tp) == (want.dp, want.fsdp, want.tp)
+    assert (got.dp, got.fsdp, got.tp, got.ep) == (want.dp, want.fsdp,
+                                                  want.tp, want.ep)
 
 
 def test_mics_conflict_raises_as_in_jax():
@@ -242,23 +269,26 @@ def test_a_plan_on_the_layer_dim_raises():
     {"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
     {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
     {"elasticity": {"enabled": True}},
+    # with expert parallelism, ZeRO++ and elasticity still refused
+    {"moe": {"expert_parallel_size": 2}, "zero_optimization": {
+        "stage": 3, "zero_quantized_weights": True}},
+    {"parallelism": {"ep": 2}, "elasticity": {"enabled": True}},
 ])
 def test_unported_parts_of_distributed_training_raise(section):
-    """Expert parallelism, ZeRO++ and elasticity stay refused, naming
-    A.3.1; data, fsdp, tp and MiCS are accepted, and so are the pipeline
-    and sequence sizes (A.3.1.1-2), parsed as the JAX package parses
-    them."""
+    """ZeRO++ and elasticity stay refused, naming A.3.1; data, fsdp, tp
+    and MiCS are accepted, and so are the pipeline and sequence sizes
+    (A.3.1.1-2) and the expert sizes (A.3.1.3), parsed as the JAX package
+    parses them."""
     from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
 
     d = dict(train_batch_size=8, **section)
-    if "pp" in section.get("parallelism", {}) or "pipeline" in section or \
-            "sp" in section.get("parallelism", {}) or \
-            "sequence_parallel_size" in section:
+    unported = "zero_optimization" in section or "elasticity" in section
+    if not unported:
         got = DSTpuConfig.from_config(d).parallelism
         want = JParallelism.from_config_dict(d, 0)
-        assert (got.pp, got.sp, got.pp_microbatches) == (
-            want.pp, want.sp, want.pp_microbatches)
-        assert max(got.pp, got.sp) > 1
+        assert (got.pp, got.sp, got.ep, got.pp_microbatches) == (
+            want.pp, want.sp, want.ep, want.pp_microbatches)
+        assert max(got.pp, got.sp, got.ep) > 1
         return
     with pytest.raises(NotImplementedError, match=r"A\.3\.1"):
         DSTpuConfig.from_config(d)
@@ -266,3 +296,62 @@ def test_unported_parts_of_distributed_training_raise(section):
         "dp": 2, "fsdp": 2, "tp": 2}, "zero_optimization": {"stage": 3}})
     DSTpuConfig.from_config({"train_batch_size": 8, "zero_optimization": {
         "stage": 3, "mics_shard_size": 2}})
+
+
+# ---------------------------------------------------------- expert axis
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("name", ["tiny-moe", "mixtral-8x7b"])
+def test_expert_shard_shapes_equal_jax(name, stage):
+    """ep2 x fsdp2 x tp2 on 8 ranks: every leaf's shard shape (params and
+    Adam's moments) EQUAL to the JAX plan's, the expert leaves split over
+    ``expert`` on their leading dim (moments too: ZeRO-1/2 keep the
+    param's expert and TP axes; stage 0 leaves them whole); the memory
+    report and prediction count a rank's E / ep experts."""
+    jmodel = jax_build_model(name)
+    shapes = jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0))
+    jt = jbuild(dp=1, fsdp=2, tp=2, ep=2, devices=jax.devices()[:8])
+    ps = jzero.tree_param_shardings(shapes, jt, stage,
+                                    extra_rules=jmodel.sharding_rules)
+    opt = jax.eval_shape(optax.adam(1e-3).init, shapes)
+    os_ = jzero.tree_optimizer_shardings(opt, shapes, ps, jt, stage)
+    want_p = {jax.tree_util.keystr(k): s.shard_shape(v.shape)
+              for (k, v), s in zip(
+                  jax.tree_util.tree_flatten_with_path(shapes)[0],
+                  jax.tree_util.tree_leaves(ps))}
+    want_m = {jax.tree_util.keystr(k): s.shard_shape(v.shape)
+              for (k, v), s in zip(
+                  jax.tree_util.tree_flatten_with_path(opt[0].mu)[0],
+                  jax.tree_util.tree_leaves(os_[0].mu))}
+    model = build_model(name)
+    full = model.init_params(device="meta")
+    topo = MeshTopology({"fsdp": 2, "expert": 2, "model": 2}, world_size=8)
+    specs = tzero.tree_param_shardings(full, topo, stage,
+                                       extra_rules=model.sharding_rules)
+    moments = tzero.tree_optimizer_shardings(full, specs, topo, stage)
+    e = model.config.num_experts
+    for path, leaf in tzero._walk(full):
+        k = _key(path)
+        layer = path[0] == "layers"
+        for spec, want in ((specs[path], want_p[k]), (moments[path],
+                                                      want_m[k])):
+            got = topo.shard_shape(tuple(leaf.shape), spec)
+            assert got == (tuple(want[1:]) if layer else tuple(want)), (
+                k, spec, want)
+        if tzero.is_expert_leaf(path):
+            # stage 0 leaves the moments whole, as the JAX package does
+            assert "expert" in specs[path][0] and (
+                stage == 0 or "expert" in moments[path][0])
+            assert topo.shard_shape(tuple(leaf.shape),
+                                    specs[path])[0] == e // 2
+    n = sum(int(np.prod(leaf.shape)) for _, leaf in tzero._walk(full))
+    experts = tzero.expert_param_count(full)
+    assert experts == sum(int(np.prod(leaf.shape))
+                          for p, leaf in tzero._walk(full)
+                          if p[-1] in ("w_gate", "w_up", "w_down")
+                          and "moe" in p)
+    mine = n - experts // 2
+    msg = tzero.describe_memory_plan(full, topo, stage)
+    assert f"{mine / 1e6:.1f}M params" in msg and "expert=2" in msg
+    assert tzero.predict_memory_per_device(
+        n, 2, stage, expert_params=experts, ep=2) == \
+        jzero.predict_memory_per_device(mine, 2, stage)

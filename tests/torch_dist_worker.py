@@ -4,9 +4,10 @@ Run as ``python tests/torch_dist_worker.py <spec.json>`` with the torch
 launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``): it starts a gloo process group through
 ``comm.init_distributed`` (the env:// path), runs the spec's ``kind`` —
-``"comm"`` (the façade's cases), ``"p2p"`` (send / recv / p2p over
-``pipe`` and the differentiable collectives' gradients) or ``"train"``
-(legs of ``tiny`` through ``initialize`` -> ``train_batch``) — and writes this rank's results as
+``"comm"`` (the façade's cases), ``"comm_more"`` (the rest of the
+façade on 8 ranks), ``"p2p"`` (send / recv / p2p over ``pipe`` and the
+differentiable collectives' gradients) or ``"train"`` (legs of ``tiny``
+or ``tiny-moe`` through ``initialize`` -> ``train_batch``) — and writes this rank's results as
 ``<out>/<leg>_rank<r>.npz``. It imports torch and the port, never jax.
 """
 import json
@@ -107,6 +108,82 @@ def run_comm(spec, rank, out):
              table_has_op=np.array("all_reduce" in table))
 
 
+# -------------------------------------------------------------- comm_more
+# hierarchical all-to-all cases: (split, concat) -> this rank's input shape
+HIER_SHAPES = {(0, 0): (16, 3), (1, 0): (2, 16), (0, 2): (16, 2, 3)}
+
+
+def hier_input(case, rank):
+    """Rank ``rank``'s block of the global array ``arange`` shaped
+    ``[8 * shape[0], *shape[1:]]``."""
+    shape = HIER_SHAPES[case]
+    n = int(np.prod(shape))
+    return torch.arange(n * rank, n * (rank + 1),
+                        dtype=torch.float32).reshape(shape)
+
+
+def run_comm_more(spec, rank, out):
+    """The rest of the façade on an 8-rank ``data`` axis: the hierarchical
+    all-to-all (group sizes 1 / 2 / 4 / 8, three (split, concat) pairs, and
+    its gradient), the untiled all-to-all, the root-based ops, the aliases
+    and the group bookkeeping; the bytes the logger records."""
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        get_world_topology)
+
+    topo = build_topology(dp=-1)
+    topo.init_groups(hierarchical=[("data", 2), ("data", 4)])
+    comms_logger.reset()
+    comms_logger.configure(enabled=True)
+    res = {}
+    for (sa, ca) in HIER_SHAPES:
+        for gs in (1, 2, 4, 8):
+            key = f"hier_{gs}_{sa}{ca}"
+            x = hier_input((sa, ca), rank).requires_grad_(True)
+            y = comm.hierarchical_all_to_all(x, "data", gs, split_axis=sa,
+                                             concat_axis=ca)
+            w = torch.arange(y.numel(), dtype=torch.float32).reshape(
+                y.shape) + 1000.0 * rank
+            (y * w).sum().backward()
+            res[key] = y.detach()
+            res[key + "_grad"] = x.grad
+    x = torch.arange(24.0).reshape(8, 3) + 100 * rank
+    res["a2a_untiled"] = comm.all_to_all(x, "data", 0, 1, tiled=False)
+    xr = torch.arange(16.0).reshape(8, 2) + 100 * rank
+    res["reduce"] = comm.reduce(xr, "data", dst=2)
+    res["gather"] = comm.gather(xr, "data", dst=1)
+    res["scatter"] = comm.scatter(xr, "data", src=3)
+    res["all_gather_into_tensor"] = comm.all_gather_into_tensor(xr, "data")
+    res["reduce_scatter_tensor"] = comm.reduce_scatter_tensor(xr, "data")
+    res["all_to_all_single"] = comm.all_to_all_single(xr, "data")
+    res["inference_all_reduce"] = comm.inference_all_reduce(xr, "data")
+    comm.monitored_barrier(timeout=60)
+    g = comm.new_group([2, 5, 7])
+    # a torch group is known to its members alone: the others hold no
+    # handle (and say so), and report the members' answers
+    member = rank in (2, 5, 7)
+    books = {"global_rank": comm.get_global_rank(g, 1) if member else 5,
+             "global_rank_none": comm.get_global_rank(None, 3),
+             "world": comm.get_all_ranks_from_group(),
+             "group": comm.get_all_ranks_from_group(g) if member
+             else [2, 5, 7],
+             "world_group": comm.get_all_ranks_from_group(
+                 comm.get_world_group())}
+    if not member:
+        try:
+            comm.get_global_rank(g, 1)
+            books["non_member"] = "answered"
+        except ValueError:
+            pass
+    snap = comms_logger.snapshot()
+    comms_logger.configure(enabled=False)
+    assert get_world_topology() is topo
+    np.savez(os.path.join(out, f"comm_more_rank{rank}.npz"),
+             **{k: v.detach().numpy() for k, v in res.items()},
+             books=np.array(json.dumps(books)),
+             logger=np.array(json.dumps({k: v["total_bytes"]
+                                         for k, v in snap.items()})))
+
+
 # -------------------------------------------------------------------- p2p
 def run_p2p(spec, rank, out):
     """Point-to-point along a 4-rank ``pipe`` axis (its direction groups),
@@ -168,8 +245,9 @@ def run_train(spec, rank, out):
     for leg in spec["legs"]:
         name, cfg = leg["name"], leg["config"]
         batches = [dict(np.load(p)) for p in leg["batches"]]
-        model = build_model("tiny", dtype=leg["dtype"], **dict(
-            {"attn_impl": "flash"}, **leg.get("model_kw", {})))
+        model = build_model(leg.get("model", "tiny"), dtype=leg["dtype"],
+                            **dict({"attn_impl": "flash"},
+                                   **leg.get("model_kw", {})))
         np_tree = unflat({k: v for k, v in raw.items()
                           if k.startswith(leg["params_prefix"])}
                          )[leg["params_prefix"].rstrip("/")]
@@ -193,10 +271,29 @@ def run_train(spec, rank, out):
                 gradient_accumulation_steps=eng.gradient_accumulation_steps()))
         else:
             feed = batches
-        for b in feed[:leg["steps"]]:
+        routes = []
+        if leg.get("record_route"):
+            # each routing call of the first step: this rank's logits and
+            # its (expert, slot, kept) rows
+            from deepspeedsyclsupport_tpu_torch.parallel import moe
+
+            route = moe._capacity_route
+
+            def recording(logits, k, cap, *a, **kw):
+                out = route(logits, k, cap, *a, **kw)
+                routes.append((logits.detach(), out[0], out[1], out[2],
+                               cap))
+                return out
+
+            moe._capacity_route = recording
+        for i, b in enumerate(feed[:leg["steps"]]):
             m = eng.train_batch(b)
+            if i == 0 and leg.get("record_route"):
+                moe._capacity_route = route
             steps.append([float(m["loss"]), float(m["grad_norm"]),
-                          float(bool(m["finite"])), float(m["loss_scale"])])
+                          float(bool(m["finite"])), float(m["loss_scale"])]
+                         + ([float(m["lm_loss"]), float(m["moe_aux_loss"])]
+                            if "moe_aux_loss" in m else []))
         full = gather_params(eng)
         try:   # checkpoints across ranks are not ported (A.3.3b)
             eng.save_checkpoint(os.path.join(out, f"ckpt_{name}_{rank}"))
@@ -206,6 +303,12 @@ def run_train(spec, rank, out):
         res = {"steps": np.array(steps), "ckpt_refused": np.array(refused),
                "skipped": np.array(eng.skipped_steps),
                "eval": np.array(float(eng.eval_batch(batches[0])))}
+        for i, (lg, ex, pos, keep, cap) in enumerate(routes):
+            res[f"route/{i}/logits"] = lg.numpy()
+            res[f"route/{i}/expert"] = ex.numpy()
+            res[f"route/{i}/pos"] = pos.numpy()
+            res[f"route/{i}/keep"] = keep.numpy()
+            res[f"route/{i}/cap"] = np.array(cap)
         for k, v in flat(eng.params):
             res[f"local/{k}"] = v.detach().numpy()
         if full is not None:
@@ -261,8 +364,8 @@ def main():
                                  timeout_s=120)
     rank = comm.get_rank()
     try:
-        {"comm": run_comm, "train": run_train, "p2p": run_p2p}[spec["kind"]](
-            spec, rank, spec["out"])
+        {"comm": run_comm, "comm_more": run_comm_more, "train": run_train,
+         "p2p": run_p2p}[spec["kind"]](spec, rank, spec["out"])
     finally:
         comm.destroy_process_group()
 
