@@ -216,7 +216,18 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              bit-equal to that phase's steps, then ``DIST_MOE_TWINS``
              (mixtral-8x7b widths: fsdp2 x ep2 and ep2 x tp2 at 1 layer,
              pp2 x ep2 at 2) on four ranks, each against its world-1 run,
-             every collective's bytes against ``dist_moe_bytes``.
+             every collective's bytes against ``dist_moe_bytes``; (e)
+             ZeRO++ and the optimizers beyond Adam (``dist_zeropp``): each
+             new optimizer on the card against the CPU, then on four ranks
+             at llama2-1b widths, 2 layers (``DIST_ZPP_TWINS``): hpZ alone
+             against plain ZeRO-3 (fp32: gathered leaves EQUAL to the
+             plain gather, losses ``DIST_ZPP_TOL``), qwZ + qgZ + hpZ in
+             bf16 (gathered leaves and reduced shards EQUAL to their
+             world-1 compositions of ``quantize_int8`` /
+             ``dequantize_int8``, ZeRO++ bytes EQUAL to
+             ``dist_zeropp_bytes``, 3 finite falling losses), 1-bit Adam
+             and 1-bit LAMB at ZeRO-2 across the freeze step against their
+             world-1 NCCL runs (fp32, ``DIST_ONEBIT_TOL``).
 12. kernels — every TPU kernel of the JAX package and its status here.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
@@ -4153,10 +4164,12 @@ def dist_rank_child(torch, np, spec_path):
            "facade": dist_facade_check(torch, dev), "twins": {}}
     reset_world_topology()
     plan = {"all": dist_comm_bytes, "moe": dist_moe_bytes,
+            "zeropp": dist_zeropp_bytes,
             "p2p": lambda torch, eng, rows, seq, applied: dist_p2p_bytes(
                 torch, eng, rows, seq)}[spec.get("plan", "all")]
     for name, (cfg, dtype, *over) in spec["twins"].items():
         over = dict(over[0]) if over else {}
+        n_steps = over.pop("steps", spec["steps"])
         model = dist_model(dtype, over.pop("num_layers", spec["layers"]),
                            spec["model"], **over)
         # the full tree is drawn (as the world-1 run draws it) and cut to
@@ -4187,8 +4200,12 @@ def dist_rank_child(torch, np, spec_path):
             np, model.config.vocab_size, spec["seq"],
             cfg["train_batch_size"]).items()}
         rows = cfg["train_batch_size"] // eng.dp_world_size
+        checks = dist_zeropp_checks(torch, eng, batch) \
+            if getattr(eng, "_zeropp", None) is not None else {}
+        p0 = [t.detach().clone() for t in eng._leaf_tensors] \
+            if spec.get("plan") == "zeropp" and eng.zero_stage < 3 else None
         steps = []
-        for _ in range(spec["steps"]):
+        for _ in range(n_steps):
             comms_logger.reset()
             fa.reset_launch_counts()
             if cuda:
@@ -4219,8 +4236,11 @@ def dist_rank_child(torch, np, spec_path):
             "staged": {k: v - staged0.get(k, 0) for k, v in
                        comm.staged_ops().items() if v > staged0.get(k, 0)},
             "sizes": eng.topology.axis_sizes,
-            "stage_layers": len(eng.params["layers"])}
-        del eng
+            "stage_layers": len(eng.params["layers"]),
+            "checks": checks,
+            "delta": [float((t.detach() - p).norm()) for t, p in zip(
+                eng._leaf_tensors, p0)] if p0 is not None else []}
+        del eng, p0
         reset_world_topology()
         gc.collect()
         if cuda:
@@ -4310,8 +4330,10 @@ def phase_dist(torch, np, train_steps, moe_steps):
     tp2, pp4, pp2 x fsdp2), Ulysses (sp2 x tp2) and ring:flash (sp4) twins
     at 4 layers, fp32, then pp2 x tp2 and the ring in bf16, each held
     against its world-1 run, its point-to-point and all-to-all bytes and
-    its flash launches against the plan. Returns the flash launches of
-    (a) + (b), and of (c)."""
+    its flash launches against the plan; (d) MoE across ranks
+    (:func:`dist_moe`); (e) ZeRO++ and the 1-bit optimizers
+    (:func:`dist_zeropp`). Returns the flash launches of (a) + (b), of
+    (c), of (d) and of (e)."""
     import tempfile
 
     import torch.distributed as tdist
@@ -4396,8 +4418,8 @@ def phase_dist(torch, np, train_steps, moe_steps):
     hold_dist_twins("(b)", DIST_TWINS, ranks, refs, launches,
                     {"float16": {"loss": DIST_FP16_LOSS_TOL}}, full_plan=True)
 
-    return launches, dist_pipe_seq(torch, np), dist_moe(torch, np,
-                                                         moe_steps)
+    return (launches, dist_pipe_seq(torch, np),
+            dist_moe(torch, np, moe_steps), dist_zeropp(torch, np))
 
 
 def dist_pipe_seq(torch, np):
@@ -4725,6 +4747,385 @@ def dist_moe(torch, np, moe_steps):
     return launches
 
 
+# (e): ZeRO++ and the 1-bit optimizers across four ranks at TRAIN_MODEL's
+# widths, DIST_LAYERS layers, B 4 x S DIST_SEQ: name -> (config, dtype,
+# overrides; "steps" a twin's own count)
+DIST_ZPP_BASE = dict(DIST_BASE, parallelism={"dp": 1, "fsdp": 4})
+DIST_ZPP_TWINS = {
+    # (e1) hpZ alone against plain ZeRO-3 on the same ranks, fp32: the
+    # hierarchical gather only moves data (bf16 would reduce the plain
+    # path's gradients in bf16 and the ZeRO++ step's in fp32)
+    "zero3_fsdp4": (dict(DIST_ZPP_BASE, zero_optimization={"stage": 3}),
+                    "float32", {"steps": 2}),
+    "zeropp_hpz2_fsdp4": (dict(DIST_ZPP_BASE, zero_optimization={
+        "stage": 3, "zero_hpz_partition_size": 2}), "float32", {"steps": 2}),
+    # (e2) qwZ + qgZ + hpZ in bf16
+    "zeropp_qwz_qgz_hpz2_fsdp4_bf16": (dict(
+        DIST_ZPP_BASE, bf16={"enabled": True}, zero_optimization={
+            "stage": 3, "zero_quantized_weights": True,
+            "zero_quantized_gradients": True,
+            "zero_hpz_partition_size": 2}), "bfloat16", {"steps": 3}),
+    # (e3) the 1-bit optimizers at ZeRO-2 across their freeze step, fp32,
+    # against the world-1 NCCL run (eps 1e-3: at 1e-8 a momentum within
+    # rounding of zero takes the other sign, over a variance near zero)
+    "onebitadam_zero2_fsdp4": (dict(
+        DIST_ZPP_BASE, zero_optimization={"stage": 2}, optimizer={
+            "type": "OneBitAdam", "params": {"lr": 3e-4, "freeze_step": 2,
+                                             "eps": 1e-3}}),
+        "float32", {"steps": 4}),
+    "onebitlamb_zero2_fsdp4": (dict(
+        DIST_ZPP_BASE, zero_optimization={"stage": 2}, optimizer={
+            "type": "OneBitLamb", "params": {
+                "lr": 3e-4, "freeze_step": 2, "eps": 1e-3,
+                "weight_decay": 0.1}}), "float32", {"steps": 4}),
+}
+DIST_ONEBIT = ("onebitadam_zero2_fsdp4", "onebitlamb_zero2_fsdp4")
+# fp32 holds: hpZ vs plain ZeRO-3 and four ranks vs world 1 split only the
+# order of float32 sums
+DIST_ZPP_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
+DIST_ONEBIT_TOL = 1e-5
+# (e4): each optimizer beyond Adam, one card against the CPU, on two
+# layers of TRAIN_MODEL's wq and attention norm (two stacked leaves)
+DIST_OPT_CASES = [
+    ("Lamb", {"weight_decay": 0.1}), ("FusedLamb", {}),
+    ("Lion", {"weight_decay": 0.1}), ("FusedLion", {}),
+    ("SGD", {"momentum": 0.9}), ("Adagrad", {}),
+    ("OneBitAdam", {"freeze_step": 1, "weight_decay": 0.1}),
+    ("ZeroOneAdam", {"var_freeze_step": 1, "var_update_scaler": 1,
+                     "local_step_scaler": 1, "local_step_clipper": 2}),
+    ("OneBitLamb", {"freeze_step": 1, "weight_decay": 0.1}),
+]
+DIST_OPT_STEPS = 3
+# card vs CPU: 1e-5 of a tensor's largest magnitude; a sign (Lion, the
+# 1-bit operator) of a value within float32 rounding of zero may differ,
+# at most on one element in a million
+DIST_OPT_TOL, DIST_OPT_FLIPS = 1e-5, 1e-6
+
+
+def dist_zeropp_bytes(torch, eng, rows, seq, applied):
+    """The ZeRO++ step's wire bytes a rank and step, from the plan: each
+    fsdp-sharded leaf of the JAX tree (a stacked leaf over the layers)
+    gathered once (int8 under qwZ: a byte an element plus a float32 scale
+    a 256-block, times the fsdp ranks) and its float32 gradient reduced
+    every micro-batch (qgZ likewise, of the full gradient)."""
+    from deepspeedsyclsupport_tpu_torch.runtime.zeropp import wire_bytes
+
+    zc = eng.config.zeropp
+    topo = eng.topology
+    n = topo.axis_sizes["fsdp"]
+    seen, gather, reduce = set(), 0, 0
+    for path in eng._float_paths:
+        spec = eng._specs[path]
+        if eng._shard_dim(spec) is None:
+            continue
+        key = ("layers",) + path[2:] if path[0] == "layers" else path
+        if key in seen:
+            continue
+        seen.add(key)
+        local = math.prod(topo.shard_shape(eng._full_shapes[path], spec))
+        if path[0] == "layers":
+            local *= len(eng.params["layers"])
+        gather += wire_bytes(local, 4, zc.zero_quantized_weights) * n
+        reduce += wire_bytes(local * n, 4, zc.zero_quantized_gradients) \
+            * eng.gradient_accumulation_steps()
+    q = {True: "_int8", False: ""}
+    return {f"zeropp_gather{q[zc.zero_quantized_weights]}[fsdp]": gather,
+            f"zeropp_reduce{q[zc.zero_quantized_gradients]}[fsdp]": reduce}
+
+
+def dist_zeropp_checks(torch, eng, batch):
+    """(e1) / (e2) on this rank before its first step. The step's gathered
+    leaves against the plain all-gather of the held shards (hpZ alone:
+    EQUAL), or against the world-1 composition of ``quantize_int8`` /
+    ``dequantize_int8`` on the shards the int8 hop carries (qwZ: each
+    secondary shard, the concatenation of the primaries ``o h + i``, or
+    each primary when the gather is flat: EQUAL). Under qgZ, one
+    micro-batch's gradients of the stacked ``wq`` and ``w_gate``: the
+    reduced shard EQUAL to the mean of the dequantized chunks every rank
+    sends this one."""
+    from deepspeedsyclsupport_tpu_torch.comm import comm
+    from deepspeedsyclsupport_tpu_torch.comm.quantized import _block_quant
+    from deepspeedsyclsupport_tpu_torch.compression.quantize import (
+        dequantize_int8)
+    from deepspeedsyclsupport_tpu_torch.runtime import zeropp
+
+    zpp = eng._zeropp
+    n, h = zpp.n, zpp.h
+    group, _, _ = comm._resolve("fsdp")
+    r = eng.topology.axis_index("fsdp")
+
+    def composed(x):
+        q, s, pad = _block_quant(x, 256)
+        d = dequantize_int8(q, s, 256, torch.float32)
+        return (d[:-pad] if pad else d).reshape(x.shape)
+
+    out = {"leaves": 0, "gathered_equal": 0, "reduced": 0,
+           "reduced_equal": 0}
+    with torch.no_grad():
+        full = zpp.gather()
+        for leaf, f in zip(zpp.leaves, full):
+            if leaf.k is None:
+                continue
+            moved = zpp._local(leaf).movedim(leaf.k, 0).contiguous()
+            prim = comm._gather_stacked(group, n, moved)
+            if not zpp.qw:
+                want = prim.reshape(f.shape)
+            elif 1 < h < n:
+                want = torch.empty_like(prim)
+                for i in range(h):
+                    sec = torch.cat([prim[o * h + i]
+                                     for o in range(n // h)])
+                    deq = composed(sec).reshape((n // h,) + moved.shape)
+                    for o in range(n // h):
+                        want[o * h + i] = deq[o]
+                want = want.reshape(f.shape)
+            else:
+                want = torch.stack([composed(p) for p in prim]).reshape(
+                    f.shape)
+            out["leaves"] += 1
+            out["gathered_equal"] += int(torch.equal(f, want))
+    if zpp.qg:
+        for f in full:
+            f.requires_grad_(True)
+        mb = eng._micro_batches(batch, eng.gradient_accumulation_steps())[0]
+        with eng._local_loss():
+            loss, _ = eng._loss_and_metrics(zpp.params_tree(full), mb,
+                                            gathered=True)
+        loss.backward()
+        names = [("layers",) + p[2:] if p[0] == "layers" else p
+                 for p in (eng._float_paths[lf.idxs[0]]
+                           for lf in zpp.leaves)]
+        for name, leaf, f in zip(names, zpp.leaves, full):
+            if name not in (("layers", "attn", "wq"),
+                            ("layers", "mlp", "w_gate")):
+                continue
+            g = f.grad
+            got = zeropp.reduce_leaf(g, True)
+            chunks = comm._gather_stacked(group, n, g).reshape(n, n, -1)[:, r]
+            want = torch.stack([composed(c) for c in chunks]).mean(
+                dim=0).reshape(got.shape).to(g.dtype)
+            out["reduced"] += 1
+            out["reduced_equal"] += int(torch.equal(got, want))
+    del full
+    return out
+
+
+def dist_optimizers_card_vs_cpu(torch, np):
+    """(e4): each optimizer beyond Adam for ``DIST_OPT_STEPS`` steps on the
+    card and on the CPU from the same seeded params and gradients (two
+    layers of ``TRAIN_MODEL``'s ``wq`` and attention norm, the layers of
+    each one leaf): params and every state tensor held within
+    ``DIST_OPT_TOL`` of the tensor's largest magnitude, at most a
+    ``DIST_OPT_FLIPS`` share of elements outside it."""
+    from deepspeedsyclsupport_tpu_torch import build_model
+    from deepspeedsyclsupport_tpu_torch.runtime.optimizers import (
+        LeafStats, build_optimizer)
+
+    cfg = build_model(TRAIN_MODEL).config
+    d = cfg.hidden_size
+    shapes = [(d, d), (d,)] * 2
+    rng = np.random.RandomState(11)
+    init = [0.02 * rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[0.01 * rng.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(DIST_OPT_STEPS)]
+    group = [0, 1, 0, 1]
+    sizes = [2 * math.prod(s) for s in shapes[:2]]
+    paths = [("layers", "attn", "wq"), ("layers", "attn_norm", "scale")] * 2
+    rows = {}
+    for kind, extra in DIST_OPT_CASES:
+        runs = {}
+        t_card = 0.0
+        for dev in (DEV, "cpu"):
+            params = [torch.from_numpy(x).to(dev) for x in init]
+            opt = build_optimizer(kind, dict(lr=1e-3, **extra))
+            opt.init(params, paths, LeafStats(group, sizes))
+            card = dev == DEV and torch.cuda.is_available()
+            if card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for g in grads:
+                opt.step([torch.from_numpy(x).to(dev) for x in g])
+            if card:
+                torch.cuda.synchronize()
+                t_card = time.perf_counter() - t0
+            state = {f"param{i}": p for i, p in enumerate(params)}
+            for k, v in vars(opt).items():
+                if isinstance(v, list) and v and isinstance(
+                        v[0], torch.Tensor) and k != "params":
+                    state.update({f"{k}{i}": t for i, t in enumerate(v)})
+                elif isinstance(v, torch.Tensor):
+                    state[k] = v
+            runs[dev] = {k: v.detach().cpu() for k, v in state.items()}
+        worst, flips, total = 0.0, 0, 0
+        for k, want in runs["cpu"].items():
+            got = runs[DEV][k]
+            scale = float(want.abs().max()) or 1.0
+            off = (got - want).abs() / scale
+            flips += int((off > DIST_OPT_TOL).sum())
+            total += want.numel()
+            worst = max(worst, float(off.max()))
+        rows[kind] = {"worst": worst, "off": flips, "elements": total,
+                      "card_ms_a_step": round(
+                          t_card * 1e3 / DIST_OPT_STEPS, 2)}
+        if flips > DIST_OPT_FLIPS * total:
+            raise AssertionError(f"(e4) {kind}: {flips} of {total} elements "
+                                 f"off the CPU's by > {DIST_OPT_TOL} "
+                                 f"(worst {worst})")
+    return rows
+
+
+def dist_zeropp(torch, np):
+    """Phase ``dist`` (e): ZeRO++ and the 1-bit optimizers. (e4) each new
+    optimizer on the card against the CPU; (e3) 1-bit Adam and 1-bit LAMB
+    at ZeRO-2 through the distributed engine at a world of one on NCCL
+    (the references); then four ranks over gloo with ``DIST_ZPP_TWINS``:
+    (e1) hpZ alone against plain ZeRO-3 (gathered leaves EQUAL to the
+    plain gather, losses and grad norms within ``DIST_ZPP_TOL``), (e2)
+    qwZ + qgZ + hpZ in bf16 (gathered leaves and reduced shards EQUAL to
+    their world-1 compositions, ZeRO++ bytes EQUAL to the plan, 3 finite
+    falling losses), (e3) against the references within
+    ``DIST_ONEBIT_TOL`` (loss, grad norm, each tensor's update norm).
+    Every twin's flash launches EQUAL to the plan. Returns (e)'s flash
+    launches."""
+    import tempfile
+
+    from deepspeedsyclsupport_tpu_torch import comm, initialize
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    t_e = time.perf_counter()
+    launches = {k: 0 for k in fa.LAUNCHES}
+    opt_rows = dist_optimizers_card_vs_cpu(torch, np)
+    log("dist", f"(e4) each optimizer beyond Adam, {DIST_OPT_STEPS} steps on "
+        f"the card vs the CPU (worst relative, elements off, ms a step on "
+        f"the card): {opt_rows}")
+    # ---- (e3) world-1 NCCL references
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                          world_size=1, rank=0, device_type=DEV)
+    refs = {}
+    for name in DIST_ONEBIT:
+        cfg, dtype, over = DIST_ZPP_TWINS[name]
+        model = dist_model(dtype)
+        params = model.init_params(generator=torch.Generator(
+            device=DEV).manual_seed(1), device=DEV)
+        eng = initialize(model=model, params=params,
+                         config=dist_reference_config(cfg), device=DEV)[0]
+        del params
+        p0 = [t.detach().clone() for t in eng._leaf_tensors]
+        batch = {k: torch.from_numpy(v).to(DEV) for k, v in dist_batch(
+            np, model.config.vocab_size).items()}
+        steps = []
+        for _ in range(over["steps"]):
+            m = eng.train_batch(batch)
+            steps.append({"loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"])})
+        refs[name] = (steps, [float((t.detach() - p).norm())
+                              for t, p in zip(eng._leaf_tensors, p0)])
+        del eng, p0
+        reset_world_topology()
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    comm.destroy_process_group()
+    log("dist", f"(e3) world-1 NCCL references ({TRAIN_MODEL} widths, "
+        f"{DIST_LAYERS} layers, fp32): "
+        f"{ {k: v[0] for k, v in refs.items()} }")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = spawn_dist_ranks(
+            {"device": DEV, "twins": DIST_ZPP_TWINS,
+             "steps": DIST_STEPS,
+             "layers": DIST_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL,
+             "plan": "zeropp"}, d)
+        wall = time.perf_counter() - t0
+    log("dist", f"(e) {DIST_WORLD} ranks, backend {ranks[0]['backend']}; "
+        f"ranks ran in {wall:.1f} s")
+    hold_zeropp_twins(ranks, refs, launches)
+    log("dist", f"(e) took {time.perf_counter() - t_e:.1f} s; flash "
+        f"launches on its legs {launches}")
+    return launches
+
+
+def hold_zeropp_twins(ranks, refs, launches):
+    """Hold (e1)-(e3) (see :func:`dist_zeropp`); adds each twin's flash
+    launches to ``launches`` and logs each twin."""
+    def steps_of(r, name):
+        return [(x["loss"], x["grad_norm"]) for x in
+                r["twins"][name]["steps"]]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for name in DIST_ZPP_TWINS:
+        r0 = ranks[0]["twins"][name]
+        if any(steps_of(r, name) != steps_of(ranks[0], name)
+               for r in ranks[1:]):
+            raise AssertionError(f"{name}: ranks report different global "
+                                 f"numbers")
+        for r in ranks:
+            t = r["twins"][name]
+            ch = t["checks"]
+            if ch and (ch["gathered_equal"] != ch["leaves"]
+                       or ch["reduced_equal"] != ch["reduced"]):
+                raise AssertionError(f"{name} rank {r['rank']}: checks {ch}")
+            for i, st in enumerate(t["steps"]):
+                if "zeropp" in name:
+                    got = {k: v for k, v in st["bytes"].items()
+                           if k.startswith("zeropp")}
+                    if got != st["want_bytes"]:
+                        raise AssertionError(
+                            f"{name} rank {r['rank']} step {i + 1}: ZeRO++ "
+                            f"bytes {got} != plan {st['want_bytes']}")
+                # (the plain versions run on a rehearsal's CPU ranks)
+                if DEV == "cuda" and st["launches"] != st["want_launches"]:
+                    raise AssertionError(
+                        f"{name} rank {r['rank']}: flash launches "
+                        f"{st['launches']}, want {st['want_launches']}")
+                for k, v in st["launches"].items():
+                    launches[k] += v
+        steps = r0["steps"]
+        if not all(x["finite"] and math.isfinite(x["loss"]) for x in steps):
+            raise AssertionError(f"{name}: {steps}")
+        held = ""
+        if name == "zeropp_hpz2_fsdp4":
+            want = ranks[0]["twins"]["zero3_fsdp4"]["steps"]
+            worst = {k: max(rel(g[k], w[k]) for g, w in zip(steps, want))
+                     for k in DIST_ZPP_TOL}
+            if any(worst[k] > DIST_ZPP_TOL[k] for k in worst):
+                raise AssertionError(f"{name} vs plain ZeRO-3: worst "
+                                     f"{worst} > {DIST_ZPP_TOL}")
+            held = f"vs plain ZeRO-3 worst relative {worst}"
+        elif "qwz" in name:
+            losses = [x["loss"] for x in steps]
+            if any(b >= a for a, b in zip(losses, losses[1:])):
+                raise AssertionError(f"{name}: losses {losses} not falling")
+            held = "losses falling"
+        elif name in refs:
+            ref, ref_delta = refs[name]
+            worst = max(max(rel(g[k], w[k]) for k in ("loss", "grad_norm"))
+                        for g, w in zip(steps, ref))
+            worst_d = max(rel(a, b) for a, b in zip(r0["delta"], ref_delta)
+                          if b)
+            if worst > DIST_ONEBIT_TOL or worst_d > DIST_ONEBIT_TOL:
+                raise AssertionError(
+                    f"{name} vs world 1: worst relative {worst} (loss, "
+                    f"grad_norm), {worst_d} (update norms) > "
+                    f"{DIST_ONEBIT_TOL}")
+            held = (f"vs world 1 worst relative {worst} (loss, grad_norm), "
+                    f"{worst_d} (each tensor's update norm)")
+        per_rank = " | ".join(
+            f"rank {r['rank']}: peak {r['twins'][name]['peak'] / 2**30:.2f}"
+            f" GiB, ms/step "
+            f"{[round(x['s'] * 1e3, 1) for x in r['twins'][name]['steps']]}"
+            f", checks {r['twins'][name]['checks']}" for r in ranks)
+        log("dist", f"(e) {name} {r0['sizes']}: (loss, grad_norm) "
+            f"{[(x['loss'], x['grad_norm']) for x in steps]}; {held}; rank "
+            f"0 bytes a step {steps[-1]['bytes']}, ZeRO++ plan "
+            f"{steps[-1]['want_bytes']}; flash launches a step "
+            f"{steps[-1]['launches']}; {per_rank}")
+
+
 P2P_OPS = ("send", "recv", "all_to_all", "ppermute")
 
 
@@ -4876,7 +5277,7 @@ def main() -> int:
     moe_launches, moe_steps = run(phase_train_moe, torch, np)
     evo_rows, evo_launches = run(phase_evoformer, torch, np)
     run(phase_sparse, torch, np)
-    dist_launches, ps_launches, moe_dist_launches = run(
+    dist_launches, ps_launches, moe_dist_launches, zpp_launches = run(
         phase_dist, torch, np, train_steps, moe_steps)
 
     log("phases", f"GiB allocated on the card after each phase (before, "
@@ -4885,7 +5286,7 @@ def main() -> int:
         f"train-moe path {moe_launches}, on the flash-lse phase "
         f"{lse_launches}, on the dist path {dist_launches}, on its pipeline "
         f"and sequence-parallel legs {ps_launches}, on its MoE legs "
-        f"{moe_dist_launches}")
+        f"{moe_dist_launches}, on its ZeRO++ and 1-bit legs {zpp_launches}")
     log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
                               for k, src in TPU_KERNELS)
         + f" | all phases in {time.perf_counter() - t_start:.1f} s")
@@ -4921,7 +5322,8 @@ def main() -> int:
             "library_ms": main_row["library"][name],
             "launches_dist": dist_launches[name],
             "launches_dist_pipe_seq": ps_launches[name],
-            "launches_dist_moe": moe_dist_launches[name]})
+            "launches_dist_moe": moe_dist_launches[name],
+            "launches_dist_zeropp": zpp_launches[name]})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks
     msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]

@@ -7,6 +7,7 @@ and ``ServingPolicyConfig``, the SLA serving policy's knobs, copied with
 every field, default and check.
 """
 import math
+import numbers
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Union
 
@@ -41,7 +42,8 @@ class RaggedInferenceConfig:
     # (one CUDA graph replay per rung of the ladder K, K/2, ..., 2)
     decode_steps_per_dispatch: int = 1
     # KV-pool head-dim alignment (kv_cache.lane_padded_head_dim): None =
-    # auto (no padding on CUDA); an int forces that multiple
+    # auto (no padding on CUDA); a positive int forces that multiple (a
+    # negative, a float or a bool raises)
     head_dim_lane_pad: Optional[int] = None
 
     def __post_init__(self):
@@ -69,6 +71,12 @@ class RaggedInferenceConfig:
         if self.quant_bits not in (4, 8):
             raise ValueError(f"quant_bits must be 4 or 8, got "
                              f"{self.quant_bits}")
+        pad = self.head_dim_lane_pad
+        if pad is not None and (isinstance(pad, bool)
+                                or not isinstance(pad, numbers.Integral)
+                                or pad < 0):
+            raise ValueError(f"head_dim_lane_pad must be None, 0 (auto) or "
+                             f"a positive int, got {pad!r}")
         if self.num_blocks is None:
             per_seq = math.ceil(self.max_context / self.block_size)
             self.num_blocks = max(per_seq, self.max_sequences * per_seq // 2)

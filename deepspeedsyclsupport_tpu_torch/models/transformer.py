@@ -456,9 +456,10 @@ class CausalLM:
     def token_count(self, mask: torch.Tensor) -> torch.Tensor:
         """The loss's denominator before its floor of 1: ``mask``'s sum,
         all-reduced over the plan's batch axes under a process group (the
-        global batch's count)."""
+        global batch's count; none: this rank's, as the ZeRO++ step's local
+        loss counts)."""
         count = mask.sum()
-        if self.parallel is not None:
+        if self.parallel is not None and self.parallel.batch_axes:
             from ..comm import comm
 
             count = comm.all_reduce(count, self.parallel.batch_axes)

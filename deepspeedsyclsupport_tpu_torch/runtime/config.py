@@ -3,8 +3,10 @@
 Port of ``deepspeedsyclsupport_tpu/runtime/config.py`` (``DSTpuConfig``) for
 the sections the engine uses: the batch family and its invariant
 (``resolve_batch_sizes``, ``config.py:750-795``), ``optimizer``,
-``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage`` and
-``mics_shard_size``, the mesh sizes (``parallelism.dp / fsdp / tp / pp /
+``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage``,
+``mics_shard_size`` and the ZeRO++ flags (``zero_quantized_weights``,
+``zero_quantized_gradients``, ``zero_hpz_partition_size``:
+:class:`ZeroPPConfig`), the mesh sizes (``parallelism.dp / fsdp / tp / pp /
 sp``, ``tensor_parallel.tp_size``, ``pipeline.stages`` / ``micro_batches``,
 ``sequence_parallel_size``, ``parallelism.ep`` /
 ``moe.expert_parallel_size``: :class:`ParallelismConfig`),
@@ -17,8 +19,8 @@ mesh (``runtime/zero.py``); on one card there is nothing to shard, so every
 stage runs the same program, as the JAX package does on one device.
 
 Every enabled section the port does not do yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload, ZeRO++,
-elasticity, telemetry, monitors,
+``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload (and so
+ZeRO++ under offload), elasticity, telemetry, monitors,
 the flops profiler, compression/QAT, curriculum learning, progressive layer
 drop and random-LTD. None is silently ignored.
 """
@@ -66,12 +68,6 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
         if str(_sub(zero, key).get("device", "none")) not in ("none", "None"):
             raise _unported(f"zero_optimization.{key} (ZeRO-Offload)",
                             "A.3.2 (offload)")
-    if zero.get("zero_quantized_weights") or \
-            zero.get("zero_quantized_gradients") or \
-            int(zero.get("zero_hpz_partition_size", 1)) > 1:
-        raise _unported("ZeRO++ (quantized weights / gradients, hpZ "
-                        "partitions)", "A.3.1 (distributed training: "
-                        "ZeRO++)")
     checks = [
         (C.ELASTICITY, "elasticity (elastic batch sizes over a changing "
          "card count)", "A.3.1 (distributed training)"),
@@ -355,6 +351,30 @@ class CommsLoggerConfig:
 
 
 @dataclass
+class ZeroPPConfig:
+    """ZeRO++'s flags in ``zero_optimization`` with the JAX defaults
+    (``config.py:168-170``): qwZ (int8 weight gathers), qgZ (int8 gradient
+    reduce) and hpZ's secondary partition size (1 = none)."""
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    zero_hpz_partition_size: int = 1
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ZeroPPConfig":
+        return cls(
+            zero_quantized_weights=bool(d.get("zero_quantized_weights",
+                                              False)),
+            zero_quantized_gradients=bool(d.get("zero_quantized_gradients",
+                                                False)),
+            zero_hpz_partition_size=int(d.get("zero_hpz_partition_size", 1)))
+
+    @property
+    def enabled(self) -> bool:
+        return (self.zero_quantized_weights or self.zero_quantized_gradients
+                or self.zero_hpz_partition_size > 1)
+
+
+@dataclass
 class DSTpuConfig:
     """Top-level typed config of the single-card engine (reference:
     ``DeepSpeedConfig``). ``zero_stage`` 0-3 all run one program on one
@@ -380,6 +400,7 @@ class DSTpuConfig:
     mics_shard_size: int = -1
     comms_logger: CommsLoggerConfig = field(
         default_factory=CommsLoggerConfig)
+    zeropp: ZeroPPConfig = field(default_factory=ZeroPPConfig)
 
     @classmethod
     def from_config(cls, config, dp_world_size: Optional[int] = None
@@ -427,7 +448,8 @@ class DSTpuConfig:
                 d, stage, mics_shard_size=mics),
             mics_shard_size=mics,
             comms_logger=CommsLoggerConfig.from_dict(
-                _sub(d, C.COMMS_LOGGER)))
+                _sub(d, C.COMMS_LOGGER)),
+            zeropp=ZeroPPConfig.from_dict(_sub(d, C.ZERO_OPTIMIZATION)))
         if dp_world_size is not None:
             cfg.resolve_batch_sizes(dp_world_size)
         return cfg

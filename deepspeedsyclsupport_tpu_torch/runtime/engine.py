@@ -77,23 +77,43 @@ count it once. Under a pipeline each stage seeds its own aux in its
 backward and the aux is summed over stages, micro-batches and layers, as
 the JAX pipeline sums it.
 
+ZeRO++ (``zero_quantized_weights``, ``zero_quantized_gradients``,
+``zero_hpz_partition_size``; ``runtime/zeropp.py``): ``train_batch`` runs
+the JAX package's explicit step: the leaves gathered whole once a step
+(int8 under qwZ, in two hops under hpZ), each rank's LOCAL mean loss, each
+micro-batch's float32 gradient reduced to the shard as the mean over fsdp
+(int8 under qgZ), clipping by hand with no ``clip_by_global_norm`` in
+the optimizer's state; outside the JAX scope (stage 3, fsdp > 1, no
+pipe / seq / expert, ``h`` dividing fsdp) it raises the JAX engine's
+``ValueError``. ``eval_batch`` and the eager ``forward`` / ``backward`` /
+``step`` keep the plain ZeRO-3 path and the global mean, as the JAX
+engine's jitted eval and eager paths do (its eager step clips the ZeRO++
+way too).
+
+A whole-leaf statistic of an optimizer (Lamb's trust ratio, the 1-bit
+family's scales) is over the JAX package's leaf: ``_leaf_stats`` tells
+the optimizer which tensors make up each leaf (a stacked leaf's layers,
+the ranks' shards) and sums their partials over the world.
+
 ``shard_params_from_jax`` and ``gather_params`` carry weights between the
-JAX package's global tree and the ranks' shards. The sentinel, preemption
-handling and checkpoints across ranks (A.3.3b) are refused at a world
-above one.
+JAX package's global tree and the ranks' shards; ``load_engine_state``
+cuts full leaves (a JAX-written state) to this rank's shards. The
+sentinel, preemption handling and checkpoints across ranks (A.3.3b) are
+refused at a world above one.
 
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``, ``:1732-1980``) are
 the JAX package's native format, leaf for leaf: ``params`` with the layers
 stacked ``[L, ...]`` (the JAX model's ``scan_layers`` layout; the port
 holds a list of layers), ``opt_state`` in optax's layout
-(``Adam.state_tree``) and ``scaler``, so a tag written by either package
-loads in the other. The step boundary (``_post_step``, ``:1601``) feeds the
+(``_Optimizer.state_tree``) and ``scaler``, so a tag written by either
+package loads in the other. The step boundary (``_post_step``, ``:1601``) feeds the
 sentinel and the preemption handler (``runtime/resilience.py``);
 ``initialize(training_data=...)`` builds and registers a
 ``runtime/dataloader.py`` loader whose position rides the checkpoint meta.
 Offload and telemetry are not ported: they raise ``NotImplementedError``
 naming their ``ROADMAP.md`` entry.
 """
+import contextlib
 import copy
 import dataclasses
 import glob
@@ -352,6 +372,11 @@ class Engine:
         self.config = DSTpuConfig.from_config(config)
         self.topology = self._build_topology(topology)
         self.distributed = self.topology is not None
+        if self.config.zeropp.enabled and not self.distributed:
+            from .zeropp import check_scope
+
+            check_scope(self.config.zero_stage, {"fsdp": 1},
+                        self.config.zeropp.zero_hpz_partition_size)
         self.dp_world_size = (self.topology.get_data_parallel_world_size()
                               if self.distributed else 1)
         self.config.resolve_batch_sizes(self.dp_world_size)
@@ -445,7 +470,13 @@ class Engine:
                                          self.config.optimizer.params,
                                          self.lr_schedule)
         self.optimizer.init(self._update_views() if self.distributed
-                            else self._leaf_tensors, [p for p, _ in named])
+                            else self._leaf_tensors, [p for p, _ in named],
+                            self._leaf_stats())
+        self._zeropp = None
+        if self.config.zeropp.enabled:
+            from .zeropp import ZeroPPStep
+
+            self._zeropp = ZeroPPStep(self)
 
         # ----------------------------------------------------- bookkeeping
         self.global_steps = 0
@@ -508,7 +539,19 @@ class Engine:
                                    f"comm.init_distributed first")
             return None
         set_world_topology(topology)
-        topology.init_groups()
+        zpp = self.config.zeropp
+        hier = []
+        if zpp.enabled:
+            from .zeropp import check_scope
+
+            check_scope(self.config.zero_stage, topology.axis_sizes,
+                        zpp.zero_hpz_partition_size)
+            h = zpp.zero_hpz_partition_size
+            if 1 < h < topology.axis_sizes["fsdp"]:
+                # hpZ's two hops, built before any step: a group made
+                # mid-step can deadlock
+                hier = [("fsdp", h)]
+        topology.init_groups(hierarchical=hier)
         return topology
 
     def _parallel_plan(self, view):
@@ -645,6 +688,38 @@ class Engine:
                                        if a not in used))
         return views
 
+    def _leaf_stats(self):
+        """How the optimizer's tensors make up the JAX package's leaves
+        (``optimizers.LeafStats``): a stacked layer leaf is its layers'
+        tensors, and across ranks each tensor a shard of its leaf, counted
+        by its owner and summed over the world, so a whole-leaf statistic
+        (Lamb's norms, the 1-bit scales) is the world-1 one."""
+        from .optimizers import LeafStats
+
+        paths = [p for p, _ in _leaves(self.params)]
+        paths = [paths[i] for i in self._float_pos]
+        if not self.distributed:
+            shapes = [tuple(t.shape) for t in self._leaf_tensors]
+            layers = len(self.params["layers"]) if self._stack_layers else 1
+        else:
+            shapes = [self._full_shapes[p] for p in self._float_paths]
+            layers = getattr(self.module.config, "num_layers", 1)
+        keys: Dict[Tuple, int] = {}
+        group, sizes = [], []
+        for path, shape in zip(paths, shapes):
+            stacked = self._stack_layers and path[0] == "layers"
+            if path not in keys or not stacked:
+                keys[path] = len(sizes)
+                sizes.append(int(np.prod(shape)) * (layers if stacked
+                                                    else 1))
+            group.append(keys[path])
+        if not self.distributed:
+            return LeafStats(group, sizes)
+        everyone = tuple(self.topology.axis_sizes)
+        return LeafStats(group, sizes, owner=self._owner,
+                         reduce=lambda v, op: comm.all_reduce(v, everyone,
+                                                              op=op))
+
     # =============================================================== loss core
     def _cast_params(self, params):
         """The params in the compute dtype; at ZeRO-3 a leaf held as an
@@ -674,9 +749,14 @@ class Engine:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _loss_and_metrics(self, params, batch, train: bool = True,
-                          rng: Optional[torch.Generator] = None
+                          rng: Optional[torch.Generator] = None,
+                          gathered: bool = False
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        p = self._cast_params(params)
+        """The loss on the params cast to the compute dtype (``gathered``:
+        every leaf is whole, as ZeRO++ hands them, so none is a shard)."""
+        p = _tree_map(lambda t: t.to(self.compute_dtype)
+                      if t.is_floating_point() else t, params) \
+            if gathered else self._cast_params(params)
         if rng is None:
             rng = self._generator(self.micro_steps)
         out = (self.loss_fn_raw(p, batch, rng, train=train)
@@ -703,6 +783,18 @@ class Engine:
         loss, metrics = self._loss_and_metrics(self.params, batch, rng=rng)
         scale_loss(loss, self.scaler_state).backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    @contextlib.contextmanager
+    def _local_loss(self):
+        """The model's loss as each rank's LOCAL masked mean (its token
+        count not summed over the batch axes): the ZeRO++ step's loss, as
+        the JAX body computes it inside ``shard_map``."""
+        plan = self.module.parallel
+        self.module.parallel = dataclasses.replace(plan, batch_axes=())
+        try:
+            yield
+        finally:
+            self.module.parallel = plan
 
     @property
     def _pipelined(self) -> bool:
@@ -880,6 +972,22 @@ class Engine:
             axes = ("pipe",) + axes
         return list(comm.all_reduce(torch.stack(values), axes).unbind(0))
 
+    def _over_ranks(self, losses: List[torch.Tensor], metrics: List[Dict],
+                    how: str) -> Tuple[List[torch.Tensor], List[Dict]]:
+        """Each micro-batch's loss and metrics over the ranks in one call:
+        ``"sum"`` of the ranks' shares (:meth:`_global_sum`), or the
+        ``"mean"`` of their local values over (data, fsdp) (the ZeRO++
+        step's: JAX ``global_mean``)."""
+        keys = list(metrics[0])
+        flat = losses + [m[k] for m in metrics for k in keys]
+        vals = self._global_sum(flat) if how == "sum" else list(
+            comm.all_reduce(torch.stack(flat), ("data", "fsdp"),
+                            op="mean").unbind(0))
+        n = len(losses)
+        return vals[:n], [dict(zip(keys, vals[n + i * len(keys):
+                                             n + (i + 1) * len(keys)]))
+                          for i in range(n)]
+
     def _reduce(self, g: torch.Tensor, axes) -> torch.Tensor:
         return comm.all_reduce(g, axes) \
             if self.topology.axis_size(axes) > 1 else g
@@ -949,8 +1057,15 @@ class Engine:
             finite_h = apply = True
         clip = self.config.gradient_clipping
         if clip and clip > 0 and grads:
-            factor = torch.where(grad_norm < clip,
-                                 torch.ones_like(grad_norm), clip / grad_norm)
+            if self.config.zeropp.enabled:
+                # the JAX ZeRO++ step's manual clip (its optax chain has
+                # no clip_by_global_norm)
+                factor = torch.clamp(clip / grad_norm.clamp_min(1e-6),
+                                     max=1.0)
+            else:
+                factor = torch.where(grad_norm < clip,
+                                     torch.ones_like(grad_norm),
+                                     clip / grad_norm)
             torch._foreach_mul_(grads, factor)
         if apply:
             self.optimizer.step(grads)
@@ -995,24 +1110,25 @@ class Engine:
         gate = self._sentinel.gate_array() if self._sentinel is not None \
             else None
         self._zero_grads()
-        losses, metrics = [], []
-        for i, mb in enumerate(self._micro_batches(batch, gas)):
-            loss, m = self._micro_backward(
-                mb, self._generator(self.global_steps, i))
-            losses.append(loss)
-            metrics.append(m)
-        grads = self._grads()
-        if self.distributed:
-            grads = self._reduce_grads(grads)
-            keys = list(metrics[0])
-            vals = self._global_sum(losses + [m[k] for m in metrics
-                                              for k in keys])
-            losses = vals[:gas]
-            metrics = [dict(zip(keys, vals[gas + i * len(keys):
-                                           gas + (i + 1) * len(keys)]))
-                       for i in range(gas)]
-        if gas > 1:
-            torch._foreach_div_(grads, float(gas))
+        if self._zeropp is not None:
+            # the ZeRO++ step: gradient shards already averaged over the
+            # micro-batches; the ranks' local losses averaged over them
+            grads, losses, metrics = self._zeropp.grads(
+                self._micro_batches(batch, gas))
+            losses, metrics = self._over_ranks(losses, metrics, "mean")
+        else:
+            losses, metrics = [], []
+            for i, mb in enumerate(self._micro_batches(batch, gas)):
+                loss, m = self._micro_backward(
+                    mb, self._generator(self.global_steps, i))
+                losses.append(loss)
+                metrics.append(m)
+            grads = self._grads()
+            if self.distributed:
+                grads = self._reduce_grads(grads)
+                losses, metrics = self._over_ranks(losses, metrics, "sum")
+            if gas > 1:
+                torch._foreach_div_(grads, float(gas))
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
         loss = torch.stack(losses).mean()
@@ -1183,10 +1299,12 @@ class Engine:
         return self._resilience
 
     # ============================================================ checkpoint
-    def _layout(self, values: List[Any]) -> Any:
+    def _layout(self, values: List[Any], per_leaf: bool = False) -> Any:
         """One value per param leaf (None drops it) -> the JAX package's
         params tree. Stacked layer leaves are callables that stack when the
-        writer reaches them, so one stacked leaf at a time is held."""
+        writer reaches them, so one stacked leaf at a time is held; with
+        ``per_leaf`` the values are each leaf's scalar (equal over a stacked
+        leaf's layers) and a stacked leaf takes its first layer's."""
         def build(node):
             if isinstance(node, dict):
                 return {k: build(v) for k, v in node.items()}
@@ -1203,16 +1321,17 @@ class Engine:
             if isinstance(node, dict):
                 return {k: stack(v, path + (k,)) for k, v in node.items()}
             parts = [values[_get(layer, path)] for layer in layers]
-            if parts[0] is None:
-                return None
+            if parts[0] is None or per_leaf:
+                return parts[0]
             return lambda: torch.stack(parts)
 
         out["layers"] = stack(layers[0], ())
         return out
 
-    def _unlayout(self, tree: Any) -> List[Any]:
+    def _unlayout(self, tree: Any, per_leaf: bool = False) -> List[Any]:
         """:meth:`_layout`'s inverse: one value per param leaf (layer ``i``
-        of a stacked leaf is its ``[i]``)."""
+        of a stacked leaf is its ``[i]``; with ``per_leaf`` every layer
+        takes the leaf's scalar)."""
         out: List[Any] = [None] * len(self._param_leaves)
 
         def walk(node, val):
@@ -1232,21 +1351,27 @@ class Engine:
             if k != "layers":
                 walk(v, tree[k])
         for i, node in enumerate(self._index["layers"]):
-            walk(node, _tree_map(lambda x, i=i: x[i], tree["layers"]))
+            walk(node, tree["layers"] if per_leaf else
+                 _tree_map(lambda x, i=i: x[i], tree["layers"]))
         return out
 
-    def _moments_layout(self, values: List[Any]) -> Any:
+    def _moments_layout(self, values: List[Any],
+                        per_leaf: bool = False) -> Any:
         """Optimizer values (one per floating param) in the params
         layout."""
         full: List[Any] = [None] * len(self._param_leaves)
         for i, v in zip(self._float_pos, values):
             full[i] = v
-        return self._layout(full)
+        return self._layout(full, per_leaf)
 
     @property
     def _clip(self) -> bool:
+        """Whether the optimizer's optax chain starts with
+        ``clip_by_global_norm`` (never under ZeRO++, which clips by
+        hand)."""
         return bool(self.config.gradient_clipping
-                    and self.config.gradient_clipping > 0)
+                    and self.config.gradient_clipping > 0
+                    and not self.config.zeropp.enabled)
 
     def _state_tree(self, template: bool = False) -> Dict[str, Any]:
         """What a checkpoint holds: ``params``, ``opt_state`` and
@@ -1256,7 +1381,8 @@ class Engine:
                 else (lambda ts: [t.detach() for t in ts]))
         tree = {"params": self._layout(meta(self._param_leaves)),
                 "opt_state": self.optimizer.state_tree(
-                    lambda ts: self._moments_layout(meta(ts)), self._clip),
+                    lambda ts, per_leaf=False: self._moments_layout(
+                        meta(ts), per_leaf), self._clip),
                 "scaler": _host_scaler(self.scaler_state)}
         return _tree_map(_meta, tree) if template else tree
 
@@ -1270,15 +1396,44 @@ class Engine:
         if params is not None:
             self._load_params(params)
         floats = set(self._float_pos)
-        self.optimizer.load_state_tree(
-            state["opt_state"],
-            lambda tree: [v for i, v in enumerate(self._unlayout(tree))
-                          if i in floats], self._clip)
+
+        def unlayout(tree, per_leaf=False):
+            vals = [v for i, v in enumerate(self._unlayout(tree, per_leaf))
+                    if i in floats]
+            return vals if per_leaf else self._update_shards(vals)
+
+        self.optimizer.load_state_tree(state["opt_state"], unlayout,
+                                       self._clip)
         self.scaler_state = _py_scaler(state["scaler"])
+
+    def _update_shards(self, values: List[Any]) -> List[Any]:
+        """Optimizer values, one per float leaf: under a process group a
+        value of the leaf's full (per-layer) shape is cut to the part this
+        rank updates (``zero.moment_spec``'s layout); others are taken as
+        they are."""
+        if not self.distributed:
+            return values
+        out = []
+        for path, v in zip(self._float_paths, values):
+            shape = self._full_shapes[path]
+            if tuple(np.shape(v)) == shape:
+                v = v[self.topology.shard_slices(shape,
+                                                 self._update_specs[path])]
+            out.append(v)
+        return out
 
     @torch.no_grad()
     def _load_params(self, params: Any) -> None:
-        for dst, src in zip(self._param_leaves, self._unlayout(params)):
+        """Params in the JAX layout into the held tensors; under a process
+        group a leaf of the full (per-layer) shape is cut to this rank's
+        shard."""
+        srcs = self._unlayout(params)
+        if self.distributed:
+            srcs = [v[self.topology.shard_slices(
+                self._full_shapes[p], self._specs[p])]
+                if tuple(np.shape(v)) == self._full_shapes[p] else v
+                for p, v in zip(self._paths, srcs)]
+        for dst, src in zip(self._param_leaves, srcs):
             dst.copy_(src if isinstance(src, torch.Tensor)
                       else torch.from_numpy(np.array(src)))
 

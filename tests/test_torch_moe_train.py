@@ -299,19 +299,21 @@ def test_engine_trajectory_matches_jax(monkeypatch):
 
 def test_engine_refuses_expert_parallelism():
     """Expert parallelism is ported: ``moe.expert_parallel_size`` is
-    accepted and, with no process group, asks for one. What stays refused
-    for an MoE model, naming A.3.1: ZeRO++ and elasticity."""
+    accepted and, with no process group, asks for one, with ZeRO++ flags
+    too (ZeRO++ is ported; across ranks its scope refuses ``expert`` with
+    the JAX engine's ValueError, tests/test_torch_dist_zeropp.py). What
+    stays refused for an MoE model, naming A.3.1: elasticity."""
     model = build_model("tiny-moe", dtype="float32")
-    with pytest.raises(RuntimeError, match="init_distributed"):
-        teng.initialize(model=model, config=dict(
-            ENGINE_CFG, moe={"expert_parallel_size": 2}), device="cpu")
-    for section in ({"zero_optimization": {
-            "stage": 3, "zero_quantized_weights": True}},
-            {"elasticity": {"enabled": True}}):
-        with pytest.raises(NotImplementedError, match="A.3.1"):
+    for section in ({}, {"zero_optimization": {
+            "stage": 3, "zero_quantized_weights": True}}):
+        with pytest.raises(RuntimeError, match="init_distributed"):
             teng.initialize(model=model, config=dict(
                 ENGINE_CFG, moe={"expert_parallel_size": 2}, **section),
                 device="cpu")
+    with pytest.raises(NotImplementedError, match="A.3.1"):
+        teng.initialize(model=model, config=dict(
+            ENGINE_CFG, moe={"expert_parallel_size": 2},
+            elasticity={"enabled": True}), device="cpu")
 
 
 def test_engine_jitter_draws_per_seed_and_step():

@@ -94,6 +94,17 @@ def test_config_validation_matches(bad):
         tc.RaggedInferenceConfig(**bad)
 
 
+@pytest.mark.parametrize("pad", [-3, -200, 2.5, True])
+def test_head_dim_lane_pad_rejects_what_is_not_a_pad(pad):
+    """``head_dim_lane_pad`` is None, 0 (auto) or a positive int: -3 once
+    gave a pool head dim of 126 and -200 one of 0. The JAX package keeps
+    the gap (ROADMAP.md, differences by design)."""
+    with pytest.raises(ValueError, match="head_dim_lane_pad"):
+        tc.RaggedInferenceConfig(head_dim_lane_pad=pad)
+    for ok in (None, 0, 8, np.int64(128)):
+        tc.RaggedInferenceConfig(head_dim_lane_pad=ok)
+
+
 def test_config_defaults_match():
     j = dataclasses.asdict(jc.RaggedInferenceConfig(max_sequences=16))
     t = dataclasses.asdict(tc.RaggedInferenceConfig(max_sequences=16))

@@ -269,26 +269,37 @@ def test_a_plan_on_the_layer_dim_raises():
     {"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
     {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
     {"elasticity": {"enabled": True}},
-    # with expert parallelism, ZeRO++ and elasticity still refused
+    # with expert parallelism, ZeRO++ parses (the engine's scope refuses
+    # it across ranks) and elasticity is still refused
     {"moe": {"expert_parallel_size": 2}, "zero_optimization": {
         "stage": 3, "zero_quantized_weights": True}},
     {"parallelism": {"ep": 2}, "elasticity": {"enabled": True}},
 ])
 def test_unported_parts_of_distributed_training_raise(section):
-    """ZeRO++ and elasticity stay refused, naming A.3.1; data, fsdp, tp
-    and MiCS are accepted, and so are the pipeline and sequence sizes
-    (A.3.1.1-2) and the expert sizes (A.3.1.3), parsed as the JAX package
-    parses them."""
+    """Elasticity stays refused, naming A.3.1; data, fsdp, tp and MiCS are
+    accepted, and so are the pipeline and sequence sizes (A.3.1.1-2), the
+    expert sizes (A.3.1.3) and the ZeRO++ flags (A.3.1 item 1), parsed as
+    the JAX package parses them."""
+    from deepspeedsyclsupport_tpu.runtime.config import ZeroConfig
     from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
 
     d = dict(train_batch_size=8, **section)
-    unported = "zero_optimization" in section or "elasticity" in section
+    if "zero_optimization" in section:
+        got = DSTpuConfig.from_config(d).zeropp
+        want = ZeroConfig.from_dict(section["zero_optimization"])
+        assert (got.zero_quantized_weights, got.zero_quantized_gradients,
+                got.zero_hpz_partition_size) == (
+            want.zero_quantized_weights, want.zero_quantized_gradients,
+            want.zero_hpz_partition_size)
+        assert got.enabled
+    unported = "elasticity" in section
     if not unported:
         got = DSTpuConfig.from_config(d).parallelism
         want = JParallelism.from_config_dict(d, 0)
         assert (got.pp, got.sp, got.ep, got.pp_microbatches) == (
             want.pp, want.sp, want.ep, want.pp_microbatches)
-        assert max(got.pp, got.sp, got.ep) > 1
+        assert max(got.pp, got.sp, got.ep) > 1 or \
+            "zero_optimization" in section
         return
     with pytest.raises(NotImplementedError, match=r"A\.3\.1"):
         DSTpuConfig.from_config(d)

@@ -6,8 +6,10 @@ launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``comm.init_distributed`` (the env:// path), runs the spec's ``kind`` —
 ``"comm"`` (the façade's cases), ``"comm_more"`` (the rest of the
 façade on 8 ranks), ``"p2p"`` (send / recv / p2p over ``pipe`` and the
-differentiable collectives' gradients) or ``"train"`` (legs of ``tiny``
-or ``tiny-moe`` through ``initialize`` -> ``train_batch``) — and writes this rank's results as
+differentiable collectives' gradients), ``"quant"`` (the quantized
+collectives and ZeRO++'s gathers and reduces), ``"scope"`` (configs the
+ZeRO++ step refuses) or ``"train"`` (legs of ``tiny`` or ``tiny-moe``
+through ``initialize`` -> ``train_batch``) — and writes this rank's results as
 ``<out>/<leg>_rank<r>.npz``. It imports torch and the port, never jax.
 """
 import json
@@ -234,6 +236,81 @@ def run_p2p(spec, rank, out):
                                          for k, v in snap.items()})))
 
 
+# ------------------------------------------------------------------ quant
+def quant_input(name, rank, shape):
+    """Rank ``rank``'s input of a quantized case: seeded normal values."""
+    seed = sum(map(ord, name)) * 100 + rank
+    return torch.from_numpy(np.random.RandomState(seed).randn(
+        *shape).astype(np.float32))
+
+
+QUANT_SHAPES = {"gather": (3, 100), "gather_pad": (5, 7),
+                "reduce": (4 * 6, 90), "reduce_pad": (4 * 2, 5),
+                "onebit": (33, 5), "hier": (6, 50)}
+
+
+def run_quant(spec, rank, out):
+    """The quantized collectives on a 4-rank ``fsdp`` axis (hpZ groups of
+    2 built up front), and ZeRO++'s leaf gather and reduce with the bytes
+    the logger records."""
+    from deepspeedsyclsupport_tpu_torch.comm import quantized as q
+    from deepspeedsyclsupport_tpu_torch.runtime import zeropp
+
+    topo = build_topology(fsdp=4)
+    topo.init_groups(hierarchical=[("fsdp", 2)])
+    res = {}
+    for name in ("gather", "gather_pad"):
+        x = quant_input(name, rank, QUANT_SHAPES[name])
+        res[name] = q.quantized_all_gather(x, "fsdp")
+        res[name + "_bf16"] = q.quantized_all_gather(
+            x, "fsdp", dtype=torch.bfloat16).float()
+    for name in ("reduce", "reduce_pad"):
+        res[name] = q.all_to_all_quant_reduce(
+            quant_input(name, rank, QUANT_SHAPES[name]), "fsdp")
+    x = quant_input("onebit", rank, QUANT_SHAPES["onebit"])
+    err = 0.1 * quant_input("onebit_err", rank, QUANT_SHAPES["onebit"])
+    res["onebit"], res["onebit_err"] = q.compressed_allreduce(x, err, "fsdp")
+    x = quant_input("hier", rank, QUANT_SHAPES["hier"])
+    for h in (1, 2, 4):
+        for quantized in (False, True):
+            res[f"hier_{h}_{int(quantized)}"] = zeropp.hierarchical_all_gather(
+                x, 4, h, quantized)
+    comms_logger.reset()
+    comms_logger.configure(enabled=True)
+    res["leaf_gather"] = zeropp.gather_leaf(x, 4, 2, True)
+    res["leaf_gather_plain"] = zeropp.gather_leaf(x, 4, 2, False)
+    g = quant_input("reduce", rank, QUANT_SHAPES["reduce"])
+    res["leaf_reduce"] = zeropp.reduce_leaf(g, True)
+    res["leaf_reduce_plain"] = zeropp.reduce_leaf(g, False)
+    snap = comms_logger.snapshot()
+    comms_logger.configure(enabled=False)
+    np.savez(os.path.join(out, f"quant_rank{rank}.npz"),
+             **{k: v.numpy() for k, v in res.items()},
+             logger=np.array(json.dumps({k: v["total_bytes"]
+                                         for k, v in snap.items()})))
+
+
+# ------------------------------------------------------------------ scope
+def run_scope(spec, rank, out):
+    """Each config of the spec through ``initialize``: the ValueError (or
+    NotImplementedError) message it raises, or ``""``."""
+    from deepspeedsyclsupport_tpu_torch import build_model
+    from deepspeedsyclsupport_tpu_torch.runtime import initialize
+
+    msgs = []
+    for case in spec["configs"]:
+        try:
+            initialize(model=build_model("tiny", dtype="float32",
+                                         **case["model_kw"]),
+                       config=case["config"], device="cpu")
+            msgs.append("")
+        except (ValueError, NotImplementedError) as e:
+            msgs.append(f"{type(e).__name__}: {e}")
+        reset_world_topology()
+    with open(os.path.join(out, f"scope_rank{rank}.json"), "w") as f:
+        json.dump(msgs, f)
+
+
 # ------------------------------------------------------------------ train
 def run_train(spec, rank, out):
     from deepspeedsyclsupport_tpu_torch import build_model, params_from_jax
@@ -260,6 +337,23 @@ def run_train(spec, rank, out):
             params = params_from_jax(np_tree, model.config, device="cpu")
         eng, *_ = initialize(model=model, params=params, config=cfg,
                              topology=topo, device="cpu")
+        if leg.get("load_state"):
+            # a state the JAX package wrote: full leaves, cut to this
+            # rank's shards by load_engine_state
+            from deepspeedsyclsupport_tpu_torch.runtime import (
+                engine as teng, engine_state_from_jax)
+
+            st = dict(np.load(leg["load_state"]))
+            eng.load_engine_state(
+                engine_state_from_jax(
+                    unflat({k[4:]: v for k, v in st.items()
+                            if k.startswith("opt/")}),
+                    teng._host_scaler(eng.scaler_state)),
+                params=unflat({k[7:]: v for k, v in st.items()
+                               if k.startswith("params/")}))
+        comms = []
+        if leg.get("comms"):
+            comms_logger.configure(enabled=True)
         steps = []
         if leg.get("loader"):
             # the ranks' own rows, as the topology-aware loader hands them
@@ -287,7 +381,10 @@ def run_train(spec, rank, out):
 
             moe._capacity_route = recording
         for i, b in enumerate(feed[:leg["steps"]]):
+            comms_logger.reset()
             m = eng.train_batch(b)
+            comms.append({k: v["total_bytes"] for k, v in
+                          comms_logger.snapshot().items()})
             if i == 0 and leg.get("record_route"):
                 moe._capacity_route = route
             steps.append([float(m["loss"]), float(m["grad_norm"]),
@@ -300,7 +397,9 @@ def run_train(spec, rank, out):
             refused = ""
         except NotImplementedError as e:
             refused = str(e)
+        comms_logger.configure(enabled=False)
         res = {"steps": np.array(steps), "ckpt_refused": np.array(refused),
+               "comms": np.array(json.dumps(comms)),
                "skipped": np.array(eng.skipped_steps),
                "eval": np.array(float(eng.eval_batch(batches[0])))}
         for i, (lg, ex, pos, keep, cap) in enumerate(routes):
@@ -311,12 +410,23 @@ def run_train(spec, rank, out):
             res[f"route/{i}/cap"] = np.array(cap)
         for k, v in flat(eng.params):
             res[f"local/{k}"] = v.detach().numpy()
+        if leg.get("opt_state"):
+            from deepspeedsyclsupport_tpu_torch.checkpoint.engine import (
+                _flatten)
+
+            for path, v in _flatten(eng._state_tree()["opt_state"]):
+                v = v() if callable(v) else v
+                res["opt/" + "/".join(map(str, path))] = np.asarray(
+                    v.numpy() if isinstance(v, torch.Tensor) else v)
         if full is not None:
             for k, v in flat(full):
                 res[f"full/{k}"] = v
         np.savez(os.path.join(out, f"{name}_rank{rank}.npz"), **res)
         del eng
         reset_world_topology()
+    if spec.get("configs"):
+        # configs that raise at initialize, after the legs in one spawn
+        run_scope(spec, rank, out)
 
 
 def launch(spec, out_dir, world: int = 4, timeout: float = 240.0):
@@ -365,7 +475,8 @@ def main():
     rank = comm.get_rank()
     try:
         {"comm": run_comm, "comm_more": run_comm_more, "train": run_train,
-         "p2p": run_p2p}[spec["kind"]](spec, rank, spec["out"])
+         "p2p": run_p2p, "quant": run_quant, "scope": run_scope}[
+            spec["kind"]](spec, rank, spec["out"])
     finally:
         comm.destroy_process_group()
 
