@@ -211,7 +211,7 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              plan's count, flash launches held; peak memory beside
              ``predict_memory_per_device``, step times, host-staged ops;
              (c) the pipeline and sequence-parallel twins the same way
-             (``DIST_PS_TWINS``, 4 layers); (d) MoE across ranks: the
+             (``DIST_PS_TWINS``, 2 layers, pp4 4); (d) MoE across ranks: the
              train-moe model at a world of one on NCCL through ZeRO-2,
              bit-equal to that phase's steps, then ``DIST_MOE_TWINS``
              (mixtral-8x7b widths: fsdp2 x ep2 and ep2 x tp2 at 1 layer,
@@ -227,7 +227,22 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              ``dequantize_int8``, ZeRO++ bytes EQUAL to
              ``dist_zeropp_bytes``, 3 finite falling losses), 1-bit Adam
              and 1-bit LAMB at ZeRO-2 across the freeze step against their
-             world-1 NCCL runs (fp32, ``DIST_ONEBIT_TOL``).
+             world-1 NCCL runs (fp32, ``DIST_ONEBIT_TOL``); (f)
+             checkpoints, the agent's pod, the sentinel and biases across
+             ranks (``dist_ckpt``): four ranks (``--ckpt-rank``) train
+             llama2-1b widths at 2 layers, dp2 x fsdp2 ZeRO-3, 3 steps, save
+             natively, 3 steps, and fresh ranks from another init load the
+             tag and repeat steps 4-6 BIT-EQUAL; the tag loads at a world of
+             one on NCCL within ``DIST_CKPT_W1_TOL``; ``DSElasticAgent`` in
+             pod mode drives four ``--pod-rank`` children that resume the
+             tag, a crash of rank 2 at step 4 tears the pod down, and the
+             restarted pod's steps 4-6 are BIT-EQUAL to the uninterrupted
+             run's; the sentinel, with a NaN on rank 2 poisoning an extra
+             batch, skips that step on every rank and the others EQUAL the
+             uninterrupted run's; opt-1.3b at full
+             width, 2 layers, tp2 x dp2 with non-zero biases against its
+             world-1 run; every step's bytes and flash launches against
+             the plan.
 12. kernels — every TPU kernel of the JAX package and its status here.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
@@ -2961,10 +2976,10 @@ def train_moe_parity(torch, np):
 
 # ------------------------------------------------------------- resilience
 RESUME_STEPS = 3            # steps before the save, and again after it
-# train-resume's depth: half of llama2-1b's 16 layers (a 6.2 GB tag instead
-# of 11.3 GB) keeps chip_smoke near half its time limit beside phase dist
-# (d); every hold of the phase stands at any depth
-RESUME_LAYERS = 8
+# train-resume's depth: a quarter of llama2-1b's 16 layers (a 3.7 GB tag
+# instead of 11.3 GB) keeps chip_smoke within its time limit beside phase
+# dist (d)-(f); every hold of the phase stands at any depth
+RESUME_LAYERS = 4
 TAG_BYTES_PER_PARAM = 12    # fp32 master + Adam's two fp32 moments
 SENTINEL_SEQ = 2048
 SENTINEL_CFG = {"enabled": True, "warmup_steps": 3, "window": 8,
@@ -3866,14 +3881,15 @@ DIST_TWINS = {
 # two ranks, over 2 layers and the vocab-parallel loss
 DIST_FP16_LOSS_TOL = 1e-2
 # (c): the pipeline and sequence-parallel legs of dryrun_multichip
-# (__graft_entry__.py:149-188) at llama2-1b widths cut to 4 layers: name ->
-# (config, model dtype, model overrides)
+# (__graft_entry__.py:149-188) at llama2-1b widths cut to 2 layers (pp4, one
+# layer a stage, to 4): name -> (config, model dtype, model overrides)
 DIST_PS_LAYERS = 4
+DIST_PS_CUT = {"num_layers": 2}
 DIST_PS_TWINS = {
     "pp2_tp2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
                            parallelism={"dp": 1, "tp": 2},
                            pipeline={"stages": 2, "micro_batches": 2}),
-                      "float32", {}),
+                      "float32", DIST_PS_CUT),
     # one layer a stage: the 3-deep warmup and drain
     "pp4_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
                        parallelism={"dp": 1},
@@ -3882,13 +3898,15 @@ DIST_PS_TWINS = {
     "pp2_fsdp2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
                              parallelism={"dp": 1, "fsdp": 2},
                              pipeline={"stages": 2, "micro_batches": 2}),
-                        "float32", {}),
+                        "float32", DIST_PS_CUT),
     "ulysses_sp2_tp2_zero1": (dict(DIST_BASE, zero_optimization={"stage": 1},
                                    parallelism={"dp": 1, "sp": 2, "tp": 2}),
-                              "float32", {"attn_impl": "ulysses:flash"}),
+                              "float32", dict(DIST_PS_CUT,
+                                              attn_impl="ulysses:flash")),
     "ring_flash_sp4_zero0": (dict(DIST_BASE, zero_optimization={"stage": 0},
                                   parallelism={"dp": 1, "sp": 4}),
-                             "float32", {"attn_impl": "ring:flash"}),
+                             "float32", dict(DIST_PS_CUT,
+                                             attn_impl="ring:flash")),
 }
 # the same two in bf16 (the Hopper routes of the flash kernels)
 DIST_PS_BF16 = {
@@ -3933,8 +3951,12 @@ def dist_comm_bytes(torch, eng, rows, seq, applied):
     reduce-scatters each update-sharded gradient and (an applied step)
     all-gathers the updated shards; TP all-reduces [rows, S, H] twice a
     sublayer, once at the embedding and once at the head, and the loss's
-    max, sum and gold logit [rows, S] in fp32; plus the grads' reductions
-    over data / (data, fsdp) and the step's scalars."""
+    max, sum and gold logit [rows, S] in fp32 (a learned position table
+    one more lookup), and each column-parallel bias's gradient (its
+    replicated leaf summed over ``model``); plus the grads' reductions over
+    data / (data, fsdp) and the step's scalars (with the sentinel armed,
+    each region's squared norm on the norm's all-reduce, rank 0's host
+    scalars broadcast, and on a nonfinite step the nonfinite count)."""
     from deepspeedsyclsupport_tpu_torch.runtime.zero import _walk
 
     topo, stage = eng.topology, eng.zero_stage
@@ -3974,11 +3996,28 @@ def dist_comm_bytes(torch, eng, rows, seq, applied):
             add(batch_key, t.numel() * 4)
     if tp > 1:
         act = rows * seq * cfg.hidden_size * cb
-        add("all_reduce[model]", gas * (cfg.num_layers * 4 * act + 2 * act
-                                        + 3 * rows * seq * 4))
+        lookups = 1 + (cfg.pos_embed == "learned")
+        bias = cfg.num_layers * (
+            (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+            * bool(cfg.qkv_bias)
+            + cfg.intermediate_size * (cfg.mlp_type == "mlp"
+                                       and cfg.use_bias)) \
+            + cfg.vocab_size * (cfg.lm_head_bias and not cfg.tie_embeddings)
+        add("all_reduce[model]", gas * (cfg.num_layers * 4 * act
+                                        + (1 + lookups) * act
+                                        + 3 * rows * seq * 4 + bias * cb))
     add(batch_key, gas * 4 + 4 * (gas + gas))   # token counts; loss, lm_loss
     everyone = f"all_reduce[{tuple(sizes)}]"
     add(everyone, 4 * (2 if eng.fp16_enabled else 1))   # norm (+ verdict)
+    if eng._sentinel is not None:
+        from deepspeedsyclsupport_tpu_torch.runtime.sentinel import (
+            region_of_param)
+
+        regions = len({region_of_param(p) for p in eng._grad_paths})
+        add(everyone, 4 * regions)
+        add(f"broadcast[{tuple(sizes)}]", 4 * (3 + regions))
+        if not applied:
+            add(everyone, 8)
     return want
 
 
@@ -4259,10 +4298,11 @@ def free_port():
 
 
 def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
-                     timeout=DIST_TIMEOUT_S):
-    """``world`` ranks of this script (``--dist-rank``) with the torch
-    launcher's environment; waits for all, kills any left on a failure,
-    and returns their ``rank<r>.json``."""
+                     timeout=DIST_TIMEOUT_S, flag="--dist-rank",
+                     result="rank"):
+    """``world`` ranks of this script (``flag``: ``--dist-rank`` or
+    ``--ckpt-rank``) with the torch launcher's environment; waits for all,
+    kills any left on a failure, and returns their ``<result><r>.json``."""
     spec = dict(spec, out=out_dir)
     path = os.path.join(out_dir, "spec.json")
     with open(path, "w") as f:
@@ -4274,7 +4314,7 @@ def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
                    LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), **spec.get("env", {}))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dist-rank", path],
+            [sys.executable, os.path.abspath(__file__), flag, path],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     logs, failed = [], []
@@ -4292,7 +4332,7 @@ def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
                 p.wait()
     if failed:
         raise AssertionError(f"dist ranks failed: {failed}")
-    return [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+    return [json.load(open(os.path.join(out_dir, f"{result}{r}.json")))
             for r in range(world)]
 
 
@@ -4328,12 +4368,13 @@ def phase_dist(torch, np, train_steps, moe_steps):
     at llama2-1b widths, 2 layers, fp32 (fp16 twin: fp16), held against
     their world-1 runs; (c) four ranks the same way: the pipeline (pp2 x
     tp2, pp4, pp2 x fsdp2), Ulysses (sp2 x tp2) and ring:flash (sp4) twins
-    at 4 layers, fp32, then pp2 x tp2 and the ring in bf16, each held
-    against its world-1 run, its point-to-point and all-to-all bytes and
-    its flash launches against the plan; (d) MoE across ranks
+    at 2 layers (pp4 at 4), fp32, then pp2 x tp2 and the ring in bf16,
+    each held against its world-1 run, its point-to-point and all-to-all
+    bytes and its flash launches against the plan; (d) MoE across ranks
     (:func:`dist_moe`); (e) ZeRO++ and the 1-bit optimizers
-    (:func:`dist_zeropp`). Returns the flash launches of (a) + (b), of
-    (c), of (d) and of (e)."""
+    (:func:`dist_zeropp`); (f) checkpoints, the pod, the sentinel and
+    biases across ranks (:func:`dist_ckpt`). Returns the flash launches
+    of (a) + (b), of (c), of (d), of (e) and of (f)."""
     import tempfile
 
     import torch.distributed as tdist
@@ -4419,7 +4460,8 @@ def phase_dist(torch, np, train_steps, moe_steps):
                     {"float16": {"loss": DIST_FP16_LOSS_TOL}}, full_plan=True)
 
     return (launches, dist_pipe_seq(torch, np),
-            dist_moe(torch, np, moe_steps), dist_zeropp(torch, np))
+            dist_moe(torch, np, moe_steps), dist_zeropp(torch, np),
+            dist_ckpt(torch, np))
 
 
 def dist_pipe_seq(torch, np):
@@ -4432,13 +4474,17 @@ def dist_pipe_seq(torch, np):
 
     t_c = time.perf_counter()
     twins = dict(DIST_PS_TWINS, **DIST_PS_BF16)
-    refs = {dtype: dist_reference(torch, np, twins[name][0], dtype,
-                                  DIST_PS_LAYERS)
-            for name, dtype in (("pp2_tp2_zero1", "float32"),
-                                ("pp2_tp2_zero1_bf16", "bfloat16"))}
-    log("dist", f"(c) world-1 references ({TRAIN_MODEL} widths, "
-        f"{DIST_PS_LAYERS} layers, B {DIST_BASE['train_batch_size']} x S "
-        f"{DIST_SEQ}): {refs}")
+    # one world-1 run a (dtype, depth), held against every twin of it
+    runs = {}
+    for cfg, dtype, over in twins.values():
+        key = (dtype, over.get("num_layers", DIST_PS_LAYERS))
+        if key not in runs:
+            runs[key] = dist_reference(torch, np, cfg, dtype, key[1])
+    refs = {name: runs[(dtype, over.get("num_layers", DIST_PS_LAYERS))]
+            for name, (_, dtype, over) in twins.items()}
+    log("dist", f"(c) world-1 references ({TRAIN_MODEL} widths, by (dtype,"
+        f" layers), B {DIST_BASE['train_batch_size']} x S {DIST_SEQ}): "
+        f"{runs}")
     launches_ps = {k: 0 for k in fa.LAUNCHES}
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -5046,6 +5092,511 @@ def dist_zeropp(torch, np):
         f"launches on its legs {launches}")
     return launches
 
+# (f): checkpoints, the agent's pod, the sentinel and biases under TP across
+# ranks, at llama2-1b widths cut to 2 layers (opt-1.3b's for the biases),
+# B 4 x S 2048, fp32 with TF32 off
+DIST_CKPT_CFG = dict(DIST_BASE, zero_optimization={"stage": 3},
+                     parallelism={"dp": 2, "fsdp": 2})
+DIST_CKPT_STEPS = 6          # 3 before the save, 3 after it
+DIST_CKPT_SAVE_AT = 3
+DIST_CKPT_W1_TOL = TRAIN_PARITY_TOL   # world 1 on the tag vs four ranks
+DIST_SENTINEL = {"enabled": True, "warmup_steps": 1, "window": 8,
+                 "skip_limit": 99, "rollback_limit": 1, "last_good_k": 1,
+                 "lag": 1}
+DIST_SENTINEL_NAN = (2, 4)   # (rank, step) of the injected NaN
+DIST_BIAS_MODEL = "opt-1.3b"
+DIST_BIAS_CFG = dict(DIST_BASE, zero_optimization={"stage": 1},
+                     parallelism={"dp": 2, "tp": 2})
+DIST_BIAS_STEPS = 3
+DIST_BIAS_SCALE = 0.02       # the seeded non-zero biases' spread
+DIST_POD_KILL = (2, 4)       # (rank, step) of the pod's injected crash
+DIST_POD_TIMEOUT_S = 600
+
+
+def ckpt_batches(torch, np, vocab, n, seq, dev):
+    """``n`` batches of 4 rows from seeds 20, 21, ...; a float
+    ``loss_mask`` of ones, which an injected NaN poisons."""
+    out = []
+    for i in range(n):
+        ids = np.random.RandomState(20 + i).randint(0, vocab, (4, seq))
+        out.append({"input_ids": torch.from_numpy(ids).to(dev),
+                    "loss_mask": torch.ones((4, seq), device=dev)})
+    return out
+
+
+def seeded_params(torch, model, seed, dev, biases=False):
+    """The model's init from ``seed``; with ``biases`` every bias of the
+    attention and MLP projections drawn non-zero (every init makes them
+    zero, and a bias added or summed ``tp`` times would pass a hold built
+    from that)."""
+    params = model.init_params(generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    if biases:
+        g = torch.Generator(device=dev).manual_seed(7)
+        for layer in params["layers"]:
+            for part in ("attn", "mlp"):
+                for k, t in layer.get(part, {}).items():
+                    if k in ("bq", "bk", "bv", "bo", "b1", "b2"):
+                        t.copy_(DIST_BIAS_SCALE * torch.randn(
+                            t.shape, generator=g, device=dev))
+    return params
+
+
+def rank_shards(torch, model, cfg, seed, dev, biases=False):
+    """This rank's shards of :func:`seeded_params` for ``cfg``'s mesh: the
+    full tree drawn one rank at a time (four at once do not fit beside
+    the ranks' state at the widest models)."""
+    from deepspeedsyclsupport_tpu_torch import comm
+    from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
+    from deepspeedsyclsupport_tpu_torch.runtime import shard_params
+    from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
+
+    par = DSTpuConfig.from_config(cfg).parallelism
+    sizes = MeshTopology({"data": par.dp, "fsdp": par.fsdp,
+                          "model": par.tp, "pipe": par.pp,
+                          "expert": par.ep, "seq": par.sp},
+                         world_size=comm.get_world_size())
+    params = None
+    for turn in range(comm.get_world_size()):
+        if turn == comm.get_rank():
+            full = seeded_params(torch, model, seed, dev, biases)
+            params = shard_params(full, model.config, sizes,
+                                  cfg["zero_optimization"]["stage"])
+            del full
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        comm.barrier()
+    return params
+
+
+def ckpt_step(torch, eng, batch, seq):
+    """One held step of (f): loss, grad_norm, finite, seconds, the bytes
+    handed to each collective and the flash launches, with their plans."""
+    from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    cuda = eng.device.type == "cuda"
+    comms_logger.reset()
+    fa.reset_launch_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = eng.train_batch(batch)
+    loss, gn, finite = float(m["loss"]), float(m["grad_norm"]), \
+        bool(m["finite"])
+    if cuda:
+        torch.cuda.synchronize()
+    rows = eng.train_batch_size() // eng.dp_world_size
+    return {"loss": loss, "grad_norm": gn, "finite": finite,
+            "s": time.perf_counter() - t0,
+            "bytes": {k: v["total_bytes"] for k, v in
+                      comms_logger.snapshot().items()},
+            "want_bytes": dist_comm_bytes(torch, eng, rows, seq, finite),
+            "launches": dict(fa.LAUNCHES),
+            "want_launches": dist_flash_per_step(eng)}
+
+
+def dist_ckpt_child(torch, np, spec_path):
+    """One rank of (f) (``--ckpt-rank``): (f1) 3 steps, a native save, 3
+    steps; fresh ranks from another init load the tag and repeat steps
+    4-6; (f3) the sentinel armed over (f1)'s first 4 batches with one more
+    batch at step ``DIST_SENTINEL_NAN[1]``, which rank
+    ``DIST_SENTINEL_NAN[0]``'s NaN poisons (the clean run that skips that
+    batch is (f1)'s); (f4) ``DIST_BIAS_MODEL`` under tp2 x dp2 with
+    non-zero biases. Writes ``ckpt_rank<r>.json``."""
+    from deepspeedsyclsupport_tpu_torch import comm, initialize
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.utils.fault_injection import (
+        configure_fault_injection)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev, seq, d = spec["device"], spec["seq"], spec["save_dir"]
+    cuda = dev == "cuda"
+    comm.init_distributed(device_type=dev, timeout_s=DIST_TIMEOUT_S)
+    rank = comm.get_rank()
+    reset_world_topology()
+    model = dist_model("float32", spec["layers"], spec["model"])
+    # (f1)'s batches and (f3)'s extra one
+    batches = ckpt_batches(torch, np, model.config.vocab_size,
+                           DIST_CKPT_STEPS + 1, seq, dev)
+
+    def engine(cfg, seed, m=model, biases=False):
+        params = rank_shards(torch, m, cfg, seed, dev, biases)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        return initialize(model=m, params=params, config=cfg,
+                          device=dev)[0]
+
+    def done(eng):
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        del eng
+        reset_world_topology()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return peak
+
+    def timed(fn):
+        if cuda:
+            torch.cuda.synchronize()
+        comm.barrier()
+        t = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        comm.barrier()
+        return out, time.perf_counter() - t
+
+    out = {"rank": rank}
+    # ---- (f1) save and resume
+    eng = engine(DIST_CKPT_CFG, 1)
+    run1 = [ckpt_step(torch, eng, b, seq)
+            for b in batches[:DIST_CKPT_SAVE_AT]]
+    path, save_s = timed(lambda: eng.save_checkpoint(d))
+    run1 += [ckpt_step(torch, eng, b, seq)
+             for b in batches[DIST_CKPT_SAVE_AT:DIST_CKPT_STEPS]]
+    peak1 = done(eng)
+    eng = engine(DIST_CKPT_CFG, 2)
+    (loaded, _), load_s = timed(lambda: eng.load_checkpoint(d))
+    run2 = [ckpt_step(torch, eng, b, seq)
+            for b in batches[DIST_CKPT_SAVE_AT:DIST_CKPT_STEPS]]
+    peak2 = done(eng)
+    # the preemption flag's agreement, as armed handling pays it a step
+    from deepspeedsyclsupport_tpu_torch.checkpoint.engine import world_any
+
+    _, flag_s = timed(lambda: [world_any(False) for _ in range(50)])
+    out["f1"] = {"run1": run1, "run2": run2, "path": path, "loaded": loaded,
+                 "save_s": save_s, "load_s": load_s, "peak": [peak1, peak2],
+                 "flag_us": flag_s / 50 * 1e6}
+    # ---- (f3) the sentinel across ranks
+    nan_rank, nan_step = DIST_SENTINEL_NAN
+    cfg = dict(DIST_CKPT_CFG, sentinel=dict(
+        DIST_SENTINEL, journal_dir=os.path.join(d, "journal")))
+    eng = engine(cfg, 1)
+    if rank == nan_rank:
+        configure_fault_injection({"nan_step": {"rank": nan_rank,
+                                                "step": nan_step}})
+    feed = batches[:nan_step - 1] + [batches[-1]] + [batches[nan_step - 1]]
+    steps = [ckpt_step(torch, eng, b, seq) for b in feed]
+    configure_fault_injection({})
+    out["f3"] = {"steps": steps, "count": eng.optimizer.count}
+    done(eng)
+    # ---- (f4) biases of column- and row-parallel layers under TP
+    bmodel = dist_model("float32", spec["layers"], DIST_BIAS_MODEL)
+    bbatches = ckpt_batches(torch, np, bmodel.config.vocab_size,
+                            DIST_BIAS_STEPS, seq, dev)
+    eng = engine(DIST_BIAS_CFG, 1, bmodel, biases=True)
+    steps = [ckpt_step(torch, eng, b, seq) for b in bbatches]
+    out["f4"] = {"steps": steps, "peak": done(eng)}
+    with open(os.path.join(spec["out"], f"ckpt_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    comm.destroy_process_group()
+
+
+def pod_rank_child(torch, np, spec_path):
+    """One rank of (f2)'s pod (``--pod-rank``), launched by
+    ``DSElasticAgent(nprocs=4)``: its output goes to a log of its own;
+    the rendezvous port is ``MASTER_PORT`` plus the agent's attempt
+    count; from another init it resumes the agreed tag ((f1)'s, at step
+    3) and trains (f1)'s config to step 6; on the first attempt rank
+    ``DIST_POD_KILL[0]`` dies at step ``DIST_POD_KILL[1]`` (rc 1). Writes
+    ``pod_a<attempt>_r<rank>.json``."""
+    from deepspeedsyclsupport_tpu_torch import comm, initialize
+    from deepspeedsyclsupport_tpu_torch.utils.fault_injection import (
+        configure_fault_injection)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev, seq, d = spec["device"], spec["seq"], spec["save_dir"]
+    rank = int(os.environ["RANK"])
+    attempt = int(os.environ["DSTPU_ELASTIC_ATTEMPT"])
+    log_f = open(os.path.join(spec["out"], f"pod_a{attempt}_r{rank}.log"),
+                 "w")
+    os.dup2(log_f.fileno(), 1)
+    os.dup2(log_f.fileno(), 2)
+    port = int(os.environ["MASTER_PORT"]) + attempt
+    comm.init_distributed(
+        init_method=f"tcp://{os.environ['MASTER_ADDR']}:{port}",
+        world_size=int(os.environ["WORLD_SIZE"]), rank=rank,
+        device_type=dev, timeout_s=DIST_TIMEOUT_S)
+    model = dist_model("float32", spec["layers"], spec["model"])
+    batches = ckpt_batches(torch, np, model.config.vocab_size,
+                           DIST_CKPT_STEPS, seq, dev)
+    params = rank_shards(torch, model, DIST_CKPT_CFG, 2, dev)
+    eng = initialize(model=model, params=params, config=DIST_CKPT_CFG,
+                     device=dev)[0]
+    del params
+    loaded = eng.load_checkpoint(d)[0]
+    kill_rank, kill_step = DIST_POD_KILL
+    if attempt == 0 and rank == kill_rank:
+        configure_fault_injection({"kill_step": {
+            "rank": kill_rank, "step": kill_step, "rc": 1}})
+    steps = {}
+    for i in range(eng.global_steps, DIST_CKPT_STEPS):
+        m = eng.train_batch(batches[i])
+        steps[i + 1] = [float(m["loss"]), float(m["grad_norm"])]
+    from deepspeedsyclsupport_tpu_torch.utils.podid import pod_identity
+
+    with open(os.path.join(spec["out"], f"pod_a{attempt}_r{rank}.json"),
+              "w") as f:
+        json.dump({"loaded": loaded, "steps": steps,
+                   "pod": [list(pod_identity()),
+                           os.environ.get("DSTPU_POD_RANKS")]}, f)
+    comm.destroy_process_group()
+
+
+def tag_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def hold_ckpt_steps(label, ranks, key, launches):
+    """Every rank's steps of ``key`` (a path into its json) report the
+    same global numbers; each step's bytes and flash launches EQUAL the
+    plan; the launches are added to ``launches``."""
+    def steps_of(r):
+        node = r
+        for k in key:
+            node = node[k]
+        return node
+
+    def numbers(steps):   # repr: a NaN equals a NaN
+        return [(repr(x["loss"]), repr(x["grad_norm"])) for x in steps]
+
+    r0 = steps_of(ranks[0])
+    for r in ranks:
+        mine = steps_of(r)
+        if numbers(mine) != numbers(r0):
+            raise AssertionError(f"{label}: ranks report different global "
+                                 f"numbers")
+        for i, st in enumerate(mine):
+            if st["bytes"] != st["want_bytes"]:
+                raise AssertionError(
+                    f"{label} rank {r['rank']} step {i + 1}: collective "
+                    f"bytes {st['bytes']} != plan {st['want_bytes']}")
+            if st["launches"] != st["want_launches"]:
+                raise AssertionError(
+                    f"{label} rank {r['rank']} step {i + 1}: flash "
+                    f"launches {st['launches']}, want "
+                    f"{st['want_launches']}")
+            for k, v in st["launches"].items():
+                launches[k] += v
+    return r0
+
+
+def run_pod(torch, np, d, save_dir):
+    """(f2): ``DSElasticAgent(nprocs=4)`` over ``--pod-rank`` children,
+    resuming the tag in ``save_dir``; returns (rc, the agent, seconds,
+    each rank's result of the last attempt)."""
+    from deepspeedsyclsupport_tpu_torch.elasticity import DSElasticAgent
+
+    spec = {"device": DEV, "save_dir": save_dir, "out": d,
+            "layers": DIST_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL}
+    path = os.path.join(d, "pod_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    agent = DSElasticAgent(
+        [sys.executable, os.path.abspath(__file__), "--pod-rank", path],
+        {}, nprocs=DIST_WORLD, restart_limit=1, teardown_grace=30.0,
+        env={"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+             "WORLD_SIZE": str(DIST_WORLD), "PYTHONUNBUFFERED": "1"})
+    t0 = time.perf_counter()
+    rc = agent.run()
+    wall = time.perf_counter() - t0
+    last = len(agent.launch_history) - 1
+    got = []
+    for r in range(DIST_WORLD):
+        p = os.path.join(d, f"pod_a{last}_r{r}.json")
+        if not os.path.exists(p):
+            with open(os.path.join(d, f"pod_a{last}_r{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"(f2) rank {r} of attempt {last} wrote no "
+                                 f"result (agent rc {rc}): {tail}")
+        with open(p) as f:
+            got.append(json.load(f))
+    return rc, agent, wall, got
+
+
+def dist_ckpt(torch, np):
+    """Phase ``dist`` (f): checkpoints, the pod and the sentinel across
+    four gloo ranks (fp32, TF32 off), and biases under TP. (f1)
+    ``DIST_CKPT_CFG`` (dp2 x fsdp2 ZeRO-3): 3 steps, a native save, 3
+    steps; fresh ranks from another init load the tag and repeat steps
+    4-6 BIT-EQUAL; the tag loads at a world of one (NCCL) and its next
+    step matches the four ranks' within ``DIST_CKPT_W1_TOL``; GB a tag,
+    save and load GB/s. (f2) the agent in pod mode: four children from
+    another init resume (f1)'s tag, a rank-targeted crash at step 4 tears
+    the pod down, the pod restarts from the agreed tag, and its steps 4-6
+    are BIT-EQUAL to (f1)'s. (f3) the sentinel over (f1)'s batches with
+    one more, poisoned by a NaN on one rank: every rank skips that step,
+    and the others EQUAL (f1)'s, the run that never saw the batch. (f4)
+    ``DIST_BIAS_MODEL`` at full width, 2 layers, tp2 x dp2 with non-zero
+    biases against its world-1 run (``TRAIN_PARITY_TOL``). Every step's
+    bytes and flash launches EQUAL the plan. Returns (f)'s flash
+    launches (f2's children are not counted)."""
+    import shutil
+    import tempfile
+
+    from deepspeedsyclsupport_tpu_torch import comm, initialize
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    import torch.distributed as tdist
+
+    t_f = time.perf_counter()
+    launches = {k: 0 for k in fa.LAUNCHES}
+    model = dist_model("float32", DIST_LAYERS)
+    n_params = sum(t.numel() for t in _tensors(model.init_params(
+        device="meta")))
+    root, _ = ckpt_dir(2 * n_params * TAG_BYTES_PER_PARAM)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            save_dir = os.path.join(root, "f1")
+            t0 = time.perf_counter()
+            ranks = spawn_dist_ranks(
+                {"device": DEV, "save_dir": save_dir, "layers": DIST_LAYERS,
+                 "seq": DIST_SEQ, "model": TRAIN_MODEL}, d,
+                flag="--ckpt-rank", result="ckpt_rank")
+            wall = time.perf_counter() - t0
+            f1 = ranks[0]["f1"]
+            run1 = hold_ckpt_steps("(f1) run 1", ranks, ("f1", "run1"),
+                                   launches)
+            run2 = hold_ckpt_steps("(f1) resumed", ranks, ("f1", "run2"),
+                                   launches)
+            got = [(x["loss"], x["grad_norm"]) for x in run2]
+            want = [(x["loss"], x["grad_norm"])
+                    for x in run1[DIST_CKPT_SAVE_AT:]]
+            if got != want or any(r["f1"]["loaded"] != f1["path"]
+                                  for r in ranks):
+                raise AssertionError(f"(f1) resumed {got} != uninterrupted "
+                                     f"{want} (loaded "
+                                     f"{[r['f1']['loaded'] for r in ranks]})")
+            nbytes = tag_bytes(f1["path"])
+            log("dist", f"(f1) {DIST_WORLD} ranks, {TRAIN_MODEL} widths, "
+                f"{DIST_LAYERS} layers, {DIST_CKPT_CFG['parallelism']} "
+                f"ZeRO-3, fp32: steps 1-6 (loss, grad_norm) "
+                f"{[(x['loss'], x['grad_norm']) for x in run1]}; resumed "
+                f"from another init, steps 4-6 {got}: bit-equal; tag "
+                f"{nbytes / 1e9:.3f} GB, save {f1['save_s']:.2f} s "
+                f"({nbytes / 1e9 / f1['save_s']:.3f} GB/s, rank 0 writes "
+                f"what the ranks gather), load {f1['load_s']:.2f} s "
+                f"({nbytes / 1e9 / f1['load_s']:.3f} GB/s a rank, warm "
+                f"cache), peak a rank "
+                f"{max(max(r['f1']['peak']) for r in ranks) / 2**30:.2f} "
+                f"GiB; ms/step {[round(x['s'] * 1e3, 1) for x in run1]}; "
+                f"rank 0 bytes a step {run1[-1]['bytes']}; the preemption "
+                f"flag's all-reduce {f1['flag_us']:.1f} us a step; ranks ran "
+                f"in {wall:.1f} s")
+            # the tag at a world of one on NCCL
+            comm.init_distributed(
+                init_method=f"tcp://127.0.0.1:{free_port()}",
+                world_size=1, rank=0, device_type=DEV)
+            eng = initialize(model=model, params=seeded_params(
+                torch, model, 2, DEV), config=dist_reference_config(
+                    DIST_CKPT_CFG), device=DEV)[0]
+            eng.load_checkpoint(*os.path.split(f1["path"]))
+            batch = ckpt_batches(torch, np, model.config.vocab_size,
+                                 DIST_CKPT_STEPS, DIST_SEQ, DEV)[
+                DIST_CKPT_SAVE_AT]
+            m = eng.train_batch(batch)
+            w1 = {"loss": float(m["loss"]), "grad_norm": float(
+                m["grad_norm"])}
+            backend = tdist.get_backend()
+            del eng
+            reset_world_topology()
+            comm.destroy_process_group()
+            gc.collect()
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+            worst = {k: abs(w1[k] - run1[DIST_CKPT_SAVE_AT][k])
+                     / abs(run1[DIST_CKPT_SAVE_AT][k]) for k in w1}
+            log("dist", f"(f1) the tag at world 1 ({backend}): step 4 {w1} "
+                f"vs four ranks {run1[DIST_CKPT_SAVE_AT]['loss'], run1[DIST_CKPT_SAVE_AT]['grad_norm']}: "
+                f"worst relative {worst} (tol {DIST_CKPT_W1_TOL})")
+            if any(worst[k] > DIST_CKPT_W1_TOL[k] for k in worst):
+                raise AssertionError(f"(f1) world 1 on the tag: {worst}")
+            # ---- (f3): the clean run that skips the poisoned batch is (f1)'s
+            faulty = hold_ckpt_steps("(f3)", ranks, ("f3", "steps"),
+                                     launches)
+            bad = DIST_SENTINEL_NAN[1] - 1
+            kept = [(x["loss"], x["grad_norm"])
+                    for i, x in enumerate(faulty) if i != bad]
+            clean = [(x["loss"], x["grad_norm"]) for x in run1[:len(kept)]]
+            if not (math.isnan(faulty[bad]["loss"])
+                    and not faulty[bad]["finite"] and kept == clean
+                    and all(r["f3"]["count"] == len(clean) for r in ranks)):
+                raise AssertionError(f"(f3) {faulty} vs (f1) {clean}; counts "
+                                     f"{[r['f3']['count'] for r in ranks]}")
+            log("dist", f"(f3) sentinel armed, a NaN on rank "
+                f"{DIST_SENTINEL_NAN[0]} poisoning an extra batch at step "
+                f"{DIST_SENTINEL_NAN[1]}: every rank skipped it (optimizer "
+                f"count {[r['f3']['count'] for r in ranks]}); (loss, "
+                f"grad_norm) {[(x['loss'], x['grad_norm']) for x in faulty]}"
+                f" vs (f1), the run that never saw the batch, {clean}: "
+                f"EQUAL; ms/step {[round(x['s'] * 1e3, 1) for x in faulty]}")
+            # ---- (f4)
+            bias = hold_ckpt_steps("(f4)", ranks, ("f4", "steps"), launches)
+            bmodel = dist_model("float32", DIST_LAYERS, DIST_BIAS_MODEL)
+            eng = initialize(model=bmodel, params=seeded_params(
+                torch, bmodel, 1, DEV, biases=True),
+                config=dist_reference_config(DIST_BIAS_CFG), device=DEV)[0]
+            ref = [eng.train_batch(b) for b in ckpt_batches(
+                torch, np, bmodel.config.vocab_size, DIST_BIAS_STEPS,
+                DIST_SEQ, DEV)]
+            ref = [{"loss": float(m["loss"]), "grad_norm": float(
+                m["grad_norm"])} for m in ref]
+            del eng
+            gc.collect()
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+            worst = {k: max(abs(g[k] - w[k]) / abs(w[k])
+                            for g, w in zip(bias, ref))
+                     for k in TRAIN_PARITY_TOL}
+            log("dist", f"(f4) {DIST_BIAS_MODEL} full width, {DIST_LAYERS} "
+                f"layers, {DIST_BIAS_CFG['parallelism']} ZeRO-1, non-zero "
+                f"biases: (loss, grad_norm) "
+                f"{[(x['loss'], x['grad_norm']) for x in bias]} vs world 1 "
+                f"{[(x['loss'], x['grad_norm']) for x in ref]}: worst "
+                f"relative {worst} (tol {TRAIN_PARITY_TOL}); peak a rank "
+                f"{max(r['f4']['peak'] for r in ranks) / 2**30:.2f} GiB; "
+                f"ms/step {[round(x['s'] * 1e3, 1) for x in bias]}")
+            if any(worst[k] > TRAIN_PARITY_TOL[k] for k in worst):
+                raise AssertionError(f"(f4) {bias} vs world 1 {ref}")
+            # ---- (f2) the agent's pod
+            rc, agent, pwall, pod = run_pod(torch, np, d, save_dir)
+            hist = [h["rc"] for h in agent.launch_history]
+            pgot = [[tuple(r["steps"][str(s)]) for s in range(
+                DIST_CKPT_SAVE_AT + 1, DIST_CKPT_STEPS + 1)] for r in pod]
+            if rc != 0 or len(hist) != 2 or hist[0] == 0 or \
+                    agent.teardown_count != 1 or agent.restart_count != 1 \
+                    or any(p != want for p in pgot) or any(
+                        not str(r["loaded"]).endswith(
+                            f"global_step{DIST_CKPT_SAVE_AT}") for r in pod) \
+                    or [r["pod"] for r in pod] != [
+                        [[i, DIST_WORLD], str(DIST_WORLD)]
+                        for i in range(DIST_WORLD)]:
+                raise AssertionError(
+                    f"(f2) agent rc {rc}, launches {hist}, teardowns "
+                    f"{agent.teardown_count}, restarts {agent.restart_count};"
+                    f" resumed {[r['loaded'] for r in pod]}; steps 4-6 "
+                    f"{pgot} vs (f1) {want}; pod identity and "
+                    f"DSTPU_POD_RANKS {[r['pod'] for r in pod]}")
+            log("dist", f"(f2) DSElasticAgent(nprocs={DIST_WORLD}): rank "
+                f"{DIST_POD_KILL[0]} died at step {DIST_POD_KILL[1]} (pod rc "
+                f"{hist[0]}, {agent.teardown_count} teardown), the pod "
+                f"restarted on port +1 and every rank resumed "
+                f"{pod[0]['loaded']}; steps 4-6 bit-equal to (f1)'s; "
+                f"pod_identity() = (rank, {DIST_WORLD}) beside DSTPU_POD_RANKS"
+                f" {DIST_WORLD} on every rank; the agent ran {pwall:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("dist", f"(f) took {time.perf_counter() - t_f:.1f} s; flash "
+        f"launches on its legs {launches}")
+    return launches
+
 
 def hold_zeropp_twins(ranks, refs, launches):
     """Hold (e1)-(e3) (see :func:`dist_zeropp`); adds each twin's flash
@@ -5202,14 +5753,17 @@ def main() -> int:
             return 2
         rehearse_child(torch, np)
         return 0
-    if sys.argv[1:2] == ["--dist-rank"]:
+    children = {"--dist-rank": dist_rank_child,
+                "--ckpt-rank": dist_ckpt_child,
+                "--pod-rank": pod_rank_child}
+    if sys.argv[1:2] and sys.argv[1] in children:
         with open(sys.argv[2]) as f:
             if json.load(f)["device"] == "cuda" and \
                     not torch.cuda.is_available():
                 return 2
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        dist_rank_child(torch, np, sys.argv[2])
+        children[sys.argv[1]](torch, np, sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--preempt-child"]:
         if not torch.cuda.is_available():
@@ -5277,8 +5831,8 @@ def main() -> int:
     moe_launches, moe_steps = run(phase_train_moe, torch, np)
     evo_rows, evo_launches = run(phase_evoformer, torch, np)
     run(phase_sparse, torch, np)
-    dist_launches, ps_launches, moe_dist_launches, zpp_launches = run(
-        phase_dist, torch, np, train_steps, moe_steps)
+    (dist_launches, ps_launches, moe_dist_launches, zpp_launches,
+     ckpt_launches) = run(phase_dist, torch, np, train_steps, moe_steps)
 
     log("phases", f"GiB allocated on the card after each phase (before, "
         f"after the collector) {phase_left}")
@@ -5286,7 +5840,8 @@ def main() -> int:
         f"train-moe path {moe_launches}, on the flash-lse phase "
         f"{lse_launches}, on the dist path {dist_launches}, on its pipeline "
         f"and sequence-parallel legs {ps_launches}, on its MoE legs "
-        f"{moe_dist_launches}, on its ZeRO++ and 1-bit legs {zpp_launches}")
+        f"{moe_dist_launches}, on its ZeRO++ and 1-bit legs {zpp_launches}"
+        f", on its checkpoint, sentinel and bias legs {ckpt_launches}")
     log("kernels", " | ".join(f"{k}: ported (cuda, {src}), checked"
                               for k, src in TPU_KERNELS)
         + f" | all phases in {time.perf_counter() - t_start:.1f} s")
@@ -5323,7 +5878,8 @@ def main() -> int:
             "launches_dist": dist_launches[name],
             "launches_dist_pipe_seq": ps_launches[name],
             "launches_dist_moe": moe_dist_launches[name],
-            "launches_dist_zeropp": zpp_launches[name]})
+            "launches_dist_zeropp": zpp_launches[name],
+            "launches_dist_ckpt": ckpt_launches[name]})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks
     msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]

@@ -15,6 +15,15 @@ view, or a ``non_blocking`` copy not yet finished, would let the writer
 save a later step's bytes. Every leaf is copied device -> pinned host
 memory, then the copies are waited for (``torch.cuda.synchronize``) before ``save`` returns; a CPU
 leaf is cloned. Only then does the writer thread start.
+
+Under a ``torch.distributed`` process group the leaves' gathers are
+collectives, so they run on every rank before ``save`` returns (rank 0
+keeps the host copies); every rank then publishes its rank manifest into
+the staging directory, and only rank 0's thread writes the payload, polls
+for the manifests and commits (no collective leaves the main thread).
+``wait()`` is then a collective too: rank 0 joins its writer, a failure is
+agreed over the world, so every rank raises, and no rank passes it before
+the tag is durable.
 """
 import os
 import shutil
@@ -187,15 +196,18 @@ class AsyncCheckpointEngine(CheckpointEngine):
         self._error: Optional[BaseException] = None
 
     @staticmethod
-    def _host_copy(leaves):
+    def _host_copy(leaves, keep: bool = True):
         """Host copies of ``leaves`` that nothing else aliases: a device
         tensor goes into pinned memory, and the copies are waited for
-        before this returns."""
+        before this returns. ``keep`` False: the callables are called (a
+        collective's other ranks) and nothing is kept."""
         out, on_card = [], False
         for leaf in leaves:
             if callable(leaf):
                 leaf = leaf()
-            if isinstance(leaf, torch.Tensor):
+            if not keep:
+                out.append(None)
+            elif isinstance(leaf, torch.Tensor):
                 leaf = leaf.detach()
                 if leaf.device.type == "cuda":
                     buf = torch.empty(leaf.shape, dtype=leaf.dtype,
@@ -213,12 +225,16 @@ class AsyncCheckpointEngine(CheckpointEngine):
 
     def save(self, path, state, meta, latest_file=None, tag="",
              post_commit=None):
-        from .engine import save_tree, verify_tree
+        from .engine import (_flatten, _unflatten, pod_commit,
+                             process_group_spans_pod, save_tree, verify_tree)
         from ..utils.podid import pod_identity
 
-        if pod_identity()[1] > 1:
-            # the pod commit waits for its siblings' manifests in the FINAL
-            # tag dir, which a worker staging elsewhere never writes
+        rank, world = pod_identity()
+        group = world > 1 and process_group_spans_pod()
+        if world > 1 and not group:
+            # an env-declared pod: its commit waits for the siblings'
+            # manifests in the FINAL tag dir, which a worker staging
+            # elsewhere never writes
             logger.warning("async checkpoint engine degrades to synchronous "
                            "saves under multi-rank execution")
             save_tree(path, state, meta)
@@ -226,23 +242,36 @@ class AsyncCheckpointEngine(CheckpointEngine):
             _run_post_commit(post_commit)
             return
         self.wait()  # one save in flight; surfaces a prior failure
-        # a worker killed mid-save left a .staging-* orphan: sweep it, by
-        # structure and size only (this runs on the training thread)
-        sweep_staging_dirs(os.path.dirname(os.path.abspath(path)),
-                           deep=False)
-        from .engine import _flatten, _unflatten
-
-        host_state = _unflatten(state, iter(self._host_copy(
-            [leaf for _, leaf in _flatten(state)])))
         staging = os.path.join(os.path.dirname(path),
                                f".staging-{os.path.basename(path)}")
+        if rank == 0:
+            # a worker killed mid-save left a .staging-* orphan: sweep it,
+            # by structure and size only (this runs on the training thread)
+            sweep_staging_dirs(os.path.dirname(os.path.abspath(path)),
+                               deep=False)
+            if os.path.isdir(staging):
+                shutil.rmtree(staging)
+        leaves = self._host_copy([leaf for _, leaf in _flatten(state)],
+                                 keep=rank == 0)
+        if group:
+            import torch.distributed as dist
+
+            if rank == 0:
+                os.makedirs(staging, exist_ok=True)
+            dist.barrier()   # the staging dir is clean and there
+            if rank != 0:
+                # phase 1 of the pod commit, into the dir rank 0 renames
+                pod_commit(staging, meta, barrier=False)
+                return
+        host_state = _unflatten(state, iter(leaves))
 
         def work():
             try:
                 get_fault_injector().maybe_delay_async()
-                if os.path.isdir(staging):
+                if not group and os.path.isdir(staging):
                     shutil.rmtree(staging)
-                save_tree(staging, host_state, meta)
+                # rank 0 polls for the manifests: no collective here
+                save_tree(staging, host_state, meta, collective=False)
                 if os.path.isdir(path):
                     shutil.rmtree(path)
                 os.replace(staging, path)
@@ -273,11 +302,18 @@ class AsyncCheckpointEngine(CheckpointEngine):
         return load_tree(path, template, device=device)
 
     def wait(self):
+        from .engine import process_group_spans_pod, world_any
+
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if process_group_spans_pod():
+            # every rank raises, or none: a failed pod save is the pod's
+            if world_any(err is not None):
+                raise RuntimeError("async checkpoint save failed on rank 0"
+                                   ) from err
+        elif err is not None:
             raise RuntimeError("async checkpoint save failed") from err
 
 

@@ -18,6 +18,16 @@ each leaf (a restacked layer weight, say) one at a time. A ``NamedTuple``
 is named by its fields in their order, as ``jax.tree_util`` names one (the
 loss scaler's ``scaler/scale``, ``scaler/good_steps``, ...).
 
+Under a ``torch.distributed`` process group of more than one rank every
+rank calls :func:`save_tree` with the same tree, and a callable leaf may be
+a collective (the engine's gather of a leaf's shards): every rank calls
+each one, in the writer's order, and rank 0 writes what it returns. Rank
+0 thus holds one whole leaf at a time beyond its own state. A write error
+on rank 0 is agreed over the world after the last leaf, so the save raises
+on every rank or on none; the JAX package writes the same native layout
+from one controller (its multi-controller orbax path has no torch
+counterpart).
+
 Tag history as in the JAX package: the ``latest`` pointer, tags listed
 newest first by their recorded ``global_steps``, quarantine of a corrupt
 tag (renamed ``<tag>.corrupt``), the fallback walk past corrupt or torn
@@ -25,9 +35,8 @@ tags (:func:`find_latest_valid_tag`, :func:`load_latest_valid`), the
 training sentinel's ``last_good`` pointer (:func:`promote_last_good`,
 :func:`find_last_good_tag`) and rotation (:func:`rotate_checkpoints`).
 
-Not ported yet: the orbax backend (multi-host writes, ROADMAP.md A.3.1) and
-pods of more than one rank that share no process group (A.3.3b's pod
-commit).
+Not ported: the orbax backend (rank-parallel writes of a multi-host run;
+``torch.distributed.checkpoint`` is its counterpart, ROADMAP.md A.3.1).
 """
 import itertools
 import json
@@ -196,28 +205,40 @@ def _crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     return crc1 ^ crc2
 
 
-def save_tree(path: str, state: Dict[str, Any], meta: Dict[str, Any]) -> None:
+def save_tree(path: str, state: Dict[str, Any], meta: Dict[str, Any],
+              collective: Optional[bool] = None) -> None:
     """Write a state tree + JSON metadata under ``path``.
 
     Every file write is fsynced and wrapped in :func:`retry_io`; the meta
     file carries an integrity manifest (per-file size + crc32, per-leaf
     crc32 in the index) that :func:`verify_tree` and :func:`load_tree`
-    check, so a torn or bit-rotted checkpoint is detected at load time."""
+    check, so a torn or bit-rotted checkpoint is detected at load time.
+    ``collective`` (default: whenever a process group spans the pod): the
+    leaves' gathers and the pod commit's hand-off (a ``torch.distributed``
+    barrier) are collectives. False: rank 0 writes host leaves alone and
+    polls for the other ranks' manifests, as a writer thread must (a
+    collective off the main thread would race the step's)."""
     from ..utils.podid import pod_identity
 
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    rank, _world = pod_identity()
+    rank, world = pod_identity()
+    if collective is None:
+        collective = world > 1 and process_group_spans_pod()
+    if rank == 0 or collective:
+        # rank 0 owns the payload; under a process group every rank joins
+        # the leaves' gathers, otherwise (an env-declared pod, every member
+        # holding the same full state) the others only take part in the
+        # commit below
+        digests = _save_native(path, state, write=rank == 0,
+                               collective=collective)
     if rank == 0:
-        # every member of a pod holds the same full state: rank 0 owns the
-        # payload and the others only take part in the commit below
-        digests = _save_native(path, state)
         meta = dict(meta)
         meta[INTEGRITY_KEY] = {"version": 1, "files": digests}
         meta_path = os.path.join(path, META_FILE)
         _durable_write(meta_path, json.dumps(_jsonable(meta), indent=2),
                        what=f"checkpoint meta write {meta_path}")
-    pod_commit(path, meta)
+    pod_commit(path, meta, barrier=collective)
     # torn-write simulation happens after the save claims durability: the
     # failure mode under test is "save completed, file is still short"
     fi = get_fault_injector()
@@ -264,14 +285,36 @@ _POD_COMMIT_TIMEOUT_S = 120.0
 _POD_COMMIT_POLL_S = 0.05
 
 
+def process_group_spans_pod() -> bool:
+    """Whether a ``torch.distributed`` group of more than one rank is up
+    (the pod's ranks then meet in collectives)."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def world_any(flag: bool) -> bool:
+    """``flag`` OR-ed over the default process group (one all-reduce of
+    one element, on the card when the backend is NCCL)."""
+    import torch.distributed as dist
+
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([1.0 if flag else 0.0], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item() > 0)
+
+
 def pod_commit(path: str, meta: Dict[str, Any],
-               timeout_s: Optional[float] = None) -> bool:
+               timeout_s: Optional[float] = None,
+               barrier: bool = True) -> bool:
     """Two-phase all-ranks commit of one checkpoint directory.
 
     Phase 1 (every rank): atomically publish this rank's manifest. Phase 2
     (rank 0): once every expected rank's manifest is present — after a
-    ``torch.distributed`` barrier when a process group spans the pod, else
-    by polling the shared directory — write the commit record naming the
+    ``torch.distributed`` barrier when a process group spans the pod and
+    ``barrier`` holds, else by polling the shared directory (a caller off
+    the main thread) — write the commit record naming the
     rank set and each rank's manifest digest. A single process runs the
     same protocol with ``world_size=1`` so the format stays uniform.
     Returns whether this rank considers the checkpoint committed."""
@@ -293,7 +336,8 @@ def pod_commit(path: str, meta: Dict[str, Any],
     committed = True
     import torch.distributed as dist
 
-    if world > 1 and dist.is_available() and dist.is_initialized():
+    if barrier and world > 1 and dist.is_available() and \
+            dist.is_initialized():
         # the barrier is the phase-1 -> 2 hand-off: no rank passes it
         # before its manifest is durable
         dist.barrier()
@@ -432,11 +476,16 @@ def load_tree(path: str, template: Dict[str, Any], device=None
 
 
 # ---------------------------------------------------------------- native backend
-def _save_native(path: str, state) -> Dict[str, Dict[str, int]]:
+def _save_native(path: str, state, write: bool = True,
+                 collective: bool = False
+                 ) -> Optional[Dict[str, Dict[str, int]]]:
     """Write ``state.bin`` and its index; returns the integrity manifest's
     per-file digests (size and crc32). The file's crc32 is kept while
     writing, combined from the leaves' (``_crc32_combine``), so no file is
-    read back."""
+    read back. ``collective``: every rank of the process group runs this,
+    calling each callable leaf in order, and only ``write`` (rank 0)
+    writes; the data file is then not one retry unit (a retry would call
+    the collectives again on rank 0 alone)."""
     flat = _flatten(state)
     names = ["/".join(_key_str(k) for k in p) for p, _ in flat]
     data_path = os.path.join(path, DATA_FILE)
@@ -444,28 +493,71 @@ def _save_native(path: str, state) -> Dict[str, Dict[str, int]]:
     index: List[Dict[str, Any]] = []
     data_digest: Dict[str, int] = {}
 
+    def write_leaves(f, leaves):
+        offset = crc = 0
+        for name, leaf in zip(names, leaves):
+            if f is None:
+                continue
+            data, dtype, shape = _leaf_bytes(leaf)
+            leaf_crc = zlib.crc32(data)
+            index.append({"name": name, "offset": offset,
+                          "nbytes": len(data), "dtype": dtype,
+                          "shape": shape, "crc32": leaf_crc})
+            f.write(data)
+            crc = _crc32_combine(crc, leaf_crc, len(data))
+            offset += len(data)
+            del data
+        if f is not None:
+            f.flush()
+            os.fsync(f.fileno())
+        data_digest.update(nbytes=offset, crc32=crc)
+
     def write_data():
         # the whole file is one retry unit: "wb" re-truncates, so a retry
         # after a partial write starts from a clean slate
         index.clear()
         get_fault_injector().maybe_fail_write(data_path)
-        offset = crc = 0
         with open(data_path, "wb") as f:
-            for name, (_p, leaf) in zip(names, flat):
-                data, dtype, shape = _leaf_bytes(leaf)
-                leaf_crc = zlib.crc32(data)
-                index.append({"name": name, "offset": offset,
-                              "nbytes": len(data), "dtype": dtype,
-                              "shape": shape, "crc32": leaf_crc})
-                f.write(data)
-                crc = _crc32_combine(crc, leaf_crc, len(data))
-                offset += len(data)
-                del data
-            f.flush()
-            os.fsync(f.fileno())
-        data_digest.update(nbytes=offset, crc32=crc)
+            write_leaves(f, (leaf for _p, leaf in flat))
 
-    retry_io(write_data, what=f"checkpoint data write {data_path}")
+    if not collective:
+        retry_io(write_data, what=f"checkpoint data write {data_path}")
+    else:
+        failed: List[BaseException] = []
+
+        def opened():
+            get_fault_injector().maybe_fail_write(data_path)
+            return open(data_path, "wb")
+
+        def leaves():
+            # every rank calls every leaf (the gathers); rank 0 keeps them
+            for _p, leaf in flat:
+                leaf = leaf() if callable(leaf) else leaf
+                yield leaf if write and not failed else None
+
+        f = None
+        if write:
+            try:
+                f = retry_io(opened, what=f"checkpoint data open "
+                                          f"{data_path}")
+            except OSError as e:
+                failed.append(e)
+        try:
+            it = leaves()
+            try:
+                write_leaves(f, it)
+            except OSError as e:
+                failed.append(e)
+            for _ in it:   # the leaves left after a failed write
+                pass
+        finally:
+            if f is not None:
+                f.close()
+        if world_any(bool(failed)):
+            raise OSError(f"checkpoint data write {data_path} failed on "
+                          f"rank 0") from (failed[0] if failed else None)
+        if not write:
+            return None
     text = json.dumps(index)
     _durable_write(index_path, text,
                    what=f"checkpoint index write {index_path}")

@@ -1,13 +1,19 @@
 """Elastic training agent — fault-tolerant restart supervision.
 
-Port of ``deepspeedsyclsupport_tpu/elasticity/elastic_agent.py``'s
-single-process path: monitor one worker, and on failure re-discover the
-membership, re-resolve the elastic batch config and restart, with the
-reference's per-cause restart accounting (preemption 217, collective hang
-218, serving decode hang 219, divergence 220, any other failure) and
-capped exponential backoff, plus the heartbeat watch that tells a hung
-worker from a slow one. The local pod mode (``nprocs``) is not ported yet:
-it raises ``NotImplementedError`` naming ROADMAP.md A.3.1.
+Port of ``deepspeedsyclsupport_tpu/elasticity/elastic_agent.py``: monitor
+one worker, or with ``nprocs`` a local pod of rank processes, and on
+failure re-discover the membership, re-resolve the elastic batch config
+and restart, with the reference's per-cause restart accounting
+(preemption 217, collective hang 218, serving decode hang 219, divergence
+220, any other failure) and capped exponential backoff, plus the heartbeat
+watch that tells a hung worker from a slow one.
+
+In pod mode each rank gets ``RANK``, ``LOCAL_RANK`` and ``DSTPU_POD_RANKS``;
+the rendezvous (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``) comes from
+the environment the caller hands the agent, which adds none of its own, as
+the JAX agent adds none. A restarted pod rendezvouses anew: a worker that
+wants a fresh port per incarnation derives it from
+``DSTPU_ELASTIC_ATTEMPT``.
 """
 import os
 import random
@@ -283,10 +289,149 @@ class DSElasticAgent:
 
     # ------------------------------------------------------------- pod mode
     def _launch_pod(self, env: Dict[str, str]) -> int:
-        """Local pod supervision (``nprocs``): not ported yet."""
-        raise NotImplementedError(
-            "DSElasticAgent's local pod mode (nprocs) is not ported to the "
-            "PyTorch package yet (ROADMAP.md, queue A: A.3.1)")
+        """Spawn ``nprocs`` rank processes and supervise them as ONE pod.
+
+        The moment any rank self-exits non-zero the siblings are terminated
+        immediately (SIGTERM → ``teardown_grace`` → SIGKILL): under SPMD
+        they are wedged inside a collective their dead peer will never
+        join, and letting each discover that through its own timeout
+        multiplies the recovery latency by the world size. The pod rc is
+        the most *specific* self-exit cause observed — rc 218 (comm hang)
+        over rc 217 (preemption) over the first plain failure — so the
+        restart accounting in :meth:`run` classifies the pod by its root
+        cause, not by whichever sibling our SIGTERM reaped first."""
+        import signal
+
+        for path in self._heartbeat_files():
+            try:  # a leftover beat from the last incarnation is stale
+                os.unlink(path)
+            except OSError:
+                pass
+        procs: List[subprocess.Popen] = []
+        for r in range(self.nprocs):
+            penv = dict(env)
+            penv["RANK"] = str(r)
+            penv.setdefault("LOCAL_RANK", str(r))
+            # declare the pod to the workers (utils/podid.py): the
+            # checkpoint commit protocol and fault injection need the
+            # identity even when no process group is up. Force-set
+            # like RANK above — a stale DSTPU_POD_RANKS inherited from the
+            # shell would make rank 0 wait for manifests from ranks this
+            # pod doesn't have, leaving every save torn.
+            penv["DSTPU_POD_RANKS"] = str(self.nprocs)
+            procs.append(subprocess.Popen(self.cmd, env=penv))
+        launched_at = time.monotonic()
+        rcs: Dict[int, Optional[int]] = {}
+        killed: set = set()
+        tore_down = False
+        while len(rcs) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in rcs:
+                    rc = p.poll()
+                    if rc is not None:
+                        rcs[i] = rc
+            # a clean preemption (rc 217) does NOT trigger teardown: the
+            # scheduler SIGTERMed every rank, and the siblings are busy
+            # writing their own emergency checkpoints — killing them after
+            # teardown_grace would tear exactly the saves the rc-217
+            # free-restart contract exists to preserve. They exit 217 on
+            # their own; crashes and watchdog aborts (218) tear down NOW.
+            self_failed = {i: rc for i, rc in rcs.items()
+                           if rc not in (0, PREEMPTION_EXIT_CODE)
+                           and i not in killed}
+            if self_failed and not tore_down and len(rcs) < len(procs):
+                tore_down = True
+                self._teardown_siblings(procs, rcs, killed, self_failed)
+                continue  # collect the terminated siblings' rcs
+            if len(rcs) == len(procs):
+                break
+            if self.heartbeat_file is not None \
+                    and self.heartbeat_timeout is not None \
+                    and self._heartbeat_stale(launched_at):
+                from ..monitor.monitor import resilience_counters
+
+                self.hang_count += 1
+                resilience_counters.incr("hang_restarts")
+                logger.error("elastic agent: pod heartbeat stale > %.1fs — "
+                             "stack-dumping and killing all ranks",
+                             self.heartbeat_timeout)
+                if hasattr(signal, "SIGUSR1"):
+                    for i, p in enumerate(procs):
+                        if i not in rcs:
+                            try:
+                                p.send_signal(signal.SIGUSR1)
+                            except OSError:
+                                pass
+                    self._sleep(self.hang_grace)
+                for i, p in enumerate(procs):
+                    if i not in rcs:
+                        killed.add(i)
+                        try:
+                            p.terminate()
+                        except OSError:  # pragma: no cover
+                            pass
+                self._kill_procs(procs, rcs)
+                break
+            self._sleep(self.heartbeat_poll)
+        for i, p in enumerate(procs):
+            if i not in rcs:
+                rcs[i] = p.wait()
+        self_exits = {i: rc for i, rc in rcs.items()
+                      if i not in killed and rc is not None}
+        return self._pod_rc(rcs, self_exits)
+
+    def _teardown_siblings(self, procs, rcs, killed, self_failed) -> None:
+        """Prompt pod teardown: a rank died, so end the survivors NOW."""
+        from ..monitor.monitor import resilience_counters
+
+        self.teardown_count += 1
+        resilience_counters.incr("pod_teardowns")
+        logger.error("elastic agent: rank(s) %s exited %s — tearing down "
+                     "%d sibling rank(s) immediately (no cascade wait)",
+                     sorted(self_failed), sorted(self_failed.values()),
+                     sum(1 for i in range(len(procs)) if i not in rcs))
+        for i, p in enumerate(procs):
+            if i in rcs:
+                continue
+            rc = p.poll()
+            if rc is not None:
+                # it self-exited in the window since the last poll round:
+                # record the real rc instead of writing it off as our kill
+                # (a sibling's own rc 218 must keep its cause attribution)
+                rcs[i] = rc
+                continue
+            killed.add(i)
+            try:
+                p.terminate()
+            except OSError:  # pragma: no cover - died under us
+                pass
+        self._kill_procs(procs, rcs)
+
+    def _kill_procs(self, procs, rcs) -> None:
+        """Grace-bounded reap: SIGTERM was sent; escalate to SIGKILL."""
+        deadline = time.monotonic() + self.teardown_grace
+        for i, p in enumerate(procs):
+            if i in rcs:
+                continue
+            timeout = max(0.1, deadline - time.monotonic())
+            try:
+                p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+
+    def _pod_rc(self, rcs: Dict[int, int], self_exits: Dict[int, int]) -> int:
+        """Aggregate a pod's exit: most specific self-exit cause wins."""
+        fails = {i: rc for i, rc in self_exits.items() if rc != 0}
+        if not fails:
+            # every rank either succeeded or only died by our hand
+            # (heartbeat-hang kills land here: negative rc, counted by run)
+            non_zero = [rc for rc in rcs.values() if rc != 0]
+            return 0 if not non_zero else non_zero[0]
+        for cause in (COMM_HANG_EXIT_CODE, SERVE_HANG_EXIT_CODE,
+                      DIVERGENCE_EXIT_CODE, PREEMPTION_EXIT_CODE):
+            if cause in fails.values():
+                return cause
+        return fails[min(fails)]
 
     # ------------------------------------------------------------------ run
     def run(self) -> int:

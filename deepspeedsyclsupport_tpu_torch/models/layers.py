@@ -243,6 +243,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"unknown attention impl {impl!r} (auto | flash | xla)")
 
 
+def _bias(bias: torch.Tensor, out: torch.Tensor,
+          tp_axis: Optional[str]) -> torch.Tensor:
+    """A bias for ``out`` in its dtype; with ``tp_axis`` the slice of the
+    replicated bias over this rank's columns (``column_bias``)."""
+    if tp_axis is not None:
+        from ..parallel.tensor_parallel import column_bias
+
+        bias = column_bias(bias, out.shape[-1], tp_axis)
+    return bias.to(out.dtype)
+
+
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None,
@@ -258,7 +269,8 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     shards over that mesh axis; attention runs on the rank's ``H / tp``
     query and ``KVH / tp`` KV heads (``x`` enters through
     ``copy_to_model_region``, the output leaves through
-    ``reduce_from_model_region``, the bias ``bo`` is added after it)."""
+    ``reduce_from_model_region``; ``bq`` / ``bk`` / ``bv`` are cut to the
+    rank's heads, ``bo`` is added whole after the reduce)."""
     b, s, _ = x.shape
     if tp_axis is not None:
         from ..parallel.tensor_parallel import copy_to_model_region
@@ -266,9 +278,9 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         x = copy_to_model_region(x, tp_axis)
     q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        q = q + _bias(p["bq"], q, tp_axis)
+        k = k + _bias(p["bk"], k, tp_axis)
+        v = v + _bias(p["bv"], v, tp_axis)
     q = q.reshape(b, s, -1, cfg.head_dim)
     k = k.reshape(b, s, -1, cfg.head_dim)
     v = v.reshape(b, s, -1, cfg.head_dim)
@@ -335,7 +347,8 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """The MLP; with ``tp_axis`` the params are this rank's column (gate /
     up / fc1) and row (down / fc2) shards: ``x`` enters through
     ``copy_to_model_region`` and the output leaves through
-    ``reduce_from_model_region`` (a ``b2`` bias, replicated, after it)."""
+    ``reduce_from_model_region`` (``b1`` cut to the rank's columns, ``b2``
+    added whole after the reduce)."""
     if tp_axis is None:
         return std_mlp(p, x, cfg) if cfg.mlp_type == "mlp" \
             else glu_mlp(p, x, cfg)
@@ -347,7 +360,7 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         act = _activation(cfg.activation)
         h = matmul(x, p["fc1"])
         if cfg.use_bias:
-            h = h + p["b1"].to(h.dtype)
+            h = h + _bias(p["b1"], h, tp_axis)
         out = reduce_from_model_region(matmul(act(h), p["fc2"]), tp_axis)
         if cfg.use_bias:
             out = out + p["b2"].to(out.dtype)

@@ -335,7 +335,10 @@ class CausalLM:
                 return x @ hp["embed"]["embedding"].to(x.dtype).T
             logits = x @ hp["lm_head"]["kernel"].to(x.dtype)
             if cfg.lm_head_bias:
-                logits = logits + hp["lm_head"]["bias"].to(logits.dtype)
+                from .layers import _bias
+
+                logits = logits + _bias(hp["lm_head"]["bias"], logits,
+                                        tp_axis)
             return logits
 
         hp = {"final_norm": params["final_norm"]}

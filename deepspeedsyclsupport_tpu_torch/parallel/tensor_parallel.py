@@ -13,6 +13,9 @@ Megatron's two autograd functions itself:
 * :func:`reduce_from_model_region` — all-reduce forward, identity backward
   (after a row-parallel matmul: the partial products sum to the output).
 
+:func:`column_bias` cuts a replicated bias to a column-parallel layer's
+columns.
+
 :func:`vocab_parallel_embedding` looks up ids in this rank's rows of a
 vocab-split table and sums over ``model``; :func:`vocab_parallel_logz`
 gives the log-partition and the gold logit of vocab-split logits, so the
@@ -108,6 +111,21 @@ def reduce_from_model_region(x: torch.Tensor, axis: str = "model"
                              ) -> torch.Tensor:
     """All-reduce over ``axis`` forward; identity backward."""
     return _ReduceFromModelRegion.apply(x, axis)
+
+
+def column_bias(bias: torch.Tensor, n: int, axis: str = "model"
+                ) -> torch.Tensor:
+    """This rank's ``n`` entries of a bias that is replicated over ``axis``
+    but added to a column-parallel output (the JAX package replicates every
+    bias and GSPMD slices it to the rank's columns): the slice at
+    ``axis_index * n``. The backward sums the ranks' zero-padded slices over
+    ``axis`` (:func:`copy_to_model_region`), so every rank holds the
+    replicated leaf's whole gradient. A row-parallel layer's bias is added
+    once, after :func:`reduce_from_model_region`, and needs no call."""
+    if comm.axis_size(axis) == 1:
+        return bias
+    return copy_to_model_region(bias, axis).narrow(
+        -1, comm.axis_index(axis) * n, n)
 
 
 def vocab_parallel_embedding(table: torch.Tensor, input_ids: torch.Tensor,

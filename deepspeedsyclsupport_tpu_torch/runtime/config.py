@@ -69,8 +69,6 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
             raise _unported(f"zero_optimization.{key} (ZeRO-Offload)",
                             "A.3.2 (offload)")
     checks = [
-        (C.ELASTICITY, "elasticity (elastic batch sizes over a changing "
-         "card count)", "A.3.1 (distributed training)"),
         (C.TELEMETRY, "telemetry", "A.3.4 (observability)"),
         (C.MONITOR_TENSORBOARD, "the tensorboard monitor",
          "A.3.4 (observability)"),
@@ -187,11 +185,15 @@ class CheckpointConfig:
     (``native``, synchronous, or ``async``; ``async_save`` is the
     reference's spelling of the same choice), rotation (``keep_last_n``
     newest verified tags kept after each durable save; 0 keeps all) and
-    ``tag_validation`` (a cross-rank check, validated here and moot on one
-    process)."""
+    ``tag_validation`` (the tags' crc32 summed over the world at every
+    save: ``Fail`` raises when they differ, ``Warn`` logs, ``Ignore`` skips
+    the collective). ``use_node_local_storage`` is parsed and stored as the
+    JAX package stores it; nothing in either package reads it (rank 0
+    writes every tag to the shared directory)."""
     tag_validation: str = "Warn"  # Ignore | Warn | Fail
     engine: str = "native"  # native | async (checkpoint/ckpt_engine.py)
     keep_last_n: int = 0
+    use_node_local_storage: bool = False
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "CheckpointConfig":
@@ -216,11 +218,9 @@ class CheckpointConfig:
         if d.get("load_universal"):
             raise _unported("checkpoint.load_universal (universal "
                             "checkpoints)", "A.3.5 (checkpoint formats)")
-        if d.get("use_node_local_storage"):
-            raise _unported("checkpoint.use_node_local_storage (per-node "
-                            "storage of a multi-node run)",
-                            "A.3.1 (distributed training)")
-        return cls(tag_validation=tv, engine=engine, keep_last_n=keep_last_n)
+        return cls(tag_validation=tv, engine=engine, keep_last_n=keep_last_n,
+                   use_node_local_storage=bool(
+                       d.get("use_node_local_storage", False)))
 
 
 @dataclass

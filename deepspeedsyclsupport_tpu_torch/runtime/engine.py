@@ -97,9 +97,30 @@ the ranks' shards) and sums their partials over the world.
 
 ``shard_params_from_jax`` and ``gather_params`` carry weights between the
 JAX package's global tree and the ranks' shards; ``load_engine_state``
-cuts full leaves (a JAX-written state) to this rank's shards. The
-sentinel, preemption handling and checkpoints across ranks (A.3.3b) are
-refused at a world above one.
+cuts full leaves (a JAX-written state) to this rank's shards.
+
+A custom ``loss_fn`` under a process group: a bound method of the model
+(a subclass's ``loss``) is rebound to the engine's parallel view and runs
+on every axis; any other runs only on the batch axes (data, fsdp, with
+ZeRO 0-3, MiCS and ZeRO++), as DeepSpeed runs it: each rank calls it on
+its own rows with the whole params (ZeRO-3 gathers them for the call),
+and the loss is the mean of the ranks' values. That equals the JAX
+engine's loss on the global batch for a loss that is a mean over rows
+(each rank holds as many rows); for another it differs by design. On the
+model axes (tensor, pipe, expert, seq) such a loss raises: it would run
+the caller's model, which has no parallel plan, on this rank's shards.
+
+Across ranks (A.3.3b) a checkpoint is the same single tag: every rank
+gathers each leaf from its shards in the writer's order, one leaf at a
+time, and rank 0 writes it (``checkpoint/engine.py``); the tag is checked
+over the world first (``checkpoint.tag_validation``). A load resolves the
+tag after rank 0's staging sweep, agrees it over the world (rank 0's
+wins) and cuts the full leaves to each rank's shards, so a tag saved at
+one world and layout loads at any other. The sentinel takes rank 0's
+health scalars on every rank (one broadcast a step while armed) and so
+the same decision everywhere; rank 0 writes its journal. A pending
+preemption is OR-ed over the world at each step boundary while handling
+is armed (``runtime/resilience.py``), so every rank saves at one step.
 
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``, ``:1732-1980``) are
 the JAX package's native format, leaf for leaf: ``params`` with the layers
@@ -382,6 +403,8 @@ class Engine:
         self.config.resolve_batch_sizes(self.dp_world_size)
         self.module = module
         self.loss_fn_raw = loss_fn
+        # a loss_fn that is not the model's own, under a process group
+        self._custom_loss = False
         try:
             self._loss_accepts_train = "train" in inspect.signature(
                 loss_fn).parameters
@@ -410,11 +433,8 @@ class Engine:
             if getattr(loss_fn, "__self__", None) is module:
                 self.loss_fn_raw = getattr(view, loss_fn.__name__)
             elif self.distributed:
-                raise NotImplementedError(
-                    "under torch.distributed the loss must be the model's "
-                    "own (its token count is all-reduced over the batch "
-                    "axes); a custom loss_fn is not ported: ROADMAP.md, "
-                    "queue A.3.1 (distributed training)")
+                self._check_custom_loss()
+                self._custom_loss = True
             self.module = view
         elif self.distributed:
             raise NotImplementedError(
@@ -499,15 +519,12 @@ class Engine:
         self._sentinel = None
         self._host_metrics: Optional[Dict[str, Any]] = None
         if self.config.sentinel.enabled:
-            if self.distributed:
-                raise NotImplementedError(
-                    "the training sentinel under torch.distributed is not "
-                    "ported yet: "
-                    "ROADMAP.md, queue A.3.3b (pod-wide resilience)")
             from .sentinel import TrainingSentinel
 
+            # under a process group rank 0's journal is the pod's
             self._sentinel = TrainingSentinel(self, self.config.sentinel,
-                                              rank=self._fi_rank)
+                                              rank=self._fi_rank,
+                                              shared=self.distributed)
         cl = self.config.comms_logger
         comms_logger.configure(enabled=cl.enabled, verbose=cl.verbose,
                                timed=cl.timed)
@@ -579,12 +596,37 @@ class Engine:
                 raise ValueError(f"tensor parallelism {tp} must divide the "
                                  f"{cfg.num_heads} query and "
                                  f"{cfg.num_kv_heads} KV heads")
-            if cfg.qkv_bias or (cfg.mlp_type == "mlp" and cfg.use_bias):
-                raise NotImplementedError(
-                    "biases of column-parallel layers under tensor "
-                    "parallelism are not ported yet: ROADMAP.md, queue "
-                    "A.3.1 (distributed training)")
+            tables = [("vocabulary", cfg.vocab_size)]
+            if cfg.pos_embed == "learned":
+                tables.append(("learned position table",
+                               cfg.max_seq_len + cfg.pos_embed_offset))
+            for what, rows in tables:
+                if rows % tp:
+                    # the plan would leave the table whole, and the
+                    # vocab-parallel lookup and loss read it as a shard
+                    raise ValueError(
+                        f"tensor parallelism {tp} must divide the {rows} "
+                        f"rows of the {what}: the port splits it over "
+                        f"'model' (pad it to a multiple of {tp}, as 50304 "
+                        f"for gpt2's 50257)")
         return ParallelPlan(tp=tp, batch_axes=self._batch_axes, ep=ep)
+
+    def _check_custom_loss(self) -> None:
+        """A custom ``loss_fn`` under a process group runs on the batch
+        axes only (module docstring)."""
+        sizes = self.topology.axis_sizes
+        model_axes = [a for a in ("model", "pipe", "expert", "seq")
+                      if sizes[a] > 1]
+        if model_axes:
+            raise NotImplementedError(
+                f"a custom loss_fn under tensor, pipeline, expert or "
+                f"sequence parallelism (mesh axes {model_axes} > 1) must be "
+                f"a bound method of the model (a subclass's loss), which the "
+                f"engine rebinds to its parallel view: a closure over the "
+                f"caller's model would run that model, which has no parallel "
+                f"plan, on this rank's shards. On the batch axes (data, "
+                f"fsdp) any loss_fn runs: each rank's value on its own rows, "
+                f"averaged over the ranks")
 
     @property
     def _batch_axes(self) -> Tuple[str, ...]:
@@ -759,11 +801,24 @@ class Engine:
             if gathered else self._cast_params(params)
         if rng is None:
             rng = self._generator(self.micro_steps)
-        out = (self.loss_fn_raw(p, batch, rng, train=train)
-               if self._loss_accepts_train else self.loss_fn_raw(p, batch,
-                                                                  rng))
+
+        def call(p):
+            return (self.loss_fn_raw(p, batch, rng, train=train)
+                    if self._loss_accepts_train
+                    else self.loss_fn_raw(p, batch, rng))
+
+        # a custom loss takes this rank's rows and the whole params, and
+        # returns its share of the mean over the batch ranks (ZeRO++'s
+        # gathered step means the ranks' local values itself)
+        share = self._custom_loss and not gathered
+        out = zero_lib.run_gathered(p, call) if share else call(p)
         loss, metrics = out if isinstance(out, tuple) else (out, {})
-        return loss.float(), dict(metrics)
+        loss, metrics = loss.float(), dict(metrics)
+        if share:
+            n = float(self.dp_world_size)
+            loss = loss / n
+            metrics = {k: v / n for k, v in metrics.items()}
+        return loss, metrics
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -1035,24 +1090,40 @@ class Engine:
         return out
 
     @torch.no_grad()
-    def _apply_grads_dist(self, grads: List[torch.Tensor]) -> Dict[str, Any]:
+    def _apply_grads_dist(self, grads: List[torch.Tensor],
+                          loss: Optional[torch.Tensor] = None,
+                          gate: Optional[np.ndarray] = None
+                          ) -> Dict[str, Any]:
         """:meth:`_apply_grads` over this rank's update shards: the global
         norm from each leaf's owner (one all-reduce over the world), the
         fp16 verdict agreed over the world, then clip, update, and (stages
-        1-2) the updated shards all-gathered into the held params."""
+        1-2) the updated shards all-gathered into the held params.
+
+        ``gate`` (the sentinel's, with the step's global mean ``loss``)
+        arms the health gate as on one card: the region norms join the
+        norm's all-reduce, and rank 0's host scalars are broadcast, so
+        every rank gates, and its sentinel decides, on the same bits."""
         everyone = tuple(self.topology.axis_sizes)
+        health: Dict[str, Any] = {}
+        if gate is not None and float(gate[1]) != 1.0 and grads:
+            torch._foreach_mul_(grads, float(gate[1]))
         unscale_grads(grads, self.scaler_state)
         norms = torch._foreach_norm(grads) if grads else []
         own = [n for n, o in zip(norms, self._owner) if o]
         local = torch.linalg.vector_norm(torch.stack(own)) if own \
             else torch.zeros((), device=self.device)
-        grad_norm = comm.all_reduce(local * local, everyone).sqrt()
-        if self.fp16_enabled:
+        if gate is not None:
+            grad_norm, finite_h, apply, health = self._dist_gate(
+                grads, norms, local, loss, gate, everyone)
+            finite = torch.tensor(finite_h, device=self.device)
+        elif self.fp16_enabled:
+            grad_norm = comm.all_reduce(local * local, everyone).sqrt()
             ok = grads_finite(grads).float() if grads else \
                 torch.ones((), device=self.device)
             finite = comm.all_reduce(ok, everyone, op="min") > 0
             finite_h = apply = bool(finite)
         else:
+            grad_norm = comm.all_reduce(local * local, everyone).sqrt()
             finite = torch.ones((), dtype=torch.bool, device=self.device)
             finite_h = apply = True
         clip = self.config.gradient_clipping
@@ -1081,8 +1152,49 @@ class Engine:
             scale_window=fp16.loss_scale_window,
             min_scale=fp16.min_loss_scale, hysteresis=fp16.hysteresis)
         self._last_grad_norm = grad_norm
-        return {"grad_norm": grad_norm, "finite": finite,
+        return {**health, "grad_norm": grad_norm, "finite": finite,
                 "loss_scale": self.scaler_state.scale}
+
+    def _dist_gate(self, grads, norms, local, loss, gate, everyone):
+        """The sentinel's gate across ranks: ``(grad_norm, finite, apply,
+        health)``.
+        Each region's squared norm over this rank's owned shards rides the
+        grad norm's all-reduce; rank 0's ``[loss_ok, loss, grad_norm,
+        region norms]`` is broadcast to every rank; the nonfinite count
+        (owned elements, an exact integer sum) only when the norm is not
+        finite. Sets ``self._host_metrics`` as :meth:`_apply_grads`."""
+        from .sentinel import nonfinite_count, region_of_param
+
+        regions = sorted({region_of_param(p) for p in self._grad_paths})
+        sq = torch.zeros(1 + len(regions), device=self.device)
+        sq[0] = local * local
+        for path, n, o in zip(self._grad_paths, norms, self._owner):
+            if o:
+                i = 1 + regions.index(region_of_param(path))
+                sq[i] = sq[i] + n.float() * n.float()
+        sq = comm.all_reduce(sq, everyone)
+        grad_norm = sq[0].sqrt()
+        vec = torch.stack([(loss <= float(gate[0])).float(), loss,
+                           grad_norm, *sq[1:].sqrt()])
+        vec = comm.broadcast(vec, everyone, src=0)
+        keys = ("loss_ok", "loss", "grad_norm",
+                *(f"health_rn_{r}" for r in regions))
+        host = dict(zip(keys, vec.tolist()))
+        nonfinite = 0
+        if not math.isfinite(host["grad_norm"]):
+            own = [g for g, o in zip(grads, self._owner) if o]
+            count = nonfinite_count(own).to(self.device, torch.float64) \
+                if own else torch.zeros((), dtype=torch.float64,
+                                        device=self.device)
+            nonfinite = int(comm.all_reduce(count, everyone))
+        finite_h = nonfinite == 0
+        apply = finite_h and host.pop("loss_ok") > 0
+        health = {k: vec[3 + i] for i, k in enumerate(keys[3:])}
+        health["health_nonfinite"] = torch.tensor(
+            nonfinite, dtype=torch.int32, device=self.device)
+        self._host_metrics = dict(host, finite=finite_h,
+                                  health_nonfinite=nonfinite)
+        return grad_norm, finite_h, apply, health
 
     # ============================================================ fused path
     def train_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -1132,7 +1244,8 @@ class Engine:
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
         loss = torch.stack(losses).mean()
-        out.update(self._apply_grads_dist(grads) if self.distributed
+        out.update(self._apply_grads_dist(grads, loss=loss, gate=gate)
+                   if self.distributed
                    else self._apply_grads(grads, loss=loss, gate=gate))
         out["loss"] = loss
         self._zero_grads()
@@ -1299,34 +1412,73 @@ class Engine:
         return self._resilience
 
     # ============================================================ checkpoint
-    def _layout(self, values: List[Any], per_leaf: bool = False) -> Any:
+    def _layout(self, values: List[Any], per_leaf: bool = False,
+                specs: Optional[Dict[Tuple, Tuple]] = None,
+                layers: Optional[int] = None) -> Any:
         """One value per param leaf (None drops it) -> the JAX package's
         params tree. Stacked layer leaves are callables that stack when the
         writer reaches them, so one stacked leaf at a time is held; with
         ``per_leaf`` the values are each leaf's scalar (equal over a stacked
-        leaf's layers) and a stacked leaf takes its first layer's."""
+        leaf's layers) and a stacked leaf takes its first layer's.
+
+        ``specs`` (under a process group): each value is this rank's shard,
+        laid out by ``specs[path]``; every leaf is a callable that gathers
+        it whole (a collective: every rank calls it, in the writer's order),
+        a stacked leaf's layers over ``pipe`` too. ``layers``: the stacked
+        leaves of meta values lead with that many layers (a template of the
+        whole pipeline's)."""
+        def leaf(i):
+            v = values[i]
+            if v is None or per_leaf or specs is None:
+                return v
+            return lambda: self._whole(v, specs[self._paths[i]])
+
         def build(node):
             if isinstance(node, dict):
                 return {k: build(v) for k, v in node.items()}
             if isinstance(node, list):
                 return [build(v) for v in node]
-            return values[node]
+            return leaf(node)
 
         if not self._stack_layers:
             return build(self._index)
         out = {k: build(v) for k, v in self._index.items() if k != "layers"}
-        layers = self._index["layers"]
 
         def stack(node, path):
             if isinstance(node, dict):
                 return {k: stack(v, path + (k,)) for k, v in node.items()}
-            parts = [values[_get(layer, path)] for layer in layers]
+            idx = [_get(layer, path) for layer in block]
+            parts = [values[i] for i in idx]
             if parts[0] is None or per_leaf:
                 return parts[0]
+            if specs is not None:
+                return lambda: self._whole_layers(
+                    parts, [specs[self._paths[i]] for i in idx])
+            if layers is not None:
+                return torch.empty((layers,) + tuple(parts[0].shape),
+                                   dtype=parts[0].dtype, device="meta")
             return lambda: torch.stack(parts)
 
-        out["layers"] = stack(layers[0], ())
+        block = self._index["layers"]
+        out["layers"] = stack(block[0], ())
         return out
+
+    def _whole(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The whole leaf from this rank's shard ``t`` laid out by
+        ``spec``: all-gathered over each dim's axes (a collective)."""
+        t = t.detach()
+        for d, entry in enumerate(spec):
+            if entry and self.topology.axis_size(entry) > 1:
+                t = comm.all_gather(t.contiguous(), entry, axis=d)
+        return t
+
+    def _whole_layers(self, parts, specs) -> torch.Tensor:
+        """A stacked leaf ``[L, ...]``: this stage's layers, each gathered
+        whole, then every stage's block over ``pipe`` in stage order."""
+        x = torch.stack([self._whole(t, sp) for t, sp in zip(parts, specs)])
+        if self._pipelined:
+            x = comm.all_gather(x.contiguous(), "pipe", axis=0)
+        return x
 
     def _unlayout(self, tree: Any, per_leaf: bool = False) -> List[Any]:
         """:meth:`_layout`'s inverse: one value per param leaf (layer ``i``
@@ -1350,19 +1502,32 @@ class Engine:
         for k, v in self._index.items():
             if k != "layers":
                 walk(v, tree[k])
+        n, first = len(self._index["layers"]), self._stage_first_layer()
+
+        def layer(x, i):
+            # a whole pipeline's stacked leaf, or this stage's block
+            return x[first + i] if len(x) > n else x[i]
+
         for i, node in enumerate(self._index["layers"]):
             walk(node, tree["layers"] if per_leaf else
-                 _tree_map(lambda x, i=i: x[i], tree["layers"]))
+                 _tree_map(lambda x, i=i: layer(x, i), tree["layers"]))
         return out
 
+    def _stage_first_layer(self) -> int:
+        """The global index of this rank's first layer (0 without a
+        pipeline)."""
+        if not self._pipelined:
+            return 0
+        return self.topology.axis_index("pipe") * len(self._index["layers"])
+
     def _moments_layout(self, values: List[Any],
-                        per_leaf: bool = False) -> Any:
+                        per_leaf: bool = False, **kw) -> Any:
         """Optimizer values (one per floating param) in the params
-        layout."""
+        layout (``kw``: :meth:`_layout`'s)."""
         full: List[Any] = [None] * len(self._param_leaves)
         for i, v in zip(self._float_pos, values):
             full[i] = v
-        return self._layout(full, per_leaf)
+        return self._layout(full, per_leaf, **kw)
 
     @property
     def _clip(self) -> bool:
@@ -1376,15 +1541,50 @@ class Engine:
     def _state_tree(self, template: bool = False) -> Dict[str, Any]:
         """What a checkpoint holds: ``params``, ``opt_state`` and
         ``scaler`` in the JAX package's layout; with ``template``, leaves
-        of the same shapes and dtypes on the ``meta`` device."""
-        meta = ((lambda ts: [_meta(t) for t in ts]) if template
-                else (lambda ts: [t.detach() for t in ts]))
-        tree = {"params": self._layout(meta(self._param_leaves)),
+        of the same shapes and dtypes on the ``meta`` device. Under a
+        process group the leaves are whole: each a collective gather of
+        this rank's shards (:meth:`_layout`), and a template's shapes the
+        whole model's."""
+        if not self.distributed:
+            meta = ((lambda ts: [_meta(t) for t in ts]) if template
+                    else (lambda ts: [t.detach() for t in ts]))
+            tree = {"params": self._layout(meta(self._param_leaves)),
+                    "opt_state": self.optimizer.state_tree(
+                        lambda ts, per_leaf=False: self._moments_layout(
+                            meta(ts), per_leaf), self._clip),
+                    "scaler": _host_scaler(self.scaler_state)}
+            return _tree_map(_meta, tree) if template else tree
+        if self._pipelined and not self._stack_layers:
+            raise NotImplementedError(
+                "a pipeline's checkpoint is written in the stacked [L, ...] "
+                "layout: the model's config needs scan_layers")
+        if not template:
+            upd = {p: self._update_specs[p] for p in self._float_paths}
+            return {"params": self._layout(self._param_leaves,
+                                           specs=self._specs),
+                    "opt_state": self.optimizer.state_tree(
+                        lambda ts, per_leaf=False: self._moments_layout(
+                            ts, per_leaf, specs=upd), self._clip),
+                    "scaler": _host_scaler(self.scaler_state)}
+        # the whole model's shapes: each held leaf's full per-layer shape,
+        # a stacked leaf every stage's layers
+        n_layers = len(self._index["layers"]) * \
+            self.topology.axis_sizes["pipe"] if self._stack_layers else None
+
+        def whole(ts, paths):
+            return [torch.empty(self._full_shapes[p], dtype=t.dtype,
+                                device="meta") if isinstance(t, torch.Tensor)
+                    else _meta(t) for t, p in zip(ts, paths)]
+
+        tree = {"params": self._layout(whole(self._param_leaves, self._paths),
+                                       layers=n_layers),
                 "opt_state": self.optimizer.state_tree(
                     lambda ts, per_leaf=False: self._moments_layout(
-                        meta(ts), per_leaf), self._clip),
+                        [_meta(t) for t in ts] if per_leaf else
+                        whole(ts, self._float_paths), per_leaf,
+                        layers=n_layers), self._clip),
                 "scaler": _host_scaler(self.scaler_state)}
-        return _tree_map(_meta, tree) if template else tree
+        return _tree_map(_meta, tree)
 
     @torch.no_grad()
     def load_engine_state(self, state: Dict[str, Any],
@@ -1437,18 +1637,57 @@ class Engine:
             dst.copy_(src if isinstance(src, torch.Tensor)
                       else torch.from_numpy(np.array(src)))
 
-    @staticmethod
-    def _refuse_process_group(what: str) -> None:
-        """Tag validation and resume-tag agreement across ranks (JAX
-        ``engine.py:2040, 1982``) are the identity on one process; a
-        process group of more is not ported."""
-        import torch.distributed as dist
+    def _validate_tag(self, tag: str) -> None:
+        """The tag agreed over the ranks before a save (JAX
+        ``engine.py:2040``): the crc32 of the tag mod 2^16 summed over the
+        world in one all-reduce; a sum other than the world times this
+        rank's value means the tags differ (``Fail`` raises on every rank,
+        ``Warn`` logs, ``Ignore`` skips the collective). One process:
+        nothing to compare."""
+        mode = self.config.checkpoint.tag_validation
+        if mode == "Ignore" or not self.distributed:
+            return
+        import zlib
 
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                f"{what} across a process group is not ported yet: "
-                f"ROADMAP.md, queue A.3.1 (distributed training)")
+        h = float(zlib.crc32(tag.encode()) % (2 ** 16))
+        total = comm.all_reduce(torch.tensor(
+            [h], dtype=torch.float64, device=self.device),
+            tuple(self.topology.axis_sizes))
+        if float(total[0]) != h * self.topology.world_size():
+            msg = f"checkpoint tag {tag!r} differs across ranks"
+            if mode == "Fail":
+                raise RuntimeError(msg)
+            logger.warning(msg)
+
+    # one slot a rank: the agreement's collective has a static shape, so a
+    # tag is padded or cut to this many bytes
+    _TAG_AGREE_BYTES = 256
+
+    def _agree_resume_tag(self, tag: Optional[str]) -> Optional[str]:
+        """Every rank's resolved resume tag all-gathered; every rank adopts
+        rank 0's (JAX ``engine.py:1980-2008``). Ranks resolve over one
+        shared directory, so they usually agree, but a save or quarantine
+        racing a restart can split them, and ranks resuming different steps
+        diverge for good. The gather is also the resume barrier. One
+        process: the identity."""
+        if not self.distributed or self.topology.world_size() == 1:
+            return tag
+        buf = torch.zeros(self._TAG_AGREE_BYTES, dtype=torch.int32)
+        enc = (tag or "").encode()[:self._TAG_AGREE_BYTES]
+        buf[:len(enc)] = torch.tensor(list(enc), dtype=torch.int32)
+        rows = comm.all_gather(buf.to(self.device),
+                               tuple(self.topology.axis_sizes), tiled=False)
+        first = rows.reshape(self.topology.world_size(), -1)[0].cpu()
+        agreed = bytes(int(c) for c in first if c).decode() or None
+        if agreed != tag:
+            from ..monitor.monitor import resilience_counters
+
+            logger.warning(
+                "resume-tag divergence: this rank resolved %r but the pod "
+                "agreed on rank 0's %r; adopting the pod's choice", tag,
+                agreed)
+            resilience_counters.incr("fallback_loads")
+        return agreed
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[Dict] = None,
@@ -1457,9 +1696,11 @@ class Engine:
         ``async``, which returns after the host copy) as
         ``<save_dir>/<tag>`` (default ``global_step<N>``), then point
         ``latest`` at it and rotate (``checkpoint.keep_last_n``). Returns
-        the tag's path."""
+        the tag's path. Under a process group every rank calls it (the
+        leaves' gathers are collectives) with the same ``save_dir``; rank
+        0 writes the tag, ``latest`` and the rotation."""
         tag = tag or f"global_step{self.global_steps}"
-        self._refuse_process_group("checkpoint tag validation")
+        self._validate_tag(tag)
         path = os.path.join(save_dir, tag)
         meta = {"global_steps": self.global_steps,
                 "micro_steps": self.micro_steps,
@@ -1513,12 +1754,15 @@ class Engine:
                                "quarantining and retrying resolution",
                                e.path, e.reason)
                 resilience_counters.incr("corrupt_tags_skipped")
-                quarantine_tag(e.path)
+                # every rank read the same bytes; rank 0 renames the tag
+                if self._fi_rank == 0:
+                    quarantine_tag(e.path)
 
     def _load_checkpoint_once(self, load_dir: str, tag: Optional[str],
                               load_optimizer_states: bool
                               ) -> Tuple[Optional[str], Dict]:
-        # an async save may still be writing `latest`
+        # an async save may still be writing `latest` (a collective under a
+        # process group)
         self.checkpoint_engine.wait()
         if self._fi_rank == 0:
             # a save killed before this restart left .staging-* orphans (or
@@ -1526,14 +1770,20 @@ class Engine:
             from ..checkpoint.ckpt_engine import sweep_staging_dirs
 
             sweep_staging_dirs(load_dir)
+        if self.distributed:
+            # no rank lists the tags while rank 0's sweep renames them
+            comm.barrier()
         if tag is None:
             tag = self._resolve_resume_tag(load_dir)
             if tag is None:
                 return None, {}
         path = os.path.join(load_dir, tag)
         self._refuse_reference_format(path)
+        # under a process group every rank reads the whole leaves into host
+        # memory and keeps its shards of them
         state, meta = self.checkpoint_engine.load(
-            path, self._state_tree(template=True), device=self.device)
+            path, self._state_tree(template=True),
+            device="cpu" if self.distributed else self.device)
         if load_optimizer_states:
             self.load_engine_state(state, params=state["params"])
         else:
@@ -1551,8 +1801,9 @@ class Engine:
 
     def _resolve_resume_tag(self, load_dir: str) -> Optional[str]:
         """The tag ``latest`` names if it verifies, else the newest that
-        does (shallow: the read checks every leaf's crc32). None when
-        nothing is loadable."""
+        does (shallow: the read checks every leaf's crc32), agreed over the
+        ranks (:meth:`_agree_resume_tag`). None when nothing is
+        loadable."""
         from ..checkpoint.engine import _read_latest, find_latest_valid_tag
         from ..monitor.monitor import resilience_counters
 
@@ -1564,7 +1815,7 @@ class Engine:
             logger.warning("skipping corrupt checkpoint %s: %s",
                            os.path.join(load_dir, skipped_tag), reason)
             resilience_counters.incr("corrupt_tags_skipped")
-        self._refuse_process_group("resume-tag agreement")
+        tag = self._agree_resume_tag(tag)
         if tag is None:
             logger.warning("no loadable checkpoint in %s; nothing loaded",
                            load_dir)

@@ -16,6 +16,15 @@ machine gets a SIGTERM and a short grace window, so:
 
 A simulated preemption (``utils/fault_injection.py`` ``preempt_at_step``)
 enters through the same step boundary.
+
+Under a process group the scheduler's SIGTERM (or an injected preemption)
+may reach the ranks at different step boundaries, and the emergency save
+is a collective: ranks that saw the flag at different steps would wait
+for each other forever. So at every step boundary, while handling is
+armed, the pending flag is OR-ed over the world (one all-reduce of one
+element, the only cost handling adds to a step): every rank then saves at
+the same step, the pod commits and every rank exits 217. The JAX package's
+single controller sees one flag and needs none of this.
 """
 import signal
 import sys
@@ -76,20 +85,30 @@ class ResilienceManager:
 
     # -------------------------------------------------------- step boundary
     def at_step_boundary(self) -> None:
-        """Called by the engine after each completed optimizer step."""
+        """Called by the engine after each completed optimizer step (on
+        every rank under a process group: the flag is agreed here)."""
         if self._signal_pending:
             self._signal_pending = False
             logger.warning("received signal %s: emergency checkpoint at "
                            "step boundary", self._signal_num)
             self.request_preemption()
-        if not self.preemption_requested.is_set():
-            if get_fault_injector().should_preempt(self.engine.global_steps):
-                logger.warning("fault injection: simulated preemption at "
-                               "step %d", self.engine.global_steps)
+        if not self.preemption_requested.is_set() and \
+                get_fault_injector().should_preempt(self.engine.global_steps):
+            logger.warning("fault injection: simulated preemption at "
+                           "step %d", self.engine.global_steps)
+            self.request_preemption()
+        pending = self.preemption_requested.is_set()
+        if getattr(self.engine, "distributed", False):
+            from ..checkpoint.engine import world_any
+
+            if world_any(pending) and not pending:
+                logger.warning("a sibling rank was preempted: emergency "
+                               "checkpoint at step %d",
+                               self.engine.global_steps)
                 self.request_preemption()
-            else:
-                return
-        self._emergency_save_and_exit()
+                pending = True
+        if pending:
+            self._emergency_save_and_exit()
 
     def _emergency_save_and_exit(self) -> None:
         from ..monitor.monitor import resilience_counters

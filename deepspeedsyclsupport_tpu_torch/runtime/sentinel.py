@@ -1,6 +1,7 @@
 """Training-health sentinel: NaN / spike detection and graduated response.
 
-Port of ``deepspeedsyclsupport_tpu/runtime/sentinel.py`` for one card:
+Port of ``deepspeedsyclsupport_tpu/runtime/sentinel.py``, on one card or
+across ranks:
 
 * **detect**: health scalars computed on the card from the step's grads
   (:func:`health_metrics`: the nonfinite element count and one grad norm
@@ -28,6 +29,12 @@ gate (``finite`` and the loss cap's verdict) on the host once a step and
 skips the update there; the JAX package selects the update on the device.
 The decisions and the trajectory are the same. Telemetry (the ``Health/*``
 events, the goodput ledger) is not ported yet (ROADMAP.md A.3.4).
+
+Under a process group (``shared``) every rank runs a sentinel fed the same
+scalars (the engine broadcasts rank 0's), so every rank takes the same
+decision at the same step. Rank 0 alone writes the journal and the
+``last_good`` pointer; every rank replays rank 0's journal, and a
+rollback's tag is agreed over the ranks (``Engine._agree_resume_tag``).
 
 Import hygiene: stdlib, numpy and torch only; the elastic agent imports
 :data:`DIVERGENCE_EXIT_CODE` from here.
@@ -216,10 +223,14 @@ class TrainingSentinel:
     rc-220 abort without dying."""
 
     def __init__(self, engine: Any, cfg: Any, rank: int = 0,
-                 exit_fn: Optional[Callable[[int], None]] = None):
+                 exit_fn: Optional[Callable[[int], None]] = None,
+                 shared: bool = False):
         self.engine = engine
         self.cfg = cfg
         self.rank = int(rank)
+        # one journal for a process group's ranks: rank 0's
+        self._journal_rank = 0 if shared else self.rank
+        self._writer = not shared or self.rank == 0
         self._exit_fn = exit_fn or sys.exit
         self._loss_stat = RobustStat(cfg.window, cfg.ewma_alpha)
         self._gn_stat = RobustStat(cfg.window, cfg.ewma_alpha)
@@ -246,7 +257,7 @@ class TrainingSentinel:
             return
         os.makedirs(d, exist_ok=True)
         self._journal_path = os.path.join(
-            d, f"health_journal_rank{self.rank}.jsonl")
+            d, f"health_journal_rank{self._journal_rank}.jsonl")
 
     def _replay_journal(self) -> None:
         """Re-read a journal from before a restart: its skip decisions must
@@ -271,6 +282,8 @@ class TrainingSentinel:
                         "from %s", n, self._journal_path)
 
     def _journal(self, record: Dict[str, Any]) -> None:
+        if not self._writer:
+            return
         if self._journal_path is None:
             self._resolve_journal()
             if self._journal_path is None:
@@ -417,6 +430,9 @@ class TrainingSentinel:
         from ..monitor.monitor import resilience_counters
 
         tag, skipped = find_last_good_tag(self._save_dir)
+        agree = getattr(self.engine, "_agree_resume_tag", None)
+        if agree is not None:
+            tag = agree(tag)   # rank 0's choice on every rank
         if tag is None:
             logger.error("sentinel: no promoted last-good tag under %s "
                          "(skipped: %s) — cannot roll back", self._save_dir,
@@ -486,7 +502,8 @@ class TrainingSentinel:
             return
         from ..checkpoint.engine import promote_last_good
 
-        promote_last_good(self._save_dir, tag)
+        if self._writer:
+            promote_last_good(self._save_dir, tag)
         self._promoted_step = s
         logger.info("sentinel: promoted %s (step %d) to last-good "
                     "(%d healthy steps beyond it)", tag, s,

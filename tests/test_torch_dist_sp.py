@@ -31,7 +31,8 @@ JAX_MODEL_KW = {"ulysses_sp4_tp2_zero1": {"attn_impl": "ulysses"}}
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    return base.run_ranks(tmp_path_factory, LEGS, 8)
+    return base.run_ranks(tmp_path_factory, LEGS, 8,
+                          jax_model_kw=JAX_MODEL_KW)
 
 
 @pytest.mark.parametrize("name", list(LEGS))

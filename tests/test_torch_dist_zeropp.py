@@ -421,7 +421,7 @@ def test_leg_matches_jax_engine(run, name):
     for g in got[name]:
         np.testing.assert_allclose(float(g["eval"]), jeval, rtol=1e-5,
                                    err_msg="eval_batch")
-    assert all("A.3.1" in str(g["ckpt_refused"]) for g in got[name])
+    assert all(bool(g["ckpt_equal"]) for g in got[name])
     model = build_model("tiny", dtype="float32", **spec["model_kw"])
     full = {k[len("full/"):]: v for k, v in got[name][0].items()
             if k.startswith("full/")}

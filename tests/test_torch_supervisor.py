@@ -95,9 +95,12 @@ def test_agent_accounting_matches_jax(script):
 
 
 def test_agent_pod_mode_is_not_ported():
+    """The pod mode is ported now (tests/test_torch_pod_agent.py holds it
+    against the JAX agent): a pod of two ``true`` ranks returns 0 with no
+    teardown."""
     agent = elastic_agent.DSElasticAgent(["true"], {}, nprocs=2)
-    with pytest.raises(NotImplementedError, match="A.3.1"):
-        agent._launch({})
+    assert agent._launch(dict(os.environ)) == 0
+    assert agent.teardown_count == 0
 
 
 def test_agent_backoff_and_elastic_config_match_jax():

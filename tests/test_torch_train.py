@@ -402,6 +402,20 @@ def test_activation_checkpointing_config_sets_remat():
         "enabled": True}}}}, "A.3.7"),
 ])
 def test_unported_config_sections_raise(section, entry):
+    """Each section not ported raises naming its ROADMAP entry. The two
+    A.3.1 sections are ported now: ``elasticity`` is accepted and ignored
+    by the engine, and ``checkpoint.use_node_local_storage`` is stored, as
+    the JAX package parses them."""
+    if entry == "A.3.1":
+        from deepspeedsyclsupport_tpu.runtime.config import (
+            DSTpuConfig as JConfig)
+
+        got = DSTpuConfig.from_config(dict(ENGINE_CFG, **section))
+        want = JConfig.from_config(dict(ENGINE_CFG, **section))
+        for f in ("tag_validation", "engine", "keep_last_n",
+                  "use_node_local_storage"):
+            assert getattr(got.checkpoint, f) == getattr(want.checkpoint, f)
+        return
     with pytest.raises(NotImplementedError, match=entry.replace(".", r"\.")):
         DSTpuConfig.from_config(dict(ENGINE_CFG, **section))
 

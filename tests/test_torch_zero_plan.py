@@ -276,10 +276,11 @@ def test_a_plan_on_the_layer_dim_raises():
     {"parallelism": {"ep": 2}, "elasticity": {"enabled": True}},
 ])
 def test_unported_parts_of_distributed_training_raise(section):
-    """Elasticity stays refused, naming A.3.1; data, fsdp, tp and MiCS are
-    accepted, and so are the pipeline and sequence sizes (A.3.1.1-2), the
-    expert sizes (A.3.1.3) and the ZeRO++ flags (A.3.1 item 1), parsed as
-    the JAX package parses them."""
+    """Every part of distributed training parses now: data, fsdp, tp and
+    MiCS, the pipeline and sequence sizes (A.3.1.1-2), the expert sizes
+    (A.3.1.3), the ZeRO++ flags (A.3.1 item 1), parsed as the JAX package
+    parses them, and ``elasticity``, which the engine accepts and ignores
+    as the JAX engine does (the agent resolves it)."""
     from deepspeedsyclsupport_tpu.runtime.config import ZeroConfig
     from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
 
@@ -292,17 +293,13 @@ def test_unported_parts_of_distributed_training_raise(section):
             want.zero_quantized_weights, want.zero_quantized_gradients,
             want.zero_hpz_partition_size)
         assert got.enabled
-    unported = "elasticity" in section
-    if not unported:
-        got = DSTpuConfig.from_config(d).parallelism
-        want = JParallelism.from_config_dict(d, 0)
-        assert (got.pp, got.sp, got.ep, got.pp_microbatches) == (
-            want.pp, want.sp, want.ep, want.pp_microbatches)
-        assert max(got.pp, got.sp, got.ep) > 1 or \
-            "zero_optimization" in section
-        return
-    with pytest.raises(NotImplementedError, match=r"A\.3\.1"):
-        DSTpuConfig.from_config(d)
+    got = DSTpuConfig.from_config(d).parallelism
+    want = JParallelism.from_config_dict(d, 0)
+    assert (got.pp, got.sp, got.ep, got.pp_microbatches) == (
+        want.pp, want.sp, want.ep, want.pp_microbatches)
+    assert max(got.pp, got.sp, got.ep) > 1 or \
+        "zero_optimization" in section or section == {
+            "elasticity": {"enabled": True}}
     DSTpuConfig.from_config({"train_batch_size": 8, "parallelism": {
         "dp": 2, "fsdp": 2, "tp": 2}, "zero_optimization": {"stage": 3}})
     DSTpuConfig.from_config({"train_batch_size": 8, "zero_optimization": {

@@ -8,9 +8,10 @@ launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 façade on 8 ranks), ``"p2p"`` (send / recv / p2p over ``pipe`` and the
 differentiable collectives' gradients), ``"quant"`` (the quantized
 collectives and ZeRO++'s gathers and reduces), ``"scope"`` (configs the
-ZeRO++ step refuses) or ``"train"`` (legs of ``tiny`` or ``tiny-moe``
-through ``initialize`` -> ``train_batch``) — and writes this rank's results as
-``<out>/<leg>_rank<r>.npz``. It imports torch and the port, never jax.
+ZeRO++ step refuses), ``"train"`` (legs of ``tiny`` or ``tiny-moe``
+through ``initialize`` -> ``train_batch``) or ``"ckpt"`` (checkpoints,
+preemption and the sentinel across ranks) — and writes this rank's results
+as ``<out>/<leg>_rank<r>.npz``. It imports torch and the port, never jax.
 """
 import json
 import os
@@ -291,6 +292,32 @@ def run_quant(spec, rank, out):
 
 
 # ------------------------------------------------------------------ scope
+def custom_loss(kind, model):
+    """The loss ``kind`` names for ``model``: ``"closure"`` (the model's own
+    loss through a closure over the caller's model, a mean over rows when
+    no token is masked), ``"weighted"`` (that loss times the mean of a
+    per-row ``weight``: not a mean over rows) or ``"bound"`` (a subclass's
+    ``loss`` method, twice the model's: what the engine rebinds). Returns
+    ``(model, loss_fn)``."""
+    if kind == "bound":
+        class Twice(type(model)):
+            def loss(self, params, batch, rng=None, train=True):
+                lm, metrics = super().loss(params, batch, rng, train=train)
+                return 2.0 * lm, metrics
+
+        sub = Twice.__new__(Twice)
+        sub.__dict__.update(model.__dict__)
+        return sub, sub.loss
+
+    def closure(params, batch, rng=None, train=True):
+        lm, metrics = model.loss(params, {"input_ids": batch["input_ids"]},
+                                 rng, train=train)
+        if kind == "weighted":
+            lm = lm * batch["weight"].mean()
+        return lm, metrics
+    return model, closure
+
+
 def run_scope(spec, rank, out):
     """Each config of the spec through ``initialize``: the ValueError (or
     NotImplementedError) message it raises, or ``""``."""
@@ -300,8 +327,11 @@ def run_scope(spec, rank, out):
     msgs = []
     for case in spec["configs"]:
         try:
-            initialize(model=build_model("tiny", dtype="float32",
-                                         **case["model_kw"]),
+            model = build_model("tiny", dtype="float32", **case["model_kw"])
+            loss_fn = None
+            if case.get("loss"):
+                model, loss_fn = custom_loss(case["loss"], model)
+            initialize(model=model, loss_fn=loss_fn,
                        config=case["config"], device="cpu")
             msgs.append("")
         except (ValueError, NotImplementedError) as e:
@@ -312,6 +342,42 @@ def run_scope(spec, rank, out):
 
 
 # ------------------------------------------------------------------ train
+def read_tag(path, prefix="params/"):
+    """A native tag's leaves under ``prefix``, whole: ``{name without the
+    prefix: numpy array}`` (float32 / int leaves)."""
+    with open(os.path.join(path, "state_index.json")) as f:
+        index = json.load(f)
+    out = {}
+    with open(os.path.join(path, "state.bin"), "rb") as f:
+        for e in index:
+            if not e["name"].startswith(prefix):
+                continue
+            f.seek(e["offset"])
+            out[e["name"][len(prefix):]] = np.frombuffer(
+                f.read(e["nbytes"]), dtype=e["dtype"]).reshape(e["shape"])
+    return out
+
+
+def tag_equals(path, full, cfg):
+    """Whether the tag's params, in the port's layout, EQUAL ``full``
+    (``gather_params``' tree)."""
+    from deepspeedsyclsupport_tpu_torch import params_from_jax
+
+    got = dict(flat({k: v for k, v in _tree_np(params_from_jax(
+        unflat(read_tag(path)), cfg, device="cpu")).items()}))
+    want = dict(flat(full))
+    return set(got) == set(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_np(v) for v in tree]
+    return tree.detach().numpy() if isinstance(tree, torch.Tensor) else tree
+
+
 def run_train(spec, rank, out):
     from deepspeedsyclsupport_tpu_torch import build_model, params_from_jax
     from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
@@ -335,8 +401,11 @@ def run_train(spec, rank, out):
                 cfg["zero_optimization"]["stage"])
         else:
             params = params_from_jax(np_tree, model.config, device="cpu")
+        loss_fn = None
+        if leg.get("loss"):
+            model, loss_fn = custom_loss(leg["loss"], model)
         eng, *_ = initialize(model=model, params=params, config=cfg,
-                             topology=topo, device="cpu")
+                             loss_fn=loss_fn, topology=topo, device="cpu")
         if leg.get("load_state"):
             # a state the JAX package wrote: full leaves, cut to this
             # rank's shards by load_engine_state
@@ -392,13 +461,13 @@ def run_train(spec, rank, out):
                          + ([float(m["lm_loss"]), float(m["moe_aux_loss"])]
                             if "moe_aux_loss" in m else []))
         full = gather_params(eng)
-        try:   # checkpoints across ranks are not ported (A.3.3b)
-            eng.save_checkpoint(os.path.join(out, f"ckpt_{name}_{rank}"))
-            refused = ""
-        except NotImplementedError as e:
-            refused = str(e)
         comms_logger.configure(enabled=False)
-        res = {"steps": np.array(steps), "ckpt_refused": np.array(refused),
+        # every layout saves across ranks: the tag's params, read back on
+        # rank 0, equal the gathered ones
+        path = eng.save_checkpoint(os.path.join(out, f"ckpt_{name}"))
+        res = {"steps": np.array(steps),
+               "ckpt_equal": np.array(rank != 0 or tag_equals(
+                   path, full, model.config)),
                "comms": np.array(json.dumps(comms)),
                "skipped": np.array(eng.skipped_steps),
                "eval": np.array(float(eng.eval_batch(batches[0])))}
@@ -414,7 +483,12 @@ def run_train(spec, rank, out):
             from deepspeedsyclsupport_tpu_torch.checkpoint.engine import (
                 _flatten)
 
-            for path, v in _flatten(eng._state_tree()["opt_state"]):
+            # this rank's moments in the JAX layout (a checkpoint's
+            # _state_tree gathers them whole)
+            mine = eng.optimizer.state_tree(
+                lambda ts, per_leaf=False: eng._moments_layout(
+                    [t.detach() for t in ts], per_leaf), eng._clip)
+            for path, v in _flatten(mine):
                 v = v() if callable(v) else v
                 res["opt/" + "/".join(map(str, path))] = np.asarray(
                     v.numpy() if isinstance(v, torch.Tensor) else v)
@@ -427,6 +501,177 @@ def run_train(spec, rank, out):
     if spec.get("configs"):
         # configs that raise at initialize, after the legs in one spawn
         run_scope(spec, rank, out)
+    if spec.get("p2p"):
+        # the point-to-point cases, after the legs in the same spawn
+        run_p2p(spec, rank, out)
+
+
+# ------------------------------------------------------------------- ckpt
+class Exited(Exception):
+    """An engine's ``exit_fn`` called (the rc in ``args[0]``)."""
+
+
+def _raise_exit(rc):
+    raise Exited(rc)
+
+
+def run_ckpt(spec, rank, out):
+    """Checkpoints across ranks, leg by leg (``leg["type"]``): ``resume``
+    (train, save, train; fresh ranks from another init load ``latest`` and
+    repeat the last steps; optionally a JAX-written tag loaded and stepped
+    once), ``reshard`` (a tag loaded at this spawn's layout: the rank's
+    params and moments, then one step), ``async`` (the async engine, a
+    pod-torn newer tag, the agreed resume), ``tags`` (tag validation and
+    resume-tag agreement), ``preempt`` (a preemption on rank 1 alone) and
+    ``sentinel`` (a NaN on rank 1)."""
+    import logging
+
+    from deepspeedsyclsupport_tpu_torch import build_model, params_from_jax
+    from deepspeedsyclsupport_tpu_torch.runtime import (gather_params,
+                                                        initialize)
+    from deepspeedsyclsupport_tpu_torch.utils.fault_injection import (
+        configure_fault_injection)
+
+    raw = dict(np.load(spec["params"]))
+    batches = [dict(np.load(p)) for p in spec["batches"]]
+
+    def engine(leg, prefix):
+        model = build_model(leg.get("model", "tiny"), dtype="float32",
+                            attn_impl="flash")
+        tree = unflat({k: v for k, v in raw.items() if k.startswith(prefix)}
+                      )[prefix.rstrip("/")]
+        return initialize(model=model, config=leg["config"], device="cpu",
+                          params=params_from_jax(tree, model.config,
+                                                 device="cpu"))[0]
+
+    def row(m):
+        return [float(m["loss"]), float(m["grad_norm"]),
+                float(bool(m["finite"])), float(m["loss_scale"])]
+
+    def train(eng, idx):
+        return [row(eng.train_batch(batches[i])) for i in idx]
+
+    def full(eng, key, res):
+        tree = gather_params(eng)
+        if tree is not None:
+            # a copy: on the CPU an unsharded leaf's array views the param
+            res.update({f"{key}/{k}": np.array(v) for k, v in flat(tree)})
+
+    for leg in spec["legs"]:
+        name, kind = leg["name"], leg["type"]
+        d = os.path.join(out, f"ckpt_{name}")
+        res = {}
+        if kind == "resume":
+            eng = engine(leg, leg["params_prefix"])
+            n, k = leg["steps"], leg["save_at"]
+            steps = train(eng, range(k))
+            full(eng, "saved", res)
+            res["path"] = np.array(eng.save_checkpoint(d))
+            steps += train(eng, range(k, n))
+            full(eng, "final1", res)
+            res["steps1"] = np.array(steps)
+            del eng
+            reset_world_topology()
+            eng = engine(leg, leg["alt_prefix"])
+            res["loaded"] = np.array(eng.load_checkpoint(d)[0])
+            res["steps2"] = np.array(train(eng, range(k, n)))
+            full(eng, "final2", res)
+            if leg.get("jax_tag"):
+                del eng
+                reset_world_topology()
+                eng = engine(leg, leg["alt_prefix"])
+                eng.load_checkpoint(*os.path.split(leg["jax_tag"]))
+                res["steps_jax_tag"] = np.array(train(eng, [k]))
+        elif kind == "reshard":
+            eng = engine(leg, leg["alt_prefix"])
+            eng.load_checkpoint(*os.path.split(leg["load"]))
+            # copies: the step below updates the tensors in place
+            for k, v in flat(eng.params):
+                res[f"local/{k}"] = v.detach().numpy().copy()
+            for i, path in enumerate(eng._float_paths):
+                res[f"mu/{i}"] = eng.optimizer.mu[i].numpy().copy()
+                res[f"nu/{i}"] = eng.optimizer.nu[i].numpy().copy()
+                res[f"spec/{i}"] = np.array(json.dumps(
+                    [list(e) for e in eng._update_specs[path]]))
+            res["count"] = np.array(eng.optimizer.count)
+            res["steps"] = np.array(train(eng, [leg["step"]]))
+        elif kind == "async":
+            eng = engine(leg, leg["params_prefix"])
+            train(eng, [0])
+            first = eng.save_checkpoint(d)
+            train(eng, [1])
+            configure_fault_injection({"tear_pod": {"rank": 0,
+                                                    "drop": "commit"}})
+            eng.save_checkpoint(d)
+            eng.checkpoint_engine.wait()
+            configure_fault_injection({})
+            res["first"] = np.array(first)
+            res["loaded"] = np.array(eng.load_checkpoint(d)[0])
+            res["steps"] = np.array(eng.global_steps)
+        elif kind == "tags":
+            eng = engine(leg, leg["params_prefix"])
+            seen = []
+            handler = logging.Handler()
+            handler.emit = lambda r: seen.append(r.getMessage())
+            log = logging.getLogger(
+                "deepspeedsyclsupport_tpu_torch.runtime.engine")
+            log.addHandler(handler)
+            mine = f"t{rank % 2}"
+            for mode in ("Fail", "Warn", "Ignore"):
+                eng.config.checkpoint.tag_validation = mode
+                del seen[:]
+                try:
+                    if mode == "Fail":
+                        eng.save_checkpoint(d, tag=mine)
+                    else:
+                        eng._validate_tag(mine)
+                    res[f"{mode}/raised"] = np.array("")
+                except RuntimeError as e:
+                    res[f"{mode}/raised"] = np.array(str(e))
+                res[f"{mode}/logged"] = np.array(json.dumps(seen))
+            eng.config.checkpoint.tag_validation = "Fail"
+            eng._validate_tag("same")   # equal tags pass
+            res["agreed"] = np.array(eng._agree_resume_tag(
+                f"global_step{rank}"))
+            log.removeHandler(handler)
+            res["saved_nothing"] = np.array(not os.path.exists(d))
+            from deepspeedsyclsupport_tpu_torch.utils.podid import (
+                pod_identity)
+
+            res["pod"] = np.array(pod_identity())
+        elif kind == "preempt":
+            eng = engine(leg, leg["params_prefix"])
+            if rank == 1:
+                configure_fault_injection({"preempt_at_step": 2})
+            eng.enable_preemption_handling(d, install_signal_handlers=False,
+                                           exit_fn=_raise_exit)
+            rc, steps = None, []
+            try:
+                for i in range(4):
+                    steps.append(row(eng.train_batch(batches[i])))
+            except Exited as e:
+                rc = e.args[0]
+            configure_fault_injection({})
+            res.update(rc=np.array(rc), at=np.array(eng.global_steps),
+                       steps=np.array(steps))
+        elif kind == "sentinel":
+            if rank == 1:
+                configure_fault_injection({"nan_step": {"rank": 1,
+                                                        "step": 3}})
+            cfg = dict(leg["config"], sentinel=dict(
+                leg["sentinel"], journal_dir=d))
+            eng = engine(dict(leg, config=cfg), leg["params_prefix"])
+            steps = []
+            for b in batches[:leg["steps"]]:
+                m = eng.train_batch(b)
+                steps.append(row(m))
+            configure_fault_injection({})
+            res["steps"] = np.array(steps)
+            res["count"] = np.array(eng.optimizer.count)
+            full(eng, "final", res)
+        np.savez(os.path.join(out, f"{name}_rank{rank}.npz"), **res)
+        del eng
+        reset_world_topology()
 
 
 def launch(spec, out_dir, world: int = 4, timeout: float = 240.0):
@@ -475,7 +720,8 @@ def main():
     rank = comm.get_rank()
     try:
         {"comm": run_comm, "comm_more": run_comm_more, "train": run_train,
-         "p2p": run_p2p, "quant": run_quant, "scope": run_scope}[
+         "p2p": run_p2p, "quant": run_quant, "scope": run_scope,
+         "ckpt": run_ckpt}[
             spec["kind"]](spec, rank, spec["out"])
     finally:
         comm.destroy_process_group()
