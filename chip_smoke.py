@@ -68,6 +68,25 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              after ``warmup(fused_ladder=True)`` (one CUDA graph per rung 8,
              4, 2): tokens equal to the per-token path's; decode tok/s, host
              dispatches per token, busy share, launches via replays.
+   serve-tp — serving across ranks, fp32 with TF32 off where tokens or
+             logits are compared: (a) the serve phase's llama2-7b (bf16,
+             full depth) at a world of one on NCCL with a topology, K = 8
+             after ``warmup(fused_ladder=True)``: every decode body a CUDA
+             graph holding the c10d all-reduces, greedy tokens EQUAL to the
+             serve phase's, every decode a replay; (b) four ranks of this
+             script (``--serve-rank``) over gloo (decode bodies eager):
+             llama2-7b widths at 4 layers tp2 (paged prefill) and tp4 (the
+             flash prefill), Mixtral-8x7B widths at 2 layers ep2 and ep2 x
+             tp2, and the v1 engine at tp2, each on 3 prompts of 64-256
+             tokens and 16 greedy tokens against its world-1 run: logits
+             ``PARITY_TOL``, tokens EQUAL on every rank, the bytes handed
+             to each all-reduce / all-gather and the paged and flash
+             launches a rank EQUAL to the plan (``serve_tp_plan``); (c) the
+             v1 engine (``init_inference``) at llama2-7b full size, bf16, 8
+             right-padded prompts of 128-1024 tokens, 32 tokens: TTFT,
+             tok/s and host dispatches a token, int8 weights, kv_offload
+             on vs off (tokens EQUAL), and at 4 layers fp32 its tokens
+             EQUAL the v2 engine's.
    prefix  — 8 prompts sharing a 1024-token head (64-256-token tails) after
              one request carrying it, the prefix cache on vs off: tokens
              equal; prefill tokens computed and TTFT.
@@ -136,9 +155,9 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
              and read just after, asserted per step, and no operand copied
              for any kernel's TMA (forward, dQ, dK/dV).
-   train-resume — the same width and config at 8 of its 16 layers
+   train-resume — the same width and config at 2 of its 16 layers
              (depth cut): 3 steps, a native
-             ``save_checkpoint`` (~6.2 GB), steps 4-6; a fresh engine
+             ``save_checkpoint`` (~2.8 GB), steps 4-6; a fresh engine
              (another init, built after the first is deleted)
              loads ``latest`` and takes steps 4-6 on the
              same batches: loss and grad_norm bit-equal, flash launches
@@ -199,8 +218,8 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              in bf16 through the ZeRO-3 config for 3 steps of phase 6's
              batch: losses and grad norms bit-equal to phase 6's first 3,
              flash launches held a step; (b) four ranks of this script
-             (``--dist-rank``) on the one card over gloo (NCCL takes one
-             rank a card): every façade op held exact on CUDA tensors, then
+             (``--dist-pool``: one ``RankPool`` runs (b)-(e)) on the one
+             card over gloo (NCCL takes one rank a card): every façade op held exact on CUDA tensors, then
              the JAX package's dryrun_multichip twins (dp1/fsdp2/tp2 ZeRO-3,
              the same axes at ZeRO-2 in fp16, MiCS shard groups of 2) at
              llama2-1b widths cut to 2 layers, B 4 x S 2048, fp32 with TF32
@@ -435,7 +454,8 @@ def _instantiations(log_text):
 
 
 def phase_build(_build):
-    """Both kernel sources with nvcc at once (one process each)."""
+    """Both kernel sources at once, each as its units (one nvcc process a
+    unit, ``ops/_build.py``)."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = ("paged_attention", "flash_attention")
@@ -1331,6 +1351,480 @@ def phase_serve_fused(torch, np, model, params, want):
         f"(profiled): card {100 * busy:.1f} % busy, {kernels} kernels")
     del eng
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- serve-tp
+SERVE_TP_LAYERS = {"llama": 4, "mixtral": 2}
+SERVE_TP_PROMPT_LENS = (64, 160, 256)
+SERVE_TP_NEW = 16
+SERVE_TP_KW = dict(block_size=64, max_context=512, max_tokens_per_batch=256,
+                   max_sequences=4)
+# leg -> (model, mesh axes, engine): "kernel" / "flash" name the v2
+# engine's prefill attention, "v1" the v1 engine
+SERVE_TP_LEGS = {
+    "tp2": ("llama", {"tp": 2}, "kernel"),
+    "tp4_flash": ("llama", {"tp": 4}, "flash"),
+    "ep2": ("mixtral", {"ep": 2}, "kernel"),
+    "ep2_tp2": ("mixtral", {"ep": 2, "tp": 2}, "kernel"),
+    "v1_tp2": ("llama", {"tp": 2}, "v1"),
+}
+SERVE_TP_TIMEOUT_S = 400
+V1_NEW = 32
+V1_OFFLOAD_NEW = 8
+
+
+def serve_tp_model(torch, which):
+    """llama2-7b at 4 layers or Mixtral-8x7B at 2, float32, and its
+    params from seed 3 (every rank and the world-1 run draw the same)."""
+    from deepspeedsyclsupport_tpu_torch import build_model
+
+    name = SERVE_MODEL if which == "llama" else MOE_MODEL
+    model = build_model(name, num_layers=SERVE_TP_LAYERS[which],
+                        dtype="float32")
+    return model
+
+
+def serve_tp_params(torch, model):
+    return model.init_params(generator=torch.Generator(
+        device=DEV).manual_seed(3), device=DEV, dtype=torch.float32)
+
+
+def serve_tp_prompts(np, vocab):
+    rng = np.random.RandomState(5)
+    return [rng.randint(1, vocab, n).tolist() for n in SERVE_TP_PROMPT_LENS]
+
+
+def v1_batch(torch, prompts):
+    """Right-padded ``[B, max len]`` ids and the lengths."""
+    n = max(len(p) for p in prompts)
+    ids = torch.zeros((len(prompts), n), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p)
+    return ids.to(DEV), [len(p) for p in prompts]
+
+
+def serve_tp_plan(cfg, axes, forwards, engine):
+    """The plan of one rank: bytes handed to each collective (by the comms
+    logger's key) and kernel launches, from the forwards' shapes. v2:
+    ``("prefill" | "decode", T tokens, S logit rows)``, each layer one
+    all-reduce of ``[T, D]`` after ``o`` and one after the MLP (an MoE
+    layer's over (expert, model)), the vocab-parallel embedding's ``[T,
+    D]`` above tp 1, the ``[S, V / tp]`` logits all-gathered. v1:
+    ``("v1", B x S tokens, B x rows)`` the same with float32 activations.
+    Every activation is float32 (the phase serves fp32)."""
+    from collections import Counter
+
+    tp, ep = axes.get("tp", 1), axes.get("ep", 1)
+    d, v, n_l = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    if cfg.any_moe and ep > 1:
+        region = ("expert", "model") if tp > 1 else "expert"
+    else:
+        region = "model"
+    want, launches = Counter(), Counter()
+    for kind, t, rows in forwards:
+        want["all_reduce[model]"] += n_l * t * d * 4
+        want[f"all_reduce[{region}]"] += n_l * t * d * 4
+        if tp > 1:
+            want["all_reduce[model]"] += t * d * 4
+        if kind == "v1" and tp == 1:
+            continue
+        want["all_gather[model]"] += rows * (v // tp) * 4
+        if kind == "v1" or engine == "flash" and kind == "prefill":
+            launches["flash_fwd"] += n_l
+        elif kind == "prefill":
+            launches["ragged_prefill_attention"] += n_l
+        else:
+            launches["paged_decode_attention"] += n_l
+    return dict(want), dict(launches)
+
+
+def record_forwards(forwards):
+    """Wrap the v2 engine's forwards and the model's ``decode_step`` to
+    append ``(kind, tokens, logit rows)`` of each call to ``forwards``;
+    returns the undo."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import engine_v2
+    from deepspeedsyclsupport_tpu_torch.models.transformer import CausalLM
+
+    saved = (engine_v2.ragged_forward, engine_v2.decode_forward,
+             CausalLM.decode_step, CausalLM.apply)
+
+    def ragged(model, params, kv, tokens, token_seq, token_pos, tables,
+               *a, **kw):
+        forwards.append(("prefill", int(tokens.shape[0]),
+                         int(tables.shape[0])))
+        return saved[0](model, params, kv, tokens, token_seq, token_pos,
+                        tables, *a, **kw)
+
+    def decode(model, params, kv, tokens, *a, **kw):
+        forwards.append(("decode", int(tokens.shape[0]),
+                         int(tokens.shape[0])))
+        return saved[1](model, params, kv, tokens, *a, **kw)
+
+    def step(self, params, cache, tokens, *a, **kw):
+        forwards.append(("v1", int(tokens.numel()), int(tokens.shape[0])))
+        return saved[2](self, params, cache, tokens, *a, **kw)
+
+    def apply(self, params, ids):
+        forwards.append(("v1", int(ids.numel()), int(ids.numel())))
+        return saved[3](self, params, ids)
+
+    engine_v2.ragged_forward, engine_v2.decode_forward = ragged, decode
+    CausalLM.decode_step, CausalLM.apply = step, apply
+
+    def undo():
+        (engine_v2.ragged_forward, engine_v2.decode_forward,
+         CausalLM.decode_step, CausalLM.apply) = saved
+    return undo
+
+
+def serve_tp_engine(torch, model, params, engine, topology=None):
+    """The v2 engine (``engine``: its prefill attention) or the v1 engine
+    (``"v1"``) on ``params``, across ``topology``'s ranks when given."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, init_inference
+
+    if engine == "v1":
+        return init_inference(model=model, params=params, device=DEV,
+                              topology=topology, dtype="fp32",
+                              max_seq_len=512, tensor_parallel={
+                                  "tp_size": 1 if topology is None else
+                                  topology.axis_sizes["model"]})
+    return InferenceEngineV2(model, params, device=DEV, topology=topology,
+                             dtype=torch.float32, prefill_attn=engine,
+                             decode_attn="kernel", **SERVE_TP_KW)
+
+
+def serve_tp_drive(torch, np, eng, vocab, v1):
+    """One serve of the phase's prompts: the v2 engine puts them for their
+    last-token logits and generates ``SERVE_TP_NEW`` greedy tokens; the v1
+    engine gives the first prompt's last-row logits of ``forward`` and
+    generates the right-padded batch. Returns ``(logits [3 | 1, V]
+    float32 on the host, tokens, seconds of the generate)``."""
+    prompts = serve_tp_prompts(np, vocab)
+    if v1:
+        logits = eng(torch.tensor([prompts[0]], device=DEV))[0, -1:]
+        ids, lens = v1_batch(torch, prompts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.generate(ids, prompt_lens=lens,
+                            max_new_tokens=SERVE_TP_NEW).tolist()
+    else:
+        out = eng.put([0, 1, 2], prompts)
+        logits = torch.stack([out[u] for u in range(3)])
+        eng.flush([0, 1, 2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=SERVE_TP_NEW)
+    torch.cuda.synchronize()
+    return logits.float().cpu().numpy(), toks, time.perf_counter() - t0
+
+
+def serve_rank_child(torch, np, spec_path):
+    """One rank of the serve-tp phase (``--serve-rank``): each leg of the
+    spec on its mesh; the mesh's groups are built first (a collective),
+    then one rank at a time draws the full params and builds its engine,
+    which cuts them to the rank's shards, and frees them (four full trees
+    at once do not fit beside the parent's model). Writes
+    ``serve<r>.json`` and each leg's logits as ``<leg>_r<r>.npy``."""
+    import torch.distributed as tdist
+
+    from deepspeedsyclsupport_tpu_torch import comm
+    from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        build_topology, reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.inference.params import SERVE_GROUPS
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    comm.init_distributed(device_type=spec["device"],
+                          timeout_s=SERVE_TP_TIMEOUT_S)
+    rank, world = comm.get_rank(), comm.get_world_size()
+    out = {"rank": rank, "backend": tdist.get_backend(), "legs": {}}
+    comms_logger.configure(enabled=True)
+    for name, (which, axes, engine) in spec["legs"].items():
+        model = serve_tp_model(torch, which)
+        topo = build_topology(dp=-1, tp=axes.get("tp", 1),
+                              ep=axes.get("ep", 1))
+        topo.init_groups(combined=SERVE_GROUPS)   # the engine's groups
+        torch.cuda.reset_peak_memory_stats()
+        for turn in range(world):
+            if turn == rank:
+                params = serve_tp_params(torch, model)
+                eng = serve_tp_engine(torch, model, params, engine, topo)
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+            comm.barrier()
+        forwards = []
+        comms_logger.reset()
+        pa.reset_launch_counts()
+        fa.reset_launch_counts()
+        undo = record_forwards(forwards)
+        try:
+            logits, toks, secs = serve_tp_drive(
+                torch, np, eng, model.config.vocab_size, engine == "v1")
+        finally:
+            undo()
+        del eng
+        want_bytes, want_launches = serve_tp_plan(model.config, axes,
+                                                  forwards, engine)
+        got = dict(pa.LAUNCHES, flash_fwd=fa.LAUNCHES["flash_fwd"])
+        np.save(os.path.join(spec["out"], f"{name}_r{rank}.npy"), logits)
+        out["legs"][name] = {
+            "tokens": toks, "s": secs, "sizes": topo.axis_sizes,
+            "bytes": {k: v["total_bytes"] for k, v in
+                      comms_logger.snapshot().items()},
+            "want_bytes": want_bytes, "want_launches": want_launches,
+            "launches": {k: got.get(k, 0) for k in
+                         ("ragged_prefill_attention",
+                          "paged_decode_attention", "flash_fwd")},
+            "forwards": len(forwards),
+            "peak": torch.cuda.max_memory_allocated()}
+        reset_world_topology()
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"serve{rank}.json"), "w") as f:
+        json.dump(out, f)
+    comm.destroy_process_group()
+
+
+def serve_tp_nccl_world1(torch, np, model, params, want):
+    """(a): the serve phase's engine at a world of one on NCCL with a
+    topology: K = 8 after ``warmup(fused_ladder=True)``, so each rung's
+    decode body is a CUDA graph holding the c10d all-reduces (counted by
+    the comms logger during the captures); greedy tokens EQUAL the serve
+    phase's, every decode a replay. Returns the paged launches."""
+    import torch.distributed as tdist
+
+    from deepspeedsyclsupport_tpu_torch import comm
+    from deepspeedsyclsupport_tpu_torch.comm.comms_logging import comms_logger
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        build_topology, reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{free_port()}",
+                          world_size=1, rank=0, device_type="cuda")
+    try:
+        backend = tdist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"world 1 on one card chose {backend}")
+        topo = build_topology(dp=1)
+        eng = serve_engine(torch, model, params, topology=topo,
+                           decode_steps_per_dispatch=8)
+        comms_logger.reset()
+        comms_logger.configure(enabled=True)
+        t0 = time.perf_counter()
+        eng.warmup(fused_ladder=True)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        captured = {k: v["count"] for k, v in
+                    comms_logger.snapshot().items()}
+        comms_logger.configure(enabled=False)
+        prompts = serve_prompts(np, model.config)
+        pa.reset_launch_counts()
+        replays0 = eng.graph_replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, max_new_tokens=32)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(pa.LAUNCHES)
+        if outs != want:
+            raise AssertionError(f"world-1 NCCL tokens differ from the "
+                                 f"serve phase's: {outs} vs {want}")
+        if eng.eager_decodes or eng.graph_replays == replays0:
+            raise AssertionError(f"decodes: {eng.graph_replays} replays, "
+                                 f"{eng.eager_decodes} eager")
+        if not any(k.startswith("all_reduce[model]") for k in captured):
+            raise AssertionError(f"no all-reduce in the captures: "
+                                 f"{captured}")
+        log("serve-tp", f"(a) world 1, {backend}, {SERVE_MODEL} full depth "
+            f"bf16, topology {topo.axis_sizes}, K=8: warmup {warm:.1f} s "
+            f"captured rungs {[k[0] for k in eng._decode_multi]} with "
+            f"collectives {captured}; 8 prompts x 32 greedy tokens EQUAL to "
+            f"the serve phase's in {secs:.3f} s, "
+            f"{eng.graph_replays - replays0} graph replays, 0 eager; "
+            f"launches {launches}")
+        del eng
+    finally:
+        reset_world_topology()
+        comm.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serve_tp_ranks(torch, np):
+    """(b): the world-1 references (one model at a time), then the legs on
+    four ranks over gloo, held: logits ``PARITY_TOL`` of world 1, tokens
+    EQUAL to world 1's and across ranks, bytes handed to each collective
+    and the paged / flash launches a rank EQUAL to the plan. Returns
+    ``(launches summed over the ranks' v2 legs, over the v1 leg, world-1
+    v2 tokens of the llama model, world-1 v1 tokens)``."""
+    import concurrent.futures
+    import tempfile
+
+    refs = {}
+    with tempfile.TemporaryDirectory() as d, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        spawned = pool.submit(spawn_dist_ranks,
+                              {"device": DEV, "legs": SERVE_TP_LEGS}, d,
+                              flag="--serve-rank", result="serve",
+                              timeout=SERVE_TP_TIMEOUT_S)
+        # the world-1 references while the ranks start (their times are
+        # logged, not held)
+        for which in ("llama", "mixtral"):
+            model = serve_tp_model(torch, which)
+            params = serve_tp_params(torch, model)
+            for engine in (("kernel", "v1") if which == "llama" else
+                           ("kernel",)):
+                eng = serve_tp_engine(torch, model, params, engine)
+                refs[(which, engine)] = serve_tp_drive(
+                    torch, np, eng, model.config.vocab_size, engine == "v1")
+                del eng
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        ranks = spawned.result()
+        wall = time.perf_counter() - t0
+        logits = {(name, r): np.load(os.path.join(d, f"{name}_r{r}.npy"))
+                  for name in SERVE_TP_LEGS for r in range(DIST_WORLD)}
+    v2_launches = {"ragged_prefill_attention": 0,
+                   "paged_decode_attention": 0, "flash_fwd": 0}
+    v1_launches = dict(v2_launches)
+    for name, (which, axes, engine) in SERVE_TP_LEGS.items():
+        ref_logits, ref_toks, ref_s = refs[(which, "v1" if engine == "v1"
+                                            else "kernel")]
+        errs = []
+        for r, rk in enumerate(ranks):
+            leg = rk["legs"][name]
+            err = float(np.abs(logits[(name, r)] - ref_logits).max())
+            errs.append(err)
+            if err > PARITY_TOL:
+                raise AssertionError(f"{name} rank {r}: logits {err} from "
+                                     f"world 1 (tol {PARITY_TOL})")
+            if leg["tokens"] != ref_toks:
+                raise AssertionError(f"{name} rank {r}: tokens "
+                                     f"{leg['tokens']} vs world 1 "
+                                     f"{ref_toks}")
+            if leg["bytes"] != leg["want_bytes"]:
+                raise AssertionError(f"{name} rank {r}: bytes "
+                                     f"{leg['bytes']} vs the plan "
+                                     f"{leg['want_bytes']}")
+            held = {k: v for k, v in leg["launches"].items() if v}
+            if DEV == "cuda" and held != leg["want_launches"]:
+                raise AssertionError(f"{name} rank {r}: launches "
+                                     f"{leg['launches']} vs the plan "
+                                     f"{leg['want_launches']}")
+            for k, v in leg["launches"].items():
+                (v1_launches if engine == "v1" else v2_launches)[k] += v
+        leg0 = ranks[0]["legs"][name]
+        n_new = len(SERVE_TP_PROMPT_LENS) * (SERVE_TP_NEW - 1)
+        log("serve-tp", f"(b) {name}: {SERVE_MODEL if which == 'llama' else MOE_MODEL}"
+            f" widths, {SERVE_TP_LAYERS[which]} layers, fp32, "
+            f"{'v1 engine' if engine == 'v1' else 'v2, prefill ' + engine}"
+            f", mesh {leg0['sizes']}, prompts {list(SERVE_TP_PROMPT_LENS)}, "
+            f"{SERVE_TP_NEW} greedy tokens EQUAL on every rank and to world "
+            f"1; logits vs world 1 {max(errs):.3g} (tol {PARITY_TOL}); rank "
+            f"0: {leg0['forwards']} forwards, bytes {leg0['bytes']} = plan, "
+            f"launches {leg0['launches']} = plan; generate {leg0['s']:.2f} "
+            f"s ({n_new / leg0['s']:.1f} decode tok/s) vs world 1 "
+            f"{ref_s:.2f} s; peak {leg0['peak'] / 2**30:.2f} GiB a rank")
+    log("serve-tp", f"(b) {DIST_WORLD} ranks, backend {ranks[0]['backend']} "
+        f"(decode bodies eager), ran in {wall:.1f} s beside the world-1 "
+        f"references")
+    return (v2_launches, v1_launches, refs[("llama", "kernel")][1],
+            refs[("llama", "v1")][1])
+
+
+def serve_tp_v1_full(torch, np, model, params, v2_toks4, v1_toks4):
+    """(c): the v1 engine at llama2-7b full size, bf16, on the serve
+    phase's 8 prompts right-padded, ``V1_NEW`` greedy tokens: tok/s and
+    host dispatches a token; int8 weights at tp 1; ``kv_offload`` on vs
+    off (``V1_OFFLOAD_NEW`` tokens) EQUAL; and at 4 layers fp32 the v1
+    engine's tokens EQUAL the v2 engine's on the same prompts. Returns the
+    flash launches."""
+    from deepspeedsyclsupport_tpu_torch import init_inference
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+
+    if v1_toks4 != v2_toks4:
+        raise AssertionError(f"(c) 4 layers fp32: v1 tokens {v1_toks4} vs "
+                             f"v2 {v2_toks4}")
+    prompts = serve_prompts(np, model.config)
+    ids, lens = v1_batch(torch, prompts)
+    res = {}
+    fa.reset_launch_counts()
+    for name, kw, new in (("bf16", {}, V1_NEW),
+                          ("offload", {"kv_offload": True}, V1_OFFLOAD_NEW),
+                          ("int8", {"quant": {"enabled": True}}, V1_NEW)):
+        eng = init_inference(model=model, params=params, device=DEV,
+                             dtype="bf16", max_seq_len=2048, **kw)
+        n = min(64, lens[0])
+        eng.generate(ids[:1, :n], prompt_lens=[n], max_new_tokens=2)
+        ttft, secs = [], []
+        # kv_offload pins a new host cache each call: its least of two
+        for _ in range(2 if "kv_offload" in kw else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = eng.generate(ids, prompt_lens=lens, max_new_tokens=1)
+            torch.cuda.synchronize()
+            ttft.append(time.perf_counter() - t0)
+            d0 = eng.host_dispatches
+            t0 = time.perf_counter()
+            toks = eng.generate(ids, prompt_lens=lens, max_new_tokens=new)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            dispatches = eng.host_dispatches - d0
+        ttft, secs = min(ttft), min(secs)
+        toks = toks.tolist()
+        if not all(0 <= t < model.config.vocab_size for row in toks
+                   for t in row) or [r[0] for r in toks] != \
+                first[:, 0].tolist():
+            raise AssertionError(f"(c) {name}: bad tokens {toks}")
+        res[name] = {"tokens": toks, "ttft": ttft, "secs": secs,
+                     "new": new,
+                     "dispatches_a_token": dispatches
+                     / (len(prompts) * new)}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if res["offload"]["tokens"] != [r[:V1_OFFLOAD_NEW]
+                                    for r in res["bf16"]["tokens"]]:
+        raise AssertionError(f"(c) kv_offload tokens "
+                             f"{res['offload']['tokens']} vs on the card "
+                             f"{res['bf16']['tokens']}")
+    agree = np.mean([a == b for ra, rb in zip(res["int8"]["tokens"],
+                                              res["bf16"]["tokens"])
+                     for a, b in zip(ra, rb)])
+    launches = dict(fa.LAUNCHES)
+    log("serve-tp", f"(c) v1 engine, {SERVE_MODEL} full depth bf16, 8 "
+        f"right-padded prompts {list(SERVE_PROMPT_LENS)}: " + "; ".join(
+            f"{k}: TTFT {v['ttft'] * 1e3:.1f} ms, generate({v['new']}) "
+            f"{v['secs']:.3f} s, decode "
+            + (f"{len(prompts) * (v['new'] - 1) / (v['secs'] - v['ttft']):.1f}"
+               f" tok/s" if v["secs"] > v["ttft"] else "not measured "
+               "(within the prefill's spread)")
+            + f", host dispatches a token {v['dispatches_a_token']:.3f}"
+            for k, v in res.items())
+        + f"; kv_offload's {V1_OFFLOAD_NEW} tokens EQUAL; int8 tokens agree "
+        f"with bf16 on {100 * agree:.1f} %; 4 layers fp32: v1 tokens EQUAL "
+        f"the v2 engine's; flash launches {launches['flash_fwd']}")
+    return launches
+
+
+def phase_serve_tp(torch, np, model, params, want):
+    """Serving across ranks: (a) :func:`serve_tp_nccl_world1`, (b)
+    :func:`serve_tp_ranks`, (c) :func:`serve_tp_v1_full`. Returns ``(v2
+    launches, v1 flash launches)`` for the kernels line."""
+    a = serve_tp_nccl_world1(torch, np, model, params, want)
+    v2, v1, v2_toks4, v1_toks4 = serve_tp_ranks(torch, np)
+    for k in ("ragged_prefill_attention", "paged_decode_attention"):
+        v2[k] += a.get(k, 0)
+    c = serve_tp_v1_full(torch, np, model, params, v2_toks4, v1_toks4)
+    v1["flash_fwd"] += c["flash_fwd"]
+    return v2, v1["flash_fwd"]
 
 
 PREFIX_HEAD = 1024
@@ -2976,10 +3470,11 @@ def train_moe_parity(torch, np):
 
 # ------------------------------------------------------------- resilience
 RESUME_STEPS = 3            # steps before the save, and again after it
-# train-resume's depth: a quarter of llama2-1b's 16 layers (a 3.7 GB tag
-# instead of 11.3 GB) keeps chip_smoke within its time limit beside phase
-# dist (d)-(f); every hold of the phase stands at any depth
-RESUME_LAYERS = 4
+# train-resume's depth: an eighth of llama2-1b's 16 layers (a 2.8 GB tag
+# instead of 11.3 GB; 4 layers before the serve-tp phase came) keeps
+# chip_smoke within its time limit; every hold of the phase stands at any
+# depth
+RESUME_LAYERS = 2
 TAG_BYTES_PER_PARAM = 12    # fp32 master + Adam's two fp32 moments
 SENTINEL_SEQ = 2048
 SENTINEL_CFG = {"enabled": True, "warmup_steps": 3, "window": 8,
@@ -4176,8 +4671,32 @@ def dist_facade_check(torch, device):
     return sorted(want)
 
 
-def dist_rank_child(torch, np, spec_path):
-    """One rank of the dist phase (``--dist-rank``): the façade check, then
+def dist_pool_child(torch, np, pool_path):
+    """One rank of :class:`RankPool` (``--dist-pool <dir>/pool.json``): one
+    process group for every spec the pool hands out, ``<dir>/spec<n>.json``
+    run in turn (:func:`dist_rank_run`) until ``<dir>/stop`` appears."""
+    from deepspeedsyclsupport_tpu_torch import comm
+
+    pool_dir = os.path.dirname(pool_path)
+    with open(pool_path) as f:
+        dev = json.load(f)["device"]
+    comm.init_distributed(device_type=dev, timeout_s=DIST_TIMEOUT_S)
+    n = 0
+    while True:
+        path = os.path.join(pool_dir, f"spec{n}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                dist_rank_run(torch, np, json.load(f))
+            n += 1
+        elif os.path.exists(os.path.join(pool_dir, "stop")):
+            break
+        else:
+            time.sleep(0.05)
+    comm.destroy_process_group()
+
+
+def dist_rank_run(torch, np, spec):
+    """One rank's run of a dist spec: the façade check, then
     each twin's ``DIST_STEPS`` steps; writes ``rank<r>.json``. A twin is
     (config, dtype) or (config, dtype, model overrides); the spec's
     ``plan`` names the bytes plan held: ``"all"`` (every collective,
@@ -4193,11 +4712,8 @@ def dist_rank_child(torch, np, spec_path):
     from deepspeedsyclsupport_tpu_torch.runtime import shard_params
     from deepspeedsyclsupport_tpu_torch.runtime.config import DSTpuConfig
 
-    with open(spec_path) as f:
-        spec = json.load(f)
     dev = spec["device"]
     cuda = dev == "cuda"
-    comm.init_distributed(device_type=dev, timeout_s=DIST_TIMEOUT_S)
     rank = comm.get_rank()
     out = {"rank": rank, "backend": tdist.get_backend(),
            "facade": dist_facade_check(torch, dev), "twins": {}}
@@ -4284,9 +4800,92 @@ def dist_rank_child(torch, np, spec_path):
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+    path = os.path.join(spec["out"], f"rank{rank}.json")
+    with open(path + ".part", "w") as f:
         json.dump(out, f)
-    comm.destroy_process_group()
+    os.replace(path + ".part", path)   # whole when the parent sees it
+
+
+# the allocator setting every pool rank starts with: four ranks' fp32 Adam
+# state at Mixtral's widths ((d)) fills most of the card, and segments that
+# grow in place keep the allocator's cache from splitting it
+DIST_POOL_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
+class RankPool:
+    """Four ranks of this script (``--dist-pool``, environment
+    :data:`DIST_POOL_ENV`) that run the training specs of phase ``dist``
+    (b)-(e) in turn (:func:`dist_rank_run`): one process start-up, CUDA
+    context and warm-up for all of them. Each rank logs to ``rank<r>.log``
+    in the pool's directory; :meth:`close` stops them (killing any left)."""
+
+    def __init__(self, device, world=DIST_WORLD):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="dstpu_pool_")
+        self.n = 0
+        pool = os.path.join(self.dir, "pool.json")
+        with open(pool, "w") as f:
+            json.dump({"device": device}, f)
+        port = free_port()
+        self.procs, self.logs = [], []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), **DIST_POOL_ENV)
+            log_f = open(os.path.join(self.dir, f"rank{r}.log"), "w")
+            self.logs.append(log_f)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-pool",
+                 pool], env=env, stdout=log_f, stderr=subprocess.STDOUT,
+                text=True))
+
+    def _tails(self):
+        out = []
+        for r in range(len(self.procs)):
+            with open(os.path.join(self.dir, f"rank{r}.log")) as f:
+                out.append((r, self.procs[r].poll(), f.read()[-3000:]))
+        return out
+
+    def run(self, spec, out_dir, timeout=DIST_TIMEOUT_S):
+        """``spec`` on the ranks; returns their ``rank<r>.json``."""
+        path = os.path.join(self.dir, f"spec{self.n}.json")
+        with open(path + ".part", "w") as f:
+            json.dump(dict(spec, out=out_dir), f)
+        os.replace(path + ".part", path)
+        self.n += 1
+        want = [os.path.join(out_dir, f"rank{r}.json")
+                for r in range(len(self.procs))]
+        t_end = time.time() + timeout
+        while not all(os.path.exists(w) for w in want):
+            if any(p.poll() is not None for p in self.procs) or \
+                    time.time() > t_end:
+                raise AssertionError(f"dist pool ranks failed or timed "
+                                     f"out: {self._tails()}")
+            time.sleep(0.1)
+        return [json.load(open(w)) for w in want]
+
+    def close(self):
+        import shutil
+
+        with open(os.path.join(self.dir, "stop"), "w"):
+            pass
+        try:
+            for p in self.procs:
+                p.wait(timeout=60)
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in self.logs:
+                f.close()
+            bad = [(r, p.returncode) for r, p in enumerate(self.procs)
+                   if p.returncode != 0]
+            tails = self._tails() if bad else []
+            shutil.rmtree(self.dir, ignore_errors=True)
+        if bad:
+            raise AssertionError(f"dist pool ranks exited {bad}: {tails}")
 
 
 def free_port():
@@ -4297,10 +4896,9 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
-                     timeout=DIST_TIMEOUT_S, flag="--dist-rank",
-                     result="rank"):
-    """``world`` ranks of this script (``flag``: ``--dist-rank`` or
+def spawn_dist_ranks(spec, out_dir, *, flag, result, world=DIST_WORLD,
+                     timeout=DIST_TIMEOUT_S):
+    """``world`` ranks of this script (``flag``: ``--serve-rank`` or
     ``--ckpt-rank``) with the torch launcher's environment; waits for all,
     kills any left on a failure, and returns their ``<result><r>.json``."""
     spec = dict(spec, out=out_dir)
@@ -4312,7 +4910,7 @@ def spawn_dist_ranks(spec, out_dir, world=DIST_WORLD,
     for r in range(world):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), **spec.get("env", {}))
+                   MASTER_PORT=str(port))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), flag, path],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -4373,10 +4971,9 @@ def phase_dist(torch, np, train_steps, moe_steps):
     bytes and its flash launches against the plan; (d) MoE across ranks
     (:func:`dist_moe`); (e) ZeRO++ and the 1-bit optimizers
     (:func:`dist_zeropp`); (f) checkpoints, the pod, the sentinel and
-    biases across ranks (:func:`dist_ckpt`). Returns the flash launches
-    of (a) + (b), of (c), of (d), of (e) and of (f)."""
-    import tempfile
-
+    biases across ranks (:func:`dist_ckpt`). (b)-(e) run on one
+    :class:`RankPool`. Returns the flash launches of (a) + (b), of (c), of
+    (d), of (e) and of (f)."""
     import torch.distributed as tdist
 
     from deepspeedsyclsupport_tpu_torch import comm
@@ -4437,7 +5034,22 @@ def phase_dist(torch, np, train_steps, moe_steps):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- (b) four ranks over gloo on the one card
+    # ---- (b)-(e) on one pool of four ranks over gloo on the one card
+    pool = RankPool(DEV)
+    try:
+        launches_be = dist_pool_phases(torch, np, pool, launches, moe_steps)
+    finally:
+        pool.close()
+    return launches_be + (dist_ckpt(torch, np),)
+
+
+def dist_pool_phases(torch, np, pool, launches, moe_steps):
+    """Phase ``dist`` (b)-(e) on ``pool`` (a :class:`RankPool`): returns the flash
+    launches of (a) + (b), of (c), of (d) and of (e)."""
+    import tempfile
+
+    from deepspeedsyclsupport_tpu_torch import comm
+
     refs = {"float32": dist_reference(torch, np, DIST_TWINS[
         "dp1_fsdp2_tp2_zero3"][0], "float32"),
         "float16": dist_reference(torch, np, DIST_TWINS["fp16_zero2"][0],
@@ -4447,7 +5059,7 @@ def phase_dist(torch, np, train_steps, moe_steps):
         f"{DIST_SEQ}, TF32 off): {refs}")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        ranks = spawn_dist_ranks(
+        ranks = pool.run(
             {"device": "cuda", "twins": DIST_TWINS, "steps": DIST_STEPS,
              "layers": DIST_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL},
             d)
@@ -4458,13 +5070,12 @@ def phase_dist(torch, np, train_steps, moe_steps):
         f"{wall:.1f} s")
     hold_dist_twins("(b)", DIST_TWINS, ranks, refs, launches,
                     {"float16": {"loss": DIST_FP16_LOSS_TOL}}, full_plan=True)
+    return (launches, dist_pipe_seq(torch, np, pool),
+            dist_moe(torch, np, pool, moe_steps),
+            dist_zeropp(torch, np, pool))
 
-    return (launches, dist_pipe_seq(torch, np),
-            dist_moe(torch, np, moe_steps), dist_zeropp(torch, np),
-            dist_ckpt(torch, np))
 
-
-def dist_pipe_seq(torch, np):
+def dist_pipe_seq(torch, np, pool):
     """Phase ``dist`` (c): the pipeline and sequence-parallel twins on four
     ranks over gloo, held against their world-1 runs; returns their flash
     launches."""
@@ -4488,7 +5099,7 @@ def dist_pipe_seq(torch, np):
     launches_ps = {k: 0 for k in fa.LAUNCHES}
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        ranks = spawn_dist_ranks(
+        ranks = pool.run(
             {"device": "cuda", "twins": twins, "steps": DIST_STEPS,
              "layers": DIST_PS_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL,
              "plan": "p2p"}, d)
@@ -4689,7 +5300,7 @@ def dist_moe_bytes(torch, eng, rows, seq, applied):
     return want
 
 
-def dist_moe(torch, np, moe_steps):
+def dist_moe(torch, np, pool, moe_steps):
     """Phase ``dist`` (d): MoE across ranks at ``MOE_MODEL``'s published
     widths. (d0) the train-moe phase's model, config and batch through the
     distributed engine at a world of one on NCCL (ZeRO-2, ep 1), held
@@ -4774,14 +5385,10 @@ def dist_moe(torch, np, moe_steps):
         f"GiB {({k: round(v / 2**30, 2) for k, v in ref_peaks.items()})}")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        # four ranks' fp32 Adam state fills most of the card: segments
-        # that grow in place keep the allocator's cache from splitting it
-        ranks = spawn_dist_ranks(
+        ranks = pool.run(
             {"device": "cuda", "twins": DIST_MOE_TWINS, "steps": DIST_STEPS,
              "layers": 1, "seq": DIST_SEQ, "model": MOE_MODEL,
-             "plan": "moe", "env": {
-                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}},
-            d)
+             "plan": "moe"}, d)
         wall = time.perf_counter() - t0
     log("dist", f"(d) {DIST_WORLD} ranks, backend {ranks[0]['backend']}, "
         f"façade ops held exact on CUDA tensors {ranks[0]['facade']}; ranks "
@@ -5020,7 +5627,7 @@ def dist_optimizers_card_vs_cpu(torch, np):
     return rows
 
 
-def dist_zeropp(torch, np):
+def dist_zeropp(torch, np, pool):
     """Phase ``dist`` (e): ZeRO++ and the 1-bit optimizers. (e4) each new
     optimizer on the card against the CPU; (e3) 1-bit Adam and 1-bit LAMB
     at ZeRO-2 through the distributed engine at a world of one on NCCL
@@ -5079,7 +5686,7 @@ def dist_zeropp(torch, np):
         f"{ {k: v[0] for k, v in refs.items()} }")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        ranks = spawn_dist_ranks(
+        ranks = pool.run(
             {"device": DEV, "twins": DIST_ZPP_TWINS,
              "steps": DIST_STEPS,
              "layers": DIST_LAYERS, "seq": DIST_SEQ, "model": TRAIN_MODEL,
@@ -5753,7 +6360,8 @@ def main() -> int:
             return 2
         rehearse_child(torch, np)
         return 0
-    children = {"--dist-rank": dist_rank_child,
+    children = {"--dist-pool": dist_pool_child,
+                "--serve-rank": serve_rank_child,
                 "--ckpt-rank": dist_ckpt_child,
                 "--pod-rank": pod_rank_child}
     if sys.argv[1:2] and sys.argv[1] in children:
@@ -5775,7 +6383,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: no result",
               file=sys.stderr)
         return 2
-    from deepspeedsyclsupport_tpu_torch.ops import _build
+    try:
+        from deepspeedsyclsupport_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e}): "
+              f"run it from the repository's root; no result",
+              file=sys.stderr)
+        return 2
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 means float32
@@ -5810,6 +6424,8 @@ def main() -> int:
     model, params = serve_params(torch)
     launches, serve_outs = run(phase_serve, torch, np, model, params)
     run(phase_serve_fused, torch, np, model, params, serve_outs)
+    serve_tp_launches, v1_launches = run(phase_serve_tp, torch, np, model,
+                                         params, serve_outs)
     run(phase_prefix, torch, np, model, params)
     run(phase_flash_prefill, torch, np, model, params, serve_outs)
     run(phase_session, torch, np, model, params)
@@ -5859,7 +6475,8 @@ def main() -> int:
                                if k[0] == key[0]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "launches_serve_tp": serve_tp_launches[name]})
     # the flash rows: times at the training path's shape (llama2-1b, bf16);
     # max_abs_err over every flash case and dtype of that kernel's outputs
     outputs = {"flash_fwd": ("o", "lse"), "flash_dq": ("dq",),
@@ -5879,7 +6496,9 @@ def main() -> int:
             "launches_dist_pipe_seq": ps_launches[name],
             "launches_dist_moe": moe_dist_launches[name],
             "launches_dist_zeropp": zpp_launches[name],
-            "launches_dist_ckpt": ckpt_launches[name]})
+            "launches_dist_ckpt": ckpt_launches[name],
+            **({"launches_serve_tp": serve_tp_launches[name],
+                "launches_v1": v1_launches} if name == "flash_fwd" else {})})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks
     msa = evo_rows[(EVO_CASES[0]["name"], "bfloat16")]

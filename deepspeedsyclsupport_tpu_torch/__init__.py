@@ -22,12 +22,19 @@ Ported so far:
   the JAX package's format, resume, preemption handling, the data loaders
   and the training-health sentinel.
 
+The serving engines run across ranks too: ``InferenceEngineV2(...,
+topology=)`` under tensor, expert and data parallelism, and the v1 engine,
+``init_inference`` (tensor parallelism, ZeRO-Inference's int8 / int4
+weights and KV offload).
+
 The top-level names are the JAX package's (``__init__.py``) as far as they
-are ported: ``initialize``, ``init_distributed``, ``MeshTopology``,
-``build_topology`` and ``get_world_topology``.
+are ported: ``initialize``, ``init_inference``, ``init_distributed``,
+``MeshTopology``, ``build_topology`` and ``get_world_topology``.
 """
 from .models import (CausalLM, ModelConfig, PRESETS, build_model,  # noqa: F401
                      get_config, params_from_jax)
+from .inference import (DSTpuInferenceConfig, InferenceEngine,  # noqa: F401
+                        init_inference)
 from .inference.v2 import InferenceEngineV2, RaggedInferenceConfig  # noqa: F401
 from .runtime import Engine, engine_state_from_jax, initialize  # noqa: F401
 from .comm import init_distributed  # noqa: F401

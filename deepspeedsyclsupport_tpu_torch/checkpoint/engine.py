@@ -454,7 +454,8 @@ def is_torn_pod(path: str) -> bool:
     return has_protocol and not pod_complete(path)[0]
 
 
-def load_tree(path: str, template: Dict[str, Any], device=None
+def load_tree(path: str, template: Dict[str, Any], device=None,
+              slices: Optional[Dict[str, Tuple[slice, ...]]] = None
               ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Restore ``path`` into ``template``'s structure.
 
@@ -462,11 +463,15 @@ def load_tree(path: str, template: Dict[str, Any], device=None
     ``shape`` and ``dtype`` (tensors on the ``meta`` device will do). Each
     leaf is read, checked against its crc32, cast to the example's dtype
     where the checkpoint's differs, and placed on ``device`` (default: the
-    card), one leaf at a time. Returns ``(state, meta)``."""
+    card), one leaf at a time. ``slices`` maps a leaf's name (``"params/
+    embed/embedding"``) to the index of the part to keep: the leaf is
+    mapped, checked whole against its crc32 and the example's shape, and
+    only that part is copied out. Returns ``(state, meta)``."""
     from ..device import resolve_device
 
     path = os.path.abspath(path)
-    state = _load_native(path, template, resolve_device(device))
+    state = _load_native(path, template, resolve_device(device),
+                         slices or {})
     meta_path = os.path.join(path, META_FILE)
     meta: Dict[str, Any] = {}
     if os.path.exists(meta_path):
@@ -585,11 +590,44 @@ def _unflatten(template, leaves):
     return next(leaves)
 
 
-def _load_native(path: str, template, device: torch.device):
+def _read_slice(path: str, e: Dict[str, Any], index) -> torch.Tensor:
+    """``index`` of the leaf at ``e`` in the data file, whose whole bytes
+    are checked against the leaf's crc32 first: the file is mapped and
+    viewed as unsigned integers of the dtype's width, so any dtype
+    (bfloat16 too) slices in numpy, and only the slice is copied."""
+    data_path = os.path.join(path, DATA_FILE)
+    have = os.path.getsize(data_path) - e["offset"]
+    if have < e["nbytes"]:
+        raise CheckpointCorruptionError(
+            path, f"leaf {e['name']!r} torn: wanted {e['nbytes']} bytes at "
+                  f"offset {e['offset']}, file had {max(have, 0)}")
+    dtype = _DTYPES[e["dtype"]]
+    width = torch.empty((), dtype=dtype).element_size()
+    raw = np.memmap(data_path, dtype=np.uint8, mode="r", offset=e["offset"],
+                    shape=(e["nbytes"],))
+    if "crc32" in e and zlib.crc32(raw) != e["crc32"]:
+        raise CheckpointCorruptionError(
+            path, f"leaf {e['name']!r} checksum mismatch (stored "
+                  f"{e['crc32']}, got {zlib.crc32(raw)})")
+    part = np.ascontiguousarray(
+        raw.view(f"u{width}").reshape(e["shape"])[tuple(index)])
+    del raw
+    return torch.from_numpy(part).view(dtype)
+
+
+def _check_shape(name: str, shape, ex) -> None:
+    if tuple(shape) != tuple(ex.shape):
+        raise ValueError(f"shape mismatch for {name!r}: checkpoint "
+                         f"{tuple(shape)} vs model {tuple(ex.shape)}")
+
+
+def _load_native(path: str, template, device: torch.device,
+                 slices: Optional[Dict[str, Tuple[slice, ...]]] = None):
     with open(os.path.join(path, INDEX_FILE)) as f:
         index = json.load(f)
     by_name = {e["name"]: e for e in index}
     flat = _flatten(template)
+    slices = slices or {}
 
     def leaves():
         with open(os.path.join(path, DATA_FILE), "rb") as f:
@@ -602,6 +640,14 @@ def _load_native(path: str, template, device: torch.device):
                 if name not in by_name:
                     raise KeyError(f"checkpoint missing leaf {name!r}")
                 e = by_name[name]
+                if name in slices:
+                    _check_shape(name, e["shape"], ex)
+                    t = _read_slice(path, e, slices[name])
+                    ex_dtype = getattr(ex, "dtype", None)
+                    if ex_dtype is not None and t.dtype != ex_dtype:
+                        t = t.to(ex_dtype)
+                    yield t.to(device)
+                    continue
                 f.seek(e["offset"])
                 buf = bytearray(e["nbytes"])
                 got = f.readinto(buf)
@@ -617,10 +663,7 @@ def _load_native(path: str, template, device: torch.device):
                 dtype = _DTYPES[e["dtype"]]
                 t = (torch.frombuffer(buf, dtype=dtype) if len(buf)
                      else torch.empty((0,), dtype=dtype)).reshape(e["shape"])
-                if tuple(t.shape) != tuple(ex.shape):
-                    raise ValueError(
-                        f"shape mismatch for {name!r}: checkpoint "
-                        f"{tuple(t.shape)} vs model {tuple(ex.shape)}")
+                _check_shape(name, t.shape, ex)
                 ex_dtype = getattr(ex, "dtype", None)
                 if ex_dtype is not None and t.dtype != ex_dtype:
                     # dtype-changing restore: cast at the boundary

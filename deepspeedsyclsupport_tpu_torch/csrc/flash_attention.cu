@@ -120,6 +120,16 @@
 
 #include "sm90_common.cuh"
 
+// The build compiles this source as DSST_PARTS units at once (ops/_build.py
+// passes -DDSST_PART=k): unit k instantiates the launches of Kind k, and
+// unit 3 also holds the C interface. Without DSST_PART one unit holds all.
+#define DSST_PARTS 4
+#ifdef DSST_PART
+#define DSST_OWNS(k) (DSST_PART == (k))
+#else
+#define DSST_OWNS(k) 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -910,6 +920,7 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_kernel(const Args p) {
   }
 }
 
+#if DSST_OWNS(3)
 // out[e] = sum over the chunks c, in order, of part[c][e].
 __global__ void __launch_bounds__(kThreads) flash_dbias_sum_kernel(
     const float* part, float* out, long long n, int chunks) {
@@ -920,6 +931,7 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_sum_kernel(
     out[e] = acc;
   }
 }
+#endif
 
 // ------------------------------------------------ forward on Hopper (sm_90a)
 // flash_fwd_sm90_kernel: the bfloat16 / float16 forward, with the Args,
@@ -2284,6 +2296,34 @@ cudaError_t dispatch_type(const Args& a, int dtype, cudaStream_t s) {
   }
 }
 
+}  // namespace
+
+// One kind's launches (dispatch_type<kind>), in the unit that owns the kind.
+#define DSST_LAUNCH(K)                                                    \
+  extern "C" int dsst_flash_launch_##K(const void* a, int dtype, void* s)
+#define DSST_LAUNCH_BODY(KIND)                                            \
+  {                                                                       \
+    return (int)dispatch_type<KIND>(*static_cast<const Args*>(a), dtype,  \
+                                    static_cast<cudaStream_t>(s));        \
+  }
+DSST_LAUNCH(0);
+DSST_LAUNCH(1);
+DSST_LAUNCH(2);
+DSST_LAUNCH(3);
+#if DSST_OWNS(0)
+DSST_LAUNCH(0) DSST_LAUNCH_BODY(kFwd)
+#endif
+#if DSST_OWNS(1)
+DSST_LAUNCH(1) DSST_LAUNCH_BODY(kDq)
+#endif
+#if DSST_OWNS(2)
+DSST_LAUNCH(2) DSST_LAUNCH_BODY(kDkv)
+#endif
+#if DSST_OWNS(3)
+DSST_LAUNCH(3) DSST_LAUNCH_BODY(kDbias)
+
+namespace {
+
 // bias_dims: Bb, Hb, Bk, Hl, lay_nq, lay_nkv, lay_bq, lay_bk (entries of
 // absent inputs are ignored).
 int run(Kind kind, Args& a, const long long* strides, const int* bias_dims,
@@ -2333,11 +2373,10 @@ int run(Kind kind, Args& a, const long long* strides, const int* bias_dims,
         a.lay_nkv < (skv + a.lay_bk - 1) / a.lay_bk || kind == kDbias)
       return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kFwd) return (int)dispatch_type<kFwd>(a, dtype, s);
-  if (kind == kDq) return (int)dispatch_type<kDq>(a, dtype, s);
-  if (kind == kDkv) return (int)dispatch_type<kDkv>(a, dtype, s);
-  return (int)dispatch_type<kDbias>(a, dtype, s);
+  if (kind == kFwd) return dsst_flash_launch_0(&a, dtype, stream);
+  if (kind == kDq) return dsst_flash_launch_1(&a, dtype, stream);
+  if (kind == kDkv) return dsst_flash_launch_2(&a, dtype, stream);
+  return dsst_flash_launch_3(&a, dtype, stream);
 }
 
 // The reduced dbias: partial sums per chunk of replicas into `scratch`
@@ -2498,3 +2537,4 @@ const char* dsst_flash_error_string(int err) {
 }
 
 }  // extern "C"
+#endif  // DSST_OWNS(3)

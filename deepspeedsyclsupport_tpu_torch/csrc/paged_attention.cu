@@ -96,6 +96,16 @@
 
 #include "sm90_common.cuh"
 
+// The build compiles this source as DSST_PARTS units at once (ops/_build.py
+// passes -DDSST_PART=k): unit k instantiates the launches of Route k, and
+// unit 2 also holds the C interface. Without DSST_PART one unit holds all.
+#define DSST_PARTS 3
+#ifdef DSST_PART
+#define DSST_OWNS(k) (DSST_PART == (k))
+#else
+#define DSST_OWNS(k) 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -1095,19 +1105,6 @@ const char* route_name(Route r) {
        : r == kSm90 ? "paged_prefill_sm90_kernel" : "paged_attention_kernel";
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, Route r, int dtype,
-                     long long scratch_floats, cudaStream_t s) {
-  if (r == kSplit) return dispatch_split<T>(a, scratch_floats, s);
-  if constexpr (!std::is_same<T, float>::value) {
-    if (r == kSm90) {
-      if (a.d <= 64) return launch_sm90<T, 64>(a, dtype, s);
-      return launch_sm90<T, 128>(a, dtype, s);
-    }
-  }
-  return dispatch_core<T>(a, s);
-}
-
 bool aligned16(const void* q, const void* k, const void* v) {
   return reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -1115,6 +1112,49 @@ bool aligned16(const void* q, const void* k, const void* v) {
 }
 
 }  // namespace
+
+// One route's launches for every dtype, in the unit that owns the route.
+#define DSST_LAUNCH(R)                                                    \
+  extern "C" int dsst_paged_launch_##R(const void* a, int dtype,          \
+                                       long long scratch_floats, void* s)
+DSST_LAUNCH(0);
+DSST_LAUNCH(1);
+DSST_LAUNCH(2);
+
+#if DSST_OWNS(0)
+DSST_LAUNCH(0) {  // kSplit
+  const Args& args = *static_cast<const Args*>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(s);
+  if (dtype == 0) return (int)dispatch_split<float>(args, scratch_floats, st);
+  if (dtype == 1)
+    return (int)dispatch_split<__nv_bfloat16>(args, scratch_floats, st);
+  return (int)dispatch_split<__half>(args, scratch_floats, st);
+}
+#endif
+
+#if DSST_OWNS(1)
+DSST_LAUNCH(1) {  // kSm90: route_of picks it for bfloat16 / float16 only
+  if (dtype == 0) return dsst_paged_launch_2(a, dtype, scratch_floats, s);
+  const Args& args = *static_cast<const Args*>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(s);
+  if (dtype == 1) {
+    if (args.d <= 64)
+      return (int)launch_sm90<__nv_bfloat16, 64>(args, dtype, st);
+    return (int)launch_sm90<__nv_bfloat16, 128>(args, dtype, st);
+  }
+  if (args.d <= 64) return (int)launch_sm90<__half, 64>(args, dtype, st);
+  return (int)launch_sm90<__half, 128>(args, dtype, st);
+}
+#endif
+
+#if DSST_OWNS(2)
+DSST_LAUNCH(2) {  // kCore
+  const Args& args = *static_cast<const Args*>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(s);
+  if (dtype == 0) return (int)dispatch_core<float>(args, st);
+  if (dtype == 1) return (int)dispatch_core<__nv_bfloat16>(args, st);
+  return (int)dispatch_core<__half>(args, st);
+}
 
 extern "C" {
 
@@ -1141,11 +1181,11 @@ int dsst_paged_attention(const void* q, const void* k, const void* v,
             scale};
   const Route r = route_of(dtype, bq, h / kvh, d, block_size,
                            aligned16(q, k, v));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(args, r, dtype, scratch_floats, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(args, r, dtype, scratch_floats, s);
-  return (int)dispatch<__half>(args, r, dtype, scratch_floats, s);
+  if (r == kSplit)
+    return dsst_paged_launch_0(&args, dtype, scratch_floats, stream);
+  if (r == kSm90)
+    return dsst_paged_launch_1(&args, dtype, scratch_floats, stream);
+  return dsst_paged_launch_2(&args, dtype, scratch_floats, stream);
 }
 
 // The kernel dsst_paged_attention launches for these shapes, dtype and
@@ -1161,3 +1201,4 @@ const char* dsst_error_string(int err) {
 }
 
 }  // extern "C"
+#endif  // DSST_OWNS(2)

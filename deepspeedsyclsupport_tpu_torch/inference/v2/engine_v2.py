@@ -26,6 +26,22 @@ is taken as it is.
 engine snapshot format (``checkpoint/engine.py``): the JAX tree stacks
 layers ``[L, ...]`` where the port keeps a list per layer, so each layer
 leaf is restacked on save (one leaf at a time) and unstacked on load.
+
+Across ranks (``topology=``, a ``MeshTopology`` under a started process
+group, as the JAX engine takes its mesh): every rank builds the engine and
+makes the same ``put`` / ``generate`` / ``flush`` calls, so the host
+scheduler, block tables, atoms, admission and sampling (the engine's
+generator, seeded alike, over the gathered logits) are the same on every
+rank. Each rank holds its shards of the weights (``inference/params.py``)
+and its ``KVH / tp`` heads of the KV pool, and runs the forwards with the
+collectives of ``model.ServePlan``: ``model`` is tensor parallelism,
+``expert`` splits an MoE model's experts, ``data`` (and ``fsdp``) ranks
+serve the same requests again. A world of one under a process group runs
+the same collectives over one rank. Under NCCL the decode bodies are CUDA
+graphs holding the c10d collectives; under gloo (ranks sharing one card,
+or the CPU) they run eagerly, because gloo's collectives run on the host
+and cannot be captured; the choice is made once, from the backend, and
+counted (``graph_replays``, ``eager_decodes``).
 """
 import dataclasses
 import time
@@ -37,7 +53,8 @@ import torch
 
 from ...compression.quantize import QuantTensor, quantize_tree
 from ...device import resolve_device
-from ..params import place_inference_params
+from ..params import (model_specs, place_inference_params, serve_plan,
+                      serving_mesh)
 from ..sampling import SamplingParams, sample_token_dyn
 from .config import RaggedInferenceConfig
 from .graphs import DecodeRunner
@@ -79,12 +96,22 @@ def _select(kind: str, name: str, ctx: dict):
 
 class InferenceEngineV2:
     def __init__(self, model, params, config: Optional[dict] = None,
-                 device=None, **kw):
+                 device=None, topology=None, params_sharded: bool = False,
+                 **kw):
         """``device`` None means the card: without one this raises; tests
         pass ``device="cpu"``. ``params`` is the port's params tree
         (``CausalLM.init_params`` or ``params_from_jax``); floating leaves
         are cast to ``config.dtype`` and moved to the device (no copy for
-        leaves already in place), ``QuantTensor`` leaves move whole."""
+        leaves already in place), ``QuantTensor`` leaves move whole.
+
+        ``topology``: a ``MeshTopology`` to serve across (module
+        docstring). Under a started process group the engine installs it
+        as the world topology, builds its groups (a collective: every rank
+        constructs the engine) and cuts each leaf of the whole ``params``
+        to this rank's shard; ``params_sharded`` says they are this
+        rank's shards already (:meth:`deserialize`). Without a process
+        group a topology of one rank serves as no topology; a larger one
+        raises."""
         self.config = (config if isinstance(config, RaggedInferenceConfig)
                        else RaggedInferenceConfig.from_config(config, **kw))
         cfg = self.config
@@ -95,15 +122,20 @@ class InferenceEngineV2:
                              "package (it requires identical layers)")
         self.model = model
         self.device = resolve_device(device)
-        self.params = place_inference_params(params, cfg.dtype, self.device)
+        self.topology, self.plan, self._specs = serving_mesh(model, topology)
+        self.world = 1 if self.topology is None \
+            else self.topology.world_size()
+        self.params = place_inference_params(
+            params, cfg.dtype, self.device,
+            None if params_sharded else self.topology, self._specs)
         if cfg.quantize_weights:
             # ZeRO-Inference: the placed (cast) layer weights, quantized as
             # the JAX package quantizes them; each forward dequantizes them
             # a layer at a time
-            self.params["layers"] = quantize_tree(
-                self.params["layers"], cfg.quant_group_size,
-                bits=cfg.quant_bits)
-        self.kv = init_blocked_kv(mcfg, cfg, self.device)
+            self.params["layers"] = self._quantize_layers(
+                self.params["layers"])
+        self.kv = init_blocked_kv(mcfg, cfg, self.device,
+                                  tp=1 if self.plan is None else self.plan.tp)
         self.allocator = BlockedAllocator(cfg.num_blocks)
         self.seqs: Dict[int, SequenceDescriptor] = {}
         # the SLA layer installs a scheduler.SlackPolicy here; None = the
@@ -123,12 +155,71 @@ class InferenceEngineV2:
         self._decode_multi: "OrderedDict[Any, DecodeRunner]" = OrderedDict()
         self._decode_multi_cap = 16
         self._graph_pool = None
+        # decode bodies as CUDA graphs on the card, except over gloo, whose
+        # host-side collectives a graph cannot hold: decided here, once
+        self._graphs = self.device.type == "cuda" and (
+            self.plan is None or self._backend() == "nccl")
+        self.graph_replays = 0
+        self.eager_decodes = 0
         backend = self.device.type
         # atoms feed only impls that declare needs_atoms: decide once
         spec = _select("prefill_attn", cfg.prefill_attn,
                        {"backend": backend, "has_atoms": True})
         self._use_atoms = bool(spec.metadata.get("needs_atoms"))
         _select("decode_attn", cfg.decode_attn, {"backend": backend})
+
+    @staticmethod
+    def _backend() -> str:
+        import torch.distributed as dist
+
+        return dist.get_backend()
+
+    def _quantize_layers(self, layers):
+        """``quantize_tree`` of the layer weights. Across ranks each leaf
+        is this rank's shard: which leaves quantize is decided on the
+        whole leaf's size, as the JAX package decides it, and each shard
+        quantizes in groups along its last dim. Where a shard's last dim
+        divides into groups its codes and scales are the whole leaf's
+        cut; where the cut falls inside a group (a column-parallel leaf
+        whose shard is not a multiple of the group) the shard takes one
+        group a row of its own, as DeepSpeed quantizes per shard."""
+        cfg = self.config
+        if self.plan is None:
+            return quantize_tree(layers, cfg.quant_group_size,
+                                 bits=cfg.quant_bits)
+        from ...compression.quantize import quantize_leaf
+
+        topo = self.topology
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            if isinstance(tree, QuantTensor) or not (
+                    isinstance(tree, torch.Tensor)
+                    and tree.is_floating_point() and tree.dim() >= 2):
+                return tree
+            whole = tree.numel()
+            for e in self._specs[path]:
+                if e:
+                    whole *= topo.axis_size(e)
+            if whole < 4096:    # quantize_tree's min_size
+                return tree
+            return quantize_leaf(tree, cfg.quant_group_size,
+                                 bits=cfg.quant_bits)
+
+        return [walk(layer, ("layers", i)) for i, layer in enumerate(layers)]
+
+    def _whole(self, path, t) -> torch.Tensor:
+        """The whole leaf of this rank's shard ``t`` (a collective under a
+        plan: gathered over each split dim's axes)."""
+        if self.plan is None:
+            return t
+        from ...comm import comm
+
+        for d, entry in enumerate(self._specs[path]):
+            if entry and self.topology.axis_size(entry) > 1:
+                t = comm.all_gather(t.contiguous(), entry, axis=d)
+        return t
 
     # ----------------------------------------------------------- persistence
     def serialize(self, save_path: str) -> None:
@@ -137,7 +228,9 @@ class InferenceEngineV2:
         it) with layer leaves stacked ``[L, ...]``, plus both configs;
         reloadable with :meth:`deserialize` here or in the JAX package.
         Each stacked leaf is built when the writer reaches it, so at most
-        one leaf is held twice."""
+        one leaf is held twice. Across ranks every rank calls this: each
+        leaf is gathered whole when the writer reaches it (a collective)
+        and rank 0 writes."""
         from ...checkpoint.engine import dtype_name, save_tree
         from ...models.config import ModelConfig
 
@@ -152,13 +245,13 @@ class InferenceEngineV2:
         def stacked(*path):
             def leaf():
                 parts = []
-                for layer in layers:
+                for i, layer in enumerate(layers):
                     x = layer
                     for k in path:
                         x = x[k]
                     if isinstance(x, QuantTensor):
                         x = x.dequantize(dtype)
-                    parts.append(x)
+                    parts.append(self._whole(("layers", i) + path, x))
                 return torch.stack(parts)
             return leaf
 
@@ -167,7 +260,15 @@ class InferenceEngineV2:
                 return {k: restack(v, path + (k,)) for k, v in tree.items()}
             return stacked(*path)
 
-        params = dict(self.params)
+        def whole(tree, path):
+            if isinstance(tree, dict):
+                return {k: whole(v, path + (k,)) for k, v in tree.items()}
+            if self.plan is None:
+                return tree
+            return lambda: self._whole(path, tree)
+
+        params = {k: whole(v, (k,)) for k, v in self.params.items()
+                  if k != "layers"}
         params["layers"] = restack(layers[0])
         eng_cfg = {f.name: getattr(self.config, f.name)
                    for f in dataclasses.fields(self.config)}
@@ -178,12 +279,13 @@ class InferenceEngineV2:
         save_tree(save_path, {"params": params}, meta)
 
     @classmethod
-    def deserialize(cls, save_path: str, device=None,
+    def deserialize(cls, save_path: str, device=None, topology=None,
                     **config_overrides) -> "InferenceEngineV2":
         """Rebuild an engine from a snapshot written by :meth:`serialize`
-        or by the JAX package's. ``device`` (default: the card) takes the
-        place of the reference's topology; leaves are read one at a time
-        straight in the engine's dtype and onto the device."""
+        or by the JAX package's. ``device`` (default: the card); leaves are
+        read one at a time straight in the engine's dtype and onto the
+        device. ``topology`` (as the constructor takes it; every rank
+        calls this): each rank reads only its slices of each leaf."""
         import json
         import os
 
@@ -216,8 +318,32 @@ class InferenceEngineV2:
             return torch.empty((n, *tree.shape), dtype=tree.dtype,
                                device="meta")
 
+        slices = None
+        eng_kw = {"topology": topology}
+        import torch.distributed as dist
+
+        if topology is not None and dist.is_available() and \
+                dist.is_initialized():
+            from ...checkpoint.engine import _key_str
+
+            serve_plan(topology, model.config)   # its checks first
+            slices = {}
+            for path, spec in model_specs(model, topology).items():
+                if not any(topology.axis_size(e) > 1 for e in spec if e):
+                    continue
+                leaf = example
+                for k in path:
+                    leaf = leaf[k]
+                index = topology.shard_slices(tuple(leaf.shape), spec)
+                if path[0] == "layers":   # the snapshot stacks the layers
+                    path, index = ("layers",) + path[2:], \
+                        (slice(None),) + tuple(index)
+                slices["/".join(_key_str(k) for k in ("params",) + path)] \
+                    = index
+            eng_kw["params_sharded"] = True
         example["layers"] = stack_meta(layer0)
-        state, _ = load_tree(save_path, {"params": example}, device=device)
+        state, _ = load_tree(save_path, {"params": example}, device=device,
+                             slices=slices)
         params = state["params"]
 
         def unstack(tree, i):
@@ -227,7 +353,7 @@ class InferenceEngineV2:
 
         stacked_layers = params["layers"]
         params["layers"] = [unstack(stacked_layers, i) for i in range(n)]
-        return cls(model, params, config=eng_cfg, device=device)
+        return cls(model, params, config=eng_cfg, device=device, **eng_kw)
 
     # --------------------------------------------------------------- warmup
     def warmup(self, fused_ladder: bool = False) -> None:
@@ -593,7 +719,8 @@ class InferenceEngineV2:
             self._to_device(batch.token_seq), self._to_device(batch.token_pos),
             self._to_device(batch.block_tables),
             self._to_device(batch.last_tok_idx), *atom_args,
-            block_size=cfg.block_size, attn_impl=cfg.prefill_attn)
+            block_size=cfg.block_size, attn_impl=cfg.prefill_attn,
+            plan=self.plan)
         self.host_dispatches += 1
         return logits[:len(chunks)]
 
@@ -614,10 +741,16 @@ class InferenceEngineV2:
     def _runner(self, body, idle, generator=None) -> DecodeRunner:
         """``body`` as a :class:`DecodeRunner`: a CUDA graph in the engine's
         shared graph pool on the card, the eager body on the CPU."""
-        if self.device.type == "cuda" and self._graph_pool is None:
+        if self._graphs and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return DecodeRunner(body, idle, self.device, pool=self._graph_pool,
-                            generator=generator)
+                            generator=generator, graph=self._graphs)
+
+    def _replayed(self, runner: DecodeRunner) -> None:
+        if runner.graph is not None:
+            self.graph_replays += 1
+        else:
+            self.eager_decodes += 1
 
     def _idle_slots(self) -> Dict[str, np.ndarray]:
         """Decode inputs with every slot inactive (the warm-up before a
@@ -634,12 +767,14 @@ class InferenceEngineV2:
             # the body holds the model, params and pool, not the engine: a
             # cycle through the engine would keep its graphs and pool alive
             # past the last reference until the garbage collector ran
-            model, params, kv = self.model, self.params, self.kv
+            model, params, kv, plan = (self.model, self.params, self.kv,
+                                       self.plan)
 
             def body(tokens, positions, tables, active):
                 return decode_forward(
                     model, params, kv, tokens, positions, tables, active,
-                    block_size=cfg.block_size, attn_impl=cfg.decode_attn)[0]
+                    block_size=cfg.block_size, attn_impl=cfg.decode_attn,
+                    plan=plan)[0]
 
             idle = dict(self._idle_slots(),
                         tokens=np.zeros((cfg.max_sequences,), np.int32))
@@ -650,6 +785,7 @@ class InferenceEngineV2:
             tokens[slot] = d.pending[0]
         logits = self._decode_runner(tokens=tokens, positions=positions,
                                      tables=tables, active=active)
+        self._replayed(self._decode_runner)
         self.host_dispatches += 1
         # a graph's output is overwritten by its next replay: copy it out
         return logits[:len(chunks)].clone()
@@ -671,7 +807,8 @@ class InferenceEngineV2:
             return runner
         s_max = cfg.max_sequences
         vocab = self.model.config.vocab_size
-        model, params, kv = self.model, self.params, self.kv  # not the engine
+        # the model, params, pool and plan, not the engine
+        model, params, kv, plan = self.model, self.params, self.kv, self.plan
 
         def body(logits0, positions, tables, active, steps_left,
                  temperature, top_p, eos):
@@ -680,7 +817,7 @@ class InferenceEngineV2:
                 active, steps_left, generator, temperature, top_p, eos,
                 block_size=cfg.block_size, num_steps=k,
                 samp_struct=sp.structure, max_context=cfg.max_context,
-                attn_impl=cfg.decode_attn)
+                attn_impl=cfg.decode_attn, plan=plan)
             # one host transfer: the [K, S] tokens and the state rows
             return torch.cat([buf.reshape(-1), pos, act.to(torch.int32),
                               sl]), logits
@@ -789,6 +926,7 @@ class InferenceEngineV2:
             eos=np.asarray(-1 if eos_token_id is None else eos_token_id,
                            np.int32))
         logits_f = logits.clone()   # the next replay overwrites the output
+        self._replayed(runner)
         self.host_dispatches += 1
         self._tick += k
         host = packed.cpu().numpy()

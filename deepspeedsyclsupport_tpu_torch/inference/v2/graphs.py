@@ -6,9 +6,12 @@ shape: the per-token decode forward and the K-step fused decode
 CUDA graph per body, here :class:`DecodeRunner`: the body is captured once
 over static input tensors, and each call fills those inputs (host arrays
 through pinned buffers, device tensors by a device copy) and replays the
-graph, one host dispatch for some two thousand kernels. On a CPU device the
-runner calls the body eagerly on the given inputs; there is no eager route
-on the card, and a capture or replay that fails raises.
+graph, one host dispatch for some two thousand kernels. On a CPU device,
+and where the engine asks for it (``graph=False``: ranks whose collectives
+run over gloo, on the host, which a graph cannot hold), the runner calls
+the body eagerly on the given inputs. That choice is the engine's, made
+once; a capture or replay that fails raises and is never retried
+eagerly.
 
 Before capture the body runs once on a side stream (one a device, shared
 by every runner) with the ``idle`` inputs (every slot inactive, so it
@@ -52,16 +55,17 @@ class DecodeRunner:
     static inputs are allocated like them. ``pool``: a graph memory pool
     shared by the engine's runners (their outputs are consumed before the
     next replay). ``generator``: the generator the body samples from, if
-    any."""
+    any. ``graph=False`` runs the body eagerly on the card too."""
 
     def __init__(self, body: Callable, idle: Dict[str, object],
                  device: torch.device, pool=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 graph: bool = True):
         self.body = body
         self.device = device
         self.graph = None
         self.launches = tuple({} for _ in _COUNTERS)
-        if device.type != "cuda":
+        if device.type != "cuda" or not graph:
             return
         self.static = {k: self._to_device(v).clone() for k, v in idle.items()}
         self.host = {k: torch.empty(tuple(v.shape), dtype=self.static[k].dtype,

@@ -13,7 +13,7 @@ retired decode slots) are written there instead, so a forward writes every
 row with no mask and reads nothing back to the host, as a CUDA graph
 requires.
 """
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -56,21 +56,34 @@ def lane_padded_head_dim(head_dim: int, pad) -> int:
 
 
 def init_blocked_kv(model_config, cfg: RaggedInferenceConfig,
-                    device: torch.device) -> BlockedKV:
+                    device: torch.device, tp: int = 1) -> BlockedKV:
+    """The pool of one rank: under tensor parallelism over ``tp`` ranks it
+    holds this rank's ``num_kv_heads / tp`` KV heads."""
+    kvh = model_config.num_kv_heads
+    if kvh % tp:
+        raise ValueError(
+            f"tensor parallelism over {tp} ranks needs num_kv_heads "
+            f"({kvh}) to divide by {tp}: each rank holds whole KV heads of "
+            f"the paged pool and attends with its query heads' groups")
     d = lane_padded_head_dim(model_config.head_dim, cfg.head_dim_lane_pad)
     shape = (model_config.num_layers, (cfg.num_blocks + 1) * cfg.block_size,
-             model_config.num_kv_heads, d)
+             kvh // tp, d)
     return BlockedKV(torch.zeros(shape, dtype=cfg.dtype, device=device),
                      torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
-def kv_pool_stats(kv: BlockedKV, allocator) -> dict:
+def kv_pool_stats(kv: BlockedKV, allocator, world: Optional[int] = None
+                  ) -> dict:
     """Occupancy and footprint of the paged pool, from shapes and the
     allocator only (no device sync). Blocks are the allocator's
     ``num_blocks``, as in the JAX package: the sink block is neither
     counted nor priced. ``occupancy`` is the physical fraction of blocks
     held; ``logical_occupancy`` prices every block-table entry (sum of
-    refcounts). ``pool_bytes`` counts both k and v over those blocks."""
+    refcounts). ``pool_bytes`` counts both k and v over those blocks in
+    this rank's pool. With ``world`` (the ranks serving together, each
+    holding a pool like this one: every rank runs the same scheduler) the
+    dict adds ``pool_bytes_world``, their sum; without it the keys are the
+    JAX package's."""
     total = allocator.num_blocks
     free = allocator.free_blocks
     physical = total - free
@@ -78,10 +91,13 @@ def kv_pool_stats(kv: BlockedKV, allocator) -> dict:
     shared = int(getattr(allocator, "shared_blocks", 0))
     per_slot = (kv.k.shape[2] * kv.k.shape[3] * kv.k.element_size()
                 * kv.k.shape[0])
-    return {"blocks_total": total, "blocks_free": free,
-            "blocks_physical": physical, "blocks_logical": logical,
-            "blocks_shared": shared,
-            "occupancy": 1.0 - free / total,
-            "logical_occupancy": logical / total,
-            "pool_bytes": 2 * per_slot * (kv.num_slots // (total + 1))
-            * total}
+    pool = 2 * per_slot * (kv.num_slots // (total + 1)) * total
+    out = {"blocks_total": total, "blocks_free": free,
+           "blocks_physical": physical, "blocks_logical": logical,
+           "blocks_shared": shared,
+           "occupancy": 1.0 - free / total,
+           "logical_occupancy": logical / total,
+           "pool_bytes": pool}
+    if world is not None:
+        out["pool_bytes_world"] = pool * int(world)
+    return out

@@ -30,6 +30,20 @@ package drops (padded tokens, inactive slots) land in the pool's sink block
 (``kv_cache.sink_slot``), so the forwards read nothing back to the host:
 :func:`decode_forward` and :func:`decode_multi_forward` can be captured in
 a CUDA graph.
+
+Across ranks (:class:`ServePlan`, the engine's topology under a process
+group) each rank runs the same forward on its shards of the JAX package's
+layout (``CausalLM.sharding_rules``): q/k/v and the MLP's gate / up (fc1)
+column-parallel, so attention and the paged kernels run on the rank's
+``H / tp`` query and ``KVH / tp`` KV heads over its own pool; ``o`` and
+``down`` (fc2) row-parallel, each followed by one all-reduce over
+``model``; the embedding vocab-parallel; the LM head's ``V / tp`` columns
+all-gathered for the rows that are sampled alone (a sequence's last
+token, never ``[T, V]``). An MoE layer runs the rank's ``E / ep`` experts
+(split on F over ``model``) on every token and all-reduces the partial
+``[T, D]`` over (expert, model). The collectives run whenever a plan is
+given, at a world of one too, so that path is the one a CUDA graph holds
+under NCCL.
 """
 import math
 from typing import Any, NamedTuple, Optional, Tuple
@@ -48,11 +62,49 @@ from ...ops.paged_attention import (paged_decode_attention,
                                     paged_decode_attention_reference,
                                     ragged_prefill_attention)
 from ...parallel.moe import moe_mlp_nodrop
+from ...parallel.tensor_parallel import vocab_parallel_embedding
 
 NEG_INF = torch.finfo(torch.float32).min
 # elements of gathered K per chunk of tokens in the plain (xla) prefill
 # attention: bounds its [tokens, max_ctx, H, D] gather to 256 MB of float32
 _XLA_CHUNK_ELEMS = 1 << 26
+
+
+TP_AXIS = "model"
+
+
+class ServePlan(NamedTuple):
+    """This rank's place in the serving mesh: the size of ``model`` (tensor
+    parallelism) and of ``expert`` and the rank's index along each."""
+    tp: int = 1
+    tp_index: int = 0
+    ep: int = 1
+    ep_index: int = 0
+
+    @property
+    def moe_region(self):
+        """The axes an MoE layer's partial output is summed over: the
+        (expert, model) axes of size > 1, else ``model`` (one all-reduce a
+        layer at every size)."""
+        live = tuple(a for a, n in (("expert", self.ep), (TP_AXIS, self.tp))
+                     if n > 1)
+        if len(live) == 2:
+            return live
+        return live[0] if live else TP_AXIS
+
+
+def _all_reduce(x, axis):
+    from ...comm import comm
+
+    return comm.all_reduce(x, axis)
+
+
+def _cols(t, plan: Optional[ServePlan], n: int):
+    """This rank's ``n`` entries of a replicated vector added to a
+    column-parallel output (a bias)."""
+    if plan is None or plan.tp == 1:
+        return t
+    return t.narrow(-1, plan.tp_index * n, n)
 
 
 class PrefillAttnContext(NamedTuple):
@@ -82,28 +134,32 @@ class DecodeAttnContext(NamedTuple):
     window: Optional[int]
 
 
-def _mlp(p, y, cfg):
+def _mlp(p, y, cfg, plan: Optional[ServePlan] = None):
     """Per-layer MLP over flat tokens [T, D]: dense (GLU or fc1/fc2), or
-    exact top-k MoE (``parallel.moe.moe_mlp_nodrop``)."""
+    exact top-k MoE (``parallel.moe.moe_mlp_nodrop``); under a plan the
+    rank's shards and the all-reduce of their partial outputs."""
     if cfg.any_moe:
-        return moe_mlp_nodrop(p["moe"], y, cfg)
-    return mlp_block(p["mlp"], y, cfg)
+        return moe_mlp_nodrop(p["moe"], y, cfg, plan=plan)
+    return mlp_block(p["mlp"], y, cfg,
+                     tp_axis=None if plan is None else TP_AXIS)
 
 
-def _qkv(p, y, cfg, n):
-    """qkv projection over flat tokens [n, D] (+ optional biases)."""
+def _qkv(p, y, cfg, n, plan: Optional[ServePlan] = None):
+    """qkv projection over flat tokens [n, D] (+ optional biases): the
+    rank's heads under a plan."""
     q, k, v = y @ p["wq"], y @ p["wk"], y @ p["wv"]
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    return (q.reshape(n, cfg.num_heads, cfg.head_dim),
-            k.reshape(n, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(n, cfg.num_kv_heads, cfg.head_dim))
+        q = q + _cols(p["bq"], plan, q.shape[-1]).to(q.dtype)
+        k = k + _cols(p["bk"], plan, k.shape[-1]).to(k.dtype)
+        v = v + _cols(p["bv"], plan, v.shape[-1]).to(v.dtype)
+    return (q.reshape(n, -1, cfg.head_dim), k.reshape(n, -1, cfg.head_dim),
+            v.reshape(n, -1, cfg.head_dim))
 
 
-def _attn_out(p, attn, cfg, n):
-    out = attn.reshape(n, cfg.q_dim) @ p["wo"]
+def _attn_out(p, attn, cfg, n, plan: Optional[ServePlan] = None):
+    out = attn.reshape(n, -1) @ p["wo"]
+    if plan is not None:
+        out = _all_reduce(out, TP_AXIS)
     if cfg.attn_out_bias:
         out = out + p["bo"].to(out.dtype)
     return out
@@ -132,44 +188,63 @@ def _positionize(cfg, q, k, positions):
     return q, k
 
 
-def _arch_bias(cfg, device):
+def _arch_bias(cfg, device, plan: Optional[ServePlan] = None):
     ab = (device_constant("alibi", (cfg.num_heads, cfg.alibi_scale), device)
           if cfg.pos_embed == "alibi" else None)
+    if ab is not None and plan is not None and plan.tp > 1:
+        h = cfg.num_heads // plan.tp
+        ab = ab[plan.tp_index * h:(plan.tp_index + 1) * h]
     return ab, cfg.sliding_window
 
 
-def _embed(params, tokens, positions, cfg):
-    x = params["embed"]["embedding"][tokens.long()]
+def _lookup(table, ids, plan: Optional[ServePlan]):
+    if plan is None:
+        return table[ids.long()]
+    return vocab_parallel_embedding(table, ids, TP_AXIS)
+
+
+def _embed(params, tokens, positions, cfg, plan: Optional[ServePlan] = None):
+    x = _lookup(params["embed"]["embedding"], tokens, plan)
     if cfg.pos_embed == "learned":
-        table = params["pos_embed"]["embedding"]
-        pos = (positions + cfg.pos_embed_offset).clamp(0, table.shape[0] - 1)
-        x = x + table[pos.long()].to(x.dtype)
+        pos = (positions + cfg.pos_embed_offset).clamp(
+            0, cfg.max_seq_len + cfg.pos_embed_offset - 1)
+        x = x + _lookup(params["pos_embed"]["embedding"], pos,
+                        plan).to(x.dtype)
     x = x.to(compute_dtype(cfg))
     if cfg.embed_norm:
         x = norm(x, params["embed_norm"], cfg)
     return x
 
 
-def _unembed(params, x, cfg):
+def _unembed(params, x, cfg, plan: Optional[ServePlan] = None):
+    """float32 logits ``[rows, V]`` of the rows of ``x``; under a plan the
+    rank's ``V / tp`` columns are all-gathered over ``model``."""
     if cfg.tie_embeddings:
-        return x @ params["embed"]["embedding"].to(x.dtype).T
-    logits = x @ params["lm_head"]["kernel"].to(x.dtype)
-    if cfg.lm_head_bias:
-        logits = logits + params["lm_head"]["bias"].to(logits.dtype)
-    return logits
+        logits = x @ params["embed"]["embedding"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"]["kernel"].to(x.dtype)
+        if cfg.lm_head_bias:
+            logits = logits + _cols(params["lm_head"]["bias"], plan,
+                                    logits.shape[-1]).to(logits.dtype)
+    logits = logits.float()
+    if plan is None:
+        return logits
+    from ...comm import comm
+
+    return comm.all_gather(logits, TP_AXIS, axis=-1)
 
 
-def _block(cfg, p, x, attn_fn):
+def _block(cfg, p, x, attn_fn, plan: Optional[ServePlan] = None):
     """One transformer block over flat tokens: sequential or parallel
     (GPT-J/NeoX/Falcon/Phi) residual form."""
     x_norm = norm(x, p["attn_norm"], cfg)
     attn = attn_fn(x_norm)
-    h = _attn_out(p["attn"], attn, cfg, x.shape[0])
+    h = _attn_out(p["attn"], attn, cfg, x.shape[0], plan)
     if cfg.parallel_block:
         y = x_norm if cfg.shared_block_norm else norm(x, p["mlp_norm"], cfg)
-        return (x + h + _mlp(p, y, cfg)).to(x.dtype)
+        return (x + h + _mlp(p, y, cfg, plan)).to(x.dtype)
     x = (x + h).to(x.dtype)
-    return (x + _mlp(p, norm(x, p["mlp_norm"], cfg), cfg)).to(x.dtype)
+    return (x + _mlp(p, norm(x, p["mlp_norm"], cfg), cfg, plan)).to(x.dtype)
 
 
 def _paged_attention(q, k_cache, v_cache, token_seq, token_pos, block_tables,
@@ -320,15 +395,18 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
                    token_pos, block_tables, last_tok_idx,
                    atom_qidx=None, atom_pos0=None, atom_qlen=None,
                    atom_tables=None, atom_inv=None, *, block_size: int,
-                   attn_impl: str = "auto") -> Tuple[torch.Tensor, BlockedKV]:
+                   attn_impl: str = "auto",
+                   plan: Optional[ServePlan] = None
+                   ) -> Tuple[torch.Tensor, BlockedKV]:
     """Flat-token forward. Returns (per-slot last-token logits [S, V]
     float32, kv). ``kv`` is updated in place and returned for symmetry with
-    the JAX package, which returns a new (donated) pool."""
+    the JAX package, which returns a new (donated) pool. ``plan``: this
+    rank's place in the serving mesh (module docstring)."""
     cfg = model.config
     bs = block_size
     t = tokens.shape[0]
     s, bps = block_tables.shape
-    ab, window = _arch_bias(cfg, tokens.device)
+    ab, window = _arch_bias(cfg, tokens.device, plan)
     spec = select_impl("prefill_attn", attn_impl, {
         "backend": tokens.device.type, "has_atoms": atom_qidx is not None})
 
@@ -340,7 +418,7 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
     dest = torch.where(token_seq < s, dest_block * bs
                        + (token_pos % bs).long(), sink_slot(kv, bs))
 
-    x = _embed(params, tokens, token_pos, cfg)
+    x = _embed(params, tokens, token_pos, cfg, plan)
     for li, layer in enumerate(params["layers"]):
         k_cache, v_cache = kv.k[li], kv.v[li]
         # ZeRO-Inference: this layer's QuantTensor leaves, dequantized here
@@ -348,7 +426,7 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
         p = dequantize_tree(layer, x.dtype)
 
         def attn_fn(y):
-            q, k, v = _qkv(p["attn"], y, cfg, t)
+            q, k, v = _qkv(p["attn"], y, cfg, t, plan)
             q, k = _positionize(cfg, q, k, token_pos)
             d_pool = k_cache.shape[-1]
             q = _lane_pad(q, d_pool, is_q=True)
@@ -363,18 +441,20 @@ def ragged_forward(model, params: Any, kv: BlockedKV, tokens, token_seq,
                 atom_inv=atom_inv)
             return spec.fn(q, ctx)[..., :cfg.head_dim]
 
-        x = _block(cfg, p, x, attn_fn)
+        x = _block(cfg, p, x, attn_fn, plan)
         del p   # this layer's dequantized weights go before the next's
 
     x = norm(x, params["final_norm"], cfg)
     h_last = x[last_tok_idx.long()]                     # logits gather
-    return _unembed(params, h_last, cfg).float(), kv
+    return _unembed(params, h_last, cfg, plan), kv
 
 
 @torch.no_grad()
 def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
                    block_tables, active, *, block_size: int,
-                   attn_impl: str = "auto") -> Tuple[torch.Tensor, BlockedKV]:
+                   attn_impl: str = "auto",
+                   plan: Optional[ServePlan] = None
+                   ) -> Tuple[torch.Tensor, BlockedKV]:
     """All-decode forward: one token per slot. ``tokens``/``positions``/
     ``active``: [S]; positions = tokens already cached (the new token
     writes slot ``positions[s]``; an inactive slot writes the sink block).
@@ -383,7 +463,7 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
     cfg = model.config
     bs = block_size
     s, bps = block_tables.shape
-    ab, window = _arch_bias(cfg, tokens.device)
+    ab, window = _arch_bias(cfg, tokens.device, plan)
     spec = select_impl("decode_attn", attn_impl,
                        {"backend": tokens.device.type})
 
@@ -393,13 +473,13 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
                        sink_slot(kv, bs))
     seq_lens = torch.where(active, positions + 1, torch.zeros_like(positions))
 
-    x = _embed(params, tokens, positions, cfg)
+    x = _embed(params, tokens, positions, cfg, plan)
     for li, layer in enumerate(params["layers"]):
         k_cache, v_cache = kv.k[li], kv.v[li]
         p = dequantize_tree(layer, x.dtype)
 
         def attn_fn(y):
-            q, k, v = _qkv(p["attn"], y, cfg, s)
+            q, k, v = _qkv(p["attn"], y, cfg, s, plan)
             q, k = _positionize(cfg, q, k, positions)
             d_pool = k_cache.shape[-1]
             q = _lane_pad(q, d_pool, is_q=True)
@@ -410,11 +490,11 @@ def decode_forward(model, params: Any, kv: BlockedKV, tokens, positions,
                 seq_lens=seq_lens, block_size=bs, alibi=ab,
                 window=window))[..., :cfg.head_dim]
 
-        x = _block(cfg, p, x, attn_fn)
+        x = _block(cfg, p, x, attn_fn, plan)
         del p
 
     x = norm(x, params["final_norm"], cfg)
-    return _unembed(params, x, cfg).float(), kv
+    return _unembed(params, x, cfg, plan), kv
 
 
 @torch.no_grad()
@@ -422,7 +502,8 @@ def decode_multi_forward(model, params: Any, kv: BlockedKV, logits0,
                          positions, block_tables, active, steps_left,
                          generator, temperature, top_p, eos_tok, *,
                          block_size: int, num_steps: int, samp_struct,
-                         max_context: int, attn_impl: str = "auto"):
+                         max_context: int, attn_impl: str = "auto",
+                         plan: Optional[ServePlan] = None):
     """``num_steps`` fused decode iterations: sample from the logits, append
     the token's KV through :func:`decode_forward`, advance positions (port
     of the JAX package's ``decode_multi_forward``).
@@ -459,7 +540,7 @@ def decode_multi_forward(model, params: Any, kv: BlockedKV, logits0,
         append = act & ~done
         new_logits, kv = decode_forward(
             model, params, kv, tok, pos, block_tables, append,
-            block_size=block_size, attn_impl=attn_impl)
+            block_size=block_size, attn_impl=attn_impl, plan=plan)
         logits = torch.where(append[:, None], new_logits, logits)
         pos = torch.where(append, pos + 1, pos)
         act = append

@@ -256,6 +256,15 @@ class ServingSession:
                  eos_token_id: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  journal: Any = None, watchdog: Any = None):
+        world = getattr(engine, "world", 1)
+        if world > 1:
+            raise NotImplementedError(
+                f"ServingSession over an engine that serves across {world} "
+                f"ranks is not ported: its admission reads a wall clock, so "
+                f"the ranks would decide differently (ROADMAP.md A.3.1 item "
+                f"4b: rank 0 decides and broadcasts its plan); the "
+                f"supervisor and the fleet, which serve through sessions, "
+                f"wait on it too")
         self.eng = engine
         self.policy = policy or ServingPolicyConfig()
         self.clock = clock

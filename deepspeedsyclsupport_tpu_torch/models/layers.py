@@ -1,8 +1,8 @@
 """Transformer building blocks in PyTorch.
 
 Port of ``deepspeedsyclsupport_tpu/models/layers.py`` (norms, rotary and ALiBi
-positions, the attention dispatch and its plain version, the no-cache
-attention sublayer, the two MLP shapes). Functions take a params dict and
+positions, the attention dispatch and its plain version, the attention
+sublayer with and without a KV cache, the two MLP shapes). Functions take a params dict and
 tensors, as the JAX package's do. Normalisation and RoPE compute in float32
 and cast back to the input dtype, as the reference does. The JAX package's
 sharding ``constrain`` and MFU ``region_scope`` have no meaning on one GPU
@@ -127,18 +127,21 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         alibi: Optional[torch.Tensor] = None,
                         window: Optional[int] = None,
                         q_positions: Optional[torch.Tensor] = None,
-                        kv_positions: Optional[torch.Tensor] = None
+                        kv_positions: Optional[torch.Tensor] = None,
+                        kv_positions_below: Optional[torch.Tensor] = None,
+                        kv_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Exact softmax attention in float32 — port of the JAX package's
-    ``reference_attention`` (``layers.py:133-210``) for the training
-    arguments. q: [B, Sq, H, D], k/v: [B, Skv, KVH, D] (GQA by repeating kv
-    heads). Causality compares explicit positions when both are given, else
-    ``k_idx <= q_idx + (Skv - Sq)``; ``segment_ids`` [B, S] apply when Sq ==
-    Skv; ``alibi`` adds ``slope·(k_pos − q_pos)``; ``window``: queries see
-    only the last ``window`` positions. Masked logits are float32's min, so
-    a fully masked row comes out uniform, as in the reference. The cached-
-    decode arguments (``kv_positions_below``/``kv_mask``) belong to the v1
-    engine, which is not ported."""
+    ``reference_attention`` (``layers.py:133-210``). q: [B, Sq, H, D], k/v:
+    [B, Skv, KVH, D] (GQA by repeating kv heads). Causality compares
+    explicit positions when both are given, else (the cached decode's
+    ``kv_positions_below`` [B, Sq]) query i sees slots below
+    ``kv_positions_below[i]``, else ``k_idx <= q_idx + (Skv - Sq)``;
+    ``segment_ids`` [B, S] apply when Sq == Skv; ``kv_mask`` [B, Skv] (slot
+    validity of a cache) is ANDed in; ``alibi`` adds ``slope·(k_pos −
+    q_pos)``; ``window``: queries see only the last ``window`` positions.
+    Masked logits are float32's min, so a fully masked row comes out
+    uniform, as in the reference."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     if kvh != h:
@@ -149,9 +152,13 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv = k.shape[1]
     dev = q.device
     explicit = q_positions is not None and kv_positions is not None
+    below = kv_positions_below is not None and not explicit
     if explicit:
         q_pos = q_positions.long()[:, None, :, None]
         k_pos = kv_positions.long()[:, None, None, :]
+    elif below:
+        q_pos = (kv_positions_below.long() - 1)[:, None, :, None]
+        k_pos = torch.arange(skv, device=dev)[None, None, None, :]
     else:
         q_pos = (torch.arange(sq, device=dev) + (skv - sq))[None, None, :,
                                                              None]
@@ -160,7 +167,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         slopes = torch.as_tensor(alibi, device=dev).float()
         logits = logits + slopes[None, :, None, None] * (k_pos - q_pos).float()
     mask = None
-    if causal:
+    if causal or below:
+        # below: slot < kv_positions_below, i.e. slot <= q_pos
         mask = k_pos <= q_pos
     if window is not None:
         wmask = (q_pos - k_pos) < window
@@ -168,11 +176,52 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if segment_ids is not None and segment_ids.shape[1] == sq == skv:
         seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
         mask = seg if mask is None else mask & seg
+    if kv_mask is not None:
+        m = kv_mask.bool()[:, None, None, :]
+        mask = m if mask is None else mask & m
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(q.dtype)
+
+
+def cached_flash_attention(q, k, v, causal, kv_positions_below=None,
+                           kv_mask=None, alibi=None, window=None,
+                           q_positions=None, kv_positions=None):
+    """KV-cache attention through the flash forward kernel (JAX
+    ``layers.py:213 _cached_flash_attention``; the v1 engine's prefill and
+    decode steps). The cache's slot-space masks map onto the kernel's
+    ragged mode: ``kv_positions_below`` becomes explicit query positions
+    (query i sees slots < below[i], i.e. slot index <= below[i] - 1, the
+    key positions being the slot indices) and ``kv_mask`` a key segment id
+    (-1 for an invalid slot, which no query's segment 0 matches). With
+    explicit ``q_positions`` / ``kv_positions`` causality is in position
+    space. ``segment_ids`` are not taken, as :func:`reference_attention`
+    ignores them whenever Sq != Skv."""
+    from ..ops.flash_attention import flash_attention
+
+    b, sq = q.shape[:2]
+    use_causal = causal
+    if q_positions is not None and kv_positions is not None:
+        q_pos, kv_pos = q_positions.to(torch.int32), kv_positions.to(
+            torch.int32)
+        use_causal = True
+    elif kv_positions_below is not None:
+        q_pos = kv_positions_below.to(torch.int32) - 1
+        kv_pos = None
+        use_causal = True
+    else:
+        q_pos = kv_pos = None
+    seg_q = seg_k = None
+    if kv_mask is not None:
+        seg_q = torch.zeros((b, sq), dtype=torch.int32, device=q.device)
+        seg_k = torch.where(kv_mask.bool(), 0, -1).to(torch.int32)
+    if q_pos is not None and q_pos.shape != (b, sq):
+        q_pos = q_pos.expand(b, sq)
+    return flash_attention(q, k, v, causal=use_causal, segment_ids=seg_q,
+                           kv_segment_ids=seg_k, q_positions=q_pos,
+                           kv_positions=kv_pos, alibi=alibi, window=window)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,7 +230,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               alibi: Optional[torch.Tensor] = None,
               window: Optional[int] = None,
               q_positions: Optional[torch.Tensor] = None,
-              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_positions: Optional[torch.Tensor] = None,
+              kv_positions_below: Optional[torch.Tensor] = None,
+              kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention dispatch (``layers.py:252-337``):
 
     * ``auto`` — ``flash`` on a CUDA tensor, the plain path on a CPU tensor;
@@ -197,6 +248,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       ALiBi or a window (as in the JAX package); ``ring`` takes no
       ``segment_ids`` either, where the JAX package drops them and lets a
       packed batch attend across documents.
+
+    The cached-decode masks (``kv_positions_below``, ``kv_mask``, or
+    ``kv_positions`` with ``q_positions`` over a cache) take
+    :func:`cached_flash_attention` under ``flash`` and the plain version
+    otherwise (ring and Ulysses are training patterns), as in the JAX
+    package.
     """
     inner = None
     if impl and ":" in impl:
@@ -223,11 +280,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
         return ulysses_attention(q, k, v, causal=causal,
                                  segment_ids=segment_ids, inner=inner)
-    if window is not None and not causal and kv_positions is None:
+    if window is not None and not causal and kv_positions is None \
+            and kv_positions_below is None:
         raise ValueError("window requires causal=True (the sliding window "
                          "only bounds attention to the past)")
     if impl == "auto":
         impl = "flash" if q.device.type == "cuda" else "xla"
+    if kv_positions_below is not None or kv_mask is not None:
+        if impl == "flash":
+            return cached_flash_attention(
+                q, k, v, causal, kv_positions_below, kv_mask, alibi=alibi,
+                window=window, q_positions=q_positions,
+                kv_positions=kv_positions)
+        return reference_attention(
+            q, k, v, causal=causal, segment_ids=segment_ids, alibi=alibi,
+            window=window, q_positions=q_positions,
+            kv_positions=kv_positions,
+            kv_positions_below=kv_positions_below, kv_mask=kv_mask)
     if impl == "flash":
         from ..ops.flash_attention import flash_attention
 
@@ -259,11 +328,27 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                     segment_ids: Optional[torch.Tensor] = None,
                     impl: Optional[str] = None,
                     window: Optional[int] = None,
-                    tp_axis: Optional[str] = None) -> torch.Tensor:
-    """Self-attention sublayer without a KV cache (``layers.py:388-473``):
-    qkv projection → RoPE → attention → out projection. ``window`` is the
-    layer's sliding window (the caller resolves ``cfg.sliding_window`` /
+                    tp_axis: Optional[str] = None,
+                    kv_cache: Optional[tuple] = None,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Self-attention sublayer (``layers.py:362-473``): qkv projection →
+    RoPE → attention → out projection. ``window`` is the layer's sliding
+    window (the caller resolves ``cfg.sliding_window`` /
     ``cfg.attn_windows``). Returns [B, S, hidden].
+
+    With ``kv_cache=(k_cache, v_cache, write_pos)`` (this layer's ``[B,
+    max_len, KVH, D]`` cache and the first slot to fill) it runs in cache
+    mode: k / v are written into slots ``write_pos ..`` IN PLACE (no new
+    cache is made) and attention reads the whole cache: with
+    ``kv_positions`` [B, max_len] (each slot's logical position)
+    causality is in position space; else query i sees slots ``<= write_pos
+    + i`` when ``kv_mask`` [B, max_len] is given (ALiBi and windows then
+    raise: slot distances are not position distances), or ``<= its
+    position`` without it, ``kv_mask`` ANDed in. A cache on the host
+    (``kv_offload``) is written there and its layer slice copied to the
+    card for the attention.
 
     ``tp_axis``: the params are this rank's column (q/k/v) and row (o)
     shards over that mesh axis; attention runs on the rank's ``H / tp``
@@ -301,8 +386,12 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         q = q * device_constant(
             "scalar", (cfg.attn_scale * np.sqrt(cfg.head_dim),), q.device,
             q.dtype)
-    out = attention(q, k, v, impl=impl or cfg.attn_impl, causal=True,
-                    segment_ids=segment_ids, alibi=alibi, window=window)
+    if kv_cache is None:
+        out = attention(q, k, v, impl=impl or cfg.attn_impl, causal=True,
+                        segment_ids=segment_ids, alibi=alibi, window=window)
+    else:
+        out = _cached_attention(q, k, v, cfg, positions, kv_cache, kv_mask,
+                                kv_positions, impl, alibi, window)
     out = matmul(out.reshape(b, s, -1), p["wo"])
     if tp_axis is not None:
         from ..parallel.tensor_parallel import reduce_from_model_region
@@ -311,6 +400,36 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.attn_out_bias:
         out = out + p["bo"].to(out.dtype)
     return out
+
+
+def _cached_attention(q, k, v, cfg, positions, kv_cache, kv_mask,
+                      kv_positions, impl, alibi, window):
+    """The cache-mode half of :func:`attention_block`: the in-place write
+    of k / v at ``write_pos`` and the attention over the cache."""
+    k_cache, v_cache, write_pos = kv_cache
+    s = q.shape[1]
+    k_cache[:, write_pos:write_pos + s] = k.to(k_cache.dtype)
+    v_cache[:, write_pos:write_pos + s] = v.to(v_cache.dtype)
+    if k_cache.device != q.device:      # kv_offload: stream the layer in
+        k_cache = k_cache.to(q.device, non_blocking=True)
+        v_cache = v_cache.to(q.device, non_blocking=True)
+    impl = impl or cfg.attn_impl
+    if kv_positions is not None:
+        return attention(q, k_cache, v_cache, impl=impl, causal=True,
+                         kv_mask=kv_mask, alibi=alibi, window=window,
+                         q_positions=positions, kv_positions=kv_positions)
+    if kv_mask is not None:
+        if cfg.pos_embed == "alibi" or window is not None:
+            raise ValueError(
+                "alibi/sliding-window ragged decode needs kv_positions"
+                " (slot index ≠ logical position would skew distances)")
+        below = (write_pos + torch.arange(s, device=q.device) + 1)[None] \
+            .expand(q.shape[0], s)
+    else:
+        below = positions + 1
+    return attention(q, k_cache, v_cache, impl=impl, causal=False,
+                     kv_positions_below=below, kv_mask=kv_mask, alibi=alibi,
+                     window=window)
 
 
 # --------------------------------------------------------------------------- mlp

@@ -20,9 +20,18 @@ forward here, train and eval alike; the serving engine runs the exact
 ``moe_mlp_nodrop`` instead. ``router_jitter > 0`` draws its noise from a
 ``torch.Generator`` (``loss``'s ``rng``): one seed a layer is drawn from
 it before the layer runs, so a layer recomputed under activation
-checkpointing draws the same noise. The KV-cache ``decode_step``,
-random-LTD and progressive layer drop are not ported; they raise
-``NotImplementedError``.
+checkpointing draws the same noise. Random-LTD and progressive layer
+drop are not ported; they raise ``NotImplementedError``.
+
+The KV-cache path (the v1 inference engine's, JAX ``transformer.py:30,
+469, 477``): :class:`KVCache` holds ``[L, B, max_len, KVH, D]`` keys and
+values and the next slot to fill; :meth:`CausalLM.decode_step` runs the
+layers in cache mode (``layers.attention_block``), writing the chunk's
+k / v into the cache IN PLACE, so a step allocates no cache; the cache may
+live in host memory (``init_kv_cache(host=True)``, the v1 engine's
+``kv_offload``), one layer's slice copied to the card as that layer runs.
+Quantized layer weights (``QuantTensor`` leaves, ZeRO-Inference) are
+dequantized at the top of each layer, as the JAX package does.
 
 The pipelined trunk (``cfg.pipe_stages > 1``): the forward is cut into
 :meth:`CausalLM.embed`, :meth:`CausalLM.trunk` (a run of layers, under
@@ -55,13 +64,14 @@ of each row's tokens), so the shares sum to the JAX package's loss over
 the global batch whatever the per-rank counts.
 """
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..compression.quantize import dequantize_tree
 from ..device import parse_dtype, resolve_device
 from .config import ModelConfig, get_config
 from .layers import attention_block, mlp_block, norm
@@ -75,6 +85,16 @@ Params = Dict[str, Any]
 # parallelism runs over TP_AXIS
 BATCH_AXES = ("data", "fsdp")
 TP_AXIS = "model"
+
+
+class KVCache(NamedTuple):
+    """The decode cache: ``k`` / ``v`` ``[L, B, max_len, KVH, D]`` (under
+    tensor parallelism this rank's ``KVH / tp`` heads) and ``write_pos``,
+    the next slot to fill (a host int: every row of the batch writes the
+    same slots, as in the JAX package)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    write_pos: int
 
 
 @dataclass(frozen=True)
@@ -206,26 +226,33 @@ class CausalLM:
 
     def _layer(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
                segment_ids: Optional[torch.Tensor], window: Optional[int],
-               jitter_seed: Optional[int] = None, regather: bool = True):
+               jitter_seed: Optional[int] = None, regather: bool = True,
+               kv: Optional[Dict[str, Any]] = None):
         """One block; returns ``(x, aux)`` with ``aux`` the MoE layer's
         load-balance loss (a float32 tensor; 0.0 for a dense MLP). ZeRO-3
         shards of ``p`` are gathered for the block alone (``regather``:
-        no activation checkpointing around it, see ``run_gathered``)."""
+        no activation checkpointing around it, see ``run_gathered``).
+        ``kv``: ``attention_block``'s cache arguments (cache mode)."""
         if self.parallel is None:
             return self._block(p, x, positions, segment_ids, window,
-                               jitter_seed)
+                               jitter_seed, kv)
         from ..runtime.zero import run_gathered
 
         return run_gathered(p, self._block, x, positions, segment_ids,
-                            window, jitter_seed, regather=regather)
+                            window, jitter_seed, kv, regather=regather)
 
     def _block(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
                segment_ids: Optional[torch.Tensor], window: Optional[int],
-               jitter_seed: Optional[int] = None):
+               jitter_seed: Optional[int] = None,
+               kv: Optional[Dict[str, Any]] = None):
         cfg = self.config
         tp_axis = self._tp_axis
         dtype = x.dtype   # pin the activation dtype: fp32 params must not
         #                   promote bf16 activations (transformer.py:149)
+        # ZeRO-Inference: this layer's QuantTensor weights, dequantized here
+        # so that at most one layer's exist in full at a time (other leaves
+        # pass through as they are)
+        p = dequantize_tree(p, compute_dtype(cfg))
 
         def run_mlp(y):
             if cfg.any_moe:
@@ -238,7 +265,7 @@ class CausalLM:
 
         x_norm = norm(x, p["attn_norm"], cfg)
         h = attention_block(p["attn"], x_norm, cfg, positions, segment_ids,
-                            window=window, tp_axis=tp_axis)
+                            window=window, tp_axis=tp_axis, **(kv or {}))
         if cfg.parallel_block:
             y = x_norm if cfg.shared_block_norm else norm(x, p["mlp_norm"], cfg)
             m, aux = run_mlp(y)
@@ -287,11 +314,16 @@ class CausalLM:
 
     def trunk(self, layers, x: torch.Tensor, positions: torch.Tensor,
               segment_ids: Optional[torch.Tensor] = None,
-              rng: Optional[torch.Generator] = None, first: int = 0):
+              rng: Optional[torch.Generator] = None, first: int = 0,
+              cache: Optional[KVCache] = None,
+              kv_mask: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None):
         """Run ``layers`` (a list of layer params, the first being layer
         ``first`` of the stack: a pipe stage's block) over ``x``; returns
         ``(x, aux)``. With ``cfg.remat`` (and autograd on) each layer runs
-        under ``torch.utils.checkpoint`` (non-reentrant)."""
+        under ``torch.utils.checkpoint`` (non-reentrant). With ``cache``
+        each layer runs in cache mode on its slice of it (written in
+        place)."""
         cfg = self.config
         use_remat = cfg.remat and torch.is_grad_enabled()
         jitter = cfg.any_moe and cfg.router_jitter > 0.0
@@ -309,12 +341,16 @@ class CausalLM:
             if jitter:
                 seed = int(torch.randint(2 ** 62, (1,), generator=rng,
                                          device=rng.device))
-            if use_remat:
+            kv = None
+            if cache is not None:
+                kv = {"kv_cache": (cache.k[i], cache.v[i], cache.write_pos),
+                      "kv_mask": kv_mask, "kv_positions": kv_positions}
+            if use_remat and kv is None:
                 x, a = checkpoint(self._layer, p, x, positions, segment_ids,
                                   window, seed, False, use_reentrant=False)
             else:
                 x, a = self._layer(p, x, positions, segment_ids, window,
-                                   seed)
+                                   seed, kv=kv)
             aux = aux + a
         return x, aux
 
@@ -378,6 +414,55 @@ class CausalLM:
         (``auto``: the flash kernels on the card, the plain version on the
         CPU)."""
         return self._forward(params, input_ids, train=False)[0]
+
+    # ------------------------------------------------------------------ decode
+    def init_kv_cache(self, batch_size: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16, device=None,
+                      host: bool = False, kv_heads: Optional[int] = None
+                      ) -> KVCache:
+        """A zeroed :class:`KVCache` on ``device`` (default: the card), or
+        with ``host`` in host memory (pinned when a card is present: the
+        v1 engine's ``kv_offload``). ``kv_heads``: this rank's KV heads
+        (default: all)."""
+        cfg = self.config
+        shape = (cfg.num_layers, batch_size, max_len,
+                 kv_heads or cfg.num_kv_heads, cfg.head_dim)
+        if host:
+            pin = torch.cuda.is_available()
+            mk = lambda: torch.zeros(shape, dtype=dtype, pin_memory=pin)
+        else:
+            dev = resolve_device(device)
+            mk = lambda: torch.zeros(shape, dtype=dtype, device=dev)
+        return KVCache(mk(), mk(), 0)
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, cache: KVCache,
+                    tokens: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    rows: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, KVCache]:
+        """One incremental step over ``tokens`` [B, S] (S = 1 for a decode
+        step, more for a prefill): writes their k / v into ``cache`` at
+        ``write_pos`` in place and returns ``(logits, cache)`` with the
+        cache's ``write_pos`` advanced by S. Logits are float32 ``[B, S,
+        V]``, or with ``rows`` [B] ``[B, 1, V]`` of row ``rows[b]`` of
+        sequence b alone (under tensor parallelism the rank's ``V / tp``
+        columns). ``positions`` default to ``write_pos + arange(S)``;
+        ``kv_mask`` / ``kv_positions``: the right-padded ragged batch's
+        slot validity and slot positions (``layers.attention_block``)."""
+        b, s = tokens.shape
+        if positions is None:
+            positions = (torch.arange(s, device=tokens.device)
+                         + cache.write_pos)[None].expand(b, s)
+        x = self.embed(params, tokens, positions)
+        x, _ = self.trunk(params["layers"], x, positions, cache=cache,
+                          kv_mask=kv_mask, kv_positions=kv_positions)
+        if rows is not None:
+            x = x[torch.arange(b, device=x.device), rows.long()][:, None]
+        return self.head(params, x), cache._replace(
+            write_pos=cache.write_pos + s)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],

@@ -1,7 +1,10 @@
 """Build the port's CUDA kernels with nvcc, at first use.
 
 Each kernel source under ``csrc/`` is compiled for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The library lands
+library with a plain C interface, loaded with ``ctypes``. A source that
+defines ``DSST_PARTS n`` is compiled as n units at once (``-DDSST_PART=k``,
+one nvcc process each; the source decides what each unit instantiates),
+then linked: the build takes as long as its slowest unit. The library lands
 in ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 named by a hash of its source and of the shared headers (``csrc/*.cuh``), so
 an edited source or header is rebuilt and an unchanged one is reused.
@@ -10,6 +13,7 @@ Nothing is built when a module is imported.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -20,8 +24,9 @@ from typing import Dict, NamedTuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-lineinfo", "-Xptxas", "-v"]
 
 
 class Built(NamedTuple):
@@ -55,9 +60,16 @@ def source_digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def source_parts(src: Path) -> int:
+    """The units ``src`` compiles as (its ``#define DSST_PARTS n``; 1)."""
+    m = re.search(r"^#define DSST_PARTS (\d+)$", src.read_text(), re.M)
+    return int(m.group(1)) if m else 1
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source and
-    headers exists. Raises with nvcc's output when the compile fails."""
+    headers exists: its units at once, then one link. Raises with nvcc's
+    output when a compile or the link fails."""
     src = CSRC_DIR / f"{name}.cu"
     digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
@@ -67,21 +79,29 @@ def build(name: str) -> Built:
                      else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent process never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
+    nvcc = find_nvcc()
+    # compile in a private directory and rename the library into place: a
+    # concurrent process never sees a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"part{k}.o")
+                for k in range(source_parts(src))]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", f"-DDSST_PART={k}", "-o", obj,
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for k, obj in enumerate(objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for k, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} unit {k} (rc "
+                                   f"{p.returncode}):\n{text}")
+        lib = os.path.join(tmp, out.name)
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+                               *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (rc {proc.returncode}):"
-                               f"\n{proc.stdout}\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"linking {src} failed (rc {proc.returncode})"
+                               f":\n{proc.stdout}\n{proc.stderr}")
+        log_path.write_text("".join(logs) + proc.stdout + proc.stderr)
+        os.replace(lib, out)
     return Built(out, time.perf_counter() - t0, log_path.read_text())
 
 

@@ -352,7 +352,8 @@ def experts_plain(p: Dict[str, Any], x: torch.Tensor, gate: torch.Tensor,
                   experts: torch.Tensor, act: Callable) -> torch.Tensor:
     """The plain version: every expert over every token, weighted by the
     token's gate for it (0 if it did not choose it), summed in expert
-    order."""
+    order. ``experts`` is in ``[0, E]``: ``E`` marks a choice of no expert
+    held here, which adds 0."""
     out = torch.zeros_like(x)
     for e in range(p["w_gate"].shape[0]):
         w = torch.where(experts == e, gate, 0.0).sum(-1).to(x.dtype)
@@ -365,34 +366,60 @@ def experts_grouped(p: Dict[str, Any], x: torch.Tensor, gate: torch.Tensor,
                     experts: torch.Tensor, act: Callable) -> torch.Tensor:
     """Grouped GEMMs over the rows sorted by expert
     (``torch._grouped_mm(rows [M, D], w [E, D, F], offs=[E] int32)``);
-    the group ends stay on the device."""
+    the group ends stay on the device. ``experts`` is in ``[0, E]``: ``E``
+    marks a choice of no expert held here (another rank's under EP). Those
+    rows sort after the last group, which ends before them, so no GEMM
+    computes them, and they add 0."""
     grouped_mm = getattr(torch, "_grouped_mm", None)
     if grouped_mm is None:
         raise RuntimeError(
             f"MoE serving in bf16 on the card needs torch._grouped_mm "
             f"(PyTorch >= 2.8 on sm90); torch {torch.__version__} has none")
     t, k = experts.shape
+    n_exp = p["w_gate"].shape[0]
     flat = experts.reshape(-1)          # row t * k + c
     order = torch.argsort(flat, stable=True)
-    counts = torch.zeros(p["w_gate"].shape[0], dtype=torch.int64,
+    counts = torch.zeros(n_exp + 1, dtype=torch.int64,
                          device=x.device).scatter_add_(
         0, flat, torch.ones_like(flat))
-    offs = counts.cumsum(0).to(torch.int32)
+    offs = counts[:n_exp].cumsum(0).to(torch.int32)
     xs = x[order // k]
     h = act(grouped_mm(xs, p["w_gate"], offs=offs)) \
         * grouped_mm(xs, p["w_up"], offs=offs)
     ys = grouped_mm(h, p["w_down"], offs=offs)
     y = torch.empty_like(ys).index_copy_(0, order, ys)
+    # the rows past the last group end are left unwritten by the GEMMs
+    y = torch.where((flat < n_exp)[:, None], y, torch.zeros_like(y))
     return _combine(y.reshape(t, k, -1), gate)
 
 
-def moe_mlp_nodrop(p: Dict[str, Any], x: torch.Tensor, cfg) -> torch.Tensor:
+def moe_mlp_nodrop(p: Dict[str, Any], x: torch.Tensor, cfg,
+                   plan=None) -> torch.Tensor:
     """Exact top-k MoE GLU over flat tokens ``x`` [T, D] -> [T, D].
     ``p``: ``router`` [D, E], ``w_gate`` / ``w_up`` [E, D, F], ``w_down``
-    [E, F, D], in ``x``'s dtype (the router may be any floating type)."""
+    [E, F, D], in ``x``'s dtype (the router may be any floating type).
+
+    ``plan`` (the serving engine's ``ServePlan`` across ranks): ``p`` holds
+    this rank's ``E / ep`` experts, split on F over ``model``, and every
+    rank holds every token. The routing is over all E experts, as at one
+    rank; a choice of another rank's expert is keyed ``E / ep`` (no expert
+    here), so the grouped route computes only the rows routed to this
+    rank's experts, and the partial ``[T, D]`` is all-reduced over
+    ``plan.moe_region``."""
     gate, experts = topk_route(x, p["router"], cfg.num_experts_per_tok)
     act = _activation(cfg.activation)
-    p = {name: p[name].to(x.dtype) for name in ("w_gate", "w_up", "w_down")}
+    w = {name: p[name].to(x.dtype) for name in ("w_gate", "w_up", "w_down")}
+    if plan is not None and plan.ep > 1:
+        el = w["w_gate"].shape[0]
+        lo = plan.ep_index * el
+        here = (experts >= lo) & (experts < lo + el)
+        experts = torch.where(here, experts - lo, torch.full_like(experts, el))
     if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        return experts_grouped(p, x, gate, experts, act)
-    return experts_plain(p, x, gate, experts, act)
+        out = experts_grouped(w, x, gate, experts, act)
+    else:
+        out = experts_plain(w, x, gate, experts, act)
+    if plan is None:
+        return out
+    from ..comm import comm
+
+    return comm.all_reduce(out, plan.moe_region)

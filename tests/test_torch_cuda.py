@@ -1408,6 +1408,12 @@ def test_moe_card_route_matches_plain(dev, dtype, k, monkeypatch):
                         1 + torch.arange(24, device=dev) % 6], 1)[:, :k]
     _hold_paged(moe.experts_grouped(p, x, gate, skew, act),
                 moe.experts_plain(p, x, gate, skew, act), dtype, "MoE skew")
+    # under EP: half the experts held here, the other half's choices keyed 4
+    half = {n: v[:4] for n, v in p.items() if n != "router"}
+    away = torch.where(experts < 4, experts, torch.full_like(experts, 4))
+    _hold_paged(moe.experts_grouped(half, x, gate, away, act),
+                moe.experts_plain(half, x, gate, away, act), dtype,
+                "MoE other ranks' choices")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1844,3 +1850,88 @@ def test_fleet_of_two_on_the_card_with_a_kill(dev, tmp_path):
         u: eng.generate([p], max_new_tokens=10)[0]
         for u, p in enumerate(prompts)}
     assert all(st.closed for st in states.values())
+
+
+# ------------------------------------------ the v1 engine's cached flash call
+def _cached_case(dev, dtype, b, sq, skv, h, kvh, d, seed):
+    """A right-padded batch over a static cache: row lengths ``lens``,
+    prompt slots below them valid, the decode slots ``[skv - sq - 1,
+    skv)`` shared; ~20 % of the prompt slots dropped from ``kv_mask`` (key
+    segment -1) so the kernel skips them inside tiles."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g).to(dev, dtype)
+    k = torch.randn((b, skv, kvh, d), generator=g).to(dev, dtype)
+    v = torch.randn((b, skv, kvh, d), generator=g).to(dev, dtype)
+    s = skv - 40                      # the prompt region (40 decode slots)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=g)
+    slots = torch.arange(skv)
+    keep = torch.rand((b, skv), generator=g) > 0.2
+    kv_mask = ((slots[None] < lens[:, None]) & keep) | (slots >= s)[None]
+    kv_mask[:, 0] = True              # every query sees a key
+    kv_pos = torch.where(slots[None] < s, slots[None],
+                         lens[:, None] + (slots[None] - s))
+    return q, k, v, lens.to(dev), kv_mask.to(dev), kv_pos.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["decode_sq1", "chunk_below", "positions"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cached_flash_matches_plain(dev, dtype, mode):
+    """``layers.cached_flash_attention`` (the v1 engine's prefill and decode
+    on the card) against the plain ``reference_attention`` on the same
+    cache: Sq = 1 over 1000 keys with explicit positions (a decode step),
+    a 24-query chunk below ``write_pos + i + 1`` with ``kv_mask`` (Sq <
+    Skv), and 24 queries at explicit positions; llama's heads at D 128 with
+    GQA 4. Held at the flash limits, overall and row by row; one forward
+    launch a call."""
+    from deepspeedsyclsupport_tpu_torch.models.layers import (
+        cached_flash_attention, reference_attention)
+
+    sq = 1 if mode == "decode_sq1" else 24
+    q, k, v, lens, kv_mask, kv_pos = _cached_case(dev, dtype, 2, sq, 1000,
+                                                  8, 2, 128, 31)
+    kw = {"kv_mask": kv_mask}
+    if mode == "chunk_below":
+        wp = 1000 - 40
+        kw["kv_positions_below"] = (wp + torch.arange(sq, device=dev)
+                                    + 1)[None].expand(2, sq)
+        ref = dict(kw, causal=False)
+    else:
+        t = 7
+        kw["q_positions"] = (lens + t)[:, None] + torch.arange(
+            sq, device=dev)[None] * 0
+        kw["kv_positions"] = kv_pos
+        ref = dict(kw, causal=True)
+    before = fa.LAUNCHES["flash_fwd"]
+    got = cached_flash_attention(q, k, v, False, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == before + 1
+    want = reference_attention(q, k, v, **ref)
+    _assert_close_scaled(got, want, FLASH_TOL[dtype], f"cached {mode}")
+    _assert_rows_close(got, want, FLASH_TOL[dtype], f"cached {mode} rows")
+
+
+def test_v1_engine_generates_through_flash(dev):
+    """``init_inference`` on the card: a right-padded batch's greedy tokens
+    equal the CPU engine's (``tiny``, float32), one flash forward a layer a
+    forward."""
+    from deepspeedsyclsupport_tpu_torch import build_model, init_inference
+
+    model = build_model("tiny", dtype="float32")
+    params = model.init_params(device="cpu")
+    batch = torch.zeros((2, 5), dtype=torch.long)
+    batch[0, :3] = torch.tensor([7, 3, 11])
+    batch[1] = torch.tensor([4, 100, 42, 8, 19])
+    cpu = init_inference(model=model, params=params, dtype="fp32",
+                         device="cpu")
+    eng = init_inference(model=model, params=params, dtype="fp32",
+                         device=dev)
+    before = fa.LAUNCHES["flash_fwd"]
+    got = eng.generate(batch, prompt_lens=[3, 5], max_new_tokens=8)
+    assert fa.LAUNCHES["flash_fwd"] - before == 8 * model.config.num_layers
+    want = cpu.generate(batch, prompt_lens=[3, 5], max_new_tokens=8)
+    assert got.cpu().tolist() == want.tolist()
+    off = init_inference(model=model, params=params, dtype="fp32",
+                         device=dev, kv_offload=True)
+    assert off.generate(batch, prompt_lens=[3, 5],
+                        max_new_tokens=8).cpu().tolist() == want.tolist()

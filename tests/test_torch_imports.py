@@ -2,14 +2,19 @@
 
 Every module of ``deepspeedsyclsupport_tpu_torch`` (and ``chip_smoke.py``)
 is imported in a fresh interpreter whose meta path refuses ``jax`` and
-``deepspeedsyclsupport_tpu``; importing must build no kernel either.
+``deepspeedsyclsupport_tpu``; importing must build no kernel either. And
+``chip_smoke.py`` copied alone into an empty directory exits non-zero with
+no result line, whether or not a card is seen.
 """
 import importlib.util
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -67,6 +72,26 @@ def test_port_imports_no_jax():
                  "parallel.tensor_parallel", "parallel.pipeline",
                  "parallel.ulysses", "parallel.ring_attention", "moe",
                  "moe.layer", "comm.quantized", "runtime.zeropp",
-                 "runtime.onebit"):
+                 "runtime.onebit", "inference.engine", "inference.config",
+                 "inference.params"):
         assert importlib.util.find_spec(
             f"deepspeedsyclsupport_tpu_torch.{name}") is not None, name
+
+
+@pytest.mark.parametrize("card", [False, True], ids=["no_card", "card"])
+def test_chip_smoke_alone_gives_no_result(tmp_path, card):
+    """The script without the port beside it: with no card it stops at the
+    card check; told there is one, it stops at the port's import with a
+    message, never a traceback, and prints nothing on stdout."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    pre = "import torch; torch.cuda.is_available = lambda: True; " \
+        if card else ""
+    code = (pre + "import runpy, sys; sys.argv = ['chip_smoke.py']; "
+            "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 2, proc.stderr
+    assert proc.stdout == ""
+    assert "no result" in proc.stderr and "Traceback" not in proc.stderr

@@ -100,6 +100,39 @@ def test_card_routes_match_plain(k):
                                    rtol=ROUTE_TOL)
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_grouped_route_skips_choices_of_no_local_expert(k, monkeypatch):
+    """Under EP a choice of another rank's expert is keyed E (no expert
+    here): the grouped route's GEMMs end before those rows, which add 0,
+    and it agrees with the plain version over the same keys."""
+    x, p = _inputs(4)
+    tx, tp = torch.from_numpy(x), _torch(p)
+    act = moe._activation("silu")
+    gate, experts = moe.topk_route(tx, tp["router"], k)
+    half = {n: v[:E // 2] for n, v in tp.items() if n != "router"}
+    local = torch.where(experts < E // 2, experts,
+                        torch.full_like(experts, E // 2))
+    ends, real = [], torch._grouped_mm
+
+    def record(a, b, offs):
+        ends.append(int(offs[-1]))
+        return real(a, b, offs=offs)
+
+    monkeypatch.setattr(torch, "_grouped_mm", record)
+    got = moe.experts_grouped(half, tx, gate, local, act)
+    n_here = int((local < E // 2).sum())
+    assert 0 < n_here < T * k and ends == [n_here] * 3
+    want = moe.experts_plain(half, tx, gate, local, act)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ROUTE_TOL,
+                               rtol=ROUTE_TOL)
+    # the rows of no expert here add exactly 0
+    only = torch.where(local < E // 2, gate, torch.zeros_like(gate))
+    np.testing.assert_allclose(
+        got.numpy(), moe.experts_plain(tp, tx, only, experts, act).numpy(),
+        atol=ROUTE_TOL, rtol=ROUTE_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_cpu_tensors_take_the_plain_version(dtype, monkeypatch):

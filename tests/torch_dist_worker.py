@@ -674,10 +674,12 @@ def run_ckpt(spec, rank, out):
         reset_world_topology()
 
 
-def launch(spec, out_dir, world: int = 4, timeout: float = 240.0):
+def launch(spec, out_dir, world: int = 4, timeout: float = 240.0,
+           script: str = None):
     """Run ``spec`` on ``world`` ranks (one subprocess each, the env://
     variables set, a free localhost port) and wait for them; raises with
-    the ranks' stderr when one fails."""
+    the ranks' stderr when one fails. ``script``: the worker each rank
+    runs (default: this file)."""
     import socket
     import subprocess
 
@@ -695,7 +697,8 @@ def launch(spec, out_dir, world: int = 4, timeout: float = 240.0):
                    MASTER_PORT=str(port), OMP_NUM_THREADS="1",
                    PYTHONPATH=REPO)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), path], env=env,
+            [sys.executable, script or os.path.abspath(__file__), path],
+            env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errs = []
     try:
