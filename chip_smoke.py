@@ -154,7 +154,19 @@ It imports nothing of JAX or the JAX package. Phases, one line each:
              and depth (bf16, AdamW, WarmupLR, clipping, 2 micro-batches of
              2 x 4096 tokens), 6 steps; flash launch counts zeroed just before
              and read just after, asserted per step, and no operand copied
-             for any kernel's TMA (forward, dQ, dK/dV).
+             for any kernel's TMA (forward, dQ, dK/dV). The run is observed
+             (``OBSERVE``: telemetry with heartbeat, goodput and textfile,
+             the CSV and JSONL monitors, the flops profiler at step 2, the
+             MFU window at step 3, both inside the steps ``dist`` (a) holds
+             bit-equal): the flops profiler's matmul count EQUALS
+             ``6·N·T + 14·L·B·H·S²·D`` and its total lies within
+             ``FLOPS_TOL`` of ``6·N·T + 12·L·B·H·S²·D``; the MFU ledger's
+             ``attn`` holds every flash kernel of its step, its regions
+             reconcile with the device-busy time, its MFU agrees with the
+             shape formula's products over its step; the stream, goodput,
+             heartbeat, CSV and textfile are held (the ledger's summary
+             logged). Throughput is reported over the unobserved steps
+             after the window.
    train-resume — the same width and config at 2 of its 16 layers
              (depth cut): 3 steps, a native
              ``save_checkpoint`` (~2.8 GB), steps 4-6; a fresh engine
@@ -3182,19 +3194,221 @@ def phase_serve_fp16(torch, np):
 
 
 # ------------------------------------------------------------------ train
+# phase train's observation: the flops profiler's step and the MFU window's.
+# The window's roofline costs are the profiler's counter (the first counted
+# step before it); both steps lie within DIST_STEPS, so ``dist`` (a) holds
+# the observed steps' losses bit for bit.
+OBSERVE_FLOPS_STEP = 2
+OBSERVE_MFU_STEP = 3
+# the flops profiler's whole count of one step over 6·N·T + 12·L·B·H·S²·D
+# (N the matmul params, the LM head in, the embedding out), as a relative
+# excess: its products are 6·N·T + 14·L·B·H·S²·D exactly (the flash
+# backward recomputes Q K^T and dO V^T as its plain version does: 7
+# products of 2·S²·D where the formula counts 6), +3.913 % at llama2-1b,
+# the lower limit; the elementwise ops, reductions and AdamW add +0.047 %
+# (+3.959 % in all, on an H100 80GB HBM3, PERF.md); the upper limit
+# leaves them 2 % (40x what they were).
+FLOPS_TOL = (0.0391, 0.06)
+# achieved MFU against 6·N·T + 14·L·B·H·S²·D (the products, from the shapes
+# alone) / (step_s x 989e12): the ledger's count adds the elementwise ops,
+# reductions and AdamW, +0.047 % of the products on an H100 (PERF.md); the
+# limit leaves them 1 %
+MFU_AGREE = 0.01
+
+
+def observe_config(out):
+    """``OBSERVE``: what phase train turns on, its files under ``out``."""
+    return {"steps_per_print": 1,
+            "telemetry": {"enabled": True, "output_dir": out,
+                          "heartbeat": {"enabled": True, "interval_s": 0.0},
+                          "goodput": {"enabled": True},
+                          "textfile": {"enabled": True, "interval_s": 1e-3},
+                          "mfu": {"enabled": True,
+                                  "step": OBSERVE_MFU_STEP}},
+            "csv_monitor": {"enabled": True, "output_path": out,
+                            "job_name": "csv"},
+            "jsonl_monitor": {"enabled": True, "output_path": out,
+                              "job_name": "jsonl"},
+            "flops_profiler": {"enabled": True,
+                               "profile_step": OBSERVE_FLOPS_STEP,
+                               "output_file": os.path.join(out,
+                                                           "flops.txt")}}
+
+
+def matmul_params(eng):
+    """N: the elements of the params that enter products (every 2-D leaf
+    but the embedding table; the LM head in)."""
+    return sum(t.numel() for p, t in zip(eng._grad_paths, eng._leaf_tensors)
+               if t.dim() == 2 and "embed" not in p)
+
+
+def hold_flops(eng, n_tok):
+    """(ii): the flops profiler's count of its step against the formula.
+    Returns the step's products from the shapes, 6·N·T + 14·L·B·H·S²·D."""
+    cfg = eng.module.config
+    b, s = eng.train_batch_size(), TRAIN_SEQ
+    attn = cfg.num_layers * b * cfg.num_heads * s * s * cfg.head_dim
+    n = matmul_params(eng)
+    formula = 6 * n * n_tok + 12 * attn
+    counter = eng.flops_profiler.counter
+    total = counter.total_flops()
+    matmul = counter.total_flops("matmul")
+    if matmul != 6 * n * n_tok + 14 * attn:
+        raise AssertionError(f"flops profiler matmuls {matmul:.6e} != "
+                             f"6·N·T + 14·L·B·H·S²·D "
+                             f"{6 * n * n_tok + 14 * attn:.6e}")
+    ratio = total / formula - 1
+    log("train", f"flops profiler @ step {OBSERVE_FLOPS_STEP}: "
+        f"{total:.6e} FLOPs ({matmul:.6e} in products, N {n}, T {n_tok}); "
+        f"6·N·T + 12·L·B·H·S²·D = {formula:.6e}: {100 * ratio:+.3f} % "
+        f"(limit {100 * FLOPS_TOL[0]:+.2f} .. {100 * FLOPS_TOL[1]:+.2f} %); "
+        f"by kind {{{', '.join(f'{k}: {counter.total_flops(k):.4e}' for k in ('matmul', 'elementwise', 'reduction'))}}}; "
+        f"visible (query, key) pairs the flash kernels reported "
+        f"{ {op: int(n) for (_, op), n in sorted(counter.pairs.items())} }")
+    if not FLOPS_TOL[0] <= ratio <= FLOPS_TOL[1]:
+        raise AssertionError(f"flops profiler {total:.6e} is "
+                             f"{100 * ratio:+.3f} % off the formula")
+    return 6 * n * n_tok + 14 * attn
+
+
+def hold_mfu_ledger(eng, products):
+    """(iii): the MFU ledger of the window step; ``products`` the step's
+    products from the shapes (``hold_flops``), which the ledger's MFU is
+    held against."""
+    from deepspeedsyclsupport_tpu_torch.monitor import mfu
+
+    t = time.perf_counter()
+    led = eng.mfu_ledger()
+    took = time.perf_counter() - t
+    with open(os.path.join(os.path.dirname(led["window"]["trace_path"]),
+                           "mfu_opmap.json")) as f:
+        opmap = json.load(f)
+    per_step = eng.module.config.num_layers * \
+        eng.gradient_accumulation_steps()
+    flash = {}
+    for info in opmap.values():
+        for kind in ("flash_fwd", "flash_dq", "flash_dkv", "flash_dbias"):
+            if kind in info["opcode"] and not (
+                    kind == "flash_dq" and "flash_dkv" in info["opcode"]):
+                key = (kind, info["region"])
+                flash[key] = flash.get(key, 0) + 1
+    want = {("flash_fwd", "attn"): per_step, ("flash_dq", "attn"): per_step,
+            ("flash_dkv", "attn"): per_step}
+    if flash != want:
+        raise AssertionError(f"MFU window's flash kernels by (kind, region) "
+                             f"{flash}, want {want}")
+    rec = led["reconciliation"]["frac"]
+    step_s, busy = led["step_s"], led["device_busy_s"]
+    host = led["regions"]["host"]["measured_s"]
+    agree = led["achieved_mfu"] / (products / (step_s * 989e12)) - 1
+    shares = {r: v["frac"] for r, v in led["regions"].items()}
+    log("train", f"MFU ledger @ step {led['window']['step']} "
+        f"({led['device']}): achieved {100 * led['achieved_mfu']:.2f} %, "
+        f"roofline {100 * led['roofline_mfu']:.2f} %, step "
+        f"{step_s * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, host "
+        f"{host * 1e3:.1f} ms, reconciliation {rec:.4f}, orphaned "
+        f"{led['orphan_s'] * 1e3:.3f} ms; shares "
+        f"{ {r: round(v, 4) for r, v in sorted(shares.items())} }; other "
+        f"{100 * shares.get('other', 0.0):.2f} %; top sinks "
+        f"{led['top_sinks']}; flash kernels in attn {flash}; vs "
+        f"6·N·T + 14·L·B·H·S²·D over the step {agree:+.2e} (limit "
+        f"{MFU_AGREE:.0%}); the ledger built in {took:.1f} s")
+    print("MFU " + json.dumps({k: led[k] for k in (
+        "device", "step_s", "device_busy_s", "host_s", "achieved_mfu",
+        "roofline_mfu", "top_sinks")} | {"reconciliation": rec, "regions": {
+            r: {k: v[k] for k in ("measured_s", "frac", "achievable_s",
+                                  "bound_by")}
+            for r, v in led["regions"].items()}}), flush=True)
+    print(mfu.render_ledger(led), flush=True)
+    if abs(rec - 1) > 0.05:
+        raise AssertionError(f"MFU ledger regions re-sum to {rec} of the "
+                             f"step")
+    if abs(host - max(0.0, step_s - busy)) > 1e-9:
+        raise AssertionError(f"host {host} != step - busy")
+    if abs(agree) > MFU_AGREE:
+        raise AssertionError(f"achieved MFU {led['achieved_mfu']} vs the "
+                             f"shape formula's "
+                             f"{products / (step_s * 989e12)}")
+    if any(v > 1.0 for v in shares.values()) or \
+            led["achieved_mfu"] > led["roofline_mfu"]:
+        raise AssertionError(f"shares {shares}, achieved "
+                             f"{led['achieved_mfu']} > roofline "
+                             f"{led['roofline_mfu']}")
+    return led
+
+
+def hold_telemetry(eng, out, losses, on_step_us):
+    """(iv): the telemetry artifacts of the observed run."""
+    jsonl = os.path.join(out, "jsonl", "flightrec_rank0.jsonl")
+    with open(jsonl) as f:
+        recs = [json.loads(x) for x in f]
+    spans = [r["step"] for r in recs if r["kind"] == "span"
+             and r["name"] == "step"]
+    if spans != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError(f"step spans in the JSONL {spans}")
+    summary = eng.telemetry.goodput.summary()
+    cats = sum(summary[c] for c in type(eng.telemetry.goodput).CATEGORIES)
+    if abs(cats - summary["total"]) > 1e-9 * summary["total"]:
+        raise AssertionError(f"goodput buckets {cats} != total "
+                             f"{summary['total']}")
+    with open(os.path.join(out, "heartbeat_rank0.json")) as f:
+        hb = json.load(f)
+    if hb["step"] != TRAIN_STEPS:
+        raise AssertionError(f"heartbeat {hb}")
+    with open(os.path.join(out, "csv", "Train%2FSamples%2Ftrain_loss.csv")
+              ) as f:
+        rows = [tuple(float(x) for x in line.split(",")) for line in f]
+    want = [(float((i + 1) * eng.train_batch_size()), x)
+            for i, x in enumerate(losses)]
+    if rows != want:
+        raise AssertionError(f"CSV train_loss {rows} != logged {want}")
+    prom = {}
+    with open(os.path.join(out, "metrics_rank0.prom")) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                prom[name] = float(value)
+    count = prom.get('dstpu_step_time_s_count{rank="0"}')
+    if count != TRAIN_STEPS:
+        raise AssertionError(f"textfile step count {count}")
+    log("train", f"telemetry: {len(spans)} step spans in the JSONL "
+        f"({len(recs)} records), goodput {summary['productive_frac']:.4f} "
+        f"productive of {summary['total']:.2f} s (buckets "
+        f"{ {c: round(summary[c], 3) for c in type(eng.telemetry.goodput).CATEGORIES} }"
+        f" sum to the total), heartbeat at step {hb['step']}, CSV "
+        f"train_loss rows equal the logged losses, textfile parses "
+        f"({len(prom)} samples); on_step_end "
+        f"{sum(on_step_us) / len(on_step_us):.1f} us a step on the host "
+        f"(max {max(on_step_us):.1f})")
+
+
 def phase_train(torch, np):
-    """llama2-1b at full width and depth through initialize/train_batch;
-    returns the flash launch counts of the run."""
+    """llama2-1b at full width and depth through initialize/train_batch,
+    observed (``observe_config``); returns the flash launch counts of the
+    run and its steps."""
+    import tempfile
+
     from deepspeedsyclsupport_tpu_torch import build_model, initialize
     from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
 
+    out_dir = tempfile.TemporaryDirectory()
+    out = out_dir.name
     model = build_model(TRAIN_MODEL)
     cfg = model.config
     t0 = time.perf_counter()
     params = model.init_params(
         generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
-    eng, *_ = initialize(model=model, params=params, config=TRAIN_CONFIG,
-                         device=DEV)
+    eng, *_ = initialize(model=model, params=params, config=dict(
+        TRAIN_CONFIG, **observe_config(out)), device=DEV)
+    on_step_us = []
+    on_step_end = eng.telemetry.on_step_end
+
+    def timed_on_step_end(*a, **kw):
+        t = time.perf_counter()
+        on_step_end(*a, **kw)
+        on_step_us.append((time.perf_counter() - t) * 1e6)
+
+    eng.telemetry.on_step_end = timed_on_step_end
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3241,15 +3455,26 @@ def phase_train(torch, np):
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"train losses {losses}: not finite or not "
                              f"falling")
-    timed = [x[2] for x in steps[1:]]
-    log("train", f"{len(timed)} timed steps: mean {1e3 * sum(timed) / len(timed):.1f}"
-        f" ms/step, {n_tok * len(timed) / sum(timed):.0f} tokens/s, loss "
+    # steps 2 (counted) and 3 (profiled) are observed: throughput is read
+    # over the steps after them alone
+    plain = [x[2] for i, x in enumerate(steps) if i + 1 > OBSERVE_MFU_STEP]
+    log("train", f"{len(plain)} unobserved timed steps (after the MFU "
+        f"window): mean {1e3 * sum(plain) / len(plain):.1f} ms/step, "
+        f"{n_tok * len(plain) / sum(plain):.0f} tokens/s, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash launches "
         f"over {TRAIN_STEPS} steps {launches}, kernels "
         f"{flash_routes(fa, torch.bfloat16, cfg.head_dim)}, operands copied "
         f"for TMA {fa.COPIES}")
+    t = time.perf_counter()
+    hold_mfu_ledger(eng, hold_flops(eng, n_tok))
+    eng.monitor.flush()
+    hold_telemetry(eng, out, losses, on_step_us)
+    eng.telemetry.close()
+    eng.monitor.close()
+    log("train", f"observation held in {time.perf_counter() - t:.1f} s")
     del eng
+    out_dir.cleanup()
     torch.cuda.empty_cache()
     return launches, steps
 
@@ -5705,6 +5930,8 @@ def dist_zeropp(torch, np, pool):
 DIST_CKPT_CFG = dict(DIST_BASE, zero_optimization={"stage": 3},
                      parallelism={"dp": 2, "fsdp": 2})
 DIST_CKPT_STEPS = 6          # 3 before the save, 3 after it
+# (f1)'s first run with telemetry on: every rank's stream, fused after it
+DIST_TELEMETRY = {"enabled": True, "stack_dump_on_hang": False}
 DIST_CKPT_SAVE_AT = 3
 DIST_CKPT_W1_TOL = TRAIN_PARITY_TOL   # world 1 on the tag vs four ranks
 DIST_SENTINEL = {"enabled": True, "warmup_steps": 1, "window": 8,
@@ -5718,6 +5945,41 @@ DIST_BIAS_STEPS = 3
 DIST_BIAS_SCALE = 0.02       # the seeded non-zero biases' spread
 DIST_POD_KILL = (2, 4)       # (rank, step) of the pod's injected crash
 DIST_POD_TIMEOUT_S = 600
+
+
+def hold_pod_report(tel_dir):
+    """(f1)'s rank streams fused by ``monitor/pod.py``: every rank's
+    ``engine_init`` anchor, its step spans = the steps it ran, and a report
+    that validates; the straggler and the comm / compute split logged."""
+    from deepspeedsyclsupport_tpu_torch.monitor import pod
+
+    streams = pod.load_rank_streams([tel_dir])
+    if sorted(streams) != list(range(DIST_WORLD)):
+        raise AssertionError(f"pod: rank streams {sorted(streams)}")
+    for r, st in streams.items():
+        tags = [x["data"]["tag"] for x in st.records
+                if x["name"] == "align/anchor"]
+        spans = [x["step"] for x in st.records
+                 if x["kind"] == "span" and x["name"] == "step"]
+        if tags != ["engine_init"] or \
+                spans != list(range(1, DIST_CKPT_STEPS + 1)):
+            raise AssertionError(f"pod: rank {r} anchors {tags}, step "
+                                 f"spans {spans}")
+    rep = pod.pod_report_from_paths([tel_dir])
+    d = rep.to_dict()
+    problems = pod.validate_pod_report(d)
+    if problems or d["n_steps"] != DIST_CKPT_STEPS:
+        raise AssertionError(f"pod report: {problems}, {d['n_steps']} "
+                             f"steps")
+    dec = d["decomposition"]
+    log("dist", f"(f1) pod report over {len(streams)} rank streams: "
+        f"aligned by {d['align']['method']} (offsets "
+        f"{d['align']['offsets_s']} s), {d['n_steps']} fused steps, "
+        f"straggler counts {d['straggler']['counts']} (lateness "
+        f"{d['straggler']['lateness_s']} s), comm-bound "
+        f"{dec['comm_bound_frac']} (exposed comm {dec['exposed_comm_s']} s "
+        f"over a compute floor of {dec['compute_floor_s']} s, "
+        f"{dec['compute_floor_source']}); validates")
 
 
 def ckpt_batches(torch, np, vocab, n, seq, dev):
@@ -5857,13 +6119,17 @@ def dist_ckpt_child(torch, np, spec_path):
         return out, time.perf_counter() - t
 
     out = {"rank": rank}
-    # ---- (f1) save and resume
-    eng = engine(DIST_CKPT_CFG, 1)
+    # ---- (f1) save and resume; the first run observed (its rank streams
+    # fused by the parent into the pod report)
+    eng = engine(dict(DIST_CKPT_CFG, telemetry=dict(
+        DIST_TELEMETRY, output_dir=os.path.join(spec["out"],
+                                                "f1_telemetry"))), 1)
     run1 = [ckpt_step(torch, eng, b, seq)
             for b in batches[:DIST_CKPT_SAVE_AT]]
     path, save_s = timed(lambda: eng.save_checkpoint(d))
     run1 += [ckpt_step(torch, eng, b, seq)
              for b in batches[DIST_CKPT_SAVE_AT:DIST_CKPT_STEPS]]
+    eng.telemetry.close()
     peak1 = done(eng)
     eng = engine(DIST_CKPT_CFG, 2)
     (loaded, _), load_s = timed(lambda: eng.load_checkpoint(d))
@@ -6097,6 +6363,7 @@ def dist_ckpt(torch, np):
                 f"rank 0 bytes a step {run1[-1]['bytes']}; the preemption "
                 f"flag's all-reduce {f1['flag_us']:.1f} us a step; ranks ran "
                 f"in {wall:.1f} s")
+            hold_pod_report(os.path.join(d, "f1_telemetry"))
             # the tag at a world of one on NCCL
             comm.init_distributed(
                 init_method=f"tcp://127.0.0.1:{free_port()}",

@@ -20,7 +20,12 @@ Ported so far:
   ``csrc/flash_attention.cu``) wired as a ``torch.autograd.Function``;
   the Adam, Lamb, Lion, SGD, Adagrad and 1-bit optimizers, checkpoints in
   the JAX package's format, resume, preemption handling, the data loaders
-  and the training-health sentinel.
+  and the training-health sentinel;
+* training observability — telemetry (flight recorder, goodput, heartbeat,
+  Prometheus textfile), the CSV / TensorBoard / W&B / JSONL monitors, the
+  timers, the flops profiler (``profiling``), the MFU ledger
+  (``monitor.mfu``, ``analysis.roofline``, ``Engine.mfu_ledger``) and the
+  offline pod report (``monitor.pod``).
 
 The serving engines run across ranks too: ``InferenceEngineV2(...,
 topology=)`` under tensor, expert and data parallelism, and the v1 engine,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..monitor.mfu import region_scope
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -355,7 +356,19 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     query and ``KVH / tp`` KV heads (``x`` enters through
     ``copy_to_model_region``, the output leaves through
     ``reduce_from_model_region``; ``bq`` / ``bk`` / ``bv`` are cut to the
-    rank's heads, ``bo`` is added whole after the reduce)."""
+    rank's heads, ``bo`` is added whole after the reduce).
+
+    The whole sublayer runs under the ``attn`` MFU region scope
+    (``monitor/mfu.py``, JAX ``layers.py:382``), its backward attributed
+    to it through autograd."""
+    with region_scope("attn"):
+        return _attention_block_impl(p, x, cfg, positions, segment_ids, impl,
+                                     window, tp_axis, kv_cache, kv_mask,
+                                     kv_positions)
+
+
+def _attention_block_impl(p, x, cfg, positions, segment_ids, impl, window,
+                          tp_axis, kv_cache, kv_mask, kv_positions):
     b, s, _ = x.shape
     if tp_axis is not None:
         from ..parallel.tensor_parallel import copy_to_model_region
@@ -467,7 +480,13 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     up / fc1) and row (down / fc2) shards: ``x`` enters through
     ``copy_to_model_region`` and the output leaves through
     ``reduce_from_model_region`` (``b1`` cut to the rank's columns, ``b2``
-    added whole after the reduce)."""
+    added whole after the reduce). Runs under the ``mlp`` MFU region
+    scope (JAX ``layers.py:513``)."""
+    with region_scope("mlp"):
+        return _mlp_block_impl(p, x, cfg, tp_axis)
+
+
+def _mlp_block_impl(p, x, cfg, tp_axis):
     if tp_axis is None:
         return std_mlp(p, x, cfg) if cfg.mlp_type == "mlp" \
             else glu_mlp(p, x, cfg)

@@ -73,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..compression.quantize import dequantize_tree
 from ..device import parse_dtype, resolve_device
+from ..monitor.mfu import region_scope
 from .config import ModelConfig, get_config
 from .layers import attention_block, mlp_block, norm
 from ..parallel.moe import moe_mlp
@@ -260,7 +261,8 @@ class CausalLM:
                 if jitter_seed is not None:
                     gen = torch.Generator(device=y.device).manual_seed(
                         jitter_seed)
-                return moe_mlp(p["moe"], y, cfg, gen, plan=self.parallel)
+                with region_scope("mlp"):  # MoE is the mlp region too
+                    return moe_mlp(p["moe"], y, cfg, gen, plan=self.parallel)
             return mlp_block(p["mlp"], y, cfg, tp_axis=tp_axis), 0.0
 
         x_norm = norm(x, p["attn_norm"], cfg)
@@ -295,7 +297,11 @@ class CausalLM:
               positions: torch.Tensor) -> torch.Tensor:
         """The token (and learned position) embedding and the embedding
         norm: ``[B, S, hidden]`` in the compute dtype (the first pipe
-        stage's part)."""
+        stage's part), under the ``embed`` MFU region scope."""
+        with region_scope("embed"):
+            return self._embed(params, input_ids, positions)
+
+    def _embed(self, params, input_ids, positions):
         cfg = self.config
         x = self._gathered(params["embed"],
                            lambda e: self._lookup(e["embedding"], input_ids))
@@ -357,7 +363,11 @@ class CausalLM:
     def head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """The final norm and the LM head: float32 logits ``[B, S, V]``
         (under TP this rank's ``V / tp`` columns; the last pipe stage's
-        part)."""
+        part), under the ``head`` MFU region scope."""
+        with region_scope("head"):
+            return self._head(params, x)
+
+    def _head(self, params, x):
         cfg = self.config
         tp_axis = self._tp_axis
 
@@ -496,14 +506,15 @@ class CausalLM:
                                     positions=batch.get("positions"),
                                     segment_ids=batch.get("segment_ids"),
                                     rng=rng, train=train)
-        labels, mask = self.targets(batch)
-        lm_loss = self.nll_sum(logits, labels, mask) / \
-            self.token_count(mask).clamp_min(1.0)
-        metrics = {"lm_loss": lm_loss.detach()}
-        if not self.config.any_moe:
-            return lm_loss, metrics
-        metrics["moe_aux_loss"] = aux.detach()
-        return lm_loss + self.config.aux_loss_coef * aux, metrics
+        with region_scope("loss"):  # softmax-xent MFU region
+            labels, mask = self.targets(batch)
+            lm_loss = self.nll_sum(logits, labels, mask) / \
+                self.token_count(mask).clamp_min(1.0)
+            metrics = {"lm_loss": lm_loss.detach()}
+            if not self.config.any_moe:
+                return lm_loss, metrics
+            metrics["moe_aux_loss"] = aux.detach()
+            return lm_loss + self.config.aux_loss_coef * aux, metrics
 
     @staticmethod
     def targets(batch: Dict[str, torch.Tensor]

@@ -1,25 +1,33 @@
-"""Structured observability, the serving plane's part: metrics registry,
-event-name registry, flight recorder, heartbeat and Prometheus textfiles.
+"""Structured observability spine: metrics registry + flight recorder +
+goodput, and the training ``Telemetry`` facade the engine holds.
 
-Port of the serving-plane subset of ``deepspeedsyclsupport_tpu/monitor/
-telemetry.py`` (host-only Python, copied statement for statement):
+Port of ``deepspeedsyclsupport_tpu/monitor/telemetry.py`` (host-only
+Python, copied statement for statement where the JAX package's code is
+host code):
 
 * :class:`ResilienceCounters` — process-wide degradation counters;
-* the event-name registry (``EVENT_NAMES``, ``check_events``): every
-  ``Serve/*`` name the serving session emits is declared, and strict mode
+* the event-name registry (``EVENT_NAMES``, ``check_events``): every event
+  name the engine and the serving plane emit is declared, and strict mode
   (``DSTPU_STRICT_EVENTS=1``) raises on an undeclared one;
 * :class:`Counter`, :class:`Gauge`, :class:`Histogram` and the process-wide
   :data:`metrics_registry`;
-* :class:`FlightRecorder` — the bounded record ring the request journal
-  streams through;
+* :class:`FlightRecorder` — the bounded record ring that streams to a
+  rank-local JSONL sink and is dumped on crash / SIGTERM;
+* :class:`GoodputAccounter` — wall-clock attributed to productive step
+  time vs checkpoint, compile, rollback, startup and the residual;
 * :class:`Heartbeat` — the freshness file the elastic agent and the
-  replica supervisor watch;
-* :func:`render_prometheus` / :func:`export_metrics_textfile`;
-* :data:`DURATION_BUCKETS_S` and :func:`histogram_quantile` (in the JAX
-  package they live in ``monitor/pod.py``).
+  replica supervisor watch; :func:`install_hang_dump`;
+* :class:`Telemetry` / :func:`build_telemetry` — the engine's wiring: step
+  spans, goodput, heartbeat, memory gauges (``torch.cuda.memory_stats``
+  of the engine's card; none on the CPU, where they read 0 as the JAX
+  package's CPU backend reports), checkpoint spans, the sentinel's
+  ``Health/*`` ledger, the barrier-anchored ``align/anchor`` records the
+  pod report aligns ranks by, Prometheus textfiles.
 
-Not ported yet (ROADMAP.md A.3.4): the compile listener, the goodput
-accounter and the training ``Telemetry`` facade.
+Where the port differs by design: an eager step compiles nothing, so
+there is no counterpart of the JAX compile listener — :func:`compile_stats`
+reads 0, ``Compile/*`` events read 0 and the goodput ``compile`` bucket
+stays 0. ``Offload/*`` waits for the offload pipeline (ROADMAP.md A.3.2).
 """
 import contextlib
 import json
@@ -40,37 +48,11 @@ from .reqtrace import (FLEET_STAGES as REQTRACE_FLEET_STAGES,
 
 Event = Tuple[str, Any, int]
 
-#: MFU attribution regions of the JAX package's ``monitor/mfu.py`` (scope
-#: regions, then derived ones): the ``MFU/region.*`` and
-#: ``Health/grad_norm.*`` families below are enumerated from them, so the
-#: port's registry declares exactly the JAX package's names.
-MFU_REGIONS = ("embed", "attn", "mlp", "head", "loss", "optimizer",
-               "collective", "other", "host")
-
-# Fixed duration buckets (seconds) shared by every histogram; a copy of the
-# JAX package's monitor/pod.py ones.
-DURATION_BUCKETS_S = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
-                      5.0, 10.0, 30.0, 60.0, 120.0)
-
-
-def histogram_quantile(buckets: Tuple[float, ...], counts: List[int],
-                       total: int, q: float) -> Optional[float]:
-    """Quantile estimate over Prometheus-style fixed buckets (``counts`` has
-    one overflow slot past the last edge): linear interpolation inside the
-    bucket the target observation falls in; resolution is the bucket width;
-    a target landing in the overflow bucket returns the highest finite
-    edge. Shared by ``telemetry.Histogram`` and the offline skew table."""
-    if total <= 0 or not 0.0 < q <= 1.0:
-        return None
-    target = q * total
-    cum = 0.0
-    for i, edge in enumerate(buckets):
-        prev_cum, cum = cum, cum + counts[i]
-        if cum >= target:
-            lo = buckets[i - 1] if i > 0 else 0.0
-            frac = (target - prev_cum) / max(counts[i], 1)
-            return lo + (edge - lo) * frac
-    return buckets[-1] if buckets else None
+# shared fixed-bucket helpers live in the stdlib-only pod module, the MFU
+# region registry in the stdlib-only mfu module (telemetry imports from
+# them, never the reverse)
+from .mfu import REGIONS as MFU_REGIONS
+from .pod import DURATION_BUCKETS_S, histogram_quantile  # noqa: F401
 
 
 # =========================================================================
@@ -542,6 +524,140 @@ class FlightRecorder:
         return self.snapshot()
 
 
+# Active recorder: the seam through which re-pointed islands
+# (``utils/timer.py`` spans, checkpoint writers) reach the current engine's
+# recorder without holding a reference. Last telemetry constructed wins.
+_active_recorder: Optional[FlightRecorder] = None
+
+
+def set_active_recorder(rec: Optional[FlightRecorder]) -> None:
+    global _active_recorder
+    _active_recorder = rec
+
+
+def get_active_recorder() -> Optional[FlightRecorder]:
+    return _active_recorder
+
+
+# =========================================================================
+# Recompiles
+# =========================================================================
+
+
+def compile_stats() -> Tuple[int, float]:
+    """(total executable compiles, total compile wall-seconds) so far:
+    always ``(0, 0.0)`` — an eager step builds no executable (the JAX
+    package counts ``jax.monitoring`` compile events here). Kept so the
+    ``Compile/*`` events and the goodput ``compile`` bucket exist, at 0."""
+    return 0, 0.0
+
+
+def _tree_items(tree: Any, path: Tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _tree_items(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def tree_shapes(tree: Any) -> Dict[str, str]:
+    """Flat ``leaf-path -> shape/dtype`` map for arg-shape diffing (dtypes
+    by their numpy names: ``(4, 32):int32``)."""
+    out = {}
+    for path, leaf in _tree_items(tree):
+        shape = tuple(getattr(leaf, "shape", ()))
+        dtype = getattr(leaf, "dtype", type(leaf).__name__)
+        out["/".join(path)] = \
+            f"{shape}:{str(dtype).replace('torch.', '')}"
+    return out
+
+
+def shape_diff(old: Optional[Dict[str, str]],
+               new: Dict[str, str]) -> Dict[str, Any]:
+    """What changed between two shape maps — the offending diff logged with a
+    recompile event."""
+    if old is None:
+        return {"initial": True}
+    changed = {k: {"was": old[k], "now": v}
+               for k, v in new.items() if k in old and old[k] != v}
+    added = sorted(set(new) - set(old))
+    removed = sorted(set(old) - set(new))
+    out: Dict[str, Any] = {}
+    if changed:
+        out["changed"] = changed
+    if added:
+        out["added"] = added
+    if removed:
+        out["removed"] = removed
+    return out or {"identical_shapes": True}
+
+
+# =========================================================================
+# Goodput accounting
+# =========================================================================
+
+
+class GoodputAccounter:
+    """Attribute wall-clock since construction to named categories.
+
+    ``other`` is the residual (total − sum of known categories), so the
+    split accounts for 100% of measured wall-clock by construction.
+    ``offload_stall`` is the exposed (non-overlapped) transfer wait inside
+    offloaded steps — carved OUT of productive. ``rollback`` is the
+    sentinel's recovery wall (last-good reload + data fast-forward,
+    ``runtime/sentinel.py``) — carved out for the same reason: it is time
+    training exists to avoid."""
+
+    CATEGORIES = ("productive", "checkpoint", "compile", "offload_stall",
+                  "rollback", "startup", "other")
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._t0 = clock()
+        self._lock = threading.Lock()
+        self._buckets: Dict[str, float] = {c: 0.0 for c in self.CATEGORIES
+                                           if c != "other"}
+        self._first_step_seen = False
+
+    def account(self, category: str, seconds: float) -> None:
+        if seconds < 0:
+            return
+        with self._lock:
+            self._buckets[category] = self._buckets.get(category, 0.0) + seconds
+
+    def mark_first_step(self) -> None:
+        """Everything before the first step is startup (process boot, model
+        build, checkpoint resume)."""
+        with self._lock:
+            if self._first_step_seen:
+                return
+            self._first_step_seen = True
+            known = sum(self._buckets.values())
+            self._buckets["startup"] = max(
+                0.0, (self._clock() - self._t0) - known)
+
+    def summary(self) -> Dict[str, float]:
+        with self._lock:
+            total = max(1e-9, self._clock() - self._t0)
+            buckets = dict(self._buckets)
+        known = sum(buckets.values())
+        buckets["other"] = max(0.0, total - known)
+        buckets["total"] = total
+        buckets["productive_frac"] = buckets.get("productive", 0.0) / total
+        return buckets
+
+    def events(self, step: int) -> List[Event]:
+        s = self.summary()
+        ev: List[Event] = [(f"Goodput/{c}_s", s.get(c, 0.0), step)
+                           for c in self.CATEGORIES]
+        ev.append(("Goodput/total_s", s["total"], step))
+        ev.append(("Goodput/productive_frac", s["productive_frac"], step))
+        return ev
+
+
 # =========================================================================
 # Heartbeat
 # =========================================================================
@@ -677,3 +793,416 @@ def export_metrics_textfile(path: str, snapshot: Dict[str, Any],
         logger.warning("textfile export failed: %s", e)
     return path
 
+
+
+_anchor_lock = threading.Lock()
+_anchor_counter = 0
+
+
+def _next_anchor_seq() -> int:
+    """Process-global anchor epoch counter: two anchored engines in one
+    process must stamp DISTINCT sync epochs or their step spans would
+    collide on the pod aggregator's (sync, step) fusion keys. Ranks stay in
+    lockstep because :meth:`Telemetry.anchor` is a collective — every rank
+    performs the same anchor calls in the same order."""
+    global _anchor_counter
+    with _anchor_lock:
+        _anchor_counter += 1
+        return _anchor_counter
+
+
+_faulthandler_installed = False
+
+
+def install_hang_dump(stack_path: str) -> bool:
+    """Register ``faulthandler`` on SIGUSR1 so the elastic agent can demand a
+    stack dump from a hung worker before restarting it. Idempotent; returns
+    whether the handler is (now) installed."""
+    global _faulthandler_installed
+    if _faulthandler_installed:
+        return True
+    import faulthandler
+    import signal
+
+    if not hasattr(signal, "SIGUSR1"):  # pragma: no cover - non-posix
+        return False
+    try:
+        os.makedirs(os.path.dirname(stack_path) or ".", exist_ok=True)
+        f = open(stack_path, "a")
+        faulthandler.register(signal.SIGUSR1, file=f, all_threads=True)
+    except (OSError, ValueError, RuntimeError) as e:  # pragma: no cover
+        logger.warning("faulthandler hang-dump unavailable: %s", e)
+        return False
+    _faulthandler_installed = True
+    return True
+
+
+def memory_stats(device: Any = None) -> Dict[str, int]:
+    """``{"bytes_in_use", "peak_bytes_in_use"}`` of a CUDA device from
+    ``torch.cuda.memory_stats`` (the caching allocator's allocated bytes,
+    now and at peak); ``{}`` for the CPU or no device."""
+    import torch
+
+    if device is None or torch.device(device).type != "cuda":
+        return {}
+    s = torch.cuda.memory_stats(device)
+    return {"bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0))}
+
+
+# =========================================================================
+# Telemetry facade (what the engine holds)
+# =========================================================================
+
+
+class Telemetry:
+    """Everything observability, wired together for one engine.
+
+    The engine calls :meth:`on_step_end` after every ``train_batch``,
+    :meth:`ckpt_span` around checkpoint saves, and the preemption handler
+    calls :meth:`dump` before the process dies. ``device`` is the engine's
+    (its memory gauges). :meth:`close` stops the watchdog's poll thread and
+    drops the ring's process-wide references."""
+
+    def __init__(self, cfg: Any, jsonl: Any = None, rank: int = 0,
+                 device: Any = None):
+        self.cfg = cfg
+        self.rank = rank
+        self.device = device
+        self.recorder = FlightRecorder(capacity=cfg.ring_size)
+        self.registry = metrics_registry
+        self.goodput = GoodputAccounter() if cfg.goodput_enabled else None
+        self.jsonl = jsonl
+        self._closed = False
+        self._last_shapes: Optional[Dict[str, str]] = None
+        self._compile_base = (0, 0.0)
+        self._last_memory_step = -1
+        self._last_step_end: Optional[float] = None
+        self._step_hist = self.registry.histogram("step_time_s")
+        # run-cumulative health-sentinel ledger (record_health); the
+        # Health/* periodic events are derived from it
+        self._health_totals: Dict[str, Any] = {}
+        # latest anchor epoch THIS telemetry stamped on its step spans; the
+        # counter behind it is process-global (_next_anchor_seq) so two
+        # anchored engines in one process get distinct epochs
+        self._anchor_seq = 0
+        self._last_textfile: Optional[float] = None
+        # the engine parks its CollectiveWatchdog (comm/watchdog.py) here
+        # so close() stops the poll thread
+        self.watchdog: Any = None
+        self.heartbeat: Optional[Heartbeat] = None
+        if cfg.heartbeat_enabled:
+            self.heartbeat = Heartbeat(
+                os.path.join(cfg.output_dir, f"heartbeat_rank{rank}.json"),
+                interval_s=cfg.heartbeat_interval_s)
+            if cfg.stack_dump_on_hang:
+                install_hang_dump(
+                    os.path.join(cfg.output_dir, f"stacks_rank{rank}.txt"))
+        self._compile_base = compile_stats()
+        if jsonl is not None and hasattr(jsonl, "attach_recorder"):
+            jsonl.attach_recorder(self.recorder)
+        self.recorder.record(
+            "meta", "flight_recorder/start",
+            data={"rank": rank, "pid": os.getpid(), "version": 1,
+                  "ring_size": cfg.ring_size})
+        set_active_recorder(self.recorder)
+        import atexit
+
+        atexit.register(self.close)
+
+    # ------------------------------------------------------------- step path
+    def on_step_end(self, step: int, dur: Optional[float] = None,
+                    batch: Any = None) -> None:
+        """Per-step accounting: step span into the ring, duration histogram,
+        goodput, heartbeat, Prometheus textfile and periodic memory gauges.
+
+        ``dur`` is the caller-measured step wall; ``None`` (the eager
+        ``forward/backward/step`` path) falls back to boundary-to-boundary
+        timing. Either way this is HOST wall-clock: the card's queue runs
+        behind the host, and its wait lands at the next sync. Set
+        ``telemetry.sync_timing`` for device-accurate per-step spans at the
+        cost of the host / device overlap."""
+        now = time.perf_counter()
+        if dur is None:
+            dur = (now - self._last_step_end
+                   if self._last_step_end is not None else 0.0)
+        self._last_step_end = now
+        count, seconds = compile_stats()
+        d_count = count - self._compile_base[0]
+        d_seconds = seconds - self._compile_base[1]
+        self._compile_base = (count, seconds)
+        span_data: Optional[Dict[str, Any]] = None
+        if d_count > 0:
+            self.registry.counter("recompiles").incr(d_count)
+            new_shapes = tree_shapes(batch) if batch is not None else {}
+            diff = shape_diff(self._last_shapes, new_shapes)
+            self._last_shapes = new_shapes
+            self.recorder.record("event", "compile/train_step", step=step,
+                                 dur=d_seconds,
+                                 data={"compiles": d_count,
+                                       "shape_diff": diff})
+            span_data = {"compiles": d_count, "compile_s": d_seconds}
+        elif batch is not None and self._last_shapes is None:
+            self._last_shapes = tree_shapes(batch)
+        if self._anchor_seq:
+            # barrier-anchored alignment epoch: lets the pod aggregator
+            # (monitor/pod.py) fuse step N of THIS run across ranks without
+            # confusing it with step N of a previous incarnation in the same
+            # appended JSONL
+            span_data = {**(span_data or {}), "sync": self._anchor_seq}
+        self.recorder.record("span", "step", step=step, dur=dur,
+                             data=span_data)
+        self._step_hist.observe(dur)
+        if self.goodput is not None:
+            # account this step BEFORE marking first-step: startup is the
+            # residual of everything before it
+            compile_s = min(d_seconds, dur)
+            self.goodput.account("compile", compile_s)
+            self.goodput.account("productive", max(0.0, dur - compile_s))
+            self.goodput.mark_first_step()
+        if self.heartbeat is not None:
+            self.heartbeat.beat(step)
+        if self.cfg.textfile_enabled:
+            # heartbeat-cadence Prometheus snapshot: long multi-host runs
+            # are scraped off this file without anyone tailing JSONL
+            tnow = time.perf_counter()
+            if self._last_textfile is None or \
+                    tnow - self._last_textfile >= self.cfg.textfile_interval_s:
+                self._last_textfile = tnow
+                self.export_textfile()
+        interval = self.cfg.memory_interval_steps
+        if interval > 0 and step - self._last_memory_step >= interval:
+            self._last_memory_step = step
+            self.sample_memory(step)
+
+    def sample_memory(self, step: int) -> Dict[str, int]:
+        try:
+            stats = memory_stats(self.device)
+        except Exception as e:  # pragma: no cover - backend dependent
+            logger.warning("memory_stats unavailable: %s", e)
+            return {}
+        in_use = int(stats.get("bytes_in_use", 0))
+        peak = int(stats.get("peak_bytes_in_use", 0))
+        self.registry.gauge("hbm_bytes_in_use").set(in_use)
+        self.registry.gauge("hbm_peak_bytes_in_use").set(peak)
+        self.recorder.record("gauge", "memory/hbm", step=step,
+                             data={"bytes_in_use": in_use,
+                                   "peak_bytes_in_use": peak})
+        return {"bytes_in_use": in_use, "peak_bytes_in_use": peak}
+
+    @contextlib.contextmanager
+    def ckpt_span(self, what: str = "save", step: int = 0):
+        """Wraps checkpoint saves: a ``ckpt`` span in the ring + goodput's
+        checkpoint bucket. Forces heartbeats at entry/exit so a long save
+        doesn't read as a silent gap — but a save longer than the agent's
+        ``heartbeat_timeout`` will still be declared hung: size the timeout
+        to cover the worst-case checkpoint, not just a step."""
+        if self.heartbeat is not None:
+            self.heartbeat.beat(step, force=True)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dur = time.perf_counter() - t0
+            self.recorder.record("span", f"ckpt/{what}", dur=dur)
+            self.registry.histogram("ckpt_save_s").observe(dur)
+            if self.goodput is not None:
+                self.goodput.account("checkpoint", dur)
+            if self.heartbeat is not None:
+                self.heartbeat.beat(step, force=True)
+
+    # ----------------------------------------------------- pod-scope hooks
+    def anchor(self, tag: str = "start") -> int:
+        """Record a barrier-anchored alignment point for cross-rank trace
+        fusion (``monitor/pod.py``).
+
+        Under a process group every rank calls this together (the engine
+        does, at construction — a collective contract like any barrier):
+        after ``torch.distributed.barrier()`` all ranks stamp the same
+        physical instant through their own wall clocks, which the pod
+        aggregator subtracts to recover per-rank clock offsets. Subsequent
+        step spans carry the anchor sequence id (``data.sync``) so steps
+        fuse within one anchored epoch only."""
+        import torch.distributed as dist
+
+        seq = _next_anchor_seq()
+        synced = True
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            try:
+                dist.barrier()
+            except Exception as e:  # pragma: no cover - backend dependent
+                # the epoch marker is still valid (step spans need it to
+                # separate epochs) but its timestamp is NOT a shared
+                # instant — flag it so the pod aggregator falls back to
+                # step-boundary alignment instead of trusting a fake offset
+                logger.warning("pod anchor barrier unavailable (%s); "
+                               "recording unsynchronized anchor", e)
+                synced = False
+        self._anchor_seq = seq
+        self.recorder.record("meta", "align/anchor",
+                             data={"anchor": seq, "tag": tag,
+                                   "synced": synced})
+        return seq
+
+    def record_health(self, step: int, data: Dict[str, Any]) -> None:
+        """Persist one sentinel observation/decision (``runtime/sentinel.py``
+        verdict shape: cause, z-scores, nonfinite count, action taken,
+        per-region grad norms) as a ``health/step`` record and fold it into
+        the run-cumulative ledger behind the ``Health/*`` periodic events."""
+        self.recorder.record("event", "health/step", step=step,
+                             data=dict(data))
+        t = self._health_totals
+        action = data.get("action")
+        if action in ("warn", "skip", "rollback", "abort"):
+            key = action + "s"
+            t[key] = int(t.get(key, 0)) + 1
+        t["nonfinite_count"] = (int(t.get("nonfinite_count", 0))
+                                + int(data.get("nonfinite", 0) or 0))
+        for key in ("loss_z", "grad_norm_z", "streak"):
+            if data.get(key) is not None:
+                t[f"last_{key}"] = float(data[key])
+        for region, norm in (data.get("region_norms") or {}).items():
+            t.setdefault("region_norms", {})[region] = float(norm)
+
+    def health_events(self, step: int) -> List[Event]:
+        """``Health/*`` scalar events from the cumulative sentinel ledger:
+        ladder action counts, last observed robust z-scores, cumulative
+        nonfinite gradient elements and the per-region grad-norm breakdown
+        (named to the MFU region registry)."""
+        t = self._health_totals
+        if not t:
+            return []
+        ev: List[Event] = []
+        for action in ("warns", "skips", "rollbacks", "aborts"):
+            ev.append((f"Health/{action}", int(t.get(action, 0)), step))
+        ev.append(("Health/nonfinite_count",
+                   int(t.get("nonfinite_count", 0)), step))
+        for key, name in (("last_loss_z", "Health/loss_z"),
+                          ("last_grad_norm_z", "Health/grad_norm_z"),
+                          ("last_streak", "Health/anomaly_streak")):
+            if key in t:
+                ev.append((name, t[key], step))
+        for region, norm in sorted((t.get("region_norms") or {}).items()):
+            ev.append((f"Health/grad_norm.{region}", norm, step))
+        return ev
+
+    def export_textfile(self, path: Optional[str] = None) -> str:
+        """Write the current metrics-registry + resilience-counter state as
+        a Prometheus textfile-collector snapshot (atomic rename, scrape-safe)
+        and return the path. Called automatically at heartbeat cadence when
+        ``telemetry.textfile.enabled`` is set; safe to call manually."""
+        path = path or os.path.join(self.cfg.output_dir,
+                                    f"metrics_rank{self.rank}.prom")
+        return export_metrics_textfile(
+            path, self.registry.snapshot(),
+            labels={"rank": str(self.rank)},
+            extra_counters={f"resilience_{k}": v for k, v in
+                            resilience_counters.snapshot().items()})
+
+    # ------------------------------------------------------------ reporting
+    def periodic_events(self, step: int) -> List[Event]:
+        """Scalar events for MonitorMaster at print boundaries: Goodput/*,
+        Memory/*, Compile/*, Ckpt/*, Health/*."""
+        ev: List[Event] = []
+        if self.goodput is not None:
+            ev.extend(self.goodput.events(step))
+        snap = self.registry.snapshot()
+        g = snap["gauges"]
+        if "hbm_bytes_in_use" in g:
+            ev.append(("Memory/bytes_in_use", g["hbm_bytes_in_use"], step))
+            ev.append(("Memory/peak_bytes_in_use",
+                       g["hbm_peak_bytes_in_use"], step))
+        count, seconds = compile_stats()
+        ev.append(("Compile/count", count, step))
+        ev.append(("Compile/total_s", seconds, step))
+        if snap["counters"].get("ckpt_bytes_written"):
+            ev.append(("Ckpt/bytes_written",
+                       snap["counters"]["ckpt_bytes_written"], step))
+        ckpt_hist = snap["histograms"].get("ckpt_save_s")
+        if ckpt_hist and ckpt_hist["count"]:
+            ev.append(("Ckpt/save_s", ckpt_hist["sum"], step))
+        commit_hist = snap["histograms"].get("ckpt_pod_commit_s")
+        if commit_hist and commit_hist["count"]:
+            ev.append(("Ckpt/pod_commit_s", commit_hist["sum"], step))
+        ev.extend(self.health_events(step))
+        return ev
+
+    def dump(self, reason: str = "manual") -> List[Dict[str, Any]]:
+        """Force the ring (and a goodput summary) onto disk — called by the
+        preemption handler before the process exits."""
+        if self.goodput is not None:
+            self.recorder.record("goodput", "goodput/summary",
+                                 data=self.goodput.summary())
+        try:
+            from ..comm.comms_logging import comms_logger
+
+            if comms_logger.enabled:
+                self.recorder.record("event", "comm/snapshot",
+                                     data=comms_logger.snapshot())
+        except Exception:  # pragma: no cover - defensive
+            pass
+        records = self.recorder.dump(reason)
+        if self.jsonl is not None:
+            try:
+                self.jsonl.flush()
+            except Exception as e:
+                logger.warning("telemetry dump: jsonl flush failed: %s", e)
+        if self.cfg.textfile_enabled:
+            # the scrape file must reflect the final state too — a scraper
+            # polling a preempted run otherwise reads a stale snapshot
+            self.export_textfile()
+        return records
+
+    def close(self, reason: str = "shutdown") -> None:
+        """Idempotent shutdown: final goodput summary + dump + sink flush,
+        and the watchdog's poll thread stopped."""
+        if self._closed:
+            return
+        self._closed = True
+        import atexit
+
+        try:  # drop our strong atexit ref so closed telemetries don't pin
+            atexit.unregister(self.close)  # their rings for life
+        except Exception:  # pragma: no cover - defensive
+            pass
+        try:
+            self.dump(reason)
+        finally:
+            if self.watchdog is not None:
+                try:
+                    self.watchdog.stop()
+                except Exception:  # pragma: no cover - defensive
+                    pass
+            if get_active_recorder() is self.recorder:
+                set_active_recorder(None)
+
+
+def build_telemetry(config: Any, monitor: Any,
+                    device: Any = None) -> Optional[Telemetry]:
+    """Engine-side factory: returns a wired :class:`Telemetry` or ``None``
+    when the ``telemetry`` config section is off (and ``DSTPU_TELEMETRY``
+    doesn't force it). Ensures a rank-local ``JsonlMonitor`` backend exists
+    on the given :class:`~.monitor.MonitorMaster` and attaches the flight
+    recorder to it."""
+    tcfg = config.telemetry
+    forced = os.environ.get("DSTPU_TELEMETRY", "").lower() in ("1", "true")
+    if not (tcfg.enabled or forced):
+        return None
+    from .monitor import JsonlMonitor
+    from ..utils.podid import pod_rank
+
+    # pod identity: the torch.distributed rank, or an env-declared pod
+    # member's (utils/podid.py), so every rank writes DISTINCT
+    # flightrec_rank<N>.jsonl / heartbeat files
+    rank = pod_rank()
+    jsonl = next((m for m in monitor.monitors
+                  if isinstance(m, JsonlMonitor)), None)
+    if jsonl is None:
+        jsonl = JsonlMonitor(
+            path=os.path.join(tcfg.output_dir,
+                              f"flightrec_rank{rank}.jsonl"),
+            flush_interval=tcfg.flush_interval_records)
+        monitor.monitors.append(jsonl)
+        monitor.enabled = True
+    return Telemetry(tcfg, jsonl=jsonl, rank=rank, device=device)

@@ -26,6 +26,14 @@ JAX package wires them as a ``jax.custom_vjp`` (:646-693).
   so that long sequences fit in memory.
 * :data:`LAUNCHES` — how many times each kernel was launched; only a launch
   counts, never a CPU call.
+* The work each launch did, reported to the active op counter
+  (``profiling/flops_profiler.report_kernel``), which no dispatch mode
+  could see through ``ctypes``: FLOPs counted as the plain versions'
+  products count them (:data:`PLAIN_PRODUCTS`, dense ``2·Sq·Skv·D`` each
+  per batch and q head, so the count is the same whichever runs), the
+  bytes of each input read once and each output written once, and the
+  visible (query, key) pairs (:func:`visible_pairs`). A CPU call reports
+  nothing: the counter counts its plain version's ops itself.
 * Routes on the card, decided in the library before launch
   (:func:`kernel_name`): bfloat16 and float16 take the Hopper kernels
   (wgmma products, TMA loads) for the forward at every head dim and for dQ,
@@ -50,6 +58,53 @@ COPIES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_dbias": 0}
 
 # elements of one [B, H, rows, Skv] score block in the plain versions
 _REF_BLOCK_ELEMS = 1 << 26
+
+
+# products of the plain versions each kernel is billed: the forward's QK^T
+# and PV; dQ the backward's recomputed QK^T and dO V^T and dS K
+# (flash_attention_bwd_reference computes the first two once for both
+# kernels); dK/dV dS^T Q and P^T dO; the reducing dbias the recomputed
+# QK^T and dO V^T of flash_dbias_reference (which dQ is billed too when it
+# writes a full-shape pair bias's gradient)
+PLAIN_PRODUCTS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 2,
+                  "flash_dbias": 2}
+
+
+def visible_pairs(mask: "Mask", b: int, h: int, sq: int,
+                  skv: int) -> Optional[int]:
+    """(query, key) pairs the mask lets through, over every batch and q
+    head, from the shapes alone (query row i at position ``i + Skv - Sq``);
+    None when they depend on data (segments, positions, a block layout)."""
+    if mask.seg_q is not None or mask.pos_q is not None or \
+            mask.pos_k is not None or mask.layout is not None:
+        return None
+    if not mask.causal:
+        return b * h * sq * skv
+    total = 0
+    for i in range(sq):
+        pq = i + skv - sq
+        hi = min(pq, skv - 1)
+        lo = 0 if mask.window is None else max(0, pq - mask.window + 1)
+        total += max(0, hi - lo + 1)
+    return b * h * total
+
+
+def _report(counter: str, q, k, mask: "Mask", tensors,
+            extra_products: int = 0) -> None:
+    """Report one launch's work to the active op counter (if any):
+    ``tensors`` are its inputs and outputs, each moved once."""
+    from ..profiling import flops_profiler
+
+    if flops_profiler.active_counter() is None:
+        return
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    flops = 2.0 * (PLAIN_PRODUCTS[counter] + extra_products) \
+        * b * h * sq * skv * d
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    flops_profiler.report_kernel(counter, flops, float(nbytes),
+                                 visible_pairs(mask, b, h, sq, skv))
 
 
 def reset_launch_counts() -> None:
@@ -542,6 +597,7 @@ def flash_fwd(q, k, v, mask: Mask, out: Optional[torch.Tensor] = None,
     _launch("fwd", "flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()), _strides(q=q, k=k, v=v, o=o), q, k, mask, bias)
+    _report("flash_fwd", q, k, mask, (q, k, v, bias, o, lse))
     return o, lse
 
 
@@ -582,6 +638,10 @@ def flash_dq(q, k, v, do, lse, delta, mask: Mask,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias)),
             _strides(q=q, k=k, v=v, do=do, dq=dq), q, k, mask, bias)
+    _report("flash_dq", q, k, mask, (q, k, v, do, lse, delta, bias, dq,
+                                     dbias),
+            extra_products=0 if dbias is None else
+            PLAIN_PRODUCTS["flash_dbias"])
     return dq
 
 
@@ -602,6 +662,8 @@ def flash_dkv(q, k, v, do, lse, delta, mask: Mask, out=(None, None),
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             _strides(q=q, k=k, v=v, do=do, dk=dk, dv=dv), q, k, mask, bias)
+    _report("flash_dkv", q, k, mask, (q, k, v, do, lse, delta, bias, dk,
+                                      dv))
     return dk, dv
 
 
@@ -662,6 +724,8 @@ def flash_dbias(q, k, v, do, lse, delta, mask: Mask, bias: torch.Tensor):
              lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
              _ptr(scratch)), _strides(q=q, k=k, v=v, do=do), q, k, mask,
             bias, chunks)
+    _report("flash_dbias", q, k, mask, (q, k, v, do, lse, delta, bias,
+                                        dbias))
     return dbias
 
 

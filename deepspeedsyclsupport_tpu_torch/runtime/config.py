@@ -11,8 +11,13 @@ sp``, ``tensor_parallel.tp_size``, ``pipeline.stages`` / ``micro_batches``,
 ``sequence_parallel_size``, ``parallelism.ep`` /
 ``moe.expert_parallel_size``: :class:`ParallelismConfig`),
 ``gradient_clipping``, ``activation_checkpointing``, ``checkpoint``,
-``sentinel``, ``comms_logger``, ``seed`` and ``steps_per_print``. Key names
-are the reference's, so one JSON file drives both packages.
+``sentinel``, ``comms_logger``, ``seed``, ``steps_per_print``,
+``wall_clock_breakdown``, the monitors (``tensorboard``, ``wandb``,
+``csv_monitor``, ``jsonl_monitor``: :class:`MonitorConfig`), ``telemetry``
+(:class:`TelemetryConfig`), ``flops_profiler`` and ``jax_profiler`` (kept
+under its JAX name for config compatibility: in the port it opens a
+``torch.profiler`` trace window; the engine reads it from ``raw``). Key
+names are the reference's, so one JSON file drives both packages.
 
 ZeRO stages 0-3 are placement policies over the data / fsdp axes of the
 mesh (``runtime/zero.py``); on one card there is nothing to shard, so every
@@ -20,9 +25,8 @@ stage runs the same program, as the JAX package does on one device.
 
 Every enabled section the port does not do yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` entry: offload (and so
-ZeRO++ under offload), elasticity, telemetry, monitors,
-the flops profiler, compression/QAT, curriculum learning, progressive layer
-drop and random-LTD. None is silently ignored.
+ZeRO++ under offload), compression/QAT, curriculum learning, progressive
+layer drop and random-LTD. None is silently ignored.
 """
 import json
 import logging
@@ -69,14 +73,6 @@ def _refuse_unported(d: Dict[str, Any]) -> None:
             raise _unported(f"zero_optimization.{key} (ZeRO-Offload)",
                             "A.3.2 (offload)")
     checks = [
-        (C.TELEMETRY, "telemetry", "A.3.4 (observability)"),
-        (C.MONITOR_TENSORBOARD, "the tensorboard monitor",
-         "A.3.4 (observability)"),
-        (C.MONITOR_WANDB, "the wandb monitor", "A.3.4 (observability)"),
-        (C.MONITOR_CSV, "the csv monitor", "A.3.4 (observability)"),
-        (C.MONITOR_JSONL, "the jsonl monitor", "A.3.4 (observability)"),
-        (C.FLOPS_PROFILER, "the flops profiler", "A.3.4 (observability)"),
-        ("jax_profiler", "profiler trace windows", "A.3.4 (observability)"),
         (C.COMPRESSION_TRAINING, "compression / QAT",
          "A.3.7 (training-time model options)"),
         ("curriculum_learning", "curriculum learning",
@@ -180,6 +176,26 @@ class ActivationCheckpointingConfig:
 
 
 @dataclass
+class FlopsProfilerConfig:
+    """``flops_profiler`` section (reference: ``profiling/config.py``)."""
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FlopsProfilerConfig":
+        return cls(enabled=bool(d.get("enabled", False)),
+                   profile_step=int(d.get("profile_step", 1)),
+                   module_depth=int(d.get("module_depth", -1)),
+                   top_modules=int(d.get("top_modules", 1)),
+                   detailed=bool(d.get("detailed", True)),
+                   output_file=d.get("output_file"))
+
+
+@dataclass
 class CheckpointConfig:
     """``checkpoint`` section (JAX ``runtime/config.py:557``): the engine
     (``native``, synchronous, or ``async``; ``async_save`` is the
@@ -221,6 +237,165 @@ class CheckpointConfig:
         return cls(tag_validation=tv, engine=engine, keep_last_n=keep_last_n,
                    use_node_local_storage=bool(
                        d.get("use_node_local_storage", False)))
+
+
+@dataclass
+class MonitorConfig:
+    """``tensorboard``/``wandb``/``csv_monitor``/``jsonl_monitor`` sections
+    (reference: ``monitor/config.py``; jsonl is the rank-local flight-recorder
+    sink, see ``monitor/telemetry.py``)."""
+    tensorboard_enabled: bool = False
+    tensorboard_output_path: str = ""
+    tensorboard_job_name: str = "DSTpuJobName"
+    wandb_enabled: bool = False
+    wandb_project: Optional[str] = None
+    wandb_team: Optional[str] = None
+    wandb_group: Optional[str] = None
+    csv_enabled: bool = False
+    csv_output_path: str = ""
+    csv_job_name: str = "DSTpuJobName"
+    csv_flush_interval: int = 10  # write batches between csv flushes
+    jsonl_enabled: bool = False
+    jsonl_output_path: str = ""
+    jsonl_job_name: str = "DSTpuJobName"
+    jsonl_flush_interval: int = 64  # records buffered between jsonl flushes
+
+    @classmethod
+    def from_config_dict(cls, d: Dict[str, Any]) -> "MonitorConfig":
+        tb = _sub(d, C.MONITOR_TENSORBOARD)
+        wb = _sub(d, C.MONITOR_WANDB)
+        csv = _sub(d, C.MONITOR_CSV)
+        jl = _sub(d, C.MONITOR_JSONL)
+        return cls(
+            tensorboard_enabled=bool(tb.get("enabled", False)),
+            tensorboard_output_path=tb.get("output_path", ""),
+            tensorboard_job_name=tb.get("job_name", "DSTpuJobName"),
+            wandb_enabled=bool(wb.get("enabled", False)),
+            wandb_project=wb.get("project"),
+            wandb_team=wb.get("team"),
+            wandb_group=wb.get("group"),
+            csv_enabled=bool(csv.get("enabled", False)),
+            csv_output_path=csv.get("output_path", ""),
+            csv_job_name=csv.get("job_name", "DSTpuJobName"),
+            csv_flush_interval=int(csv.get("flush_interval", 10)),
+            jsonl_enabled=bool(jl.get("enabled", False)),
+            jsonl_output_path=jl.get("output_path", ""),
+            jsonl_job_name=jl.get("job_name", "DSTpuJobName"),
+            jsonl_flush_interval=int(jl.get("flush_interval", 64)),
+        )
+
+    @property
+    def enabled(self) -> bool:
+        return (self.tensorboard_enabled or self.wandb_enabled
+                or self.csv_enabled or self.jsonl_enabled)
+
+
+@dataclass
+class TelemetryConfig:
+    """``telemetry`` section — the structured observability layer
+    (``monitor/telemetry.py``): flight recorder + rank-local JSONL, goodput
+    accounting, memory gauges, heartbeat file and on-demand
+    ``torch.profiler`` trace windows; the JAX package's keys and checks
+    (``config.py:343``). ``DSTPU_TELEMETRY=1`` forces ``enabled`` at
+    runtime without a config edit."""
+    enabled: bool = False
+    output_dir: str = "telemetry_logs"
+    ring_size: int = 4096
+    flush_interval_records: int = 64
+    memory_interval_steps: int = 10
+    heartbeat_enabled: bool = True
+    heartbeat_interval_s: float = 1.0
+    stack_dump_on_hang: bool = True
+    goodput_enabled: bool = True
+    # block on the step's outputs before timing it: device-accurate step
+    # spans, at the cost of the host / device overlap
+    sync_timing: bool = False
+    # Prometheus textfile-collector snapshot (metrics_rank<N>.prom,
+    # atomic rename) refreshed at heartbeat cadence — long multi-host runs
+    # are scraped off this file instead of anyone tailing JSONL
+    textfile_enabled: bool = False
+    textfile_interval_s: float = 15.0
+    # Collective hang watchdog (comm/watchdog.py): the engine arms a
+    # deadline around each step's collective dispatch; on expiry the
+    # watchdog thread dumps stacks, flushes the recorder and exits rc 218
+    # (the comm-hang contract the elastic agent restarts distinctly).
+    # warmup_deadline_s covers the first step (lazy init, kernel builds);
+    # None = 10x.
+    watchdog_enabled: bool = False
+    watchdog_deadline_s: float = 60.0
+    watchdog_warmup_deadline_s: Optional[float] = None
+    watchdog_poll_s: float = 0.25
+    trace_start_step: Optional[int] = None
+    trace_num_steps: int = 3
+    trace_dir: Optional[str] = None
+    # MFU ledger (monitor/mfu.py + analysis/roofline.py): capture ONE
+    # torch.profiler window around a step — the first at or after mfu_step
+    # and after step 1 (lazy initialization) — priced by the first step
+    # before it counted op by op (the flops profiler's step when that comes
+    # first, else the step just before the window), and join them in
+    # Engine.mfu_ledger(). The window costs one synced step.
+    mfu_enabled: bool = False
+    mfu_step: int = 3
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TelemetryConfig":
+        hb = dict(d.get("heartbeat", {}))
+        tr = dict(d.get("trace", {}))
+        tf = dict(d.get("textfile", {}))
+        wd = dict(d.get("watchdog", {}))
+        mfu = dict(d.get("mfu", {}))
+        mfu_step = int(mfu.get("step", 3))
+        if mfu_step < 1:
+            raise ValueError(f"telemetry.mfu.step must be >= 1, got "
+                             f"{mfu_step} (step 1 includes the first "
+                             f"compile; the capture skips compiling steps "
+                             f"anyway)")
+        ring = int(d.get("ring_size", 4096))
+        if ring <= 0:
+            raise ValueError(f"telemetry.ring_size must be > 0, got {ring}")
+        tf_interval = float(tf.get("interval_s", 15.0))
+        if tf_interval <= 0:
+            raise ValueError(f"telemetry.textfile.interval_s must be > 0, "
+                             f"got {tf_interval}")
+        wd_deadline = float(wd.get("deadline_s", 60.0))
+        wd_poll = float(wd.get("poll_s", 0.25))
+        if wd_deadline <= 0 or wd_poll <= 0:
+            raise ValueError(
+                f"telemetry.watchdog deadline_s/poll_s must be > 0, got "
+                f"{wd_deadline}/{wd_poll}")
+        wd_warmup = wd.get("warmup_deadline_s")
+        if wd_warmup is not None and float(wd_warmup) < wd_deadline:
+            raise ValueError(
+                f"telemetry.watchdog.warmup_deadline_s ({wd_warmup}) must "
+                f"cover at least deadline_s ({wd_deadline}) — the first "
+                f"armed step includes compilation")
+        start = tr.get("start_step")
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            output_dir=str(d.get("output_dir", "telemetry_logs")),
+            ring_size=ring,
+            flush_interval_records=int(d.get("flush_interval_records", 64)),
+            memory_interval_steps=int(d.get("memory_interval_steps", 10)),
+            heartbeat_enabled=bool(hb.get("enabled", True)),
+            heartbeat_interval_s=float(hb.get("interval_s", 1.0)),
+            stack_dump_on_hang=bool(d.get("stack_dump_on_hang", True)),
+            sync_timing=bool(d.get("sync_timing", False)),
+            textfile_enabled=bool(tf.get("enabled", False)),
+            textfile_interval_s=tf_interval,
+            watchdog_enabled=bool(wd.get("enabled", False)),
+            watchdog_deadline_s=wd_deadline,
+            watchdog_warmup_deadline_s=(None if wd_warmup is None
+                                        else float(wd_warmup)),
+            watchdog_poll_s=wd_poll,
+            goodput_enabled=bool(d.get("goodput", {}).get("enabled", True)
+                                 if isinstance(d.get("goodput"), dict)
+                                 else d.get("goodput", True)),
+            trace_start_step=None if start is None else int(start),
+            trace_num_steps=int(tr.get("num_steps", 3)),
+            trace_dir=tr.get("trace_dir"),
+            mfu_enabled=bool(mfu.get("enabled", False)),
+            mfu_step=mfu_step,
+        )
 
 
 @dataclass
@@ -401,6 +576,11 @@ class DSTpuConfig:
     comms_logger: CommsLoggerConfig = field(
         default_factory=CommsLoggerConfig)
     zeropp: ZeroPPConfig = field(default_factory=ZeroPPConfig)
+    monitor: MonitorConfig = field(default_factory=MonitorConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    flops_profiler: FlopsProfilerConfig = field(
+        default_factory=FlopsProfilerConfig)
+    wall_clock_breakdown: bool = False
 
     @classmethod
     def from_config(cls, config, dp_world_size: Optional[int] = None
@@ -449,7 +629,12 @@ class DSTpuConfig:
             mics_shard_size=mics,
             comms_logger=CommsLoggerConfig.from_dict(
                 _sub(d, C.COMMS_LOGGER)),
-            zeropp=ZeroPPConfig.from_dict(_sub(d, C.ZERO_OPTIMIZATION)))
+            zeropp=ZeroPPConfig.from_dict(_sub(d, C.ZERO_OPTIMIZATION)),
+            monitor=MonitorConfig.from_config_dict(d),
+            telemetry=TelemetryConfig.from_dict(_sub(d, C.TELEMETRY)),
+            flops_profiler=FlopsProfilerConfig.from_dict(
+                _sub(d, C.FLOPS_PROFILER)),
+            wall_clock_breakdown=bool(d.get(C.WALL_CLOCK_BREAKDOWN, False)))
         if dp_world_size is not None:
             cfg.resolve_batch_sizes(dp_world_size)
         return cfg

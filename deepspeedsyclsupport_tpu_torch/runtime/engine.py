@@ -131,17 +131,35 @@ package loads in the other. The step boundary (``_post_step``, ``:1601``) feeds 
 sentinel and the preemption handler (``runtime/resilience.py``);
 ``initialize(training_data=...)`` builds and registers a
 ``runtime/dataloader.py`` loader whose position rides the checkpoint meta.
-Offload and telemetry are not ported: they raise ``NotImplementedError``
-naming their ``ROADMAP.md`` entry.
+
+Observability (JAX ``engine.py:314-361, 473-516, 1055-1182, 1401``): the
+timers and the throughput timer, ``MonitorMaster`` (CSV / TensorBoard /
+W&B on rank 0, JSONL on every rank), ``telemetry`` (``build_telemetry``:
+the flight recorder's step spans, goodput, heartbeat, memory gauges and
+textfile; an ``engine_init`` anchor after a barrier; the step watchdog
+armed around each step when ``telemetry.watchdog`` is on), the
+``Train/Samples/*`` events and telemetry's periodic ``Goodput/*``,
+``Memory/*``, ``Compile/*``, ``Ckpt/*``, ``Health/*`` at print boundaries,
+the flops profiler (``flops_profiler.profile_step`` counted op by op,
+``profiling/flops_profiler.py``), ``torch.profiler`` trace windows (the
+``jax_profiler`` key, ``telemetry.trace``, ``DSTPU_TRACE_START_STEP``)
+and the MFU window (``telemetry.mfu``: the window under ``torch.profiler``,
+priced by the first step counted op by op before it — the flops profiler's
+step when that comes first, else the step just before the window;
+:meth:`Engine.mfu_ledger`).
+Offload raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
 """
 import contextlib
 import copy
 import dataclasses
 import glob
 import inspect
+import json
 import logging
 import math
 import os
+import sys
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -158,7 +176,11 @@ from ..comm import comm
 from ..comm.comms_logging import comms_logger
 from ..comm.topology import MeshTopology, build_topology, set_world_topology
 from ..device import resolve_device
+from ..monitor.mfu import region_scope
 from ..utils.fault_injection import get_fault_injector
+from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
+                           STEP_GLOBAL_TIMER, SynchronizedWallClockTimer,
+                           ThroughputTimer)
 
 logger = logging.getLogger(__name__)
 
@@ -507,13 +529,17 @@ class Engine:
         self._last_grad_norm: Optional[torch.Tensor] = None
         self.losses = None
 
+        # --------------------------------------------------- observability
+        from ..utils.podid import pod_rank
+
+        self._fi_rank = pod_rank()
+        self._init_observability()
+
         # ------------------------------------------------------ resilience
         from ..checkpoint.ckpt_engine import build_checkpoint_engine
-        from ..utils.podid import pod_rank
 
         self.checkpoint_engine = build_checkpoint_engine(
             self.config.checkpoint.engine)
-        self._fi_rank = pod_rank()
         self._resilience = None   # ResilienceManager (preemption handling)
         self._dataloader = None   # registered loader (its position is saved)
         self._sentinel = None
@@ -528,6 +554,248 @@ class Engine:
         cl = self.config.comms_logger
         comms_logger.configure(enabled=cl.enabled, verbose=cl.verbose,
                                timed=cl.timed)
+
+    # ====================================================== observability
+    def _init_observability(self) -> None:
+        """Timers, monitors, telemetry, the watchdog, the flops profiler,
+        the trace windows and the MFU window (JAX ``engine.py:314-361,
+        473-516``)."""
+        from ..monitor.monitor import MonitorMaster
+        from ..monitor.telemetry import build_telemetry
+        from ..profiling.flops_profiler import FlopsProfiler
+
+        self._pending_events: List[Tuple[str, Any, int]] = []
+        self._resilience_reported: Dict[str, int] = {}
+        self.timers = SynchronizedWallClockTimer(self.device)
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.config.train_batch_size,
+            steps_per_output=self.config.steps_per_print)
+        self.monitor = MonitorMaster(self.config.monitor)
+        # the flight recorder ring + rank-local JSONL, goodput, memory
+        # gauges, heartbeat (monitor/telemetry.py); None when the section is
+        # off and DSTPU_TELEMETRY doesn't force it
+        self.telemetry = build_telemetry(self.config, self.monitor,
+                                         device=self.device)
+        if self.telemetry is not None:
+            # barrier-anchored alignment point for cross-rank trace fusion
+            # (monitor/pod.py): construction is collective under a process
+            # group, so every rank stamps the same instant
+            self.telemetry.anchor("engine_init")
+        # the step watchdog (comm/watchdog.py): a deadline armed around each
+        # step; expiry = stack dump + recorder flush + rc-218 exit
+        self._watchdog = None
+        tw = self.config.telemetry
+        if self.telemetry is not None and tw.watchdog_enabled:
+            from ..comm.watchdog import CollectiveWatchdog
+
+            self._watchdog = CollectiveWatchdog(
+                deadline_s=tw.watchdog_deadline_s,
+                warmup_deadline_s=tw.watchdog_warmup_deadline_s,
+                poll_s=tw.watchdog_poll_s, rank=self._fi_rank,
+                telemetry=self.telemetry,
+                stack_path=os.path.join(
+                    tw.output_dir, f"stacks_rank{self._fi_rank}.txt"),
+            ).start()
+            # telemetry.close() stops the poll thread
+            self.telemetry.watchdog = self._watchdog
+        self.flops_profiler = FlopsProfiler(self.config.flops_profiler)
+        # torch.profiler trace windows: the JAX package's ``jax_profiler``
+        # section (the key kept for config compatibility), or
+        # telemetry.trace, or DSTPU_TRACE_START_STEP without a config edit
+        jp = dict(self.config.raw.get("jax_profiler", {}) or {})
+        if tw.trace_start_step is not None and self.telemetry is not None:
+            jp = {"enabled": True, "start_step": tw.trace_start_step,
+                  "num_steps": tw.trace_num_steps,
+                  "trace_dir": tw.trace_dir or jp.get("trace_dir")}
+        env_start = os.environ.get("DSTPU_TRACE_START_STEP")
+        if env_start:
+            try:
+                jp = {"enabled": True, "start_step": int(env_start),
+                      "num_steps": int(os.environ.get(
+                          "DSTPU_TRACE_NUM_STEPS", jp.get("num_steps", 3))),
+                      "trace_dir": (os.environ.get("DSTPU_TRACE_DIR")
+                                    or jp.get("trace_dir"))}
+            except ValueError as e:
+                logger.warning(
+                    "ignoring malformed DSTPU_TRACE_START_STEP/"
+                    "DSTPU_TRACE_NUM_STEPS (%s); no trace window armed", e)
+        self._trace_cfg = jp if jp.get("enabled") else None
+        self._profiler = None
+        self._trace_dir: Optional[str] = None
+        self._trace_origin: Optional[str] = None
+        # the MFU window (telemetry.mfu): the first step counted op by op
+        # before it (the flops profiler's, else the step just before) gives
+        # the roofline's costs, the window runs under torch.profiler; step
+        # 1 is never the window (lazy initialization runs in it)
+        self._mfu_pending = bool(self.telemetry is not None
+                                 and tw.mfu_enabled)
+        self._mfu_first = max(int(tw.mfu_step), 2)
+        self._mfu_costs = None
+        self._mfu_profiler = None
+        self._mfu_window: Optional[Dict[str, Any]] = None
+        self._mfu_trace_dir = os.path.join(
+            tw.output_dir, f"mfu_trace_rank{self._fi_rank}")
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def _tracing(self) -> bool:
+        return self._profiler is not None
+
+    def _profile(self, trace_dir: str):
+        """A started ``torch.profiler`` session: host ops and, on a card,
+        its kernels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def start_profile(self, trace_dir: Optional[str] = None) -> None:
+        """Begin a ``torch.profiler`` capture (the JAX package's
+        ``jax.profiler`` trace; Perfetto / chrome://tracing view it),
+        written to ``<trace_dir>/rank<N>.trace.json.gz`` at
+        :meth:`stop_profile`. Also usable manually around any region."""
+        if self._tracing:
+            return
+        self._trace_dir = trace_dir or (self._trace_cfg or {}).get(
+            "trace_dir") or os.path.join(os.getcwd(), "dstpu_traces")
+        self._sync()
+        self._profiler = self._profile(self._trace_dir)
+        self._trace_origin = "manual"  # train_batch overrides for windows
+        import atexit
+
+        atexit.register(self.stop_profile)  # never exit with an open trace
+        logger.info("torch.profiler trace started -> %s", self._trace_dir)
+
+    def stop_profile(self) -> None:
+        if not self._tracing:
+            return
+        import atexit
+
+        atexit.unregister(self.stop_profile)  # a closed window pins nothing
+        self._sync()
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        path = os.path.join(self._trace_dir,
+                            f"rank{self._fi_rank}.trace.json.gz")
+        prof.export_chrome_trace(path)
+        self._trace_origin = None
+        logger.info("torch.profiler trace stopped -> %s", path)
+
+    def _step_watch(self, stepno: int) -> Tuple[bool, bool]:
+        """(count this step op by op, capture it as the MFU window). The
+        flops profiler's step is counted; the MFU window needs a counted
+        step before it (the profiler's, when that comes first, else the
+        step just before the window) and never shares a step with a
+        count."""
+        count = self.flops_profiler.wants(stepno)
+        capture = False
+        if self._mfu_pending and not self._tracing:
+            if self._mfu_costs is None:
+                count = count or stepno >= self._mfu_first - 1
+            elif stepno >= self._mfu_first and not count:
+                capture = True
+        return count, capture
+
+    def _counted(self, counter, stepno: int) -> None:
+        if self.flops_profiler.wants(stepno):
+            self.flops_profiler.record(counter, stepno, self._leaf_tensors)
+        if self._mfu_pending and self._mfu_costs is None:
+            self._mfu_costs = counter
+
+    def _finish_mfu_window(self, stepno: int, t_step: float) -> float:
+        """Close the MFU window: sync (its step wall is the synced one),
+        stop the profiler and write its trace. Returns the step's wall."""
+        try:
+            self._sync()
+        finally:
+            dur = time.perf_counter() - t_step
+            prof, self._mfu_profiler = self._mfu_profiler, None
+            prof.stop()
+        path = os.path.join(self._mfu_trace_dir,
+                            f"mfu_rank{self._fi_rank}.trace.json.gz")
+        prof.export_chrome_trace(path)
+        self._mfu_pending = False
+        self._mfu_window = {"step": stepno, "step_s": dur, "steps": 1,
+                            "trace_dir": self._mfu_trace_dir}
+        if self.telemetry is not None:
+            self.telemetry.recorder.record(
+                "event", "mfu/window", step=stepno,
+                data={"step_s": dur, "steps": 1,
+                      "trace_dir": self._mfu_trace_dir})
+        return dur
+
+    def mfu_ledger(self, spec: Any = None, persist: bool = True
+                   ) -> Dict[str, Any]:
+        """The step-time attribution ledger (JAX ``engine.py:1401``):
+        joins (1) the roofline partition of the counted step's aten ops
+        into named regions (``analysis/roofline.py``), priced against the
+        device's peak spec, and (2) the MFU window's kernels, each
+        attributed to the region of the host code that launched it
+        (``monitor/mfu.py``). Emits the ``MFU/*`` events, writes the
+        artifacts next to the trace (opmap, roofline, window, ledger JSON)
+        and returns the ledger dict. Raises when no window was captured,
+        and when the window's trace holds no kernel (a CPU engine, or a
+        profiler that recorded no device activity): a ledger of host ops
+        would not say where the card's time went."""
+        from ..analysis import roofline
+        from ..monitor import mfu as mfu_mod
+
+        if self._mfu_window is None or self._mfu_costs is None:
+            raise RuntimeError(
+                "no MFU trace window captured — enable telemetry.mfu "
+                '({"telemetry": {"enabled": true, "mfu": {"enabled": '
+                'true}}}) and run past telemetry.mfu.step (and step 2)')
+        w = self._mfu_window
+        trace_path = mfu_mod.find_trace(w["trace_dir"])
+        if trace_path is None:
+            raise RuntimeError(f"no trace file under {w['trace_dir']} — "
+                               f"the profiler produced no artifacts")
+        events, meta = mfu_mod.parse_trace(trace_path)
+        opmap = mfu_mod.build_opmap(events)
+        if not opmap:
+            raise RuntimeError(
+                f"the MFU window's trace ({trace_path}) holds no kernel "
+                f"events: the profiler recorded no device activity "
+                f"(engine on {self.device}); the ledger attributes the "
+                f"card's time and has none to attribute")
+        costs = roofline.region_costs(self._mfu_costs)
+        spec = spec or roofline.device_spec(self.device)
+        table = roofline.roofline_table(costs, spec)
+        measured = mfu_mod.measure_regions(mfu_mod.op_events(events), opmap,
+                                           steps=w.get("steps", 1))
+        led = mfu_mod.ledger(table, measured, w["step_s"],
+                             truncated_trace=meta["truncated"])
+        led["window"] = {"step": w["step"], "trace_path": trace_path}
+        if persist:
+            for fname, payload in (("mfu_opmap.json", opmap),
+                                   ("mfu_roofline.json", table),
+                                   ("mfu_window.json", w),
+                                   ("mfu_ledger.json", led)):
+                try:
+                    with open(os.path.join(w["trace_dir"], fname),
+                              "w") as f:
+                        json.dump(payload, f)
+                except (OSError, TypeError, ValueError) as e:
+                    logger.warning("mfu artifact %s not written: %s",
+                                   fname, e)
+        if self.telemetry is not None:
+            self.telemetry.recorder.record(
+                "event", "mfu/ledger", step=w["step"],
+                data={k: led[k] for k in
+                      ("achieved_mfu", "roofline_mfu", "step_s",
+                       "device_busy_s", "top_sinks")})
+        if self.monitor.enabled:
+            self.monitor.write_events(
+                mfu_mod.ledger_events(led, step=w["step"]))
+        return led
 
     # ============================================================ the mesh
     def _build_topology(self, topology: Optional[MeshTopology]
@@ -1214,13 +1482,89 @@ class Engine:
                 raise ValueError(f"batch[{k!r}] leading dim {v.shape[0]} is "
                                  f"not a multiple of gradient_accumulation_"
                                  f"steps={gas}")
+        stepno = self.global_steps + 1
         fi = get_fault_injector()
         if fi.armed:
+            # a rank that never arrives at the step's collectives
+            fi.maybe_hang_step(self._fi_rank, stepno)
             # numerical fault: poison the data of step global_steps + 1
-            batch = fi.corrupt_batch(self._fi_rank, self.global_steps + 1,
-                                     batch)
+            batch = fi.corrupt_batch(self._fi_rank, stepno, batch)
         gate = self._sentinel.gate_array() if self._sentinel is not None \
             else None
+        if self._trace_cfg is not None and not self._tracing and \
+                self.global_steps == int(self._trace_cfg.get("start_step",
+                                                             1)):
+            self.start_profile()
+            self._trace_origin = "config"
+        self.tput_timer.start()
+        count, capture = self._step_watch(stepno)
+        counter = None
+        if count:
+            from ..profiling.flops_profiler import OpCounter
+
+            counter = OpCounter()
+        if capture:
+            # the window holds exactly this step: the card's queue drained
+            # first, so earlier steps' kernels stay out of it
+            self._sync()
+            self._mfu_profiler = self._profile(self._mfu_trace_dir)
+        if self._watchdog is not None:
+            self._watchdog.arm(stepno)
+        t_step = time.perf_counter()
+        try:
+            if fi.armed:
+                # a rank that arrived (armed) and wedged inside the step:
+                # its own watchdog fires
+                fi.maybe_hang_step(self._fi_rank, stepno, phase="in")
+            with counter if counter is not None else contextlib.nullcontext():
+                out = self._train_step(batch, gas, gate)
+            if self.telemetry is not None and self.telemetry.cfg.sync_timing:
+                self._sync()   # device-accurate step spans
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.disarm(stepno)
+            if capture and sys.exc_info()[0] is not None:
+                # an exception mid-step: close the profiler session
+                prof, self._mfu_profiler = self._mfu_profiler, None
+                prof.stop()
+                capture = False
+        step_dur = time.perf_counter() - t_step
+        if capture:
+            step_dur = self._finish_mfu_window(stepno, t_step)
+        self.global_steps += 1
+        self.micro_steps += gas
+        if counter is not None:
+            self._counted(counter, stepno)
+        if self.telemetry is not None:
+            # step span, goodput, heartbeat, textfile, memory gauges
+            self.telemetry.on_step_end(self.global_steps, step_dur,
+                                       batch=batch)
+        if self._tracing and self._trace_origin == "config":
+            start = int(self._trace_cfg.get("start_step", 1))
+            if self.global_steps >= start + int(
+                    self._trace_cfg.get("num_steps", 3)):
+                self.stop_profile()
+        self._log(out)
+        self._post_step(out)
+        if fi.armed:
+            rc = fi.should_kill(self._fi_rank, self.global_steps)
+            if rc is not None:
+                # a crash, not a preemption: no save, no cleanup
+                logger.error("fault injection: rank %d dying with rc=%d "
+                             "after step %d", self._fi_rank, rc,
+                             self.global_steps)
+                if self.telemetry is not None:
+                    try:
+                        self.telemetry.dump("injected_kill")
+                    except Exception:
+                        pass
+                os._exit(rc)
+        return out
+
+    def _train_step(self, batch: Dict[str, torch.Tensor], gas: int,
+                    gate: Optional[np.ndarray]) -> Dict[str, Any]:
+        """The step's work: every micro-batch's forward and backward, the
+        gradient reduction and the update; returns the step's outputs."""
         self._zero_grads()
         if self._zeropp is not None:
             # the ZeRO++ step: gradient shards already averaged over the
@@ -1244,23 +1588,12 @@ class Engine:
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
         loss = torch.stack(losses).mean()
-        out.update(self._apply_grads_dist(grads, loss=loss, gate=gate)
-                   if self.distributed
-                   else self._apply_grads(grads, loss=loss, gate=gate))
+        with region_scope("optimizer"):
+            out.update(self._apply_grads_dist(grads, loss=loss, gate=gate)
+                       if self.distributed
+                       else self._apply_grads(grads, loss=loss, gate=gate))
         out["loss"] = loss
         self._zero_grads()
-        self.global_steps += 1
-        self.micro_steps += gas
-        self._log(out)
-        self._post_step(out)
-        if fi.armed:
-            rc = fi.should_kill(self._fi_rank, self.global_steps)
-            if rc is not None:
-                # a crash, not a preemption: no save, no cleanup
-                logger.error("fault injection: rank %d dying with rc=%d "
-                             "after step %d", self._fi_rank, rc,
-                             self.global_steps)
-                os._exit(rc)
         return out
 
     # ============================================================ eager path
@@ -1276,11 +1609,13 @@ class Engine:
         if self._pipelined:
             raise RuntimeError("Only train_batch() and eval_batch() are "
                                "accessible in pipeline mode")
+        self.timers(FORWARD_GLOBAL_TIMER).start()
         batch = self._rank_rows(self._to_device(batch),
                                 self.config.train_micro_batch_size_per_gpu)
         loss, _ = self._loss_and_metrics(self.params, batch)
         self._pending = loss
         self.losses = loss.detach()
+        self.timers(FORWARD_GLOBAL_TIMER).stop()
         return loss
 
     def backward(self, loss: Optional[torch.Tensor] = None,
@@ -1293,6 +1628,7 @@ class Engine:
                 raise RuntimeError("backward() needs forward() first or an "
                                    "explicit batch")
             self.forward(batch)
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
         if self._accum_count == 0:
             self._zero_grads()
         pending, self._pending = self._pending, None
@@ -1300,6 +1636,7 @@ class Engine:
         self._accum_losses.append(pending.detach())
         self._accum_count += 1
         self.micro_steps += 1
+        self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return pending.detach()
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -1310,6 +1647,7 @@ class Engine:
         (reference ``engine.step``)."""
         if self._accum_count == 0:
             raise RuntimeError("step() before backward()")
+        self.timers(STEP_GLOBAL_TIMER).start()
         grads = self._grads()
         losses = self._accum_losses
         if self.distributed:
@@ -1317,21 +1655,47 @@ class Engine:
             losses = self._global_sum(losses)
         if self._accum_count > 1:
             torch._foreach_div_(grads, float(self._accum_count))
-        out = self._apply_grads_dist(grads) if self.distributed \
-            else self._apply_grads(grads)
+        with region_scope("optimizer"):
+            out = self._apply_grads_dist(grads) if self.distributed \
+                else self._apply_grads(grads)
         out["loss"] = torch.stack(losses).mean()
         self._zero_grads()
         self._accum_count = 0
         self._accum_losses = []
+        self.timers(STEP_GLOBAL_TIMER).stop()
         self.global_steps += 1
+        if self.telemetry is not None:
+            # eager-path step span: boundary-to-boundary wall (dur=None)
+            self.telemetry.on_step_end(self.global_steps)
         self._log(out)
         self._post_step(out)
         return out
 
     def _post_step(self, out: Dict[str, Any]) -> None:
-        """The step boundary (``engine.py:1601``): the sentinel queues this
+        """The step boundary (``engine.py:1601``): the throughput timer;
+        the monitors' ``Train/Samples/*`` events buffered as device scalars
+        and written (one host read) at print boundaries with the
+        ``Resilience/*`` and telemetry's periodic events; the timers'
+        breakdown (``wall_clock_breakdown``); the sentinel queues this
         step's scalars (and decides the ones ``lag`` steps old); a pending
         preemption saves and exits here, where nothing is in flight."""
+        self.tput_timer.stop(report_speed=True)
+        at_print = self.global_steps % self.config.steps_per_print == 0
+        if self.monitor.enabled:
+            samples = self.global_steps * self.config.train_batch_size
+            ev = [("Train/Samples/train_loss", out["loss"], samples)
+                  ] if "loss" in out else []
+            ev.append(("Train/Samples/lr", ("__lr__", self.global_steps),
+                       samples))
+            if self.fp16_enabled:
+                ev.append(("Train/Samples/loss_scale", out["loss_scale"],
+                           samples))
+            self._pending_events.extend(ev)
+            if at_print:
+                self._flush_monitor()
+        if self.config.wall_clock_breakdown and at_print:
+            self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                             STEP_GLOBAL_TIMER])
         if self._sentinel is not None:
             # the gate's host copy of the scalars when the step had one (no
             # second read), else the device metrics
@@ -1339,6 +1703,28 @@ class Engine:
             self._sentinel.at_step_boundary(self.global_steps, host or out)
         if self._resilience is not None:
             self._resilience.at_step_boundary()
+
+    def _flush_monitor(self) -> None:
+        """Write the buffered events (each device scalar read here), the
+        changed resilience counters and telemetry's periodic events."""
+        events = []
+        for name, val, samples in self._pending_events:
+            if isinstance(val, tuple) and val[0] == "__lr__":
+                val = self.lr_schedule(val[1])
+            events.append((name, float(val), samples))
+        self._pending_events = []
+        from ..monitor.monitor import resilience_counters
+
+        samples = self.global_steps * self.config.train_batch_size
+        for name, value in resilience_counters.snapshot().items():
+            if value and value != self._resilience_reported.get(name):
+                self._resilience_reported[name] = value
+                events.append((f"Resilience/{name}", value, samples))
+        if self.telemetry is not None:
+            # Goodput/*, Memory/*, Compile/*, Ckpt/*, Health/*
+            events.extend(self.telemetry.periodic_events(samples))
+        if events:
+            self.monitor.write_events(events)
 
     def __call__(self, batch):
         return self.forward(batch)
@@ -1699,6 +2085,16 @@ class Engine:
         the tag's path. Under a process group every rank calls it (the
         leaves' gathers are collectives) with the same ``save_dir``; rank
         0 writes the tag, ``latest`` and the rotation."""
+        if self.telemetry is not None:
+            with self.telemetry.ckpt_span("save", step=self.global_steps):
+                return self._save_checkpoint_impl(save_dir, tag,
+                                                  client_state, save_latest)
+        return self._save_checkpoint_impl(save_dir, tag, client_state,
+                                          save_latest)
+
+    def _save_checkpoint_impl(self, save_dir: str, tag: Optional[str],
+                              client_state: Optional[Dict],
+                              save_latest: bool) -> str:
         tag = tag or f"global_step{self.global_steps}"
         self._validate_tag(tag)
         path = os.path.join(save_dir, tag)

@@ -116,6 +116,20 @@ class ResilienceManager:
         path = self.engine.save_checkpoint(self.save_dir)
         self.engine.checkpoint_engine.commit()  # durable before we die
         resilience_counters.incr("emergency_saves")
+        try:
+            self.engine._flush_monitor()
+            self.engine.monitor.flush()
+        except Exception as e:  # monitoring never blocks the exit
+            logger.warning("monitor flush during preemption failed: %s", e)
+        telemetry = getattr(self.engine, "telemetry", None)
+        if telemetry is not None:
+            # force the flight-recorder ring onto disk: the last steps
+            # before this death must be inspectable after the fact
+            try:
+                telemetry.dump("preemption")
+            except Exception as e:
+                logger.warning("flight-recorder dump during preemption "
+                               "failed: %s", e)
         logger.warning("emergency checkpoint %s durable; exiting with "
                        "preemption code %d", path, self.exit_code)
         self.uninstall()

@@ -27,8 +27,10 @@ Where the port differs by design: its optimizer's step count and learning
 rate live on the host, so while the sentinel is armed the engine reads the
 gate (``finite`` and the loss cap's verdict) on the host once a step and
 skips the update there; the JAX package selects the update on the device.
-The decisions and the trajectory are the same. Telemetry (the ``Health/*``
-events, the goodput ledger) is not ported yet (ROADMAP.md A.3.4).
+The decisions and the trajectory are the same. With the engine's telemetry
+on, every decision is a ``health/step`` record and feeds the ``Health/*``
+events, and a rollback's wall lands in the goodput ``rollback`` bucket, as
+in the JAX package (``sentinel.py:438, 490, 524``).
 
 Under a process group (``shared``) every rank runs a sentinel fed the same
 scalars (the engine broadcasts rank 0's), so every rank takes the same
@@ -49,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..monitor.mfu import SCOPE_REGIONS
 from ..utils.logging import logger
 
 #: Distinguished "training diverged past recovery" exit code (after the
@@ -57,9 +60,6 @@ from ..utils.logging import logger
 #: ``elasticity/elastic_agent.py`` (``divergence_restarts``).
 DIVERGENCE_EXIT_CODE = 220
 
-#: the JAX package's ``monitor/mfu.py`` region registry (a copy: the port
-#: imports nothing of the JAX package)
-SCOPE_REGIONS = ("embed", "attn", "mlp", "head", "loss", "optimizer")
 
 #: param-path keyword -> region for the per-region grad norms. First match
 #: wins; unmatched leaves land in "other".
@@ -252,7 +252,11 @@ class TrainingSentinel:
 
     # ---------------------------------------------------------- journal
     def _resolve_journal(self) -> None:
-        d = self.cfg.journal_dir or self._save_dir
+        d = self.cfg.journal_dir
+        if d is None and getattr(self.engine, "telemetry", None) is not None:
+            d = self.engine.telemetry.cfg.output_dir
+        if d is None:
+            d = self._save_dir
         if d is None:
             return
         os.makedirs(d, exist_ok=True)
@@ -355,25 +359,25 @@ class TrainingSentinel:
             # Ledgered, but NOT a bad position: replaying it as a skip
             # would desync the scaler from the original run
             self._record("overflow", step, pos, loss, loss_z, gn_z,
-                         nonfinite, skipped=False)
+                         nonfinite, regions, skipped=False)
             return
         if nonfinite > 0 or not finite or loss_bad:
             worst = max(regions, key=regions.get) if regions else None
             self._anomaly(step, pos, "nonfinite", loss, loss_z, gn_z,
-                          nonfinite,
+                          nonfinite, regions,
                           detail=f"nonfinite grads in region "
                                  f"{worst or '?'}" if nonfinite else
                                  "nonfinite loss")
             return
         if warmed and (loss_z > self.cfg.z_skip or gn_z > self.cfg.z_skip):
             self._anomaly(step, pos, "spike", loss, loss_z, gn_z, nonfinite,
-                          detail=f"loss_z={loss_z:.1f} gn_z={gn_z:.1f}")
+                          regions, detail=f"loss_z={loss_z:.1f} gn_z={gn_z:.1f}")
             return
         if warmed and (loss_z > self.cfg.z_warn or gn_z > self.cfg.z_warn):
             # warn rung: journaled, the sample kept (refusing it would
             # freeze the band), the streak not advanced
             self._record("warn", step, pos, loss, loss_z, gn_z, nonfinite,
-                         skipped=False)
+                         regions, skipped=False)
         self._loss_stat.update(loss)
         self._gn_stat.update(gn)
         self._healthy_steps += 1
@@ -384,7 +388,7 @@ class TrainingSentinel:
 
     def _anomaly(self, step: int, pos: int, cause: str, loss: float,
                  loss_z: float, gn_z: float, nonfinite: int,
-                 detail: str = "") -> None:
+                 regions: Dict[str, float], detail: str = "") -> None:
         from ..monitor.monitor import resilience_counters
 
         self._anomaly_streak += 1
@@ -396,12 +400,13 @@ class TrainingSentinel:
             step, pos, cause, f": {detail}" if detail else "",
             self._anomaly_streak, self.cfg.skip_limit)
         self._record("skip", step, pos, loss, loss_z, gn_z, nonfinite,
-                     skipped=True, cause=cause)
+                     regions, skipped=True, cause=cause)
         if self._anomaly_streak >= self.cfg.skip_limit:
             self._escalate(step, cause)
 
     def _record(self, action: str, step: int, pos: int, loss: float,
-                loss_z: float, gn_z: float, nonfinite: int, skipped: bool,
+                loss_z: float, gn_z: float, nonfinite: int,
+                regions: Dict[str, float], skipped: bool,
                 cause: Optional[str] = None) -> None:
         rec = {"event": action, "step": step, "position": pos,
                "loss": None if math.isnan(loss) else loss,
@@ -415,6 +420,16 @@ class TrainingSentinel:
         if skipped:
             rec["streak"] = self._anomaly_streak
         self._journal(rec)
+        telemetry = getattr(self.engine, "telemetry", None)
+        if telemetry is not None:
+            telemetry.record_health(step, {
+                "action": {"overflow": "skip"}.get(action, action),
+                "cause": cause or action, "position": pos,
+                "skipped": skipped,
+                "loss_z": None if not math.isfinite(loss_z) else loss_z,
+                "grad_norm_z": None if not math.isfinite(gn_z) else gn_z,
+                "nonfinite": nonfinite, "streak": self._anomaly_streak,
+                "region_norms": regions})
 
     # --------------------------------------------------------- escalation
     def _escalate(self, step: int, cause: str) -> None:
@@ -457,6 +472,14 @@ class TrainingSentinel:
                               if s <= rolled_to]
         dur = time.perf_counter() - t0
         resilience_counters.incr("rollbacks")
+        telemetry = getattr(self.engine, "telemetry", None)
+        if telemetry is not None:
+            if telemetry.goodput is not None:
+                telemetry.goodput.account("rollback", dur)
+            telemetry.record_health(rolled_to, {
+                "action": "rollback", "cause": cause, "tag": tag,
+                "rolled_back_to": rolled_to, "duration_s": round(dur, 3),
+                "streak": 0})
         self._journal({"event": "rollback", "step": step,
                        "rolled_back_to": rolled_to, "tag": tag,
                        "cause": cause, "duration_s": round(dur, 3),
@@ -478,6 +501,16 @@ class TrainingSentinel:
         self._journal({"event": "abort", "step": step, "cause": cause,
                        "rollbacks": self._rollbacks,
                        "scaler": overflow_ledger(self.engine.scaler_state)})
+        telemetry = getattr(self.engine, "telemetry", None)
+        if telemetry is not None:
+            telemetry.record_health(step, {"action": "abort",
+                                           "cause": cause})
+            try:
+                self.engine._flush_monitor()
+                telemetry.dump("divergence")
+            except Exception as e:  # observability never blocks the exit
+                logger.warning("telemetry dump during divergence abort "
+                               "failed: %s", e)
         self.close()
         self._exit_fn(DIVERGENCE_EXIT_CODE)
 

@@ -405,7 +405,18 @@ def test_unported_config_sections_raise(section, entry):
     """Each section not ported raises naming its ROADMAP entry. The two
     A.3.1 sections are ported now: ``elasticity`` is accepted and ignored
     by the engine, and ``checkpoint.use_node_local_storage`` is stored, as
-    the JAX package parses them."""
+    the JAX package parses them. So are the A.3.4 sections (telemetry, the
+    monitors, the flops profiler): parsed as the JAX package parses them
+    (``test_torch_observe.py`` holds every field)."""
+    if entry == "A.3.4":
+        from deepspeedsyclsupport_tpu.runtime.config import (
+            DSTpuConfig as JConfig)
+
+        got = DSTpuConfig.from_config(dict(ENGINE_CFG, **section))
+        want = JConfig.from_config(dict(ENGINE_CFG, **section))
+        for f in ("telemetry", "monitor", "flops_profiler"):
+            assert vars(getattr(got, f)) == vars(getattr(want, f)), f
+        return
     if entry == "A.3.1":
         from deepspeedsyclsupport_tpu.runtime.config import (
             DSTpuConfig as JConfig)
