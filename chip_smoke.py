@@ -5213,8 +5213,11 @@ def phase_dist(torch, np, train_steps, moe_steps):
     backend = tdist.get_backend()
     if backend != "nccl":
         raise AssertionError(f"world 1 on one card chose {backend}")
-    eng = train_engine(torch, 0, extra={"zero_optimization": {"stage": 3},
-                                        "comms_logger": {"enabled": True}})
+    # the last step counted op by op: the dtype audit rides it
+    eng = train_engine(torch, 0, extra={
+        "zero_optimization": {"stage": 3}, "comms_logger": {"enabled": True},
+        "flops_profiler": {"enabled": True, "profile_step": DIST_STEPS,
+                           "output_file": os.devnull}})
     cfg = eng.module.config
     ids = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (eng.train_batch_size(), TRAIN_SEQ))
@@ -5253,6 +5256,7 @@ def phase_dist(torch, np, train_steps, moe_steps):
     if got != want:
         raise AssertionError(f"world-1 NCCL ZeRO-3 {got} != single card "
                              f"{want}")
+    hold_census_world1(eng, times)
     del eng
     reset_world_topology()
     comm.destroy_process_group()
@@ -5266,6 +5270,58 @@ def phase_dist(torch, np, train_steps, moe_steps):
     finally:
         pool.close()
     return launches_be + (dist_ckpt(torch, np),)
+
+
+CENSUS_CLASSES = ("param_gather", "grad_sync", "scalar_sync", "other")
+
+
+def hold_census_world1(eng, times):
+    """(a)'s comm census and graph analyzers over its last step (counted op
+    by op): every census class empty (a group of one member moves no
+    bytes, so no NCCL call at world 1 is an entry); the collectives,
+    donation and resharding reports ``ok``; the dtype audit's verdict the
+    JAX package's on the same bf16 model (FAIL: RMSNorm, RoPE and the loss
+    compute in float32 by design), its upcasts exactly those sites'
+    activation shapes (above the audit's floor). Logs the seconds it
+    added: its own and the counted step's over the step before
+    (``times``, each step's seconds)."""
+    from deepspeedsyclsupport_tpu_torch.analysis.dtype_audit import (
+        DEFAULT_MIN_ELEMENTS)
+
+    t = time.perf_counter()
+    payload = eng.emit_comm_census()
+    rep = eng.graph_report()
+    took = time.perf_counter() - t
+    empty = {c: {"count": 0, "total_bytes": 0} for c in CENSUS_CLASSES}
+    if payload["classes"] != empty or payload["n_devices"] != 1 or \
+            rep["census"]:
+        raise AssertionError(f"(a) world-1 census {payload}, "
+                             f"{len(rep['census'])} entries")
+    bad = [k for k in ("collectives", "donation", "resharding")
+           if not rep[k].ok]
+    if bad:
+        raise AssertionError("(a) " + "; ".join(rep[k].report()
+                                                for k in bad))
+    cfg = eng.module.config
+    b, s = eng.train_micro_batch_size_per_gpu(), TRAIN_SEQ
+    want = {sh for sh in ((b, s, cfg.hidden_size),
+                          (b, s, cfg.num_heads, cfg.head_dim),
+                          (b, s, cfg.num_kv_heads, cfg.head_dim),
+                          (b, s, cfg.vocab_size))
+            if math.prod(sh) >= DEFAULT_MIN_ELEMENTS}
+    dtype = rep["dtype"]
+    got = {u["shape"] for u in dtype.upcasts}
+    if dtype.ok or got != want:
+        raise AssertionError(f"(a) dtype audit: upcasts at {sorted(got)}, "
+                             f"want the float32 sites {sorted(want)}")
+    log("dist", f"(a) census: every class empty (world 1: "
+        f"{payload['classes']}); collectives OK; {rep['donation'].report()}"
+        f"; {rep['resharding'].report()}; dtype FAIL as the JAX package's audit of the same model: "
+        f"{len(dtype.upcasts)} activation upcasts at {sorted(got)}, "
+        f"{dtype.total_upcast_bytes} B widened, {dtype.sanctioned} "
+        f"param-shaped sanctioned; seconds added: census and analyzers "
+        f"{took:.2f} s, the counted step {times[-1] - times[-2]:+.2f} s "
+        f"over the step before")
 
 
 def dist_pool_phases(torch, np, pool, launches, moe_steps):
@@ -5930,8 +5986,10 @@ def dist_zeropp(torch, np, pool):
 DIST_CKPT_CFG = dict(DIST_BASE, zero_optimization={"stage": 3},
                      parallelism={"dp": 2, "fsdp": 2})
 DIST_CKPT_STEPS = 6          # 3 before the save, 3 after it
-# (f1)'s first run with telemetry on: every rank's stream, fused after it
-DIST_TELEMETRY = {"enabled": True, "stack_dump_on_hang": False}
+# (f1)'s first run with telemetry on: every rank's stream, fused after it;
+# its last step counted op by op (the MFU roofline's costs)
+DIST_TELEMETRY = {"enabled": True, "stack_dump_on_hang": False,
+                  "mfu": {"enabled": True, "step": 7}}
 DIST_CKPT_SAVE_AT = 3
 DIST_CKPT_W1_TOL = TRAIN_PARITY_TOL   # world 1 on the tag vs four ranks
 DIST_SENTINEL = {"enabled": True, "warmup_steps": 1, "window": 8,
@@ -5947,10 +6005,12 @@ DIST_POD_KILL = (2, 4)       # (rank, step) of the pod's injected crash
 DIST_POD_TIMEOUT_S = 600
 
 
-def hold_pod_report(tel_dir):
+def hold_pod_report(tel_dir, census):
     """(f1)'s rank streams fused by ``monitor/pod.py``: every rank's
-    ``engine_init`` anchor, its step spans = the steps it ran, and a report
-    that validates; the straggler and the comm / compute split logged."""
+    ``engine_init`` anchor, its step spans = the steps it ran, a report
+    that validates and its per-class table the census's (``census``: rank
+    0's :func:`ckpt_census`); the straggler, the comm / compute split and
+    the per-class bytes, time and bandwidth logged."""
     from deepspeedsyclsupport_tpu_torch.monitor import pod
 
     streams = pod.load_rank_streams([tel_dir])
@@ -5972,6 +6032,15 @@ def hold_pod_report(tel_dir):
         raise AssertionError(f"pod report: {problems}, {d['n_steps']} "
                              f"steps")
     dec = d["decomposition"]
+    want = census["payload"]["classes"]
+    got = {k: {"count": v["count"], "total_bytes": v["bytes_per_step"]}
+           for k, v in dec["classes"].items()}
+    if got != want or rep.bytes_match is not True:
+        raise AssertionError(f"pod report classes {got} != the census "
+                             f"{want} (bytes_match {rep.bytes_match})")
+    log("dist", f"(f1) pod report per-class table "
+        f"{json.dumps(dec['classes'])} (the census cross-check matches: "
+        f"it reads the same record, a report and no hold)")
     log("dist", f"(f1) pod report over {len(streams)} rank streams: "
         f"aligned by {d['align']['method']} (offsets "
         f"{d['align']['offsets_s']} s), {d['n_steps']} fused steps, "
@@ -6065,6 +6134,92 @@ def ckpt_step(torch, eng, batch, seq):
             "want_launches": dist_flash_per_step(eng)}
 
 
+def ckpt_census(torch, eng, seq):
+    """(f1)'s comm census after its last step (this rank): the payload
+    ``emit_comm_census`` writes, the census by opcode beside the plan
+    from the shapes alone (``dist_comm_bytes`` in result bytes: a gather
+    returns the whole leaf, a reduce-scatter the shard), the param-gather
+    class the JAX expectation predicts in the port's schedule (its
+    ``2 x gas`` gathers a leaf, less the embedding's backward one), every
+    analyzer's verdict and the MFU roofline's collective bytes beside the
+    counted step's census."""
+    from deepspeedsyclsupport_tpu_torch.comm.hlo_comms import (
+        summarize_collectives)
+
+    payload = eng.emit_comm_census()
+    rep = eng.graph_report()
+    exp = rep["collectives"].expectation
+    fsdp = eng.topology.axis_sizes["fsdp"]
+    plan = dist_comm_bytes(torch, eng, eng.train_batch_size()
+                           // eng.dp_world_size, seq, True)
+    want = {"all-gather": plan.pop("all_gather[fsdp]") * fsdp,
+            "reduce-scatter": plan.pop("reduce_scatter[fsdp]") // fsdp,
+            "all-reduce": sum(plan.pop(k) for k in list(plan)
+                              if k.startswith("all_reduce["))}
+    emb = sum(math.prod(eng._full_shapes[p]) * 4 for p in eng._float_paths
+              if p[-1] == "embedding" and
+              eng._shard_dim(eng._specs[p]) is not None)
+    return {"payload": payload, "left": plan,
+            "ops": {op: v["total_bytes"] for op, v in
+                    summarize_collectives(rep["census"]).items()},
+            "want_ops": want,
+            "want_param_gather": exp.param_gather_bytes
+            - eng.gradient_accumulation_steps() * emb,
+            "ok": {k: rep[k].ok for k in ("collectives", "donation",
+                                          "resharding", "dtype")},
+            "reports": {k: rep[k].report() for k in (
+                "collectives", "donation", "resharding", "dtype")},
+            "roofline_collective":
+                eng._mfu_roofline()["regions"]["collective"]["comm_bytes"],
+            "counted_census": sum(e["bytes"] for e in eng._mfu_census)}
+
+
+def hold_census(ranks, run1):
+    """(f1)'s census on every rank: the same payload everywhere, the census
+    by opcode EQUAL to the plan, the param-gather class EQUAL to the JAX
+    expectation in the port's schedule, every class's bytes summing to the
+    census, every analyzer ``ok``, and the MFU roofline's collective
+    region EQUAL to the counted step's census; ``run1`` (rank 0's steps)
+    gives the counted step's added seconds. Returns rank 0's."""
+    c = ranks[0]["f1"]["census"]
+    for r in ranks:
+        x = r["f1"]["census"]
+        classes = x["payload"]["classes"]
+        total = sum(x["ops"].values())
+        problems = []
+        if x["payload"] != c["payload"]:
+            problems.append(f"payload {x['payload']} != rank 0's")
+        if x["ops"] != x["want_ops"] or x["left"]:
+            problems.append(f"census {x['ops']} != plan {x['want_ops']} "
+                            f"(unplanned {x['left']})")
+        if classes["param_gather"]["total_bytes"] != x["want_param_gather"]:
+            problems.append(f"param_gather {classes['param_gather']} != "
+                            f"{x['want_param_gather']}")
+        if sum(v["total_bytes"] for v in classes.values()) != total:
+            problems.append(f"classes {classes} do not sum to {total}")
+        if not all(x["ok"].values()):
+            problems.append(str(x["reports"]))
+        if not x["roofline_collective"] == x["counted_census"] == total:
+            problems.append(f"roofline collective "
+                            f"{x['roofline_collective']}, counted step's "
+                            f"census {x['counted_census']}, census {total}")
+        if problems:
+            raise AssertionError(f"(f1) census rank {r['rank']}: "
+                                 + "; ".join(problems))
+    log("dist", f"(f1) census (every rank, step {DIST_CKPT_STEPS}): "
+        f"classes {c['payload']['classes']}, by opcode {c['ops']} = the "
+        f"plan from the shapes; param_gather = the JAX expectation in the "
+        f"port's schedule ({c['want_param_gather']} B); MFU roofline "
+        f"collective {c['roofline_collective']:.0f} B = the census; "
+        f"collectives OK; {c['reports']['donation']}; "
+        f"{c['reports']['resharding']}; {c['reports']['dtype']}; seconds "
+        f"added: the census {max(r['f1']['census_s'] for r in ranks):.2f} s"
+        f" a rank, the counted step {DIST_CKPT_STEPS} "
+        f"{run1[-1]['s'] - run1[-2]['s']:+.2f} s over the step before "
+        f"(rank 0; four gloo ranks' steps vary by seconds)")
+    return c
+
+
 def dist_ckpt_child(torch, np, spec_path):
     """One rank of (f) (``--ckpt-rank``): (f1) 3 steps, a native save, 3
     steps; fresh ranks from another init load the tag and repeat steps
@@ -6129,6 +6284,7 @@ def dist_ckpt_child(torch, np, spec_path):
     path, save_s = timed(lambda: eng.save_checkpoint(d))
     run1 += [ckpt_step(torch, eng, b, seq)
              for b in batches[DIST_CKPT_SAVE_AT:DIST_CKPT_STEPS]]
+    census, census_s = timed(lambda: ckpt_census(torch, eng, seq))
     eng.telemetry.close()
     peak1 = done(eng)
     eng = engine(DIST_CKPT_CFG, 2)
@@ -6142,7 +6298,8 @@ def dist_ckpt_child(torch, np, spec_path):
     _, flag_s = timed(lambda: [world_any(False) for _ in range(50)])
     out["f1"] = {"run1": run1, "run2": run2, "path": path, "loaded": loaded,
                  "save_s": save_s, "load_s": load_s, "peak": [peak1, peak2],
-                 "flag_us": flag_s / 50 * 1e6}
+                 "flag_us": flag_s / 50 * 1e6, "census": census,
+                 "census_s": census_s}
     # ---- (f3) the sentinel across ranks
     nan_rank, nan_step = DIST_SENTINEL_NAN
     cfg = dict(DIST_CKPT_CFG, sentinel=dict(
@@ -6363,7 +6520,12 @@ def dist_ckpt(torch, np):
                 f"rank 0 bytes a step {run1[-1]['bytes']}; the preemption "
                 f"flag's all-reduce {f1['flag_us']:.1f} us a step; ranks ran "
                 f"in {wall:.1f} s")
-            hold_pod_report(os.path.join(d, "f1_telemetry"))
+            t_census = time.perf_counter()
+            hold_pod_report(os.path.join(d, "f1_telemetry"),
+                            hold_census(ranks, run1))
+            census_s = time.perf_counter() - t_census
+            log("dist", f"(f1) census holds {census_s:.2f} s in the "
+                f"parent")
             # the tag at a world of one on NCCL
             comm.init_distributed(
                 init_method=f"tcp://127.0.0.1:{free_port()}",

@@ -45,7 +45,8 @@ failure and tries another way.
 Kill switches (``DSTPU_COMM_<OP>_OFF``, the reference's ``DS_COMM_*_OFF``)
 turn a collective into the identity; every call is recorded by the comms
 logger (``comm/comms_logging.py``) under ``"<op>[<axis>]"`` with the bytes
-of the tensor handed to it.
+of the tensor handed to it, and into its census window (when one is open)
+with the bytes of the tensor it returns.
 """
 import logging
 import os
@@ -164,6 +165,7 @@ def _run(op: str, axis_name, x: torch.Tensor, fn):
             torch.cuda.synchronize(x.device)
         seconds = time.perf_counter() - t0
     _log(op, axis_name, x, seconds)
+    comms_logger.record_call(op, out, n)
     return out
 
 
@@ -521,6 +523,7 @@ def recv(x: torch.Tensor, src: int, axis_name,
     else:
         buf.copy_(x)
     _log("recv", axis_name, x)
+    comms_logger.record_call("recv", buf, 1 if group is None else 2)
     return buf.to(x.device, non_blocking=True) if staged else buf
 
 

@@ -44,6 +44,13 @@ def _group(axis_name, group):
     return group, dist.get_world_size(group)
 
 
+def _census(op: str, results, n: int) -> None:
+    """The census entries of one quantized call: its codes and its scales
+    each a collective of their own (``comm/comms_logging.py``)."""
+    for r in results:
+        comm.comms_logger.record_call(op, r, n)
+
+
 def _block_quant(x: torch.Tensor, group_size: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Flatten, zero-pad to a multiple of ``group_size``, blockwise int8
@@ -67,6 +74,7 @@ def quantized_all_gather(x: torch.Tensor, axis_name, group_size: int = 256,
     q, s, pad = _block_quant(x, group_size)
     qg = comm._gather_stacked(g, n, q)   # int8 on the wire
     sg = comm._gather_stacked(g, n, s)
+    _census("all_gather", (qg, sg), n)
     deq = dequantize_int8(qg, sg, group_size=group_size, dtype=dtype)
     if pad:
         deq = deq[:, :-pad]
@@ -91,6 +99,7 @@ def all_to_all_quant_reduce(x: torch.Tensor, axis_name,
     q, s = quantize_int8(flat, group_size=group_size)
     qt = comm._exchange(q, g)            # one chunk to each peer
     st = comm._exchange(s, g)
+    _census("all_to_all", (qt, st), w)
     deq = dequantize_int8(qt, st, group_size=group_size, dtype=torch.float32)
     if pad:
         deq = deq[:, :-pad]
@@ -125,5 +134,6 @@ def compressed_allreduce(x: torch.Tensor, error: torch.Tensor, axis_name,
     signs = comm._gather_stacked(g, n, sign)             # [W, ...] int8
     scales = comm._gather_stacked(
         g, n, scale.reshape(1).float())[:, 0]            # [W]
+    _census("all_gather", (signs, scales), n)
     avg = torch.tensordot(scales, signs.float(), dims=1) / n
     return avg.to(x.dtype), new_error

@@ -27,13 +27,31 @@ threads beside every kernel the step ran, and this module owns the joins:
 
 Stdlib-only like the JAX module: :func:`region_scope` imports torch when it
 is called.
+
+CLI (the JAX package's ``tools/mfu_report.py``: its flags, output and exit
+codes; offline, no device)::
+
+    python -m deepspeedsyclsupport_tpu_torch.monitor.mfu <trace dir> [--json OUT]
+
+It reads either package's window: an opmap keyed by trace position (the
+port's, ``<i>:<name>``) is joined through :func:`op_events`, one keyed by
+op name (the JAX package's) through the events as they are.
 """
 import gzip
 import json
 import os
 import re
+import warnings
 import zlib
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+# ``python -m deepspeedsyclsupport_tpu_torch.monitor.mfu``: the package's
+# models import this module (region_scope) before runpy runs it as
+# __main__, which runpy warns of; the module holds no state the CLI reads
+warnings.filterwarnings(
+    "ignore", category=RuntimeWarning,
+    message=r"'deepspeedsyclsupport_tpu_torch\.monitor\.mfu' found in "
+            r"sys\.modules")
 
 #: Canonical attribution regions. The first block are SCOPE regions — model/
 #: engine code wraps phases in :func:`region_scope`. The rest are DERIVED:
@@ -780,3 +798,107 @@ def render_ledger(led: Dict[str, Any], top: int = 10) -> str:
         lines.append("  by HLO category: " + ", ".join(
             f"{c}={_fmt_s(cats[c])}" for c in order if cats[c] > 0))
     return "\n".join(lines)
+
+
+# ----------------------------------------------------------------------- CLI
+_POSITION_KEY = re.compile(r"^[0-9]+:")
+
+
+def _load_json(path: Optional[str], what: str) -> Optional[dict]:
+    import sys
+
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"  note: cannot read {what} {path}: {e}", file=sys.stderr)
+        return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Render a captured MFU trace window into the step-time attribution
+    ledger (``tools/mfu_report.py``'s contract). Exit 0 on success, 2
+    when no trace yields any op events."""
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="python -m deepspeedsyclsupport_tpu_torch.monitor.mfu",
+        description="Render a captured MFU trace window into the step-time "
+                    "attribution ledger.")
+    ap.add_argument("input",
+                    help="trace dir (engine's mfu_trace_rank<N>, searched "
+                         "for the newest trace + sidecar JSONs) or a bare "
+                         "trace.json[.gz]")
+    ap.add_argument("--opmap", help="mfu_opmap.json override")
+    ap.add_argument("--roofline", help="mfu_roofline.json override")
+    ap.add_argument("--window", help="mfu_window.json override")
+    ap.add_argument("--step-s", type=float, default=None,
+                    help="measured clean-step seconds (overrides the "
+                         "window sidecar)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps covered by the trace window (default from "
+                         "the window sidecar, else 1)")
+    ap.add_argument("--json", metavar="OUT",
+                    help="also write the serialized ledger (schema "
+                         "monitor/mfu.py MFU_LEDGER_KEYS) to this file")
+    args = ap.parse_args(argv)
+
+    root = os.path.expanduser(args.input)
+    trace_path = find_trace(root)
+    if trace_path is None:
+        print(f"error: no trace file found under {root}", file=sys.stderr)
+        return 2
+    side = os.path.dirname(root) if os.path.isfile(root) else root
+    opmap = _load_json(args.opmap or os.path.join(side, "mfu_opmap.json"),
+                       "opmap")
+    roofline = _load_json(
+        args.roofline or os.path.join(side, "mfu_roofline.json"), "roofline")
+    window = _load_json(
+        args.window or os.path.join(side, "mfu_window.json"), "window") or {}
+
+    events, meta = parse_trace(trace_path)
+    if meta["truncated"]:
+        print(f"  note: {trace_path}: truncated — salvaged "
+              f"{meta['n_events']} event(s)", file=sys.stderr)
+    if not events:
+        print(f"error: {trace_path} holds no duration events",
+              file=sys.stderr)
+        return 2
+    if opmap is None:
+        print("error: no opmap (mfu_opmap.json) — the region join needs "
+              "the window's op->region map; pass --opmap or rerun with "
+              "telemetry.mfu so the engine persists it", file=sys.stderr)
+        return 2
+    if any(_POSITION_KEY.match(k) for k in opmap):
+        # the port's opmap: the device ops, else the host's leaf aten ops
+        events = op_events(events) or op_events(events, cpu_ops=True)
+
+    steps = args.steps or int(window.get("steps", 1))
+    measured = measure_regions(events, opmap, steps=steps)
+    if measured["n_mapped"] == 0:
+        print("error: no trace event matches the opmap (trace and opmap "
+              "from different programs?)", file=sys.stderr)
+        return 2
+    step_s = args.step_s or window.get("step_s")
+    if step_s is None:
+        print("  note: no step wall (mfu_window.json / --step-s) — using "
+              "the device-busy union; host time reads as 0",
+              file=sys.stderr)
+        step_s = measured["device_busy_s"]
+    led = ledger(roofline, measured, float(step_s),
+                 truncated_trace=meta["truncated"])
+    print(render_ledger(led))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(led, f, indent=1, sort_keys=True)
+        print(f"ledger written to {args.json}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

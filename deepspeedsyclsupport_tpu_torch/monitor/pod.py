@@ -7,8 +7,17 @@ package's streams. It fuses N rank-local JSONL streams into one cluster
 timeline and answers the pod-scale questions: *is this step comm-bound,
 which rank is the straggler, and what effective bandwidth did each traffic
 class achieve?* The per-class table needs a ``comm/census`` record, which
-the port does not write yet (ROADMAP.md, A.3.4 the rest); without one the
-report says so and keeps the step, skew and straggler tables.
+the port's engine writes with ``Engine.emit_comm_census()``; without one
+the report says so and keeps the step, skew and straggler tables. The
+census cross-check (``bytes_match``) compares the census with the
+``xla::`` keys of a ``comm/snapshot`` record. The port writes those keys
+from the same record window as the census (``Engine.xla_comms_summary``),
+so in the port's streams it always matches: a report, not a hold.
+
+CLI (the JAX package's ``tools/pod_report.py``: its flags, output and exit
+codes; offline, no device)::
+
+    python -m deepspeedsyclsupport_tpu_torch.monitor.pod <dirs|globs|files>
 
 Everything here is OFFLINE: pure JSON/arithmetic over recorded streams —
 no device or backend initialization, no live job required — safe on a
@@ -979,3 +988,75 @@ def pod_report_from_paths(specs: Iterable[str],
         return None
     return fuse_pod(streams, census=census, compute_s=compute_s,
                     link_gbps=link_gbps)
+
+
+# ----------------------------------------------------------------------- CLI
+def main(argv: Optional[List[str]] = None) -> int:
+    """Fuse per-rank flight-recorder JSONLs into the pod report
+    (``tools/pod_report.py``'s contract). Exit 0 on success, 2 when no
+    input yields any records."""
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="python -m deepspeedsyclsupport_tpu_torch.monitor.pod",
+        description="Fuse per-rank flight-recorder JSONLs into a pod "
+                    "timeline / straggler / bandwidth report.")
+    ap.add_argument("inputs", nargs="+",
+                    help="directories, globs or files of per-rank JSONLs")
+    ap.add_argument("--last", type=int, default=20,
+                    help="trailing steps to show in the timeline")
+    ap.add_argument("--census", metavar="JSON",
+                    help="static census classes file (overrides any "
+                         "comm/census record in the streams)")
+    ap.add_argument("--compute-s", type=float, default=None,
+                    help="comm-free compute time per step (e.g. a "
+                         "single-chip calibration); default: the minimum "
+                         "observed per-rank step duration")
+    ap.add_argument("--link-gbps", type=float, default=None,
+                    help="interconnect capacity hint enabling the "
+                         "exposed-vs-overlapped comm split")
+    ap.add_argument("--json", metavar="OUT",
+                    help="also write the serialized report (schema "
+                         "monitor/pod.py POD_REPORT_KEYS) to this file")
+    args = ap.parse_args(argv)
+
+    census = None
+    if args.census:
+        try:
+            with open(args.census) as f:
+                census = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot read census {args.census}: {e}",
+                  file=sys.stderr)
+            return 2
+
+    report = pod_report_from_paths(
+        args.inputs, census=census, compute_s=args.compute_s,
+        link_gbps=args.link_gbps)
+    if report is None:
+        print("no flight-recorder records found in any input",
+              file=sys.stderr)
+        return 2
+    for rank in report.truncated_ranks:
+        stream_path = report.source_files.get(rank, "?")
+        print(f"note: rank{rank} stream is truncated (salvaged partial "
+              f"records from {stream_path})", file=sys.stderr)
+    if report.comm_hang is not None:
+        h = report.comm_hang
+        who = (f"rank{h['culprit_rank']} ({h.get('culprit_reason')})"
+               if h.get("culprit_rank") is not None else "unattributed")
+        print(f"COMM HANG: step {h['step']} — culprit {who}; see the "
+              f"'collective hang' section below", file=sys.stderr)
+    print(report.render(last=args.last))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report.to_dict(), f, indent=2)
+        print(f"\nserialized report -> {args.json}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

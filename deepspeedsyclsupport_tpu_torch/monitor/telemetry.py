@@ -1087,6 +1087,14 @@ class Telemetry:
             ev.append((f"Health/grad_norm.{region}", norm, step))
         return ev
 
+    def record_census(self, census: Dict[str, Any]) -> None:
+        """Persist a collective-census class summary
+        (``analysis/collectives.py`` ``CollectiveClasses.summary()`` shape,
+        plus any context keys) into the stream — the pod report joins it
+        against measured step spans for the per-traffic-class bytes/time/
+        bandwidth decomposition."""
+        self.recorder.record("event", "comm/census", data=census)
+
     def export_textfile(self, path: Optional[str] = None) -> str:
         """Write the current metrics-registry + resilience-counter state as
         a Prometheus textfile-collector snapshot (atomic rename, scrape-safe)

@@ -199,6 +199,9 @@ class OpCounter(TorchDispatchMode):
         # scope: an autograd node made inside one belongs to its region
         self._intervals: List[Tuple[int, int, int, str]] = []
         self._prev_observer: Any = None
+        # what else rides the dispatch: objects with ``observe(func, args,
+        # kwargs, out)`` (the dtype audit, ``analysis/dtype_audit.py``)
+        self.observers: List[Any] = []
 
     # ------------------------------------------------ the scope observer
     def _stack(self) -> List[Tuple[str, int]]:
@@ -256,6 +259,8 @@ class OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        for obs in self.observers:
+            obs.observe(func, args, kwargs, out)
         try:
             cost = op_cost(func, args, kwargs, out)
         except Exception as e:  # an op the rules cannot read: say so

@@ -147,6 +147,15 @@ and the MFU window (``telemetry.mfu``: the window under ``torch.profiler``,
 priced by the first step counted op by op before it — the flops profiler's
 step when that comes first, else the step just before the window;
 :meth:`Engine.mfu_ledger`).
+
+The comm census and the graph analyzers (JAX ``engine.py:1243-1360``,
+``analysis/``): the engine opens the comms logger's census window around
+every step (``comm/comms_logging.py``: one entry per collective call, in
+HLO's conventions) and keeps the last step's, with each param and moment
+tensor's storage and shape at step entry and, on a counted step, the
+dtype audit riding the op counter. :meth:`Engine.graph_report`,
+:meth:`Engine.emit_comm_census` and :meth:`Engine.xla_comms_summary` read
+that record of the last step: there is no compiled program to read.
 Offload raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
 """
 import contextlib
@@ -528,6 +537,11 @@ class Engine:
         self._pending: Optional[torch.Tensor] = None
         self._last_grad_norm: Optional[torch.Tensor] = None
         self.losses = None
+        # the last step's census window and (storage, shape) of each
+        # audited tensor at its entry; the last counted step's dtype audit
+        self._last_census: Optional[List[Dict[str, Any]]] = None
+        self._step_entry: Optional[List[Tuple[int, Tuple[int, ...]]]] = None
+        self._dtype_audit = None
 
         # --------------------------------------------------- observability
         from ..utils.podid import pod_rank
@@ -631,6 +645,7 @@ class Engine:
                                  and tw.mfu_enabled)
         self._mfu_first = max(int(tw.mfu_step), 2)
         self._mfu_costs = None
+        self._mfu_census: Optional[List[Dict[str, Any]]] = None
         self._mfu_profiler = None
         self._mfu_window: Optional[Dict[str, Any]] = None
         self._mfu_trace_dir = os.path.join(
@@ -709,6 +724,8 @@ class Engine:
             self.flops_profiler.record(counter, stepno, self._leaf_tensors)
         if self._mfu_pending and self._mfu_costs is None:
             self._mfu_costs = counter
+            self._mfu_census = self._last_census
+        self._dtype_audit = counter.observers[0]
 
     def _finish_mfu_window(self, stepno: int, t_step: float) -> float:
         """Close the MFU window: sync (its step wall is the synced one),
@@ -745,7 +762,6 @@ class Engine:
         and when the window's trace holds no kernel (a CPU engine, or a
         profiler that recorded no device activity): a ledger of host ops
         would not say where the card's time went."""
-        from ..analysis import roofline
         from ..monitor import mfu as mfu_mod
 
         if self._mfu_window is None or self._mfu_costs is None:
@@ -766,9 +782,7 @@ class Engine:
                 f"events: the profiler recorded no device activity "
                 f"(engine on {self.device}); the ledger attributes the "
                 f"card's time and has none to attribute")
-        costs = roofline.region_costs(self._mfu_costs)
-        spec = spec or roofline.device_spec(self.device)
-        table = roofline.roofline_table(costs, spec)
+        table = self._mfu_roofline(spec)
         measured = mfu_mod.measure_regions(mfu_mod.op_events(events), opmap,
                                            steps=w.get("steps", 1))
         led = mfu_mod.ledger(table, measured, w["step_s"],
@@ -796,6 +810,174 @@ class Engine:
             self.monitor.write_events(
                 mfu_mod.ledger_events(led, step=w["step"]))
         return led
+
+    # ================================================== census and analyzers
+    def _audited(self) -> List[Tuple[str, torch.Tensor]]:
+        """The state a step updates in place: each param (the float32
+        master) and each of the optimizer's per-leaf tensor lists (its
+        moments), named ``<list>/<leaf path>``."""
+        paths = self._grad_paths
+        named = [(f"params/{p}", t) for p, t in zip(paths,
+                                                     self._leaf_tensors)]
+        for attr, v in sorted(vars(self.optimizer).items()):
+            if attr != "params" and isinstance(v, list) and \
+                    len(v) == len(paths) and \
+                    all(isinstance(x, torch.Tensor) for x in v):
+                named += [(f"{attr}/{p}", x) for p, x in zip(paths, v)]
+        return named
+
+    def _open_census(self) -> None:
+        """A step starts: open the comms logger's census window and note
+        each audited tensor's storage and shape."""
+        comms_logger.open_window()
+        self._step_entry = [(t.untyped_storage().data_ptr(), tuple(t.shape))
+                            for _, t in self._audited()]
+
+    def xla_comms_summary(self, log: bool = True,
+                          show_straggler: bool = False) -> Dict[str, Dict]:
+        """The last step's collectives by opcode (JAX ``engine.py:1243``,
+        ``{opcode: {count, total_bytes, example_shape, group_size}}``),
+        merged into ``comms_logger`` under ``xla::<op>[train_step]`` keys
+        (the JAX package's, so that the next dump's ``comm/snapshot``
+        carries them to the pod report). Reads the façade's record of the
+        last step (``comm/hlo_comms.py``), not a compiled program.
+        ``show_straggler`` is collective: every rank calls it."""
+        if not comms_logger.enabled or self._last_census is None:
+            raise RuntimeError(
+                "run train_batch() with comms_logger enabled first "
+                "(config comms_logger.enabled: true)")
+        from ..comm.hlo_comms import summarize_collectives
+
+        summary = summarize_collectives(self._last_census)
+        comms_logger.record_hlo(summary, tag="train_step")
+        if log:
+            comms_logger.log_summary(show_straggler=show_straggler)
+        return summary
+
+    def emit_comm_census(self) -> Dict[str, Any]:
+        """Classify the last step's collectives into traffic classes
+        (``analysis/collectives.py``) and persist the class summary as a
+        ``comm/census`` flight-recorder event — the static half of the pod
+        report's bytes/time/bandwidth join (``monitor/pod.py``). With
+        ``comms_logger`` enabled the per-opcode mix is merged too
+        (:meth:`xla_comms_summary`), so the next dump's ``comm/snapshot``
+        carries it: the pod report's cross-check, which here reads the
+        same record and so always matches. Returns the payload (JAX
+        ``engine.py:1269``'s keys). Reads the façade's record of the last
+        step, not a compiled program."""
+        report = self.graph_report(analyzers=("collectives",))
+        payload: Dict[str, Any] = {
+            "classes": report["collectives"].classes.summary(),
+            "group_size": report["collectives"].expectation.group_size,
+            "n_devices": (self.topology.world_size() if self.distributed
+                          else 1),
+            "zero_stage": self.zero_stage,
+        }
+        if comms_logger.enabled:
+            self.xla_comms_summary(log=False)
+        if self.telemetry is not None:
+            self.telemetry.record_census(payload)
+        return payload
+
+    GRAPH_ANALYZERS = ("collectives", "donation", "resharding", "dtype")
+
+    def graph_report(self, gathers_per_param: Optional[int] = None,
+                     analyzers: Tuple[str, ...] = GRAPH_ANALYZERS,
+                     ) -> Dict[str, Any]:
+        """The analyzers of ``analysis/`` over the last step (JAX
+        ``engine.py:1295``, the same keys): ``census`` and ``collectives``
+        (the census against the analytic expectation, ``exact=False`` as
+        in the JAX package), ``donation`` (every param and moment tensor
+        updated in place), ``resharding`` (each leaf the shard its spec
+        says at step entry, and no unattributed gather or all-to-all) and
+        ``dtype`` (activation-shaped upcasts of the last step counted op by
+        op: ``flops_profiler`` or ``telemetry.mfu``). Reads the façade's
+        record of the last step, not a compiled program; raises before a
+        step has run.
+
+        ``gathers_per_param`` defaults from the port's ZeRO-3 schedule: a
+        leaf is gathered in each micro-batch's forward and again for its
+        backward (recomputed or re-gathered), ``2 ×
+        gradient_accumulation_steps``; a ceiling, as ``exact=False`` reads
+        it (a leaf the backward does not read, the embedding, is gathered
+        once)."""
+        from ..analysis import (abstract_params, check_collectives,
+                                collective_census, donation_audit,
+                                expected_train_collectives, resharding_audit)
+        from ..analysis.donation import storage_snapshot
+
+        if self._last_census is None or self._step_entry is None:
+            raise RuntimeError("run train_batch() first")
+        if gathers_per_param is None:
+            gathers_per_param = 2 * self.gradient_accumulation_steps() \
+                if self.zero_stage >= 3 else 1
+        params = abstract_params(self)
+        specs = getattr(self, "_specs", None)
+        report: Dict[str, Any] = {}
+        if "collectives" in analyzers or "resharding" in analyzers:
+            report["census"] = collective_census(self._last_census)
+        if "collectives" in analyzers:
+            expectation = expected_train_collectives(
+                params, self.topology, self.zero_stage,
+                param_shardings=specs, gathers_per_param=gathers_per_param)
+            report["collectives"] = check_collectives(
+                report["census"], expectation, params, specs, exact=False)
+        if "donation" in analyzers:
+            named = self._audited()
+            after = storage_snapshot(named)
+            before = {p: dict(after[p], ptr=ptr) for (p, _), (ptr, _) in
+                      zip(named, self._step_entry)} \
+                if len(named) == len(self._step_entry) else {}
+            report["donation"] = donation_audit(before, after)
+        if "resharding" in analyzers:
+            given = [shape for _, shape in
+                     self._step_entry[:len(self._leaf_tensors)]]
+            wanted = [tuple(t.shape) for t in self._leaf_tensors]
+            update_specs = specs
+            if specs is not None:
+                wanted = [self.topology.shard_shape(self._full_shapes[p],
+                                                    specs[p])
+                          for p in self._float_paths]
+                # stages 1-2 all-gather each updated fsdp shard: a leaf
+                # split over fsdp for its update is a sharded param here
+                update_specs = {p: tuple(
+                    tuple(sorted(set(a) | set(b))) for a, b in zip(
+                        s, self._update_specs[p]))
+                    for p, s in specs.items()}
+            report["resharding"] = resharding_audit(
+                census=report["census"], params=params,
+                param_shardings=update_specs, given_in_shardings=given,
+                wanted_in_shardings=wanted)
+        if "dtype" in analyzers:
+            if self._dtype_audit is None:
+                raise RuntimeError(
+                    "the dtype audit rides a step counted op by op: enable "
+                    "flops_profiler (profile_step) or telemetry.mfu")
+            shapes = {tuple(s.shape) for _, s in _leaves(params)}
+            shapes |= {tuple(t.shape) for t in self._leaf_tensors}
+            report["dtype"] = self._dtype_audit.report(allowed_shapes=shapes)
+        return report
+
+    def _mfu_roofline(self, spec: Any = None) -> Dict[str, Any]:
+        """The MFU window's roofline table: the counted step's region
+        costs, and its comm census's bytes in the ``collective`` region
+        (JAX ``engine.py:1439-1442``). Under a process group the census
+        replaces the op counter's own count of the ``c10d`` calls there
+        (the same calls, counted by operand): the region is the census, as
+        in the JAX ledger."""
+        from ..analysis import roofline
+
+        if self._mfu_costs is None:
+            raise RuntimeError("no counted step for the MFU roofline — "
+                               "enable telemetry.mfu")
+        costs = roofline.region_costs(self._mfu_costs)
+        census_bytes = None
+        if self.distributed:
+            costs["collective"]["comm_bytes"] = 0.0
+            census_bytes = sum(e["bytes"] for e in self._mfu_census or ())
+        spec = spec or roofline.device_spec(self.device)
+        return roofline.roofline_table(costs, spec,
+                                       census_bytes=census_bytes)
 
     # ============================================================ the mesh
     def _build_topology(self, topology: Optional[MeshTopology]
@@ -1500,9 +1682,11 @@ class Engine:
         count, capture = self._step_watch(stepno)
         counter = None
         if count:
+            from ..analysis.dtype_audit import DtypeAudit
             from ..profiling.flops_profiler import OpCounter
 
             counter = OpCounter()
+            counter.observers.append(DtypeAudit())
         if capture:
             # the window holds exactly this step: the card's queue drained
             # first, so earlier steps' kernels stay out of it
@@ -1516,11 +1700,20 @@ class Engine:
                 # a rank that arrived (armed) and wedged inside the step:
                 # its own watchdog fires
                 fi.maybe_hang_step(self._fi_rank, stepno, phase="in")
+            self._open_census()
             with counter if counter is not None else contextlib.nullcontext():
                 out = self._train_step(batch, gas, gate)
-            if self.telemetry is not None and self.telemetry.cfg.sync_timing:
+            if comms_logger.enabled:
+                # opt-in: the straggler columns' wall-clock is the synced
+                # step's (JAX engine.py:1138-1144)
+                self._sync()
+                comms_logger.record_wall("train_batch",
+                                         time.perf_counter() - t_step)
+            elif self.telemetry is not None and \
+                    self.telemetry.cfg.sync_timing:
                 self._sync()   # device-accurate step spans
         finally:
+            self._last_census = comms_logger.close_window()
             if self._watchdog is not None:
                 self._watchdog.disarm(stepno)
             if capture and sys.exc_info()[0] is not None:
@@ -1610,6 +1803,8 @@ class Engine:
             raise RuntimeError("Only train_batch() and eval_batch() are "
                                "accessible in pipeline mode")
         self.timers(FORWARD_GLOBAL_TIMER).start()
+        if self._accum_count == 0 and self._pending is None:
+            self._open_census()
         batch = self._rank_rows(self._to_device(batch),
                                 self.config.train_micro_batch_size_per_gpu)
         loss, _ = self._loss_and_metrics(self.params, batch)
@@ -1659,6 +1854,7 @@ class Engine:
             out = self._apply_grads_dist(grads) if self.distributed \
                 else self._apply_grads(grads)
         out["loss"] = torch.stack(losses).mean()
+        self._last_census = comms_logger.close_window()
         self._zero_grads()
         self._accum_count = 0
         self._accum_losses = []
@@ -1723,6 +1919,8 @@ class Engine:
         if self.telemetry is not None:
             # Goodput/*, Memory/*, Compile/*, Ckpt/*, Health/*
             events.extend(self.telemetry.periodic_events(samples))
+        if comms_logger.enabled:
+            events.extend(comms_logger.summary_events(samples))
         if events:
             self.monitor.write_events(events)
 

@@ -72,8 +72,9 @@ def wire_bytes(size: int, itemsize: int, quantized: bool,
 
 
 def _gather_plain(group, n: int, x: torch.Tensor) -> torch.Tensor:
-    return comm._gather_stacked(group, n, x).reshape(
-        (n * x.shape[0],) + tuple(x.shape[1:]))
+    out = comm._gather_stacked(group, n, x)
+    comms_logger.record_call("all_gather", out, n)
+    return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
 
 
 def check_scope(zero_stage: int, axis_sizes: Dict[str, int],
@@ -115,6 +116,7 @@ def hierarchical_all_gather(x: torch.Tensor, n: int, h: int,
         gathered = gathered.reshape((h,) + tuple(sec.shape))
     else:
         gathered = comm._gather_stacked(intra, h, sec)
+        comms_logger.record_call("all_gather", gathered, h)
     # gathered[i] = concat_o slice[o h + i]; reorder to slice j at row j
     shard = x.shape[0]
     full = gathered.reshape((h, n // h, shard) + tuple(x.shape[1:]))
@@ -291,4 +293,5 @@ def _reduce_scatter(group, n: int, g: torch.Tensor) -> torch.Tensor:
     out = torch.empty((g.shape[0] // n,) + tuple(g.shape[1:]),
                       dtype=g.dtype, device=g.device)
     dist.reduce_scatter_tensor(out, g.contiguous(), group=group)
+    comms_logger.record_call("reduce_scatter", out, n)
     return out

@@ -21,9 +21,32 @@ within 4 lr (Adam divides fp16-rounded gradients, and an element whose
 gradient cancels to rounding noise takes a full step of either sign), and
 its ``eval_batch`` on them at 1e-4. ``eval_batch`` after training is held
 like the loss.
+
+The ``zero2`` and ``zero3`` legs also write the comm census
+(``Engine.emit_comm_census``: telemetry on, the last step counted op by
+op; ``tests/torch_dist_worker.run_census``). Its class totals are held
+EXACTLY to the JAX package's analytic ``expected_train_collectives`` on
+the JAX engine's params and shardings, in the port's schedule (ZeRO-3
+gathers a leaf in each micro-batch's forward and again for its backward,
+the embedding once; a reduce-scatter's result is the shard): the
+differences ``check_collectives(exact=True)`` names are the ones that
+schedule predicts, and ``exact=False`` holds. The census per opcode equals
+the plan from the shapes alone (``chip_smoke.py``'s ``dist_comm_bytes``,
+in result bytes), the JAX classifier on the same census gives EQUAL
+classes, and at ``zero2`` the param-gather class and the verdict EQUAL the
+JAX engine's ``graph_report``. The pod report over the four rank streams
+fills its per-class table (its ``bytes_match`` cross-check reads the same
+record window and is reported, not held), ``python -m
+deepspeedsyclsupport_tpu_torch.monitor.pod --json`` EQUALS
+``tools/pod_report.py --json`` on them, the MFU roofline's ``collective``
+region carries the census bytes, and every ``graph_report`` analyzer is
+``ok``.
 """
 import concurrent.futures as futures
+import dataclasses
+import importlib.util
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -106,6 +129,11 @@ EXTRA = {
 }
 # the JAX engine's results of each leg, computed while the ranks run
 _JAX = {}
+# legs that write the comm census, and the JAX side of their holds (its
+# analytic expectation on its own params and shardings; at zero2 its
+# graph_report's classes)
+CENSUS_LEGS = ("zero2", "zero3")
+_JAX_CENSUS = {}
 # under TP a closure over the caller's model, and a vocabulary tp does not
 # divide, raise at initialize
 TP_SCOPE = [{"config": _cfg(1, {"dp": 2, "tp": 2}), "model_kw": {},
@@ -190,6 +218,17 @@ def _jax_run(name):
                       float(bool(m["finite"])), float(m["loss_scale"])])
     ev = float(eng.eval_batch({k: jnp.asarray(v)
                                for k, v in batches[0].items()}))
+    if name in CENSUS_LEGS:
+        from deepspeedsyclsupport_tpu import analysis as JA
+
+        exp = JA.expected_train_collectives(
+            eng.params, eng.topology, eng.zero_stage,
+            param_shardings=eng.param_shardings)
+        out = {"expectation": dataclasses.asdict(exp)}
+        if name == "zero2":
+            chk = eng.graph_report(analyzers=("collectives",))["collectives"]
+            out["classes"], out["ok"] = chk.classes.summary(), chk.ok
+        _JAX_CENSUS[name] = out
     return (np.array(steps), int(eng.skipped_steps),
             jax.tree.map(np.asarray, eng.params), ev)
 
@@ -231,6 +270,7 @@ def run_ranks(tmp_path_factory, names, configs=()):
                      "pass_topology": mesh == "topology",
                      "local_params": params == "local",
                      "loader": name in LOADER_LEGS,
+                     "census": name in CENSUS_LEGS,
                      "batches": batch_paths[_batch_kind(name)]})
     # the JAX engine runs the legs beside the ranks (its compiles and
     # steps release the GIL); check_leg reads its results
@@ -248,6 +288,7 @@ def run_ranks(tmp_path_factory, names, configs=()):
     if configs:
         got["scope"] = [json.load(open(out / f"scope_rank{r}.json"))
                         for r in range(4)]
+    got["out"] = str(out)
     return got
 
 
@@ -328,3 +369,187 @@ def ranks(tmp_path_factory):
 @pytest.mark.parametrize("name", MODULE_LEGS)
 def test_leg_matches_jax_engine(ranks, name):
     check_leg(ranks, name)
+
+
+# ============================================================== the census
+def _census(ranks, name):
+    """Each rank's census record (``torch_dist_worker.run_census``)."""
+    return [json.loads(str(r["census"])) for r in ranks[name]]
+
+
+def _plan(c):
+    """The leg's plan: a flat tree of its full leaves (numpy zeros, keyed
+    by path), their specs and update specs (the same keys)."""
+    tree = {p: np.zeros(shape, np.float32) for p, shape, _, _ in c["plan"]}
+    specs = {(p,): tuple(tuple(e) for e in spec)
+             for p, _, spec, _ in c["plan"]}
+    update = {(p,): tuple(tuple(e) for e in u) for p, _, _, u in c["plan"]}
+    return tree, specs, update
+
+
+def _schedule(name, c):
+    """The leg's census per opcode and class from the JAX expectation and
+    the plan (``chip_smoke.py``'s ``dist_comm_bytes`` in result bytes):
+    ``{op: bytes}`` of the all-gathers, reduce-scatters and non-scalar
+    all-reduces, and the param-gather class's (count, bytes)."""
+    want = _JAX_CENSUS[name]["expectation"]
+    tree, specs, update = _plan(c)
+    gas, fsdp = c["gas"], 4
+    full = {p: a.nbytes for (p,), a in zip(specs, tree.values())}
+    split = {p for (p,), spec in specs.items()
+             if any("fsdp" in e for e in spec)}
+    G = want["grad_sync_bytes"]
+    if name == "zero3":
+        S = want["param_gather_bytes"]
+        assert S == sum(full[p] for p in split)   # the plan's = JAX's
+        E = sum(full[p] for p in split if p.endswith("embedding"))
+        n = len(split) - sum(p.endswith("embedding") for p in split)
+        ops = {"all-gather": gas * (2 * S - E),
+               "reduce-scatter": gas * S // fsdp, "all-reduce": G - S}
+        return ops, (gas * (2 * n + (len(split) - n)), gas * (2 * S - E))
+    U = sum(full[p] for (p,), u in update.items()
+            if any("fsdp" in e for e in u))
+    return ({"all-gather": U, "reduce-scatter": U // fsdp,
+             "all-reduce": G - U}, (0, 0))
+
+
+@pytest.mark.parametrize("name", CENSUS_LEGS)
+def test_census_equals_the_jax_expectation_in_the_port_schedule(ranks, name):
+    """Counts and bytes exact. Every rank writes the same census."""
+    from deepspeedsyclsupport_tpu_torch import analysis as A
+    from deepspeedsyclsupport_tpu_torch.comm.hlo_comms import (
+        summarize_collectives)
+
+    cs = _census(ranks, name)
+    c = cs[0]
+    assert all(r["payload"] == c["payload"] for r in cs)
+    assert c["payload"]["group_size"] == c["payload"]["n_devices"] == 4
+    want = _JAX_CENSUS[name]["expectation"]
+    ops, (pg_count, pg_bytes) = _schedule(name, c)
+    # the census per opcode: the plan from the shapes alone
+    summary = summarize_collectives(e for e in c["window"]
+                                    if e["bytes"] > 64)
+    assert {op: v["total_bytes"] for op, v in summary.items()} == ops
+    classes = c["payload"]["classes"]
+    assert (classes["param_gather"]["count"],
+            classes["param_gather"]["total_bytes"]) == (pg_count, pg_bytes)
+    rest = ops["reduce-scatter"] + ops["all-reduce"] + (
+        ops["all-gather"] if name == "zero2" else 0)
+    assert classes["grad_sync"]["total_bytes"] + \
+        classes["other"]["total_bytes"] == rest
+    # the port's expectation on its per-layer tree: the JAX engine's bytes
+    tree, specs, _ = _plan(c)
+    topo = type("T", (), {"axis_sizes": {"data": 1, "fsdp": 4}})()
+    exp = A.expected_train_collectives(tree, topo, int(name[-1]),
+                                       param_shardings=specs)
+    assert (exp.param_gather_bytes, exp.grad_sync_bytes, exp.group_size) \
+        == (want["param_gather_bytes"], want["grad_sync_bytes"],
+            want["group_size"])
+    # exact: the differences the schedule predicts, by name
+    chk = A.check_collectives(c["window"], exp, tree, specs, exact=True)
+    gs, other = (classes["grad_sync"]["total_bytes"],
+                 classes["other"]["total_bytes"])
+    named = []
+    if name == "zero3":
+        named += [f"param_gather count {pg_count} != expected "
+                  f"{exp.param_gather_count}",
+                  f"param_gather bytes {pg_bytes} != expected "
+                  f"{exp.param_gather_bytes}"]
+    named.append(f"grad_sync bytes {gs} != expected {exp.grad_sync_bytes}")
+    if other:
+        named.append(f"unclassified collective traffic {other} B exceeds "
+                     f"budget 0 B (resharding suspect — see "
+                     f"resharding_audit)")
+    assert chk.problems == named
+    # not exact, at the schedule's gathers (2 x gas): the engine's verdict
+    assert c["ok"]["collectives"] and c["problems"] == []
+    assert c["expectation"]["param_gather_bytes"] == (
+        2 * c["gas"] * exp.param_gather_bytes)
+
+
+@pytest.mark.parametrize("name", CENSUS_LEGS)
+def test_census_classes_equal_the_jax_classifier(ranks, name):
+    """The JAX classifier and checker on the port's census and tree."""
+    from deepspeedsyclsupport_tpu import analysis as JA
+    from deepspeedsyclsupport_tpu_torch import analysis as A
+    from tests.test_torch_analysis import _jax_shardings
+
+    c = _census(ranks, name)[0]
+    tree, specs, _ = _plan(c)
+    jsh = _jax_shardings(tree, specs, {"data": 1, "fsdp": 4})
+    got = A.classify_collectives(c["window"], tree, specs)
+    assert got.summary() == c["payload"]["classes"]
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        JA.classify_collectives(c["window"], tree, jsh))
+    topo = type("T", (), {"axis_sizes": {"data": 1, "fsdp": 4}})()
+    for exact in (True, False):
+        p = A.check_collectives(c["window"], A.expected_train_collectives(
+            tree, topo, int(name[-1]), specs), tree, specs, exact=exact)
+        j = JA.check_collectives(c["window"], JA.expected_train_collectives(
+            tree, topo, int(name[-1]), jsh), tree, jsh, exact=exact)
+        assert (p.ok, p.problems) == (j.ok, j.problems)
+
+
+def test_zero2_census_equals_the_jax_graph_report(ranks):
+    """The JAX engine's compiled zero2 step (its own census test holds
+    exact=False): the same empty param-gather class and the same verdict.
+    Its grad-sync and other classes are XLA's combined all-reduces (a
+    tuple of leaves a collective), not comparable class by class."""
+    c = _census(ranks, "zero2")[0]
+    j = _JAX_CENSUS["zero2"]
+    assert c["payload"]["classes"]["param_gather"] == \
+        j["classes"]["param_gather"] == {"count": 0, "total_bytes": 0}
+    assert c["ok"]["collectives"] is j["ok"] is True
+
+
+@pytest.mark.parametrize("name", CENSUS_LEGS)
+def test_graph_report_and_mfu_roofline_on_the_legs(ranks, name):
+    """Every analyzer ``ok``; the roofline's collective region is the
+    counted step's census; the straggler columns reduced over the world."""
+    cs = _census(ranks, name)
+    for c in cs:
+        assert all(c["ok"].values()), c["reports"]
+        assert c["roofline_collective_bytes"] == c["mfu_census_bytes"] == \
+            sum(e["bytes"] for e in c["window"])
+    rows = [[ln.split() for ln in c["straggler"].splitlines()
+             if ln.startswith("train_batch")][0] for c in cs]
+    assert len({(r[2], r[3]) for r in rows}) == 1   # min, max: the world's
+    for r in rows:
+        assert float(r[2]) <= float(r[1]) <= float(r[3])
+
+
+def _pod_tool():
+    spec = importlib.util.spec_from_file_location(
+        "_pod_report", os.path.join(os.path.dirname(__file__), "..",
+                                    "tools", "pod_report.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("name", CENSUS_LEGS)
+def test_pod_report_fills_the_class_table(ranks, name, tmp_path, capsys):
+    from deepspeedsyclsupport_tpu_torch.monitor import pod
+
+    d = os.path.join(ranks["out"], f"pod_{name}")
+    rep = pod.pod_report_from_paths([d])
+    got = rep.to_dict()
+    assert pod.validate_pod_report(got) == []
+    assert got["ranks"] == [0, 1, 2, 3] and got["n_steps"] == STEPS
+    classes = got["decomposition"]["classes"]
+    census = _census(ranks, name)[0]["payload"]["classes"]
+    assert {k: (v["count"], v["bytes_per_step"])
+            for k, v in classes.items()} == \
+        {k: (v["count"], v["total_bytes"]) for k, v in census.items()}
+    # the cross-check reads the same record window: reported, not held
+    assert rep.bytes_match is True
+    # the port's CLI and the tool on the same streams: EQUAL
+    outs = []
+    for main in (pod.main, _pod_tool().main):
+        path = tmp_path / f"{len(outs)}.json"
+        capsys.readouterr()
+        assert main([d, "--json", str(path)]) == 0
+        outs.append((json.loads(path.read_text()),
+                     capsys.readouterr().out.replace(str(path), "")))
+    assert outs[0] == outs[1]
+    assert "no comm/census record" not in outs[0][1]

@@ -378,6 +378,37 @@ def _tree_np(tree):
     return tree.detach().numpy() if isinstance(tree, torch.Tensor) else tree
 
 
+def run_census(eng):
+    """The last step's census and analyzers (``Engine.emit_comm_census``,
+    ``graph_report``), the roofline's collective bytes, the plan (each
+    leaf's full shape and spec), the straggler table; the telemetry
+    stream closed (the pod report reads it)."""
+    payload = eng.emit_comm_census()
+    rep = eng.graph_report()
+    table = eng._mfu_roofline()
+    out = {"payload": payload, "window": rep["census"],
+           "ok": {k: rep[k].ok for k in ("collectives", "donation",
+                                         "resharding", "dtype")},
+           "problems": rep["collectives"].problems,
+           "expectation": {k: getattr(rep["collectives"].expectation, k)
+                           for k in ("param_gather_count",
+                                     "param_gather_bytes", "grad_sync_count",
+                                     "grad_sync_bytes", "group_size")},
+           "reports": {k: rep[k].report() for k in (
+               "collectives", "donation", "resharding", "dtype")},
+           "roofline_collective_bytes":
+               table["regions"]["collective"]["comm_bytes"],
+           "mfu_census_bytes": sum(e["bytes"] for e in eng._mfu_census),
+           "plan": [["/".join(map(str, p)), list(eng._full_shapes[p]),
+                     [list(e) for e in eng._specs[p]],
+                     [list(e) for e in eng._update_specs[p]]]
+                    for p in eng._full_shapes],
+           "gas": eng.gradient_accumulation_steps(),
+           "straggler": comms_logger.log_summary(show_straggler=True)}
+    eng.telemetry.close()
+    return out
+
+
 def run_train(spec, rank, out):
     from deepspeedsyclsupport_tpu_torch import build_model, params_from_jax
     from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
@@ -404,6 +435,13 @@ def run_train(spec, rank, out):
         loss_fn = None
         if leg.get("loss"):
             model, loss_fn = custom_loss(leg["loss"], model)
+        if leg.get("census"):
+            # telemetry into a pod stream directory; the last step counted
+            # op by op (the MFU roofline and the dtype audit ride it)
+            cfg = dict(cfg, comms_logger={"enabled": True}, telemetry={
+                "enabled": True, "output_dir": os.path.join(
+                    out, f"pod_{name}"),
+                "mfu": {"enabled": True, "step": leg["steps"] + 1}})
         eng, *_ = initialize(model=model, params=params, config=cfg,
                              loss_fn=loss_fn, topology=topo, device="cpu")
         if leg.get("load_state"):
@@ -460,6 +498,7 @@ def run_train(spec, rank, out):
                           float(bool(m["finite"])), float(m["loss_scale"])]
                          + ([float(m["lm_loss"]), float(m["moe_aux_loss"])]
                             if "moe_aux_loss" in m else []))
+        census = run_census(eng) if leg.get("census") else None
         full = gather_params(eng)
         comms_logger.configure(enabled=False)
         # every layout saves across ranks: the tag's params, read back on
@@ -471,6 +510,8 @@ def run_train(spec, rank, out):
                "comms": np.array(json.dumps(comms)),
                "skipped": np.array(eng.skipped_steps),
                "eval": np.array(float(eng.eval_batch(batches[0])))}
+        if census is not None:
+            res["census"] = np.array(json.dumps(census))
         for i, (lg, ex, pos, keep, cap) in enumerate(routes):
             res[f"route/{i}/logits"] = lg.numpy()
             res[f"route/{i}/expert"] = ex.numpy()
