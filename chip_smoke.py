@@ -286,6 +286,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1552,7 +1553,8 @@ def serve_rank_child(torch, np, spec_path):
     comm.init_distributed(device_type=spec["device"],
                           timeout_s=SERVE_TP_TIMEOUT_S)
     rank, world = comm.get_rank(), comm.get_world_size()
-    out = {"rank": rank, "backend": tdist.get_backend(), "legs": {}}
+    out = {"rank": rank, "backend": tdist.get_backend(), "legs": {},
+           "session_legs": {}}
     comms_logger.configure(enabled=True)
     for name, (which, axes, engine) in spec["legs"].items():
         model = serve_tp_model(torch, which)
@@ -1578,6 +1580,7 @@ def serve_rank_child(torch, np, spec_path):
                 torch, np, eng, model.config.vocab_size, engine == "v1")
         finally:
             undo()
+        shards = eng.params
         del eng
         want_bytes, want_launches = serve_tp_plan(model.config, axes,
                                                   forwards, engine)
@@ -1593,6 +1596,12 @@ def serve_rank_child(torch, np, spec_path):
                           "paged_decode_attention", "flash_fwd")},
             "forwards": len(forwards),
             "peak": torch.cuda.max_memory_allocated()}
+        for sname, (w, s_axes, s_engine) in spec.get("session_legs",
+                                                     {}).items():
+            if (w, s_axes) == (which, axes):   # (session-tp (b))
+                out["session_legs"][sname] = session_tp_rank_leg(
+                    torch, np, model, topo, shards, s_engine, rank)
+        del shards
         reset_world_topology()
         gc.collect()
         torch.cuda.empty_cache()
@@ -1682,7 +1691,8 @@ def serve_tp_ranks(torch, np):
             concurrent.futures.ThreadPoolExecutor(1) as pool:
         t0 = time.perf_counter()
         spawned = pool.submit(spawn_dist_ranks,
-                              {"device": DEV, "legs": SERVE_TP_LEGS}, d,
+                              {"device": DEV, "legs": SERVE_TP_LEGS,
+                               "session_legs": SESSION_TP_LEGS}, d,
                               flag="--serve-rank", result="serve",
                               timeout=SERVE_TP_TIMEOUT_S)
         # the world-1 references while the ranks start (their times are
@@ -1696,6 +1706,10 @@ def serve_tp_ranks(torch, np):
                 refs[(which, engine)] = serve_tp_drive(
                     torch, np, eng, model.config.vocab_size, engine == "v1")
                 del eng
+            for name, (w, _axes, engine) in SESSION_TP_LEGS.items():
+                if w == which:    # (session-tp (b)'s world-1 references)
+                    refs[name] = session_tp_reference(torch, np, model,
+                                                      params, engine)
             del params
             gc.collect()
             torch.cuda.empty_cache()
@@ -1747,8 +1761,11 @@ def serve_tp_ranks(torch, np):
     log("serve-tp", f"(b) {DIST_WORLD} ranks, backend {ranks[0]['backend']} "
         f"(decode bodies eager), ran in {wall:.1f} s beside the world-1 "
         f"references")
+    session_b = {name: {"ref": refs[name],
+                        "ranks": [rk["session_legs"][name] for rk in ranks]}
+                 for name in SESSION_TP_LEGS}
     return (v2_launches, v1_launches, refs[("llama", "kernel")][1],
-            refs[("llama", "v1")][1])
+            refs[("llama", "v1")][1], session_b)
 
 
 def serve_tp_v1_full(torch, np, model, params, v2_toks4, v1_toks4):
@@ -1829,14 +1846,480 @@ def serve_tp_v1_full(torch, np, model, params, v2_toks4, v1_toks4):
 def phase_serve_tp(torch, np, model, params, want):
     """Serving across ranks: (a) :func:`serve_tp_nccl_world1`, (b)
     :func:`serve_tp_ranks`, (c) :func:`serve_tp_v1_full`. Returns ``(v2
-    launches, v1 flash launches)`` for the kernels line."""
+    launches, v1 flash launches)`` for the kernels line and the session
+    legs the ranks ran for phase ``session-tp`` (b)."""
     a = serve_tp_nccl_world1(torch, np, model, params, want)
-    v2, v1, v2_toks4, v1_toks4 = serve_tp_ranks(torch, np)
+    v2, v1, v2_toks4, v1_toks4, session_b = serve_tp_ranks(torch, np)
     for k in ("ragged_prefill_attention", "paged_decode_attention"):
         v2[k] += a.get(k, 0)
     c = serve_tp_v1_full(torch, np, model, params, v2_toks4, v1_toks4)
     v1["flash_fwd"] += c["flash_fwd"]
-    return v2, v1["flash_fwd"]
+    return v2, v1["flash_fwd"], session_b
+
+
+# -------------------------------------------------------------- session-tp
+SESSION_TICK = (-1e6, 0.01)   # the synthetic clock: start, seconds a read
+SESSION_TP_REQUESTS = 6
+SESSION_TP_NEW = 12
+SESSION_TP_KW = dict(SERVE_TP_KW, num_blocks=8, decode_steps_per_dispatch=4)
+SESSION_TP_POLICY = {"preempt_policy": "requeue"}
+# (b)'s legs on serve-tp's four ranks: leg -> (model, mesh axes, prefill
+# attention of the v2 engine)
+SESSION_TP_LEGS = {"session_tp2": ("llama", {"tp": 2}, "flash")}
+POD_LAYERS = 2
+POD_PROMPTS = 6
+POD_NEW = 16
+POD_KILL_TOKENS = 4          # tokens seen from each of replica 0's streams
+POD_ENGINE = {"dtype": "float32", "block_size": 64, "max_context": 512,
+              "max_tokens_per_batch": 256, "max_sequences": 4,
+              "num_blocks": 32}
+POD_TIMEOUT_S = 300
+
+
+class TickClock:
+    """A synthetic clock: ``dt`` seconds later at every read, so sessions
+    that read it in the same order see the same times."""
+
+    def __init__(self, t, dt):
+        self.t, self.dt = float(t), float(dt)
+
+    def __call__(self):
+        self.t += self.dt
+        return self.t
+
+
+def other_clock():
+    """The clock of every rank but 0: values no rank-0 clock reads (the
+    session takes rank 0's)."""
+    return TickClock(7e8, 13.0)
+
+
+def session_stream(events):
+    return [[e.kind, e.uid, e.t, [int(x) for x in e.tokens], e.reason]
+            for e in events]
+
+
+def session_tp_traffic(np, vocab):
+    """(b)'s traffic: ``SESSION_TP_REQUESTS`` prompts of 64-256 tokens at
+    once, two tenants, ``SESSION_TP_NEW`` new tokens each, seed 7."""
+    rng = np.random.RandomState(7)
+    lens = rng.randint(64, 257, SESSION_TP_REQUESTS)
+    return [(0.0, i, rng.randint(1, vocab, n).tolist(), SESSION_TP_NEW,
+             "ab"[i % 2]) for i, n in enumerate(lens)]
+
+
+def session_tp_engine(torch, model, params, engine, topology=None):
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2
+
+    return InferenceEngineV2(model, params, device=DEV, topology=topology,
+                             dtype=torch.float32, prefill_attn=engine,
+                             decode_attn="kernel", **SESSION_TP_KW)
+
+
+def session_tp_run(torch, np, eng, clock):
+    """``ServingSession`` over ``eng`` under (b)'s traffic without SLAs
+    (victims requeued, fused rounds): its event stream, counters, fused
+    and all decode rounds, and the seconds it took."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession)
+
+    sess = ServingSession(eng, ServingPolicyConfig(**SESSION_TP_POLICY),
+                          clock=clock)
+    t0 = time.perf_counter()
+    events, _v, _s, _span = drive_session(
+        sess, session_tp_traffic(np, eng.model.config.vocab_size),
+        sla=False, sleep=False)
+    secs = time.perf_counter() - t0
+    rounds = [r["data"].get("mode") for r in sess.trace_log
+              if r["data"].get("stage") == "decode_round"]
+    sess.close()
+    return {"events": session_stream(events), "counters": dict(sess.counters),
+            "rounds": [rounds.count("fused"), len(rounds)], "s": secs}
+
+
+def session_tp_reference(torch, np, model, params, engine):
+    """(b)'s world-1 references: the session at a world of one under the
+    synthetic clock, and ``generate`` of each prompt alone."""
+    eng = session_tp_engine(torch, model, params, engine)
+    ref = session_tp_run(torch, np, eng, TickClock(*SESSION_TICK))
+    ref["generate"] = {
+        str(uid): eng.generate([p], max_new_tokens=n)[0]
+        for _t, uid, p, n, _tn in session_tp_traffic(
+            np, model.config.vocab_size)}
+    del eng
+    return json.loads(json.dumps(ref))
+
+
+def session_tp_rank_leg(torch, np, model, topo, shards, engine, rank):
+    """One rank of (b), in serve-tp's ``--serve-rank`` children after the
+    serve leg of the same model and mesh: an engine on that leg's shards
+    (``params_sharded``), then the session under the synthetic clock and
+    under rank 0's ``time.perf_counter``, every other rank's session
+    reading :func:`other_clock`; the kernels' launches around both."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    eng = InferenceEngineV2(model, shards, device=DEV, topology=topo,
+                            params_sharded=True, dtype=torch.float32,
+                            prefill_attn=engine, decode_attn="kernel",
+                            **SESSION_TP_KW)
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    tick = session_tp_run(torch, np, eng, TickClock(*SESSION_TICK)
+                          if rank == 0 else other_clock())
+    real = session_tp_run(torch, np, eng, time.perf_counter
+                          if rank == 0 else other_clock())
+    launches = dict(pa.LAUNCHES, flash_fwd=fa.LAUNCHES["flash_fwd"])
+    del eng
+    return {"tick": tick, "real": real, "launches": launches,
+            "sizes": topo.axis_sizes}
+
+
+def terminal_once(verdicts, events):
+    """uid -> terminal outcomes (a submit-time shed or a finish / shed
+    event) for every uid whose count is not 1."""
+    terminal = {uid: int(v == "shed") for uid, v in verdicts.items()}
+    for e in events:
+        if e[0] in ("finish", "shed"):
+            terminal[e[1]] = terminal.get(e[1], 0) + 1
+    return {u: n for u, n in terminal.items() if n != 1}
+
+
+def session_tp_world1(torch, np, model, params):
+    """(a): the session phase's traffic (48 requests, two tenants, a
+    ``SESSION_BLOCKS``-block pool, K = 8, the prefix cache, victims
+    requeued, the SLAs) at llama2-7b full size, bf16, under the synthetic
+    clock, once over the single-card engine and once over
+    ``InferenceEngineV2(topology=)`` at a world of one on NCCL (decode as
+    graph replays). Holds: the event streams (tokens included), the submit
+    verdicts and the counters EQUAL; one terminal outcome per request;
+    every NCCL decode a replay. Returns the launches of both runs."""
+    from deepspeedsyclsupport_tpu_torch import comm
+    from deepspeedsyclsupport_tpu_torch.comm.topology import (
+        build_topology, reset_world_topology)
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession)
+    from deepspeedsyclsupport_tpu_torch.ops import flash_attention as fa
+    from deepspeedsyclsupport_tpu_torch.ops import paged_attention as pa
+
+    traffic = session_traffic(np, model.config.vocab_size)
+    res, launches = {}, {}
+    for arm in ("card", "nccl"):
+        kw = {}
+        if arm == "nccl":
+            comm.init_distributed(
+                init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                rank=0, device_type="cuda")
+            kw["topology"] = build_topology(dp=1)
+        try:
+            eng = serve_engine(torch, model, params,
+                               decode_steps_per_dispatch=8,
+                               num_blocks=SESSION_BLOCKS, **kw)
+            t0 = time.perf_counter()
+            eng.warmup(fused_ladder=True)
+            warm = time.perf_counter() - t0
+            sess = ServingSession(eng, ServingPolicyConfig(
+                prefix_cache={"enabled": True}, preempt_policy="requeue"),
+                clock=TickClock(*SESSION_TICK))
+            pa.reset_launch_counts()
+            fa.reset_launch_counts()
+            replays0 = eng.graph_replays
+            t0 = time.perf_counter()
+            events, verdicts, _sub, _span = drive_session(sess, traffic,
+                                                          sleep=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[arm] = dict(pa.LAUNCHES,
+                                 flash_fwd=fa.LAUNCHES["flash_fwd"])
+            res[arm] = {"events": session_stream(events),
+                        "verdicts": verdicts,
+                        "counters": dict(sess.counters), "s": secs,
+                        "warm": warm,
+                        "replays": eng.graph_replays - replays0,
+                        "eager": eng.eager_decodes}
+            sess.close()
+            del eng, sess
+        finally:
+            if arm == "nccl":
+                reset_world_topology()
+                comm.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+    card, nccl = res["card"], res["nccl"]
+    for key in ("events", "verdicts", "counters"):
+        if card[key] != nccl[key]:
+            raise AssertionError(f"session-tp (a): {key} over the world-1 "
+                                 f"NCCL engine differ from the single "
+                                 f"card's: {nccl[key]} vs {card[key]}")
+    bad = terminal_once(card["verdicts"], card["events"])
+    if len(card["verdicts"]) != SESSION_REQUESTS or bad:
+        raise AssertionError(f"session-tp (a): terminal outcomes {bad}")
+    if nccl["eager"] or not nccl["replays"]:
+        raise AssertionError(f"session-tp (a): NCCL decodes {nccl}")
+    for arm, got in launches.items():
+        if got["ragged_prefill_attention"] < 1 or \
+                got["paged_decode_attention"] < 1:
+            raise AssertionError(f"session-tp (a) {arm}: launches {got}")
+    c = card["counters"]
+    n_tok = sum(len(e[3]) for e in card["events"] if e[0] == "token")
+    log("session-tp", f"(a) {SERVE_MODEL} full depth bf16, the session "
+        f"cell's traffic ({SESSION_REQUESTS} requests, 2 tenants, "
+        f"{SESSION_BLOCKS} KV blocks, K=8, prefix cache, victims requeued, "
+        f"the SLAs) under a synthetic clock ({SESSION_TICK[1]} s a read): "
+        f"single card and world-1 NCCL (topology {{'data': 1}}) give EQUAL "
+        f"event streams ({len(card['events'])} events, {n_tok} tokens), "
+        f"verdicts and counters {c}; one terminal outcome per request; "
+        f"NCCL: {nccl['replays']} graph replays, 0 eager; seconds card "
+        f"{card['s']:.2f} (warmup {card['warm']:.1f}), NCCL "
+        f"{nccl['s']:.2f} (warmup {nccl['warm']:.1f}); launches card "
+        f"{launches['card']}, NCCL {launches['nccl']}")
+    return {k: launches["card"][k] + launches["nccl"][k]
+            for k in launches["card"]}
+
+
+def session_tp_ranks_hold(torch, np, session_b):
+    """(b)'s holds on what serve-tp's four ranks ran: under rank 0's
+    ``time.perf_counter`` every rank's event stream EQUALS rank 0's; under
+    the synthetic clock every rank's EQUALS the world-1 session's; each
+    completed request's tokens EQUAL ``generate`` of its prompt alone.
+    Returns the launches summed over the ranks."""
+    launches = {}
+    for name, leg in session_b.items():
+        ref, ranks = leg["ref"], leg["ranks"]
+        which, axes, engine = SESSION_TP_LEGS[name]
+        for r, rk in enumerate(ranks):
+            if rk["real"]["events"] != ranks[0]["real"]["events"] or \
+                    rk["real"]["counters"] != ranks[0]["real"]["counters"]:
+                raise AssertionError(f"session-tp (b) {name} rank {r}: "
+                                     f"the real-clock stream differs from "
+                                     f"rank 0's")
+            if rk["tick"]["events"] != ref["events"] or \
+                    rk["tick"]["counters"] != ref["counters"]:
+                raise AssertionError(f"session-tp (b) {name} rank {r}: the "
+                                     f"synthetic-clock stream "
+                                     f"{rk['tick']} vs world 1 {ref}")
+            for k, v in rk["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        for run in ("tick", "real"):
+            got = {}
+            for e in ranks[0][run]["events"]:
+                if e[0] == "token":
+                    got.setdefault(str(e[1]), []).extend(e[3])
+            done = [str(e[1]) for e in ranks[0][run]["events"]
+                    if e[0] == "finish" and e[4] in ("done", "eos")]
+            if not done or any(got[u] != ref["generate"][u] for u in done):
+                raise AssertionError(f"session-tp (b) {name} {run}: tokens "
+                                     f"{got} vs generate {ref['generate']}")
+        r0 = ranks[0]
+        if DEV == "cuda" and (r0["launches"]["paged_decode_attention"] < 1
+                              or (engine == "flash"
+                                  and r0["launches"]["flash_fwd"] < 1)):
+            raise AssertionError(f"session-tp (b) {name}: launches "
+                                 f"{r0['launches']}")
+        log("session-tp", f"(b) {name}: {SERVE_MODEL} widths, "
+            f"{SERVE_TP_LAYERS[which]} layers, fp32, prefill {engine}, mesh "
+            f"{r0['sizes']} on {len(ranks)} gloo ranks, "
+            f"{SESSION_TP_REQUESTS} requests of 2 tenants, "
+            f"{SESSION_TP_KW['num_blocks']} KV blocks, K="
+            f"{SESSION_TP_KW['decode_steps_per_dispatch']}: under rank 0's "
+            f"clock every rank's stream EQUALS rank 0's (counters "
+            f"{r0['real']['counters']}, rounds fused/all "
+            f"{r0['real']['rounds']}, {r0['real']['s']:.2f} s); under the "
+            f"synthetic clock every rank's EQUALS the world-1 session's "
+            f"(counters {ref['counters']}, {r0['tick']['s']:.2f} s vs world "
+            f"1 {ref['s']:.2f} s); completed requests' tokens EQUAL "
+            f"generate's; launches a rank {r0['launches']}")
+    return launches
+
+
+def pod_prompts(np, vocab):
+    rng = np.random.RandomState(9)
+    return [rng.randint(1, vocab, n).tolist()
+            for n in rng.randint(64, 257, POD_PROMPTS)]
+
+
+def session_tp_pods(np):
+    """(c): a ``ReplicaPool`` of two ``ProcessReplica``s, each a pod of two
+    gloo ranks (``topology`` tp2) serving llama2-7b widths at
+    ``POD_LAYERS`` layers in float32 from the model's default seed, behind
+    a ``FleetRouter``; once the router has seen ``POD_KILL_TOKENS`` tokens
+    of each of replica 0's streams, rank 1 of replica 0 is SIGKILLed. Its
+    supervisor tears the pod down and relaunches it, and rank 0 replays
+    its journal. Runs in a thread of the parent (the parent only drives
+    the router). Returns what the holds read."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        load_journal, reconstruct_outputs)
+    from deepspeedsyclsupport_tpu_torch.inference.v2.fleet import (
+        FleetConfig, FleetRequest, FleetRouter, ProcessReplica, ReplicaPool,
+        read_claims)
+    from deepspeedsyclsupport_tpu_torch.models import get_config
+    from deepspeedsyclsupport_tpu_torch.monitor.telemetry import Heartbeat
+
+    prompts = pod_prompts(np, get_config(SERVE_MODEL).vocab_size)
+    root = tempfile.mkdtemp(prefix="dstpu_pods_")
+    worker = {"model": SERVE_MODEL, "num_layers": POD_LAYERS,
+              "dtype": "float32", "device": DEV, "engine": dict(POD_ENGINE),
+              "topology": {"tp": 2}}
+    reps = [ProcessReplica(str(i), os.path.join(root, f"replica{i}"),
+                           dict(worker), supervisor_args=[
+                               "--heartbeat-timeout", "120",
+                               "--restart-limit", "1",
+                               "--backoff-seconds", "0"])
+            for i in range(2)]
+    pool = ReplicaPool(reps)
+    router = FleetRouter(reps, FleetConfig(
+        affinity="none", log_path=os.path.join(root, "router.jsonl")))
+    t0 = time.perf_counter()
+    pool.start()
+    try:
+        if not pool.wait_ready(timeout=POD_TIMEOUT_S):
+            raise AssertionError("session-tp (c): the pods never became "
+                                 "ready")
+        ready_s = time.perf_counter() - t0
+        for u, p in enumerate(prompts):
+            outcome, _rid = router.submit(FleetRequest(
+                uid=u, tokens=p, max_new_tokens=POD_NEW))
+            if outcome != "routed":
+                raise AssertionError(f"session-tp (c): uid {u} {outcome}")
+        seen, closes = Counter(), Counter()
+        victims, t_kill, first_replay, killed_pid = None, None, None, None
+        deadline = time.monotonic() + POD_TIMEOUT_S
+        while not router.idle:
+            for ev in router.poll():
+                if ev.kind == "token":
+                    seen[ev.uid] += len(ev.tokens)
+                    if victims and first_replay is None and \
+                            ev.uid in victims and ev.t > t_kill:
+                        first_replay = ev.t - t_kill
+                else:
+                    closes[ev.uid] += 1
+            if victims is None:
+                mine = [u for u, f in router.flights.items()
+                        if f.replica_id == "0"]
+                if mine and all(seen[u] >= POD_KILL_TOKENS for u in mine):
+                    victims = sorted(mine)
+                    killed_pid = Heartbeat.read(os.path.join(
+                        reps[0].journal_dir, "heartbeat_rank1.json"))["pid"]
+                    os.kill(killed_pid, signal.SIGKILL)
+                    t_kill = time.time()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"session-tp (c): "
+                                     f"{len(router.flights)} streams still "
+                                     f"in flight")
+            time.sleep(0.01)
+        served_s = time.perf_counter() - t0
+        stats = router.stats()
+        health = reps[0].health()
+        router.close()
+        rcs = pool.stop(timeout=120.0)
+        outs = []
+        for r in reps:
+            with open(r.spec["out"]) as f:
+                outs.append(json.load(f))
+        states, _ = load_journal([r.journal_dir for r in reps])
+        closed = journal_closes([r.journal_dir for r in reps])
+        claimed = sorted(read_claims(reps[0].journal_dir).uids)
+        files = sorted(os.listdir(reps[0].journal_dir))
+    finally:
+        router.close()
+        pool.stop(timeout=60.0)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"prompts": prompts, "outputs": reconstruct_outputs(states),
+            "closes": closes, "journal_closes": closed,
+            "victims": victims, "killed_pid": killed_pid,
+            "first_replay": first_replay, "health": health, "rcs": rcs,
+            "outs": outs, "claimed": claimed, "stats": stats,
+            "ready_s": ready_s, "served_s": served_s, "files": files}
+
+
+def session_tp_pods_hold(torch, np, c):
+    """(c)'s holds: one terminal outcome per uid (router events and
+    journals); replica 0's supervisor relaunched its pod once (health
+    ``attempt`` 1, the second attempt); the streams the router had in
+    flight on replica 0 at the kill are exactly those rank 0 replayed (the
+    supervisor restarted the pod before the router would call it dead, so
+    no failover claim was needed: none was made); rank 0 alone journals,
+    both ranks beat; the merged outputs EQUAL a single-process world-1
+    ``generate`` of the prompts at the same depth. Returns the launches
+    both replicas' last incarnations reported."""
+    from deepspeedsyclsupport_tpu_torch import InferenceEngineV2, build_model
+
+    uids = list(range(POD_PROMPTS))
+    if not c["victims"]:
+        raise AssertionError("session-tp (c): replica 0 held no stream")
+    if any(c["closes"][u] != 1 or c["journal_closes"][u] != 1
+           for u in uids):
+        raise AssertionError(f"session-tp (c): closes {c['closes']}, "
+                             f"journals {c['journal_closes']}")
+    replayed = sorted(c["outs"][0]["recovery"]["replayed"])
+    if c["health"].get("attempt") != 1 or replayed != c["victims"] or \
+            c["claimed"]:
+        raise AssertionError(f"session-tp (c): health {c['health']}, "
+                             f"replayed {replayed}, in flight at the kill "
+                             f"{c['victims']}, claimed {c['claimed']}")
+    if any(rc != 0 for rc in c["rcs"].values()):
+        raise AssertionError(f"session-tp (c): supervisors exited "
+                             f"{c['rcs']}")
+    journals = [f for f in c["files"] if f.startswith("journal_rank")]
+    if any(not f.startswith("journal_rank0.") for f in journals) or \
+            not {"heartbeat_rank0.json", "heartbeat_rank1.json"} \
+            <= set(c["files"]):
+        raise AssertionError(f"session-tp (c): replica 0 files "
+                             f"{c['files']}")
+    model = build_model(SERVE_MODEL, num_layers=POD_LAYERS, dtype="float32")
+    eng = InferenceEngineV2(model, model.init_params(device=DEV),
+                            config=dict(POD_ENGINE), device=DEV)
+    want = eng.generate(c["prompts"], max_new_tokens=POD_NEW)
+    del eng
+    torch.cuda.empty_cache()
+    diff = [u for u in uids if c["outputs"].get(u) != want[u]]
+    if diff:
+        raise AssertionError(f"session-tp (c): outputs of {diff} differ "
+                             f"from world-1 generate")
+    launches = {}
+    for out in c["outs"]:
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log("session-tp", f"(c) 2 replicas, each a pod of 2 gloo ranks (tp2), "
+        f"{SERVE_MODEL} widths, {POD_LAYERS} layers, fp32, "
+        f"{POD_PROMPTS} prompts {[len(p) for p in c['prompts']]}, {POD_NEW} "
+        f"greedy tokens: ready in {c['ready_s']:.1f} s; SIGKILLed rank 1 "
+        f"(pid {c['killed_pid']}) of replica 0 with {len(c['victims'])} "
+        f"streams in flight {c['victims']}: its supervisor relaunched the "
+        f"pod (attempt {c['health']['attempt']}), rank 0 replayed "
+        f"{replayed}; kill -> first replayed token "
+        f"{c['first_replay']:.3f} s; served in {c['served_s']:.1f} s; one "
+        f"close per uid; merged outputs EQUAL world-1 generate; supervisor "
+        f"rcs {c['rcs']}; launches of the last incarnations {launches}; "
+        f"router {c['stats']['per_replica']}")
+    return launches
+
+
+def phase_session_tp(torch, np, model, params, session_b):
+    """The serving plane across ranks: (a) :func:`session_tp_world1`, (b)
+    :func:`session_tp_ranks_hold` (run inside serve-tp's spawn), (c)
+    :func:`session_tp_pods` (started first, in a thread, while (a) runs).
+    Returns the paged and flash launches of (a)-(c) for the kernels line."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pods = pool.submit(session_tp_pods, np)
+        try:
+            a = session_tp_world1(torch, np, model, params)
+        finally:
+            c = pods.result()
+    b = session_tp_ranks_hold(torch, np, session_b)
+    c = session_tp_pods_hold(torch, np, c)
+    keys = ("ragged_prefill_attention", "paged_decode_attention",
+            "flash_fwd")
+    total = {k: a.get(k, 0) + b.get(k, 0) + c.get(k, 0) for k in keys}
+    log("session-tp", f"launches (a) {a}, (b) {b}, (c) {c}: {total}")
+    return total
 
 
 PREFIX_HEAD = 1024
@@ -2014,27 +2497,30 @@ def session_traffic(np, vocab, burst=True):
              int(news[i]), "ab"[i % 2]) for i in range(n)]
 
 
-def drive_session(sess, traffic, sla=True):
-    """Submit each request at its arrival time (the session's clock) and
-    step the session until every request is done. Returns the events, the
-    submit verdicts, the submit times and the wall seconds."""
+def drive_session(sess, traffic, sla=True, sleep=True):
+    """Submit each request at its arrival time (the session's clock,
+    ``sess.now()``: rank 0's on every rank across ranks) and step the
+    session until every request is done. Returns the events, the submit
+    verdicts, the submit times and the seconds on the session's clock.
+    ``sleep=False`` (a synthetic clock, which advances as it is read):
+    wait for an arrival by reading the clock."""
     pending = list(traffic)
     events, verdicts, submitted = [], {}, {}
-    start = sess.clock()
+    start = sess.now()
     while pending or not sess.idle:
-        now = sess.clock()
+        now = sess.now()
         while pending and pending[0][0] <= now - start:
             _t, uid, toks, n, tenant = pending.pop(0)
-            submitted[uid] = sess.clock()
+            submitted[uid] = sess.now()
             verdicts[uid] = sess.submit(
                 uid, toks, n, tenant=tenant,
                 ttft_sla_s=SESSION_TTFT_SLA if sla else None,
                 rate_sla=SESSION_RATE_SLA if sla else None)
         if not sess.idle:
             events += sess.step()
-        elif pending:
-            time.sleep(max(0.0, pending[0][0] - (sess.clock() - start)))
-    return events, verdicts, submitted, sess.clock() - start
+        elif pending and sleep:
+            time.sleep(max(0.0, pending[0][0] - (sess.now() - start)))
+    return events, verdicts, submitted, sess.now() - start
 
 
 def delivered(events):
@@ -2490,6 +2976,21 @@ def live_cuda_tensors(torch, n=8):
             for nb, t in found[:n]]
 
 
+def journal_closes(dirs):
+    """uid -> ``serve/close`` records in the journals under ``dirs``."""
+    from collections import Counter
+
+    closes = Counter()
+    for d in dirs:
+        for name in os.listdir(d):
+            if name.startswith("journal_rank"):
+                with open(os.path.join(d, name)) as f:
+                    for line in f:
+                        if '"serve/close"' in line:
+                            closes[json.loads(line)["data"]["uid"]] += 1
+    return closes
+
+
 def phase_fleet(torch, np):
     """A ``ReplicaPool`` of two ``ProcessReplica``s (supervised workers, each
     serving llama2-7b at full width and depth in float32 from the model's
@@ -2641,14 +3142,7 @@ def phase_fleet(torch, np):
                                  f"{len(victims)}")
         states, _ = load_journal([r.journal_dir for r in reps])
         outs = reconstruct_outputs(states)
-        closes = Counter()
-        for r in reps:
-            for name in os.listdir(r.journal_dir):
-                if name.startswith("journal_rank"):
-                    with open(os.path.join(r.journal_dir, name)) as f:
-                        for line in f:
-                            if '"serve/close"' in line:
-                                closes[json.loads(line)["data"]["uid"]] += 1
+        closes = journal_closes([r.journal_dir for r in reps])
         if any(closes[u] != 1 for u in clean + killed):
             raise AssertionError(f"fleet: journal closes {dict(closes)}")
         diff = [i for i in range(FLEET_PROMPTS)
@@ -6853,8 +7347,10 @@ def main() -> int:
     model, params = serve_params(torch)
     launches, serve_outs = run(phase_serve, torch, np, model, params)
     run(phase_serve_fused, torch, np, model, params, serve_outs)
-    serve_tp_launches, v1_launches = run(phase_serve_tp, torch, np, model,
-                                         params, serve_outs)
+    serve_tp_launches, v1_launches, session_b = run(
+        phase_serve_tp, torch, np, model, params, serve_outs)
+    session_tp_launches = run(phase_session_tp, torch, np, model, params,
+                              session_b)
     run(phase_prefix, torch, np, model, params)
     run(phase_flash_prefill, torch, np, model, params, serve_outs)
     run(phase_session, torch, np, model, params)
@@ -6905,7 +7401,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "launches_serve_tp": serve_tp_launches[name]})
+            "launches_serve_tp": serve_tp_launches[name],
+            "launches_session_tp": session_tp_launches[name]})
     # the flash rows: times at the training path's shape (llama2-1b, bf16);
     # max_abs_err over every flash case and dtype of that kernel's outputs
     outputs = {"flash_fwd": ("o", "lse"), "flash_dq": ("dq",),
@@ -6927,6 +7424,7 @@ def main() -> int:
             "launches_dist_zeropp": zpp_launches[name],
             "launches_dist_ckpt": ckpt_launches[name],
             **({"launches_serve_tp": serve_tp_launches[name],
+                "launches_session_tp": session_tp_launches[name],
                 "launches_v1": v1_launches} if name == "flash_fwd" else {})})
     # the reduced dbias: times at the MSA shape (bf16); launches over the
     # evoformer phase's runs; max_abs_err over its dPair checks

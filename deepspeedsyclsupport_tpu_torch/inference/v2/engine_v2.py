@@ -41,7 +41,9 @@ the same collectives over one rank. Under NCCL the decode bodies are CUDA
 graphs holding the c10d collectives; under gloo (ranks sharing one card,
 or the CPU) they run eagerly, because gloo's collectives run on the host
 and cannot be captured; the choice is made once, from the backend, and
-counted (``graph_replays``, ``eager_decodes``).
+counted (``graph_replays``, ``eager_decodes``). The one host reading
+that steers the schedule, the aging stamp of slack ordering, is rank 0's
+clock on every rank (``comm.rank0``).
 """
 import dataclasses
 import time
@@ -125,6 +127,14 @@ class InferenceEngineV2:
         self.topology, self.plan, self._specs = serving_mesh(model, topology)
         self.world = 1 if self.topology is None \
             else self.topology.world_size()
+        # above one rank, host readings that steer the schedule (the aging
+        # stamps here, the SLA session's clock) are rank 0's, broadcast over
+        # a gloo group of their own
+        self.rank0 = None
+        if self.world > 1:
+            from ...comm.rank0 import Rank0
+
+            self.rank0 = Rank0()
         self.params = place_inference_params(
             params, cfg.dtype, self.device,
             None if params_sharded else self.topology, self._specs)
@@ -167,6 +177,13 @@ class InferenceEngineV2:
                        {"backend": backend, "has_atoms": True})
         self._use_atoms = bool(spec.metadata.get("needs_atoms"))
         _select("decode_attn", cfg.decode_attn, {"backend": backend})
+
+    def _clock(self) -> float:
+        """The monotonic clock of the aging stamps and the slack
+        eviction: ``time.perf_counter``, rank 0's across ranks."""
+        if self.rank0 is None:
+            return time.perf_counter()
+        return self.rank0.value(time.perf_counter)
 
     @staticmethod
     def _backend() -> str:
@@ -526,7 +543,7 @@ class InferenceEngineV2:
                     self._ensure_writable(d, n)
             logits = self._run(chunks)
             self._tick += 1
-            served_s = time.perf_counter()  # aging base for slack ordering
+            served_s = self._clock()  # aging base for slack ordering
             for slot, (d, n) in enumerate(chunks):
                 d.last_scheduled = self._tick
                 d.last_service_s = served_s
@@ -558,7 +575,7 @@ class InferenceEngineV2:
         if policy == "slack":
             from .scheduler import slack_of
 
-            now = time.perf_counter()
+            now = self._clock()
             return min(range(len(uids)),
                        key=lambda i: (slack_of(self.seqs[uids[i]], now),
                                       -self.seqs[uids[i]].n_cached))
@@ -933,7 +950,7 @@ class InferenceEngineV2:
         toks = host[:k * s_max].reshape(k, s_max)
         pos_h, act_h, sl_h = host[k * s_max:].reshape(3, s_max)
         emitted: Dict[int, List[int]] = {}
-        served_s = time.perf_counter()
+        served_s = self._clock()
         for i, u in enumerate(uids):
             d = self.seqs[u]
             emitted[u] = [int(t) for t in toks[:, i] if t >= 0]

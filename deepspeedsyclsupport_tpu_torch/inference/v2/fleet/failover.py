@@ -21,6 +21,10 @@ The router only claims once a replica is *dead* (supervisor process gone,
 or health stale past ``dead_after_s``): a replica that is merely
 restarting keeps its streams and replays them locally, which is cheaper
 than a cross-replica re-prefill when the restart wins the race.
+
+A replica that is a pod of ranks (a worker spec with a ``topology``) has
+one journal, rank 0's: the claim covers rank 0's streams, which are the
+pod's, and only rank 0 reads the claim file.
 """
 import json
 import os

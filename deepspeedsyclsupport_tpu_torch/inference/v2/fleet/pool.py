@@ -28,7 +28,10 @@ restart** (drain one replica at a time — the router steers new work away
 the moment ``health.json`` says draining — then respawn and wait ready
 before touching the next), and hot respawn of replicas whose supervisor
 gave up. Worker crashes inside a living supervisor restart through the
-existing elastic machinery without the pool doing anything.
+existing elastic machinery without the pool doing anything. A worker spec
+with a ``topology`` makes the replica a pod of rank processes behind its
+supervisor; the health probe and the journal tail read rank 0's
+heartbeat and journal, the pod's only ones.
 """
 import glob as _glob
 import json
@@ -189,7 +192,9 @@ class ProcessReplica(ReplicaEndpoint):
 
     def kill(self) -> None:
         """Hard replica death (chaos path): SIGKILL the supervisor's whole
-        session — worker included — leaving journals truthfully unclosed."""
+        session — worker included, and every rank of a pod (the ranks stay
+        in the supervisor's session) — leaving journals truthfully
+        unclosed."""
         self._expected_down = False
         if self.proc is not None and self.proc.poll() is None:
             try:

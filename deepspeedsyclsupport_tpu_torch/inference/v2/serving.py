@@ -37,6 +37,18 @@ Everything here is host-side policy over monotonic time
 (``time.perf_counter``); the ``clock`` hook exists so tests drive the
 policy with a synthetic clock and capacity model. The JAX package's
 ``docs/serving.md`` states the overload-behavior contract and config keys.
+
+Across ranks (an engine built with ``topology=`` over more than one rank)
+every rank runs this session and makes the same calls. Each time the
+session reads its clock, rank 0 reads ITS clock (or takes the caller's
+``now``) and broadcasts the value over the engine's gloo group
+(``engine.rank0``, :mod:`...comm.rank0`); the other ranks never read
+theirs. The same times, the same deterministic policy and the gathered
+logits under equally seeded generators give every rank the same
+admissions, sheds, evictions, slack order, fused-round K and tokens, so the
+ranks' collectives stay in step. Only rank 0 writes the journal, the
+watchdog's records and the Prometheus text; every rank keeps the same
+counters, histograms and trace ring in memory.
 """
 import math
 import os
@@ -257,14 +269,16 @@ class ServingSession:
                  generator: Optional[torch.Generator] = None,
                  journal: Any = None, watchdog: Any = None):
         world = getattr(engine, "world", 1)
-        if world > 1:
-            raise NotImplementedError(
-                f"ServingSession over an engine that serves across {world} "
-                f"ranks is not ported: its admission reads a wall clock, so "
-                f"the ranks would decide differently (ROADMAP.md A.3.1 item "
-                f"4b: rank 0 decides and broadcasts its plan); the "
-                f"supervisor and the fleet, which serve through sessions, "
-                f"wait on it too")
+        #: rank 0's readings on every rank (None on one rank)
+        self.rank0 = getattr(engine, "rank0", None)
+        if world > 1 and self.rank0 is None:
+            raise RuntimeError(
+                f"a session over an engine that serves across {world} "
+                f"ranks takes rank 0's clock through the engine's process "
+                f"group: start one (comm.init_distributed) and build the "
+                f"engine with topology= on every rank")
+        #: this rank writes the durable records (journal, Prometheus text)
+        self.lead = self.rank0 is None or self.rank0.lead
         self.eng = engine
         self.policy = policy or ServingPolicyConfig()
         self.clock = clock
@@ -296,7 +310,7 @@ class ServingSession:
         # join can order router and replica streams together.
         self._tracing = bool(self.policy.trace_stages)
         self.trace_log: deque = deque(maxlen=65536)
-        self._wall0 = time.time() - self.clock()
+        self._wall0 = self._rank0_value(lambda: time.time() - self.clock())
         # SLO burn accounting (Serve/slo.* gauges): sliding windows of
         # (t, first-token-met-SLA) and (t, outcome-was-shed) samples
         self._slo_ttft: deque = deque()
@@ -324,12 +338,12 @@ class ServingSession:
             self._metrics = None
         # request journal: in-flight state survives the process (see
         # docs/serving.md "failure contract"); caller-provided instance
-        # wins over the config path
-        if journal is None and self.policy.journal_path:
+        # wins over the config path. Across ranks rank 0's alone.
+        if journal is None and self.policy.journal_path and self.lead:
             from .supervisor import RequestJournal
 
             journal = RequestJournal(self.policy.journal_path)
-        self.journal = journal
+        self.journal = journal if self.lead else None
         # stuck-decode watchdog: the collective watchdog's machinery with
         # the serving contract's names — rc 219, serve_hang_aborts, and
         # serve/arm-serve/hang deadline records into the journal stream
@@ -344,6 +358,17 @@ class ServingSession:
                 arm_name="serve/arm", hang_name="serve/hang",
                 what="serving decode").start()
         self.watchdog = watchdog
+
+    # ----------------------------------------------------------------- clock
+    def _rank0_value(self, fn: Callable[[], float]) -> float:
+        rank0 = getattr(self, "rank0", None)
+        return fn() if rank0 is None else rank0.value(fn)
+
+    def now(self, now: Optional[float] = None) -> float:
+        """The session's time: ``now`` when given, else a read of
+        ``clock``; across ranks rank 0's value on every rank (the only
+        clock read the session makes)."""
+        return self._rank0_value(lambda: self.clock() if now is None else now)
 
     def close(self) -> None:
         """Stop the watchdog poller and close the journal stream.
@@ -385,7 +410,7 @@ class ServingSession:
         """Public stamping hook for the owning loop (``serve_worker``
         stamps ``spool_wait`` through this; a future RPC front-end stamps
         its ingress edge the same way)."""
-        self._stage(uid, stage, self.clock(), dur=dur, **data)
+        self._stage(uid, stage, self.now(), dur=dur, **data)
 
     def drain_trace(self) -> List[Dict[str, Any]]:
         """Hand over and clear the in-memory lifecycle records — the bench
@@ -398,8 +423,8 @@ class ServingSession:
     def export_metrics(self, path: str) -> Optional[str]:
         """Prometheus textfile snapshot of the session's registry (atomic
         rename — the training exporter's contract). No-op without
-        telemetry."""
-        if self._metrics is None:
+        telemetry, and on every rank but rank 0."""
+        if self._metrics is None or not getattr(self, "lead", True):
             return None
         from ...monitor.telemetry import export_metrics_textfile
 
@@ -437,7 +462,7 @@ class ServingSession:
         if uid in self.running or uid in self.eng.seqs \
                 or any(r.uid == uid for r in self.queue):
             raise ValueError(f"uid {uid} is already being served")
-        now = self.clock() if now is None else now
+        now = self.now(now)
         ttft = ttft_sla_s if ttft_sla_s is not None else self.policy.ttft_sla_s
         req = _Request(
             uid=uid, tokens=list(tokens), max_new_tokens=int(max_new_tokens),
@@ -504,7 +529,7 @@ class ServingSession:
         if uid in self.running or uid in self.eng.seqs \
                 or any(r.uid == uid for r in self.queue):
             raise ValueError(f"uid {uid} is already being served")
-        now = self.clock() if now is None else now
+        now = self.now(now)
         out = [int(t) for t in emitted_tokens]
         rate = (rate_sla if rate_sla is not None
                 else self.policy.token_rate_sla)
@@ -705,7 +730,7 @@ class ServingSession:
         ``os._exit(219)`` — the serving twin of the rc-218 collective-hang
         contract — instead of a silent forever-hang the supervisor can
         only guess at."""
-        now = self.clock() if now is None else now
+        now = self.now(now)
         self._round += 1
         injector = get_fault_injector()
         rc = injector.should_serve_crash(self._round, self._tokens_emitted)
@@ -865,7 +890,7 @@ class ServingSession:
             k_cap=self._k_cap(now))
         if emitted is None:
             return False  # KV pool can't pre-fund ≥2 steps → per-token path
-        t1 = self.clock()
+        t1 = self.now()
         steps = max((len(v) for v in emitted.values()), default=0)
         self.capacity.record_decode(steps, t1 - now)
         self._last_decode_s = t1
@@ -906,7 +931,7 @@ class ServingSession:
                 torch.stack([lg for _, lg in drained]), self.generator,
                 sp.temperature, sp.top_p, sp.structure).cpu().numpy()
             eng.host_dispatches += 1  # the sampler is a dispatch too
-            t1 = self.clock()
+            t1 = self.now()
             if self._last_decode_s is not None:
                 self.capacity.record_decode(1, t1 - self._last_decode_s)
             self._last_decode_s = t1
@@ -951,14 +976,14 @@ class ServingSession:
         # 3. submit: decode tokens + (slack-ordered, tenant-capped) prompt
         # chunks fuse into the same forward inside put()
         if put_uids or any(d.pending for d in eng.seqs.values()):
-            t0 = self.clock()
+            t0 = self.now()
             pend0 = ({u: len(d.pending) for u, d in eng.seqs.items()
                       if d.pending} if self._tracing else {})
             res = eng.put(put_uids, [[self._pending_tok[u]] for u in put_uids],
                           drain=False)
             for uid in res.admission.admitted:
                 self._pending_tok.pop(uid, None)
-            t1 = self.clock()
+            t1 = self.now()
             # prefill-chunk edges: which uids advanced their prompt this
             # forward and by how many tokens (dur is the whole mixed
             # forward's wall — chunks share the dispatch, annotation only)
@@ -1196,7 +1221,7 @@ class ServingSession:
                     float(pc.pinned_blocks), step)]
         if getattr(self, "_slo_ttft", None) is not None \
                 and getattr(self, "clock", None) is not None:
-            miss, shed, burn = self._slo_snapshot(self.clock())
+            miss, shed, burn = self._slo_snapshot(self.now())
             ev += [("Serve/slo.ttft_miss_frac", miss, step),
                    ("Serve/slo.shed_frac", shed, step),
                    ("Serve/slo.burn_rate", burn, step)]

@@ -35,7 +35,9 @@ affected streams a re-prefill, not every in-flight stream its output:
   never billed as a crash), exposes health/readiness (heartbeat-derived
   state file) and drains before stopping: a SIGTERM to the supervisor
   forwards to the worker, which finishes its live streams and exits 0
-  instead of being killed mid-decode.
+  instead of being killed mid-decode. A worker spec with a ``topology``
+  of more than one rank is served by a pod of rank processes: one rank's
+  death tears the pod down and the restart replays rank 0's journals.
 * a worker CLI (``python -m deepspeedsyclsupport_tpu_torch.inference.v2.
   supervisor --worker --spec spec.json``) — the minimal journaled serving loop the
   two-process chaos tests (and operators smoke-testing a replica) drive.
@@ -281,12 +283,17 @@ def recover_requests(session: Any, states: Dict[int, ReplayRequest],
     if last_t > 0:
         # wall-clock on purpose: the baseline is a DEAD process's wall
         # timestamp — monotonic clocks don't survive the process
-        dt = max(0.0, time.time() - last_t)
+        # (across ranks rank 0's wall clock, so every rank observes the
+        # same value)
+        rank0 = getattr(session, "rank0", None)
+        dt = max(0.0, (time.time() if rank0 is None
+                       else rank0.value(time.time)) - last_t)
         summary["time_to_recover_s"] = round(dt, 3)
         if getattr(session, "_metrics", None) is not None:
             session._metrics.histogram(
                 "Serve/recovery.time_to_recover_s").observe(dt)
-    if summary["replayed"] or summary["shed"] or summary["completed"]:
+    if (summary["replayed"] or summary["shed"] or summary["completed"]) \
+            and getattr(session, "lead", True):
         logger.info("journal recovery: %d replayed, %d shed, %d already "
                     "complete, %d closed (t_recover=%ss)",
                     len(summary["replayed"]), len(summary["shed"]),
@@ -324,6 +331,9 @@ class ReplicaSupervisor(DSElasticAgent):
       poll; ``ready`` is derived from the worker's telemetry heartbeat
       freshness when a heartbeat watch is configured (a readiness gate a
       load balancer can poll without touching the worker).
+
+    With ``nprocs`` the worker is a pod of that many rank processes
+    (:meth:`_spawn`, :meth:`_launch`).
     """
 
     def __init__(self, cmd: Sequence[str], *,
@@ -387,70 +397,146 @@ class ReplicaSupervisor(DSElasticAgent):
         except OSError as e:  # probe failure must never kill supervision
             logger.warning("health file write failed: %s", e)
 
+    def discover_world_size(self) -> int:
+        """A pod's world is its ranks."""
+        return self.nprocs or super().discover_world_size()
+
     # -------------------------------------------------------------- launch
+    def _spawn(self, env: Dict[str, str]) -> List[subprocess.Popen]:
+        """The worker, or with ``nprocs`` a pod of rank processes on this
+        host: each gets ``RANK`` / ``LOCAL_RANK`` / ``WORLD_SIZE`` /
+        ``DSTPU_POD_RANKS`` and the pod one rendezvous, ``MASTER_ADDR``
+        127.0.0.1 at a port free at this launch (a restarted pod
+        rendezvouses anew). The ranks stay in the supervisor's session, so
+        a signal to its process group reaches every one."""
+        if self.nprocs is None:
+            return [subprocess.Popen(self.cmd, env=env)]
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        return [subprocess.Popen(self.cmd, env={
+            **env, "RANK": str(r), "LOCAL_RANK": str(r),
+            "WORLD_SIZE": str(self.nprocs), "DSTPU_POD_RANKS":
+            str(self.nprocs), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}) for r in range(self.nprocs)]
+
     def _launch(self, env: Dict[str, str]) -> int:
         """One worker attempt under the serving contract: poll for exit,
         refresh the health probe, escalate a stale heartbeat exactly like
         the base agent, and honor a pending drain request by forwarding
-        SIGTERM and waiting out ``drain_grace``."""
+        SIGTERM and waiting out ``drain_grace``.
+
+        A pod (``nprocs``) is one replica: the probe names rank 0's pid, a
+        drain's SIGTERM goes to every rank (rank 0 decides the drain and
+        broadcasts it, the others follow), and the moment one rank exits
+        non-zero the others are torn down (they wait in a collective their
+        peer will never join); the pod's rc is the base agent's
+        :meth:`~DSElasticAgent._pod_rc`, and the restart replays rank 0's
+        journals."""
         for path in self._heartbeat_files():
             try:  # a leftover beat from the last incarnation is stale
                 os.unlink(path)
             except OSError:
                 pass
         launched_at = time.monotonic()
-        proc = subprocess.Popen(self.cmd, env=env)
-        self._write_health("serving", proc.pid)
-        hang_signaled = False
+        procs = self._spawn(env)
+        lead = procs[0]
+        self._write_health("serving", lead.pid)
+        rcs: Dict[int, int] = {}
+        killed: set = set()
+
+        def poll() -> None:
+            for i, p in enumerate(procs):
+                if i not in rcs and p.poll() is not None:
+                    rcs[i] = p.returncode
+
+        def stop_all(sig_fn, grace: float) -> None:
+            live = [i for i in range(len(procs)) if i not in rcs]
+            for i in live:
+                killed.add(i)
+                try:
+                    sig_fn(procs[i])
+                except OSError:  # pragma: no cover - died under us
+                    pass
+            deadline = time.monotonic() + grace
+            for i in live:
+                try:
+                    procs[i].wait(timeout=max(0.1,
+                                              deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    logger.error("replica supervisor: pid %d did not exit "
+                                 "within %.1fs — killing", procs[i].pid,
+                                 grace)
+                    procs[i].kill()
+                    procs[i].wait()
+            poll()
+
         while True:
-            rc = proc.poll()
-            if rc is not None:
+            poll()
+            if len(rcs) == len(procs):
+                break
+            failed = [i for i, rc in rcs.items() if rc != 0]
+            if failed:
+                # a rank died: the survivors wait on it in a collective
+                logger.error("replica supervisor: rank(s) %s exited %s — "
+                             "tearing the pod down", failed,
+                             [rcs[i] for i in failed])
+                stop_all(lambda p: p.kill(), self.teardown_grace)
                 break
             if self._drain_pending and not self.drained:
                 self.drained = True
                 self._stop_requested = True  # no relaunch after a drain
-                self._write_health("draining", proc.pid)
+                self._write_health("draining", lead.pid)
                 logger.info("replica supervisor: drain requested — "
-                            "forwarding SIGTERM to worker pid %d", proc.pid)
-                proc.terminate()
-                try:
-                    rc = proc.wait(timeout=self.drain_grace)
-                except subprocess.TimeoutExpired:
+                            "forwarding SIGTERM to worker pid(s) %s",
+                            [p.pid for p in procs])
+                for i, p in enumerate(procs):
+                    if i not in rcs:
+                        p.terminate()
+                deadline = time.monotonic() + self.drain_grace
+                while len(rcs) < len(procs) and \
+                        time.monotonic() < deadline:
+                    poll()
+                    time.sleep(0.05)
+                if len(rcs) < len(procs):
                     logger.error("replica supervisor: worker did not drain "
                                  "within %.1fs — killing", self.drain_grace)
-                    proc.kill()
-                    rc = proc.wait()
+                    stop_all(lambda p: p.kill(), self.hang_grace)
                 break
             if (self.heartbeat_file is not None
                     and self.heartbeat_timeout is not None
-                    and not hang_signaled
                     and self._heartbeat_stale(launched_at)):
                 from ...monitor.monitor import resilience_counters
 
-                hang_signaled = True
                 self.hang_count += 1
                 resilience_counters.incr("hang_restarts")
                 logger.error("replica supervisor: heartbeat stale > %.1fs — "
-                             "worker hung; stack-dumping then killing pid %d",
-                             self.heartbeat_timeout, proc.pid)
+                             "worker hung; stack-dumping then killing pid(s) "
+                             "%s", self.heartbeat_timeout,
+                             [p.pid for p in procs])
                 if hasattr(signal, "SIGUSR1"):
-                    try:
-                        proc.send_signal(signal.SIGUSR1)
-                    except OSError:  # pragma: no cover - died under us
-                        pass
+                    for i, p in enumerate(procs):
+                        if i not in rcs:
+                            try:
+                                p.send_signal(signal.SIGUSR1)
+                            except OSError:  # pragma: no cover - died
+                                pass
                     self._sleep(self.hang_grace)
-                if proc.poll() is None:
-                    proc.terminate()
-                    try:
-                        proc.wait(timeout=self.hang_grace)
-                    except subprocess.TimeoutExpired:  # pragma: no cover
-                        proc.kill()
-                rc = proc.wait()
+                    poll()
+                stop_all(lambda p: p.terminate(), self.hang_grace)
                 break
-            self._write_health("serving", proc.pid)
+            self._write_health("serving", lead.pid)
             self._sleep(self.poll_s)
-        if rc is None:  # pragma: no cover - defensive
-            rc = proc.wait()
+        for i, p in enumerate(procs):
+            if i not in rcs:  # pragma: no cover - defensive
+                rcs[i] = p.wait()
+        if len(procs) == 1:
+            rc = rcs[0]
+        else:
+            rc = self._pod_rc(rcs, {i: r for i, r in rcs.items()
+                                    if i not in killed})
         self._write_health("stopped" if (rc == 0 or self.drained)
                            else "restarting", None, rc)
         return rc
@@ -479,6 +565,15 @@ def journal_path(journal_dir: str, rank: int = 0,
     return os.path.join(journal_dir, f"journal_rank{rank}.att{attempt}.jsonl")
 
 
+def topology_world(axes: Optional[Dict[str, int]]) -> int:
+    """Ranks of a worker spec's ``topology`` (the product of its axes; 1
+    without one)."""
+    n = 1
+    for v in (axes or {}).values():
+        n *= int(v)
+    return n
+
+
 def serve_worker(spec_path: str) -> int:
     """Minimal journaled serving replica: build the engine from a JSON
     spec, recover in-flight requests from prior incarnations' journals,
@@ -490,7 +585,22 @@ def serve_worker(spec_path: str) -> int:
     (``RaggedInferenceConfig`` dict), ``policy`` (``ServingPolicyConfig``
     dict — ``journal_path`` is filled in per incarnation), ``journal_dir``
     (required), ``out`` (output JSON path), ``requests``:
-    ``[{"uid", "tokens", "max_new_tokens", "tenant"?, "rate_sla"?}]``.
+    ``[{"uid", "tokens", "max_new_tokens", "tenant"?, "rate_sla"?}]``;
+    ``snapshot`` (optional): an engine snapshot (``serialize``, either
+    package's) to serve instead of the model's seeded init;
+    ``num_layers`` (optional): the model cut to that depth.
+
+    ``topology`` (optional): mesh axes, ``build_topology``'s keywords
+    (``{"tp": 2}``, ``{"ep": 2, "tp": 2}``; data ranks fill the rest), of
+    an engine across
+    :func:`topology_world` ranks. Each rank is a process of a pod
+    (``ReplicaSupervisor`` starts them with ``RANK`` / ``WORLD_SIZE`` /
+    ``MASTER_ADDR`` / ``MASTER_PORT``) that starts the process group and
+    builds the engine with that topology. Rank 0 alone reads the requests,
+    the spool, the stop file and the prior journals, and writes the
+    journal, the metrics and ``out``; each loop it broadcasts what it read
+    (admissions, replays, the drain and stop decisions) and every rank
+    serves the same. Every rank beats ``heartbeat_rank<r>.json``.
 
     Fleet mode (``inference/v2/fleet``) adds: ``spool_dir`` — serve
     request files a router drops there (``replayed: true`` entries go
@@ -508,6 +618,25 @@ def serve_worker(spec_path: str) -> int:
     os.makedirs(journal_dir, exist_ok=True)
 
     from ...device import resolve_device
+
+    device = resolve_device(spec.get("device"))
+    if topology_world(spec.get("topology")) <= 1:
+        return _serve(spec, journal_dir, device, None)
+    from ...comm import comm
+    from ...comm.topology import build_topology
+
+    comm.init_distributed(device_type=device.type)
+    try:
+        # the spec's axes are build_topology's (tp, ep, ...): data ranks
+        # fill the world
+        topo = build_topology(**{"dp": -1, **spec["topology"]})
+        return _serve(spec, journal_dir, device, topo)
+    finally:
+        comm.destroy_process_group()
+
+
+def _serve(spec: Dict[str, Any], journal_dir: str, device, topo) -> int:
+    """:func:`serve_worker`'s loop on one rank."""
     from ...models import build_model
     from ...monitor.telemetry import Heartbeat
     from .config import ServingPolicyConfig
@@ -515,23 +644,48 @@ def serve_worker(spec_path: str) -> int:
     from .fleet.failover import read_claims
     from .serving import ServingSession
 
-    device = resolve_device(spec.get("device"))
-    model = build_model(spec.get("model", "tiny"),
-                        dtype=spec.get("dtype", "float32"))
-    params = model.init_params(device=device)
-    eng = InferenceEngineV2(model, params, config=spec.get("engine", {}),
-                            device=device)
+    if spec.get("snapshot"):
+        eng = InferenceEngineV2.deserialize(
+            spec["snapshot"], device=device, topology=topo,
+            **spec.get("engine", {}))
+    else:
+        model = build_model(spec.get("model", "tiny"),
+                            dtype=spec.get("dtype", "float32"),
+                            **({"num_layers": int(spec["num_layers"])}
+                               if spec.get("num_layers") else {}))
+        params = model.init_params(device=device)
+        eng = InferenceEngineV2(model, params, config=spec.get("engine", {}),
+                                device=device, topology=topo)
+        del params
+    rank0 = eng.rank0
+    lead = rank0 is None or rank0.lead
+    rank = 0 if rank0 is None else rank0.rank
+
+    def agree(fn):
+        """Rank 0's ``fn()`` on every rank (``fn`` runs on rank 0 only)."""
+        return fn() if rank0 is None else rank0.obj(fn)
+
     jpath = journal_path(journal_dir)
     policy = ServingPolicyConfig.from_config(
         {**spec.get("policy", {}), "journal_path": jpath})
-    # recover BEFORE constructing the session so the fresh journal's first
-    # records are the replayed admits (prior incarnations stay read-only)
-    prior = [p for p in _journal_files(journal_dir) if p != jpath]
-    states, last_t = load_journal(prior)
-    claim = read_claims(journal_dir)
-    # router-claimed streams were failed over to a surviving replica —
-    # recovering them here would double-serve (the exactly-once contract)
-    recoverable = {u: st for u, st in states.items() if not claim.covers(u)}
+
+    def recovery():
+        # recover BEFORE constructing the session so the fresh journal's
+        # first records are the replayed admits (prior incarnations stay
+        # read-only)
+        prior = [p for p in _journal_files(journal_dir) if p != jpath]
+        states, last_t = load_journal(prior)
+        claim = read_claims(journal_dir)
+        # router-claimed streams were failed over to a surviving replica —
+        # recovering them here would double-serve (the exactly-once
+        # contract)
+        recoverable = {u: st for u, st in states.items()
+                       if not claim.covers(u)}
+        # journaled, claimed, replayed or replay-shed — never resubmit
+        handled = set(states) | {int(u) for u in claim.uids}
+        return recoverable, last_t, handled, spec.get("requests", [])
+
+    recoverable, last_t, handled, requests = agree(recovery)
     session = ServingSession(eng, policy)
     if spec.get("recover", True):
         summary = recover_requests(session, recoverable, last_t)
@@ -539,13 +693,12 @@ def serve_worker(spec_path: str) -> int:
         summary = {"replayed": [], "shed": [], "completed": [],
                    "skipped_closed": sorted(recoverable),
                    "time_to_recover_s": None}
-    # journaled, claimed, replayed or replay-shed — never resubmit
-    handled = set(states) | {int(u) for u in claim.uids}
-    heartbeat = Heartbeat(os.path.join(journal_dir, "heartbeat_rank0.json"),
+    heartbeat = Heartbeat(os.path.join(journal_dir,
+                                       f"heartbeat_rank{rank}.json"),
                           interval_s=0.2)
     # drain contract: SIGTERM = stop ADMITTING (spec resubmits AND spool
     # ingestion) and finish live streams — store-only handler, drained by
-    # the loop
+    # the loop; across ranks rank 0's flag decides
     drain = {"pending": False}
 
     def _on_term(signum, frame):
@@ -560,14 +713,12 @@ def serve_worker(spec_path: str) -> int:
         if uid in handled:
             return
         handled.add(uid)
-        sp = r.get("spooled_t")
-        if sp is not None:
+        if r.get("claimed"):
+            return  # failed over elsewhere while we were down
+        if r.get("spool_wait") is not None:
             # replica spool-ingestion edge: how long the request file sat
-            # in the spool before this loop picked it up (wall stamps on
-            # both sides — the router's _spool writes spooled_t)
-            session.note_stage(
-                uid, "spool_wait",
-                dur=max(0.0, time.time() - float(sp)))
+            # in the spool before this loop picked it up
+            session.note_stage(uid, "spool_wait", dur=r["spool_wait"])
         if r.get("replayed"):
             outcomes[uid] = session.replay(
                 uid, r["tokens"], int(r["max_new_tokens"]),
@@ -589,7 +740,7 @@ def serve_worker(spec_path: str) -> int:
                                   rate_sla=r.get("rate_sla") or 0.0)
             session.journal.close_request(uid, "shed:replica")
 
-    for r in spec.get("requests", []):
+    for r in requests:
         _admit(r)
 
     spool_dir = spec.get("spool_dir")
@@ -597,30 +748,31 @@ def serve_worker(spec_path: str) -> int:
     consumed: set = set()
     spool_seen = {"mtime": -1}
 
-    def _ingest_spool(force: bool = False) -> int:
-        """Submit new spool files in sequence order; returns how many.
-        The scan is gated on the directory's mtime — this runs every
-        scheduler tick, and re-listing (plus re-parsing the claim file)
-        for a spool that has not changed is pure waste in the decode hot
-        loop. ``force`` bypasses the gate (the stop check, and a periodic
-        sweep covering coarse-mtime filesystems where a rename inside the
-        same timestamp granule would otherwise be invisible)."""
+    def _read_spool(force: bool = False) -> List[Dict[str, Any]]:
+        """Rank 0: new spool files in sequence order, as the records to
+        admit (a claimed uid's record marked ``claimed``). The scan is
+        gated on the directory's mtime — this runs every scheduler tick,
+        and re-listing (plus re-parsing the claim file) for a spool that
+        has not changed is pure waste in the decode hot loop. ``force``
+        bypasses the gate (the stop check, and a periodic sweep covering
+        coarse-mtime filesystems where a rename inside the same timestamp
+        granule would otherwise be invisible)."""
         try:
             mtime = os.stat(spool_dir).st_mtime_ns
         except OSError:
-            return 0
+            return []
         if not force and mtime == spool_seen["mtime"]:
-            return 0
+            return []
         try:
             names = sorted(os.listdir(spool_dir))
         except OSError:
-            return 0
+            return []
         fresh = [nm for nm in names
                  if nm.endswith(".json") and nm not in consumed]
         if not fresh:
             spool_seen["mtime"] = mtime
-            return 0
-        n = 0
+            return []
+        out: List[Dict[str, Any]] = []
         retry = False
         fresh_claim = read_claims(journal_dir)
         for name in fresh:
@@ -633,21 +785,35 @@ def serve_worker(spec_path: str) -> int:
             consumed.add(name)
             uid = int(r["uid"])
             if fresh_claim.covers(uid):
-                handled.add(uid)
-                continue  # failed over elsewhere while we were down
-            if uid not in handled:
-                _admit(r)
-                n += 1
+                out.append({"uid": uid, "claimed": True})
+                continue
+            sp = r.pop("spooled_t", None)
+            if sp is not None:
+                # wall stamps on both sides (the router's _spool writes
+                # spooled_t)
+                r["spool_wait"] = max(0.0, time.time() - float(sp))
+            out.append(r)
         if not retry:  # a deferred file keeps the scan hot until it lands
             spool_seen["mtime"] = mtime
+        return out
+
+    def _ingest(records: List[Dict[str, Any]]) -> int:
+        """Admit rank 0's spool records on this rank; how many were new."""
+        n = 0
+        for r in records:
+            if not r.get("claimed") and int(r["uid"]) not in handled:
+                n += 1
+            _admit(r)
         return n
 
     prom_path = os.path.join(journal_dir, "metrics_rank0.prom")
     rounds = 0
     if spool_dir:
         while True:
-            if not drain["pending"]:
-                _ingest_spool(force=(rounds % 64 == 0))
+            draining, fresh = agree(lambda: (
+                drain["pending"], [] if drain["pending"]
+                else _read_spool(force=(rounds % 64 == 0))))
+            _ingest(fresh)
             events = session.step() if not session.idle else []
             rounds += 1
             heartbeat.beat(rounds)
@@ -655,16 +821,21 @@ def serve_worker(spec_path: str) -> int:
                 # serving-plane textfile export: same atomic-rename
                 # contract as the training side's Telemetry.export_textfile
                 session.export_metrics(prom_path)
-            if drain["pending"]:
+            if draining:
                 if session.idle:
                     break
                 continue
-            if stop_file and os.path.exists(stop_file) and session.idle:
-                # one last ingest (forced): a request spooled between the
-                # previous pass and the stop marker must not strand
-                if not _ingest_spool(force=True):
-                    break
-                continue
+            if stop_file and session.idle:
+                stop, fresh = agree(lambda: (
+                    os.path.exists(stop_file),
+                    _read_spool(force=True) if os.path.exists(stop_file)
+                    else []))
+                if stop:
+                    # one last ingest (forced): a request spooled between
+                    # the previous pass and the stop marker must not strand
+                    if not _ingest(fresh):
+                        break
+                    continue
             if not events:
                 time.sleep(0.002)
     else:
@@ -676,24 +847,34 @@ def serve_worker(spec_path: str) -> int:
                 time.sleep(0.001)
     session.export_metrics(prom_path)
     session.close()
+    # the attention kernels' launches in this incarnation, over its ranks
+    from ...ops import flash_attention, paged_attention
+
+    launches = {**paged_attention.LAUNCHES,
+                "flash_fwd": flash_attention.LAUNCHES["flash_fwd"]}
+    if rank0 is not None:
+        launches = rank0.total(launches)
+    out_path = spec.get("out")
+    if not lead or not out_path:
+        return 0
     # the journal (all incarnations) is the delivery record — reconstruct
     # the full per-uid sequences from it so the output survives any number
     # of crash/replay cycles
     final_states, _ = load_journal(journal_dir)
     outputs = reconstruct_outputs(final_states)
-    out_path = spec.get("out")
-    if out_path:
-        tmp = f"{out_path}.tmp{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump({"outputs": {str(u): t for u, t in outputs.items()},
-                       "recovery": summary,
-                       "closed": {str(u): st.reason
-                                  for u, st in final_states.items()
-                                  if st.closed},
-                       "stats": session.stats(),
-                       "recovery_counters": dict(session.recovery_counters),
-                       "drained": drain["pending"]}, f)
-        os.replace(tmp, out_path)
+    tmp = f"{out_path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"outputs": {str(u): t for u, t in outputs.items()},
+                   "recovery": summary,
+                   "closed": {str(u): st.reason
+                              for u, st in final_states.items()
+                              if st.closed},
+                   "stats": session.stats(),
+                   "recovery_counters": dict(session.recovery_counters),
+                   "launches": launches,
+                   "drained": draining if spool_dir else drain["pending"]},
+                  f)
+    os.replace(tmp, out_path)
     return 0
 
 
@@ -704,7 +885,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             --spec spec.json [--restart-limit N] [--serve-hang-limit N] \\
             [--health-file health.json] [--heartbeat-timeout S]
 
-    ``--worker`` runs the serving loop itself (the supervisor's child)."""
+    ``--worker`` runs the serving loop itself (the supervisor's child). A
+    spec whose ``topology`` spans more than one rank is served by a pod of
+    that many worker processes (:meth:`ReplicaSupervisor._spawn`)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--spec", required=True,
                     help="worker spec JSON (see serve_worker docstring)")
@@ -725,6 +908,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     with open(args.spec) as f:
         spec = json.load(f)
     journal_dir = spec["journal_dir"]
+    world = topology_world(spec.get("topology"))
     sup = ReplicaSupervisor(
         [sys.executable, "-m",
          "deepspeedsyclsupport_tpu_torch.inference.v2.supervisor",
@@ -737,7 +921,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         health_file=args.health_file
         or os.path.join(journal_dir, "health.json"),
         heartbeat_file=os.path.join(journal_dir, "heartbeat_rank0.json"),
-        heartbeat_timeout=args.heartbeat_timeout)
+        heartbeat_timeout=args.heartbeat_timeout,
+        nprocs=world if world > 1 else None)
     sup.install_drain_handler()
     return sup.run()
 

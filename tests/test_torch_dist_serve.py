@@ -29,6 +29,15 @@ and limits:
   the JAX int8 engine's;
 * the v1 engine at tp2: a right-padded batch's greedy tokens EQUAL the JAX
   v1 engine's at tp2, ``forward`` logits 2e-4 (the JAX package's own);
+* ``ServingSession`` across ranks (``tiny`` tp2 and ``tiny-moe`` ep2 x
+  tp2) under traffic that sheds, evicts and fuses rounds: rank 0's session
+  reads a synthetic clock and the others' clocks read other values; every
+  rank's event stream, counters, stats and ``summary_events`` EQUAL rank
+  0's and EQUAL the JAX ``ServingSession``'s over the JAX engine under the
+  same topology and clock (tokens included);
+* ``recover_requests`` across ranks of a journal the port's session wrote
+  at a world of one: events EQUAL the JAX session's replay of it, and only
+  rank 0 wrote a journal;
 * every rank's tokens EQUAL on every leg.
 """
 import concurrent.futures as futures
@@ -71,8 +80,16 @@ LEGS = [
     {"name": "int8_ep2_g16", "kind": "int8", "model": "tiny-moe",
      "axes": {"ep": 2}, "group": 16},
     {"name": "v1_tp2", "kind": "v1", "model": "tiny", "axes": {"tp": 2}},
+    {"name": "session_tp2", "kind": "session", "model": "tiny",
+     "axes": {"tp": 2}},
+    {"name": "session_ep2_tp2", "kind": "session", "model": "tiny-moe",
+     "axes": {"ep": 2, "tp": 2}},
+    {"name": "replay_tp2", "kind": "replay", "model": "tiny",
+     "axes": {"tp": 2}},
 ]
 PUT_LEGS = ["tp2", "ep2", "ep2_tp2"]
+SESSION_LEGS = ["session_tp2", "session_ep2_tp2"]
+REPLAY_CUT = 4               # rounds of the world-1 session before its crash
 
 
 def _jax_init(name):
@@ -104,7 +121,61 @@ def _jax_put(eng):
     return prefill, decode
 
 
-def _jax_refs(out):
+def _jax_session(pkg_engine, axes, engine_kw, policy, journal=None):
+    """The JAX ``ServingSession`` over the JAX engine under ``axes`` with
+    the ranks' rank-0 clock: the traffic of ``SESSION``, or with
+    ``journal`` the replay of it; the leg's result as the ranks' JSON."""
+    from deepspeedsyclsupport_tpu.inference.v2 import (
+        ServingPolicyConfig as JaxPolicy, ServingSession as JaxSession)
+    from deepspeedsyclsupport_tpu.inference.v2 import supervisor as jax_sup
+    from deepspeedsyclsupport_tpu.monitor import telemetry as jax_tel
+
+    model, params = pkg_engine
+    jax_tel.metrics_registry.reset()
+    jax_tel.resilience_counters.reset()
+    eng = _jax_engine(model, params, axes, **engine_kw)
+    if journal is None:
+        sess = JaxSession(eng, JaxPolicy(**policy), clock=worker.TickClock())
+        res = worker.session_result(sess, worker.drive_session(sess))
+    else:
+        sess = JaxSession(eng, JaxPolicy(**policy),
+                          clock=worker.TickClock(200.0))
+        states, last_t = jax_sup.load_journal(journal)
+        summary = jax_sup.recover_requests(sess, states, last_t)
+        events = []
+        while not sess.idle:
+            events += sess.step()
+        res = dict(worker.session_result(sess, events),
+                   replayed=sorted(summary["replayed"]))
+    sess.close()
+    return json.loads(json.dumps(res))
+
+
+def _world1_journal(out):
+    """The port's session at a world of one on ``tiny`` (K = 4), journaled,
+    abandoned after ``REPLAY_CUT`` rounds (the crash); returns the journal
+    directory the replay legs read."""
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import (
+        ServingPolicyConfig, ServingSession)
+    from deepspeedsyclsupport_tpu_torch.inference.v2 import supervisor as sup
+
+    model, params = worker.load_params(out, "tiny")
+    eng = InferenceEngineV2(model, params, device="cpu", dtype=torch.float32,
+                            decode_steps_per_dispatch=4, **worker.ENGINE_KW)
+    jdir = out / "world1_journal"
+    jdir.mkdir()
+    sess = ServingSession(eng, ServingPolicyConfig(
+        journal_path=sup.journal_path(str(jdir), attempt=0)),
+        clock=worker.TickClock())
+    for u, toks, n in worker.session_requests():
+        sess.submit(u, toks, n, tenant="ab"[u % 2])
+    for _ in range(REPLAY_CUT):
+        sess.step()
+    sess.close()
+    return str(jdir)
+
+
+def _jax_refs(out, journal):
     """Every JAX result the legs are held against."""
     from deepspeedsyclsupport_tpu.comm.topology import reset_world_topology
     from deepspeedsyclsupport_tpu.compression.quantize import quantize_tree
@@ -152,6 +223,18 @@ def _jax_refs(out):
     refs["v1/forward"] = np.asarray(v1(jnp.array([[1, 2, 3, 4]],
                                                  jnp.int32)))
     reset_world_topology()
+    for leg in LEGS:
+        if leg["kind"] == "session":
+            refs[leg["name"]] = _jax_session(
+                _jax_init(leg["model"]), leg["axes"],
+                worker.SESSION["engine"], worker.SESSION["policy"])
+        elif leg["kind"] == "replay":
+            refs[leg["name"]] = _jax_session(
+                (model, params), leg["axes"],
+                {"decode_steps_per_dispatch": 4}, {}, journal=journal)
+        else:
+            continue
+        reset_world_topology()
     return refs
 
 
@@ -237,16 +320,20 @@ def run(tmp_path_factory):
     model, params = _jax_init("tiny")
     JaxEngine(model, params, dtype=jnp.float32,
               **worker.ENGINE_KW).serialize(str(out / "jax_snap"))
-    legs = [dict(leg, snapshot=str(out / "jax_snap"),
-                 save=str(out / "port_snap"), broken=_broken_copies(out))
-            if leg["kind"] == "snapshot" else leg for leg in LEGS]
+    journal = _world1_journal(out)
+    extra = {"snapshot": dict(snapshot=str(out / "jax_snap"),
+                              save=str(out / "port_snap"),
+                              broken=_broken_copies(out)),
+             "replay": dict(journal=journal, jdir=str(out / "replay_jdir"))}
+    legs = [dict(leg, **extra.get(leg["kind"], {})) for leg in LEGS]
+    os.makedirs(out / "replay_jdir")
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "torch_serve_worker.py")
     with futures.ThreadPoolExecutor(1) as pool:
         spawn = pool.submit(launch, {"kind": "serve", "legs": legs}, out, 4,
                             300.0, script)
         world1 = _world1(out)
-        refs = _jax_refs(str(out))
+        refs = _jax_refs(str(out), journal)
         spawn.result()
     refs["port_snap"] = _jax_reads_port_snapshot(str(out))
     ranks = {leg["name"]: [dict(np.load(out / f"{leg['name']}_rank{r}.npz"))
@@ -433,11 +520,67 @@ def test_a_topology_of_many_ranks_needs_a_process_group():
                           **worker.ENGINE_KW)
 
 
-def test_serving_session_refuses_an_engine_across_ranks():
+def test_a_session_across_ranks_needs_a_process_group():
+    """Without a process group the engine over many ranks raises (so no
+    session can be built on it), and a session over an engine of many
+    ranks that has no group to take rank 0's clock through raises too."""
+    from deepspeedsyclsupport_tpu_torch.comm.topology import MeshTopology
     from deepspeedsyclsupport_tpu_torch.inference.v2 import ServingSession
+
+    model = build_model("tiny", dtype="float32")
+    params = model.init_params(device="cpu")
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        InferenceEngineV2(model, params, device="cpu",
+                          topology=MeshTopology({"model": 2}, world_size=2),
+                          **worker.ENGINE_KW)
 
     class Engine:
         world = 2
 
-    with pytest.raises(NotImplementedError, match="A.3.1 item 4b"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         ServingSession(Engine())
+
+
+# ------------------------------------------------------------- sessions
+def _rank_results(ranks, leg):
+    return [json.loads(str(res["result"])) for res in ranks[leg]]
+
+
+@pytest.mark.parametrize("leg", SESSION_LEGS)
+def test_session_across_ranks_equals_rank0_and_jax(run, leg):
+    """Every rank's events, counters, stats, summary, rounds and
+    dispatches EQUAL rank 0's (the other ranks' clocks read other values)
+    and the JAX session's under the same topology and clock."""
+    _, ranks, refs, _ = run
+    results = _rank_results(ranks, leg)
+    for r, res in enumerate(results[1:], 1):
+        assert res == results[0], f"{leg} rank {r}"
+    assert results[0] == refs[leg]
+    c = results[0]["counters"]
+    assert c["shed"] > 0 and c["evicted"] > 0 and c["completed"] > 0, c
+    assert c["completed"] + c["shed"] == worker.SESSION["n"]
+    assert any(m == "fused" for m, _k in results[0]["rounds"])
+    assert any(kind == "evict" for kind, *_ in results[0]["events"])
+
+
+def test_replay_across_ranks_equals_jax(run):
+    """A world-1 journal replayed across ranks: events EQUAL the JAX
+    session's replay of it; every rank EQUAL rank 0; rank 0 alone
+    journals."""
+    _, ranks, refs, _ = run
+    results = _rank_results(ranks, "replay_tp2")
+    for res in results:
+        assert res["files"] == ["journal_rank0.att1.jsonl"]
+        res.pop("files")
+    for res in results[1:]:
+        assert res == results[0]
+    # the time to recover is wall time since the journal's last record: the
+    # ranks agree on rank 0's, the JAX run read its own later
+    mine, ref = (dict(x, summary=[e for e in x["summary"]
+                                  if "time_to_recover" not in e[0]])
+                 for x in (results[0], refs["replay_tp2"]))
+    assert mine == ref
+    assert len(mine["summary"]) < len(results[0]["summary"])
+    assert results[0]["replayed"]
+    assert results[0]["recovery"]["replays"] == \
+        len(results[0]["replayed"])

@@ -21,7 +21,15 @@ passed as ``<out>/params.npz`` (``init/`` for ``tiny``, ``moe/`` for
   scales of layer 0 (``wq`` and the MLP's or the experts' ``w_gate`` /
   ``w_down``), and the logits;
 * ``v1`` — ``init_inference`` with ``tensor_parallel``: greedy tokens of a
-  right-padded batch, ``forward`` logits.
+  right-padded batch, ``forward`` logits;
+* ``session`` — ``ServingSession`` over the engine under :data:`SESSION`'s
+  traffic: rank 0's session reads a :class:`TickClock`, every other rank's
+  one that reads other values (never read: the session takes rank 0's);
+  the events, counters, stats, summary and trace ring as JSON;
+* ``replay`` — ``recover_requests`` of a journal (``leg["journal"]``,
+  written by the port's session at a world of one) into a journaled
+  session under ``TickClock(200)``, driven to idle: its events, counters,
+  and the journal files each rank's session wrote (``leg["jdir"]``).
 
 It imports torch and the port, never jax.
 """
@@ -44,7 +52,11 @@ from deepspeedsyclsupport_tpu_torch.compression.quantize import (  # noqa: E402
     QuantTensor)
 from deepspeedsyclsupport_tpu_torch.inference import init_inference  # noqa: E402
 from deepspeedsyclsupport_tpu_torch.inference.v2 import (  # noqa: E402
-    InferenceEngineV2)
+    InferenceEngineV2, ServingPolicyConfig, ServingSession)
+from deepspeedsyclsupport_tpu_torch.inference.v2 import (  # noqa: E402
+    supervisor as sup)
+from deepspeedsyclsupport_tpu_torch.monitor import (  # noqa: E402
+    telemetry as tel)
 from deepspeedsyclsupport_tpu_torch.models import (  # noqa: E402
     build_model, params_from_jax)
 from tests.torch_dist_worker import unflat  # noqa: E402
@@ -57,6 +69,67 @@ NEW = 8
 # the prefix leg: a 16-token head (two 8-token blocks) shared by the tails
 HEAD = list(range(40, 56))
 TAILS = [[3, 7, 11], [9, 2], [5, 5, 6, 1]]
+# the session legs' traffic: two tenants, 10 requests (the first 6 each
+# followed by a round, the rest at once), a pool of 8 blocks with victims
+# requeued (evictions), a tight TTFT SLA (sheds), fused K = 4
+SESSION = dict(engine=dict(num_blocks=8, decode_steps_per_dispatch=4),
+               policy=dict(preempt_policy="requeue", ttft_sla_s=0.15,
+                           prefill_tok_s_prior=200.0),
+               seed=1, n=10, paced=6)
+
+
+class TickClock:
+    """Advances ``dt`` on every call: sessions that call the clock in the
+    same order see the same times."""
+
+    def __init__(self, t: float = 100.0, dt: float = 0.01):
+        self.t = t
+        self.dt = dt
+
+    def __call__(self) -> float:
+        self.t += self.dt
+        return self.t
+
+
+def session_requests():
+    rng = np.random.RandomState(SESSION["seed"])
+    return [(u, rng.randint(1, 500, rng.randint(6, 20)).tolist(),
+             int(rng.randint(6, 14))) for u in range(SESSION["n"])]
+
+
+def drive_session(sess, requests=None, max_rounds=500):
+    """Submit the traffic (two tenants), stepping after each of the first
+    ``SESSION["paced"]``, then step to idle; returns the events."""
+    events = []
+    for i, (u, toks, n) in enumerate(requests or session_requests()):
+        sess.submit(u, toks, n, tenant="ab"[u % 2])
+        if i < SESSION["paced"]:
+            events += sess.step()
+    rounds = 0
+    while not sess.idle:
+        events += sess.step()
+        rounds += 1
+        assert rounds < max_rounds, "session did not converge"
+    return events
+
+
+def session_result(sess, events):
+    """Everything of a session run that must be equal, as plain data."""
+    return {"events": [(e.kind, e.uid, e.t, [int(x) for x in e.tokens],
+                        e.reason) for e in events],
+            "counters": dict(sess.counters),
+            "recovery": dict(sess.recovery_counters),
+            "stats": sess.stats(),
+            "summary": [list(x) for x in sess.summary_events(step=3)],
+            "rounds": sorted([r["data"].get("mode"), r["data"].get("k")]
+                             for r in sess.trace_log
+                             if r["data"].get("stage") == "decode_round"),
+            "dispatches": sess.eng.host_dispatches}
+
+
+def rank_clock(rank):
+    """Rank 0's clock, and on the others one that reads other values."""
+    return TickClock() if rank == 0 else TickClock(5e5 + rank, 3.7)
 
 
 def load_params(out, model_name):
@@ -157,8 +230,41 @@ def run_v1(leg, model, params, topo):
             "kv_heads": np.array(model.config.num_kv_heads // eng.tp)}
 
 
+def run_session(leg, model, params, topo):
+    tel.metrics_registry.reset()
+    tel.resilience_counters.reset()
+    eng = engine(model, params, topo, **SESSION["engine"])
+    sess = ServingSession(eng, ServingPolicyConfig(**SESSION["policy"]),
+                          clock=rank_clock(comm.get_rank()))
+    res = session_result(sess, drive_session(sess))
+    sess.close()
+    return {"result": np.array(json.dumps(res))}
+
+
+def run_replay(leg, model, params, topo):
+    tel.metrics_registry.reset()
+    tel.resilience_counters.reset()
+    eng = engine(model, params, topo, decode_steps_per_dispatch=4)
+    states, last_t = sup.load_journal(leg["journal"])
+    clock = TickClock(200.0) if comm.get_rank() == 0 else \
+        TickClock(-7.0, 0.5)
+    sess = ServingSession(eng, ServingPolicyConfig(
+        journal_path=sup.journal_path(leg["jdir"], attempt=1)), clock=clock)
+    summary = sup.recover_requests(sess, states, last_t)
+    events = []
+    while not sess.idle:
+        events += sess.step()
+    res = dict(session_result(sess, events),
+               replayed=sorted(summary["replayed"]))
+    sess.close()
+    comm.barrier()
+    res["files"] = sorted(os.listdir(leg["jdir"]))
+    return {"result": np.array(json.dumps(res))}
+
+
 RUNNERS = {"put": run_put, "prefix": run_prefix, "snapshot": run_snapshot,
-           "int8": run_int8, "v1": run_v1}
+           "int8": run_int8, "v1": run_v1,
+           "session": run_session, "replay": run_replay}
 
 
 def main():
